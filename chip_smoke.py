@@ -5,15 +5,17 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 0] [--steps 10] [--warmup 2] [--batch 64]
 
-Phases, one JSON line each:
+Phases, one JSON line each (each with its seconds):
 
 1. env: card, PyTorch, CUDA and nvcc versions. No CUDA device: exit 1.
 2. build: compile every kernel source with nvcc (one process per source,
    all at once) into build/kernels/, timed.
-3. kernel_vs_plain: each kernel against its plain PyTorch version on the
-   card, on ResNet-50's gradient shapes plus edge cases (0 and 1 element,
-   odd sizes, a tensor longer than a grid row), in fp32, bf16 and fp16.
-   Bit-equal, synchronising after every launch.
+3. kernel_vs_plain: each scale kernel against its plain PyTorch version on
+   the card, on the gradient shapes of both main paths (ResNet-50's, and
+   GPT-2 small's up to its 38.6M-element token table and lm_head) plus
+   edge cases (0 and 1 element, odd sizes, a tensor longer than a grid
+   row), in fp32, bf16 and fp16. Bit-equal, synchronising after every
+   launch.
 4. train: the main path. Launch counts are zeroed, then hvd.init() on
    cuda:0, ResNet-50 (bf16 activations, fp32 parameters, 1000 classes) on a
    fixed synthetic batch made from --seed, SGD(lr=0.1, momentum=0.9) in
@@ -28,8 +30,36 @@ Phases, one JSON line each:
    formed (CUDA events, median of 30), beside the least time the card could
    take.
 
-Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
-check raises, and the script exits non-zero.
+6. flash_vs_plain: the three flash-attention kernels (forward, dQ, dK/dV)
+   against their plain PyTorch versions on the card, synchronising after
+   every launch: fp32, bf16 and fp16; causal and not; head dims 16, 32, 64
+   and 128 at the ragged length 197; Lq < Lk and Lq > Lk (causal, with fully
+   masked rows that must be exact zeros); kv_valid < Lk; GQA with 12 query
+   heads over 4 kv heads; the main path's L = 1024, D = 64. The max abs
+   error of each case beside the tolerance it is held to.
+7. train_gpt: the second main path. Launch counts are zeroed, then GPT-2
+   small at full width (vocab 50304, 12 layers, 12 heads, hidden 768, bf16
+   activations, fp32 parameters, flash attention, untied fp32 lm_head) on
+   8 x 1024 token ids made from --seed, next-token loss, AdamW(lr=1e-4,
+   weight_decay=1e-4) in hvd.DistributedOptimizer after broadcast_parameters
+   and broadcast_optimizer_state, --warmup and 8 timed steps; the counts are
+   read right after. Checks: finite, falling loss; 12 forward, 12 dQ and 12
+   dK/dV flash launches every step; one pack and one unpack launch for
+   every fusion bucket of every step; on one step the reduced gradients
+   equal the local ones bit for bit. Then, outside the main path,
+   gpt_flash_vs_plain: one step's loss and per-tensor gradients with flash
+   attention against a copy of the model on plain attention (same weights,
+   same batch), and two deliberately wrong controls (attention not causal;
+   dK and dV swapped in the backward) that the same limits must reject.
+8. timing_flash: each flash kernel alone at the main path's shapes
+   (BH = 96, L = 1024, D = 64, bf16, causal), its plain version and
+   torch's scaled_dot_product_attention (forward, and backward alone; for
+   timing only, the port never calls it), CUDA events, median of repeats,
+   beside the least time the card could take.
+
+Then the kernels line, the card's name and power limit, and, last,
+{"ok": true, "device": {...}}. Any failed check raises, and the script exits
+non-zero.
 """
 
 import argparse
@@ -41,6 +71,21 @@ import sys
 import time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, same data sheet
+FLASH_SOURCE = "horovod_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "horovod_tpu/ops/pallas/flash_attention.py:125",
+    "flash_bwd_dq": "horovod_tpu/ops/pallas/flash_attention.py:311",
+    "flash_bwd_dkv": "horovod_tpu/ops/pallas/flash_attention.py:387",
+}
+# Tolerance of each flash kernel against its plain version, by dtype:
+# |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
+# once to the working dtype, but sum in another order (the kernel rescales
+# its running sum per 64-key tile), which moves the fp32 value by ~1e-6
+# relative: held at 1e-4 in fp32; in bf16 and fp16 it can flip the one
+# rounding, so rtol is two ulps of the dtype (atol for values near zero).
+FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2),
+             "float16": (2e-3, 2e-3)}
 
 
 def emit(obj):
@@ -103,12 +148,15 @@ def phase_build():
           "per_source": per_source, "dir": str(_build.BUILD_DIR)})
 
 
-def phase_kernel_vs_plain(torch, shapes, dev, seed):
+def phase_kernel_vs_plain(torch, shapes_by_path, dev, seed):
+    """``shapes_by_path``: the gradient shapes of each main path; each
+    path's list goes through one pack and one unpack launch per dtype."""
     from horovod_tpu_torch.ops.kernels import scale_buffers as sb
     edge = [(0,), (1,), (7,), (1023,), (100_003,), (3_000_001,)]
     gen = torch.Generator(device=dev).manual_seed(seed)
     max_err, pre, post = 0.0, 0.5, 1.0 / 3.0
-    for dt in sb.DTYPES:
+    for dt, shapes in ((dt, s) for s in shapes_by_path.values()
+                       for dt in sb.DTYPES):
         ts = [torch.randn(s, generator=gen, device=dev).to(dt)
               for s in shapes + edge]
         total = sum(t.numel() for t in ts)
@@ -132,13 +180,39 @@ def phase_kernel_vs_plain(torch, shapes, dev, seed):
                 max_err = max(max_err,
                               (a.float() - b.float()).abs().max().item())
             check(torch.equal(a, b), f"unpack_scale {dt} bit-equal")
-    emit({"phase": "kernel_vs_plain", "tensors": len(shapes) + len(edge),
-          "resnet50_tensors": len(shapes),
-          "resnet50_elements": sum(int(torch.Size(s).numel())
-                                   for s in shapes),
+        del ts, flat_k, flat_p, out_k, out_p
+    emit({"phase": "kernel_vs_plain", "edge_tensors": len(edge),
+          "paths": {name: {"tensors": len(shapes),
+                           "elements": sum(int(torch.Size(s).numel())
+                                           for s in shapes),
+                           "largest": max(int(torch.Size(s).numel())
+                                          for s in shapes)}
+                    for name, shapes in shapes_by_path.items()},
           "dtypes": [str(d) for d in sb.DTYPES], "prescale": pre,
           "postscale": post, "bit_equal": True, "max_abs_err": max_err})
     return max_err
+
+
+def reduced_equals_local(torch, model, step):
+    """Run ``step`` once with a tensor hook on every parameter that copies
+    its local gradient before accumulation, and check that the reduced
+    gradients the optimizer stepped with equal those copies bit for bit
+    (Average over 1 rank is x1.0). Returns the step's loss."""
+    local = {}
+    hooks = [p.register_hook(
+        lambda g, p=p: local.__setitem__(p, g.detach().clone()))
+        for p in model.parameters()]
+    try:
+        loss = step()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    check(len(local) == len(list(model.parameters())),
+          "a local gradient for every parameter")
+    check(all(torch.equal(p.grad, g) for p, g in local.items()),
+          "reduced gradients equal the local ones bit for bit")
+    return loss
 
 
 def phase_train(torch, hvd, model, dev, args, card):
@@ -167,26 +241,13 @@ def phase_train(torch, hvd, model, dev, args, card):
         opt.step()
         return loss.detach()
 
-    # Warm-up; the second step also checks the reduction against a copy of
-    # the local gradients, taken by tensor hooks before accumulation.
+    # Warm-up; the last warm-up step also checks the reduction.
     losses, per_step = [], []
     for i in range(args.warmup):
-        local, hooks = {}, []
-        if i == args.warmup - 1:
-            for p in model.parameters():
-                hooks.append(p.register_hook(
-                    lambda g, p=p: local.__setitem__(p, g.detach().clone())))
         p0, u0 = sb.pack_launches, sb.unpack_launches
-        losses.append(step())
+        losses.append(step() if i < args.warmup - 1 else
+                      reduced_equals_local(torch, model, step))
         per_step.append((sb.pack_launches - p0, sb.unpack_launches - u0))
-        for h in hooks:
-            h.remove()
-        if local:
-            torch.cuda.synchronize()
-            check(len(local) == len(list(model.parameters())),
-                  "a local gradient for every parameter")
-            check(all(torch.equal(p.grad, g) for p, g in local.items()),
-                  "reduced gradients equal the local ones bit for bit")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -262,6 +323,381 @@ def phase_timing(torch, buckets, dev, seed):
     return total
 
 
+# The GPT main path: bench.py's GPT-2 small, 8 x 1024 tokens a step.
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 8
+GPT_HIDDEN, GPT_HEADS, GPT_LAYERS = 768, 12, 12
+GPT_HEAD_DIM = GPT_HIDDEN // GPT_HEADS
+# The attention shape every flash launch of that path sees.
+MAIN_FLASH_CASE = ("bfloat16", GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ,
+                   GPT_HEAD_DIM, True, None, None, None)
+
+
+def gpt_config(torch, use_flash):
+    from horovod_tpu_torch.models import GPTConfig
+    # bench.py's GPT-2 small: untied fp32 lm_head, 163,109,376 parameters.
+    return GPTConfig(vocab_size=50304, hidden_size=GPT_HIDDEN,
+                     num_layers=GPT_LAYERS, num_heads=GPT_HEADS,
+                     intermediate_size=3072,
+                     max_position_embeddings=GPT_SEQ, dtype=torch.bfloat16,
+                     tp_axis=None, ep_axis=None, use_flash=use_flash)
+
+
+def flash_cases():
+    """(dtype name, BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads)."""
+    cases = []
+    for dt in ("float32", "bfloat16", "float16"):
+        for d in (16, 32, 64, 128):
+            for causal in (True, False):
+                cases.append((dt, 4, 197, 197, d, causal, None, None, None))
+        cases += [(dt, 4, 128, 320, 64, True, None, None, None),
+                  (dt, 4, 320, 128, 64, True, None, None, None),
+                  (dt, 4, 320, 128, 32, False, None, None, None),
+                  (dt, 4, 197, 300, 32, False, 250, None, None),
+                  (dt, 4, 300, 300, 64, True, 250, None, None),
+                  (dt, 24, 197, 197, 64, True, None, 12, 4),
+                  # the main path's shape; fewer rows outside its dtype
+                  MAIN_FLASH_CASE if dt == MAIN_FLASH_CASE[0] else
+                  (dt, 24) + MAIN_FLASH_CASE[2:]]
+    return cases
+
+
+def phase_flash_vs_plain(torch, dev, seed):
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    rows, worst, main_err = [], {}, {}
+    for case in flash_cases():
+        dt, bh, lq, lk, d, causal, kv_valid, heads, kvh = case
+        dtype = getattr(torch, dt)
+        bkv = bh if heads is None else bh // heads * kvh
+        q, do = (torch.randn(bh, lq, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(bkv, lk, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        sm = d ** -0.5
+        o, lse = fa.fa_forward(q, k, v, causal, sm, kv_valid=kv_valid,
+                               heads=heads, kv_heads=kvh)
+        torch.cuda.synchronize()
+        if heads is not None:      # the backward takes MHA shapes
+            g, b = heads // kvh, bh // heads
+            k = fa.gqa_repeat3(k, b, kvh, g).contiguous()
+            v = fa.gqa_repeat3(v, b, kvh, g).contiguous()
+        o_p, lse_p = fa.block_fwd_reference(q, k, v, causal, sm, None,
+                                            kv_valid)
+        grads = fa.fa_backward(q, k, v, o, lse, do, causal, sm,
+                               kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        ref = fa.block_bwd_reference(q, k, v, o, lse, do, causal, sm, None,
+                                     kv_valid)
+        atol, rtol = FLASH_TOL[dt]
+        errs = {}
+        for name, got, want, tol in (
+                ("flash_fwd", o, o_p, (atol, rtol)),
+                ("lse", lse, lse_p, (1e-4, 1e-5)),
+                ("flash_bwd_dq", grads[0], ref[0], (atol, rtol)),
+                ("flash_bwd_dk", grads[1], ref[1], (atol, rtol)),
+                ("flash_bwd_dv", grads[2], ref[2], (atol, rtol))):
+            diff = (got.float() - want.float()).abs()
+            errs[name] = diff.max().item()
+            bound = tol[0] + tol[1] * want.float().abs()
+            check(bool((diff <= bound).all()),
+                  f"{name} {case}: max abs err {errs[name]} beyond atol "
+                  f"{tol[0]} + rtol {tol[1]}")
+        if causal and lq - lk > 0:
+            n = lq - lk           # rows that see no key at all
+            check(bool((o[:, :n] == 0).all() and (grads[0][:, :n] == 0).all()),
+                  f"fully masked rows are exact zeros {case}")
+        errs["flash_bwd_dkv"] = max(errs.pop("flash_bwd_dk"),
+                                    errs.pop("flash_bwd_dv"))
+        for name, e in errs.items():
+            worst[name] = max(worst.get(name, 0.0), e)
+        if case == MAIN_FLASH_CASE:
+            main_err = dict(errs)
+        rows.append([dt[:4], bh, lq, lk, d, int(causal), kv_valid, heads,
+                     kvh] + [float(f"{errs[n]:.3g}") for n in
+                             ("flash_fwd", "lse", "flash_bwd_dq",
+                              "flash_bwd_dkv")])
+    check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
+    emit({"phase": "flash_vs_plain", "cases": len(rows),
+          "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
+                      "heads", "kv_heads", "err_o", "err_lse", "err_dq",
+                      "err_dkv"],
+          "rows": rows, "max_abs_err": worst, "main_shape_err": main_err,
+          "tolerance": {k: {"atol": a, "rtol": r}
+                        for k, (a, r) in FLASH_TOL.items()},
+          "lse_tolerance": {"atol": 1e-4, "rtol": 1e-5},
+          "reason": "kernel and plain both compute in fp32 and round once; "
+                    "they sum in another order (~1e-6 relative in fp32), "
+                    "which can flip the final rounding: two ulps of bf16 "
+                    "and fp16, 1e-4 relative in fp32",
+          "fully_masked_rows_exact_zero": True})
+    return main_err
+
+
+def next_token_loss(F, logits, ids):
+    return F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                           ids[:, 1:].flatten())
+
+
+def build_gpt(torch, dev, seed):
+    from horovod_tpu_torch.models import GPT
+    model = GPT(gpt_config(torch, use_flash=True),
+                generator=torch.Generator().manual_seed(seed))
+    model = model.to(dev).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 163_109_376, f"GPT-2 small (lm_head untied) has "
+          f"163,109,376 parameters, this model {n_params}")
+    return model
+
+
+def phase_train_gpt(torch, hvd, model, dev, args, card):
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    seen = len(get_runtime().verified_signatures())
+
+    fa.reset_launch_counts()              # the GPT main path starts here
+    sb.reset_launch_counts()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def counts():
+        return (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+                sb.pack_launches, sb.unpack_launches)
+
+    def step():
+        opt.zero_grad()
+        loss = next_token_loss(F, model(ids), ids)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    # The last warm-up step also checks the reduction.
+    losses, per_step = [], []
+    for i in range(args.warmup + GPT_STEPS):
+        if i == args.warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        c0 = counts()
+        losses.append(reduced_equals_local(torch, model, step)
+                      if i == args.warmup - 1 else step())
+        per_step.append([b - a for a, b in zip(c0, counts())])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "scale_pack", "scale_unpack"), counts()))
+    # the GPT main path ends
+    losses = [l.item() for l in losses]
+    buckets = [[n for _, n in sig[-1]]
+               for sig in get_runtime().verified_signatures()[seen:]]
+    check(all(map(math.isfinite, losses)), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss falls: {losses}")
+    layers = cfg.num_layers
+    check(all(s[:3] == [layers] * 3 for s in per_step),
+          f"{layers} fwd, dQ and dK/dV flash launches a step: {per_step}")
+    check(buckets and all(s[3] == s[4] == len(buckets) for s in per_step),
+          f"a pack and an unpack launch per bucket ({len(buckets)}) every "
+          f"step: {per_step}")
+    tokens = GPT_BATCH * GPT_SEQ
+    emit({"phase": "train_gpt", "model": "GPT-2 small", "params": n_params,
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "dtype": "bfloat16",
+          "param_dtype": "float32", "optimizer": "AdamW(lr=1e-4, "
+          "betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)",
+          "warmup": args.warmup, "steps": GPT_STEPS, "losses": losses,
+          "step_ms": 1e3 * elapsed / GPT_STEPS,
+          "tokens_per_sec": tokens * GPT_STEPS / elapsed,
+          "launches_per_step": per_step,
+          "launches_per_step_columns": list(launches), "launches": launches,
+          "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
+                           for b in buckets],
+          "reduced_equals_local_bitwise": True,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "card": card})
+    return model, ids, launches
+
+
+# Limits of one GPT step with flash attention against the same step on
+# plain attention (bf16 activations: plain attention rounds scores and
+# probabilities to bf16, the kernels keep them in fp32). Each sits between
+# the reading of that sound pair and the readings of two deliberately wrong
+# controls, which these limits must reject (see gpt_flash_vs_plain). Read
+# on an NVIDIA H100 80GB HBM3 at 700 W, seed 0, as (loss_rel, grad_rel,
+# attn_cos): flash 6.3e-6, 1.1e-2 (lm_head), 0.9999948; not causal 0.175,
+# 1.15, 0.43; dK and dV swapped 6.3e-6, 1.41, 0.14.
+GPT_CMP_LIMITS = {"loss_rel": 1e-4, "grad_rel": 3e-2, "attn_cos_min": 0.9999}
+
+
+def phase_flash_vs_plain_model(torch, model, ids, dev):
+    """One forward and backward of the trained model with flash attention
+    against a copy on plain attention: same weights, same batch, no
+    optimizer (and no gradient hooks) on any copy. Compared: the loss, each
+    parameter's gradient (relative error of the whole tensor) and the
+    cosine of the attention weights' gradient alone. Two controls go
+    through the same comparison and must fail it: flash attention that is
+    not causal (a wrong forward), and dK and dV swapped in the backward (a
+    wrong backward that leaves the loss and every per-tensor gradient norm
+    as they were)."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.parallel.tp import TPSelfAttention
+
+    @contextlib.contextmanager
+    def swapped_dkv():
+        raw = fa.fa_backward
+
+        def wrong(*a, **kw):
+            dq, dk, dv = raw(*a, **kw)
+            return dq, dv, dk
+        fa.fa_backward = wrong
+        try:
+            yield
+        finally:
+            fa.fa_backward = raw
+
+    def run(use_flash, causal=True, ctx=contextlib.nullcontext):
+        with torch.device(dev):
+            m = GPT(gpt_config(torch, use_flash))
+        m.load_state_dict(model.state_dict())
+        for mod in m.modules():
+            if isinstance(mod, TPSelfAttention):
+                mod.causal = causal
+        with ctx():
+            loss = next_token_loss(F, m(ids), ids)
+            loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    lp, gp = run(use_flash=False)
+    attn = [n for n in gp if ".attention." in n]
+
+    def reading(lf, gf):
+        rel = {n: ((gf[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+               .item() for n in gp}
+        worst = max(rel, key=rel.get)
+        cos = F.cosine_similarity(torch.cat([gf[n].flatten() for n in attn]),
+                                  torch.cat([gp[n].flatten() for n in attn]),
+                                  dim=0).item()
+        return {"loss": lf, "loss_rel": abs(lf - lp) / abs(lp),
+                "grad_rel": rel[worst], "grad_rel_worst": worst,
+                "attn_cos": cos}
+
+    def within(r):
+        return (r["loss_rel"] <= GPT_CMP_LIMITS["loss_rel"]
+                and r["grad_rel"] <= GPT_CMP_LIMITS["grad_rel"]
+                and r["attn_cos"] >= GPT_CMP_LIMITS["attn_cos_min"])
+
+    flash = reading(*run(use_flash=True))
+    controls = {"not_causal": reading(*run(use_flash=True, causal=False)),
+                "swapped_dkv": reading(*run(use_flash=True,
+                                            ctx=swapped_dkv))}
+    emit({"phase": "gpt_flash_vs_plain", "loss_plain": lp, "flash": flash,
+          "controls": controls, "limits": GPT_CMP_LIMITS,
+          "attention_tensors": len(attn),
+          "note": "grad_rel: |g_flash - g_plain| / |g_plain| of the worst "
+                  "parameter; attn_cos: cosine of the attention weights' "
+                  "gradients alone; each control must fall outside the "
+                  "limits"})
+    check(within(flash), f"flash vs plain attention on one GPT step "
+          f"{flash} within {GPT_CMP_LIMITS}")
+    for name, r in controls.items():
+        check(not within(r), f"control {name} {r} is rejected by the "
+              f"limits {GPT_CMP_LIMITS}")
+
+
+def flash_work(bh, lq, lk, d, itemsize):
+    """Operations and bytes of each kernel for causal attention, counting
+    the visible (query, key) pairs only and each input and output once."""
+    pairs = bh * sum(min(lk, max(0, i + lk - lq + 1)) for i in range(lq))
+    t_q, t_k = bh * lq * d * itemsize, bh * lk * d * itemsize
+    row = bh * lq * 4                       # an fp32 value per query row
+    return {"flash_fwd": (4 * d * pairs, t_q + 2 * t_k + t_q + row),
+            "flash_bwd_dq": (6 * d * pairs, 2 * t_q + 2 * t_k + 2 * row
+                             + t_q),
+            "flash_bwd_dkv": (8 * d * pairs, 2 * t_q + 2 * t_k + 2 * row
+                              + 2 * t_k)}
+
+
+def phase_timing_flash(torch, dev, seed):
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    dt_name, bh, L, _, d = MAIN_FLASH_CASE[:5]
+    b, h, sm, dt = GPT_BATCH, GPT_HEADS, d ** -0.5, getattr(torch, dt_name)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    q, k, v, do = (torch.randn(bh, L, d, generator=gen, device=dev).to(dt)
+                   for _ in range(4))
+    o, lse = fa.fa_forward(q, k, v, True, sm)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    common = (L, d, 0, L, 1, sm, 2)
+    ms = {
+        "flash_fwd": event_ms(lambda: fa.fa_forward(q, k, v, True, sm),
+                              reps=20, inner=5),
+        "flash_bwd_dq": event_ms(lambda: fa._launch(
+            "hvd_flash_bwd_dq", dev, *ptrs, dq.data_ptr(), bh, L, *common),
+            reps=20, inner=5),
+        "flash_bwd_dkv": event_ms(lambda: fa._launch(
+            "hvd_flash_bwd_dkv", dev, *ptrs, dk.data_ptr(), dv.data_ptr(),
+            bh, L, *common), reps=20, inner=5),
+    }
+    plain_fwd = event_ms(lambda: fa.block_fwd_reference(q, k, v, True, sm),
+                         reps=10)
+    plain_bwd = event_ms(lambda: fa.block_bwd_reference(
+        q, k, v, o, lse, do, True, sm), reps=10)
+    q4, k4, v4 = (t.view(b, h, L, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = event_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=20,
+                        inner=5)
+    out4 = sdpa(q4, k4, v4, is_causal=True)
+    do4 = do.view(b, h, L, d)
+    sdpa_bwd = event_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), reps=20, inner=5)
+    work = flash_work(bh, L, L, d, 2)
+    rows = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        rows[name] = {
+            "ms": ms[name], "flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
+            "library_ms": sdpa_fwd if name == "flash_fwd" else sdpa_bwd,
+            "tflops": flops / ms[name] / 1e9}
+        if name != "flash_fwd":
+            rows[name]["plain_and_library_cover"] = (
+                "dq, dk and dv in one call, the same time for flash_bwd_dq "
+                "and flash_bwd_dkv")
+    emit({"phase": "timing_flash", "shape": {"BH": bh, "L": L, "D": d,
+                                             "dtype": dt_name,
+                                             "causal": True},
+          "kernels": rows, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+          "sdpa_fwd_bwd_ms": sdpa_fwd + sdpa_bwd,
+          "note": "ms: CUDA events, median of 20 runs of 5 back-to-back "
+                  "launches (forward through fa_forward, the backward "
+                  "kernels launched directly); plain_ms of both backward "
+                  "kernels is the plain backward, which computes dq, dk and "
+                  "dv together; library: scaled_dot_product_attention "
+                  "(is_causal) forward, and its backward alone, timed here "
+                  "only"})
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -281,30 +717,71 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.benchmark = True
-    card = phase_env(torch)
-    phase_build()
+    seconds = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = run("env", phase_env, torch)
+    run("build", phase_build)
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(args.seed))
     model = model.to(dev).train()
-    shapes = [tuple(p.shape) for p in model.parameters()]
-    max_err = phase_kernel_vs_plain(torch, shapes, dev, args.seed)
-    launches, buckets = phase_train(torch, hvd, model, dev, args, card)
+    gpt = build_gpt(torch, dev, args.seed)
+    shapes = {name: [tuple(p.shape) for p in m.parameters()]
+              for name, m in (("resnet50", model), ("gpt2_small", gpt))}
+    max_err = run("kernel_vs_plain", phase_kernel_vs_plain, torch, shapes,
+                  dev, args.seed)
+    launches, buckets = run("train", phase_train, torch, hvd, model, dev,
+                            args, card)
     check(launches["scale_pack"] > 0 and launches["scale_unpack"] > 0,
           f"the main path launched both kernels: {launches}")
-    total = phase_timing(torch, buckets, dev, args.seed)
+    total = run("timing", phase_timing, torch, buckets, dev, args.seed)
+    del model
+    flash_err = run("flash_vs_plain", phase_flash_vs_plain, torch, dev,
+                    args.seed)
+    gpt, ids, gpt_launches = run("train_gpt", phase_train_gpt, torch, hvd,
+                                 gpt, dev, args, card)
+    check(all(gpt_launches[k] > 0 for k in FLASH_REPLACES),
+          f"the GPT path launched every flash kernel: {gpt_launches}")
+    run("gpt_flash_vs_plain", phase_flash_vs_plain_model, torch, gpt, ids,
+        dev)
+    del gpt
+    flash_rows = run("timing_flash", phase_timing_flash, torch, dev,
+                     args.seed)
     hvd.shutdown()
+    emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
-    emit({"kernels": [
+    kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[f"scale_{kind}"],
+         "replaces": replaces,
+         "launches": launches[f"scale_{kind}"] + gpt_launches[
+             f"scale_{kind}"],
+         "launches_by_path": {"train": launches[f"scale_{kind}"],
+                              "train_gpt": gpt_launches[f"scale_{kind}"]},
          "checked_vs_plain": True, "max_abs_err": max_err,
          "ms": total[f"{kind}_ms"],
          "wrapper_ms": total[f"{kind}_wrapper_ms"],
          "plain_ms": total[f"{kind}_plain_ms"],
          "bound_ms": total["bound_ms"], "bound_by": "bytes",
          "library_ms": total[f"{kind}_library_ms"]}
-        for kind in ("pack", "unpack")]})
+        for kind in ("pack", "unpack")]
+    kernels += [
+        {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+         "replaces": FLASH_REPLACES[name], "launches": gpt_launches[name],
+         "checked_vs_plain": True, "max_abs_err": flash_err[name],
+         "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": row["library_ms"],
+         **({"plain_and_library_cover": row["plain_and_library_cover"]}
+            if "plain_and_library_cover" in row else {})}
+        for name, row in flash_rows.items()]
+    emit({"kernels": kernels})
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

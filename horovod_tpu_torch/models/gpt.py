@@ -1,0 +1,186 @@
+"""GPT-style decoder-only LM in PyTorch.
+
+Port of the JAX package's ``models/gpt.py`` (Flax): token plus learned
+position embeddings, pre-LN transformer blocks from ``parallel/tp.py``, a
+final LayerNorm and an fp32 ``lm_head`` with no bias and no weight tying;
+``dtype`` activations over fp32 parameters. Attention in every block goes
+through the flash kernels when ``config.use_flash`` is set.
+
+Ported: the dense model, ``features_only``, and :func:`load_flax_gpt`, which
+fills a module from the Flax variable tree by name. Not yet: mesh axes
+(``tp_axis``, ``ep_axis``), MoE blocks (``num_experts > 0``), decode,
+sequence parallelism and ``remat`` raise ``NotImplementedError`` naming
+their ROADMAP item.
+"""
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from horovod_tpu_torch.parallel.tp import (Dense, LayerNorm,
+                                           TPTransformerBlock, _not_yet,
+                                           lecun_normal_)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 1024
+    num_experts: int = 0            # 0 -> dense MLP blocks only
+    dtype: Any = torch.float32
+    tp_axis: Optional[str] = None   # no tensor-parallel mesh in the port yet
+    ep_axis: Optional[str] = None   # no expert-parallel mesh either
+    use_flash: bool = False         # the CUDA flash kernels (ops/kernels)
+    sp_axis: Optional[str] = None
+    remat: bool = False
+
+    @staticmethod
+    def tiny(**kw):
+        """For tests / dry runs."""
+        base = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
+                    intermediate_size=128, max_position_embeddings=64)
+        base.update(kw)
+        return GPTConfig(**base)
+
+
+class GPTEmbed(nn.Module):
+    """Token table cast to ``dtype``, plus the fp32 ``pos_emb[:L]`` cast to
+    it."""
+
+    def __init__(self, config):
+        super().__init__()
+        c = config
+        self.dtype = c.dtype
+        self.tok_emb = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.pos_emb = nn.Parameter(torch.empty(c.max_position_embeddings,
+                                                c.hidden_size))
+
+    def reset_parameters(self, generator=None):
+        # flax.linen.Embed's default init: variance 1/features, truncated
+        # normal; the position table is normal(0.02).
+        lecun_normal_(self.tok_emb.weight, self.tok_emb.weight.shape[1],
+                      generator)
+        with torch.no_grad():
+            self.pos_emb.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, input_ids):
+        L = input_ids.shape[-1]
+        if L > self.pos_emb.shape[0]:
+            raise ValueError(f"sequence {L} exceeds max_position_embeddings="
+                             f"{self.pos_emb.shape[0]}")
+        tok = self.tok_emb(input_ids).to(self.dtype)
+        return tok + self.pos_emb[:L].to(self.dtype)[None]
+
+
+class GPTHead(nn.Module):
+    """Final LayerNorm, then the fp32 lm_head (fp32 logits)."""
+
+    def __init__(self, config):
+        super().__init__()
+        c = config
+        self.ln_f = LayerNorm(c.hidden_size, c.dtype)
+        self.lm_head = Dense(c.hidden_size, c.vocab_size, use_bias=False,
+                             dtype=torch.float32)
+
+    def forward(self, x):
+        return self.lm_head(self.ln_f(x))
+
+
+class GPT(nn.Module):
+    """Embed -> ``num_layers`` dense blocks named ``layer_<i>`` -> head.
+    Parameters are drawn from ``generator`` with Flax's initializers."""
+
+    def __init__(self, config, decode=False, generator=None):
+        super().__init__()
+        c = config
+        if c.tp_axis is not None or c.ep_axis is not None:
+            _not_yet("a tensor- or expert-parallel mesh axis", "A12")
+        if c.num_experts:
+            _not_yet("MoE blocks (num_experts > 0)", "A12")
+        if decode:
+            _not_yet("decode with a KV cache", "A15")
+        if c.sp_axis is not None:
+            _not_yet("sequence parallelism (sp_axis)", "A12")
+        if c.remat:
+            _not_yet("remat", "A6")
+        self.config = c
+        self.embed = GPTEmbed(c)
+        for i in range(c.num_layers):
+            setattr(self, f"layer_{i}", TPTransformerBlock(
+                c.num_heads, c.hidden_size, c.intermediate_size,
+                dtype=c.dtype, causal=True, use_flash=c.use_flash))
+        self.head = GPTHead(c)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        for m in self.modules():
+            if isinstance(m, (Dense, LayerNorm, GPTEmbed)):
+                m.reset_parameters(generator)
+
+    def forward(self, input_ids, pos=None, features_only=False):
+        """``input_ids`` (B, L) -> fp32 logits (B, L, vocab), or the pre-head
+        hidden states (B, L, H) with ``features_only``."""
+        if pos is not None:
+            _not_yet("decode positions", "A15")
+        x = self.embed(input_ids)
+        for i in range(self.config.num_layers):
+            x = getattr(self, f"layer_{i}")(x)
+        if features_only:
+            return x
+        return self.head(x)
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+               "bias": "bias", "pos_emb": "pos_emb"}
+
+
+def load_flax_gpt(model, variables):
+    """Fill ``model`` from the JAX package's GPT variables
+    (``{"params": ...}`` or the params tree itself, nested dicts of arrays
+    under Flax's names). Dense kernels go (in, out) -> (out, in); LayerNorm
+    ``scale`` -> ``weight``; ``embedding`` -> ``weight``. A Flax leaf with
+    no counterpart, a parameter with no Flax leaf, or a shape mismatch
+    raises."""
+    params = variables.get("params", variables)
+    targets = dict(model.named_parameters())
+    filled = set()
+    for path, value in _leaves(params):
+        if path[-1] not in _LEAF_NAMES:
+            raise KeyError(f"unexpected Flax leaf {'/'.join(path)}")
+        key = ".".join(path[:-1] + (_LEAF_NAMES[path[-1]],))
+        if key not in targets:
+            raise KeyError(f"Flax leaf {'/'.join(path)} has no counterpart "
+                           f"{key} in the module")
+        arr = np.array(value, dtype=np.float32)
+        if path[-1] == "kernel":
+            arr = arr.T
+        t = targets[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: Flax shape {arr.shape} vs module shape "
+                             f"{tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        filled.add(key)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"no Flax variable for {missing[:5]}"
+                       f"{' ...' if len(missing) > 5 else ''}")
+    return model
+
+
+__all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPT", "load_flax_gpt"]

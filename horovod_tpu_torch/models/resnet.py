@@ -25,13 +25,14 @@ Flax semantics kept on purpose:
   name.
 """
 
-import math
 from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from horovod_tpu_torch.parallel.tp import lecun_normal_
 
 
 def _same_pads(size, k, s):
@@ -48,13 +49,6 @@ def max_pool_same(x, k, s):
     pw = _same_pads(x.shape[3], k, s)
     return F.max_pool2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1]),
                               value=float("-inf")), k, s)
-
-
-def _lecun_normal_(w, fan_in, generator):
-    # flax.linen.initializers.lecun_normal: truncated normal at +-2 std,
-    # rescaled so the variance is 1/fan_in.
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Conv(nn.Module):
@@ -75,7 +69,7 @@ class Conv(nn.Module):
         fan_in = self.weight.shape[1] * self.kernel_size[0] * \
             self.kernel_size[1]
         with torch.no_grad():
-            _lecun_normal_(self.weight, fan_in, generator)
+            lecun_normal_(self.weight, fan_in, generator)
 
     def forward(self, x):
         if self.padding == "SAME":
@@ -217,7 +211,7 @@ class ResNet(nn.Module):
             if isinstance(m, (Conv, BatchNorm)):
                 m.reset_parameters(generator)
         with torch.no_grad():
-            _lecun_normal_(self.Dense_0.weight, self.Dense_0.in_features,
+            lecun_normal_(self.Dense_0.weight, self.Dense_0.in_features,
                            generator)
             self.Dense_0.bias.zero_()
 

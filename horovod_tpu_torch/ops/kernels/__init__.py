@@ -2,9 +2,12 @@
 version. Sources live in ``csrc/`` and are compiled with nvcc on first use
 (``_build``)."""
 
-from horovod_tpu_torch.ops.kernels import scale_buffers
+from horovod_tpu_torch.ops.kernels import flash_attention, scale_buffers
+from horovod_tpu_torch.ops.kernels.flash_attention import (fa_backward,
+                                                            fa_forward)
 from horovod_tpu_torch.ops.kernels.scale_buffers import (
     pack_scale, pack_scale_reference, unpack_scale, unpack_scale_reference)
 
-__all__ = ["scale_buffers", "pack_scale", "pack_scale_reference",
-           "unpack_scale", "unpack_scale_reference"]
+__all__ = ["flash_attention", "scale_buffers", "fa_forward", "fa_backward",
+           "pack_scale", "pack_scale_reference", "unpack_scale",
+           "unpack_scale_reference"]

@@ -27,10 +27,10 @@
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cvt.cuh"
 
 namespace {
 
@@ -38,27 +38,6 @@ struct Entry {
   int64_t ptr;
   int64_t numel;
   int64_t offset;
-};
-
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  __device__ static float to_f32(float x) { return x; }
-  __device__ static float from_f32(float x) { return x; }
-};
-
-template <>
-struct Cvt<__half> {
-  __device__ static float to_f32(__half x) { return __half2float(x); }
-  __device__ static __half from_f32(float x) { return __float2half_rn(x); }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  __device__ static float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 from_f32(float x) { return __float2bfloat16_rn(x); }
 };
 
 constexpr int kThreads = 256;

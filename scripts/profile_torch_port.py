@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's ResNet-50 data-parallel step on one GPU.
+"""Profile one of the PyTorch port's data-parallel training steps on one GPU.
 
-    python3 scripts/profile_torch_port.py [--seed 0] [--batch 64]
-        [--steps 10] [--repeats 5] [--profile-steps 3]
+    python3 scripts/profile_torch_port.py [--model resnet50|gpt] [--seed 0]
+        [--batch N] [--steps 10] [--repeats 5] [--profile-steps 3]
 
-The step is chip_smoke.py's: hvd.init() on cuda:0, ResNet-50 (bf16
-activations, fp32 parameters) on a fixed synthetic batch, SGD(lr=0.1,
-momentum=0.9) in hvd.DistributedOptimizer. Prints JSON lines:
+The steps are chip_smoke.py's, on cuda:0 after hvd.init():
+
+- ``resnet50`` (default batch 64): ResNet-50, bf16 activations, fp32
+  parameters, a fixed synthetic batch, SGD(lr=0.1, momentum=0.9) in
+  hvd.DistributedOptimizer;
+- ``gpt`` (default batch 8): GPT-2 small at full width, sequence 1024, bf16
+  activations, fp32 parameters, the flash-attention kernels, next-token
+  loss, AdamW(lr=1e-4, weight_decay=1e-4) in hvd.DistributedOptimizer.
+
+Prints JSON lines:
 
 - one per repeat of ``--steps`` timed steps (host clock around work that
-  ends in torch.cuda.synchronize()), then their median and quartiles;
+  ends in torch.cuda.synchronize()), then their median and quartiles, in
+  images or tokens per second;
 - a torch.profiler window of ``--profile-steps`` steps: the share of the
   window in which the device runs any kernel or copy (union of the device
-  intervals over the window's span), and the kernels that take the most
-  device time, the port's scale kernels and NCCL among them;
+  intervals over the window's span), the kernels that take the most device
+  time, and device time by kind of kernel (the port's flash and scale
+  kernels, NCCL, and for GPT LayerNorm, the fp32 lm_head products,
+  cross-entropy, AdamW);
 - the card's name, power limit, SM clock and power draw after the run.
 
 Needs one CUDA device; exits 1 without one. Fails if the profiler records
@@ -51,17 +61,97 @@ def busy_us(intervals):
     return total
 
 
+# Device time by kind of kernel, matched on the kernel's name (lower case),
+# first match wins.
+KINDS = (
+    ("flash_fwd", ("fa_fwd_kernel",)),
+    ("flash_bwd_dq", ("fa_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("fa_bwd_dkv_kernel",)),
+    ("scale_pack_unpack", ("scale_copy_kernel",)),
+    ("nccl", ("nccl",)),
+    ("layer_norm", ("layer_norm", "layernorm")),
+    ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
+    ("adamw", ("adam", "multi_tensor_apply", "foreach")),
+    ("fp32_gemm", ("sgemm", "f32f32", "gemm_f32", "_32x", "simt")),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("batch_norm", ("batch_norm", "batchnorm")),
+    ("conv", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
+)
+
+
+def kind_of(name):
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def build_step(args, hvd, torch, dev):
+    """(step function, items per step, unit) for ``args.model``."""
+    import torch.nn.functional as F
+    if args.model == "resnet50":
+        from horovod_tpu_torch.models import ResNet50
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(args.seed))
+        model = model.to(dev).train()
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+        y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+
+        def loss():
+            return F.cross_entropy(model(x), y)
+        items, unit = args.batch, "images_per_sec"
+    else:
+        from horovod_tpu_torch.models import GPT, GPTConfig
+        cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                        num_heads=12, intermediate_size=3072,
+                        max_position_embeddings=args.seq,
+                        dtype=torch.bfloat16, tp_axis=None, ep_axis=None,
+                        use_flash=True)
+        model = GPT(cfg, generator=torch.Generator().manual_seed(args.seed))
+        model = model.to(dev).train()
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+        ids = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                            generator=gen, device=dev)
+
+        def loss():
+            logits = model(ids)
+            return F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                                   ids[:, 1:].flatten())
+        items, unit = args.batch * args.seq, "tokens_per_sec"
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def step():
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+    return step, items, unit
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("resnet50", "gpt"),
+                    default="resnet50")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="64 images for resnet50, 8 sequences for gpt")
+    ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 64 if args.model == "resnet50" else 8
 
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device is visible",
@@ -69,26 +159,11 @@ def main(argv=None):
         return 1
     sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import ResNet50
 
     torch.backends.cudnn.benchmark = True
     hvd.init()
     dev = hvd.device()
-    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(args.seed))
-    model = model.to(dev).train()
-    opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
-        named_parameters=model.named_parameters())
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
-    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
-
-    def step():
-        opt.zero_grad()
-        F.cross_entropy(model(x), y).backward()
-        opt.step()
+    step, items, unit = build_step(args, hvd, torch, dev)
 
     for _ in range(3):                       # cuDNN autotuning, buffers
         step()
@@ -100,12 +175,12 @@ def main(argv=None):
             step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        rates.append(args.batch * args.steps / dt)
-        emit({"repeat": r, "images_per_sec": rates[-1],
+        rates.append(items * args.steps / dt)
+        emit({"repeat": r, unit: rates[-1],
               "step_ms": 1e3 * dt / args.steps})
     q1, med, q3 = statistics.quantiles(rates, n=4) if len(rates) > 1 \
         else (rates[0],) * 3
-    emit({"summary": "images_per_sec", "repeats": len(rates),
+    emit({"summary": unit, "model": args.model, "repeats": len(rates),
           "steps_each": args.steps, "median": statistics.median(rates),
           "q1": q1, "q3": q3, "min": min(rates), "max": max(rates)})
 
@@ -116,8 +191,12 @@ def main(argv=None):
             step()
         torch.cuda.synchronize()
     events = list(prof.events())
+    # Kernels and copies only: a record_function range (such as the
+    # optimizer's step) also shows on the device's timeline, as an
+    # annotation spanning the kernels it launched.
     device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not device:
         raise RuntimeError("torch.profiler recorded no device time")
     span = (max(e.time_range.end for e in events)
@@ -126,8 +205,14 @@ def main(argv=None):
     by_name = collections.defaultdict(float)
     for e in device:
         by_name[e.name] += e.time_range.elapsed_us()
+    by_kind = collections.defaultdict(float)
+    for name, us in by_name.items():
+        by_kind[kind_of(name)] += us
     n = args.profile_steps
     emit({"profile_steps": n, "window_ms": span / 1e3,
+          "device_ms_by_kind_per_step": {
+              k: v / 1e3 / n for k, v in sorted(by_kind.items(),
+                                                key=lambda kv: -kv[1])},
           "device_busy_ms": busy / 1e3, "device_busy_share": busy / span,
           "device_idle_share": 1.0 - busy / span,
           "device_ms_per_step": busy / 1e3 / n,

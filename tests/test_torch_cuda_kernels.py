@@ -6,13 +6,19 @@ runs without the suite's conftest:
     python3 -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_cuda_kernels.py
 
-Tolerance: bit-equal (one fp32 multiply and one rounding on both sides).
+Tolerances: the scale kernels bit-equal (one fp32 multiply and one
+rounding on both sides). The flash kernels within atol + rtol * |plain| of
+their plain versions: both compute in fp32 and round once, but sum in
+another order (~1e-6 relative in fp32), which can flip the final rounding:
+1e-4 relative in fp32, two ulps in bf16 and fp16. Fully masked rows must be
+exact zeros.
 """
 
 import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops.kernels import flash_attention as fa
 from horovod_tpu_torch.ops.kernels import scale_buffers as sb
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +95,107 @@ def test_fused_allreduce_on_the_card(dev):
         assert all(torch.equal(t, w) for t, w in zip(ts, want))
     finally:
         hvd.shutdown()
+
+
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1.6e-2),
+             torch.float16: (2e-3, 2e-3)}
+# (BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads)
+FLASH_CASES = [(4, 197, 197, 64, True, None, None, None),
+               (4, 197, 197, 16, False, None, None, None),
+               (4, 197, 197, 128, True, None, None, None),
+               (4, 96, 160, 32, True, None, None, None),
+               (4, 160, 96, 64, True, None, None, None),
+               (4, 130, 200, 64, False, 150, None, None),
+               (24, 197, 197, 64, True, None, 12, 4)]
+
+
+def _close(got, want, dtype, name):
+    atol, rtol = FLASH_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= atol + rtol * want.float().abs()).all()), \
+        f"{name}: max abs err {diff.max().item()}"
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_kernels_match_plain(dev, dtype, case):
+    bh, lq, lk, d, causal, kv_valid, heads, kvh = case
+    g = torch.Generator(device=dev).manual_seed(lq * 3 + d)
+    bkv = bh if heads is None else bh // heads * kvh
+    q, do = (torch.randn(bh, lq, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bkv, lk, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    sm = d ** -0.5
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o, lse = fa.fa_forward(q, k, v, causal, sm, kv_valid=kv_valid,
+                           heads=heads, kv_heads=kvh)
+    torch.cuda.synchronize()
+    if heads is not None:
+        k = fa.gqa_repeat3(k, bh // heads, kvh, heads // kvh).contiguous()
+        v = fa.gqa_repeat3(v, bh // heads, kvh, heads // kvh).contiguous()
+    o_p, lse_p = fa.block_fwd_reference(q, k, v, causal, sm, None, kv_valid)
+    _close(o, o_p, dtype, "o")
+    assert torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-4)
+    grads = fa.fa_backward(q, k, v, o, lse, do, causal, sm,
+                           kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        tuple(n + 1 for n in before)
+    ref = fa.block_bwd_reference(q, k, v, o, lse, do, causal, sm, None,
+                                 kv_valid)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        _close(got, want, dtype, name)
+    if causal and lq > lk:
+        assert torch.equal(o[:, :lq - lk], torch.zeros_like(o[:, :lq - lk]))
+        assert torch.equal(grads[0][:, :lq - lk],
+                           torch.zeros_like(grads[0][:, :lq - lk]))
+
+
+def test_flash_autograd_on_the_card(dev):
+    """(B, L, H, D) attention with GQA through autograd launches one kernel
+    of each kind, and its output and gradients match autograd through the
+    plain forward (K/V broadcast to the query heads) on the same card."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(2, 197, 12, 64, generator=g, device=dev)
+    k, v = (torch.randn(2, 197, 4, 64, generator=g, device=dev)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    out = fa.flash_attention(*leaves, causal=True)
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        tuple(n + 1 for n in before)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    q3 = ref[0].permute(0, 2, 1, 3).reshape(24, 197, 64)
+    k3, v3 = (fa.gqa_repeat3(t.permute(0, 2, 1, 3).reshape(8, 197, 64),
+                             2, 4, 3) for t in ref[1:])
+    o3, _ = fa.block_fwd_reference(q3, k3, v3, True, 64 ** -0.5)
+    want = o3.reshape(2, 12, 197, 64).permute(0, 2, 1, 3)
+    (want ** 2).sum().backward()
+    _close(out.detach(), want.detach(), torch.float32, "out")
+    # Autograd differentiates the plain forward by another formula (through
+    # the softmax's exp and sum, not P * (dP - delta)), and each gradient
+    # entry sums ~200 terms that cancel: the two differ by ~1e-6 of the
+    # tensor's largest entry, so the bound scales with the tensor.
+    for a, b, name in zip(leaves, ref, "qkv"):
+        assert a.grad.shape == b.grad.shape
+        err = (a.grad - b.grad).abs().max().item()
+        assert err <= 1e-5 * b.grad.abs().max().item(), f"d{name}: {err}"
+
+
+def test_cuda_flash_never_reaches_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on CUDA tensors")
+    monkeypatch.setattr(fa, "block_fwd_reference", refuse)
+    monkeypatch.setattr(fa, "block_bwd_reference", refuse)
+    q = torch.randn(1, 64, 2, 32, device=dev, requires_grad=True)
+    fa.flash_attention(q, q, q, causal=True).sum().backward()
+    torch.cuda.synchronize()
+
+
+def test_flash_refuses_an_unsupported_head_dim(dev):
+    q = torch.randn(2, 16, 48, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.fa_forward(q, q, q, False, 1.0)

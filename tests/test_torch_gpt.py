@@ -1,0 +1,161 @@
+"""The port's GPT (``horovod_tpu_torch/models/gpt.py``, blocks from
+``parallel/tp.py``) against the JAX package's Flax GPT, with the Flax
+initial weights carried across by ``load_flax_gpt``.
+
+GPT tiny with 2 layers, fp32, at L = 64 and L = 100 (ragged for the flash
+path), with ``use_flash`` on and off: logits, the next-token loss
+(``bench.py``'s: cross-entropy of ``logits[:, :-1]`` against ``ids[:, 1:]``)
+and every parameter's gradient, against ``model.apply`` and ``jax.grad``.
+
+Tolerances. fp32: logits rtol 1e-4 / atol 1e-5; each gradient within
+1e-4 of its tensor's largest entry (both sides are fp32 with sums in another
+order; measured differences are ~1e-6). bf16 forward: logits within 0.1 and
+the loss within 1e-3 relative, since bf16 keeps 8 mantissa bits and the two
+frameworks round at different places (the port's cuBLAS-style fused bias,
+an fp32 gelu); measured logit differences are ~0.03 on logits of magnitude
+~3.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn.functional as F
+
+from horovod_tpu.models import gpt as jg
+from horovod_tpu.parallel import tp as jtp
+from horovod_tpu_torch.models import gpt as tg
+from horovod_tpu_torch.parallel import tp as ttp
+
+KW = dict(num_layers=2, max_position_embeddings=128, tp_axis=None,
+          ep_axis=None)
+
+
+def _ids(L):
+    return np.random.default_rng(L).integers(0, 256, (2, L)).astype(np.int32)
+
+
+def _to_np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    model = jg.GPT(jg.GPTConfig.tiny(**KW))
+    return _to_np(model.init(jax.random.PRNGKey(0),
+                             jnp.asarray(_ids(8)))["params"])
+
+
+def _torch_model(params, **kw):
+    return tg.load_flax_gpt(tg.GPT(tg.GPTConfig.tiny(**KW, **kw)), params)
+
+
+def _next_token_loss_torch(logits, ids):
+    return F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                           ids[:, 1:].flatten())
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("L", [64, 100])
+def test_logits_loss_and_grads_match_flax(flax_params, L, flash):
+    ids = _ids(L)
+    jm = jg.GPT(jg.GPTConfig.tiny(use_flash=flash, **KW))
+
+    def loss_fn(p):
+        logits = jm.apply({"params": p}, jnp.asarray(ids))
+        loss = optax.softmax_cross_entropy_with_integer_labels(
+            logits[:, :-1].astype(jnp.float32), jnp.asarray(ids[:, 1:]))
+        return loss.mean(), logits
+
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (loss, logits), grads = step(
+        jax.tree_util.tree_map(jnp.asarray, flax_params))
+
+    tm = _torch_model(flax_params, use_flash=flash)
+    tids = torch.from_numpy(ids).long()
+    tlogits = tm(tids)
+    np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(logits),
+                               rtol=1e-4, atol=1e-5)
+    tloss = _next_token_loss_torch(tlogits, tids)
+    np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
+    tloss.backward()
+    ref = dict(_torch_model(_to_np(grads)).named_parameters())
+    for name, p in tm.named_parameters():
+        want = ref[name].detach().numpy()
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+def test_bf16_forward_matches_flax(flax_params):
+    ids = _ids(64)
+    jm = jg.GPT(jg.GPTConfig.tiny(use_flash=True, dtype=jnp.bfloat16, **KW))
+    logits = np.asarray(jm.apply({"params": flax_params}, jnp.asarray(ids)))
+    tm = _torch_model(flax_params, use_flash=True, dtype=torch.bfloat16)
+    tids = torch.from_numpy(ids).long()
+    with torch.no_grad():
+        tlogits = tm(tids)
+    assert tlogits.dtype == torch.float32          # the fp32 lm_head
+    np.testing.assert_allclose(tlogits.numpy(), logits, rtol=0, atol=0.1)
+    want = optax.softmax_cross_entropy_with_integer_labels(
+        jnp.asarray(logits[:, :-1]), jnp.asarray(ids[:, 1:])).mean()
+    np.testing.assert_allclose(_next_token_loss_torch(tlogits, tids).item(),
+                               float(want), rtol=1e-3)
+
+
+def test_features_only_is_the_pre_head_state(flax_params):
+    tm = _torch_model(flax_params)
+    ids = torch.from_numpy(_ids(16)).long()
+    with torch.no_grad():
+        h = tm(ids, features_only=True)
+        assert h.shape == (2, 16, 64)
+        assert torch.equal(tm.head(h), tm(ids))
+
+
+def test_gqa_self_attention_matches_flax():
+    """TPSelfAttention with 4 query heads over 2 kv heads, flash and plain,
+    against the Flax module on the same weights."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 24, 32)).astype(np.float32)
+    jmod = jtp.TPSelfAttention(num_heads=4, hidden_size=32, num_kv_heads=2,
+                               causal=True, axis_name=None)
+    params = _to_np(jmod.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    for flash in (False, True):
+        tmod = ttp.TPSelfAttention(4, 32, num_kv_heads=2, causal=True,
+                                   use_flash=flash)
+        tg.load_flax_gpt(tmod, params)
+        got = tmod(torch.from_numpy(x)).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_load_flax_gpt_refuses_missing_and_extra_leaves(flax_params):
+    extra = dict(flax_params, stray={"kernel": np.zeros((2, 2))})
+    with pytest.raises(KeyError, match="stray"):
+        _torch_model(extra)
+    missing = {k: v for k, v in flax_params.items() if k != "head"}
+    with pytest.raises(KeyError, match="no Flax variable"):
+        _torch_model(missing)
+    bad = dict(flax_params, embed=dict(flax_params["embed"],
+                                       pos_emb=np.zeros((3, 64))))
+    with pytest.raises(ValueError, match="pos_emb"):
+        _torch_model(bad)
+
+
+@pytest.mark.parametrize("kw,item", [({"tp_axis": "tp"}, "A12"),
+                                     ({"ep_axis": "ep"}, "A12"),
+                                     ({"num_experts": 2}, "A12"),
+                                     ({"sp_axis": "sp"}, "A12"),
+                                     ({"remat": True}, "A6")])
+def test_unported_options_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tg.GPT(tg.GPTConfig.tiny(**kw))
+
+
+def test_decode_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="A15"):
+        tg.GPT(tg.GPTConfig.tiny(), decode=True)
+    with pytest.raises(NotImplementedError, match="A6, LLaMA"):
+        ttp.TPSelfAttention(4, 64, rope_theta=10000.0)

@@ -209,3 +209,50 @@ def dp_resnet(rank, size, variables, x, y, steps, lr):
             "state": {k: to_np(v) for k, v in model.state_dict().items()},
             "momentum": {n: to_np(opt.state[p]["momentum_buffer"])
                          for n, p in model.named_parameters()}}
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel slice: GPT tiny trained with AdamW through the optimizer.
+# ---------------------------------------------------------------------------
+
+def dp_gpt(rank, size, params, config_kw, ids, steps, lr, weight_decay):
+    """Rank 0 loads the Flax weights, the others get them by broadcast; each
+    rank trains on its rows of ``ids`` with the next-token loss. Returns the
+    losses, the step-1 reduced gradients, the final parameters and both Adam
+    moments, by parameter name."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import GPT, GPTConfig, load_flax_gpt
+
+    model = GPT(GPTConfig.tiny(**config_kw))
+    if rank == 0:
+        load_flax_gpt(model, params)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    shard = ids.shape[0] // size
+    x = torch.from_numpy(ids[rank * shard:(rank + 1) * shard]).long()
+    losses, first_grads = [], None
+    for _ in range(steps):
+        opt.zero_grad()
+        logits = model(x)
+        loss = F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                               x[:, 1:].flatten())
+        loss.backward()
+        opt.synchronize()
+        if first_grads is None:
+            first_grads = {n: to_np(p.grad)
+                           for n, p in model.named_parameters()}
+        opt.step()
+        losses.append(loss.item())
+    named = dict(model.named_parameters())
+    return {"losses": losses, "grads": first_grads,
+            "params": {n: to_np(p) for n, p in named.items()},
+            "mu": {n: to_np(opt.state[p]["exp_avg"])
+                   for n, p in named.items()},
+            "nu": {n: to_np(opt.state[p]["exp_avg_sq"])
+                   for n, p in named.items()}}
