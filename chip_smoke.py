@@ -57,6 +57,29 @@ Phases, one JSON line each (each with its seconds):
    timing only, the port never calls it), CUDA events, median of repeats,
    beside the least time the card could take.
 
+9. adasum_vs_plain: the Adasum combine kernel against its plain version on
+   the card, synchronising after every launch: ResNet-50's 161 gradient
+   shapes as one bucket of segments (each at its own scale) and edge cases
+   (0 and 1 element, odd sizes, a segment past 1024 blocks, a zero a, b = a,
+   2a, -a, orthogonal a and b; the exact ones bit-exact in fp32), in fp32,
+   bf16, fp16 and float64; the max error of each case beside its tolerance.
+10. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
+   ResNet-50 as in train with hvd.DistributedOptimizer(SGD, op=hvd.Adasum):
+   each bucket is packed, all-gathered and reduced by
+   ops.adasum.reduce_gathered, then unpacked. Checks: finite, falling loss;
+   one pack and one unpack launch per bucket every step; no combine launch
+   (one rank is a tree of one leaf); on one step the reduced gradients
+   equal the local ones bit for bit.
+11. adasum_gathered: the combine kernel through reduce_gathered at the
+   path's shapes: ResNet-50's gradients for K batches from --seed (what K
+   ranks would hold), packed in train_adasum's bucket layout and stacked as
+   the all-gather leaves them, for K = 4 and 3. Checks: within tolerance of
+   the plain version; 2 (K - 1) launches per bucket; a control with
+   whole-bucket coefficients fails the same limit.
+12. timing_adasum: one combine over the path's fp32 buckets: the two
+   launches alone, through the wrapper, the plain version, beside the byte
+   bound (no single PyTorch call computes it).
+
 Then the kernels line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero.
@@ -78,6 +101,19 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "horovod_tpu/ops/pallas/flash_attention.py:311",
     "flash_bwd_dkv": "horovod_tpu/ops/pallas/flash_attention.py:387",
 }
+ADASUM_SOURCE = "horovod_tpu_torch/ops/kernels/csrc/adasum.cu"
+ADASUM_REPLACES = "horovod_tpu/ops/pallas/kernels.py:76"
+# Tolerance of the Adasum kernel against its plain version, by dtype, as a
+# share of each segment's largest plain value: max |kernel - plain| /
+# max |plain|. Both compute in fp32 and round once; they sum the dot product
+# and the norms in another order, which moves a coefficient by ~1e-6: 1e-5
+# in fp32 (and float64, read into fp32); in bf16 and fp16 it can flip the
+# one rounding, so two ulps of the dtype at the segment's largest value.
+ADASUM_TOL = {"float32": 1e-5, "float64": 1e-5, "bfloat16": 2 * 2.0 ** -7,
+              "float16": 2 * 2.0 ** -10}
+# Rank counts of the gathered-bucket check (K = 3 carries an odd one).
+ADASUM_RANKS = (4, 3)
+
 # Tolerance of each flash kernel against its plain version, by dtype:
 # |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
 # once to the working dtype, but sum in another order (the kernel rescales
@@ -320,6 +356,302 @@ def phase_timing(torch, buckets, dev, seed):
                   "the runtime calls them, table built and copied each "
                   "call; library: torch.cat(out=).mul_ and "
                   "torch._foreach_mul over the buffer's slices"})
+    return total
+
+
+def segment_errors(torch, got, want, numels):
+    """max |got - want| / max |want| over each non-empty segment, and the
+    largest absolute difference."""
+    rel, worst_abs, off = [], 0.0, 0
+    for n in numels:
+        if n:
+            g = got[off:off + n].double()
+            w = want[off:off + n].double()
+            diff = (g - w).abs().max().item()
+            worst_abs = max(worst_abs, diff)
+            rel.append(diff / max(w.abs().max().item(), 1e-30))
+        off += n
+    return rel, worst_abs
+
+
+def phase_adasum_vs_plain(torch, shapes, dev, seed):
+    """The Adasum kernel against its plain version: ResNet-50's gradient
+    shapes as one bucket of segments, each at its own scale, in every dtype;
+    then edge cases, each as a bucket of one segment. Synchronises after
+    every launch."""
+    from horovod_tpu_torch.ops.kernels import adasum as ak
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    numels = [int(torch.Size(s).numel()) for s in shapes]
+    rows, worst = [], 0.0
+    for dt in ak.DTYPES:
+        name = str(dt).split(".")[-1]
+        table = ak.segment_table(numels, dev)
+        scale = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 2), device=dev)
+                           for i, n in enumerate(numels)])
+        a, b = ((torch.randn(table.total, generator=gen, device=dev)
+                 * scale).to(dt) for _ in range(2))
+        got = torch.empty_like(a)
+        ak.combine_segments(a, b, got, table)
+        torch.cuda.synchronize()
+        want = ak.combine_segments_reference(a, b, torch.empty_like(a),
+                                             table)
+        torch.cuda.synchronize()
+        rel, err = segment_errors(torch, got, want, numels)
+        worst = max(worst, err)
+        rows.append({"case": "resnet50_gradients", "dtype": name,
+                     "segments": len(numels), "elements": table.total,
+                     "max_rel": max(rel), "max_abs_err": err,
+                     "tolerance": ADASUM_TOL[name]})
+        check(max(rel) <= ADASUM_TOL[name], f"adasum {name} on ResNet-50's "
+              f"shapes: {max(rel)} beyond {ADASUM_TOL[name]}")
+        del a, b, got, want, scale
+
+    def pair(case, n):
+        a = torch.randn(n, generator=gen, device=dev)
+        b = torch.randn(n, generator=gen, device=dev)
+        if case == "zero_a":
+            a = torch.zeros_like(a)
+        elif case == "b_is_a":
+            b = a.clone()
+        elif case == "b_is_2a":
+            b = 2 * a
+        elif case == "b_is_minus_a":
+            b = -a
+        elif case == "orthogonal":
+            a[n // 2:] = 0
+            b[:n // 2] = 0
+        return a, b
+    exact = {"zero_a": lambda a, b: b, "b_is_a": lambda a, b: a,
+             "b_is_2a": lambda a, b: 1.5 * a,
+             "b_is_minus_a": lambda a, b: torch.zeros_like(a),
+             "orthogonal": lambda a, b: a + b}
+    # A segment past 1024 blocks of 4096 elements grid-strides in the block.
+    edge = [("random", 0), ("random", 1), ("random", 7), ("random", 4097),
+            ("random", 100_003), ("random", 4_194_305)] + [
+        (c, 300_001) for c in exact]
+    for dt in ak.DTYPES:
+        name = str(dt).split(".")[-1]
+        for case, n in edge:
+            a, b = (t.to(dt) for t in pair(case, n))
+            table = ak.segment_table((n,), dev)
+            got = torch.empty_like(a)
+            ak.combine_segments(a, b, got, table)
+            torch.cuda.synchronize()
+            want = ak.combine_segments_reference(a, b, torch.empty_like(a),
+                                                 table)
+            torch.cuda.synchronize()
+            rel, err = segment_errors(torch, got, want, (n,))
+            worst = max(worst, err)
+            bit_exact = None
+            if case in exact and dt == torch.float32:
+                bit_exact = bool(torch.equal(got, exact[case](a, b)))
+                check(bit_exact, f"adasum {case} is exact in fp32")
+            rows.append({"case": case, "dtype": name, "segments": 1,
+                         "elements": n, "max_rel": max(rel, default=0.0),
+                         "max_abs_err": err, "tolerance": ADASUM_TOL[name],
+                         "bit_exact": bit_exact})
+            check(max(rel, default=0.0) <= ADASUM_TOL[name],
+                  f"adasum {case} {name} n={n}: {rel} beyond "
+                  f"{ADASUM_TOL[name]}")
+    emit({"phase": "adasum_vs_plain", "cases": len(rows), "rows": rows,
+          "max_abs_err": worst,
+          "metric": "max_rel: max |kernel - plain| / max |plain| per "
+                    "segment; bit_exact: fp32 cases with an exact answer",
+          "tolerance": ADASUM_TOL})
+    return worst
+
+
+def adasum_buckets(torch, hvd, since):
+    """The fp32 Adasum buckets the runtime formed after its first
+    ``since`` signatures: [[(parameter name, numel), ...], ...]."""
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    sigs = get_runtime().verified_signatures()[since:]
+    return [[(name.split(".", 1)[1], n) for name, n in sig[-1]]
+            for sig in sigs
+            if sig[1] == int(hvd.Adasum) and sig[4] == str(torch.float32)]
+
+
+def phase_train_adasum(torch, hvd, model, dev, args, card):
+    """The Adasum main path: ResNet-50 with hvd.DistributedOptimizer(SGD,
+    op=hvd.Adasum) on the 1-rank world hvd.init() made for ``train``."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import adasum as ak
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    seen = len(get_runtime().verified_signatures())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+
+    sb.reset_launch_counts()                 # the Adasum path starts here
+    ak.reset_launch_counts()
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters(),
+                                   op=hvd.Adasum)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def counts():
+        return (sb.pack_launches, sb.unpack_launches, ak.launches)
+
+    def step():
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, per_step = [], []
+    for i in range(args.warmup + args.steps):
+        if i == args.warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        c0 = counts()
+        losses.append(reduced_equals_local(torch, model, step)
+                      if i == args.warmup - 1 else step())
+        per_step.append([b - a for a, b in zip(c0, counts())])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(("scale_pack", "scale_unpack", "adasum_combine"),
+                        counts()))           # the Adasum path ends
+    opt._remove_hooks()
+    losses = [l.item() for l in losses]
+    buckets = adasum_buckets(torch, hvd, seen)
+    check(all(map(math.isfinite, losses)), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss falls: {losses}")
+    check(buckets and all(s == [len(buckets), len(buckets), 0]
+                          for s in per_step),
+          f"a pack and an unpack launch per Adasum bucket ({len(buckets)}) "
+          f"and no combine (one rank) every step: {per_step}")
+    emit({"phase": "train_adasum", "model": "ResNet-50", "op": "Adasum",
+          "batch": args.batch, "warmup": args.warmup, "steps": args.steps,
+          "losses": losses, "step_ms": 1e3 * elapsed / args.steps,
+          "images_per_sec": args.batch * args.steps / elapsed,
+          "launches_per_step": per_step,
+          "launches_per_step_columns": list(launches), "launches": launches,
+          "fp32_buckets": [{"tensors": len(b),
+                            "elements": sum(n for _, n in b)}
+                           for b in buckets],
+          "reduced_equals_local_bitwise": True,
+          "note": "one rank: the gather leaves a tree of one leaf, so the "
+                  "combine kernel does not run in this path; "
+                  "adasum_gathered drives it on the path's buckets",
+          "card": card})
+    return launches, buckets
+
+
+def phase_adasum_gathered(torch, model, buckets, dev, args):
+    """The combine kernel through the route's own post-gather function at
+    the path's shapes: ResNet-50's gradients for K batches from ``seed``
+    (what K ranks would hold; --batch images each), packed in each
+    bucket's layout and stacked as the all-gather leaves them, through
+    ops.adasum.reduce_gathered, for
+    each K of ADASUM_RANKS. Held against reduce_gathered_reference; a
+    control with whole-bucket coefficients must fail the same limit."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops.adasum import reduce_gathered
+    from horovod_tpu_torch.ops.kernels import adasum as ak
+
+    params = dict(model.named_parameters())
+    names = list(params)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    grads = []
+    for _ in range(max(ADASUM_RANKS)):
+        x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+        y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+        loss = F.cross_entropy(model(x), y)
+        # autograd.grad: the optimizer's gradient hooks do not fire.
+        g = torch.autograd.grad(loss, [params[n] for n in names])
+        grads.append(dict(zip(names, g)))
+    limit = ADASUM_TOL["float32"]
+    rows, total_launches, worst = [], 0, 0.0
+    for k in ADASUM_RANKS:
+        for bucket in buckets:
+            numels = [n for _, n in bucket]
+            gathered = torch.stack([
+                torch.cat([grads[r][name].reshape(-1) for name, _ in bucket])
+                for r in range(k)])
+            want = ak.reduce_gathered_reference(gathered, numels)
+            whole = ak.reduce_gathered_reference(gathered, [sum(numels)])
+            torch.cuda.synchronize()
+            ak.reset_launch_counts()
+            got = reduce_gathered(gathered, numels)
+            torch.cuda.synchronize()
+            launches = ak.launches
+            total_launches += launches
+            rel, err = segment_errors(torch, got, want, numels)
+            ctl, _ = segment_errors(torch, whole, want, numels)
+            worst = max(worst, err)
+            rows.append({"ranks": k, "tensors": len(numels),
+                         "elements": sum(numels), "launches": launches,
+                         "max_rel": max(rel), "max_abs_err": err,
+                         "control_whole_bucket_max_rel": max(ctl)})
+            check(launches == 2 * (k - 1), f"2 (K - 1) = {2 * (k - 1)} "
+                  f"combine launches for K = {k}, got {launches}")
+            check(max(rel) <= limit, f"reduce_gathered K = {k}: {max(rel)} "
+                  f"beyond {limit}")
+            check(max(ctl) > limit, f"the whole-bucket control K = {k} "
+                  f"({max(ctl)}) is rejected by the limit {limit}")
+            del gathered, want, whole
+    emit({"phase": "adasum_gathered", "rows": rows, "limit": limit,
+          "max_abs_err": worst, "launches": total_launches,
+          "metric": "max_rel: max |kernel - plain| / max |plain| per tensor "
+                    "of the bucket; the control takes one coefficient pair "
+                    "for the whole bucket and must exceed the limit"})
+    return total_launches, worst
+
+
+def phase_timing_adasum(torch, buckets, dev, seed):
+    """One combine of two ranks' rows at the fp32 bucket shapes of the
+    Adasum path: the two launches alone, through the wrapper, the plain
+    version; summed over the buckets, beside the byte bound."""
+    from horovod_tpu_torch.ops.kernels import adasum as ak
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    rows = []
+    for bucket in buckets:
+        numels = [n for _, n in bucket]
+        table = ak.segment_table(numels, dev)
+        a, b = (torch.randn(table.total, generator=gen, device=dev)
+                for _ in range(2))
+        out = torch.empty_like(a)
+        partials = torch.empty(3 * table.n_blocks, device=dev)
+        ptrs = (table.rows.data_ptr(), table.n_blocks, a.data_ptr(),
+                b.data_ptr())
+
+        def kernel_only():
+            ak._launch("hvd_adasum_partials", dev, *ptrs,
+                       partials.data_ptr(), 0)
+            ak._launch("hvd_adasum_apply", dev, *ptrs, out.data_ptr(),
+                       partials.data_ptr(), 0, ak.EPS)
+        nbytes = 3 * table.total * a.element_size()
+        rows.append({
+            "tensors": len(numels), "elements": table.total,
+            "blocks": table.n_blocks,
+            "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
+            "ms": event_ms(kernel_only, inner=10),
+            "wrapper_ms": event_ms(
+                lambda: ak.combine_segments(a, b, out, table)),
+            "plain_ms": event_ms(lambda: ak.combine_segments_reference(
+                a, b, out, table), reps=10),
+        })
+        del a, b, out, partials
+    total = {k: sum(r[k] for r in rows) for k in ("bound_ms", "ms",
+                                                  "wrapper_ms", "plain_ms")}
+    emit({"phase": "timing_adasum", "dtype": "float32", "per_bucket": rows,
+          "per_combine": total,
+          "elements": sum(r["elements"] for r in rows),
+          "library_ms": None,
+          "note": "one combine over every gradient of the step; ms: the two "
+                  "launches alone (10 back to back over a prebuilt table), "
+                  "wrapper_ms: combine_segments as reduce_gathered calls it, "
+                  "plain_ms: combine_segments_reference; bound: each input "
+                  "and output byte once (3 N x 4 B) at 3.35 TB/s; library: "
+                  "none, no single PyTorch call computes this combine"})
     return total
 
 
@@ -725,11 +1057,14 @@ def main(argv=None):
         seconds[name] = time.perf_counter() - t0
         return out
 
+    def resnet50():
+        m = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(args.seed))
+        return m.to(dev).train()
+
     card = run("env", phase_env, torch)
     run("build", phase_build)
-    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(args.seed))
-    model = model.to(dev).train()
+    model = resnet50()
     gpt = build_gpt(torch, dev, args.seed)
     shapes = {name: [tuple(p.shape) for p in m.parameters()]
               for name, m in (("resnet50", model), ("gpt2_small", gpt))}
@@ -752,6 +1087,22 @@ def main(argv=None):
     del gpt
     flash_rows = run("timing_flash", phase_timing_flash, torch, dev,
                      args.seed)
+    adasum_err = run("adasum_vs_plain", phase_adasum_vs_plain, torch,
+                     shapes["resnet50"], dev, args.seed)
+    model = resnet50()
+    ada_launches, ada_buckets = run("train_adasum", phase_train_adasum,
+                                    torch, hvd, model, dev, args, card)
+    check(ada_launches["scale_pack"] > 0 and ada_launches["scale_unpack"] > 0
+          and ada_launches["adasum_combine"] == 0,
+          f"the Adasum path launched both scale kernels and, on one rank, "
+          f"no combine: {ada_launches}")
+    gathered_launches, gathered_err = run(
+        "adasum_gathered", phase_adasum_gathered, torch, model, ada_buckets,
+        dev, args)
+    check(gathered_launches > 0, "reduce_gathered launched the combine")
+    ada_total = run("timing_adasum", phase_timing_adasum, torch, ada_buckets,
+                    dev, args.seed)
+    del model
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
@@ -760,9 +1111,10 @@ def main(argv=None):
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
          "launches": launches[f"scale_{kind}"] + gpt_launches[
-             f"scale_{kind}"],
+             f"scale_{kind}"] + ada_launches[f"scale_{kind}"],
          "launches_by_path": {"train": launches[f"scale_{kind}"],
-                              "train_gpt": gpt_launches[f"scale_{kind}"]},
+                              "train_gpt": gpt_launches[f"scale_{kind}"],
+                              "train_adasum": ada_launches[f"scale_{kind}"]},
          "checked_vs_plain": True, "max_abs_err": max_err,
          "ms": total[f"{kind}_ms"],
          "wrapper_ms": total[f"{kind}_wrapper_ms"],
@@ -780,6 +1132,20 @@ def main(argv=None):
          **({"plain_and_library_cover": row["plain_and_library_cover"]}
             if "plain_and_library_cover" in row else {})}
         for name, row in flash_rows.items()]
+    kernels.append(
+        {"name": "adasum_combine", "route": "cuda", "source": ADASUM_SOURCE,
+         "replaces": ADASUM_REPLACES, "launches": gathered_launches,
+         "launches_by_path": {"train_adasum": ada_launches["adasum_combine"],
+                              "adasum_gathered": gathered_launches},
+         "checked_vs_plain": True,
+         "max_abs_err": max(adasum_err, gathered_err),
+         "ms": ada_total["ms"], "wrapper_ms": ada_total["wrapper_ms"],
+         "plain_ms": ada_total["plain_ms"], "bound_ms": ada_total["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "library": "none: no single PyTorch call computes this combine",
+         "note": "train_adasum runs one rank, a tree of one leaf: no "
+                 "combine; adasum_gathered drives reduce_gathered, the "
+                 "route's post-gather function, on the path's buckets"})
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

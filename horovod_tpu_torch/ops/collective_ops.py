@@ -1,27 +1,35 @@
 """Eager collectives on per-rank torch tensors.
 
 Port of the JAX package's ``ops/collective_ops.py``: ``ReduceOp``,
-``allreduce``/``grouped_allreduce`` and their async handles, ``broadcast``,
-``barrier`` and ``broadcast_object``. Tensors are per-rank, as in the
-reference's ``horovod.torch`` — not the JAX eager API's rank-major stacked
-layout — and live on the device ``hvd.init()`` chose.
+``allreduce``/``grouped_allreduce`` and their async handles,
+``allgather``, ``broadcast``, ``barrier`` and ``broadcast_object``. Tensors
+are per-rank, as in the reference's ``horovod.torch`` — not the JAX eager
+API's rank-major stacked layout — and live on the device ``hvd.init()``
+chose.
 
 Allreduce semantics follow ``_reduce_shard``: prescale each rank's tensor,
-reduce (Sum/Average/Min/Max/Product), divide by the set size for Average,
-postscale. fp32/fp16/bf16 tensors go through the fusion runtime
+reduce (Sum/Average/Min/Max/Product/Adasum), divide by the set size for
+Average, postscale. fp32/fp16/bf16 tensors go through the fusion runtime
 (``ops/fusion.py``), where the pack kernel applies the prescale and the
 unpack kernel the postscale, with Average's ``1/n`` folded into it; other
-dtypes, which no kernel takes, are reduced one collective each.
+dtypes, which no kernel takes, are reduced one collective each. Adasum
+gathers every rank's tensor and runs the combine tree of ``ops/adasum.py``
+on it (float64 too, one gather each); it refuses integer tensors.
+
+``allgather`` concatenates the ranks' tensors, which must share one shape,
+along dim 0 (ragged first dims are not ported yet, ROADMAP A2).
 """
 
 import enum
+import hashlib
 import pickle
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.exceptions import ProcessSetError
+from horovod_tpu_torch.common.exceptions import (ProcessSetError,
+                                                  TensorShapeMismatchError)
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.ops.kernels.scale_buffers import DTYPES as _KERNEL_DTYPES
 
@@ -43,6 +51,12 @@ Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
+# Gather into one tensor that holds the ranks' inputs one after another
+# along dim 0 (all_gather_single takes over all_gather_into_tensor's name
+# from torch 2.13 on).
+all_gather_flat = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
 # Average is a Sum on the wire; the 1/n is applied after it.
 DIST_OPS = {
     ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -61,6 +75,18 @@ def _process_set(process_set):
         raise ProcessSetError(
             f"rank {basics.rank()} is not a member of {ps}")
     return ps
+
+
+def rank_digests(sig, ps):
+    """A 64-bit hash of ``repr(sig)`` and every rank's hash of its own, in
+    rank order: one small all-gather, for checks that ranks agree."""
+    digest = int.from_bytes(
+        hashlib.blake2b(repr(sig).encode(), digest_size=8).digest(),
+        "little", signed=True)
+    mine = torch.tensor([digest], dtype=torch.int64, device=basics.device())
+    every = torch.empty(ps.size(), dtype=torch.int64, device=mine.device)
+    all_gather_flat(every, mine, group=ps.group)
+    return digest, every.tolist()
 
 
 def _check_tensor(t, what):
@@ -108,6 +134,22 @@ def _allreduce_unfused(t, out, op, prescale, postscale, ps):
     return Handle(out)
 
 
+def _adasum_unfused(t, out, prescale, postscale, ps):
+    """float64 under Adasum, outside the scale kernel's dtypes: prescale,
+    one gather, the combine tree (whose kernel reads float64 into fp32),
+    postscale."""
+    from horovod_tpu_torch.ops.adasum import reduce_gathered
+    x = t.reshape(-1) * prescale if prescale != 1.0 else t.reshape(-1)
+    gathered = torch.empty(ps.size() * x.numel(), dtype=t.dtype,
+                           device=t.device)
+    all_gather_flat(gathered, x.contiguous(), group=ps.group)
+    out.copy_(reduce_gathered(gathered.view(ps.size(), -1),
+                              (x.numel(),)).view(out.shape))
+    if postscale != 1.0:
+        out.mul_(postscale)
+    return Handle(out)
+
+
 def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
                             postscale_factor=1.0, process_set=None,
                             name=None, outputs=None):
@@ -120,9 +162,6 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
     variants.
     """
     op = ReduceOp(op)
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "op=Adasum is not ported to horovod_tpu_torch yet")
     ps = _process_set(process_set)
     tensors = list(tensors)
     outputs = list(outputs) if outputs is not None else [None] * len(tensors)
@@ -134,6 +173,10 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
             raise ValueError(
                 "Average is not supported for integer tensors; use hvd.Sum "
                 "(matches reference torch/mpi_ops.py checks).")
+        if op == ReduceOp.ADASUM and not t.is_floating_point():
+            raise TypeError(
+                f"Adasum combines floating-point tensors; got {t.dtype} "
+                "(the reference's Adasum refuses integer tensors too)")
         out = outputs[i]
         if out is None:
             outputs[i] = torch.empty_like(
@@ -149,6 +192,10 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
     for i, t in enumerate(tensors):
         if t.dtype in _KERNEL_DTYPES:
             by_dtype.setdefault(t.dtype, []).append(i)
+        elif op == ReduceOp.ADASUM:
+            handles[i] = _adasum_unfused(t, outputs[i],
+                                         float(prescale_factor),
+                                         float(postscale_factor), ps)
         else:
             handles[i] = _allreduce_unfused(t, outputs[i], op,
                                             float(prescale_factor),
@@ -194,6 +241,26 @@ def grouped_allreduce(tensors, op=Average, prescale_factor=1.0,
         tensors, op=op, prescale_factor=prescale_factor,
         postscale_factor=postscale_factor, process_set=process_set,
         name=name)]
+
+
+def allgather(tensor, process_set=None, name=None):
+    """Every rank's tensor concatenated along dim 0, in rank order
+    (reference: hvd.allgather torch/mpi_ops.py:655-712). The ranks' tensors
+    must share one shape and dtype: a mismatch raises
+    ``TensorShapeMismatchError``. A 0-d tensor gathers into a vector."""
+    ps = _process_set(process_set)
+    _check_tensor(tensor, "allgather")
+    t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
+    digest, every = rank_digests((tuple(t.shape), str(t.dtype)), ps)
+    if any(h != digest for h in every):
+        raise TensorShapeMismatchError(
+            f"allgather: the ranks' tensors differ in shape or dtype (this "
+            f"rank: {tuple(t.shape)} {t.dtype}); gathering ragged first dims "
+            "is not ported yet (ROADMAP A2)")
+    out = torch.empty((ps.size() * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    all_gather_flat(out, t, group=ps.group)
+    return out
 
 
 def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):

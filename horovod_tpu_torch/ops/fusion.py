@@ -11,6 +11,15 @@ allocated once. Each bucket is
 
 with Average's ``1/n`` folded into the postscale. The unpack writes each
 result straight into its output tensor (``p.grad`` for the optimizer).
+An Adasum bucket gathers instead of reducing:
+
+    pack+prescale -> one all-gather into (n, total) ->
+    ops.adasum.reduce_gathered (the combine kernel, per tensor) ->
+    unpack+postscale from row 0
+
+so it keeps one collective per bucket and still takes each tensor's own
+norms, the coefficients the JAX fused path gets by reducing each tensor of
+an Adasum bucket on its own (``horovod_tpu/ops/fusion.py:226-233``).
 
 Buckets. Tensors of one key (process set, op, prescale, postscale, dtype)
 join that key's open bucket in enqueue order. A bucket closes when the next
@@ -31,7 +40,6 @@ buffer, while the backward pass goes on beside them. A handle's
 (gloo) a bucket is done when it closes.
 """
 
-import hashlib
 import threading
 
 import torch
@@ -39,7 +47,10 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import TensorShapeMismatchError
-from horovod_tpu_torch.ops.collective_ops import DIST_OPS, ReduceOp
+from horovod_tpu_torch.ops.adasum import reduce_gathered
+from horovod_tpu_torch.ops.collective_ops import (DIST_OPS, ReduceOp,
+                                                  all_gather_flat,
+                                                  rank_digests)
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 
 _MAX_SIGNATURES = 4096   # runaway-signature guard for the verified cache
@@ -181,10 +192,20 @@ class FusionRuntime:
         total = sum(e.tensor.numel() for e in entries)
         buf = self._buffer(dtype, total)
         pack_scale([e.tensor for e in entries], buf, prescale)
-        dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group,
-                        async_op=True).wait()
-        if op == ReduceOp.AVERAGE:
-            postscale = postscale / ps.size()
+        if op == ReduceOp.ADASUM:
+            # Gather every rank's bucket and run the combine tree on it, per
+            # tensor; the result is row 0. Adasum is no average: no 1/n.
+            gathered = torch.empty(ps.size() * total, dtype=dtype,
+                                   device=self.device)
+            all_gather_flat(gathered, buf, group=ps.group,
+                            async_op=True).wait()
+            buf = reduce_gathered(gathered.view(ps.size(), total),
+                                  [e.tensor.numel() for e in entries])
+        else:
+            dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group,
+                            async_op=True).wait()
+            if op == ReduceOp.AVERAGE:
+                postscale = postscale / ps.size()
         unpack_scale(buf, [e.output for e in entries], postscale)
 
     def _buffer(self, dtype, total):
@@ -204,13 +225,7 @@ class FusionRuntime:
                tuple((e.name, e.tensor.numel()) for e in entries))
         if sig in self._verified:
             return
-        digest = int.from_bytes(
-            hashlib.blake2b(repr(sig).encode(), digest_size=8).digest(),
-            "little", signed=True)
-        mine = torch.tensor([digest], dtype=torch.int64, device=self.device)
-        every = [torch.empty_like(mine) for _ in range(ps.size())]
-        dist.all_gather(every, mine, group=ps.group)
-        every = torch.cat(every).tolist()
+        digest, every = rank_digests(sig, ps)
         if any(h != digest for h in every):
             raise TensorShapeMismatchError(
                 f"ranks formed different fusion buckets for {len(entries)} "

@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("scale_buffers", "flash_attention")
+SOURCES = ("scale_buffers", "flash_attention", "adasum")
 
 _lock = threading.Lock()
 _libs = {}

@@ -27,3 +27,11 @@ struct Cvt<__nv_bfloat16> {
   __device__ static float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
   __device__ static __nv_bfloat16 from_f32(float x) { return __float2bfloat16_rn(x); }
 };
+
+// float64 is read into fp32 too (the Adasum combine computes in fp32 whatever
+// its input, as the JAX package's adasum_combine does); widening back is exact.
+template <>
+struct Cvt<double> {
+  __device__ static float to_f32(double x) { return __double2float_rn(x); }
+  __device__ static double from_f32(float x) { return static_cast<double>(x); }
+};

@@ -2,11 +2,13 @@
 
 Port of the JAX package's ``torch/__init__.py``: the same names and
 signatures, for the subset this port implements so far — init and the
-rank/size family, process sets, the allreduce and broadcast families with
-their async handles, barrier, compression, the parameter and optimizer-state
+rank/size family, process sets, the allreduce (Sum, Average, Min, Max,
+Product, Adasum) and broadcast families with their async handles, allgather
+of equal shapes, barrier, compression, the parameter and optimizer-state
 broadcasts and ``DistributedOptimizer``. The rest of the reference surface
-(allgather, alltoall, reducescatter, join, sparse allreduce, elastic,
-SyncBatchNorm, timeline) is listed in ROADMAP.md as still to port.
+(ragged allgather, alltoall, reducescatter, join, sparse allreduce,
+elastic, SyncBatchNorm, timeline) is listed in ROADMAP.md as still to
+port.
 """
 
 from horovod_tpu_torch.common.basics import (
@@ -31,9 +33,10 @@ from horovod_tpu_torch.torch.functions import (broadcast_object,
                                                broadcast_optimizer_state,
                                                broadcast_parameters)
 from horovod_tpu_torch.torch.mpi_ops import (
-    Adasum, Average, Max, Min, Product, ReduceOp, Sum, allreduce, allreduce_,
-    allreduce_async, allreduce_async_, barrier, broadcast, broadcast_,
-    broadcast_async, broadcast_async_, grouped_allreduce, grouped_allreduce_,
+    Adasum, Average, Max, Min, Product, ReduceOp, Sum, allgather,
+    allgather_async, allreduce, allreduce_, allreduce_async, allreduce_async_,
+    barrier, broadcast, broadcast_, broadcast_async, broadcast_async_,
+    grouped_allgather, grouped_allreduce, grouped_allreduce_,
     grouped_allreduce_async, grouped_allreduce_async_, poll, synchronize)
 from horovod_tpu_torch.torch.optimizer import DistributedOptimizer
 
@@ -50,7 +53,8 @@ __all__ = [
     "BF16Compressor",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
-    "grouped_allreduce_async_", "broadcast", "broadcast_", "broadcast_async",
+    "grouped_allreduce_async_", "allgather", "allgather_async",
+    "grouped_allgather", "broadcast", "broadcast_", "broadcast_async",
     "broadcast_async_", "barrier", "poll", "synchronize",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
     "DistributedOptimizer", "HorovodInternalError", "check_extension",

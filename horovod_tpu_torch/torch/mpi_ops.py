@@ -2,9 +2,9 @@
 
 Port of the JAX package's ``torch/mpi_ops.py`` (reference:
 horovod/torch/mpi_ops.py sync + async wrappers, handles :1245-1283): the
-allreduce family with compression, the legacy ``average=`` flag and the
-in-place ``*_`` variants, the broadcast family, ``poll``, ``synchronize``
-and ``barrier``. Where the JAX frontend moves torch tensors through numpy
+allreduce family with compression (Adasum included), the legacy
+``average=`` flag and the in-place ``*_`` variants, allgather for tensors of
+one shape, the broadcast family, ``poll``, ``synchronize`` and ``barrier``. Where the JAX frontend moves torch tensors through numpy
 into XLA, the port keeps them on the device: an in-place allreduce is
 unpacked straight into the caller's tensor.
 """
@@ -17,6 +17,7 @@ from horovod_tpu_torch.ops.compression import Compression
 __all__ = ["allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
            "grouped_allreduce", "grouped_allreduce_",
            "grouped_allreduce_async", "grouped_allreduce_async_",
+           "allgather", "allgather_async", "grouped_allgather",
            "broadcast", "broadcast_", "broadcast_async", "broadcast_async_",
            "barrier", "poll", "synchronize",
            "Average", "Sum", "Adasum", "Min", "Max", "Product", "ReduceOp"]
@@ -161,6 +162,23 @@ def grouped_allreduce_(tensors, average=None, name=None, compression=None,
         tensors, average=average, name=name, compression=compression, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
         process_set=process_set)]
+
+
+def allgather(tensor, name=None, process_set=None):
+    """reference: hvd.allgather (torch/mpi_ops.py:655-712): every rank's
+    tensor concatenated along dim 0. The ranks' tensors must share one
+    shape; gathering ragged first dims is not ported yet."""
+    return C.allgather(tensor, process_set=process_set, name=name)
+
+
+def allgather_async(tensor, name=None, process_set=None):
+    return C.Handle(allgather(tensor, name=name, process_set=process_set),
+                    name)
+
+
+def grouped_allgather(tensors, name=None, process_set=None):
+    return [allgather(t, name=name, process_set=process_set)
+            for t in tensors]
 
 
 def broadcast(tensor, root_rank, name=None, process_set=None):

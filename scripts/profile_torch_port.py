@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Profile one of the PyTorch port's data-parallel training steps on one GPU.
 
-    python3 scripts/profile_torch_port.py [--model resnet50|gpt] [--seed 0]
-        [--batch N] [--steps 10] [--repeats 5] [--profile-steps 3]
+    python3 scripts/profile_torch_port.py [--model resnet50|gpt]
+        [--op average|adasum] [--seed 0] [--batch N] [--steps 10]
+        [--repeats 5] [--profile-steps 3]
 
 The steps are chip_smoke.py's, on cuda:0 after hvd.init():
 
 - ``resnet50`` (default batch 64): ResNet-50, bf16 activations, fp32
   parameters, a fixed synthetic batch, SGD(lr=0.1, momentum=0.9) in
-  hvd.DistributedOptimizer;
+  hvd.DistributedOptimizer; ``--op adasum`` reduces with op=hvd.Adasum
+  (chip_smoke.py's train_adasum: each bucket is packed, all-gathered,
+  combined by the Adasum tree, which on one rank has one leaf and runs no
+  combine, and unpacked);
 - ``gpt`` (default batch 8): GPT-2 small at full width, sequence 1024, bf16
   activations, fp32 parameters, the flash-attention kernels, next-token
   loss, AdamW(lr=1e-4, weight_decay=1e-4) in hvd.DistributedOptimizer.
@@ -68,6 +72,7 @@ KINDS = (
     ("flash_bwd_dq", ("fa_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("fa_bwd_dkv_kernel",)),
     ("scale_pack_unpack", ("scale_copy_kernel",)),
+    ("adasum_combine", ("adasum_partials_kernel", "adasum_apply_kernel")),
     ("nccl", ("nccl",)),
     ("layer_norm", ("layer_norm", "layernorm")),
     ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
@@ -125,7 +130,9 @@ def build_step(args, hvd, torch, dev):
                                    ids[:, 1:].flatten())
         items, unit = args.batch * args.seq, "tokens_per_sec"
     opt = hvd.DistributedOptimizer(opt,
-                                   named_parameters=model.named_parameters())
+                                   named_parameters=model.named_parameters(),
+                                   op=hvd.Adasum if args.op == "adasum"
+                                   else hvd.Average)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
@@ -140,6 +147,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("resnet50", "gpt"),
                     default="resnet50")
+    ap.add_argument("--op", choices=("average", "adasum"),
+                    default="average",
+                    help="the optimizer's reduction (adasum: resnet50 only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None,
                     help="64 images for resnet50, 8 sequences for gpt")
@@ -150,6 +160,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.batch is None:
         args.batch = 64 if args.model == "resnet50" else 8
+    if args.op == "adasum" and args.model != "resnet50":
+        ap.error("--op adasum profiles the resnet50 step")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -180,7 +192,8 @@ def main(argv=None):
               "step_ms": 1e3 * dt / args.steps})
     q1, med, q3 = statistics.quantiles(rates, n=4) if len(rates) > 1 \
         else (rates[0],) * 3
-    emit({"summary": unit, "model": args.model, "repeats": len(rates),
+    emit({"summary": unit, "model": args.model, "op": args.op,
+          "repeats": len(rates),
           "steps_each": args.steps, "median": statistics.median(rates),
           "q1": q1, "q3": q3, "min": min(rates), "max": max(rates)})
 
@@ -221,6 +234,8 @@ def main(argv=None):
           / 1e3 / n,
           "nccl_ms_per_step": sum(
               v for k, v in by_name.items() if "nccl" in k.lower()) / 1e3 / n,
+          "adasum_kernels_ms_per_step": by_kind.get("adasum_combine", 0.0)
+          / 1e3 / n,
           "top_kernels_ms_per_step": [
               [k[:90], v / 1e3 / n] for k, v in sorted(
                   by_name.items(), key=lambda kv: -kv[1])[:12]]})

@@ -11,13 +11,20 @@ rounding on both sides). The flash kernels within atol + rtol * |plain| of
 their plain versions: both compute in fp32 and round once, but sum in
 another order (~1e-6 relative in fp32), which can flip the final rounding:
 1e-4 relative in fp32, two ulps in bf16 and fp16. Fully masked rows must be
-exact zeros.
+exact zeros. The Adasum combine per segment within a share of the segment's
+largest plain value: 1e-5 in fp32 and float64 (the dot product and norms
+are summed in another order, which moves a coefficient by ~1e-6), two ulps
+at that value in bf16 and fp16 (one rounding that a coefficient can flip);
+its exact cases (b = a, 2a, -a; a zero; orthogonal a and b) bit-exact in
+fp32.
 """
 
 import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import adasum
+from horovod_tpu_torch.ops.kernels import adasum as ak
 from horovod_tpu_torch.ops.kernels import flash_attention as fa
 from horovod_tpu_torch.ops.kernels import scale_buffers as sb
 
@@ -199,3 +206,128 @@ def test_flash_refuses_an_unsupported_head_dim(dev):
     q = torch.randn(2, 16, 48, device=dev)
     with pytest.raises(ValueError, match="head dims"):
         fa.fa_forward(q, q, q, False, 1.0)
+
+
+ADASUM_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+ADASUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-5,
+              torch.bfloat16: 2 * 2.0 ** -7, torch.float16: 2 * 2.0 ** -10}
+# A bucket: empty, single and odd segments, one of exactly one block's
+# 4096 elements and one past it, and one past 1024 blocks (grid-stride).
+ADASUM_SEGMENTS = (0, 1, 7, 4096, 4097, 300_001, 4_194_305, 64 * 3 * 3 * 3)
+
+
+def _segment_errors(got, want, numels):
+    """max |got - want| / max |want| of each segment."""
+    errs, off = [], 0
+    for n in numels:
+        g, w = got[off:off + n].double(), want[off:off + n].double()
+        off += n
+        if n:
+            errs.append(((g - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30)).item())
+    return errs
+
+
+@pytest.mark.parametrize("dtype", ADASUM_DTYPES, ids=str)
+def test_adasum_kernel_matches_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    table = ak.segment_table(ADASUM_SEGMENTS, dev)
+    # Each segment at its own scale, so per-segment coefficients differ.
+    scale = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 2), device=dev)
+                       for i, n in enumerate(ADASUM_SEGMENTS)])
+    a, b = ((torch.randn(table.total, generator=g, device=dev) * scale)
+            .to(dtype) for _ in range(2))
+    got = torch.empty_like(a)
+    before = ak.launches
+    ak.combine_segments(a, b, got, table)
+    torch.cuda.synchronize()
+    assert ak.launches == before + 2
+    want = ak.combine_segments_reference(a, b, torch.empty_like(a), table)
+    errs = _segment_errors(got, want, ADASUM_SEGMENTS)
+    assert max(errs) <= ADASUM_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("case", ["zero_a", "b_is_a", "b_is_2a",
+                                  "b_is_minus_a", "orthogonal"])
+def test_adasum_kernel_exact_cases(dev, case):
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randn(300_001, generator=g, device=dev)
+    b = torch.randn(300_001, generator=g, device=dev)
+    want = {"zero_a": lambda: b, "b_is_a": lambda: a,
+            "b_is_2a": lambda: 1.5 * a, "b_is_minus_a": lambda: 0 * a,
+            "orthogonal": lambda: a + b}
+    if case == "zero_a":
+        a = torch.zeros_like(a)
+    elif case == "b_is_a":
+        b = a.clone()
+    elif case == "b_is_2a":
+        b = 2 * a
+    elif case == "b_is_minus_a":
+        b = -a
+    else:
+        a[150_000:] = 0
+        b[:150_000] = 0
+    out = adasum.adasum_combine(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want[case]())
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_adasum_reduce_gathered_launches_per_combine(dev, k):
+    g = torch.Generator(device=dev).manual_seed(k)
+    numels = ADASUM_SEGMENTS[:6]
+    gathered = torch.randn(k, sum(numels), generator=g, device=dev)
+    want = ak.reduce_gathered_reference(gathered, numels)
+    before = ak.launches
+    got = adasum.reduce_gathered(gathered, numels)
+    torch.cuda.synchronize()
+    assert ak.launches == before + 2 * (k - 1)
+    assert got.data_ptr() == gathered.data_ptr()       # in place, row 0
+    assert max(_segment_errors(got, want, numels)) <= 1e-5
+
+
+def test_cuda_adasum_never_reaches_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on CUDA tensors")
+    for name in ("adasum_combine_reference", "combine_segments_reference",
+                 "reduce_gathered_reference"):
+        monkeypatch.setattr(ak, name, refuse)
+    gathered = torch.randn(3, 1000, device=dev)
+    adasum.reduce_gathered(gathered, (600, 400))
+    adasum.adasum_combine(gathered[1], gathered[2])
+    torch.cuda.synchronize()
+
+
+def test_adasum_kernel_refuses_what_it_does_not_take(dev):
+    table = ak.segment_table((4, 2), dev)
+    ints = torch.ones(6, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ak.combine_segments(ints, ints, ints.clone(), table)
+    a = torch.ones(6, 2, device=dev)[:, 0]
+    with pytest.raises(ValueError):
+        ak.combine_segments(a, a, torch.empty(6, device=dev), table)
+
+
+def test_adasum_allreduce_on_the_card(dev):
+    """1-rank world over NCCL: an Adasum group lands in place through one
+    pack, one all-gather and one unpack; a tree of one leaf launches no
+    combine, and x * 1 is exact. float64 takes the unfused route."""
+    hvd.init()
+    try:
+        ts = _tensors(dev, torch.float32, 4)
+        want = [t.clone() for t in ts]
+        counts = (sb.pack_launches, sb.unpack_launches, ak.launches)
+        out = hvd.grouped_allreduce_(ts, op=hvd.Adasum)
+        x64 = torch.randn(33, dtype=torch.float64, device=dev)
+        y64 = hvd.allreduce(x64, op=hvd.Adasum)
+        torch.cuda.synchronize()
+        assert (sb.pack_launches - counts[0], sb.unpack_launches - counts[1],
+                ak.launches - counts[2]) == (1, 1, 0)
+        assert all(o is t for o, t in zip(out, ts))
+        assert all(torch.equal(t, w) for t, w in zip(ts, want))
+        assert torch.equal(y64, x64)
+        with pytest.raises(TypeError):
+            hvd.allreduce(torch.ones(3, dtype=torch.int32, device=dev),
+                          op=hvd.Adasum)
+    finally:
+        hvd.shutdown()

@@ -25,11 +25,12 @@ import numpy as np
 import optax
 import pytest
 import torch
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 import torch_port_helpers as helpers
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import resnet as jr
+from horovod_tpu.ops.collective_ops import Average
 from horovod_tpu.optim import DistributedOptimizer
 from horovod_tpu.parallel import TrainState, make_train_step
 from horovod_tpu_torch.models import resnet as tr
@@ -50,16 +51,19 @@ def data():
     model = jr.ResNet(stage_sizes=[1, 1, 1, 1],
                       block_cls=jr.BottleneckResNetBlock, num_classes=10,
                       num_filters=8, dtype=jnp.float32)
+    # Jitted: Flax's eager init of even this ResNet takes ~30 s on the CPU.
     variables = jax.tree_util.tree_map(
-        np.asarray, model.init(jax.random.PRNGKey(0), x[:1]))
+        np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), x[:1]))
     return model, variables, x, y
 
 
-@pytest.fixture(scope="module")
-def jax_run(data):
+def jax_trajectory(data, op=Average):
+    """``STEPS`` steps of ``make_train_step`` on a 2-device sub-mesh with
+    ``DistributedOptimizer(optax.sgd(LR, momentum=0.9), op=op)``: the losses,
+    and the parameters and momentum named as the port's ``state_dict()``."""
     model, variables, x, y = data
     mesh = Mesh(np.array(jax.devices()[:2]), (HVD_AXIS,))
-    opt = DistributedOptimizer(optax.sgd(LR, momentum=0.9))
+    opt = DistributedOptimizer(optax.sgd(LR, momentum=0.9), op=op)
 
     def loss_fn(params, batch, extra):
         logits, upd = model.apply({"params": params, "batch_stats": extra},
@@ -72,6 +76,9 @@ def jax_run(data):
     state = TrainState.create(
         jax.tree_util.tree_map(jnp.asarray, variables["params"]), opt,
         extra=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
+    # Replicated on the mesh, as the step returns it: a state on one device
+    # would make the second step compile again (~6 s).
+    state = jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
     losses = []
     for _ in range(STEPS):
         state, loss = step(state, {"x": jnp.asarray(x), "y": jnp.asarray(y)})
@@ -88,6 +95,11 @@ def jax_run(data):
             template, to_np(optax.tree_utils.tree_get(state.opt_state,
                                                       "trace")), stats),
     }
+
+
+@pytest.fixture(scope="module")
+def jax_run(data):
+    return jax_trajectory(data)
 
 
 @pytest.fixture(scope="module")

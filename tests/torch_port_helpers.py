@@ -3,7 +3,8 @@
 ``run_world(fn, size, args)`` starts ``size`` processes with the ``spawn``
 method, gives each the launcher's env contract (HOROVOD_RANK/SIZE/...,
 HOROVOD_COORDINATOR_ADDR/PORT), calls ``hvd.init(device="cpu")`` and returns
-``[fn(rank, size, *args) for each rank]``. The scenarios below run in those
+``[fn(rank, size, *args) for each rank]``; ``run_world_async`` does the
+same on a thread and returns a future. The scenarios below run in those
 processes: this module imports torch and the port only, never JAX, so a
 child starts in about a second.
 """
@@ -79,6 +80,16 @@ def run_world(fn, size=2, args=(), env=None, timeout=120.0):
     return [got[r] for r in range(size)]
 
 
+def run_world_async(fn, size=2, args=(), env=None, timeout=120.0):
+    """:func:`run_world` on a thread: returns a ``Future`` of its result, so
+    the caller can compute its JAX reference while the world runs."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run_world, fn, size, args, env, timeout)
+    pool.shutdown(wait=False)
+    return future
+
+
 def to_np(t):
     return t.detach().float().numpy()
 
@@ -96,7 +107,7 @@ def flax_as_torch_named(template, params, batch_stats):
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +187,63 @@ def collectives(rank, size, rows, cases, sizes):
 
 
 # ---------------------------------------------------------------------------
+# Adasum scenario: every case of test_torch_adasum_collectives in one world.
+# ---------------------------------------------------------------------------
+
+def adasum_collectives(rank, size, rows, cases, group_sizes):
+    """``rows``: (size, ...) fp32 inputs, this rank's row is its tensor.
+    ``cases``: (dtype, prescale, postscale) of single allreduces.
+    ``group_sizes``: element counts of a grouped allreduce."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    out = {}
+    for dt, pre, post in cases:
+        x = torch.from_numpy(rows[rank]).to(_DTYPES[dt])
+        y = hvd.allreduce(x, op=hvd.Adasum, prescale_factor=pre,
+                          postscale_factor=post)
+        out[("allreduce", dt, pre, post)] = (str(y.dtype),
+                                             y.double().numpy())
+
+    gen = np.random.default_rng(200 + rank)
+    ts = [torch.from_numpy(gen.standard_normal(n).astype(np.float32))
+          for n in group_sizes]
+    out["group_inputs"] = [to_np(t) for t in ts]
+    rt = get_runtime()
+    seen = len(rt.verified_signatures())
+    out["grouped"] = [to_np(t) for t in hvd.grouped_allreduce(
+        ts, op=hvd.Adasum, name="adasum_group")]
+    out["group_buckets"] = [[n for _, n in sig[-1]]
+                            for sig in rt.verified_signatures()[seen:]]
+    c = hvd.allreduce(ts[-1], op=hvd.Adasum, compression=hvd.Compression.fp16)
+    out["fp16_wire"] = (str(c.dtype), to_np(c))
+    try:
+        hvd.allreduce(torch.tensor([rank, 2]), op=hvd.Adasum)
+        out["int"] = None
+    except TypeError as e:
+        out["int"] = f"TypeError: {e}"
+
+    x = torch.from_numpy(rows[rank])
+    out["allgather"] = to_np(hvd.allgather(x))
+    out["allgather_async"] = to_np(hvd.allgather_async(x[0]).synchronize())
+    out["allgather_int"] = hvd.allgather(
+        torch.tensor([[rank, 10 * rank]])).tolist()
+    out["allgather_scalar"] = hvd.allgather(torch.tensor(rank + 0.5)).tolist()
+    out["grouped_allgather"] = [to_np(t) for t in hvd.grouped_allgather(
+        [x, x[:, :1]])]
+    try:
+        hvd.allgather(torch.ones(rank + 1))
+        out["ragged"] = None
+    except Exception as e:  # noqa: BLE001 — the error's type is the result
+        out["ragged"] = type(e).__name__
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Data-parallel slice: 3 steps of ResNet training through the optimizer.
 # ---------------------------------------------------------------------------
 
-def dp_resnet(rank, size, variables, x, y, steps, lr):
+def dp_resnet(rank, size, variables, x, y, steps, lr, op="Average"):
     import torch.nn.functional as F
 
     import horovod_tpu_torch as hvd
@@ -193,7 +257,8 @@ def dp_resnet(rank, size, variables, x, y, steps, lr):
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
     opt = hvd.DistributedOptimizer(opt,
-                                   named_parameters=model.named_parameters())
+                                   named_parameters=model.named_parameters(),
+                                   op=getattr(hvd, op))
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     shard = x.shape[0] // size
     xs = torch.from_numpy(x[rank * shard:(rank + 1) * shard])
