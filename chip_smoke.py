@@ -9,7 +9,9 @@ Phases, one JSON line each (each with its seconds):
 
 1. env: card, PyTorch, CUDA and nvcc versions. No CUDA device: exit 1.
 2. build: compile every kernel source with nvcc (one process per source,
-   all at once) into build/kernels/, timed.
+   all at once) into build/kernels/, timed; ptxas's registers and spills
+   of the tensor-core flash kernels beside their dynamic shared memory.
+   Checks: every instance reported, no spills at D = 64.
 3. kernel_vs_plain: each scale kernel against its plain PyTorch version on
    the card, on the gradient shapes of both main paths (ResNet-50's, and
    GPT-2 small's up to its 38.6M-element token table and lm_head) plus
@@ -35,8 +37,12 @@ Phases, one JSON line each (each with its seconds):
    every launch: fp32, bf16 and fp16; causal and not; head dims 16, 32, 64
    and 128 at the ragged length 197; Lq < Lk and Lq > Lk (causal, with fully
    masked rows that must be exact zeros); kv_valid < Lk; GQA with 12 query
-   heads over 4 kv heads; the main path's L = 1024, D = 64. The max abs
-   error of each case beside the tolerance it is held to.
+   heads over 4 kv heads; the main path's L = 1024, D = 64. fp32, and dQ
+   and lse in every dtype, within FLASH_TOL; the bf16/fp16 forward and
+   dK/dV, which round P and dS on the tensor cores, within the rounding
+   bound (c and u printed) of the plain versions that round where they do,
+   and a plain version with the causal diagonal off by one must fail that
+   bound. The max abs error and bound ratio of each case.
 7. train_gpt: the second main path. Launch counts are zeroed, then GPT-2
    small at full width (vocab 50304, 12 layers, 12 heads, hidden 768, bf16
    activations, fp32 parameters, flash attention, untied fp32 lm_head) on
@@ -55,7 +61,8 @@ Phases, one JSON line each (each with its seconds):
    (BH = 96, L = 1024, D = 64, bf16, causal), its plain version and
    torch's scaled_dot_product_attention (forward, and backward alone; for
    timing only, the port never calls it), CUDA events, median of repeats,
-   beside the least time the card could take.
+   beside the least time the card could take: achieved TFLOP/s and the
+   share of that bound for each.
 
 9. adasum_vs_plain: the Adasum combine kernel against its plain version on
    the card, synchronising after every launch: ResNet-50's 161 gradient
@@ -86,6 +93,7 @@ non-zero.
 """
 
 import argparse
+import ctypes
 import json
 import math
 import statistics
@@ -101,6 +109,13 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "horovod_tpu/ops/pallas/flash_attention.py:311",
     "flash_bwd_dkv": "horovod_tpu/ops/pallas/flash_attention.py:387",
 }
+# The flash kernels whose bf16/fp16 instances run on the tensor cores.
+REDESIGNED = dict.fromkeys(
+    ("flash_fwd", "flash_bwd_dkv"),
+    "redesigned: bf16/fp16 products on the tensor cores (mma.sync)")
+# Their entry points in the build log.
+MMA_KERNELS = {"flash_fwd": "fa_fwd_mma_kernel",
+               "flash_bwd_dkv": "fa_bwd_dkv_mma_kernel"}
 ADASUM_SOURCE = "horovod_tpu_torch/ops/kernels/csrc/adasum.cu"
 ADASUM_REPLACES = "horovod_tpu/ops/pallas/kernels.py:76"
 # Tolerance of the Adasum kernel against its plain version, by dtype, as a
@@ -122,6 +137,7 @@ ADASUM_RANKS = (4, 3)
 # rounding, so rtol is two ulps of the dtype (atol for values near zero).
 FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2),
              "float16": (2e-3, 2e-3)}
+SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 
 
 def emit(obj):
@@ -176,12 +192,39 @@ def phase_env(torch):
     return card
 
 
+def ptxas_rows(report, smem_bytes):
+    """ptxas's registers and spills for the tensor-core flash kernels, by
+    kernel, element type and head dim, beside their dynamic shared memory
+    ``smem_bytes(which, d)`` (ptxas counts only static shared memory)."""
+    import re
+    rows = []
+    for mangled, info in sorted(report.items()):
+        for which, (name, entry) in enumerate(MMA_KERNELS.items()):
+            m = re.search(entry + r"I(\w+?)Li(\d+)E", mangled)
+            if m:
+                d = int(m.group(2))
+                rows.append({"kernel": name, "dtype": "bfloat16" if "bfloat"
+                             in m.group(1) else "float16", "D": d,
+                             "dynamic_smem_bytes": smem_bytes(which, d),
+                             **info})
+    return rows
+
+
 def phase_build():
     from horovod_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     per_source = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source": per_source, "dir": str(_build.BUILD_DIR)})
+    seconds = time.perf_counter() - t0
+    smem = _build.load("flash_attention").hvd_flash_mma_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    ptxas = ptxas_rows(_build.ptxas_report("flash_attention"), smem)
+    emit({"phase": "build", "seconds": seconds, "per_source": per_source,
+          "dir": str(_build.BUILD_DIR), "ptxas_tensor_core_flash": ptxas})
+    check(len(ptxas) == 2 * 2 * 4, f"ptxas reports every tensor-core flash "
+          f"instance (2 kernels x 2 types x 4 head dims): {len(ptxas)}")
+    check(all(r.get("spill_stores", 0) == 0 == r.get("spill_loads", 0)
+              for r in ptxas if r["D"] == 64),
+          "no spills in the D = 64 tensor-core flash kernels")
 
 
 def phase_kernel_vs_plain(torch, shapes_by_path, dev, seed):
@@ -694,9 +737,15 @@ def flash_cases():
 
 
 def phase_flash_vs_plain(torch, dev, seed):
+    """Each flash kernel against its plain version on the card. fp32, and
+    dQ and lse in every dtype: FLASH_TOL against the fp32 plain versions.
+    bf16/fp16 forward and dK/dV: the rounding bound against the plain
+    versions that round P and dS where the kernels do; a plain version with
+    the causal diagonal off by one goes through the same check and must
+    fail it."""
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    rows, worst, main_err = [], {}, {}
+    rows, worst, main_err, ratios, controls = [], {}, {}, {}, []
     for case in flash_cases():
         dt, bh, lq, lk, d, causal, kv_valid, heads, kvh = case
         dtype = getattr(torch, dt)
@@ -721,19 +770,54 @@ def phase_flash_vs_plain(torch, dev, seed):
         ref = fa.block_bwd_reference(q, k, v, o, lse, do, causal, sm, None,
                                      kv_valid)
         atol, rtol = FLASH_TOL[dt]
-        errs = {}
-        for name, got, want, tol in (
-                ("flash_fwd", o, o_p, (atol, rtol)),
-                ("lse", lse, lse_p, (1e-4, 1e-5)),
-                ("flash_bwd_dq", grads[0], ref[0], (atol, rtol)),
-                ("flash_bwd_dk", grads[1], ref[1], (atol, rtol)),
-                ("flash_bwd_dv", grads[2], ref[2], (atol, rtol))):
+        errs, rounded = {}, dt != "float32"
+        tol_checks = [("lse", lse, lse_p, (1e-4, 1e-5)),
+                      ("flash_bwd_dq", grads[0], ref[0], (atol, rtol))]
+        if not rounded:
+            tol_checks += [("flash_fwd", o, o_p, (atol, rtol)),
+                           ("flash_bwd_dk", grads[1], ref[1], (atol, rtol)),
+                           ("flash_bwd_dv", grads[2], ref[2], (atol, rtol))]
+        for name, got, want, tol in tol_checks:
             diff = (got.float() - want.float()).abs()
             errs[name] = diff.max().item()
             bound = tol[0] + tol[1] * want.float().abs()
             check(bool((diff <= bound).all()),
                   f"{name} {case}: max abs err {errs[name]} beyond atol "
                   f"{tol[0]} + rtol {tol[1]}")
+        ratio = {}
+        if rounded:
+            o_r, _ = fa.block_fwd_reference(q, k, v, causal, sm, None,
+                                            kv_valid, round_p=dtype)
+            _, dk_r, dv_r = fa.block_bwd_reference(
+                q, k, v, o, lse, do, causal, sm, None, kv_valid,
+                round_p=dtype)
+            plain = {"o": o_r, "dk": dk_r, "dv": dv_r}
+            bounds = fa.rounding_bounds(plain, q, k, v, causal, sm, None,
+                                        kv_valid, o3=o, lse=lse, do3=do)
+            for name, key, got in (("flash_fwd", "o", o),
+                                   ("flash_bwd_dk", "dk", grads[1]),
+                                   ("flash_bwd_dv", "dv", grads[2])):
+                errs[name] = (got.float() - plain[key].float()).abs().max() \
+                    .item()
+                ratio[key] = fa.bound_ratio(got, plain[key], bounds[key])
+                check(ratio[key] <= 1.0, f"{name} {case}: {ratio[key]} of "
+                      f"the rounding bound")
+            if causal and lq == lk:
+                # The control: every row sees one key more than it may.
+                o_c, _ = fa.block_fwd_reference(q, k, v, causal, sm, 1,
+                                                kv_valid, round_p=dtype)
+                _, dk_c, dv_c = fa.block_bwd_reference(
+                    q, k, v, o, lse, do, causal, sm, 1, kv_valid,
+                    round_p=dtype)
+                ctl = {key: fa.bound_ratio(got, plain[key], bounds[key])
+                       for key, got in (("o", o_c), ("dk", dk_c),
+                                        ("dv", dv_c))}
+                controls.append([SHORT[dt], bh, lq, d] + [
+                    float(f"{ctl[key]:.3g}") for key in ("o", "dk", "dv")])
+                check(min(ctl.values()) > 1.0, f"the off-by-one diagonal "
+                      f"control {case} {ctl} is rejected by the bound")
+            for key, r in ratio.items():
+                ratios[key] = max(ratios.get(key, 0.0), r)
         if causal and lq - lk > 0:
             n = lq - lk           # rows that see no key at all
             check(bool((o[:, :n] == 0).all() and (grads[0][:, :n] == 0).all()),
@@ -743,24 +827,45 @@ def phase_flash_vs_plain(torch, dev, seed):
         for name, e in errs.items():
             worst[name] = max(worst.get(name, 0.0), e)
         if case == MAIN_FLASH_CASE:
-            main_err = dict(errs)
-        rows.append([dt[:4], bh, lq, lk, d, int(causal), kv_valid, heads,
+            main_err = dict(errs, bound_ratio=ratio)
+        rows.append([SHORT[dt], bh, lq, lk, d, int(causal), kv_valid, heads,
                      kvh] + [float(f"{errs[n]:.3g}") for n in
                              ("flash_fwd", "lse", "flash_bwd_dq",
-                              "flash_bwd_dkv")])
+                              "flash_bwd_dkv")]
+                    + [float(f"{ratio[key]:.3g}") if ratio else None
+                       for key in ("o", "dk", "dv")])
     check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
+    check(controls, "the off-by-one control ran")
     emit({"phase": "flash_vs_plain", "cases": len(rows),
           "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
                       "heads", "kv_heads", "err_o", "err_lse", "err_dq",
-                      "err_dkv"],
+                      "err_dkv", "bound_ratio_o", "bound_ratio_dk",
+                      "bound_ratio_dv"],
           "rows": rows, "max_abs_err": worst, "main_shape_err": main_err,
           "tolerance": {k: {"atol": a, "rtol": r}
                         for k, (a, r) in FLASH_TOL.items()},
           "lse_tolerance": {"atol": 1e-4, "rtol": 1e-5},
-          "reason": "kernel and plain both compute in fp32 and round once; "
-                    "they sum in another order (~1e-6 relative in fp32), "
-                    "which can flip the final rounding: two ulps of bf16 "
-                    "and fp16, 1e-4 relative in fp32",
+          "rounding_bound": {
+              "form": "|kernel - plain| <= 2 ulp(|plain|) + c (u |A||B| "
+                      "+ eta n)",
+              "c": fa.ROUNDING_C,
+              "u": {str(t).split(".")[-1]: u
+                    for t, u in fa.UNIT_ROUNDOFF.items()},
+              "eta": {str(t).split(".")[-1]: e
+                      for t, e in fa.SUBNORMAL_HALF_STEP.items()},
+              "worst_ratio": ratios},
+          "off_by_one_control": {"columns": ["dtype", "BH", "L", "D",
+                                             "ratio_o", "ratio_dk",
+                                             "ratio_dv"],
+                                 "rows": controls, "rejected": True},
+          "reason": "fp32, dQ and lse: kernel and plain both compute in "
+                    "fp32 and round once; they sum in another order (~1e-6 "
+                    "relative in fp32), which can flip the final rounding: "
+                    "two ulps of bf16 and fp16, 1e-4 relative in fp32. "
+                    "bf16/fp16 o, dK, dV: the tensor-core kernels round P "
+                    "and dS to the input type before the product; held to "
+                    "the plain versions that round at the same points, "
+                    "within one rounding of an operand on each side",
           "fully_masked_rows_exact_zero": True})
     return main_err
 
@@ -861,13 +966,20 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
 
 
 # Limits of one GPT step with flash attention against the same step on
-# plain attention (bf16 activations: plain attention rounds scores and
-# probabilities to bf16, the kernels keep them in fp32). Each sits between
-# the reading of that sound pair and the readings of two deliberately wrong
+# plain attention (bf16 activations: plain attention rounds its scores to
+# bf16 and its normalised probabilities; the bf16 kernels keep scores in
+# fp32 and round P, and dS, before a product). Each sits between the
+# reading of that sound pair and the readings of two deliberately wrong
 # controls, which these limits must reject (see gpt_flash_vs_plain). Read
-# on an NVIDIA H100 80GB HBM3 at 700 W, seed 0, as (loss_rel, grad_rel,
-# attn_cos): flash 6.3e-6, 1.1e-2 (lm_head), 0.9999948; not causal 0.175,
-# 1.15, 0.43; dK and dV swapped 6.3e-6, 1.41, 0.14.
+# on an NVIDIA H100 80GB HBM3 at 700 W as (loss_rel, grad_rel, attn_cos):
+# seed 0: flash 3.8e-5, 1.14e-2 (lm_head), 0.9999946; not causal 0.176,
+# 1.15, 0.43; dK and dV swapped 3.8e-5, 1.41, 0.14 (the swap leaves the
+# forward, so only the gradients reject it). Seed 1: flash 1.7e-6,
+# 1.16e-2, 0.9999938; not causal 0.191, 1.31, 0.35; swapped 1.7e-6, 1.41,
+# 0.15. The loss reading is not the kernels' rounding of P: the same step
+# through the plain flash versions reads 1.5e-5 (seed 0) and 6.3e-6 (seed
+# 1) rounding P as the kernels do, 3.4e-5 and 2.8e-6 in fp32, so it moves
+# with the weights and data more than with that rounding.
 GPT_CMP_LIMITS = {"loss_rel": 1e-4, "grad_rel": 3e-2, "attn_cos_min": 0.9999}
 
 
@@ -902,6 +1014,34 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
         finally:
             fa.fa_backward = raw
 
+    def plain_flash(rounding):
+        """fa_forward and fa_backward replaced by their plain versions on the
+        card, which round P (and dS) to the inputs' dtype where the bf16
+        kernels do, or keep them in fp32: to tell the kernels' rounding from
+        the rest of the difference to plain attention."""
+        @contextlib.contextmanager
+        def ctx():
+            raw = fa.fa_forward, fa.fa_backward
+
+            def fwd(q, k, v, causal, scale, q_offset=None, kv_valid=None,
+                    heads=None, kv_heads=None):
+                assert heads == kv_heads, "GPT-2 attention is not grouped"
+                return fa.block_fwd_reference(
+                    q, k, v, causal, scale, q_offset, kv_valid,
+                    round_p=q.dtype if rounding else None)
+
+            def bwd(q, k, v, o, lse, do, causal, scale, q_offset=None,
+                    kv_valid=None):
+                return fa.block_bwd_reference(
+                    q, k, v, o, lse, do, causal, scale, q_offset, kv_valid,
+                    round_p=q.dtype if rounding else None)
+            fa.fa_forward, fa.fa_backward = fwd, bwd
+            try:
+                yield
+            finally:
+                fa.fa_forward, fa.fa_backward = raw
+        return ctx
+
     def run(use_flash, causal=True, ctx=contextlib.nullcontext):
         with torch.device(dev):
             m = GPT(gpt_config(torch, use_flash))
@@ -917,7 +1057,7 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
     lp, gp = run(use_flash=False)
     attn = [n for n in gp if ".attention." in n]
 
-    def reading(lf, gf):
+    def reading(lf, gf, lp=lp, gp=gp):
         rel = {n: ((gf[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
                .item() for n in gp}
         worst = max(rel, key=rel.get)
@@ -933,12 +1073,24 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
                 and r["grad_rel"] <= GPT_CMP_LIMITS["grad_rel"]
                 and r["attn_cos"] >= GPT_CMP_LIMITS["attn_cos_min"])
 
-    flash = reading(*run(use_flash=True))
+    flash_run = run(use_flash=True)
+    flash = reading(*flash_run)
+    rounding_run = run(use_flash=True, ctx=plain_flash(True))
+    # Readings, not checks: where the difference to plain attention comes
+    # from. The same step through the plain flash versions, rounding as the
+    # kernels do and not, each against plain attention, and the kernels
+    # against the rounding one.
+    sources = {"plain_flash_rounding": reading(*rounding_run),
+               "plain_flash_fp32": reading(*run(use_flash=True,
+                                                ctx=plain_flash(False))),
+               "flash_vs_plain_flash_rounding": reading(*flash_run,
+                                                        *rounding_run)}
     controls = {"not_causal": reading(*run(use_flash=True, causal=False)),
                 "swapped_dkv": reading(*run(use_flash=True,
                                             ctx=swapped_dkv))}
     emit({"phase": "gpt_flash_vs_plain", "loss_plain": lp, "flash": flash,
-          "controls": controls, "limits": GPT_CMP_LIMITS,
+          "controls": controls, "sources": sources,
+          "limits": GPT_CMP_LIMITS,
           "attention_tensors": len(attn),
           "note": "grad_rel: |g_flash - g_plain| / |g_plain| of the worst "
                   "parameter; attn_cos: cosine of the attention weights' "
@@ -1010,7 +1162,8 @@ def phase_timing_flash(torch, dev, seed):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
             "library_ms": sdpa_fwd if name == "flash_fwd" else sdpa_bwd,
-            "tflops": flops / ms[name] / 1e9}
+            "tflops": flops / ms[name] / 1e9,
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms[name]}
         if name != "flash_fwd":
             rows[name]["plain_and_library_cover"] = (
                 "dq, dk and dv in one call, the same time for flash_bwd_dq "
@@ -1020,9 +1173,14 @@ def phase_timing_flash(torch, dev, seed):
                                              "causal": True},
           "kernels": rows, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
           "sdpa_fwd_bwd_ms": sdpa_fwd + sdpa_bwd,
+          "sdpa_fwd_tflops": work["flash_fwd"][0] / sdpa_fwd / 1e9,
+          "sdpa_bwd_tflops": (work["flash_bwd_dq"][0]
+                              + work["flash_bwd_dkv"][0]) / sdpa_bwd / 1e9,
           "note": "ms: CUDA events, median of 20 runs of 5 back-to-back "
                   "launches (forward through fa_forward, the backward "
-                  "kernels launched directly); plain_ms of both backward "
+                  "kernels launched directly); tflops: the visible pairs' "
+                  "operations over ms; bound_share: bound_ms / ms; "
+                  "plain_ms of both backward "
                   "kernels is the plain backward, which computes dq, dk and "
                   "dv together; library: scaled_dot_product_attention "
                   "(is_causal) forward, and its backward alone, timed here "
@@ -1125,6 +1283,7 @@ def main(argv=None):
     kernels += [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "replaces": FLASH_REPLACES[name], "launches": gpt_launches[name],
+         **({"status": REDESIGNED[name]} if name in REDESIGNED else {}),
          "checked_vs_plain": True, "max_abs_err": flash_err[name],
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>.<digest>.so`` at the
 root of the checkout, where ``digest`` hashes the sources and the flags, so an
 edited source never loads a stale library. A source is compiled the first
 time its kernel is needed; :func:`build` compiles several at once, one nvcc
-process per source, all started together. A failed build raises.
+process per source, all started together. A failed build raises. nvcc runs
+with ``-Xptxas -v``: each kernel's registers, shared memory and spills go to
+``lib<name>.<digest>.log`` beside the library (:func:`ptxas_report`).
 
 Nothing here runs at import: the CPU tier imports every module and has no
 nvcc.
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +25,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("scale_buffers", "flash_attention", "adasum")
 
 _lock = threading.Lock()
@@ -78,10 +81,35 @@ def build(names=SOURCES):
             errors.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
                           f"\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
     if errors:
         raise KernelBuildError("\n".join(errors))
     return seconds
+
+
+_PTXAS_FIELDS = {"registers": "registers", "bytes smem": "smem_bytes",
+                 "bytes stack frame": "stack_bytes",
+                 "bytes spill stores": "spill_stores",
+                 "bytes spill loads": "spill_loads"}
+
+
+def ptxas_report(name):
+    """{mangled kernel name: {"registers", "smem_bytes", "stack_bytes",
+    "spill_stores", "spill_loads"}} from the build log of
+    ``csrc/<name>.cu``; ptxas counts static shared memory only."""
+    log = library_path(name).with_suffix(".log").read_text()
+    numbers = re.compile(r"(\d+) (" + "|".join(_PTXAS_FIELDS) + ")")
+    report, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            kernel = report.setdefault(m.group(1), {})
+        elif kernel is not None:
+            kernel.update((_PTXAS_FIELDS[k], int(v))
+                          for v, k in numbers.findall(line))
+    return report
 
 
 def load(name):

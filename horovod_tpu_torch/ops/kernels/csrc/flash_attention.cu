@@ -2,22 +2,24 @@
 //
 // Replaces the TPU kernels of horovod_tpu/ops/pallas/flash_attention.py:
 //
-//   _fa_kernel          (forward, via _fa_forward)   -> fa_fwd_kernel
-//   _fa_bwd_dq_kernel   (dQ pass, via _fa_backward)  -> fa_bwd_dq_kernel
-//   _fa_bwd_dkv_kernel  (dK/dV pass, via _fa_backward) -> fa_bwd_dkv_kernel
+//   _fa_kernel          (forward, via _fa_forward)     -> fa_fwd_mma_kernel (bf16, fp16),
+//                                                         fa_fwd_kernel (fp32)
+//   _fa_bwd_dq_kernel   (dQ pass, via _fa_backward)    -> fa_bwd_dq_kernel
+//   _fa_bwd_dkv_kernel  (dK/dV pass, via _fa_backward) -> fa_bwd_dkv_mma_kernel (bf16, fp16),
+//                                                         fa_bwd_dkv_kernel (fp32)
 //
 // Contract (the Pallas kernels' and the plain versions' in flash_attention.py):
 // q (BH, Lq, D); k, v (BHkv, Lk, D); end-aligned causal (query row i sees keys
 // <= i + q_offset); keys at or past kv_valid are masked; masked scores are
 // -1e30 and p is zeroed where s <= -1e30 / 2, so a fully masked row gives a
 // zero output and zero gradients; lse = m + log(max(l, 1e-30)) is fp32; the
-// outputs are in the inputs' type. Inputs are read into fp32 and all
-// arithmetic (scores, running max and sum, accumulators) is fp32, as in the
-// Pallas kernels. The forward reads grouped K/V through the row map
-// (b / heads) * kv_heads + (b % heads) / (heads / kv_heads), with no
-// broadcast; the backward takes MHA shapes (the wrapper broadcasts K/V).
+// outputs are in the inputs' type; head dims 16, 32, 64 and 128. Scores,
+// running max and sum and every accumulator are fp32. The forward reads
+// grouped K/V through the row map (b / heads) * kv_heads + (b % heads) /
+// (heads / kv_heads), with no broadcast; the backward takes MHA shapes (the
+// wrapper broadcasts K/V).
 //
-// Design. On the TPU the grid runs in order, and each kernel carries its
+// Grid. On the TPU the grid runs in order, and each kernel carries its
 // running state (m, l, acc; dq; dk, dv) in VMEM scratch across the innermost
 // chunk axis. Hopper's blocks run in any order, so here each block owns one
 // output tile and a loop inside the block replaces that axis:
@@ -25,27 +27,52 @@
 //   forward, dQ: a block per (row b, 64-query tile), looping over key tiles;
 //   dK/dV:       a block per (row b, 64-key tile), looping over query tiles.
 //
-// Every output is written by exactly one block, so no atomics are needed.
-// Tiles are 64 x 64 in fp32 shared memory (rows padded by one float, which
-// keeps the column walks free of bank conflicts); 256 threads as 16 x 16,
-// each holding a 4 x 4 block of the score tile and 4 rows x D/16 columns of
-// its accumulators in registers; row reductions are shuffles within a
-// half-warp. Tiles past the causal diagonal or past kv_valid are skipped (the
-// clipped trip counts of the Pallas kernels), and the ragged last tile of any
-// length is masked here, so no padded copy is made. Causal forward and dQ
-// launch their heaviest query tiles first.
+// Every output is written by exactly one block: no atomics, and reruns are
+// bit-identical. Tiles past the causal diagonal or past kv_valid are skipped
+// (the clipped trip counts of the Pallas kernels); only the diagonal tiles
+// and the ragged ones are masked, and the ragged last tile of any length is
+// masked here, so no padded copy is made. The heaviest tiles launch first.
 //
-// Bound on this card. At the GPT-2-small shapes (BH = 96, L = 1024, D = 64,
-// bf16, causal) the three kernels sit near the ~295 flop/byte balance point
-// of bf16 tensor cores (989 TFLOP/s) and HBM (3.35 TB/s): the forward does
-// 4 * D * L(L+1)/2 * BH = 12.9 GFLOP on 50 MB (13 us of operations, 15 us of
-// bytes), dQ 19.3 GFLOP on 64 MB, dK/dV 25.8 GFLOP on 76 MB (operations).
-// What bounds these kernels is their own arithmetic: the products run on
-// the CUDA cores in fp32 (67 TFLOP/s at most), not on the tensor cores.
-// What the simple design leaves for later: mma/wgmma with bf16 operands,
-// tiles loaded by TMA or cp.async into a double-buffered ring instead of by
-// the threads that compute on them, and a larger register micro-tile (each
-// 4 x 4 one reads two shared-memory words per two FMAs).
+// bf16 and fp16: the tensor-core kernels. At GPT-2 small's shape (BH = 96,
+// L = 1024, D = 64, causal) the forward does 4 * D * L(L+1)/2 * BH = 12.9
+// GFLOP on 50 MB and dK/dV 25.8 GFLOP on 76 MB: near the ~295 flop/byte
+// balance point of the bf16 tensor cores (989 TFLOP/s) and HBM (3.35 TB/s),
+// the forward bound by bytes (15 us against 13 us of operations), dK/dV by
+// operations (26 us). The SIMT kernels they replace ran their products on
+// the CUDA cores in fp32 (67 TFLOP/s at most), so what bounded them was
+// their own arithmetic. The design:
+//
+//   - Products are mma.sync.m16n8k16 with bf16/fp16 operands and fp32
+//     accumulators, fed by ldmatrix from shared memory (ldmatrix.trans where
+//     an operand is read along its other axis: V in P.V, Q and dO in
+//     dK = dS^T Q and dV = P^T dO). The fp32 accumulator fragment of a score
+//     tile is rounded in registers into the A fragment of the next product,
+//     so P and dS never go through shared memory. This is where these
+//     kernels round P (and dS) to the input type, as FlashAttention does;
+//     the plain versions do so too when asked (round_p).
+//   - 4 warps, 16 rows each. Forward: 16 query rows a warp, 64-key tiles;
+//     row max and sum are quad shuffles over the accumulator layout;
+//     sm_scale * log2(e) is one multiply and the exponent is exp2f. dK/dV:
+//     16 key rows a warp; it computes S^T = K Q^T and dP^T = V dO^T, so key
+//     rows are the accumulator rows, and reads lse and delta per column
+//     from shared memory; 64-query tiles (32 at D = 128, for registers).
+//   - K/V tiles (forward) and Q/dO/lse/delta tiles (dK/dV) go through
+//     cp.async into a two-stage ring: tile t + 1 is in flight while tile t
+//     computes. Rows past the end are zero-filled (src-size 0). Tiles stay
+//     in the input type, rows padded by 16 bytes, so ldmatrix's eight
+//     16-byte rows fall in distinct banks at every head dim.
+//
+// What bounds them next: every warp reads all of a K/V (or Q/dO) tile from
+// shared memory per tile, and at D = 64 one exp2 per visible pair on the SFU
+// (16 a clock per SM) takes about as long as the tensor-core bound of the
+// products. wgmma with TMA loads and warp-specialised ping-pong that hides
+// the exp2 behind the other warpgroup's products are what is left.
+//
+// fp32: the SIMT kernels, unchanged: inputs read into padded fp32 shared
+// tiles, 256 threads as 16 x 16, each a 4 x 4 block of the score tile and 4
+// rows x D/16 columns of its accumulators, half-warp shuffles for the row
+// reductions. TF32 would change the numbers fp32 callers are held to. The dQ
+// kernel is this SIMT kernel for every type.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() after its launch (or the error of its setup).
@@ -53,6 +80,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <tuple>
 #include <type_traits>
 
 #include "cvt.cuh"
@@ -365,6 +393,459 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernels (bf16, fp16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+// 4 bytes (an fp32 lse or delta: rows of any length are only 4-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16) * b (16 x 8), in the m16n8k16 fragment layouts:
+// lane l holds c rows l / 4 and l / 4 + 8, columns 2 (l % 4) and 2 (l % 4) + 1.
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  __device__ static void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // Two fp32 values rounded (to nearest) into one register, lo in the low half.
+  __device__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+
+template <>
+struct Mma<__half> {
+  __device__ static void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+
+// Shared-memory row stride of a D-wide tile, in elements: 16 bytes of pad.
+template <int D>
+__host__ __device__ constexpr int row_stride() { return D + 8; }
+
+// Rows [r0, r0 + R) of a (n, D) matrix into a shared tile (row stride D + 8)
+// by 16-byte cp.async; rows at or past n are zero-filled. Needs r0 < n.
+template <typename T, int R, int D>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src, int r0,
+                                                int n) {
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // per row
+  static_assert(R * kChunks % kMmaThreads == 0, "tile does not split over the threads");
+#pragma unroll
+  for (int i = 0; i < R * kChunks / kMmaThreads; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int r = idx / kChunks, c = (idx % kChunks) * (16 / static_cast<int>(sizeof(T)));
+    const bool ok = r0 + r < n;
+    cp_async16(smem_u32(dst + r * row_stride<D>() + c),
+               src + static_cast<int64_t>(ok ? r0 + r : r0) * D + c, ok);
+  }
+}
+
+// The A fragments (16 rows x 16 columns at col0) of a row-major shared tile.
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const T* tile, int row0, int col0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, smem_u32(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row_stride<D>() +
+                      col0 + (lane >> 4) * 8));
+}
+
+// B fragments of two n8 tiles (n0 .. n0 + 15) over k0 .. k0 + 15, from a
+// shared tile stored n-major (row n holds B[k][n] along k): b[0], b[1] for
+// columns n0 .. n0 + 7, b[2], b[3] for n0 + 8 .. n0 + 15.
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const T* tile, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, smem_u32(tile + (n0 + (lane & 7) + (lane >> 4) * 8) * row_stride<D>() + k0 +
+                      ((lane >> 3) & 1) * 8));
+}
+
+// The same fragments from a shared tile stored k-major (row k holds B[k][n]
+// along n): ldmatrix.trans.
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_b_trans(uint32_t (&b)[4], const T* tile, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(b, smem_u32(tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row_stride<D>() +
+                            n0 + (lane >> 4) * 8));
+}
+
+// Quad reductions: the four lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr int kFwdBq = 64;  // query rows of a forward block (4 warps x 16)
+constexpr int kFwdBk = 64;  // keys of a forward tile
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+fa_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ o, float* __restrict__ lse, int lq, int lk, int q_offset,
+                  int kv_valid, int causal, float sm_scale, int heads, int kv_heads) {
+  constexpr int kS = row_stride<D>(), kNT = kFwdBk / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + kFwdBq * kS;      // two stages
+  T* v_s = k_s + 2 * kFwdBk * kS;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBq;
+  const int64_t kvh = static_cast<int64_t>(bh / heads) * kv_heads + (bh % heads) / (heads / kv_heads);
+  const T* kb = k + kvh * lk * D;
+  const T* vb = v + kvh * lk * D;
+  const int kv_end = min(lk, kv_valid);
+  const int stop = key_stop(q0, lq, lk, q_offset, kv_valid, causal);
+  const int n_kt = stop > 0 ? (stop + kFwdBk - 1) / kFwdBk : 0;
+  const float scale2 = sm_scale * kLog2e;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);  // rows row_lo and row_lo + 8
+
+  if (n_kt > 0) {
+    load_tile_async<T, kFwdBq, D>(q_s, q + static_cast<int64_t>(bh) * lq * D, q0, lq);
+    load_tile_async<T, kFwdBk, D>(k_s, kb, 0, lk);
+    load_tile_async<T, kFwdBk, D>(v_s, vb, 0, lk);
+  }
+  cp_async_commit();
+
+  float acc[D / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qf[D / 16][4];
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {  // the next tile flies while this one computes
+      load_tile_async<T, kFwdBk, D>(k_s + (st ^ 1) * kFwdBk * kS, kb, (kt + 1) * kFwdBk, lk);
+      load_tile_async<T, kFwdBk, D>(v_s + (st ^ 1) * kFwdBk * kS, vb, (kt + 1) * kFwdBk, lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest has landed: this tile
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) ldsm_a<D>(qf[kk], q_s, warp * 16, kk * 16);
+    }
+    const T* ks = k_s + st * kFwdBk * kS;
+    const T* vs = v_s + st * kFwdBk * kS;
+
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < kNT / 2; ++nn) {
+        uint32_t b[4];
+        ldsm_b<D>(b, ks, nn * 16, kk * 16);
+        Mma<T>::run(s[2 * nn], qf[kk], b[0], b[1]);
+        Mma<T>::run(s[2 * nn + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    const int k0 = kt * kFwdBk;
+    const bool masked = k0 + kFwdBk > kv_end || (causal && k0 + kFwdBk - 1 > q0 + q_offset);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int last = row_lo + 8 * h + q_offset;  // this row's last visible key
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * h + e] * scale2;
+          if (masked) {
+            const int key = k0 + 8 * j + 2 * (lane & 3) + e;
+            if (key >= kv_end || (causal && key > last)) x = kNegInf;
+          }
+          s[j][2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      const float m_new = fmaxf(m[h], quad_max(mx));
+      const float corr = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * h + e];
+          const float p = !masked || x > 0.5f * kNegInf ? exp2f(x - m_new) : 0.f;
+          s[j][2 * h + e] = p;
+          rs += p;
+        }
+      }
+      l[h] = l[h] * corr + rs;  // this lane's share; summed over the quad at the end
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * h] *= corr;
+        acc[j][2 * h + 1] *= corr;
+      }
+    }
+
+    // O += P V: P's accumulator fragments are the A fragments, rounded to T.
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldsm_b_trans<D>(b, vs, kk * 16, dn * 16);
+        Mma<T>::run(acc[2 * dn], a, b[0], b[1]);
+        Mma<T>::run(acc[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the load issued next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_lo + 8 * h;
+    const float ls = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (r < lq) {
+      const float inv = 1.f / ls;
+      T* orow = o + (static_cast<int64_t>(bh) * lq + r) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            Mma<T>::pack(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      }
+      if ((lane & 3) == 0) {
+        const float mn = m[h] > 0.5f * kNegInf ? m[h] * kLn2 : kNegInf;
+        lse[static_cast<int64_t>(bh) * lq + r] = mn + logf(ls);
+      }
+    }
+  }
+}
+
+constexpr int kDkvBk = 64;  // key rows of a dK/dV block (4 warps x 16)
+
+// Query rows of a dK/dV tile: 32 at D = 128 keeps the accumulators in registers.
+template <int D>
+__host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+fa_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int lq, int lk, int q_offset, int kv_valid, int causal, float sm_scale) {
+  constexpr int kS = row_stride<D>(), kBq = dkv_bq<D>(), kNT = kBq / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + kDkvBk * kS;
+  T* q_s = v_s + kDkvBk * kS;      // two stages
+  T* do_s = q_s + 2 * kBq * kS;    // two stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBq * kS);  // two stages
+  float* dl_s = lse_s + 2 * kBq;                                 // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kDkvBk;  // low key tiles see the most queries: first
+  const int64_t qrow = static_cast<int64_t>(bh) * lq;
+  const int64_t krow = static_cast<int64_t>(bh) * lk;
+  const int kv_end = min(lk, kv_valid);
+  const float scale2 = sm_scale * kLog2e;
+  const int key_lo = k0 + warp * 16 + (lane >> 2);  // keys key_lo and key_lo + 8
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  }
+
+  // Q, dO, lse and delta of query tile qt into ring stage st.
+  auto load_q_tile = [&](int qt, int st) {
+    const int q0 = qt * kBq;
+    load_tile_async<T, kBq, D>(q_s + st * kBq * kS, q + qrow * D, q0, lq);
+    load_tile_async<T, kBq, D>(do_s + st * kBq * kS, dout + qrow * D, q0, lq);
+    for (int i = threadIdx.x; i < 2 * kBq; i += kMmaThreads) {
+      const int c = i % kBq;
+      const bool ok = q0 + c < lq;
+      const float* src = (i < kBq ? lse : delta) + qrow + (ok ? q0 + c : 0);
+      cp_async4(smem_u32((i < kBq ? lse_s : dl_s) + st * kBq + c), src, ok);
+    }
+  };
+
+  if (k0 < kv_end) {  // a key tile wholly past kv_valid gets zero gradients
+    int t0 = 0;       // first query tile that sees this key tile
+    if (causal && k0 - q_offset > 0) t0 = (k0 - q_offset) / kBq;
+    const int n_qt = (lq + kBq - 1) / kBq;
+    if (t0 < n_qt) {
+      load_tile_async<T, kDkvBk, D>(k_s, k + krow * D, k0, lk);
+      load_tile_async<T, kDkvBk, D>(v_s, v + krow * D, k0, lk);
+      load_q_tile(t0, 0);
+    }
+    cp_async_commit();
+    for (int qt = t0; qt < n_qt; ++qt) {
+      const int st = (qt - t0) & 1;
+      if (qt + 1 < n_qt) load_q_tile(qt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const T* qs = q_s + st * kBq * kS;
+      const T* dos = do_s + st * kBq * kS;
+      const float* lse_t = lse_s + st * kBq;
+      const float* dl_t = dl_s + st * kBq;
+      const int q0 = qt * kBq;
+
+      // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys.
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_a<D>(ka, k_s, warp * 16, kk * 16);
+        ldsm_a<D>(va, v_s, warp * 16, kk * 16);
+#pragma unroll
+        for (int nn = 0; nn < kNT / 2; ++nn) {
+          uint32_t b[4];
+          ldsm_b<D>(b, qs, nn * 16, kk * 16);
+          Mma<T>::run(s[2 * nn], ka, b[0], b[1]);
+          Mma<T>::run(s[2 * nn + 1], ka, b[2], b[3]);
+          ldsm_b<D>(b, dos, nn * 16, kk * 16);
+          Mma<T>::run(dp[2 * nn], va, b[0], b[1]);
+          Mma<T>::run(dp[2 * nn + 1], va, b[2], b[3]);
+        }
+      }
+
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale, per
+      // column; s and dp are overwritten with them.
+      const bool masked = k0 + kDkvBk > kv_end || q0 + kBq > lq ||
+                          (causal && q0 + q_offset < k0 + kDkvBk - 1);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * (lane & 3) + (e & 1);  // query column in the tile
+          const int key = key_lo + 8 * (e >> 1);
+          bool ok = true;
+          if (masked) {
+            ok = key < kv_end && q0 + c < lq && !(causal && key > q0 + c + q_offset);
+          }
+          const float p = ok ? exp2f(s[j][e] * scale2 - lse_t[c] * kLog2e) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl_t[c]) * sm_scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: the accumulators, rounded to T, are
+      // the A fragments; dO and Q are read along their other axis.
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        const uint32_t pa[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+                                Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+                                Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t da[4] = {Mma<T>::pack(dp[2 * kk][0], dp[2 * kk][1]),
+                                Mma<T>::pack(dp[2 * kk][2], dp[2 * kk][3]),
+                                Mma<T>::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                Mma<T>::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t b[4];
+          ldsm_b_trans<D>(b, dos, kk * 16, dn * 16);
+          Mma<T>::run(dv_acc[2 * dn], pa, b[0], b[1]);
+          Mma<T>::run(dv_acc[2 * dn + 1], pa, b[2], b[3]);
+          ldsm_b_trans<D>(b, qs, kk * 16, dn * 16);
+          Mma<T>::run(dk_acc[2 * dn], da, b[0], b[1]);
+          Mma<T>::run(dk_acc[2 * dn + 1], da, b[2], b[3]);
+        }
+      }
+      __syncthreads();  // this stage is free for the load issued next iteration
+    }
+    cp_async_wait<0>();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = key_lo + 8 * h;
+    if (r < lk) {
+      const int64_t off = (krow + r) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+            Mma<T>::pack(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            Mma<T>::pack(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+constexpr size_t fwd_mma_smem() { return (kFwdBq + 4 * kFwdBk) * row_stride<D>() * sizeof(T); }
+template <typename T, int D>
+constexpr size_t dkv_mma_smem() {
+  return (2 * kDkvBk + 4 * dkv_bq<D>()) * row_stride<D>() * sizeof(T) +
+         4 * dkv_bq<D>() * sizeof(float);
+}
+
 template <int D>
 constexpr size_t fwd_smem() { return (3 * kTile * (D + 1) + kTile * kSS) * sizeof(float); }
 template <int D>
@@ -380,10 +861,20 @@ bool bad_shape(int bh, int lq, int lk) {
   return bh <= 0 || lq <= 0 || lk < 0 || tiles(lq) > 65535 || tiles(lk) > 65535;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Raises the kernel's dynamic shared memory limit, launches it on the stream
+// with the arguments of the tuple, and returns cudaGetLastError().
+template <typename K, typename... A>
+int launch(K kernel, dim3 grid, int threads, size_t smem, void* stream,
+           const std::tuple<A...>& args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::apply(
+      [&](auto... a) {
+        kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a...);
+      },
+      args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -429,15 +920,17 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value;
-    const size_t smem = fwd_smem<D>();
-    cudaError_t err = allow_smem(fa_fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_fwd_kernel<T, D><<<dim3(bh, tiles(lq)), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+    const auto args = std::make_tuple(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), lq, lk, q_offset, kv_valid, causal,
         sm_scale, heads, kv_heads);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<T, float>::value) {
+      return launch(fa_fwd_kernel<T, D>, dim3(bh, tiles(lq)), kThreads, fwd_smem<D>(), stream,
+                    args);
+    } else {
+      return launch(fa_fwd_mma_kernel<T, D>, dim3(bh, tiles(lq)), kMmaThreads,
+                    fwd_mma_smem<T, D>(), stream, args);
+    }
   });
 }
 
@@ -450,16 +943,12 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value;
-    const size_t smem = dq_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dq_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dq_kernel<T, D><<<dim3(bh, tiles(lq)), kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dq), lq, lk, q_offset, kv_valid,
-        causal, sm_scale);
-    return static_cast<int>(cudaGetLastError());
+    return launch(fa_bwd_dq_kernel<T, D>, dim3(bh, tiles(lq)), kThreads, dq_smem<D>(), stream,
+                  std::make_tuple(static_cast<const T*>(q), static_cast<const T*>(k),
+                                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                                  static_cast<const float*>(lse),
+                                  static_cast<const float*>(delta), static_cast<T*>(dq), lq,
+                                  lk, q_offset, kv_valid, causal, sm_scale));
   });
 }
 
@@ -472,16 +961,29 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value;
-    const size_t smem = dkv_smem<D>();
-    cudaError_t err = allow_smem(fa_bwd_dkv_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dkv_kernel<T, D><<<dim3(bh, tiles(lk)), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+    const auto args = std::make_tuple(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), lq, lk,
         q_offset, kv_valid, causal, sm_scale);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<T, float>::value) {
+      return launch(fa_bwd_dkv_kernel<T, D>, dim3(bh, tiles(lk)), kThreads, dkv_smem<D>(),
+                    stream, args);
+    } else {
+      return launch(fa_bwd_dkv_mma_kernel<T, D>, dim3(bh, tiles(lk)), kMmaThreads,
+                    dkv_mma_smem<T, D>(), stream, args);
+    }
+  });
+}
+
+// Dynamic shared memory (bytes) of the bf16/fp16 forward (which = 0) or
+// dK/dV (which = 1) kernel at head dim d; -1 for another head dim.
+int hvd_flash_mma_smem(int which, int d) {
+  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+  return dispatch_d<__nv_bfloat16>(d, [&](auto t, auto dd) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(dd)::value;
+    return static_cast<int>(which == 0 ? fwd_mma_smem<T, D>() : dkv_mma_smem<T, D>());
   });
 }
 

@@ -16,6 +16,14 @@ end-aligned causal with ``q_offset = Lk - Lq`` unless given; keys at or past
 gives a zero output and zero gradients; lse is fp32; outputs are in the
 inputs' dtype.
 
+Numbers. In fp32 the kernels compute as the plain versions do, in fp32
+throughout. In bf16 and fp16 the forward and dK/dV kernels run their
+products on the tensor cores and, as FlashAttention does, round P (and dS)
+to the inputs' dtype before the product; the plain versions keep P in fp32
+(as JAX does) unless asked to round where the kernels do (``round_p``). The
+two are held to :func:`rounding_bounds`, which follows from one rounding of
+an operand on each side. The dQ kernel keeps fp32 throughout.
+
 Entry points:
 
 - :func:`fa_forward` / :func:`fa_backward`: the raw ``(o, lse)`` forward and
@@ -85,37 +93,132 @@ def _mask(s, causal, q_offset, kv_valid):
     return s.masked_fill(~ok, NEG_INF)
 
 
-def block_fwd_reference(q3, k3, v3, causal, scale, q_offset=None,
-                        kv_valid=None):
-    """Plain forward on (BH, L, D): returns (o, lse), with the kernel's
-    contract."""
+def _rounded(x, dtype):
+    """``x`` rounded to ``dtype`` and read back as fp32; as it is when
+    ``dtype`` is None."""
+    return x if dtype is None else x.to(dtype).float()
+
+
+def _probs(q3, k3, causal, scale, q_offset, kv_valid, lse=None):
+    """(visible, p, m) of the scores: p = exp(s - m) with m the row max (the
+    forward), or exp(s - lse) against a given lse (the backward, m None);
+    p is zero where a score is masked. A fully masked row has lse ~ NEG_INF,
+    where exp(s - lse) would not vanish: the zeros are explicit, as in the
+    kernels."""
     s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
     s = _mask(s, causal, q_offset, kv_valid)
-    m = s.amax(dim=-1)
-    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m[..., None]), 0.0)
+    ok = s > NEG_INF * 0.5
+    m = s.amax(dim=-1) if lse is None else None
+    p = torch.where(ok, torch.exp(s - (m if lse is None else lse)[..., None]),
+                    0.0)
+    return ok, p, m
+
+
+def block_fwd_reference(q3, k3, v3, causal, scale, q_offset=None,
+                        kv_valid=None, round_p=None):
+    """Plain forward on (BH, L, D): returns (o, lse), with the kernel's
+    contract. ``round_p`` (a dtype) rounds P to it before P V, as the bf16
+    and fp16 kernels do; the row sum l stays fp32. None keeps P in fp32, as
+    JAX's ``_jnp_block_fwd`` does."""
+    _, p, m = _probs(q3, k3, causal, scale, q_offset, kv_valid)
     l = p.sum(dim=-1).clamp_min(1e-30)
-    o = torch.einsum("bqk,bkd->bqd", p, v3.float()) / l[..., None]
+    o = torch.einsum("bqk,bkd->bqd", _rounded(p, round_p),
+                     v3.float()) / l[..., None]
     return o.to(q3.dtype), m + torch.log(l)
 
 
 def block_bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
-                        q_offset=None, kv_valid=None):
+                        q_offset=None, kv_valid=None, round_p=None):
     """Plain backward against a given lse: (dq, dk, dv). With the block's own
     lse this is the exact attention gradient; with a ring-wide lse, one hop's
-    share of it."""
+    share of it. ``round_p`` (a dtype) rounds P before dV = P^T dO and dS
+    before dK = dS^T Q, as the bf16 and fp16 dK/dV kernel does; dQ keeps dS
+    in fp32, as the dQ kernel does. None keeps both in fp32, as JAX's
+    ``_jnp_block_bwd`` does."""
     qf, kf, vf, of, dof = (t.float() for t in (q3, k3, v3, o3, do3))
-    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
-    s = _mask(s, causal, q_offset, kv_valid)
-    # A fully masked row has lse ~ NEG_INF, where exp(s - lse) would not
-    # vanish: zero the masked entries explicitly, as the kernels do.
-    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - lse[..., None]), 0.0)
-    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    _, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid, lse)
+    dv = torch.einsum("bqk,bqd->bkd", _rounded(p, round_p), dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
     delta = (dof * of).sum(dim=-1)
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bqk,bkd->bqd", ds, kf)
-    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dk = torch.einsum("bqk,bqd->bkd", _rounded(ds, round_p), qf)
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+# The restated bound of the bf16/fp16 kernels against a plain version.
+# u: unit roundoff (half an ulp at 1: 8 and 11 significant bits); eta: half
+# the subnormal step, the largest error of rounding a value below the
+# normal range. Both sides round P (and dS) once, each within u of the
+# exact value or eta below it: c = 2.
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+SUBNORMAL_HALF_STEP = {torch.bfloat16: 2.0 ** -134, torch.float16: 2.0 ** -25}
+ROUNDING_C = 2.0
+_SIGNIFICAND_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def ulp(x, dtype):
+    """The spacing of ``dtype``'s values at |x|, elementwise, in fp32:
+    2^(e - p) for |x| in [2^(e-1), 2^e) and p significand bits, and the
+    subnormal step at zero and below the normal range."""
+    bits = _SIGNIFICAND_BITS[dtype]
+    tiny = torch.finfo(dtype).tiny * 2.0 ** (1 - bits)     # subnormal step
+    _, e = torch.frexp(x.float().abs())
+    step = torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       (e - bits).float())
+    return torch.where(x == 0, tiny, step).clamp_min(tiny)
+
+
+def rounding_bounds(plain, q3, k3, v3, causal, scale, q_offset=None,
+                    kv_valid=None, o3=None, lse=None, do3=None):
+    """Per-element bounds on |kernel - plain| of the outputs of the bf16 and
+    fp16 kernels, which round P (and dS) to the inputs' dtype before a
+    product, against a plain version on the same inputs, rounding or not:
+
+        |kernel - plain| <= 2 ulp(|plain|) + c (u |A| |B| + eta n),  c = ROUNDING_C
+
+    ``plain`` maps any of "o", "dk", "dv" to the plain version's output.
+    |A| |B| is the product over absolute values: |P| |V| / l for o (P
+    against the row max), |P|^T |dO| for dV and |dS|^T |Q| for dK (P against
+    ``lse``, dS with its scale); n is the same product with the visible
+    entries of the rounded operand set to one. The 2 ulp cover the two final
+    roundings. Returns {name: bound}, fp32."""
+    dt = q3.dtype
+    u, eta = UNIT_ROUNDOFF[dt], SUBNORMAL_HALF_STEP[dt]
+    out = {}
+
+    def bound(name, mag, n):
+        out[name] = 2 * ulp(plain[name], dt) + ROUNDING_C * (u * mag
+                                                             + eta * n)
+
+    if "o" in plain:
+        ok, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid)
+        l = p.sum(dim=-1).clamp_min(1e-30)[..., None]
+        va = v3.float().abs()
+        bound("o", torch.einsum("bqk,bkd->bqd", p, va) / l,
+              torch.einsum("bqk,bkd->bqd", ok.float(), va) / l)
+    if "dk" in plain or "dv" in plain:
+        ok, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid, lse)
+        dof = do3.float()
+        if "dv" in plain:
+            bound("dv", torch.einsum("bqk,bqd->bkd", p, dof.abs()),
+                  torch.einsum("bqk,bqd->bkd", ok.float(), dof.abs()))
+        if "dk" in plain:
+            dp = torch.einsum("bqd,bkd->bqk", dof, v3.float())
+            delta = (dof * o3.float()).sum(dim=-1)
+            ds = p * (dp - delta[..., None]) * scale
+            qa = q3.float().abs()
+            bound("dk", torch.einsum("bqk,bqd->bkd", ds.abs(), qa),
+                  torch.einsum("bqk,bqd->bkd", ok.float(), qa))
+    return out
+
+
+def bound_ratio(got, want, bound):
+    """max |got - want| / bound over the elements: within the bound iff <= 1
+    (0 for empty tensors)."""
+    if not got.numel():
+        return 0.0
+    return ((got.float() - want.float()).abs() / bound).max().item()
 
 
 def gqa_repeat3(t3, b, kv, g):
@@ -189,6 +292,15 @@ def _launch(name, stream_device, *args):
                            f"{err}")
 
 
+def _aligned(t):
+    """``t``, or a fresh copy when it is bf16/fp16 and its data is not
+    16-byte aligned: the tensor-core kernels read rows with 16-byte copies,
+    the fp32 kernels element by element."""
+    if t.dtype == torch.float32 or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
+
+
 def _int32(name, x):
     x = int(x)
     if not -2 ** 31 <= x < 2 ** 31:
@@ -219,6 +331,7 @@ def fa_forward(q, k, v, causal, sm_scale, q_offset=None, kv_valid=None,
             v = gqa_repeat3(v, bh // hs, kvs, g)
         return block_fwd_reference(q, k, v, causal, sm_scale, q_offset,
                                    kv_valid)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     if q.numel():
@@ -254,6 +367,7 @@ def fa_backward(q, k, v, o, lse, do, causal, sm_scale, q_offset=None,
     if q.device.type == "cpu":
         return block_bwd_reference(q, k, v, o, lse, do, causal, sm_scale,
                                    q_offset, kv_valid)
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

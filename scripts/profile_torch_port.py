@@ -68,9 +68,9 @@ def busy_us(intervals):
 # Device time by kind of kernel, matched on the kernel's name (lower case),
 # first match wins.
 KINDS = (
-    ("flash_fwd", ("fa_fwd_kernel",)),
+    ("flash_fwd", ("fa_fwd_kernel", "fa_fwd_mma_kernel")),
     ("flash_bwd_dq", ("fa_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("fa_bwd_dkv_kernel",)),
+    ("flash_bwd_dkv", ("fa_bwd_dkv_kernel", "fa_bwd_dkv_mma_kernel")),
     ("scale_pack_unpack", ("scale_copy_kernel",)),
     ("adasum_combine", ("adasum_partials_kernel", "adasum_apply_kernel")),
     ("nccl", ("nccl",)),

@@ -7,16 +7,25 @@ runs without the suite's conftest:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: the scale kernels bit-equal (one fp32 multiply and one
-rounding on both sides). The flash kernels within atol + rtol * |plain| of
-their plain versions: both compute in fp32 and round once, but sum in
-another order (~1e-6 relative in fp32), which can flip the final rounding:
-1e-4 relative in fp32, two ulps in bf16 and fp16. Fully masked rows must be
-exact zeros. The Adasum combine per segment within a share of the segment's
-largest plain value: 1e-5 in fp32 and float64 (the dot product and norms
-are summed in another order, which moves a coefficient by ~1e-6), two ulps
-at that value in bf16 and fp16 (one rounding that a coefficient can flip);
-its exact cases (b = a, 2a, -a; a zero; orthogonal a and b) bit-exact in
-fp32.
+rounding on both sides). The flash kernels in fp32, and the dQ kernel and
+lse in every dtype, within atol + rtol * |plain| of the plain versions:
+both compute in fp32 and round once, but sum in another order (~1e-6
+relative in fp32), which can flip the final rounding: 1e-4 relative in
+fp32, two ulps in bf16 and fp16. The bf16/fp16 forward and dK/dV kernels
+run their products on the tensor cores and round P (and dS) to the input
+type before the product, as FlashAttention does, so "two ulps" no longer
+follows from their arithmetic: they are held to the plain versions that
+round at the same points (``round_p``) within ``rounding_bounds``,
+2 ulp(|plain|) + c (u |A| |B| + eta n) with c = 2, u the dtype's unit
+roundoff and eta half its subnormal step, which follows from one rounding
+of an operand on each side; a version with the causal diagonal off by one
+must fail it. Fully masked rows must be exact zeros, and reruns
+bit-identical (no atomics). The Adasum combine per segment within a share
+of the segment's largest plain value: 1e-5 in fp32 and float64 (the dot
+product and norms are summed in another order, which moves a coefficient by
+~1e-6), two ulps at that value in bf16 and fp16 (one rounding that a
+coefficient can flip); its exact cases (b = a, 2a, -a; a zero; orthogonal a
+and b) bit-exact in fp32.
 """
 
 import pytest
@@ -106,14 +115,19 @@ def test_fused_allreduce_on_the_card(dev):
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1.6e-2),
              torch.float16: (2e-3, 2e-3)}
-# (BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads)
+HALF = [torch.bfloat16, torch.float16]
+# (BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads): every head dim at the
+# ragged L = 197, Lq < Lk and Lq > Lk (fully masked rows), kv_valid, GQA,
+# and the GPT-2 small main path's shape.
 FLASH_CASES = [(4, 197, 197, 64, True, None, None, None),
                (4, 197, 197, 16, False, None, None, None),
+               (4, 197, 197, 32, False, None, None, None),
                (4, 197, 197, 128, True, None, None, None),
                (4, 96, 160, 32, True, None, None, None),
                (4, 160, 96, 64, True, None, None, None),
                (4, 130, 200, 64, False, 150, None, None),
-               (24, 197, 197, 64, True, None, 12, 4)]
+               (24, 197, 197, 64, True, None, 12, 4),
+               (96, 1024, 1024, 64, True, None, None, None)]
 
 
 def _close(got, want, dtype, name):
@@ -123,40 +137,132 @@ def _close(got, want, dtype, name):
         f"{name}: max abs err {diff.max().item()}"
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_flash_kernels_match_plain(dev, dtype, case):
+def _flash_inputs(dev, dtype, case, seed=None):
+    """q, do (BH, Lq, D); k, v (BHkv, Lk, D) and their MHA broadcast."""
     bh, lq, lk, d, causal, kv_valid, heads, kvh = case
-    g = torch.Generator(device=dev).manual_seed(lq * 3 + d)
+    g = torch.Generator(device=dev).manual_seed(
+        lq * 3 + d if seed is None else seed)
     bkv = bh if heads is None else bh // heads * kvh
     q, do = (torch.randn(bh, lq, d, generator=g, device=dev).to(dtype)
              for _ in range(2))
     k, v = (torch.randn(bkv, lk, d, generator=g, device=dev).to(dtype)
             for _ in range(2))
+    if heads is None:
+        return q, k, v, do, k, v
+    b, grp = bh // heads, heads // kvh
+    return q, k, v, do, fa.gqa_repeat3(k, b, kvh, grp).contiguous(), \
+        fa.gqa_repeat3(v, b, kvh, grp).contiguous()
+
+
+def _within_bound(got, want, bound, name):
+    r = fa.bound_ratio(got, want, bound)
+    assert r <= 1.0, f"{name}: {r} of the rounding bound"
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_kernels_match_plain(dev, dtype, case):
+    """fp32: every output within FLASH_TOL. bf16/fp16: o, dK and dV within
+    the rounding bound of the plain versions that round P and dS; dQ and
+    lse within FLASH_TOL of the fp32 plain versions (the dQ kernel keeps
+    fp32)."""
+    bh, lq, lk, d, causal, kv_valid, heads, kvh = case
+    q, k, v, do, km, vm = _flash_inputs(dev, dtype, case)
     sm = d ** -0.5
     before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
     o, lse = fa.fa_forward(q, k, v, causal, sm, kv_valid=kv_valid,
                            heads=heads, kv_heads=kvh)
     torch.cuda.synchronize()
-    if heads is not None:
-        k = fa.gqa_repeat3(k, bh // heads, kvh, heads // kvh).contiguous()
-        v = fa.gqa_repeat3(v, bh // heads, kvh, heads // kvh).contiguous()
-    o_p, lse_p = fa.block_fwd_reference(q, k, v, causal, sm, None, kv_valid)
-    _close(o, o_p, dtype, "o")
+    o_p, lse_p = fa.block_fwd_reference(q, km, vm, causal, sm, None,
+                                        kv_valid)
     assert torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-4)
-    grads = fa.fa_backward(q, k, v, o, lse, do, causal, sm,
+    grads = fa.fa_backward(q, km, vm, o, lse, do, causal, sm,
                            kv_valid=kv_valid)
     torch.cuda.synchronize()
     assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
         tuple(n + 1 for n in before)
-    ref = fa.block_bwd_reference(q, k, v, o, lse, do, causal, sm, None,
+    ref = fa.block_bwd_reference(q, km, vm, o, lse, do, causal, sm, None,
                                  kv_valid)
-    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
-        _close(got, want, dtype, name)
+    _close(grads[0], ref[0], dtype, "dq")
+    if dtype == torch.float32:
+        _close(o, o_p, dtype, "o")
+        for got, want, name in zip(grads[1:], ref[1:], ("dk", "dv")):
+            _close(got, want, dtype, name)
+    else:
+        o_r, _ = fa.block_fwd_reference(q, km, vm, causal, sm, None,
+                                        kv_valid, round_p=dtype)
+        _, dk_r, dv_r = fa.block_bwd_reference(
+            q, km, vm, o, lse, do, causal, sm, None, kv_valid, round_p=dtype)
+        bounds = fa.rounding_bounds({"o": o_r, "dk": dk_r, "dv": dv_r}, q,
+                                    km, vm, causal, sm, None, kv_valid,
+                                    o3=o, lse=lse, do3=do)
+        for got, want, name in ((o, o_r, "o"), (grads[1], dk_r, "dk"),
+                                (grads[2], dv_r, "dv")):
+            _within_bound(got, want, bounds[name], name)
     if causal and lq > lk:
         assert torch.equal(o[:, :lq - lk], torch.zeros_like(o[:, :lq - lk]))
         assert torch.equal(grads[0][:, :lq - lk],
                            torch.zeros_like(grads[0][:, :lq - lk]))
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=str)
+def test_flash_off_by_one_diagonal_fails_the_bound(dev, dtype):
+    """The check that passes the tensor-core kernels rejects a plain version
+    whose rows see one key more than the causal diagonal allows."""
+    case = (4, 197, 197, 64, True, None, None, None)
+    q, k, v, do, _, _ = _flash_inputs(dev, dtype, case)
+    sm = 64 ** -0.5
+    o, lse = fa.fa_forward(q, k, v, True, sm)
+    _, dk, dv = fa.fa_backward(q, k, v, o, lse, do, True, sm)
+    o_r, _ = fa.block_fwd_reference(q, k, v, True, sm, round_p=dtype)
+    _, dk_r, dv_r = fa.block_bwd_reference(q, k, v, o, lse, do, True, sm,
+                                           round_p=dtype)
+    o_c, _ = fa.block_fwd_reference(q, k, v, True, sm, 1, round_p=dtype)
+    _, dk_c, dv_c = fa.block_bwd_reference(q, k, v, o, lse, do, True, sm, 1,
+                                           round_p=dtype)
+    bounds = fa.rounding_bounds({"o": o_r, "dk": dk_r, "dv": dv_r}, q, k, v,
+                                True, sm, o3=o, lse=lse, do3=do)
+    for got, ctl, want, name in ((o, o_c, o_r, "o"), (dk, dk_c, dk_r, "dk"),
+                                 (dv, dv_c, dv_r, "dv")):
+        _within_bound(got, want, bounds[name], name)
+        assert fa.bound_ratio(ctl, want, bounds[name]) > 1.0, name
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_reruns_are_bit_identical(dev, dtype):
+    """Each output tile is written by one block, with no atomics: two runs
+    on the same inputs agree bit for bit."""
+    case = (24, 523, 523, 64, True, None, None, None)
+    q, k, v, do, _, _ = _flash_inputs(dev, dtype, case, seed=21)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.fa_forward(q, k, v, True, 0.125)
+        runs.append((o, lse) + fa.fa_backward(q, k, v, o, lse, do, True,
+                                              0.125))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=str)
+def test_flash_takes_inputs_off_16_byte_alignment(dev, dtype):
+    """The tensor-core kernels copy rows 16 bytes at a time: a contiguous
+    view whose data starts off a 16-byte boundary is copied first, and
+    gives what an aligned copy of it gives."""
+    case = (4, 197, 197, 64, True, None, None, None)
+    q, k, v, do, _, _ = _flash_inputs(dev, dtype, case)
+    flat = torch.empty(q.numel() + 1, dtype=dtype, device=dev)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 and q_off.is_contiguous()
+    before = fa.fwd_launches
+    o, lse = fa.fa_forward(q_off, k, v, True, 0.125)
+    want, _ = fa.fa_forward(q, k, v, True, 0.125)
+    grads = fa.fa_backward(q_off, k, v, o, lse, do, True, 0.125)
+    want_grads = fa.fa_backward(q, k, v, o, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == before + 2
+    assert torch.equal(o, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
 
 
 def test_flash_autograd_on_the_card(dev):
@@ -197,9 +303,14 @@ def test_cuda_flash_never_reaches_the_plain_version(dev, monkeypatch):
         raise AssertionError("plain version called on CUDA tensors")
     monkeypatch.setattr(fa, "block_fwd_reference", refuse)
     monkeypatch.setattr(fa, "block_bwd_reference", refuse)
-    q = torch.randn(1, 64, 2, 32, device=dev, requires_grad=True)
-    fa.flash_attention(q, q, q, causal=True).sum().backward()
-    torch.cuda.synchronize()
+    for dtype in DTYPES:
+        before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        q = torch.randn(1, 64, 2, 32, device=dev, dtype=dtype,
+                        requires_grad=True)
+        fa.flash_attention(q, q, q, causal=True).sum().backward()
+        torch.cuda.synchronize()
+        assert (fa.fwd_launches, fa.bwd_dq_launches,
+                fa.bwd_dkv_launches) == tuple(n + 1 for n in before)
 
 
 def test_flash_refuses_an_unsupported_head_dim(dev):
