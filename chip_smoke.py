@@ -11,7 +11,8 @@ Phases, one JSON line each (each with its seconds):
 2. build: compile every kernel source with nvcc (one process per source,
    all at once) into build/kernels/, timed; ptxas's registers and spills
    of the tensor-core flash kernels beside their dynamic shared memory.
-   Checks: every instance reported, no spills at D = 64.
+   Checks: every instance reported, no spills at D = 64, and the dQ kernel
+   with no spills and no stack at any head dim.
 3. kernel_vs_plain: each scale kernel against its plain PyTorch version on
    the card, on the gradient shapes of both main paths (ResNet-50's, and
    GPT-2 small's up to its 38.6M-element token table and lm_head) plus
@@ -25,24 +26,26 @@ Phases, one JSON line each (each with its seconds):
    broadcast_optimizer_state, warm-up and timed steps; the counts are read
    right after. Checks: finite, falling loss; at least 2 pack and 2 unpack
    launches a step; on one step the reduced gradients equal the local ones
-   bit for bit (Average over 1 rank is x1.0).
-5. timing: each kernel alone (back-to-back launches over a prebuilt
-   table), its wrapper as the runtime calls it, its plain version and one
-   PyTorch call for the same function, at the fp32 buckets the main path
-   formed (CUDA events, median of 30), beside the least time the card could
-   take.
+   bit for bit (Average over 1 rank is x1.0). Reported: for each launch of
+   the scale kernels, whether its rows (pointers and numels) were those of
+   an earlier launch, that is, what a table kept on the card per signature
+   would have hit (the wrapper passes its table by value instead).
+5. timing: each kernel alone (back-to-back launches over prebuilt tables),
+   its wrapper as the runtime calls it, its plain version and one PyTorch
+   call for the same function, at the fp32 buckets the main path formed
+   (CUDA events, median of 30), beside the least time the card could take.
 
 6. flash_vs_plain: the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain PyTorch versions on the card, synchronising after
    every launch: fp32, bf16 and fp16; causal and not; head dims 16, 32, 64
    and 128 at the ragged length 197; Lq < Lk and Lq > Lk (causal, with fully
    masked rows that must be exact zeros); kv_valid < Lk; GQA with 12 query
-   heads over 4 kv heads; the main path's L = 1024, D = 64. fp32, and dQ
-   and lse in every dtype, within FLASH_TOL; the bf16/fp16 forward and
-   dK/dV, which round P and dS on the tensor cores, within the rounding
-   bound (c and u printed) of the plain versions that round where they do,
-   and a plain version with the causal diagonal off by one must fail that
-   bound. The max abs error and bound ratio of each case.
+   heads over 4 kv heads; the main path's L = 1024, D = 64. fp32, and lse
+   in every dtype, within tolerance; the bf16/fp16 forward, dQ and dK/dV,
+   which round P and dS on the tensor cores, within the rounding bound (c
+   and u printed) of the plain versions that round where they do, and a
+   plain version with the causal diagonal off by one must fail that bound
+   on every output. The max abs error and bound ratio of each case.
 7. train_gpt: the second main path. Launch counts are zeroed, then GPT-2
    small at full width (vocab 50304, 12 layers, 12 heads, hidden 768, bf16
    activations, fp32 parameters, flash attention, untied fp32 lm_head) on
@@ -52,7 +55,8 @@ Phases, one JSON line each (each with its seconds):
    read right after. Checks: finite, falling loss; 12 forward, 12 dQ and 12
    dK/dV flash launches every step; one pack and one unpack launch for
    every fusion bucket of every step; on one step the reduced gradients
-   equal the local ones bit for bit. Then, outside the main path,
+   equal the local ones bit for bit. Reported: the kept-table tally as in
+   train. Then, outside the main path,
    gpt_flash_vs_plain: one step's loss and per-tensor gradients with flash
    attention against a copy of the model on plain attention (same weights,
    same batch), and two deliberately wrong controls (attention not causal;
@@ -111,11 +115,13 @@ FLASH_REPLACES = {
 }
 # The flash kernels whose bf16/fp16 instances run on the tensor cores.
 REDESIGNED = dict.fromkeys(
-    ("flash_fwd", "flash_bwd_dkv"),
+    ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
     "redesigned: bf16/fp16 products on the tensor cores (mma.sync)")
-# Their entry points in the build log.
+# Their entry points in the build log, in the order hvd_flash_mma_smem
+# numbers them.
 MMA_KERNELS = {"flash_fwd": "fa_fwd_mma_kernel",
-               "flash_bwd_dkv": "fa_bwd_dkv_mma_kernel"}
+               "flash_bwd_dkv": "fa_bwd_dkv_mma_kernel",
+               "flash_bwd_dq": "fa_bwd_dq_mma_kernel"}
 ADASUM_SOURCE = "horovod_tpu_torch/ops/kernels/csrc/adasum.cu"
 ADASUM_REPLACES = "horovod_tpu/ops/pallas/kernels.py:76"
 # Tolerance of the Adasum kernel against its plain version, by dtype, as a
@@ -129,14 +135,12 @@ ADASUM_TOL = {"float32": 1e-5, "float64": 1e-5, "bfloat16": 2 * 2.0 ** -7,
 # Rank counts of the gathered-bucket check (K = 3 carries an odd one).
 ADASUM_RANKS = (4, 3)
 
-# Tolerance of each flash kernel against its plain version, by dtype:
+# Tolerance of the fp32 flash kernels against their plain versions:
 # |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
-# once to the working dtype, but sum in another order (the kernel rescales
-# its running sum per 64-key tile), which moves the fp32 value by ~1e-6
-# relative: held at 1e-4 in fp32; in bf16 and fp16 it can flip the one
-# rounding, so rtol is two ulps of the dtype (atol for values near zero).
-FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2),
-             "float16": (2e-3, 2e-3)}
+# once, but sum in another order (the kernel rescales its running sum per
+# 64-key tile), which moves the value by ~1e-6 relative: held at 1e-4. The
+# bf16/fp16 kernels are held to fa.rounding_bounds instead.
+FLASH_TOL = {"float32": (1e-5, 1e-4)}
 SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 
 
@@ -220,11 +224,17 @@ def phase_build():
     ptxas = ptxas_rows(_build.ptxas_report("flash_attention"), smem)
     emit({"phase": "build", "seconds": seconds, "per_source": per_source,
           "dir": str(_build.BUILD_DIR), "ptxas_tensor_core_flash": ptxas})
-    check(len(ptxas) == 2 * 2 * 4, f"ptxas reports every tensor-core flash "
-          f"instance (2 kernels x 2 types x 4 head dims): {len(ptxas)}")
-    check(all(r.get("spill_stores", 0) == 0 == r.get("spill_loads", 0)
-              for r in ptxas if r["D"] == 64),
+    n = len(MMA_KERNELS)
+    check(len(ptxas) == n * 2 * 4, f"ptxas reports every tensor-core flash "
+          f"instance ({n} kernels x 2 types x 4 head dims): {len(ptxas)}")
+
+    def clean(r):
+        return r.get("spill_stores", 0) == 0 == r.get("spill_loads", 0)
+    check(all(clean(r) for r in ptxas if r["D"] == 64),
           "no spills in the D = 64 tensor-core flash kernels")
+    check(all(clean(r) and r.get("stack_bytes", 0) == 0 for r in ptxas
+              if r["kernel"] == "flash_bwd_dq"),
+          "no spills and no stack in the dQ kernel at any head dim")
 
 
 def phase_kernel_vs_plain(torch, shapes_by_path, dev, seed):
@@ -294,6 +304,52 @@ def reduced_equals_local(torch, model, step):
     return loss
 
 
+class KeptTableTally:
+    """While active, counts for every launch of the scale kernels whether
+    its rows (each tensor's pointer and numel) were those of an earlier
+    launch: a hit for a table kept on the card per signature, else a build.
+    The wrapper passes its table by value and keeps none; this measures
+    what keeping them would have saved. Wraps ``sb.table_rows``."""
+
+    def __init__(self, sb):
+        self.sb, self.seen, self.builds, self.hits = sb, set(), 0, 0
+
+    def __enter__(self):
+        raw = self.raw = self.sb.table_rows
+
+        def rows(tensors, numels):
+            out = raw(tensors, numels)
+            key = (tuple(out[0][0]), tuple(numels))
+            if key in self.seen:
+                self.hits += 1
+            else:
+                self.seen.add(key)
+                self.builds += 1
+            return out
+        self.sb.table_rows = rows
+        return self
+
+    def __exit__(self, *exc):
+        self.sb.table_rows = self.raw
+
+    def counts(self):
+        return (self.builds, self.hits)
+
+
+def kept_table_report(per_step, warmup, col):
+    """The would-be table builds and hits of each step (columns ``col`` and
+    ``col + 1`` of ``per_step``), and their sums and hit share over the
+    steps after warm-up."""
+    timed = per_step[warmup:]
+    builds = sum(s[col] for s in timed)
+    hits = sum(s[col + 1] for s in timed)
+    return {"kept_table_builds_hits_per_step": [s[col:col + 2]
+                                                for s in per_step],
+            "kept_table_after_warmup": {
+                "builds": builds, "hits": hits,
+                "hit_share": hits / max(builds + hits, 1)}}
+
+
 def phase_train(torch, hvd, model, dev, args, card):
     import torch.nn.functional as F
 
@@ -320,27 +376,30 @@ def phase_train(torch, hvd, model, dev, args, card):
         opt.step()
         return loss.detach()
 
+    tally = KeptTableTally(sb)
+
+    def counts():
+        return (sb.pack_launches, sb.unpack_launches) + tally.counts()
+
     # Warm-up; the last warm-up step also checks the reduction.
     losses, per_step = [], []
-    for i in range(args.warmup):
-        p0, u0 = sb.pack_launches, sb.unpack_launches
-        losses.append(step() if i < args.warmup - 1 else
-                      reduced_equals_local(torch, model, step))
-        per_step.append((sb.pack_launches - p0, sb.unpack_launches - u0))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        p0, u0 = sb.pack_launches, sb.unpack_launches
-        losses.append(step())
-        per_step.append((sb.pack_launches - p0, sb.unpack_launches - u0))
-    torch.cuda.synchronize()
+    with tally:
+        for i in range(args.warmup + args.steps):
+            if i == args.warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            c0 = counts()
+            losses.append(reduced_equals_local(torch, model, step)
+                          if i == args.warmup - 1 else step())
+            per_step.append([b - a for a, b in zip(c0, counts())])
+        torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"scale_pack": sb.pack_launches,
                 "scale_unpack": sb.unpack_launches}   # the main path ends
     losses = [l.item() for l in losses]
     check(all(map(math.isfinite, losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
-    check(all(p >= 2 and u >= 2 for p, u in per_step),
+    check(all(s[0] >= 2 and s[1] >= 2 for s in per_step),
           f">= 2 pack and unpack launches a step: {per_step}")
     buckets = [[n for _, n in sig[-1]]
                for sig in get_runtime().verified_signatures()
@@ -351,7 +410,9 @@ def phase_train(torch, hvd, model, dev, args, card):
           "warmup": args.warmup, "steps": args.steps, "losses": losses,
           "step_ms": 1e3 * elapsed / args.steps,
           "images_per_sec": args.batch * args.steps / elapsed,
-          "launches_per_step": per_step, "launches": launches,
+          "launches_per_step": [s[:2] for s in per_step],
+          "launches": launches,
+          **kept_table_report(per_step, args.warmup, 2),
           "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
                            for b in buckets],
           "reduced_equals_local_bitwise": True,
@@ -368,20 +429,22 @@ def phase_timing(torch, buckets, dev, seed):
         outs = [torch.empty_like(t) for t in ts]
         flat = torch.empty(sum(numels), device=dev)
         nbytes = 2 * flat.numel() * flat.element_size() + 24 * len(ts)
-        pack_table, pack_bx = sb._table(ts, flat)
-        unpack_table, unpack_bx = sb._table(outs, flat)
+        pack_rows, pack_bx = sb.table_rows(ts, numels)
+        unpack_rows, unpack_bx = sb.table_rows(outs, numels)
+        pack_tables = sb.launch_tables(pack_rows)
+        unpack_tables = sb.launch_tables(unpack_rows)
         rows.append({
             "tensors": len(ts), "elements": flat.numel(),
             "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
             "pack_ms": event_ms(lambda: sb._launch(
-                "hvd_scale_pack", pack_table, pack_bx, flat, s), inner=10),
+                "hvd_scale_pack", pack_tables, pack_bx, flat, s), inner=10),
             "pack_wrapper_ms": event_ms(lambda: sb.pack_scale(ts, flat, s)),
             "pack_plain_ms": event_ms(
                 lambda: sb.pack_scale_reference(ts, flat, s)),
             "pack_library_ms": event_ms(
                 lambda: torch.cat(ts, out=flat).mul_(s)),
             "unpack_ms": event_ms(lambda: sb._launch(
-                "hvd_scale_unpack", unpack_table, unpack_bx, flat, s),
+                "hvd_scale_unpack", unpack_tables, unpack_bx, flat, s),
                 inner=10),
             "unpack_wrapper_ms": event_ms(
                 lambda: sb.unpack_scale(flat, outs, s)),
@@ -394,11 +457,14 @@ def phase_timing(torch, buckets, dev, seed):
              if k.endswith("_ms")}
     emit({"phase": "timing", "dtype": "float32", "per_bucket": rows,
           "per_step": total,
-          "note": "ms: the kernel alone, 10 back-to-back launches over a "
-                  "prebuilt table; wrapper_ms: pack_scale/unpack_scale as "
-                  "the runtime calls them, table built and copied each "
-                  "call; library: torch.cat(out=).mul_ and "
-                  "torch._foreach_mul over the buffer's slices"})
+          "note": "ms: the kernel alone, 10 back-to-back launches over "
+                  "prebuilt host tables (each launch copies its table into "
+                  "its parameters); wrapper_ms: pack_scale/unpack_scale as "
+                  "the runtime calls them, checks and table built each "
+                  "call; library: torch.cat(out=).mul_ for pack, and for "
+                  "unpack torch._foreach_mul over the buffer's slices, "
+                  "which returns new tensors and does not write into the "
+                  "gradients as unpack does"})
     return total
 
 
@@ -538,8 +604,11 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
+    tally = KeptTableTally(sb)
+
     def counts():
-        return (sb.pack_launches, sb.unpack_launches, ak.launches)
+        return (sb.pack_launches, sb.unpack_launches, ak.launches) \
+            + tally.counts()
 
     def step():
         opt.zero_grad()
@@ -549,18 +618,21 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
         return loss.detach()
 
     losses, per_step = [], []
-    for i in range(args.warmup + args.steps):
-        if i == args.warmup:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        c0 = counts()
-        losses.append(reduced_equals_local(torch, model, step)
-                      if i == args.warmup - 1 else step())
-        per_step.append([b - a for a, b in zip(c0, counts())])
-    torch.cuda.synchronize()
+    with tally:
+        for i in range(args.warmup + args.steps):
+            if i == args.warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            c0 = counts()
+            losses.append(reduced_equals_local(torch, model, step)
+                          if i == args.warmup - 1 else step())
+            per_step.append([b - a for a, b in zip(c0, counts())])
+        torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(zip(("scale_pack", "scale_unpack", "adasum_combine"),
                         counts()))           # the Adasum path ends
+    tables = kept_table_report(per_step, args.warmup, 3)
+    per_step = [s[:3] for s in per_step]
     opt._remove_hooks()
     losses = [l.item() for l in losses]
     buckets = adasum_buckets(torch, hvd, seen)
@@ -576,6 +648,7 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
           "images_per_sec": args.batch * args.steps / elapsed,
           "launches_per_step": per_step,
           "launches_per_step_columns": list(launches), "launches": launches,
+          **tables,
           "fp32_buckets": [{"tensors": len(b),
                             "elements": sum(n for _, n in b)}
                            for b in buckets],
@@ -737,12 +810,12 @@ def flash_cases():
 
 
 def phase_flash_vs_plain(torch, dev, seed):
-    """Each flash kernel against its plain version on the card. fp32, and
-    dQ and lse in every dtype: FLASH_TOL against the fp32 plain versions.
-    bf16/fp16 forward and dK/dV: the rounding bound against the plain
-    versions that round P and dS where the kernels do; a plain version with
-    the causal diagonal off by one goes through the same check and must
-    fail it."""
+    """Each flash kernel against its plain version on the card. fp32:
+    FLASH_TOL against the plain versions; lse in every dtype within 1e-5
+    relative. bf16/fp16 forward, dQ and dK/dV: the rounding bound against
+    the plain versions that round P and dS where the kernels do; a plain
+    version with the causal diagonal off by one goes through the same check
+    and must fail it on every output."""
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     rows, worst, main_err, ratios, controls = [], {}, {}, {}, []
@@ -769,12 +842,12 @@ def phase_flash_vs_plain(torch, dev, seed):
         torch.cuda.synchronize()
         ref = fa.block_bwd_reference(q, k, v, o, lse, do, causal, sm, None,
                                      kv_valid)
-        atol, rtol = FLASH_TOL[dt]
         errs, rounded = {}, dt != "float32"
-        tol_checks = [("lse", lse, lse_p, (1e-4, 1e-5)),
-                      ("flash_bwd_dq", grads[0], ref[0], (atol, rtol))]
+        tol_checks = [("lse", lse, lse_p, (1e-4, 1e-5))]
         if not rounded:
+            atol, rtol = FLASH_TOL[dt]
             tol_checks += [("flash_fwd", o, o_p, (atol, rtol)),
+                           ("flash_bwd_dq", grads[0], ref[0], (atol, rtol)),
                            ("flash_bwd_dk", grads[1], ref[1], (atol, rtol)),
                            ("flash_bwd_dv", grads[2], ref[2], (atol, rtol))]
         for name, got, want, tol in tol_checks:
@@ -788,13 +861,14 @@ def phase_flash_vs_plain(torch, dev, seed):
         if rounded:
             o_r, _ = fa.block_fwd_reference(q, k, v, causal, sm, None,
                                             kv_valid, round_p=dtype)
-            _, dk_r, dv_r = fa.block_bwd_reference(
+            dq_r, dk_r, dv_r = fa.block_bwd_reference(
                 q, k, v, o, lse, do, causal, sm, None, kv_valid,
                 round_p=dtype)
-            plain = {"o": o_r, "dk": dk_r, "dv": dv_r}
+            plain = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
             bounds = fa.rounding_bounds(plain, q, k, v, causal, sm, None,
                                         kv_valid, o3=o, lse=lse, do3=do)
             for name, key, got in (("flash_fwd", "o", o),
+                                   ("flash_bwd_dq", "dq", grads[0]),
                                    ("flash_bwd_dk", "dk", grads[1]),
                                    ("flash_bwd_dv", "dv", grads[2])):
                 errs[name] = (got.float() - plain[key].float()).abs().max() \
@@ -806,14 +880,15 @@ def phase_flash_vs_plain(torch, dev, seed):
                 # The control: every row sees one key more than it may.
                 o_c, _ = fa.block_fwd_reference(q, k, v, causal, sm, 1,
                                                 kv_valid, round_p=dtype)
-                _, dk_c, dv_c = fa.block_bwd_reference(
+                grads_c = fa.block_bwd_reference(
                     q, k, v, o, lse, do, causal, sm, 1, kv_valid,
                     round_p=dtype)
                 ctl = {key: fa.bound_ratio(got, plain[key], bounds[key])
-                       for key, got in (("o", o_c), ("dk", dk_c),
-                                        ("dv", dv_c))}
+                       for key, got in zip(("o", "dq", "dk", "dv"),
+                                           (o_c,) + grads_c)}
                 controls.append([SHORT[dt], bh, lq, d] + [
-                    float(f"{ctl[key]:.3g}") for key in ("o", "dk", "dv")])
+                    float(f"{ctl[key]:.3g}")
+                    for key in ("o", "dq", "dk", "dv")])
                 check(min(ctl.values()) > 1.0, f"the off-by-one diagonal "
                       f"control {case} {ctl} is rejected by the bound")
             for key, r in ratio.items():
@@ -833,39 +908,43 @@ def phase_flash_vs_plain(torch, dev, seed):
                              ("flash_fwd", "lse", "flash_bwd_dq",
                               "flash_bwd_dkv")]
                     + [float(f"{ratio[key]:.3g}") if ratio else None
-                       for key in ("o", "dk", "dv")])
+                       for key in ("o", "dq", "dk", "dv")])
     check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
     check(controls, "the off-by-one control ran")
     emit({"phase": "flash_vs_plain", "cases": len(rows),
           "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
                       "heads", "kv_heads", "err_o", "err_lse", "err_dq",
-                      "err_dkv", "bound_ratio_o", "bound_ratio_dk",
-                      "bound_ratio_dv"],
+                      "err_dkv", "bound_ratio_o", "bound_ratio_dq",
+                      "bound_ratio_dk", "bound_ratio_dv"],
           "rows": rows, "max_abs_err": worst, "main_shape_err": main_err,
           "tolerance": {k: {"atol": a, "rtol": r}
                         for k, (a, r) in FLASH_TOL.items()},
           "lse_tolerance": {"atol": 1e-4, "rtol": 1e-5},
           "rounding_bound": {
               "form": "|kernel - plain| <= 2 ulp(|plain|) + c (u |A||B| "
-                      "+ eta n)",
-              "c": fa.ROUNDING_C,
+                      "+ eta n [+ f]); f for dQ alone: gamma (P scale "
+                      "(|dO||V|^T + rowsum |dO||O|)) |K|, gamma = D "
+                      "fp32_sum_unit, the fp32 error of dP - delta where "
+                      "the two cancel",
+              "c": fa.ROUNDING_C, "fp32_sum_unit": fa.FP32_SUM_UNIT,
               "u": {str(t).split(".")[-1]: u
                     for t, u in fa.UNIT_ROUNDOFF.items()},
               "eta": {str(t).split(".")[-1]: e
                       for t, e in fa.SUBNORMAL_HALF_STEP.items()},
               "worst_ratio": ratios},
+          "worst_dq_ratio": ratios.get("dq"),
           "off_by_one_control": {"columns": ["dtype", "BH", "L", "D",
-                                             "ratio_o", "ratio_dk",
-                                             "ratio_dv"],
+                                             "ratio_o", "ratio_dq",
+                                             "ratio_dk", "ratio_dv"],
                                  "rows": controls, "rejected": True},
-          "reason": "fp32, dQ and lse: kernel and plain both compute in "
+          "reason": "fp32, and lse: kernel and plain both compute in "
                     "fp32 and round once; they sum in another order (~1e-6 "
                     "relative in fp32), which can flip the final rounding: "
-                    "two ulps of bf16 and fp16, 1e-4 relative in fp32. "
-                    "bf16/fp16 o, dK, dV: the tensor-core kernels round P "
-                    "and dS to the input type before the product; held to "
-                    "the plain versions that round at the same points, "
-                    "within one rounding of an operand on each side",
+                    "1e-4 relative in fp32 (lse 1e-5). bf16/fp16 o, dQ, dK, "
+                    "dV: the tensor-core kernels round P and dS to the "
+                    "input type before the product; held to the plain "
+                    "versions that round at the same points, within one "
+                    "rounding of an operand on each side",
           "fully_masked_rows_exact_zero": True})
     return main_err
 
@@ -909,9 +988,11 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
+    tally = KeptTableTally(sb)
+
     def counts():
         return (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
-                sb.pack_launches, sb.unpack_launches)
+                sb.pack_launches, sb.unpack_launches) + tally.counts()
 
     def step():
         opt.zero_grad()
@@ -922,19 +1003,22 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
 
     # The last warm-up step also checks the reduction.
     losses, per_step = [], []
-    for i in range(args.warmup + GPT_STEPS):
-        if i == args.warmup:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        c0 = counts()
-        losses.append(reduced_equals_local(torch, model, step)
-                      if i == args.warmup - 1 else step())
-        per_step.append([b - a for a, b in zip(c0, counts())])
-    torch.cuda.synchronize()
+    with tally:
+        for i in range(args.warmup + GPT_STEPS):
+            if i == args.warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            c0 = counts()
+            losses.append(reduced_equals_local(torch, model, step)
+                          if i == args.warmup - 1 else step())
+            per_step.append([b - a for a, b in zip(c0, counts())])
+        torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                          "scale_pack", "scale_unpack"), counts()))
     # the GPT main path ends
+    tables = kept_table_report(per_step, args.warmup, 5)
+    per_step = [s[:5] for s in per_step]
     losses = [l.item() for l in losses]
     buckets = [[n for _, n in sig[-1]]
                for sig in get_runtime().verified_signatures()[seen:]]
@@ -956,6 +1040,7 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
           "tokens_per_sec": tokens * GPT_STEPS / elapsed,
           "launches_per_step": per_step,
           "launches_per_step_columns": list(launches), "launches": launches,
+          **tables,
           "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
                            for b in buckets],
           "reduced_equals_local_bitwise": True,
@@ -971,15 +1056,16 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
 # fp32 and round P, and dS, before a product). Each sits between the
 # reading of that sound pair and the readings of two deliberately wrong
 # controls, which these limits must reject (see gpt_flash_vs_plain). Read
-# on an NVIDIA H100 80GB HBM3 at 700 W as (loss_rel, grad_rel, attn_cos):
-# seed 0: flash 3.8e-5, 1.14e-2 (lm_head), 0.9999946; not causal 0.176,
-# 1.15, 0.43; dK and dV swapped 3.8e-5, 1.41, 0.14 (the swap leaves the
-# forward, so only the gradients reject it). Seed 1: flash 1.7e-6,
-# 1.16e-2, 0.9999938; not causal 0.191, 1.31, 0.35; swapped 1.7e-6, 1.41,
-# 0.15. The loss reading is not the kernels' rounding of P: the same step
-# through the plain flash versions reads 1.5e-5 (seed 0) and 6.3e-6 (seed
-# 1) rounding P as the kernels do, 3.4e-5 and 2.8e-6 in fp32, so it moves
-# with the weights and data more than with that rounding.
+# on an NVIDIA H100 80GB HBM3 at 700 W as (loss_rel, grad_rel, attn_cos),
+# with all three kernels on the tensor cores (dQ rounding dS too): seed 0:
+# flash 6.4e-7, 1.15e-2 (lm_head), 0.9999944; not causal 0.176, 1.15,
+# 0.43; dK and dV swapped 6.4e-7, 1.41, 0.14 (the swap leaves the forward,
+# so only the gradients reject it). Seed 1: flash 2.2e-5, 1.16e-2,
+# 0.9999939; not causal 0.191, 1.31, 0.35; swapped 2.2e-5, 1.41, 0.15. The
+# loss reading is not the kernels' rounding of P and dS: the same step
+# through the plain flash versions reads 1.5e-5 (seed 0) and 1.4e-5 (seed
+# 1) rounding them as the kernels do, 2.6e-5 and 8.2e-6 in fp32, so it
+# moves with the weights and data more than with that rounding.
 GPT_CMP_LIMITS = {"loss_rel": 1e-4, "grad_rel": 3e-2, "attn_cos_min": 0.9999}
 
 

@@ -4,7 +4,8 @@
 //
 //   _fa_kernel          (forward, via _fa_forward)     -> fa_fwd_mma_kernel (bf16, fp16),
 //                                                         fa_fwd_kernel (fp32)
-//   _fa_bwd_dq_kernel   (dQ pass, via _fa_backward)    -> fa_bwd_dq_kernel
+//   _fa_bwd_dq_kernel   (dQ pass, via _fa_backward)    -> fa_bwd_dq_mma_kernel (bf16, fp16),
+//                                                         fa_bwd_dq_kernel (fp32)
 //   _fa_bwd_dkv_kernel  (dK/dV pass, via _fa_backward) -> fa_bwd_dkv_mma_kernel (bf16, fp16),
 //                                                         fa_bwd_dkv_kernel (fp32)
 //
@@ -35,28 +36,35 @@
 //
 // bf16 and fp16: the tensor-core kernels. At GPT-2 small's shape (BH = 96,
 // L = 1024, D = 64, causal) the forward does 4 * D * L(L+1)/2 * BH = 12.9
-// GFLOP on 50 MB and dK/dV 25.8 GFLOP on 76 MB: near the ~295 flop/byte
-// balance point of the bf16 tensor cores (989 TFLOP/s) and HBM (3.35 TB/s),
-// the forward bound by bytes (15 us against 13 us of operations), dK/dV by
-// operations (26 us). The SIMT kernels they replace ran their products on
-// the CUDA cores in fp32 (67 TFLOP/s at most), so what bounded them was
-// their own arithmetic. The design:
+// GFLOP on 50 MB, dQ 19.3 GFLOP on 64 MB and dK/dV 25.8 GFLOP on 76 MB: near
+// the ~295 flop/byte balance point of the bf16 tensor cores (989 TFLOP/s)
+// and HBM (3.35 TB/s), the forward bound by bytes (15 us against 13 us of
+// operations), dQ and dK/dV by operations (20 and 26 us). The SIMT kernels
+// they replace ran their products on the CUDA cores in fp32 (67 TFLOP/s at
+// most), so what bounded them was their own arithmetic. The design:
 //
 //   - Products are mma.sync.m16n8k16 with bf16/fp16 operands and fp32
 //     accumulators, fed by ldmatrix from shared memory (ldmatrix.trans where
-//     an operand is read along its other axis: V in P.V, Q and dO in
-//     dK = dS^T Q and dV = P^T dO). The fp32 accumulator fragment of a score
-//     tile is rounded in registers into the A fragment of the next product,
-//     so P and dS never go through shared memory. This is where these
-//     kernels round P (and dS) to the input type, as FlashAttention does;
-//     the plain versions do so too when asked (round_p).
+//     an operand is read along its other axis: V in P.V, K in dQ = dS K, Q
+//     and dO in dK = dS^T Q and dV = P^T dO). The fp32 accumulator fragment
+//     of a score tile is rounded in registers into the A fragment of the
+//     next product, so P and dS never go through shared memory. This is
+//     where these kernels round P and dS to the input type, as
+//     FlashAttention does; the plain versions do so too when asked
+//     (round_p).
 //   - 4 warps, 16 rows each. Forward: 16 query rows a warp, 64-key tiles;
 //     row max and sum are quad shuffles over the accumulator layout;
 //     sm_scale * log2(e) is one multiply and the exponent is exp2f. dK/dV:
 //     16 key rows a warp; it computes S^T = K Q^T and dP^T = V dO^T, so key
 //     rows are the accumulator rows, and reads lse and delta per column
 //     from shared memory; 64-query tiles (32 at D = 128, for registers).
-//   - K/V tiles (forward) and Q/dO/lse/delta tiles (dK/dV) go through
+//     dQ: the forward's walk, 16 query rows a warp over 64-key tiles (32 at
+//     D = 128), S = Q K^T and dP = dO V^T, lse and delta per accumulator
+//     row in registers; Q and dO are loaded once and their A fragments kept
+//     in registers (read again per tile at D = 128, for registers); K is
+//     loaded once per tile and read both ways (ldmatrix for S, .trans for
+//     dS K).
+//   - K/V tiles (forward, dQ) and Q/dO/lse/delta tiles (dK/dV) go through
 //     cp.async into a two-stage ring: tile t + 1 is in flight while tile t
 //     computes. Rows past the end are zero-filled (src-size 0). Tiles stay
 //     in the input type, rows padded by 16 bytes, so ldmatrix's eight
@@ -71,8 +79,7 @@
 // fp32: the SIMT kernels, unchanged: inputs read into padded fp32 shared
 // tiles, 256 threads as 16 x 16, each a 4 x 4 block of the score tile and 4
 // rows x D/16 columns of its accumulators, half-warp shuffles for the row
-// reductions. TF32 would change the numbers fp32 callers are held to. The dQ
-// kernel is this SIMT kernel for every type.
+// reductions. TF32 would change the numbers fp32 callers are held to.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() after its launch (or the error of its setup).
@@ -838,8 +845,176 @@ fa_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+constexpr int kDqBq = 64;  // query rows of a dQ block (4 warps x 16)
+
+// Keys of a dQ tile, and whether the Q and dO A fragments stay in registers
+// across key tiles: at D = 128, dq_acc alone takes 64 registers, so the tile
+// is 32 keys and the fragments are read again from shared memory per tile.
+template <int D>
+__host__ __device__ constexpr int dq_bk() { return D <= 64 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr bool dq_frags_in_regs() { return D <= 64; }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+fa_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq, int lq, int lk,
+                     int q_offset, int kv_valid, int causal, float sm_scale) {
+  constexpr int kS = row_stride<D>(), kBk = dq_bk<D>(), kNT = kBk / 8;
+  constexpr bool kRegs = dq_frags_in_regs<D>();
+  constexpr int kF = kRegs ? D / 16 : 1;  // A fragments kept per operand
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + kDqBq * kS;
+  T* k_s = do_s + kDqBq * kS;   // two stages
+  T* v_s = k_s + 2 * kBk * kS;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBq;
+  const int64_t qrow = static_cast<int64_t>(bh) * lq;
+  const T* kb = k + static_cast<int64_t>(bh) * lk * D;
+  const T* vb = v + static_cast<int64_t>(bh) * lk * D;
+  const int kv_end = min(lk, kv_valid);
+  const int stop = key_stop(q0, lq, lk, q_offset, kv_valid, causal);
+  const int n_kt = stop > 0 ? (stop + kBk - 1) / kBk : 0;
+  const float scale2 = sm_scale * kLog2e;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);  // rows row_lo and row_lo + 8
+
+  // lse (times log2 e) and delta of this lane's two accumulator rows. Rows
+  // past lq read zeros; their dS is zero (dO is zero-filled), and they are
+  // never written.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_lo + 8 * h;
+    lse2[h] = r < lq ? lse[qrow + r] * kLog2e : 0.f;
+    dl[h] = r < lq ? delta[qrow + r] : 0.f;
+  }
+
+  if (n_kt > 0) {
+    load_tile_async<T, kDqBq, D>(q_s, q + qrow * D, q0, lq);
+    load_tile_async<T, kDqBq, D>(do_s, dout + qrow * D, q0, lq);
+    load_tile_async<T, kBk, D>(k_s, kb, 0, lk);
+    load_tile_async<T, kBk, D>(v_s, vb, 0, lk);
+  }
+  cp_async_commit();
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
+  uint32_t qf[kF][4], df[kF][4];
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {  // the next tile flies while this one computes
+      load_tile_async<T, kBk, D>(k_s + (st ^ 1) * kBk * kS, kb, (kt + 1) * kBk, lk);
+      load_tile_async<T, kBk, D>(v_s + (st ^ 1) * kBk * kS, vb, (kt + 1) * kBk, lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest has landed: this tile
+    __syncthreads();
+    if (kRegs && kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kF; ++kk) {
+        ldsm_a<D>(qf[kk], q_s, warp * 16, kk * 16);
+        ldsm_a<D>(df[kk], do_s, warp * 16, kk * 16);
+      }
+    }
+    const T* ks = k_s + st * kBk * kS;
+    const T* vs = v_s + st * kBk * kS;
+
+    // S = Q K^T and dP = dO V^T: rows are this warp's 16 queries.
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kk][e];
+          da[e] = df[kk][e];
+        }
+      } else {
+        ldsm_a<D>(qa, q_s, warp * 16, kk * 16);
+        ldsm_a<D>(da, do_s, warp * 16, kk * 16);
+      }
+#pragma unroll
+      for (int nn = 0; nn < kNT / 2; ++nn) {
+        uint32_t b[4];
+        ldsm_b<D>(b, ks, nn * 16, kk * 16);
+        Mma<T>::run(s[2 * nn], qa, b[0], b[1]);
+        Mma<T>::run(s[2 * nn + 1], qa, b[2], b[3]);
+        ldsm_b<D>(b, vs, nn * 16, kk * 16);
+        Mma<T>::run(dp[2 * nn], da, b[0], b[1]);
+        Mma<T>::run(dp[2 * nn + 1], da, b[2], b[3]);
+      }
+    }
+
+    // P = exp(S scale - lse) and dS = P (dP - delta) scale, into s. Only
+    // the diagonal and ragged tiles are masked.
+    const int k0 = kt * kBk;
+    const bool masked = k0 + kBk > kv_end || (causal && k0 + kBk - 1 > q0 + q_offset);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        bool ok = true;
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          ok = key < kv_end && !(causal && key > row_lo + 8 * h + q_offset);
+        }
+        const float p = ok ? exp2f(s[j][e] * scale2 - lse2[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[h]) * sm_scale;
+      }
+    }
+
+    // dQ += dS K: dS's accumulator fragments, rounded to T, are the A
+    // fragments; K is read along its other axis from the same tile.
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldsm_b_trans<D>(b, ks, kk * 16, dn * 16);
+        Mma<T>::run(dq_acc[2 * dn], a, b[0], b[1]);
+        Mma<T>::run(dq_acc[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the load issued next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_lo + 8 * h;
+    if (r < lq) {
+      T* row = dq + (qrow + r) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(row + 8 * j) =
+            Mma<T>::pack(dq_acc[j][2 * h], dq_acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
 template <typename T, int D>
 constexpr size_t fwd_mma_smem() { return (kFwdBq + 4 * kFwdBk) * row_stride<D>() * sizeof(T); }
+template <typename T, int D>
+constexpr size_t dq_mma_smem() {
+  return (2 * kDqBq + 4 * dq_bk<D>()) * row_stride<D>() * sizeof(T);
+}
 template <typename T, int D>
 constexpr size_t dkv_mma_smem() {
   return (2 * kDkvBk + 4 * dkv_bq<D>()) * row_stride<D>() * sizeof(T) +
@@ -943,12 +1118,18 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value;
-    return launch(fa_bwd_dq_kernel<T, D>, dim3(bh, tiles(lq)), kThreads, dq_smem<D>(), stream,
-                  std::make_tuple(static_cast<const T*>(q), static_cast<const T*>(k),
-                                  static_cast<const T*>(v), static_cast<const T*>(dout),
-                                  static_cast<const float*>(lse),
-                                  static_cast<const float*>(delta), static_cast<T*>(dq), lq,
-                                  lk, q_offset, kv_valid, causal, sm_scale));
+    const auto args = std::make_tuple(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), lq, lk, q_offset, kv_valid,
+        causal, sm_scale);
+    if constexpr (std::is_same<T, float>::value) {
+      return launch(fa_bwd_dq_kernel<T, D>, dim3(bh, tiles(lq)), kThreads, dq_smem<D>(),
+                    stream, args);
+    } else {
+      return launch(fa_bwd_dq_mma_kernel<T, D>, dim3(bh, tiles(lq)), kMmaThreads,
+                    dq_mma_smem<T, D>(), stream, args);
+    }
   });
 }
 
@@ -976,14 +1157,16 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
   });
 }
 
-// Dynamic shared memory (bytes) of the bf16/fp16 forward (which = 0) or
-// dK/dV (which = 1) kernel at head dim d; -1 for another head dim.
+// Dynamic shared memory (bytes) of the bf16/fp16 forward (which = 0), dK/dV
+// (which = 1) or dQ (which = 2) kernel at head dim d; -1 for another head
+// dim or kernel.
 int hvd_flash_mma_smem(int which, int d) {
-  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+  if ((d != 16 && d != 32 && d != 64 && d != 128) || which < 0 || which > 2) return -1;
   return dispatch_d<__nv_bfloat16>(d, [&](auto t, auto dd) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value;
-    return static_cast<int>(which == 0 ? fwd_mma_smem<T, D>() : dkv_mma_smem<T, D>());
+    const size_t bytes[] = {fwd_mma_smem<T, D>(), dkv_mma_smem<T, D>(), dq_mma_smem<T, D>()};
+    return static_cast<int>(bytes[which]);
   });
 }
 

@@ -22,36 +22,45 @@
 // staging beyond the fusion buffer itself. Vectorised 16-byte access, TMA and
 // persistent blocks are left for later.
 //
-// The table is a device int64 array of (pointer, numel, offset) rows filled by
-// the Python wrapper; the kernel allocates nothing and does not synchronise.
-// Plain C interface, loaded with ctypes; each entry point returns
-// cudaGetLastError() after its launch.
+// The table of (pointer, numel, offset) rows, one per tensor, is a kernel
+// parameter passed by value (__grid_constant__: read in place from the
+// parameter bank, never copied to local memory). A launch takes up to
+// kMaxRows rows, 6 KB (past the 4 KB of parameters before CUDA 12.1, which
+// allows 32,764 bytes on sm_70 and later); the wrapper splits a longer
+// bucket into launches. So the table goes to the card with the launch
+// itself: no device allocation, no copy of its own and nothing kept between
+// launches, whether or not the tensors' addresses repeat from step to step.
+// The kernel allocates nothing and does not synchronise. Plain C interface,
+// loaded with ctypes; each entry point returns cudaGetLastError() after its
+// launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "cvt.cuh"
 
 namespace {
 
-struct Entry {
-  int64_t ptr;
-  int64_t numel;
-  int64_t offset;
-};
-
 constexpr int kThreads = 256;
-constexpr int64_t kMaxGridY = 65535;
+constexpr int kMaxRows = 256;  // more than any bucket of ResNet-50 or GPT-2 small
+
+// The rows as arrays (each read by a block at its own index).
+struct Table {
+  int64_t ptr[kMaxRows];
+  int64_t numel[kMaxRows];
+  int64_t offset[kMaxRows];
+};
 
 template <typename T, bool kPack>
 __global__ void __launch_bounds__(kThreads)
-scale_copy_kernel(const Entry* __restrict__ table, int64_t n_tensors, T* flat, float scale) {
+scale_copy_kernel(const __grid_constant__ Table table, int n_tensors, T* flat, float scale) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = blockIdx.y; j < n_tensors; j += gridDim.y) {
-    const Entry e = table[j];
-    T* tensor = reinterpret_cast<T*>(e.ptr);
-    T* slot = flat + e.offset;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < e.numel;
+  for (int j = blockIdx.y; j < n_tensors; j += gridDim.y) {
+    T* tensor = reinterpret_cast<T*>(table.ptr[j]);
+    const int64_t numel = table.numel[j];
+    T* slot = flat + table.offset[j];
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < numel;
          i += stride) {
       if (kPack) {
         slot[i] = Cvt<T>::from_f32(__fmul_rn(Cvt<T>::to_f32(tensor[i]), scale));
@@ -62,27 +71,33 @@ scale_copy_kernel(const Entry* __restrict__ table, int64_t n_tensors, T* flat, f
   }
 }
 
+// rows: n pointers, then n numels, then n offsets (host memory), copied into
+// the launch's parameters.
 template <bool kPack>
-int launch(const void* table, int64_t n_tensors, int64_t blocks_x, void* flat, int dtype,
+int launch(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat, int dtype,
            float scale, cudaStream_t stream) {
-  if (n_tensors <= 0 || blocks_x <= 0 || blocks_x > 0x7fffffff) {
+  if (n_tensors <= 0 || n_tensors > kMaxRows || blocks_x <= 0 || blocks_x > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(blocks_x),
-                  static_cast<unsigned>(n_tensors < kMaxGridY ? n_tensors : kMaxGridY));
-  const Entry* t = static_cast<const Entry*>(table);
+  const int64_t* r = static_cast<const int64_t*>(rows);
+  const int n = static_cast<int>(n_tensors);
+  Table table;
+  memcpy(table.ptr, r, n * sizeof(int64_t));
+  memcpy(table.numel, r + n, n * sizeof(int64_t));
+  memcpy(table.offset, r + 2 * n, n * sizeof(int64_t));
+  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(n));
   switch (dtype) {
     case 0:
       scale_copy_kernel<float, kPack>
-          <<<grid, kThreads, 0, stream>>>(t, n_tensors, static_cast<float*>(flat), scale);
+          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<float*>(flat), scale);
       break;
     case 1:
       scale_copy_kernel<__half, kPack>
-          <<<grid, kThreads, 0, stream>>>(t, n_tensors, static_cast<__half*>(flat), scale);
+          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<__half*>(flat), scale);
       break;
     case 2:
-      scale_copy_kernel<__nv_bfloat16, kPack><<<grid, kThreads, 0, stream>>>(
-          t, n_tensors, static_cast<__nv_bfloat16*>(flat), scale);
+      scale_copy_kernel<__nv_bfloat16, kPack>
+          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<__nv_bfloat16*>(flat), scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -94,16 +109,18 @@ int launch(const void* table, int64_t n_tensors, int64_t blocks_x, void* flat, i
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Returns a cudaError_t.
-int hvd_scale_pack(const void* table, int64_t n_tensors, int64_t blocks_x, void* flat,
+// rows: the table as launch takes it, in host memory; n_tensors <=
+// kMaxRows. dtype: 0 = float32, 1 = float16, 2 = bfloat16. Returns a
+// cudaError_t.
+int hvd_scale_pack(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat,
                    int dtype, float scale, void* stream) {
-  return launch<true>(table, n_tensors, blocks_x, flat, dtype, scale,
+  return launch<true>(rows, n_tensors, blocks_x, flat, dtype, scale,
                       static_cast<cudaStream_t>(stream));
 }
 
-int hvd_scale_unpack(const void* table, int64_t n_tensors, int64_t blocks_x, void* flat,
+int hvd_scale_unpack(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat,
                      int dtype, float scale, void* stream) {
-  return launch<false>(table, n_tensors, blocks_x, flat, dtype, scale,
+  return launch<false>(rows, n_tensors, blocks_x, flat, dtype, scale,
                        static_cast<cudaStream_t>(stream));
 }
 

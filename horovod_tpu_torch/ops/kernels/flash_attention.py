@@ -17,12 +17,12 @@ gives a zero output and zero gradients; lse is fp32; outputs are in the
 inputs' dtype.
 
 Numbers. In fp32 the kernels compute as the plain versions do, in fp32
-throughout. In bf16 and fp16 the forward and dK/dV kernels run their
-products on the tensor cores and, as FlashAttention does, round P (and dS)
-to the inputs' dtype before the product; the plain versions keep P in fp32
-(as JAX does) unless asked to round where the kernels do (``round_p``). The
-two are held to :func:`rounding_bounds`, which follows from one rounding of
-an operand on each side. The dQ kernel keeps fp32 throughout.
+throughout. In bf16 and fp16 all three kernels run their products on the
+tensor cores and, as FlashAttention does, round P (forward, dV) and dS (dQ,
+dK) to the inputs' dtype before the product; the plain versions keep them
+in fp32 (as JAX does) unless asked to round where the kernels do
+(``round_p``). The two are held to :func:`rounding_bounds`, which follows
+from one rounding of an operand on each side.
 
 Entry points:
 
@@ -132,17 +132,17 @@ def block_bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
     """Plain backward against a given lse: (dq, dk, dv). With the block's own
     lse this is the exact attention gradient; with a ring-wide lse, one hop's
     share of it. ``round_p`` (a dtype) rounds P before dV = P^T dO and dS
-    before dK = dS^T Q, as the bf16 and fp16 dK/dV kernel does; dQ keeps dS
-    in fp32, as the dQ kernel does. None keeps both in fp32, as JAX's
-    ``_jnp_block_bwd`` does."""
+    before dQ = dS K and dK = dS^T Q, as the bf16 and fp16 kernels do. None
+    keeps both in fp32, as JAX's ``_jnp_block_bwd`` does."""
     qf, kf, vf, of, dof = (t.float() for t in (q3, k3, v3, o3, do3))
     _, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid, lse)
     dv = torch.einsum("bqk,bqd->bkd", _rounded(p, round_p), dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
     delta = (dof * of).sum(dim=-1)
     ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
-    dk = torch.einsum("bqk,bqd->bkd", _rounded(ds, round_p), qf)
+    ds_r = _rounded(ds, round_p)
+    dq = torch.einsum("bqk,bkd->bqd", ds_r, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds_r, qf)
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
@@ -150,10 +150,13 @@ def block_bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
 # u: unit roundoff (half an ulp at 1: 8 and 11 significant bits); eta: half
 # the subnormal step, the largest error of rounding a value below the
 # normal range. Both sides round P (and dS) once, each within u of the
-# exact value or eta below it: c = 2.
+# exact value or eta below it: c = 2. gamma: the relative error of an fp32
+# sum of D products in any order, D * 2^-23 (one fp32 ulp at 1 per addition,
+# as a tensor-core accumulation may truncate where IEEE rounds).
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 SUBNORMAL_HALF_STEP = {torch.bfloat16: 2.0 ** -134, torch.float16: 2.0 ** -25}
 ROUNDING_C = 2.0
+FP32_SUM_UNIT = 2.0 ** -23
 _SIGNIFICAND_BITS = {torch.bfloat16: 8, torch.float16: 11}
 
 
@@ -175,21 +178,27 @@ def rounding_bounds(plain, q3, k3, v3, causal, scale, q_offset=None,
     fp16 kernels, which round P (and dS) to the inputs' dtype before a
     product, against a plain version on the same inputs, rounding or not:
 
-        |kernel - plain| <= 2 ulp(|plain|) + c (u |A| |B| + eta n),  c = ROUNDING_C
+        |kernel - plain| <= 2 ulp(|plain|) + c (u |A| |B| + eta n [+ f]),
+                                                           c = ROUNDING_C
 
-    ``plain`` maps any of "o", "dk", "dv" to the plain version's output.
-    |A| |B| is the product over absolute values: |P| |V| / l for o (P
-    against the row max), |P|^T |dO| for dV and |dS|^T |Q| for dK (P against
-    ``lse``, dS with its scale); n is the same product with the visible
-    entries of the rounded operand set to one. The 2 ulp cover the two final
-    roundings. Returns {name: bound}, fp32."""
+    ``plain`` maps any of "o", "dq", "dk", "dv" to the plain version's
+    output. |A| |B| is the product over absolute values: |P| |V| / l for o
+    (P against the row max), |dS| |K| for dQ, |dS|^T |Q| for dK and
+    |P|^T |dO| for dV (P against ``lse``, dS with its scale); n is the same
+    product with the visible entries of the rounded operand set to one. The
+    2 ulp cover the two final roundings. dQ alone adds
+    f = gamma (P scale (|dO| |V|^T + rowsum |dO| |O|)) |K|: each side forms
+    dP - delta from two fp32 sums, and where they cancel (a row that sees
+    one key has dS = 0 exactly) what is left is their fp32 error, which
+    reaches dQ row by row unsummed (dK sums it over query rows, under its
+    rounding term). Returns {name: bound}, fp32."""
     dt = q3.dtype
     u, eta = UNIT_ROUNDOFF[dt], SUBNORMAL_HALF_STEP[dt]
     out = {}
 
-    def bound(name, mag, n):
-        out[name] = 2 * ulp(plain[name], dt) + ROUNDING_C * (u * mag
-                                                             + eta * n)
+    def bound(name, mag, n, f=0.0):
+        out[name] = 2 * ulp(plain[name], dt) + ROUNDING_C * (
+            u * mag + eta * n + f)
 
     if "o" in plain:
         ok, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid)
@@ -197,18 +206,28 @@ def rounding_bounds(plain, q3, k3, v3, causal, scale, q_offset=None,
         va = v3.float().abs()
         bound("o", torch.einsum("bqk,bkd->bqd", p, va) / l,
               torch.einsum("bqk,bkd->bqd", ok.float(), va) / l)
-    if "dk" in plain or "dv" in plain:
+    if plain.keys() & {"dq", "dk", "dv"}:
         ok, p, _ = _probs(q3, k3, causal, scale, q_offset, kv_valid, lse)
         dof = do3.float()
         if "dv" in plain:
             bound("dv", torch.einsum("bqk,bqd->bkd", p, dof.abs()),
                   torch.einsum("bqk,bqd->bkd", ok.float(), dof.abs()))
-        if "dk" in plain:
+        if plain.keys() & {"dq", "dk"}:
             dp = torch.einsum("bqd,bkd->bqk", dof, v3.float())
             delta = (dof * o3.float()).sum(dim=-1)
-            ds = p * (dp - delta[..., None]) * scale
+            ds = (p * (dp - delta[..., None]) * scale).abs()
+        if "dq" in plain:
+            ka, doa = k3.float().abs(), dof.abs()
+            sums = (torch.einsum("bqd,bkd->bqk", doa, v3.float().abs())
+                    + (doa * o3.float().abs()).sum(dim=-1)[..., None])
+            gamma = q3.shape[-1] * FP32_SUM_UNIT
+            bound("dq", torch.einsum("bqk,bkd->bqd", ds, ka),
+                  torch.einsum("bqk,bkd->bqd", ok.float(), ka),
+                  gamma * torch.einsum("bqk,bkd->bqd", p * scale * sums,
+                                       ka))
+        if "dk" in plain:
             qa = q3.float().abs()
-            bound("dk", torch.einsum("bqk,bqd->bkd", ds.abs(), qa),
+            bound("dk", torch.einsum("bqk,bqd->bkd", ds, qa),
                   torch.einsum("bqk,bqd->bkd", ok.float(), qa))
     return out
 

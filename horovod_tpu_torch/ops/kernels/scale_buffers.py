@@ -14,13 +14,24 @@ bucket:
 The TPU kernel's (8, 128) row padding and its VMEM element cap are TPU layout
 moves and have no counterpart here.
 
+The kernel reads a table of (pointer, numel, offset) rows, one per tensor,
+that goes to the card as a kernel parameter (by value): each launch costs
+the host a pass over the tensors and nothing else, with no device table to
+allocate, copy or keep. A kept table would not pay: a training step's
+gradients come back at new addresses from step to step (ResNet-50's did at
+every step), so most launches would have to build one again. A bucket of
+more than ``_MAX_ROWS`` tensors takes one launch per ``_MAX_ROWS``.
+
 A CPU tensor takes the plain PyTorch version beside the kernel
 (:func:`pack_scale_reference`, :func:`unpack_scale_reference`); a CUDA tensor
 launches the kernel or raises. The module-level ``pack_launches`` and
 ``unpack_launches`` count kernel launches, and nothing else.
 """
 
+import array
 import ctypes
+import itertools
+import operator
 
 import torch
 
@@ -34,6 +45,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _THREADS = 256            # kThreads in csrc/scale_buffers.cu
 _ELEMS_PER_THREAD = 4     # grid x sized for ~4 elements a thread on average
 _MAX_BLOCKS_X = 4096      # larger tensors are covered by the grid-stride loop
+_MAX_ROWS = 256           # kMaxRows: the rows one launch's parameters hold
+_DTYPE_OF = operator.attrgetter("dtype")
+_DEVICE_OF = operator.attrgetter("device")
 
 DTYPES = tuple(_DTYPE_CODES)
 
@@ -45,6 +59,9 @@ def reset_launch_counts():
 
 
 def _check(tensors, flat, what):
+    """Refuses what the kernel does not take; returns the tensors' numels.
+    One pass over the tensors per attribute (``map`` over the unbound
+    methods): the host's cost of a launch is mostly this."""
     if not isinstance(flat, torch.Tensor) or flat.dim() != 1 \
             or not flat.is_contiguous():
         raise ValueError(f"{what}: the fusion buffer must be a contiguous "
@@ -54,17 +71,21 @@ def _check(tensors, flat, what):
                         f"{list(_DTYPE_CODES)}")
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: tensors on {flat.device} are not supported")
-    total = 0
-    for t in tensors:
-        if t.dtype != flat.dtype or t.device != flat.device:
-            raise TypeError(f"{what}: tensor {t.dtype} on {t.device} does not "
-                            f"match the buffer's {flat.dtype} on {flat.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous")
-        total += t.numel()
+    dtype, device = flat.dtype, flat.device
+    if not set(map(_DTYPE_OF, tensors)) <= {dtype} \
+            or not set(map(_DEVICE_OF, tensors)) <= {device}:
+        t = next(t for t in tensors
+                 if t.dtype != dtype or t.device != device)
+        raise TypeError(f"{what}: tensor {t.dtype} on {t.device} does not "
+                        f"match the buffer's {dtype} on {device}")
+    if not all(map(torch.Tensor.is_contiguous, tensors)):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    numels = list(map(torch.Tensor.numel, tensors))
+    total = sum(numels)
     if total != flat.numel():
         raise ValueError(f"{what}: the tensors hold {total} elements but the "
                          f"buffer {flat.numel()}")
+    return numels
 
 
 def _f32_scale(scale):
@@ -92,54 +113,78 @@ def unpack_scale_reference(flat, tensors, scale):
     return tensors
 
 
-def _table(tensors, flat):
-    """The kernel's (pointer, numel, offset) table on the card, and the
-    grid's x size."""
-    rows, off = [], 0
-    for t in tensors:
-        rows.append((t.data_ptr(), t.numel(), off))
-        off += t.numel()
-    mean = max(off // len(tensors), 1)
+def table_rows(tensors, numels):
+    """The kernel's rows, as (pointers, numels, offsets), and the grid's x
+    size: ~4 elements a thread for a tensor of the bucket's mean size.
+    Host only."""
+    offsets = list(itertools.accumulate(numels, initial=0))
+    mean = max(offsets[-1] // max(len(numels), 1), 1)
     blocks_x = min(max(-(-mean // (_THREADS * _ELEMS_PER_THREAD)), 1),
                    _MAX_BLOCKS_X)
-    with torch.cuda.device(flat.device):
-        # Pinned, so the copy to the card is asynchronous on this stream;
-        # the caching host allocator keeps the block until the copy is done.
-        table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-            flat.device, non_blocking=True)
-    return table, blocks_x
+    return (list(map(torch.Tensor.data_ptr, tensors)), numels,
+            offsets[:-1]), blocks_x
 
 
-def _launch(fn_name, table, blocks_x, flat, scale):
-    """One launch of ``fn_name`` over a table from :func:`_table`, on the
-    current stream."""
-    fn = getattr(_build.load("scale_buffers"), fn_name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def launch_tables(rows):
+    """The rows cut into one table per launch, each as the kernel takes it:
+    an int64 array of its pointers, then its numels, then its offsets, at
+    most ``_MAX_ROWS`` rows. Host only."""
+    ptrs, numels, offsets = rows
+    tables = []
+    for i in range(0, len(ptrs), _MAX_ROWS):
+        table = array.array("q", ptrs[i:i + _MAX_ROWS])
+        table.extend(numels[i:i + _MAX_ROWS])
+        table.extend(offsets[i:i + _MAX_ROWS])
+        tables.append(table)
+    return tables
+
+
+_fns = {}
+
+
+def _fn(name):
+    """The kernel entry point ``name``, bound with its argument types
+    once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("scale_buffers"), name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _launch(fn_name, tables, blocks_x, flat, scale):
+    """One launch of ``fn_name`` per table of :func:`launch_tables`, on the
+    current stream; returns the number of launches. The tables are copied
+    into the launches' parameters before this returns."""
+    fn, code, scale = _fn(fn_name), _DTYPE_CODES[flat.dtype], float(scale)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = fn(table.data_ptr(), table.shape[0], blocks_x, flat.data_ptr(),
-                 _DTYPE_CODES[flat.dtype], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaGetLastError() = "
-                           f"{err}")
+        for table in tables:
+            err = fn(table.buffer_info()[0], len(table) // 3, blocks_x,
+                     flat.data_ptr(), code, scale, stream)
+            if err != 0:
+                raise RuntimeError(f"{fn_name} launch failed: "
+                                   f"cudaGetLastError() = {err}")
+    return len(tables)
 
 
 def pack_scale(tensors, out_flat, scale):
     """``out_flat[off_i : off_i + n_i] = (t_i as fp32 * scale) -> dtype`` for
-    every tensor of one bucket, in one launch. ``out_flat`` holds exactly the
-    tensors' elements, in order."""
+    every tensor of one bucket, in one launch (one per ``_MAX_ROWS``
+    tensors). ``out_flat`` holds exactly the tensors' elements, in order."""
     global pack_launches
     tensors = list(tensors)
-    _check(tensors, out_flat, "pack_scale")
+    numels = _check(tensors, out_flat, "pack_scale")
     if out_flat.device.type == "cpu":
         return pack_scale_reference(tensors, out_flat, scale)
     if out_flat.numel():
-        table, blocks_x = _table(tensors, out_flat)
-        _launch("hvd_scale_pack", table, blocks_x, out_flat, scale)
-        pack_launches += 1
+        rows, blocks_x = table_rows(tensors, numels)
+        pack_launches += _launch("hvd_scale_pack", launch_tables(rows),
+                                 blocks_x, out_flat, scale)
     return out_flat
 
 
@@ -148,11 +193,11 @@ def unpack_scale(flat, tensors, scale):
     in fp32, is written into the tensor in place, in one launch."""
     global unpack_launches
     tensors = list(tensors)
-    _check(tensors, flat, "unpack_scale")
+    numels = _check(tensors, flat, "unpack_scale")
     if flat.device.type == "cpu":
         return unpack_scale_reference(flat, tensors, scale)
     if flat.numel():
-        table, blocks_x = _table(tensors, flat)
-        _launch("hvd_scale_unpack", table, blocks_x, flat, scale)
-        unpack_launches += 1
+        rows, blocks_x = table_rows(tensors, numels)
+        unpack_launches += _launch("hvd_scale_unpack", launch_tables(rows),
+                                   blocks_x, flat, scale)
     return tensors

@@ -69,7 +69,7 @@ def busy_us(intervals):
 # first match wins.
 KINDS = (
     ("flash_fwd", ("fa_fwd_kernel", "fa_fwd_mma_kernel")),
-    ("flash_bwd_dq", ("fa_bwd_dq_kernel",)),
+    ("flash_bwd_dq", ("fa_bwd_dq_kernel", "fa_bwd_dq_mma_kernel")),
     ("flash_bwd_dkv", ("fa_bwd_dkv_kernel", "fa_bwd_dkv_mma_kernel")),
     ("scale_pack_unpack", ("scale_copy_kernel",)),
     ("adasum_combine", ("adasum_partials_kernel", "adasum_apply_kernel")),

@@ -7,19 +7,18 @@ runs without the suite's conftest:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: the scale kernels bit-equal (one fp32 multiply and one
-rounding on both sides). The flash kernels in fp32, and the dQ kernel and
-lse in every dtype, within atol + rtol * |plain| of the plain versions:
-both compute in fp32 and round once, but sum in another order (~1e-6
-relative in fp32), which can flip the final rounding: 1e-4 relative in
-fp32, two ulps in bf16 and fp16. The bf16/fp16 forward and dK/dV kernels
-run their products on the tensor cores and round P (and dS) to the input
-type before the product, as FlashAttention does, so "two ulps" no longer
-follows from their arithmetic: they are held to the plain versions that
+rounding on both sides), on buckets of one launch and of several. The flash kernels in fp32, and lse in every dtype, within
+atol + rtol * |plain| of the plain versions: both compute in fp32 and round
+once, but sum in another order (~1e-6 relative in fp32): 1e-4 relative
+(lse 1e-5). The bf16/fp16 forward, dQ and dK/dV kernels run their products
+on the tensor cores and round P and dS to the input type before the
+product, as FlashAttention does: they are held to the plain versions that
 round at the same points (``round_p``) within ``rounding_bounds``,
 2 ulp(|plain|) + c (u |A| |B| + eta n) with c = 2, u the dtype's unit
 roundoff and eta half its subnormal step, which follows from one rounding
-of an operand on each side; a version with the causal diagonal off by one
-must fail it. Fully masked rows must be exact zeros, and reruns
+of an operand on each side (dQ adds the fp32 error of dP - delta where the
+two cancel); a version with the causal diagonal off by one must fail it.
+Fully masked rows must be exact zeros, and reruns
 bit-identical (no atomics). The Adasum combine per segment within a share
 of the segment's largest plain value: 1e-5 in fp32 and float64 (the dot
 product and norms are summed in another order, which moves a coefficient by
@@ -84,6 +83,57 @@ def test_unpack_scale_bit_equal_to_plain(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_scale_bucket_past_one_launch_bit_equal(dev, dtype):
+    """A bucket of more tensors than one launch's table holds takes one
+    launch per _MAX_ROWS tensors and stays bit-equal to the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    n = 2 * sb._MAX_ROWS + 5
+    ts = [torch.randn(1 + i % 37, generator=g, device=dev).to(dtype)
+          for i in range(n)]
+    flat = torch.empty(sum(t.numel() for t in ts), dtype=dtype, device=dev)
+    p0, u0 = sb.pack_launches, sb.unpack_launches
+    sb.pack_scale(ts, flat, 1.0 / 3.0)
+    outs = [torch.empty_like(t) for t in ts]
+    sb.unpack_scale(flat, outs, 3.0)
+    torch.cuda.synchronize()
+    assert (sb.pack_launches - p0, sb.unpack_launches - u0) == (3, 3)
+    assert torch.equal(flat, sb.pack_scale_reference(
+        ts, torch.empty_like(flat), 1.0 / 3.0))
+    want = sb.unpack_scale_reference(flat, [torch.empty_like(t) for t in ts],
+                                     3.0)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_scale_on_a_side_stream_queued_behind_work(dev, dtype):
+    """As the fusion runtime runs them: pack and unpack on a side stream,
+    queued behind a sleep, so they run long after the wrapper returned and
+    its host rows were dropped and their memory reused (the table travels
+    in the launch's parameters). Bit-equal to the plain version."""
+    side = torch.cuda.Stream(dev)
+    ts = _tensors(dev, dtype, 40)
+    flat = torch.empty(sum(t.numel() for t in ts), dtype=dtype, device=dev)
+    outs = [torch.empty_like(t) for t in ts]
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for _ in range(3):
+            sb.pack_scale(ts, flat, 0.5)
+            sb.unpack_scale(flat, outs, 4.0)
+            # Host garbage where the last rows were.
+            junk = [sb.launch_tables(([0] * len(ts),) * 3)
+                    for _ in range(8)]
+            del junk
+    side.synchronize()
+    assert torch.equal(flat, sb.pack_scale_reference(
+        ts, torch.empty_like(flat), 0.5))
+    want = sb.unpack_scale_reference(flat, [torch.empty_like(t) for t in ts],
+                                     4.0)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
 def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
     def refuse(*args):
         raise AssertionError("plain version called on CUDA tensors")
@@ -113,8 +163,7 @@ def test_fused_allreduce_on_the_card(dev):
         hvd.shutdown()
 
 
-FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1.6e-2),
-             torch.float16: (2e-3, 2e-3)}
+FLASH_TOL = {torch.float32: (1e-5, 1e-4)}
 HALF = [torch.bfloat16, torch.float16]
 # (BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads): every head dim at the
 # ragged L = 197, Lq < Lk and Lq > Lk (fully masked rows), kv_valid, GQA,
@@ -162,10 +211,9 @@ def _within_bound(got, want, bound, name):
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_flash_kernels_match_plain(dev, dtype, case):
-    """fp32: every output within FLASH_TOL. bf16/fp16: o, dK and dV within
-    the rounding bound of the plain versions that round P and dS; dQ and
-    lse within FLASH_TOL of the fp32 plain versions (the dQ kernel keeps
-    fp32)."""
+    """fp32: every output within FLASH_TOL. bf16/fp16: o, dQ, dK and dV
+    within the rounding bound of the plain versions that round P and dS;
+    lse within 1e-5 relative of the fp32 plain version."""
     bh, lq, lk, d, causal, kv_valid, heads, kvh = case
     q, k, v, do, km, vm = _flash_inputs(dev, dtype, case)
     sm = d ** -0.5
@@ -183,22 +231,21 @@ def test_flash_kernels_match_plain(dev, dtype, case):
         tuple(n + 1 for n in before)
     ref = fa.block_bwd_reference(q, km, vm, o, lse, do, causal, sm, None,
                                  kv_valid)
-    _close(grads[0], ref[0], dtype, "dq")
     if dtype == torch.float32:
         _close(o, o_p, dtype, "o")
-        for got, want, name in zip(grads[1:], ref[1:], ("dk", "dv")):
+        for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
             _close(got, want, dtype, name)
     else:
         o_r, _ = fa.block_fwd_reference(q, km, vm, causal, sm, None,
                                         kv_valid, round_p=dtype)
-        _, dk_r, dv_r = fa.block_bwd_reference(
+        dq_r, dk_r, dv_r = fa.block_bwd_reference(
             q, km, vm, o, lse, do, causal, sm, None, kv_valid, round_p=dtype)
-        bounds = fa.rounding_bounds({"o": o_r, "dk": dk_r, "dv": dv_r}, q,
-                                    km, vm, causal, sm, None, kv_valid,
-                                    o3=o, lse=lse, do3=do)
-        for got, want, name in ((o, o_r, "o"), (grads[1], dk_r, "dk"),
-                                (grads[2], dv_r, "dv")):
-            _within_bound(got, want, bounds[name], name)
+        plain = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
+        bounds = fa.rounding_bounds(plain, q, km, vm, causal, sm, None,
+                                    kv_valid, o3=o, lse=lse, do3=do)
+        for got, name in ((o, "o"), (grads[0], "dq"), (grads[1], "dk"),
+                          (grads[2], "dv")):
+            _within_bound(got, plain[name], bounds[name], name)
     if causal and lq > lk:
         assert torch.equal(o[:, :lq - lk], torch.zeros_like(o[:, :lq - lk]))
         assert torch.equal(grads[0][:, :lq - lk],
@@ -213,19 +260,20 @@ def test_flash_off_by_one_diagonal_fails_the_bound(dev, dtype):
     q, k, v, do, _, _ = _flash_inputs(dev, dtype, case)
     sm = 64 ** -0.5
     o, lse = fa.fa_forward(q, k, v, True, sm)
-    _, dk, dv = fa.fa_backward(q, k, v, o, lse, do, True, sm)
+    got = dict(zip(("dq", "dk", "dv"),
+                   fa.fa_backward(q, k, v, o, lse, do, True, sm)), o=o)
     o_r, _ = fa.block_fwd_reference(q, k, v, True, sm, round_p=dtype)
-    _, dk_r, dv_r = fa.block_bwd_reference(q, k, v, o, lse, do, True, sm,
-                                           round_p=dtype)
+    plain = dict(zip(("dq", "dk", "dv"), fa.block_bwd_reference(
+        q, k, v, o, lse, do, True, sm, round_p=dtype)), o=o_r)
     o_c, _ = fa.block_fwd_reference(q, k, v, True, sm, 1, round_p=dtype)
-    _, dk_c, dv_c = fa.block_bwd_reference(q, k, v, o, lse, do, True, sm, 1,
-                                           round_p=dtype)
-    bounds = fa.rounding_bounds({"o": o_r, "dk": dk_r, "dv": dv_r}, q, k, v,
-                                True, sm, o3=o, lse=lse, do3=do)
-    for got, ctl, want, name in ((o, o_c, o_r, "o"), (dk, dk_c, dk_r, "dk"),
-                                 (dv, dv_c, dv_r, "dv")):
-        _within_bound(got, want, bounds[name], name)
-        assert fa.bound_ratio(ctl, want, bounds[name]) > 1.0, name
+    ctl = dict(zip(("dq", "dk", "dv"), fa.block_bwd_reference(
+        q, k, v, o, lse, do, True, sm, 1, round_p=dtype)), o=o_c)
+    bounds = fa.rounding_bounds(plain, q, k, v, True, sm, o3=o, lse=lse,
+                                do3=do)
+    for name in ("o", "dq", "dk", "dv"):
+        _within_bound(got[name], plain[name], bounds[name], name)
+        assert fa.bound_ratio(ctl[name], plain[name], bounds[name]) > 1.0, \
+            name
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

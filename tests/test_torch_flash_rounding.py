@@ -1,8 +1,8 @@
 """The bound that the port's bf16/fp16 flash kernels are held to, on the CPU.
 
-The tensor-core forward and dK/dV kernels round P (and dS) to the inputs'
-dtype before a product; JAX's Pallas kernels and the port's default plain
-versions keep them in fp32. ``block_fwd_reference`` and
+The tensor-core forward, dQ and dK/dV kernels round P (forward, dV) and dS
+(dQ, dK) to the inputs' dtype before a product; JAX's Pallas kernels and the
+port's default plain versions keep them in fp32. ``block_fwd_reference`` and
 ``block_bwd_reference`` with ``round_p`` round where the kernels do, and
 ``rounding_bounds`` states how far two versions that differ by one such
 rounding may lie apart:
@@ -11,10 +11,10 @@ rounding may lie apart:
 
 Here the rounding plain version is held to it against the fp32 plain
 version and against the interpreted Pallas kernels (JAX pads L = 100 and
-197 to a block multiple and masks the padding with ``kv_valid``), and two
-deliberately wrong versions must fail it: the causal diagonal off by one,
-and dK and dV swapped. Small shapes: L = 100 and 197, D = 16 and 64, bf16
-and fp16, GQA in the forward.
+197 to a block multiple and masks the padding with ``kv_valid``), and
+three deliberately wrong versions must fail it: the causal diagonal off by
+one, dK and dV swapped, and dQ computed with V in place of K. Small shapes:
+L = 100 and 197, D = 16 and 64, bf16 and fp16, GQA in the forward.
 """
 
 import importlib
@@ -85,23 +85,27 @@ def _bounds(L, d, dt, gqa, plain):
 def test_rounding_plain_within_bound_of_fp32_plain(L, d, dt, gqa):
     o_r, lse_r = _forward(L, d, dt, gqa, DTYPES[dt])
     o_f, lse_f = _forward(L, d, dt, gqa, None)
-    _, dk_r, dv_r = _backward(L, d, dt, gqa, DTYPES[dt])
-    _, dk_f, dv_f = _backward(L, d, dt, gqa, None)
-    bounds = _bounds(L, d, dt, gqa, {"o": o_r, "dk": dk_r, "dv": dv_r})
-    for name, got, want in (("o", o_f, o_r), ("dk", dk_f, dk_r),
-                            ("dv", dv_f, dv_r)):
+    dq_r, dk_r, dv_r = _backward(L, d, dt, gqa, DTYPES[dt])
+    dq_f, dk_f, dv_f = _backward(L, d, dt, gqa, None)
+    bounds = _bounds(L, d, dt, gqa, {"o": o_r, "dq": dq_r, "dk": dk_r,
+                                     "dv": dv_r})
+    for name, got, want in (("o", o_f, o_r), ("dq", dq_f, dq_r),
+                            ("dk", dk_f, dk_r), ("dv", dv_f, dv_r)):
         assert _ratio(got, want, bounds[name]) <= 1.0, name
     assert torch.equal(lse_r, lse_f)        # l is summed in fp32 on both
 
 
 @pytest.mark.parametrize("L,d,dt,gqa", CASES)
 def test_rounding_changes_only_dk_and_dv_in_the_backward(L, d, dt, gqa):
-    """dQ keeps dS in fp32 (the dQ kernel is not redesigned), so round_p
-    leaves it bit for bit; dK and dV do change."""
+    """round_p rounds dS for dQ as well as for dK (and P for dV), as the
+    tensor-core dQ and dK/dV kernels do: dq, dk and dv all change, and the
+    recomputed P the backward starts from does not (dv without rounding
+    equals P^T dO in fp32 on both)."""
     dq_r, dk_r, dv_r = _backward(L, d, dt, gqa, DTYPES[dt])
     dq_f, dk_f, dv_f = _backward(L, d, dt, gqa, None)
-    assert torch.equal(dq_r, dq_f)
-    assert not torch.equal(dk_r, dk_f) and not torch.equal(dv_r, dv_f)
+    for name, r, f in (("dq", dq_r, dq_f), ("dk", dk_r, dk_f),
+                       ("dv", dv_r, dv_f)):
+        assert not torch.equal(r, f), name
 
 
 def _pad(a, lp):
@@ -137,13 +141,14 @@ def test_rounding_plain_within_bound_of_pallas(L, d, dt, gqa):
     bj = [jnp.asarray(_pad(t.float().numpy(), lp), jdt)
           for t in (q, km, vm, o_f, do)]
     lse_p = jnp.asarray(_pad(lse_f.numpy()[..., None], lp)[..., 0])
-    _, dk_j, dv_j = jfa._fa_backward(bj[0], bj[1], bj[2], bj[3], lse_p,
-                                     bj[4], True, sm, 128, 128, None, L)
-    _, dk_r, dv_r = tf.block_bwd_reference(q, km, vm, o_f, lse_f, do, True,
-                                           sm, round_p=DTYPES[dt])
-    bounds = tf.rounding_bounds({"dk": dk_r, "dv": dv_r}, q, km, vm, True,
-                                sm, o3=o_f, lse=lse_f, do3=do)
-    for name, got, want in (("dk", dk_j, dk_r), ("dv", dv_j, dv_r)):
+    dq_j, dk_j, dv_j = jfa._fa_backward(bj[0], bj[1], bj[2], bj[3], lse_p,
+                                        bj[4], True, sm, 128, 128, None, L)
+    dq_r, dk_r, dv_r = tf.block_bwd_reference(q, km, vm, o_f, lse_f, do,
+                                              True, sm, round_p=DTYPES[dt])
+    bounds = tf.rounding_bounds({"dq": dq_r, "dk": dk_r, "dv": dv_r}, q, km,
+                                vm, True, sm, o3=o_f, lse=lse_f, do3=do)
+    for name, got, want in (("dq", dq_j, dq_r), ("dk", dk_j, dk_r),
+                            ("dv", dv_j, dv_r)):
         got = torch.from_numpy(np.asarray(got, np.float32)[:, :L])
         assert _ratio(got, want, bounds[name]) <= 1.0, name
 
@@ -152,14 +157,15 @@ def test_rounding_plain_within_bound_of_pallas(L, d, dt, gqa):
 @pytest.mark.parametrize("L,d,dt,gqa", CASES)
 def test_off_by_one_diagonal_fails_the_bound(L, d, dt, gqa, shift):
     """A version whose rows see one key more (or less) than the causal
-    diagonal allows: its o, dK and dV each fall outside the bound."""
+    diagonal allows: its o, dQ, dK and dV each fall outside the bound."""
     o_r, _ = _forward(L, d, dt, gqa, DTYPES[dt])
     o_c, _ = _forward(L, d, dt, gqa, DTYPES[dt], q_offset=shift)
-    _, dk_r, dv_r = _backward(L, d, dt, gqa, DTYPES[dt])
-    _, dk_c, dv_c = _backward(L, d, dt, gqa, DTYPES[dt], q_offset=shift)
-    bounds = _bounds(L, d, dt, gqa, {"o": o_r, "dk": dk_r, "dv": dv_r})
-    for name, got, want in (("o", o_c, o_r), ("dk", dk_c, dk_r),
-                            ("dv", dv_c, dv_r)):
+    dq_r, dk_r, dv_r = _backward(L, d, dt, gqa, DTYPES[dt])
+    dq_c, dk_c, dv_c = _backward(L, d, dt, gqa, DTYPES[dt], q_offset=shift)
+    bounds = _bounds(L, d, dt, gqa, {"o": o_r, "dq": dq_r, "dk": dk_r,
+                                     "dv": dv_r})
+    for name, got, want in (("o", o_c, o_r), ("dq", dq_c, dq_r),
+                            ("dk", dk_c, dk_r), ("dv", dv_c, dv_r)):
         assert _ratio(got, want, bounds[name]) > 1.0, name
 
 
@@ -169,6 +175,28 @@ def test_swapped_dkv_fails_the_bound(L, d, dt, gqa):
     bounds = _bounds(L, d, dt, gqa, {"dk": dk_r, "dv": dv_r})
     assert _ratio(dv_r, dk_r, bounds["dk"]) > 1.0
     assert _ratio(dk_r, dv_r, bounds["dv"]) > 1.0
+
+
+@pytest.mark.parametrize("L,d,dt,gqa", CASES)
+def test_dq_with_v_for_k_fails_the_bound(L, d, dt, gqa):
+    """dQ = dS V instead of dS K (the operand the dQ kernel reads both ways
+    swapped for the other tile it holds) falls outside the bound."""
+    q, k, v, do = _inputs(L, d, dt, gqa)
+    k, v = _mha(k, gqa), _mha(v, gqa)
+    sm = d ** -0.5
+    o, lse = tf.block_fwd_reference(q, k, v, True, sm)
+    dq_r, _, _ = tf.block_bwd_reference(q, k, v, o, lse, do, True, sm,
+                                        round_p=DTYPES[dt])
+    # The rounded dS, as block_bwd_reference forms it, times K and times V.
+    _, p, _ = tf._probs(q, k, True, sm, None, None, lse)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    delta = (do.float() * o.float()).sum(dim=-1)
+    ds = tf._rounded(p * (dp - delta[..., None]) * sm, DTYPES[dt])
+    dq_k, dq_v = (torch.einsum("bqk,bkd->bqd", ds, t.float()).to(q.dtype)
+                  for t in (k, v))
+    assert torch.equal(dq_k, dq_r)
+    bound = _bounds(L, d, dt, gqa, {"dq": dq_r})["dq"]
+    assert _ratio(dq_v, dq_r, bound) > 1.0
 
 
 def test_ulp_and_fully_masked_rows():

@@ -1,6 +1,8 @@
 """The port's fusion-buffer scale entry points against the JAX package's
 ``ops/pallas/kernels.py::scale_buffers`` (Pallas, interpret mode on the CPU,
-as tests/test_pallas.py runs it).
+as tests/test_pallas.py runs it), and the host side of the table the kernel
+takes by value (no card needed: the rows, their split into one table per
+launch, and the checks that build them).
 
 On the CPU the port's ``pack_scale``/``unpack_scale`` take their plain
 PyTorch versions; the CUDA kernel is held against those on the card by
@@ -100,3 +102,52 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         pack_scale(ts, flat, 1.0)
     with pytest.raises((TypeError, ValueError)):
         unpack_scale(flat, ts, 1.0)
+
+
+
+def test_table_rows_are_pointer_numel_offset():
+    """One row per tensor in order, offsets the running sum, and the grid's
+    x size for ~4 elements a thread at the bucket's mean size."""
+    ts = [torch.empty(s) for s in ((3, 4), (0,), (5000,), (7,))]
+    flat = torch.empty(5019)
+    rows, blocks_x = sb.table_rows(ts, sb._check(ts, flat, "test"))
+    assert list(zip(*rows)) == [(ts[0].data_ptr(), 12, 0),
+                                (ts[1].data_ptr(), 0, 12),
+                                (ts[2].data_ptr(), 5000, 12),
+                                (ts[3].data_ptr(), 7, 5012)]
+    assert blocks_x == 2        # mean 1254 elements over 256 x 4 a block
+    big = [torch.empty(256 * 4 * 5000)]
+    assert sb.table_rows(big, [big[0].numel()])[1] == 4096
+
+
+@pytest.mark.parametrize("n", [1, sb._MAX_ROWS, sb._MAX_ROWS + 1, 3000])
+def test_launch_tables_cover_a_bucket_in_order(n):
+    """A table per launch of at most _MAX_ROWS rows, each laid out as the
+    kernel copies it (pointers, then numels, then offsets); together they
+    hold every row once, in order, with offsets into the whole buffer."""
+    rows = ([1000 + 8 * i for i in range(n)], [i % 5 for i in range(n)],
+            [7 * i for i in range(n)])
+    tables = sb.launch_tables(rows)
+    assert len(tables) == -(-n // sb._MAX_ROWS)
+    got = [[], [], []]
+    for t in tables:
+        m = len(t) // 3
+        assert len(t) == 3 * m and 1 <= m <= sb._MAX_ROWS
+        assert t.typecode == "q" and t.itemsize == 8
+        for k in range(3):
+            got[k] += t[k * m:(k + 1) * m].tolist()
+    assert got == [list(r) for r in rows]
+
+
+@pytest.mark.parametrize("where", [0, 2, -1])
+@pytest.mark.parametrize("kind", ["dtype", "device"])
+def test_check_names_the_tensor_it_refuses(kind, where):
+    """The checks run a pass per attribute over the whole bucket; the one
+    tensor of another dtype or device, wherever it sits, is refused and
+    named."""
+    ts = [torch.ones(2) for _ in range(5)]
+    ts[where] = (torch.ones(2, dtype=torch.float16) if kind == "dtype"
+                 else torch.empty(2, device="meta"))
+    with pytest.raises(TypeError, match="float16 on cpu" if kind == "dtype"
+                       else "on meta"):
+        sb._check(ts, torch.empty(10), "pack_scale")
