@@ -61,6 +61,13 @@ Phases, one JSON line each (each with its seconds):
    attention against a copy of the model on plain attention (same weights,
    same batch), and two deliberately wrong controls (attention not causal;
    dK and dV swapped in the backward) that the same limits must reject.
+   Both run their fp32 products (the lm_head) at DEFAULT precision, TF32,
+   as the JAX model does on an H100; then
+   precision: the lm_head's product at full shape (8192 x 768 -> 50304)
+   through the port's Dense at DEFAULT, forward and both backward products,
+   against float64 within the TF32 bound c 2^-11 |a| |b| (c printed), where
+   a bf16 product must fail the forward's bound; the TF32 flags unchanged
+   after; DEFAULT and "highest" timed in turns.
 8. timing_flash: each flash kernel alone at the main path's shapes
    (BH = 96, L = 1024, D = 64, bf16, causal), its plain version and
    torch's scaled_dot_product_attention (forward, and backward alone; for
@@ -68,12 +75,17 @@ Phases, one JSON line each (each with its seconds):
    beside the least time the card could take: achieved TFLOP/s and the
    share of that bound for each.
 
-9. adasum_vs_plain: the Adasum combine kernel against its plain version on
-   the card, synchronising after every launch: ResNet-50's 161 gradient
-   shapes as one bucket of segments (each at its own scale) and edge cases
-   (0 and 1 element, odd sizes, a segment past 1024 blocks, a zero a, b = a,
-   2a, -a, orthogonal a and b; the exact ones bit-exact in fp32), in fp32,
-   bf16, fp16 and float64; the max error of each case beside its tolerance.
+9. adasum_vs_plain: the Adasum combine kernels against their plain
+   versions on the card, synchronising after every launch: ResNet-50's 161
+   gradient shapes as one bucket of segments (each at its own scale) and
+   edge cases (0 and 1 element, odd sizes, a segment past a round and past
+   1024 streaming blocks, a zero a, b = a, 2a, -a, orthogonal a and b; the
+   exact ones bit-exact in fp32), in fp32, bf16, fp16 and float64; then in
+   each dtype a bucket that reaches both routes (a tensor one element past
+   a round, so the streaming route, and tensors the schedule must keep
+   within a round's steps), against the plain version in the level kernel's tile
+   order and the one with whole sums; the max error of each case beside
+   its tolerance.
 10. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
    ResNet-50 as in train with hvd.DistributedOptimizer(SGD, op=hvd.Adasum):
    each bucket is packed, all-gathered and reduced by
@@ -85,11 +97,13 @@ Phases, one JSON line each (each with its seconds):
    path's shapes: ResNet-50's gradients for K batches from --seed (what K
    ranks would hold), packed in train_adasum's bucket layout and stacked as
    the all-gather leaves them, for K = 4 and 3. Checks: within tolerance of
-   the plain version; 2 (K - 1) launches per bucket; a control with
-   whole-bucket coefficients fails the same limit.
-12. timing_adasum: one combine over the path's fp32 buckets: the two
-   launches alone, through the wrapper, the plain version, beside the byte
-   bound (no single PyTorch call computes it).
+   the plain version; ceil(log2 K) launches per bucket, one per tree level,
+   and none of the streaming route; a control with whole-bucket
+   coefficients fails the same limit.
+12. timing_adasum: one combine over the path's fp32 buckets (a tree level
+   at K = 2): the level kernel alone, through the wrapper, the plain
+   version, beside the byte bound and its share (no single PyTorch call
+   computes it), with each bucket's steps, grid and shared memory.
 
 Then the kernels line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -134,6 +148,28 @@ ADASUM_TOL = {"float32": 1e-5, "float64": 1e-5, "bfloat16": 2 * 2.0 ** -7,
               "float16": 2 * 2.0 ** -10}
 # Rank counts of the gathered-bucket check (K = 3 carries an odd one).
 ADASUM_RANKS = (4, 3)
+
+# TF32 keeps 10 explicit bits of the fp32 mantissa: unit roundoff 2^-11.
+TF32_UNIT = 2.0 ** -11
+
+
+def tf32_product_c(k):
+    """c of the elementwise bound |y - a b| <= c 2^-11 (|a| |b|) of an fp32
+    product of depth ``k`` run at TF32: each operand rounded to TF32 at
+    worst by truncation (2^-10 each, 4 units for a term, 2^-9 units of
+    second order) and ``k`` fp32 additions in any order (at most k 2^-24 of
+    the sum of absolute terms: k 2^-13 units)."""
+    return 4.0 + 2.0 ** -9 + (k + 1) * 2.0 ** -13
+
+
+def tf32_ratio(y, a, b):
+    """max |y - a b| / (2^-11 |a| |b|) over the elements of the product
+    ``y`` of ``a`` (m, k) and ``b`` (k, n), both sides in float64: the
+    product's error in TF32 units of its own scale."""
+    a, b = a.double(), b.double()
+    err = (y.double() - a @ b).abs_()
+    scale = (a.abs() @ b.abs()).mul_(TF32_UNIT).clamp_min_(1e-300)
+    return err.div_(scale).max().item()
 
 # Tolerance of the fp32 flash kernels against their plain versions:
 # |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
@@ -494,7 +530,7 @@ def phase_adasum_vs_plain(torch, shapes, dev, seed):
     rows, worst = [], 0.0
     for dt in ak.DTYPES:
         name = str(dt).split(".")[-1]
-        table = ak.segment_table(numels, dev)
+        table = ak.segment_table(numels)
         scale = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 2), device=dev)
                            for i, n in enumerate(numels)])
         a, b = ((torch.randn(table.total, generator=gen, device=dev)
@@ -542,7 +578,7 @@ def phase_adasum_vs_plain(torch, shapes, dev, seed):
         name = str(dt).split(".")[-1]
         for case, n in edge:
             a, b = (t.to(dt) for t in pair(case, n))
-            table = ak.segment_table((n,), dev)
+            table = ak.segment_table((n,))
             got = torch.empty_like(a)
             ak.combine_segments(a, b, got, table)
             torch.cuda.synchronize()
@@ -562,10 +598,55 @@ def phase_adasum_vs_plain(torch, shapes, dev, seed):
             check(max(rel, default=0.0) <= ADASUM_TOL[name],
                   f"adasum {case} {name} n={n}: {rel} beyond "
                   f"{ADASUM_TOL[name]}")
-    emit({"phase": "adasum_vs_plain", "cases": len(rows), "rows": rows,
-          "max_abs_err": worst,
+    routes = []
+    for dt in ak.DTYPES:
+        name = str(dt).split(".")[-1]
+        cap = ak.round_elems(dt, dev)
+        # Past a round (the streaming route); a round filled exactly; three
+        # just over half a round, which the schedule keeps within a round's
+        # steps.
+        numels = (cap + 1, 5, cap, cap // 2 + 1, 3, cap // 2 + 1,
+                  cap // 2 + 1)
+        table = ak.segment_table(numels)
+        sched = ak.schedule(numels, ((0, 0),), 0, dt, dev)
+        check(sched.stream == [0] and sched.steps >= 6,
+              f"{name}: the routes case reaches both routes "
+              f"(stream {sched.stream}, steps {sched.steps})")
+        scale = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 2), device=dev)
+                           for i, n in enumerate(numels)])
+        a, b = ((torch.randn(table.total, generator=gen, device=dev)
+                 * scale).to(dt) for _ in range(2))
+        got = torch.empty_like(a)
+        before = (ak.launches, ak.stream_launches)
+        ak.combine_segments(a, b, got, table)
+        torch.cuda.synchronize()
+        launched = (ak.launches - before[0], ak.stream_launches - before[1])
+        check(launched == (1, 2), f"{name}: one level launch and two "
+              f"streaming launches, got {launched}")
+        for plain, want in (
+                ("level_tile_order", ak.combine_level_reference(
+                    a, b, torch.empty_like(a), sched)),
+                ("whole_sums", ak.combine_segments_reference(
+                    a, b, torch.empty_like(a), table))):
+            torch.cuda.synchronize()
+            rel, err = segment_errors(torch, got, want, numels)
+            worst = max(worst, err)
+            routes.append({"case": "both_routes", "dtype": name,
+                           "plain": plain, "elements": table.total,
+                           "round_elements": cap, "steps": sched.steps,
+                           "max_rel": max(rel), "max_abs_err": err,
+                           "tolerance": ADASUM_TOL[name]})
+            check(max(rel) <= ADASUM_TOL[name], f"adasum both routes {name} "
+                  f"against {plain}: {max(rel)} beyond {ADASUM_TOL[name]}")
+        del a, b, got, want, scale
+    emit({"phase": "adasum_vs_plain", "cases": len(rows) + len(routes),
+          "rows": rows, "routes": routes, "max_abs_err": worst,
           "metric": "max_rel: max |kernel - plain| / max |plain| per "
-                    "segment; bit_exact: fp32 cases with an exact answer",
+                    "segment; bit_exact: fp32 cases with an exact answer; "
+                    "routes: a bucket with a unit past a round (the "
+                    "streaming route) and units the schedule keeps within "
+                    "a round's steps, against the plain version in the "
+                    "level kernel's tile order and the one with whole sums",
           "tolerance": ADASUM_TOL})
     return worst
 
@@ -607,7 +688,8 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
     tally = KeptTableTally(sb)
 
     def counts():
-        return (sb.pack_launches, sb.unpack_launches, ak.launches) \
+        return (sb.pack_launches, sb.unpack_launches,
+                ak.launches + ak.stream_launches) \
             + tally.counts()
 
     def step():
@@ -698,17 +780,21 @@ def phase_adasum_gathered(torch, model, buckets, dev, args):
             ak.reset_launch_counts()
             got = reduce_gathered(gathered, numels)
             torch.cuda.synchronize()
-            launches = ak.launches
-            total_launches += launches
+            launches, streamed = ak.launches, ak.stream_launches
+            total_launches += launches + streamed
             rel, err = segment_errors(torch, got, want, numels)
             ctl, _ = segment_errors(torch, whole, want, numels)
             worst = max(worst, err)
+            levels = (k - 1).bit_length()
             rows.append({"ranks": k, "tensors": len(numels),
                          "elements": sum(numels), "launches": launches,
+                         "stream_launches": streamed, "levels": levels,
                          "max_rel": max(rel), "max_abs_err": err,
                          "control_whole_bucket_max_rel": max(ctl)})
-            check(launches == 2 * (k - 1), f"2 (K - 1) = {2 * (k - 1)} "
-                  f"combine launches for K = {k}, got {launches}")
+            check(launches == levels and streamed == 0,
+                  f"ceil(log2 K) = {levels} level launches and no "
+                  f"streaming one for K = {k}, got {launches} and "
+                  f"{streamed}")
             check(max(rel) <= limit, f"reduce_gathered K = {k}: {max(rel)} "
                   f"beyond {limit}")
             check(max(ctl) > limit, f"the whole-bucket control K = {k} "
@@ -724,48 +810,49 @@ def phase_adasum_gathered(torch, model, buckets, dev, args):
 
 def phase_timing_adasum(torch, buckets, dev, seed):
     """One combine of two ranks' rows at the fp32 bucket shapes of the
-    Adasum path: the two launches alone, through the wrapper, the plain
-    version; summed over the buckets, beside the byte bound."""
+    Adasum path (a tree level at K = 2): the level kernel alone, the
+    wrapper, the plain version; summed over the buckets, beside the byte
+    bound, with each bucket's steps, grid and shared memory."""
     from horovod_tpu_torch.ops.kernels import adasum as ak
     gen = torch.Generator(device=dev).manual_seed(seed + 8)
     rows = []
     for bucket in buckets:
         numels = [n for _, n in bucket]
-        table = ak.segment_table(numels, dev)
-        a, b = (torch.randn(table.total, generator=gen, device=dev)
-                for _ in range(2))
-        out = torch.empty_like(a)
-        partials = torch.empty(3 * table.n_blocks, device=dev)
-        ptrs = (table.rows.data_ptr(), table.n_blocks, a.data_ptr(),
-                b.data_ptr())
-
-        def kernel_only():
-            ak._launch("hvd_adasum_partials", dev, *ptrs,
-                       partials.data_ptr(), 0)
-            ak._launch("hvd_adasum_apply", dev, *ptrs, out.data_ptr(),
-                       partials.data_ptr(), 0, ak.EPS)
-        nbytes = 3 * table.total * a.element_size()
+        total = sum(numels)
+        gathered = torch.randn(2, total, generator=gen, device=dev)
+        flat = gathered.view(-1)
+        sched = ak.schedule(numels, ak.level_pairs(2, 1), total,
+                            torch.float32, dev)
+        check(not sched.stream, "no ResNet-50 tensor is past a round")
+        nbytes = 3 * total * gathered.element_size()
         rows.append({
-            "tensors": len(numels), "elements": table.total,
-            "blocks": table.n_blocks,
+            "tensors": len(numels), "elements": total,
+            "steps": sched.steps, "grid": sched.grid,
+            "tiles": len(sched.tiles),
+            "empty_tiles": sched.tiles.count(None),
+            "tile_elements": sched.tile,
+            "dynamic_smem_bytes": ak.LEVEL_SMEM_BYTES,
             "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
-            "ms": event_ms(kernel_only, inner=10),
+            "ms": event_ms(lambda: ak.launch_level(flat, flat, flat, sched),
+                           inner=10),
             "wrapper_ms": event_ms(
-                lambda: ak.combine_segments(a, b, out, table)),
-            "plain_ms": event_ms(lambda: ak.combine_segments_reference(
-                a, b, out, table), reps=10),
+                lambda: ak.combine_pairs(gathered, numels, 1)),
+            "plain_ms": event_ms(lambda: ak.combine_level_reference(
+                flat, flat, flat, sched), reps=5),
         })
-        del a, b, out, partials
+        del gathered, flat
     total = {k: sum(r[k] for r in rows) for k in ("bound_ms", "ms",
                                                   "wrapper_ms", "plain_ms")}
+    total["bound_share"] = total["bound_ms"] / total["ms"]
     emit({"phase": "timing_adasum", "dtype": "float32", "per_bucket": rows,
           "per_combine": total,
           "elements": sum(r["elements"] for r in rows),
           "library_ms": None,
-          "note": "one combine over every gradient of the step; ms: the two "
-                  "launches alone (10 back to back over a prebuilt table), "
-                  "wrapper_ms: combine_segments as reduce_gathered calls it, "
-                  "plain_ms: combine_segments_reference; bound: each input "
+          "note": "one combine of every gradient of the step (rows 0 and 1 "
+                  "of a gathered bucket, in place); ms: the level kernel "
+                  "alone, 10 cooperative launches back to back; "
+                  "wrapper_ms: combine_pairs as reduce_gathered calls it; "
+                  "plain_ms: combine_level_reference; bound: each input "
                   "and output byte once (3 N x 4 B) at 3.35 TB/s; library: "
                   "none, no single PyTorch call computes this combine"})
     return total
@@ -773,7 +860,7 @@ def phase_timing_adasum(torch, buckets, dev, seed):
 
 # The GPT main path: bench.py's GPT-2 small, 8 x 1024 tokens a step.
 GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 8
-GPT_HIDDEN, GPT_HEADS, GPT_LAYERS = 768, 12, 12
+GPT_HIDDEN, GPT_HEADS, GPT_LAYERS, GPT_VOCAB = 768, 12, 12, 50304
 GPT_HEAD_DIM = GPT_HIDDEN // GPT_HEADS
 # The attention shape every flash launch of that path sees.
 MAIN_FLASH_CASE = ("bfloat16", GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ,
@@ -783,7 +870,7 @@ MAIN_FLASH_CASE = ("bfloat16", GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ,
 def gpt_config(torch, use_flash):
     from horovod_tpu_torch.models import GPTConfig
     # bench.py's GPT-2 small: untied fp32 lm_head, 163,109,376 parameters.
-    return GPTConfig(vocab_size=50304, hidden_size=GPT_HIDDEN,
+    return GPTConfig(vocab_size=GPT_VOCAB, hidden_size=GPT_HIDDEN,
                      num_layers=GPT_LAYERS, num_heads=GPT_HEADS,
                      intermediate_size=3072,
                      max_position_embeddings=GPT_SEQ, dtype=torch.bfloat16,
@@ -1045,7 +1132,10 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
                            for b in buckets],
           "reduced_equals_local_bitwise": True,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "fp32_products": "DEFAULT precision: TF32 (lm_head, forward "
+                           "and backward)",
+          "matmul_allow_tf32_outside_the_products":
+              torch.backends.cuda.matmul.allow_tf32,
           "card": card})
     return model, ids, launches
 
@@ -1189,6 +1279,97 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
               f"limits {GPT_CMP_LIMITS}")
 
 
+def phase_precision(torch, dev, seed):
+    """The lm_head's product at full shape (8192 x 768 -> 50304, fp32)
+    through the port's Dense at DEFAULT precision, forward and both
+    backward products, against float64: each within the TF32 bound
+    c 2^-11 |a| |b| (c from the product's depth, printed), on positive
+    inputs, where the bound is tight, and on signed ones; a bf16 product,
+    the control, must fail the forward's bound. The same layer at
+    "highest", and the TF32 flags before and after, show where TF32 ran.
+    Then the times of DEFAULT and "highest", forward and forward+backward,
+    in this call."""
+    from horovod_tpu_torch.parallel.tp import Dense
+    m, k, n = GPT_BATCH * GPT_SEQ, GPT_HIDDEN, GPT_VOCAB
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    layer = Dense(k, n, use_bias=False).to(dev)
+    rows = {}
+    for data in ("positive", "signed"):
+        draw = torch.rand if data == "positive" else torch.randn
+        x = draw(m, k, generator=gen, device=dev)
+        w = draw(n, k, generator=gen, device=dev) / k ** 0.5
+        gy = draw(m, n, generator=gen, device=dev)
+        with torch.no_grad():
+            layer.weight.copy_(w)
+        row = {}
+        for p in (None, "highest"):
+            layer.precision = p
+            layer.weight.grad = None
+            xg = x.clone().requires_grad_()
+            y = layer(xg)
+            y.backward(gy)
+            torch.cuda.synchronize()
+            check((torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32) == flags,
+                  f"the TF32 flags are as they were after precision {p}")
+            row[p or "default"] = {
+                "forward": tf32_ratio(y, x, w.T),
+                "grad_input": tf32_ratio(xg.grad, gy, w),
+                "grad_weight": tf32_ratio(layer.weight.grad, gy.T, x)}
+            del y, xg
+        row["bf16_control_forward"] = tf32_ratio(
+            (x.bfloat16() @ w.bfloat16().T).float(), x, w.T)
+        rows[data] = row
+        del x, w, gy
+    c = {"forward": tf32_product_c(k), "grad_input": tf32_product_c(n),
+         "grad_weight": tf32_product_c(m)}
+    for data, row in rows.items():
+        for what, limit in c.items():
+            check(row["default"][what] <= limit, f"{data} {what} at DEFAULT "
+                  f"({row['default'][what]}) within c = {limit}")
+    check(rows["positive"]["bf16_control_forward"] > c["forward"],
+          f"the bf16 control ({rows['positive']['bf16_control_forward']}) "
+          f"fails the forward's bound c = {c['forward']}")
+    check(rows["positive"]["default"]["forward"]
+          > 4 * rows["positive"]["highest"]["forward"],
+          "the DEFAULT forward carries TF32's error, not fp32's: "
+          f"{rows['positive']}")
+    x = torch.randn(m, k, generator=gen, device=dev)
+    gy = torch.randn(m, n, generator=gen, device=dev)
+    ms = {}
+    for p in (None, "highest", None, "highest"):
+        layer.precision = p
+        xg = x.clone().requires_grad_()
+
+        def fwd_bwd():
+            layer(xg).backward(gy)
+        key = p or "default"
+        ms.setdefault(f"{key}_forward_ms", []).append(
+            event_ms(lambda: layer(x), reps=10))
+        ms.setdefault(f"{key}_forward_backward_ms", []).append(
+            event_ms(fwd_bwd, reps=10))
+    layer.precision = None
+    flops = 2 * m * k * n
+    emit({"phase": "precision", "shape": {"tokens": m, "hidden": k,
+                                          "vocab": n},
+          "ratio_units": "max |y - float64| / (2^-11 |a| |b|)",
+          "c": c, "ratios": rows, "ms": ms,
+          "default_forward_tflops": flops / min(ms["default_forward_ms"])
+          / 1e9,
+          "highest_forward_tflops": flops / min(ms["highest_forward_ms"])
+          / 1e9,
+          "flags_unchanged": True,
+          "note": "c = 4 + 2^-9 + (k + 1) 2^-13: each operand rounded to "
+                  "TF32 (truncated at worst), k fp32 additions in any "
+                  "order; positive inputs make the bound tight, where the "
+                  "bf16 control's rounding of its output (up to 8 units) "
+                  "must exceed it; ms: CUDA events, median of 10, DEFAULT "
+                  "and highest in turns"})
+    return ms
+
+
 def flash_work(bh, lq, lk, d, itemsize):
     """Operations and bytes of each kernel for causal attention, counting
     the visible (query, key) pairs only and each input and output once."""
@@ -1329,6 +1510,7 @@ def main(argv=None):
     run("gpt_flash_vs_plain", phase_flash_vs_plain_model, torch, gpt, ids,
         dev)
     del gpt
+    run("precision", phase_precision, torch, dev, args.seed)
     flash_rows = run("timing_flash", phase_timing_flash, torch, dev,
                      args.seed)
     adasum_err = run("adasum_vs_plain", phase_adasum_vs_plain, torch,
@@ -1382,10 +1564,14 @@ def main(argv=None):
          "replaces": ADASUM_REPLACES, "launches": gathered_launches,
          "launches_by_path": {"train_adasum": ada_launches["adasum_combine"],
                               "adasum_gathered": gathered_launches},
+         "status": "redesigned: one cooperative launch per tree level, a "
+                   "and b read once; a streaming route (two launches) for "
+                   "a tensor past a round",
          "checked_vs_plain": True,
          "max_abs_err": max(adasum_err, gathered_err),
          "ms": ada_total["ms"], "wrapper_ms": ada_total["wrapper_ms"],
          "plain_ms": ada_total["plain_ms"], "bound_ms": ada_total["bound_ms"],
+         "bound_share": ada_total["bound_share"],
          "bound_by": "bytes", "library_ms": None,
          "library": "none: no single PyTorch call computes this combine",
          "note": "train_adasum runs one rank, a tree of one leaf: no "

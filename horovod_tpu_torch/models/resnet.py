@@ -19,6 +19,11 @@ Flax semantics kept on purpose:
   in fp32, and the running variance is fed the biased batch variance
   (``nn.BatchNorm2d`` feeds the unbiased one). The last BatchNorm of each
   block starts at zero scale.
+- Products at Flax's DEFAULT precision (``parallel/tp.py::at_precision``), as
+  no layer of the Flax model sets one: on CUDA an fp32 convolution or
+  classifier product runs in TF32, forward and backward (``Dense_0`` takes
+  ``precision="highest"`` for full fp32). The bf16 convolutions do not
+  read it.
 - Submodules carry Flax's names (``conv_init``, ``bn_init``,
   ``BottleneckResNetBlock_<i>/Conv_0``, ``Dense_0``, ...), so
   :func:`load_flax_variables` maps a Flax variable tree onto the module by
@@ -32,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.parallel.tp import lecun_normal_
+from horovod_tpu_torch.parallel.tp import Dense, at_precision, lecun_normal_
 
 
 def _same_pads(size, k, s):
@@ -54,7 +59,7 @@ def max_pool_same(x, k, s):
 class Conv(nn.Module):
     """``flax.linen.Conv(use_bias=False)`` on NCHW: fp32 weight (OIHW) cast
     to the activation dtype; ``padding`` is ``"SAME"`` or explicit
-    ``((top, bottom), (left, right))``."""
+    ``((top, bottom), (left, right))``; the product at DEFAULT."""
 
     def __init__(self, in_features, features, kernel_size, strides=(1, 1),
                  padding="SAME"):
@@ -81,7 +86,8 @@ class Conv(nn.Module):
         if ph[0] != ph[1] or pw[0] != pw[1]:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = (0, 0)
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.strides, pad)
+        return at_precision(None, F.conv2d, x, self.weight.to(x.dtype), None,
+                            self.strides, pad)
 
 
 class BatchNorm(nn.Module):
@@ -202,7 +208,7 @@ class ResNet(nn.Module):
                                               act=act))
                 self.block_names.append(name)
                 features = filters * block_cls.expansion
-        self.Dense_0 = nn.Linear(features, num_classes)
+        self.Dense_0 = Dense(features, num_classes)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
@@ -210,10 +216,7 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, (Conv, BatchNorm)):
                 m.reset_parameters(generator)
-        with torch.no_grad():
-            lecun_normal_(self.Dense_0.weight, self.Dense_0.in_features,
-                           generator)
-            self.Dense_0.bias.zero_()
+        self.Dense_0.reset_parameters(generator)
 
     def forward(self, x):
         """``x``: (B, H, W, C) images; returns fp32 logits (B, classes)."""
@@ -230,8 +233,8 @@ class ResNet(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x)
         x = x.mean(dim=(2, 3))
-        # The classifier runs in its parameters' dtype (fp32), not dtype.
-        return self.Dense_0(x.to(self.Dense_0.weight.dtype))
+        # The classifier runs in fp32 (Dense_0's dtype), not dtype.
+        return self.Dense_0(x)
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2], block_cls=ResNetBlock)

@@ -14,9 +14,10 @@ As in the JAX package, a reduction gathers every rank's tensor once and runs
 the tree locally on every rank. :func:`reduce_gathered` is that tree on a
 gathered fusion bucket, (n ranks, total) as the all-gather leaves it, in
 place, with per-tensor coefficients: each level is one
-``kernels.adasum.combine_segments`` call per pair of rows, which on the card
-is two launches for the whole bucket. On a CPU tensor every combine runs the
-plain version.
+``kernels.adasum.combine_pairs`` call for all of its pairs of rows, which on
+the card is one launch for the whole bucket (ceil(log2 n) launches a
+bucket), plus two for a level whose bucket holds a tensor longer than the
+level kernel's round. On a CPU tensor every combine runs the plain version.
 """
 
 import torch
@@ -35,8 +36,8 @@ def adasum_combine(a, b, eps=EPS):
                          f"{b.device} differ")
     flat_a, flat_b = a.contiguous().view(-1), b.contiguous().view(-1)
     out = torch.empty_like(flat_a)
-    _kernel.combine_segments(flat_a, flat_b, out, _kernel.segment_table(
-        (flat_a.numel(),), a.device), eps)
+    _kernel.combine_segments(flat_a, flat_b, out,
+                             _kernel.segment_table((flat_a.numel(),)), eps)
     return out.view(a.shape)
 
 
@@ -63,20 +64,17 @@ def reduce_gathered(gathered, numels, eps=EPS):
     own coefficients at every combine), as the JAX fused path reduces each
     tensor of an Adasum bucket separately. At stride s = 1, 2, 4, ..., row i
     becomes combine(row i, row i + s) for i = 0, 2s, 4s, ... while
-    i + s < n: :func:`adasum_tree`'s pairs, with the odd one carried. The
-    result is row 0, which is returned; n - 1 combines in all."""
+    i + s < n: :func:`adasum_tree`'s pairs, with the odd one carried, a
+    level at a time. The result is row 0, which is returned."""
     if gathered.dim() != 2:
         raise ValueError(f"reduce_gathered: expected (ranks, total), got "
                          f"{tuple(gathered.shape)}")
-    n = gathered.shape[0]
-    table = _kernel.segment_table(numels, gathered.device)
-    if table.total != gathered.shape[1]:
-        raise ValueError(f"reduce_gathered: the tensors hold {table.total} "
+    total = _kernel.segment_table(numels).total
+    if total != gathered.shape[1]:
+        raise ValueError(f"reduce_gathered: the tensors hold {total} "
                          f"elements, a row {gathered.shape[1]}")
     stride = 1
-    while stride < n:
-        for i in range(0, n - stride, 2 * stride):
-            _kernel.combine_segments(gathered[i], gathered[i + stride],
-                                     gathered[i], table, eps)
+    while stride < gathered.shape[0]:
+        _kernel.combine_pairs(gathered, numels, stride, eps)
         stride *= 2
     return gathered[0]

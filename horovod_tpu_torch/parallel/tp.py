@@ -13,8 +13,11 @@ Flax semantics kept on purpose:
   Dense, the row-parallel ``bias`` added after the product, ``ln_attn``,
   ``ln_mlp``, ``attention``, ``mlp``), so ``models/gpt.py::load_flax_gpt``
   maps a Flax tree onto a module by name.
-- ``Dense(dtype=...)``: fp32 parameters, input, kernel and bias cast to
-  ``dtype`` for the product.
+- ``Dense(dtype=..., precision=...)``: fp32 parameters, input, kernel and
+  bias cast to ``dtype`` for the product; ``precision`` as Flax's, None
+  (DEFAULT: TF32 for an fp32 product on CUDA) or ``"highest"``
+  (:func:`at_precision`, below). No layer of the JAX package sets one, and
+  no layer here does; plain attention's fp32 einsums run at DEFAULT.
 - ``LayerNorm``: epsilon 1e-6, statistics in fp32, output cast to ``dtype``.
 - ``gelu`` is the tanh approximation (``flax.linen.gelu``'s default).
 
@@ -22,13 +25,124 @@ Decode, sequence parallelism (``sp_axis``) and RoPE raise
 ``NotImplementedError`` naming the ROADMAP item that will bring them.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
+from torch.autograd.graph import get_gradient_edge
 
 from horovod_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+# ---------------------------------------------------------------------------
+# fp32 products at the precision the JAX package asks for
+# ---------------------------------------------------------------------------
+# A Flax layer that sets no ``precision`` (``nn.Dense``, ``nn.Conv``,
+# ``jnp.einsum``; no model of the JAX package sets one) runs its products at
+# ``lax.Precision.DEFAULT``, which on an H100 means TensorFloat-32 for fp32
+# operands (JAX's own ``lax.Precision`` docstring); ``"highest"`` asks for
+# full fp32. The port's ``Dense`` takes the same ``precision`` argument:
+#
+# - ``None``: fp32 products in TF32 on CUDA;
+# - ``"highest"``: fp32 products in full fp32.
+#
+# Convolutions and plain attention's einsums always run at DEFAULT, as their
+# JAX counterparts do.
+#
+# PyTorch chooses with process-wide flags
+# (``torch.backends.cuda.matmul.allow_tf32`` for products,
+# ``torch.backends.cudnn.allow_tf32`` for convolutions). :func:`at_precision`
+# sets them around one function's forward and, through a
+# ``torch.autograd.Function``, around its backward products too, which
+# autograd runs later under whatever the flags are then; each time it puts
+# them back as it found them. So the user's own products, and anything else
+# the process runs, keep the flags the user chose.
+#
+# Precision changes nothing on the CPU, and bf16/fp16 products do not read
+# the flags: there the function runs as it is, with no wrapper.
+
+PRECISIONS = (None, "highest")
+
+
+def check_precision(precision):
+    """``precision`` if the port knows it, else ``ValueError``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{list(PRECISIONS)} (JAX's DEFAULT and HIGHEST)")
+    return precision
+
+
+def allows_tf32(precision):
+    """Whether ``precision`` lets an fp32 product run in TF32."""
+    return check_precision(precision) is None
+
+
+@contextlib.contextmanager
+def tf32_flags(allow):
+    """Both TF32 flags set to ``allow`` inside, restored on the way out."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = cuda.allow_tf32, cudnn.allow_tf32
+    cuda.allow_tf32 = cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        cuda.allow_tf32, cudnn.allow_tf32 = saved
+
+
+class _Scoped(torch.autograd.Function):
+    """``fn(*args)`` with its forward and its backward under
+    :func:`tf32_flags`. The forward builds ``fn``'s own graph on detached
+    inputs and keeps that graph's edge, not its output, so the output is
+    freed with the caller's last use of it; the backward differentiates the
+    graph, as the flags ask. Once differentiable: a double backward
+    raises."""
+
+    @staticmethod
+    def forward(ctx, fn, allow, *args):
+        inputs = [a.detach().requires_grad_(a.requires_grad)
+                  if isinstance(a, torch.Tensor) else a for a in args]
+        with torch.enable_grad(), tf32_flags(allow):
+            out = fn(*inputs)
+        ctx.allow, ctx.inputs = allow, inputs
+        ctx.edge = get_gradient_edge(out) if out.requires_grad else None
+        return out.detach()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        wanted = [i for i, a in enumerate(ctx.inputs)
+                  if isinstance(a, torch.Tensor) and a.requires_grad]
+        grads = [None] * len(ctx.inputs)
+        if wanted and ctx.edge is not None:
+            with tf32_flags(ctx.allow):
+                got = torch.autograd.grad(
+                    ctx.edge, [ctx.inputs[i] for i in wanted], grad,
+                    allow_unused=True)
+            for i, g in zip(wanted, got):
+                grads[i] = g
+        ctx.inputs = ctx.edge = None
+        return (None, None, *grads)
+
+
+def at_precision(precision, fn, *args):
+    """``fn(*args)``, its fp32 products at ``precision``: under the TF32
+    flags it asks for, forward and backward, when an argument is an fp32
+    CUDA tensor; else ``fn(*args)`` as it is. ``fn`` returns one tensor."""
+    allow = allows_tf32(precision)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not any(t.is_cuda and t.dtype == torch.float32 for t in tensors):
+        return fn(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Scoped.apply(fn, allow, *args)
+    with tf32_flags(allow):
+        return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
 
 
 def lecun_normal_(w, fan_in, generator=None):
@@ -42,12 +156,13 @@ def lecun_normal_(w, fan_in, generator=None):
 
 class Dense(nn.Linear):
     """``flax.linen.Dense``: fp32 weight (out, in) and bias, the product in
-    ``dtype``."""
+    ``dtype`` at ``precision`` (forward and backward)."""
 
     def __init__(self, in_features, features, use_bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, precision=None):
         super().__init__(in_features, features, bias=use_bias)
         self.dtype = dtype
+        self.precision = check_precision(precision)
 
     def reset_parameters(self, generator=None):
         lecun_normal_(self.weight, self.in_features, generator)
@@ -58,7 +173,8 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return at_precision(self.precision, F.linear, x.to(dt),
+                            self.weight.to(dt), b)
 
 
 class LayerNorm(nn.Module):
@@ -117,7 +233,12 @@ class RowParallelDense(nn.Module):
 def plain_attention(q, k, v, out_dtype, mask=None, bias=None, causal=False):
     """Scaled scores, optional additive ``bias`` (h, Lq, Lk), -1e9 causal
     (end-aligned) and key masking (``mask`` (B, Lk), True on valid keys),
-    fp32 softmax. q/k/v: (B, L, h, d)."""
+    fp32 softmax. q/k/v: (B, L, h, d). Both einsums at DEFAULT."""
+    return at_precision(None, _plain_attention, q, k, v, out_dtype, mask,
+                        bias, causal)
+
+
+def _plain_attention(q, k, v, out_dtype, mask, bias, causal):
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias[None].to(scores.dtype)

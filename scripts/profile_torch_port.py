@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_port.py [--model resnet50|gpt]
         [--op average|adasum] [--seed 0] [--batch N] [--steps 10]
-        [--repeats 5] [--profile-steps 3]
+        [--repeats 5] [--profile-steps 3] [--root DIR]
 
 The steps are chip_smoke.py's, on cuda:0 after hvd.init():
 
@@ -17,17 +17,22 @@ The steps are chip_smoke.py's, on cuda:0 after hvd.init():
   activations, fp32 parameters, the flash-attention kernels, next-token
   loss, AdamW(lr=1e-4, weight_decay=1e-4) in hvd.DistributedOptimizer.
 
+``--root`` profiles the package of another checkout (say, a parent commit
+unpacked into build/), so two trees can be compared in one session.
+
 Prints JSON lines:
 
 - one per repeat of ``--steps`` timed steps (host clock around work that
   ends in torch.cuda.synchronize()), then their median and quartiles, in
-  images or tokens per second;
+  images or tokens per second, and the peak of allocated device memory
+  over the warm-up and the repeats (``torch.cuda.max_memory_allocated``);
 - a torch.profiler window of ``--profile-steps`` steps: the share of the
   window in which the device runs any kernel or copy (union of the device
   intervals over the window's span), the kernels that take the most device
   time, and device time by kind of kernel (the port's flash and scale
-  kernels, NCCL, and for GPT LayerNorm, the fp32 lm_head products,
-  cross-entropy, AdamW);
+  kernels, NCCL, and for GPT LayerNorm, the lm_head's fp32 products,
+  TF32 at the port's default precision or full fp32 SIMT where a tree
+  asks for it, cross-entropy, AdamW);
 - the card's name, power limit, SM clock and power draw after the run.
 
 Needs one CUDA device; exits 1 without one. Fails if the profiler records
@@ -72,11 +77,13 @@ KINDS = (
     ("flash_bwd_dq", ("fa_bwd_dq_kernel", "fa_bwd_dq_mma_kernel")),
     ("flash_bwd_dkv", ("fa_bwd_dkv_kernel", "fa_bwd_dkv_mma_kernel")),
     ("scale_pack_unpack", ("scale_copy_kernel",)),
-    ("adasum_combine", ("adasum_partials_kernel", "adasum_apply_kernel")),
+    ("adasum_combine", ("adasum_level_kernel", "adasum_partials_kernel",
+                        "adasum_apply_kernel")),
     ("nccl", ("nccl",)),
     ("layer_norm", ("layer_norm", "layernorm")),
     ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
     ("adamw", ("adam", "multi_tensor_apply", "foreach")),
+    ("tf32_gemm", ("tf32",)),
     ("fp32_gemm", ("sgemm", "f32f32", "gemm_f32", "_32x", "simt")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
     ("batch_norm", ("batch_norm", "batchnorm")),
@@ -157,6 +164,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose horovod_tpu_torch is profiled")
     args = ap.parse_args(argv)
     if args.batch is None:
         args.batch = 64 if args.model == "resnet50" else 8
@@ -169,7 +178,7 @@ def main(argv=None):
         print("profile_torch_port: no CUDA device is visible",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     import horovod_tpu_torch as hvd
 
     torch.backends.cudnn.benchmark = True
@@ -195,7 +204,10 @@ def main(argv=None):
     emit({"summary": unit, "model": args.model, "op": args.op,
           "repeats": len(rates),
           "steps_each": args.steps, "median": statistics.median(rates),
-          "q1": q1, "q3": q3, "min": min(rates), "max": max(rates)})
+          "q1": q1, "q3": q3, "min": min(rates), "max": max(rates),
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "root": os.path.abspath(args.root),
+          "package": os.path.dirname(hvd.__file__)})
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

@@ -23,8 +23,14 @@ bit-identical (no atomics). The Adasum combine per segment within a share
 of the segment's largest plain value: 1e-5 in fp32 and float64 (the dot
 product and norms are summed in another order, which moves a coefficient by
 ~1e-6), two ulps at that value in bf16 and fp16 (one rounding that a
-coefficient can flip); its exact cases (b = a, 2a, -a; a zero; orthogonal a
-and b) bit-exact in fp32.
+coefficient can flip), against both plain versions (sums in the level
+kernel's tile order, and whole sums), on both of its routes (the level
+kernel, and the streaming one for a tensor past a round); its exact cases
+(b = a, 2a, -a; a zero; orthogonal a and b) bit-exact in fp32. An fp32
+Dense at DEFAULT precision within the TF32 bound c 2^-11 |x| |W| of a
+float64 product (c = 4 + 2^-9 + (k + 1) 2^-13 for depth k: each operand
+rounded to TF32, at worst by truncation, and k fp32 additions), which a
+bf16 product fails.
 """
 
 import pytest
@@ -35,8 +41,23 @@ from horovod_tpu_torch.ops import adasum
 from horovod_tpu_torch.ops.kernels import adasum as ak
 from horovod_tpu_torch.ops.kernels import flash_attention as fa
 from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+from horovod_tpu_torch.parallel.tp import Dense
 
 pytestmark = pytest.mark.cuda
+
+
+def tf32_product_c(k):
+    """c of the TF32 bound of an fp32 product of depth ``k`` (above)."""
+    return 4.0 + 2.0 ** -9 + (k + 1) * 2.0 ** -13
+
+
+def tf32_ratio(y, a, b):
+    """max |y - a b| / (2^-11 |a| |b|) over the product ``y`` of ``a``
+    (m, k) and ``b`` (k, n), in float64."""
+    a, b = a.double(), b.double()
+    err = (y.double() - a @ b).abs_()
+    scale = (a.abs() @ b.abs()).mul_(2.0 ** -11).clamp_min_(1e-300)
+    return err.div_(scale).max().item()
 
 SHAPES = [(0,), (1,), (7,), (3, 5), (1023,), (64, 3, 3, 3), (300_001,)]
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
@@ -370,8 +391,11 @@ def test_flash_refuses_an_unsupported_head_dim(dev):
 ADASUM_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
 ADASUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-5,
               torch.bfloat16: 2 * 2.0 ** -7, torch.float16: 2 * 2.0 ** -10}
-# A bucket: empty, single and odd segments, one of exactly one block's
-# 4096 elements and one past it, and one past 1024 blocks (grid-stride).
+# A bucket: empty, single and odd segments, one of exactly one streaming
+# block's 4096 elements and one past it, and one of 4,194,305 elements:
+# past a round of the level kernel in fp32 and float64 (3,510,144 and
+# 1,755,072 elements on an H100: the streaming route, past 1024 blocks, so
+# grid-stride), within one in bf16 and fp16.
 ADASUM_SEGMENTS = (0, 1, 7, 4096, 4097, 300_001, 4_194_305, 64 * 3 * 3 * 3)
 
 
@@ -387,23 +411,50 @@ def _segment_errors(got, want, numels):
     return errs
 
 
-@pytest.mark.parametrize("dtype", ADASUM_DTYPES, ids=str)
-def test_adasum_kernel_matches_plain(dev, dtype):
-    g = torch.Generator(device=dev).manual_seed(11)
-    table = ak.segment_table(ADASUM_SEGMENTS, dev)
-    # Each segment at its own scale, so per-segment coefficients differ.
+def _adasum_pair(dev, dtype, numels, seed):
+    """a and b, each segment at its own scale, so per-segment coefficients
+    differ."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     scale = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 2), device=dev)
-                       for i, n in enumerate(ADASUM_SEGMENTS)])
-    a, b = ((torch.randn(table.total, generator=g, device=dev) * scale)
-            .to(dtype) for _ in range(2))
+                       for i, n in enumerate(numels)])
+    return [(torch.randn(scale.numel(), generator=g, device=dev) * scale)
+            .to(dtype) for _ in range(2)]
+
+
+def _check_both_routes(dev, dtype, numels, seed):
+    a, b = _adasum_pair(dev, dtype, numels, seed)
+    table = ak.segment_table(numels)
+    sched = ak.schedule(numels, ((0, 0),), 0, dtype, dev)
     got = torch.empty_like(a)
-    before = ak.launches
+    before = (ak.launches, ak.stream_launches)
     ak.combine_segments(a, b, got, table)
     torch.cuda.synchronize()
-    assert ak.launches == before + 2
-    want = ak.combine_segments_reference(a, b, torch.empty_like(a), table)
-    errs = _segment_errors(got, want, ADASUM_SEGMENTS)
-    assert max(errs) <= ADASUM_TOL[dtype], errs
+    assert (ak.launches - before[0], ak.stream_launches - before[1]) == (
+        int(bool(sched.tiles)), 2 * int(bool(sched.stream)))
+    for want in (ak.combine_level_reference(a, b, torch.empty_like(a),
+                                            sched),
+                 ak.combine_segments_reference(a, b, torch.empty_like(a),
+                                               table)):
+        errs = _segment_errors(got, want, numels)
+        assert max(errs) <= ADASUM_TOL[dtype], errs
+    return sched
+
+
+@pytest.mark.parametrize("dtype", ADASUM_DTYPES, ids=str)
+def test_adasum_kernel_matches_plain(dev, dtype):
+    sched = _check_both_routes(dev, dtype, ADASUM_SEGMENTS, 11)
+    assert bool(sched.stream) == (dtype in (torch.float32, torch.float64))
+
+
+@pytest.mark.parametrize("dtype", ADASUM_DTYPES, ids=str)
+def test_adasum_both_routes_and_rounds_match_plain(dev, dtype):
+    """A unit one element past a round (the streaming route), one that
+    fills a round exactly, and three of just over half a round, which the
+    schedule keeps within a round's steps each."""
+    cap = ak.round_elems(dtype, dev)
+    numels = (cap + 1, 5, cap, cap // 2 + 1, 3, cap // 2 + 1, cap // 2 + 1)
+    sched = _check_both_routes(dev, dtype, numels, 13)
+    assert sched.stream == [0] and sched.steps >= 6
 
 
 @pytest.mark.parametrize("case", ["zero_a", "b_is_a", "b_is_2a",
@@ -431,34 +482,85 @@ def test_adasum_kernel_exact_cases(dev, case):
     assert torch.equal(out, want[case]())
 
 
-@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
 def test_adasum_reduce_gathered_launches_per_combine(dev, k):
+    """One launch per tree level for the whole bucket: ceil(log2 k)."""
     g = torch.Generator(device=dev).manual_seed(k)
     numels = ADASUM_SEGMENTS[:6]
     gathered = torch.randn(k, sum(numels), generator=g, device=dev)
     want = ak.reduce_gathered_reference(gathered, numels)
-    before = ak.launches
+    before = (ak.launches, ak.stream_launches)
     got = adasum.reduce_gathered(gathered, numels)
     torch.cuda.synchronize()
-    assert ak.launches == before + 2 * (k - 1)
+    assert (ak.launches - before[0], ak.stream_launches - before[1]) == (
+        (k - 1).bit_length(), 0)
     assert got.data_ptr() == gathered.data_ptr()       # in place, row 0
     assert max(_segment_errors(got, want, numels)) <= 1e-5
 
 
 def test_cuda_adasum_never_reaches_the_plain_version(dev, monkeypatch):
+    """Neither route reaches a plain version on the card, and a refused
+    cooperative launch (here a grid past what the card holds at once)
+    raises rather than giving way to one."""
     def refuse(*args, **kwargs):
         raise AssertionError("plain version called on CUDA tensors")
     for name in ("adasum_combine_reference", "combine_segments_reference",
-                 "reduce_gathered_reference"):
+                 "reduce_gathered_reference", "combine_level_reference"):
         monkeypatch.setattr(ak, name, refuse)
     gathered = torch.randn(3, 1000, device=dev)
     adasum.reduce_gathered(gathered, (600, 400))
     adasum.adasum_combine(gathered[1], gathered[2])
+    long = ak.round_elems(torch.float32, dev)
+    x = torch.randn(2, long + 1, device=dev)
+    adasum.reduce_gathered(x, (long + 1,))
+    torch.cuda.synchronize()
+    grid = ak.level_grid(torch.float32, dev)
+    monkeypatch.setattr(ak, "_schedules", {})
+    monkeypatch.setitem(ak._grids, (torch.float32, dev), 64 * grid)
+    before = ak.launches
+    with pytest.raises(RuntimeError, match="hvd_adasum_level"):
+        adasum.reduce_gathered(torch.randn(2, 1000, device=dev), (600, 400))
+    assert ak.launches == before
+    torch.cuda.synchronize()
+
+
+def test_adasum_one_signature_on_two_streams(dev):
+    """Calls over one schedule (its slots, counters and epoch) from two
+    streams, queued with no sync between them, each match the plain
+    version: a call waits for the last call's stream."""
+    numels = (600_001, 400_000, 7)
+    table = ak.segment_table(numels)
+    pairs = [_adasum_pair(dev, torch.float32, numels, 30 + i)
+             for i in range(6)]
+    outs = [torch.empty_like(a) for a, _ in pairs]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize()
+    for i, ((a, b), out) in enumerate(zip(pairs, outs)):
+        with torch.cuda.stream(streams[i % 2]):
+            ak.combine_segments(a, b, out, table)
+    torch.cuda.synchronize()
+    for (a, b), out in zip(pairs, outs):
+        want = ak.combine_segments_reference(a, b, torch.empty_like(a), table)
+        assert max(_segment_errors(out, want, numels)) <= \
+            ADASUM_TOL[torch.float32]
+
+
+def test_adasum_refuses_cuda_graph_capture(dev):
+    """A captured launch would replay one epoch of the counters: the
+    combine raises under capture and launches nothing."""
+    gathered = torch.randn(2, 1000, device=dev)
+    adasum.reduce_gathered(gathered, (600, 400))   # schedule built outside
+    torch.cuda.synchronize()
+    before = ak.launches
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            adasum.reduce_gathered(gathered, (600, 400))
+    assert ak.launches == before
     torch.cuda.synchronize()
 
 
 def test_adasum_kernel_refuses_what_it_does_not_take(dev):
-    table = ak.segment_table((4, 2), dev)
+    table = ak.segment_table((4, 2))
     ints = torch.ones(6, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         ak.combine_segments(ints, ints, ints.clone(), table)
@@ -490,3 +592,32 @@ def test_adasum_allreduce_on_the_card(dev):
                           op=hvd.Adasum)
     finally:
         hvd.shutdown()
+
+
+def test_dense_runs_tf32_within_its_bound(dev):
+    """An fp32 Dense at DEFAULT precision (the lm_head's, here at 1024 x
+    768 -> 4096) within the TF32 bound c 2^-11 |x| |W| of a float64
+    product, forward and both backward products, on positive inputs
+    (no cancellation: the bound is tight); a bf16 product fails the
+    forward's bound; the TF32 flags are as they were afterwards."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand(1024, 768, generator=g, device=dev).requires_grad_()
+    layer = Dense(768, 4096, use_bias=False).to(dev)
+    with torch.no_grad():
+        layer.weight.copy_(torch.rand(4096, 768, generator=g, device=dev)
+                           / 768 ** 0.5)
+    gy = torch.rand(1024, 4096, generator=g, device=dev)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    y = layer(x)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == flags
+    w = layer.weight.detach()
+    xd = x.detach()
+    assert tf32_ratio(y, xd, w.T) <= tf32_product_c(768)
+    assert tf32_ratio(x.grad, gy, w) <= tf32_product_c(4096)
+    assert tf32_ratio(layer.weight.grad, gy.T, xd) <= tf32_product_c(1024)
+    control = (xd.bfloat16() @ w.bfloat16().T).float()
+    assert tf32_ratio(control, xd, w.T) > tf32_product_c(768)
