@@ -14,8 +14,9 @@ Phases, one JSON line each (each with its seconds):
    Checks: every instance reported, no spills at D = 64, and the dQ kernel
    with no spills and no stack at any head dim.
 3. kernel_vs_plain: each scale kernel against its plain PyTorch version on
-   the card, on the gradient shapes of both main paths (ResNet-50's, and
-   GPT-2 small's up to its 38.6M-element token table and lm_head) plus
+   the card, on the gradient shapes of the main paths (ResNet-50's, GPT-2
+   small's up to its 38.6M-element token table and lm_head, BERT-Large's
+   and LLaMA-400M's, the last two from copies on the meta device) plus
    edge cases (0 and 1 element, odd sizes, a tensor longer than a grid
    row), in fp32, bf16 and fp16. Bit-equal, synchronising after every
    launch.
@@ -40,12 +41,15 @@ Phases, one JSON line each (each with its seconds):
    every launch: fp32, bf16 and fp16; causal and not; head dims 16, 32, 64
    and 128 at the ragged length 197; Lq < Lk and Lq > Lk (causal, with fully
    masked rows that must be exact zeros); kv_valid < Lk; GQA with 12 query
-   heads over 4 kv heads; the main path's L = 1024, D = 64. fp32, and lse
+   heads over 4 kv heads; the GPT path's L = 1024, D = 64; in bf16 the
+   BERT path's (BH = 512, L = 128, not causal) and the LLaMA path's (128
+   query rows over 64 kv rows, L = 1024, causal). fp32, and lse
    in every dtype, within tolerance; the bf16/fp16 forward, dQ and dK/dV,
    which round P and dS on the tensor cores, within the rounding bound (c
    and u printed) of the plain versions that round where they do, and a
-   plain version with the causal diagonal off by one must fail that bound
-   on every output. The max abs error and bound ratio of each case.
+   plain version with the causal diagonal off by one (at BERT's shape: one
+   that drops each row's last key) must fail that bound on every output.
+   The max abs error and bound ratio of each case.
 7. train_gpt: the second main path. Launch counts are zeroed, then GPT-2
    small at full width (vocab 50304, 12 layers, 12 heads, hidden 768, bf16
    activations, fp32 parameters, flash attention, untied fp32 lm_head) on
@@ -68,14 +72,36 @@ Phases, one JSON line each (each with its seconds):
    against float64 within the TF32 bound c 2^-11 |a| |b| (c printed), where
    a bf16 product must fail the forward's bound; the TF32 flags unchanged
    after; DEFAULT and "highest" timed in turns.
-8. timing_flash: each flash kernel alone at the main path's shapes
-   (BH = 96, L = 1024, D = 64, bf16, causal), its plain version and
-   torch's scaled_dot_product_attention (forward, and backward alone; for
-   timing only, the port never calls it), CUDA events, median of repeats,
-   beside the least time the card could take: achieved TFLOP/s and the
-   share of that bound for each.
+8. train_bert: the third path. BERT-Large (MLM + NSP; vocab 30522, 24
+   layers, 16 heads, hidden 1024, bf16 activations, fp32 parameters and
+   heads, flash, no padding mask, dropout off) on 32 x 128 token ids and
+   MLM and NSP labels from --seed, AdamW(lr=1e-5) as in train_gpt; the
+   same checks with 24 + 24 + 24 flash launches a step. Then
+   bert_flash_vs_plain: one step's loss and per-tensor gradients with flash
+   against a copy on bert.py's plain attention path, within
+   BERT_CMP_LIMITS, which flash masked causally and dK and dV swapped must
+   fail (and, unchecked, the kernels against their plain versions through
+   the same step).
+9. train_llama: the fourth path. LLaMA-400M (bench.py's config at 1024
+   positions: 16 query heads over 8 kv heads, RoPE, RMSNorm, SwiGLU) on
+   8 x 1024 token ids, next-token loss, AdamW(lr=1e-4); the same checks.
+   Then remat on those weights and that batch: one step of a copy without
+   and one with (48 forward launches, 24 dQ and 24 dK/dV; gradients equal
+   bit for bit; a lower peak of allocated memory), and the same model and
+   optimizer trained on with remat (48 + 24 + 24 launches a step); the
+   GQA backward's repeat and fold timed alone, unchecked. Then
+   llama_flash_vs_plain as for BERT, against plain attention with K/V
+   repeated, within LLAMA_CMP_LIMITS; controls: flash not causal, dK and
+   dV swapped.
+10. timing_flash: each flash kernel alone at the GPT path's shapes
+   (BH = 96, L = 1024, D = 64, bf16, causal), then at BERT's and LLaMA's,
+   its plain version and torch's scaled_dot_product_attention (forward, and
+   backward alone; enable_gqa for LLaMA; for timing only, the port never
+   calls it), CUDA events, median of repeats, beside the least time the
+   card could take: achieved TFLOP/s and the share of that bound for
+   each.
 
-9. adasum_vs_plain: the Adasum combine kernels against their plain
+11. adasum_vs_plain: the Adasum combine kernels against their plain
    versions on the card, synchronising after every launch: ResNet-50's 161
    gradient shapes as one bucket of segments (each at its own scale) and
    edge cases (0 and 1 element, odd sizes, a segment past a round and past
@@ -86,21 +112,21 @@ Phases, one JSON line each (each with its seconds):
    within a round's steps), against the plain version in the level kernel's tile
    order and the one with whole sums; the max error of each case beside
    its tolerance.
-10. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
+12. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
    ResNet-50 as in train with hvd.DistributedOptimizer(SGD, op=hvd.Adasum):
    each bucket is packed, all-gathered and reduced by
    ops.adasum.reduce_gathered, then unpacked. Checks: finite, falling loss;
    one pack and one unpack launch per bucket every step; no combine launch
    (one rank is a tree of one leaf); on one step the reduced gradients
    equal the local ones bit for bit.
-11. adasum_gathered: the combine kernel through reduce_gathered at the
+13. adasum_gathered: the combine kernel through reduce_gathered at the
    path's shapes: ResNet-50's gradients for K batches from --seed (what K
    ranks would hold), packed in train_adasum's bucket layout and stacked as
    the all-gather leaves them, for K = 4 and 3. Checks: within tolerance of
    the plain version; ceil(log2 K) launches per bucket, one per tree level,
    and none of the streaming route; a control with whole-bucket
    coefficients fails the same limit.
-12. timing_adasum: one combine over the path's fp32 buckets (a tree level
+14. timing_adasum: one combine over the path's fp32 buckets (a tree level
    at K = 2): the level kernel alone, through the wrapper, the plain
    version, beside the byte bound and its share (no single PyTorch call
    computes it), with each bucket's steps, grid and shared memory.
@@ -111,7 +137,10 @@ non-zero.
 """
 
 import argparse
+import contextlib
 import ctypes
+import functools
+import gc
 import json
 import math
 import statistics
@@ -867,6 +896,22 @@ MAIN_FLASH_CASE = ("bfloat16", GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ,
                    GPT_HEAD_DIM, True, None, None, None)
 
 
+# The BERT path: bench.py's BERT-Large leg (bench.py:452-500), 32 x 128
+# tokens a step, MLM + NSP, dropout off (deterministic), so flash engages.
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8
+BERT_PARAMS = 367_480_636           # 303 Flax leaves (jax.eval_shape)
+# The LLaMA path: bench.py's LLaMA-400M leg (bench.py:596-611) at 1024
+# positions, 8 x 1024 tokens a step, 16 query heads over 8 kv heads.
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_STEPS = 8, 1024, 8
+LLAMA_PARAMS = 348_701_696          # 147 Flax leaves
+# The attention shapes every flash launch of those paths sees.
+BERT_FLASH_CASE = ("bfloat16", BERT_BATCH * 16, BERT_SEQ, BERT_SEQ, 64,
+                   False, None, None, None)
+LLAMA_FLASH_CASE = ("bfloat16", LLAMA_BATCH * 16, LLAMA_SEQ, LLAMA_SEQ, 64,
+                    True, None, 16, 8)
+PATH_FLASH_CASES = {"bert": BERT_FLASH_CASE, "llama": LLAMA_FLASH_CASE}
+
+
 def gpt_config(torch, use_flash):
     from horovod_tpu_torch.models import GPTConfig
     # bench.py's GPT-2 small: untied fp32 lm_head, 163,109,376 parameters.
@@ -893,7 +938,7 @@ def flash_cases():
                   # the main path's shape; fewer rows outside its dtype
                   MAIN_FLASH_CASE if dt == MAIN_FLASH_CASE[0] else
                   (dt, 24) + MAIN_FLASH_CASE[2:]]
-    return cases
+    return cases + list(PATH_FLASH_CASES.values())
 
 
 def phase_flash_vs_plain(torch, dev, seed):
@@ -906,6 +951,7 @@ def phase_flash_vs_plain(torch, dev, seed):
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     rows, worst, main_err, ratios, controls = [], {}, {}, {}, []
+    path_err, key_controls = {}, []
     for case in flash_cases():
         dt, bh, lq, lk, d, causal, kv_valid, heads, kvh = case
         dtype = getattr(torch, dt)
@@ -978,6 +1024,21 @@ def phase_flash_vs_plain(torch, dev, seed):
                     for key in ("o", "dq", "dk", "dv")])
                 check(min(ctl.values()) > 1.0, f"the off-by-one diagonal "
                       f"control {case} {ctl} is rejected by the bound")
+            elif case == BERT_FLASH_CASE:
+                # The non-causal control: every row misses its last key.
+                o_c, _ = fa.block_fwd_reference(q, k, v, causal, sm, None,
+                                                lk - 1, round_p=dtype)
+                grads_c = fa.block_bwd_reference(
+                    q, k, v, o, lse, do, causal, sm, None, lk - 1,
+                    round_p=dtype)
+                ctl = {key: fa.bound_ratio(got, plain[key], bounds[key])
+                       for key, got in zip(("o", "dq", "dk", "dv"),
+                                           (o_c,) + grads_c)}
+                key_controls.append([SHORT[dt], bh, lq, d] + [
+                    float(f"{ctl[key]:.3g}")
+                    for key in ("o", "dq", "dk", "dv")])
+                check(min(ctl.values()) > 1.0, f"the last-key-dropped "
+                      f"control {case} {ctl} is rejected by the bound")
             for key, r in ratio.items():
                 ratios[key] = max(ratios.get(key, 0.0), r)
         if causal and lq - lk > 0:
@@ -990,6 +1051,9 @@ def phase_flash_vs_plain(torch, dev, seed):
             worst[name] = max(worst.get(name, 0.0), e)
         if case == MAIN_FLASH_CASE:
             main_err = dict(errs, bound_ratio=ratio)
+        for path, path_case in PATH_FLASH_CASES.items():
+            if case == path_case:
+                path_err[path] = dict(errs, bound_ratio=ratio)
         rows.append([SHORT[dt], bh, lq, lk, d, int(causal), kv_valid, heads,
                      kvh] + [float(f"{errs[n]:.3g}") for n in
                              ("flash_fwd", "lse", "flash_bwd_dq",
@@ -998,12 +1062,16 @@ def phase_flash_vs_plain(torch, dev, seed):
                        for key in ("o", "dq", "dk", "dv")])
     check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
     check(controls, "the off-by-one control ran")
+    check(len(path_err) == len(PATH_FLASH_CASES) and key_controls,
+          f"the BERT and LLaMA shapes were checked, with their controls: "
+          f"{sorted(path_err)}")
     emit({"phase": "flash_vs_plain", "cases": len(rows),
           "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
                       "heads", "kv_heads", "err_o", "err_lse", "err_dq",
                       "err_dkv", "bound_ratio_o", "bound_ratio_dq",
                       "bound_ratio_dk", "bound_ratio_dv"],
           "rows": rows, "max_abs_err": worst, "main_shape_err": main_err,
+          "path_shape_err": path_err,
           "tolerance": {k: {"atol": a, "rtol": r}
                         for k, (a, r) in FLASH_TOL.items()},
           "lse_tolerance": {"atol": 1e-4, "rtol": 1e-5},
@@ -1024,6 +1092,12 @@ def phase_flash_vs_plain(torch, dev, seed):
                                              "ratio_o", "ratio_dq",
                                              "ratio_dk", "ratio_dv"],
                                  "rows": controls, "rejected": True},
+          "last_key_dropped_control": {
+              "columns": ["dtype", "BH", "L", "D", "ratio_o", "ratio_dq",
+                          "ratio_dk", "ratio_dv"],
+              "rows": key_controls, "rejected": True,
+              "note": "the non-causal BERT shape: a plain version whose "
+                      "rows miss their last key (kv_valid = L - 1)"},
           "reason": "fp32, and lse: kernel and plain both compute in "
                     "fp32 and round once; they sum in another order (~1e-6 "
                     "relative in fp32), which can flip the final rounding: "
@@ -1033,7 +1107,7 @@ def phase_flash_vs_plain(torch, dev, seed):
                     "versions that round at the same points, within one "
                     "rounding of an operand on each side",
           "fully_masked_rows_exact_zero": True})
-    return main_err
+    return main_err, path_err
 
 
 def next_token_loss(F, logits, ids):
@@ -1052,28 +1126,38 @@ def build_gpt(torch, dev, seed):
     return model
 
 
-def phase_train_gpt(torch, hvd, model, dev, args, card):
-    import torch.nn.functional as F
+FLASH_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+STEP_COUNTS = FLASH_COUNTS + ("scale_pack", "scale_unpack")
+ADAMW = "AdamW(lr={lr}, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)"
 
+
+def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
+                opt=None):
+    """A transformer path's steps. With ``lr``: the launch counts zeroed
+    (the path starts here), then AdamW(lr) in hvd.DistributedOptimizer
+    after broadcast_parameters and broadcast_optimizer_state; with ``opt``,
+    that optimizer goes on, the counts zeroed first too. --warmup and
+    ``steps`` timed steps of ``loss()``, the last warm-up step checking the
+    reduction; the counts are read right after (the path ends). Checks:
+    finite, falling loss; ``flash`` (forward, dQ, dK/dV) launches every
+    step; a pack and an unpack launch per fusion bucket every step.
+    Returns the optimizer and the run's readings."""
     from horovod_tpu_torch.ops.fusion import get_runtime
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     from horovod_tpu_torch.ops.kernels import scale_buffers as sb
 
-    cfg = model.config
-    n_params = sum(p.numel() for p in model.parameters())
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
-    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
-                        generator=gen, device=dev)
     seen = len(get_runtime().verified_signatures())
-
-    fa.reset_launch_counts()              # the GPT main path starts here
+    fa.reset_launch_counts()              # the path starts here
     sb.reset_launch_counts()
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=1e-4)
-    opt = hvd.DistributedOptimizer(opt,
-                                   named_parameters=model.named_parameters())
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    torch.cuda.reset_peak_memory_stats()
+    if opt is None:
+        opt = torch.optim.AdamW(model.parameters(), lr=lr,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
 
     tally = KeptTableTally(sb)
 
@@ -1083,15 +1167,14 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
 
     def step():
         opt.zero_grad()
-        loss = next_token_loss(F, model(ids), ids)
-        loss.backward()
+        value = loss()
+        value.backward()
         opt.step()
-        return loss.detach()
+        return value.detach()
 
-    # The last warm-up step also checks the reduction.
     losses, per_step = [], []
     with tally:
-        for i in range(args.warmup + GPT_STEPS):
+        for i in range(args.warmup + steps):
             if i == args.warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1101,9 +1184,7 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
             per_step.append([b - a for a, b in zip(c0, counts())])
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                         "scale_pack", "scale_unpack"), counts()))
-    # the GPT main path ends
+    launches = dict(zip(STEP_COUNTS, counts()))     # the path ends
     tables = kept_table_report(per_step, args.warmup, 5)
     per_step = [s[:5] for s in per_step]
     losses = [l.item() for l in losses]
@@ -1111,33 +1192,51 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
                for sig in get_runtime().verified_signatures()[seen:]]
     check(all(map(math.isfinite, losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
-    layers = cfg.num_layers
-    check(all(s[:3] == [layers] * 3 for s in per_step),
-          f"{layers} fwd, dQ and dK/dV flash launches a step: {per_step}")
-    check(buckets and all(s[3] == s[4] == len(buckets) for s in per_step),
-          f"a pack and an unpack launch per bucket ({len(buckets)}) every "
-          f"step: {per_step}")
-    tokens = GPT_BATCH * GPT_SEQ
+    check(all(s[:3] == list(flash) for s in per_step),
+          f"{flash} fwd, dQ and dK/dV flash launches a step: {per_step}")
+    if lr is not None:
+        check(buckets and all(s[3] == s[4] == len(buckets)
+                              for s in per_step),
+              f"a pack and an unpack launch per bucket ({len(buckets)}) "
+              f"every step: {per_step}")
+    else:
+        check(all(s[3] == s[4] == per_step[0][3] > 0 for s in per_step),
+              f"as many pack as unpack launches every step: {per_step}")
+    return opt, {
+        "warmup": args.warmup, "steps": steps, "losses": losses,
+        "step_ms": 1e3 * elapsed / steps, "elapsed": elapsed,
+        "launches_per_step": per_step,
+        "launches_per_step_columns": list(launches), "launches": launches,
+        **tables,
+        "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
+                         for b in buckets],
+        "reduced_equals_local_bitwise": True,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_train_gpt(torch, hvd, model, dev, args, card):
+    import torch.nn.functional as F
+
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    _, run = train_steps(torch, hvd, model,
+                         lambda: next_token_loss(F, model(ids), ids), args,
+                         GPT_STEPS, (cfg.num_layers,) * 3, lr=1e-4)
+    elapsed = run.pop("elapsed")
     emit({"phase": "train_gpt", "model": "GPT-2 small", "params": n_params,
           "batch": GPT_BATCH, "seq": GPT_SEQ, "dtype": "bfloat16",
-          "param_dtype": "float32", "optimizer": "AdamW(lr=1e-4, "
-          "betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)",
-          "warmup": args.warmup, "steps": GPT_STEPS, "losses": losses,
-          "step_ms": 1e3 * elapsed / GPT_STEPS,
-          "tokens_per_sec": tokens * GPT_STEPS / elapsed,
-          "launches_per_step": per_step,
-          "launches_per_step_columns": list(launches), "launches": launches,
-          **tables,
-          "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
-                           for b in buckets],
-          "reduced_equals_local_bitwise": True,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "param_dtype": "float32", "optimizer": ADAMW.format(lr=1e-4),
+          **run,
+          "tokens_per_sec": GPT_BATCH * GPT_SEQ * GPT_STEPS / elapsed,
           "fp32_products": "DEFAULT precision: TF32 (lm_head, forward "
                            "and backward)",
           "matmul_allow_tf32_outside_the_products":
               torch.backends.cuda.matmul.allow_tf32,
           "card": card})
-    return model, ids, launches
+    return model, ids, run["launches"]
 
 
 # Limits of one GPT step with flash attention against the same step on
@@ -1169,54 +1268,11 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
     not causal (a wrong forward), and dK and dV swapped in the backward (a
     wrong backward that leaves the loss and every per-tensor gradient norm
     as they were)."""
-    import contextlib
-
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import GPT
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     from horovod_tpu_torch.parallel.tp import TPSelfAttention
-
-    @contextlib.contextmanager
-    def swapped_dkv():
-        raw = fa.fa_backward
-
-        def wrong(*a, **kw):
-            dq, dk, dv = raw(*a, **kw)
-            return dq, dv, dk
-        fa.fa_backward = wrong
-        try:
-            yield
-        finally:
-            fa.fa_backward = raw
-
-    def plain_flash(rounding):
-        """fa_forward and fa_backward replaced by their plain versions on the
-        card, which round P (and dS) to the inputs' dtype where the bf16
-        kernels do, or keep them in fp32: to tell the kernels' rounding from
-        the rest of the difference to plain attention."""
-        @contextlib.contextmanager
-        def ctx():
-            raw = fa.fa_forward, fa.fa_backward
-
-            def fwd(q, k, v, causal, scale, q_offset=None, kv_valid=None,
-                    heads=None, kv_heads=None):
-                assert heads == kv_heads, "GPT-2 attention is not grouped"
-                return fa.block_fwd_reference(
-                    q, k, v, causal, scale, q_offset, kv_valid,
-                    round_p=q.dtype if rounding else None)
-
-            def bwd(q, k, v, o, lse, do, causal, scale, q_offset=None,
-                    kv_valid=None):
-                return fa.block_bwd_reference(
-                    q, k, v, o, lse, do, causal, scale, q_offset, kv_valid,
-                    round_p=q.dtype if rounding else None)
-            fa.fa_forward, fa.fa_backward = fwd, bwd
-            try:
-                yield
-            finally:
-                fa.fa_forward, fa.fa_backward = raw
-        return ctx
 
     def run(use_flash, causal=True, ctx=contextlib.nullcontext):
         with torch.device(dev):
@@ -1251,14 +1307,15 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
 
     flash_run = run(use_flash=True)
     flash = reading(*flash_run)
-    rounding_run = run(use_flash=True, ctx=plain_flash(True))
+    rounding_run = run(use_flash=True,
+                       ctx=functools.partial(plain_flash, True))
     # Readings, not checks: where the difference to plain attention comes
     # from. The same step through the plain flash versions, rounding as the
     # kernels do and not, each against plain attention, and the kernels
     # against the rounding one.
     sources = {"plain_flash_rounding": reading(*rounding_run),
-               "plain_flash_fp32": reading(*run(use_flash=True,
-                                                ctx=plain_flash(False))),
+               "plain_flash_fp32": reading(*run(
+                   use_flash=True, ctx=functools.partial(plain_flash, False))),
                "flash_vs_plain_flash_rounding": reading(*flash_run,
                                                         *rounding_run)}
     controls = {"not_causal": reading(*run(use_flash=True, causal=False)),
@@ -1277,6 +1334,383 @@ def phase_flash_vs_plain_model(torch, model, ids, dev):
     for name, r in controls.items():
         check(not within(r), f"control {name} {r} is rejected by the "
               f"limits {GPT_CMP_LIMITS}")
+
+
+@contextlib.contextmanager
+def swapped_dkv():
+    """fa_backward with dK and dV swapped: a wrong backward that leaves the
+    loss and every per-tensor gradient norm as they were."""
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    raw = fa.fa_backward
+
+    def wrong(*a, **kw):
+        dq, dk, dv = raw(*a, **kw)
+        return dq, dv, dk
+    fa.fa_backward = wrong
+    try:
+        yield
+    finally:
+        fa.fa_backward = raw
+
+
+@contextlib.contextmanager
+def plain_flash(rounding):
+    """fa_forward and fa_backward replaced by their plain versions on the
+    card (K/V repeated to the query heads under grouped-query attention),
+    which round P (and dS) to the inputs' dtype where the bf16 kernels do,
+    or keep them in fp32: to tell the kernels' rounding from the rest of the
+    difference to plain attention."""
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    raw = fa.fa_forward, fa.fa_backward
+
+    def fwd(q, k, v, causal, scale, q_offset=None, kv_valid=None,
+            heads=None, kv_heads=None):
+        if heads is not None and heads != kv_heads:
+            b, g = q.shape[0] // heads, heads // kv_heads
+            k = fa.gqa_repeat3(k, b, kv_heads, g)
+            v = fa.gqa_repeat3(v, b, kv_heads, g)
+        return fa.block_fwd_reference(
+            q, k, v, causal, scale, q_offset, kv_valid,
+            round_p=q.dtype if rounding else None)
+
+    def bwd(q, k, v, o, lse, do, causal, scale, q_offset=None,
+            kv_valid=None):
+        return fa.block_bwd_reference(
+            q, k, v, o, lse, do, causal, scale, q_offset, kv_valid,
+            round_p=q.dtype if rounding else None)
+    fa.fa_forward, fa.fa_backward = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.fa_forward, fa.fa_backward = raw
+
+
+def grad_readings(torch, F, run, limits, controls):
+    """``run(use_flash, control)`` -> (loss, {name: grad}) of one forward
+    and backward of a fresh copy of the model, ``control`` None or one of
+    ``controls``, a deliberately wrong flash run. The flash run against the
+    plain one: the loss's relative difference, the worst parameter's
+    |g_flash - g_plain| / |g_plain| and the cosine of the attention
+    weights' gradients; each control must fall outside ``limits``, the
+    flash run inside."""
+    lp, gp = run(False, None)
+    attn = [n for n in gp if ".attention." in n]
+
+    def reading(lf, gf, lp=lp, gp=gp):
+        rel = {n: ((gf[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+               .item() for n in gp}
+        worst = max(rel, key=rel.get)
+        cos = F.cosine_similarity(torch.cat([gf[n].flatten() for n in attn]),
+                                  torch.cat([gp[n].flatten() for n in attn]),
+                                  dim=0).item()
+        return {"loss": lf, "loss_rel": abs(lf - lp) / abs(lp),
+                "grad_rel": rel[worst], "grad_rel_worst": worst,
+                "attn_cos": cos}
+
+    def within(r):
+        return (r["loss_rel"] <= limits["loss_rel"]
+                and r["grad_rel"] <= limits["grad_rel"]
+                and r["attn_cos"] >= limits["attn_cos_min"])
+
+    flash_run = run(True, None)
+    flash = reading(*flash_run)
+    ctl = {name: reading(*run(True, name)) for name in controls}
+    # A reading, not a check: the kernels against their plain versions
+    # rounding P and dS as they do, through the same step.
+    source = reading(*flash_run, *run(True, "plain_flash"))
+    out = {"loss_plain": lp, "flash": flash, "controls": ctl,
+           "flash_vs_plain_flash_rounding": source,
+           "limits": limits, "attention_tensors": len(attn),
+           "within": within(flash),
+           "controls_rejected": {n: not within(r) for n, r in ctl.items()}}
+    return out, within
+
+
+def check_readings(name, out, within):
+    emit({"phase": name, **out,
+          "note": "grad_rel: |g_flash - g_plain| / |g_plain| of the worst "
+                  "parameter; attn_cos: cosine of the attention weights' "
+                  "gradients alone; each control must fall outside the "
+                  "limits"})
+    check(within(out["flash"]), f"{name}: flash vs plain attention "
+          f"{out['flash']} within {out['limits']}")
+    for ctl, r in out["controls"].items():
+        check(not within(r), f"{name}: control {ctl} {r} is rejected by "
+              f"the limits {out['limits']}")
+
+
+def bert_config(torch, use_flash, **kw):
+    from horovod_tpu_torch.models import BertConfig
+    return BertConfig.large(dtype=torch.bfloat16, use_flash=use_flash, **kw)
+
+
+def llama_config(torch, use_flash, **kw):
+    from horovod_tpu_torch.models import LlamaConfig
+    return LlamaConfig.bench(max_position_embeddings=LLAMA_SEQ,
+                             dtype=torch.bfloat16, use_flash=use_flash, **kw)
+
+
+def build_on(torch, dev, make, seed):
+    """``make(generator)`` built on ``dev``, its weights drawn there from
+    ``seed``."""
+    with torch.device(dev):
+        return make(torch.Generator(device=dev).manual_seed(seed)).train()
+
+
+def bert_loss(F, model, batch):
+    """bench.py's pre-training loss: mean MLM plus mean NSP cross-entropy."""
+    ids, labels, nsp = batch
+    mlm, ns = model(ids)
+    return F.cross_entropy(mlm.flatten(0, 1), labels.flatten()) \
+        + F.cross_entropy(ns, nsp)
+
+
+def phase_train_bert(torch, hvd, dev, args, card):
+    """BERT-Large (MLM + NSP) at full width and depth, bf16, flash, on
+    32 x 128 token ids, MLM and NSP labels from --seed; no padding mask,
+    deterministic (dropout off). AdamW(lr=1e-5)."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import BertForPreTraining
+    model = build_on(torch, dev, lambda g: BertForPreTraining(
+        bert_config(torch, True), generator=g), args.seed)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == BERT_PARAMS, f"BERT-Large has {BERT_PARAMS:,} "
+          f"parameters, this model {n_params}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    batch = (torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device=dev),
+             torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device=dev),
+             torch.randint(0, 2, (BERT_BATCH,), generator=gen, device=dev))
+    _, run = train_steps(torch, hvd, model,
+                         lambda: bert_loss(F, model, batch), args,
+                         BERT_STEPS, (cfg.num_layers,) * 3, lr=1e-5)
+    elapsed = run.pop("elapsed")
+    emit({"phase": "train_bert", "model": "BERT-Large (MLM + NSP)",
+          "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "dtype": "bfloat16", "param_dtype": "float32",
+          "attention": "flash, non-causal; no padding mask, deterministic",
+          "optimizer": ADAMW.format(lr=1e-5), **run,
+          "sequences_per_sec": BERT_BATCH * BERT_STEPS / elapsed,
+          "card": card})
+    return model, batch, run["launches"]
+
+
+# Limits of one step with flash attention against the same step on the
+# model's plain attention path, for BERT-Large (bert.py's own plain path:
+# bf16 score products, an fp32 softmax, probabilities rounded to bf16) and
+# LLaMA-400M (plain attention with K/V repeated), at the weights the main
+# path ends with. Like GPT_CMP_LIMITS, each sits between the readings of
+# the sound pair and those of the controls, which must fall outside. Read
+# on an NVIDIA H100 80GB HBM3 at 700 W as (loss_rel, grad_rel, attn_cos),
+# seeds 0, 1 and 2. BERT: flash 4.8e-5 / 2.2e-5 / 8.2e-5, 0.025 / 0.021 /
+# 0.019, >= 0.9998; causal flash 5.1e-4 / 3.2e-4 / 6.6e-4, 8.5-9.2,
+# 0.89-0.97; dK and dV swapped 1.6-2.0, 0.18-0.21. LLaMA: flash 1.7e-4 /
+# 4.6e-7 / 5.0e-4, 0.034-0.035, ~0.9999; not causal 1.7-1.9, 1.4,
+# <= 0.012; dK and dV swapped 1.2, 0.11-0.12. The step through the plain
+# flash versions rounding as the kernels do reads 3.4e-7 to 7.4e-5 in the
+# loss and 0.021-0.030 in the worst gradient against the kernels: most of
+# the loss's difference is plain attention's own rounding, and the
+# gradients' is the propagation of bf16 rounding through 24 layers.
+BERT_CMP_LIMITS = {"loss_rel": 3e-4, "grad_rel": 0.1, "attn_cos_min": 0.999}
+LLAMA_CMP_LIMITS = {"loss_rel": 2e-3, "grad_rel": 0.1, "attn_cos_min": 0.999}
+
+
+def phase_bert_flash_vs_plain(torch, model, batch, dev):
+    """One forward and backward of the trained BERT with flash attention
+    against a copy on bert.py's plain path (same weights, same batch, no
+    optimizer); controls: flash with causal masking switched on, and dK
+    and dV swapped in the backward."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import BertForPreTraining
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    @contextlib.contextmanager
+    def causal():
+        raw = bert_mod.flash_attention
+        bert_mod.flash_attention = lambda q, k, v, causal=False: raw(
+            q, k, v, causal=True)
+        try:
+            yield
+        finally:
+            bert_mod.flash_attention = raw
+
+    controls = {"causal": causal, "swapped_dkv": swapped_dkv}
+    contexts = dict(controls, plain_flash=functools.partial(plain_flash,
+                                                            True))
+
+    def run(use_flash, control):
+        with torch.device(dev):
+            m = BertForPreTraining(bert_config(torch, use_flash))
+        m.load_state_dict(model.state_dict())
+        with contexts.get(control, contextlib.nullcontext)():
+            loss = bert_loss(F, m, batch)
+            loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    check_readings("bert_flash_vs_plain", *grad_readings(
+        torch, F, run, BERT_CMP_LIMITS, controls))
+
+
+def phase_train_llama(torch, hvd, dev, args, card):
+    """LLaMA-400M (bench.py's config at 1024 positions) at full width and
+    depth, bf16, flash with grouped-query K/V, on 8 x 1024 token ids from
+    --seed, next-token loss, AdamW(lr=1e-4). Then remat on the trained
+    weights and batch: one step of a copy without and one with remat
+    (gradients equal bit for bit, 24 more forward launches, peak memory of
+    each), and the same model and optimizer trained on with remat."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import Llama
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    model = build_on(torch, dev, lambda g: Llama(
+        llama_config(torch, True), generator=g), args.seed)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == LLAMA_PARAMS, f"LLaMA-400M at {LLAMA_SEQ} positions "
+          f"has {LLAMA_PARAMS:,} parameters, this model {n_params}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    ids = torch.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ),
+                        generator=gen, device=dev)
+    layers = cfg.num_layers
+    opt, run = train_steps(torch, hvd, model,
+                           lambda: next_token_loss(F, model(ids), ids), args,
+                           LLAMA_STEPS, (layers,) * 3, lr=1e-4)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    elapsed = run.pop("elapsed")
+    run["tokens_per_sec"] = tokens * LLAMA_STEPS / elapsed
+
+    # Remat: one step of fresh copies on the trained weights, no optimizer.
+    one = {}
+    for remat in (False, True):
+        with torch.device(dev):
+            m = Llama(llama_config(torch, True, remat=remat))
+        m.load_state_dict(model.state_dict())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        next_token_loss(F, m(ids), ids).backward()
+        torch.cuda.synchronize()
+        one[remat] = {
+            "launches": [fa.fwd_launches, fa.bwd_dq_launches,
+                         fa.bwd_dkv_launches],
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "grads": {n: p.grad for n, p in m.named_parameters()}}
+        del m
+    off, on = one[False], one[True]
+    check(off["launches"] == [layers] * 3, f"{layers} launches of each flash "
+          f"kernel without remat: {off['launches']}")
+    check(on["launches"] == [2 * layers, layers, layers],
+          f"remat: {2 * layers} forward launches ({layers} recomputed), "
+          f"{layers} dQ and {layers} dK/dV: {on['launches']}")
+    unequal = [n for n in off["grads"]
+               if not torch.equal(off["grads"][n], on["grads"][n])]
+    check(not unequal, f"remat gradients equal those without, bit for bit: "
+          f"{unequal[:5]}")
+    check(on["peak_mem_gb"] < off["peak_mem_gb"],
+          f"remat lowers the step's peak memory: {on['peak_mem_gb']} vs "
+          f"{off['peak_mem_gb']} GB")
+    del one, off["grads"], on["grads"]
+
+    # The same model and optimizer trained on with remat; the weights of the
+    # main path's end are kept for llama_flash_vs_plain.
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.config = dataclasses.replace(cfg, remat=True)
+    _, remat_run = train_steps(torch, hvd, model,
+                               lambda: next_token_loss(F, model(ids), ids),
+                               args, LLAMA_STEPS,
+                               (2 * layers, layers, layers), opt=opt)
+    model.config = cfg
+    buckets = len(run["fp32_buckets"])
+    check(all(s[3] == buckets for s in remat_run["launches_per_step"]),
+          f"remat: a pack and an unpack per bucket ({buckets}) every step: "
+          f"{remat_run['launches_per_step']}")
+    remat_elapsed = remat_run.pop("elapsed")
+    remat_run["tokens_per_sec"] = tokens * LLAMA_STEPS / remat_elapsed
+    gqa = gqa_copy_ms(torch, fa, dev, layers)
+    emit({"phase": "train_llama", "model": "LLaMA-400M (bench config)",
+          "params": n_params, "batch": LLAMA_BATCH, "seq": LLAMA_SEQ,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "dtype": "bfloat16", "param_dtype": "float32",
+          "attention": "flash, causal, grouped-query K/V",
+          "optimizer": ADAMW.format(lr=1e-4), **run,
+          "remat_one_step": {
+              "launches_without": off["launches"],
+              "launches_with": on["launches"],
+              "grads_bit_equal": True,
+              "peak_mem_gb_without": off["peak_mem_gb"],
+              "peak_mem_gb_with": on["peak_mem_gb"],
+              "peak_mem_note": "the step's peak of allocated memory above "
+                               "what was allocated before it (the weights "
+                               "of its copy and what earlier phases hold)"},
+          "remat_training": {k: remat_run[k] for k in (
+              "steps", "losses", "step_ms", "tokens_per_sec",
+              "launches_per_step", "peak_mem_gb")},
+          "gqa_backward_repeat_fold": gqa, "card": card})
+    return trained, ids, run["launches"]
+
+
+def gqa_copy_ms(torch, fa, dev, layers):
+    """Device ms a step of the GQA backward's copies at the LLaMA path's
+    shapes (unchecked): K and V repeated to the query heads, dK and dV
+    group-summed back, for every layer; CUDA events, median of 10."""
+    _, bh, L, _, d, _, _, h, kvh = LLAMA_FLASH_CASE
+    b, g = bh // h, h // kvh
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k, v = (torch.randn(b * kvh, L, d, generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    dk, dv = (torch.randn(bh, L, d, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+
+    def copies():
+        for _ in range(layers):
+            fa.gqa_repeat3(k, b, kvh, g).contiguous()
+            fa.gqa_repeat3(v, b, kvh, g).contiguous()
+            fa.gqa_fold3(dk, b, kvh, g)
+            fa.gqa_fold3(dv, b, kvh, g)
+    nbytes = layers * 2 * (bh + b * kvh) * L * d * 2 * 2
+    ms = event_ms(copies, reps=10)
+    return {"ms_per_step": ms, "layers": layers, "group": g,
+            "bytes_per_step": nbytes,
+            "bytes_bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
+            "note": "K and V repeated (gqa_repeat3 + contiguous) and dK, dV "
+                    "folded (gqa_fold3) for every layer; bytes: each copy's "
+                    "reads and writes once"}
+
+
+def phase_llama_flash_vs_plain(torch, state, ids, dev):
+    """One forward and backward of LLaMA at the weights ``state`` (the main
+    path's, before remat trains on) with flash attention against a copy on
+    plain attention with K/V repeated; controls: flash without causal
+    masking, and dK and dV swapped in the backward."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import Llama
+    from horovod_tpu_torch.parallel.tp import TPSelfAttention
+
+    def run(use_flash, control):
+        with torch.device(dev):
+            m = Llama(llama_config(torch, use_flash))
+        m.load_state_dict(state)
+        for mod in m.modules():
+            if isinstance(mod, TPSelfAttention):
+                mod.causal = control != "not_causal"
+        ctx = {"swapped_dkv": swapped_dkv,
+               "plain_flash": functools.partial(plain_flash, True)}.get(
+                   control, contextlib.nullcontext)
+        with ctx():
+            loss = next_token_loss(F, m(ids), ids)
+            loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    check_readings("llama_flash_vs_plain", *grad_readings(
+        torch, F, run, LLAMA_CMP_LIMITS, ("not_causal", "swapped_dkv")))
 
 
 def phase_precision(torch, dev, seed):
@@ -1370,35 +1804,57 @@ def phase_precision(torch, dev, seed):
     return ms
 
 
-def flash_work(bh, lq, lk, d, itemsize):
-    """Operations and bytes of each kernel for causal attention, counting
-    the visible (query, key) pairs only and each input and output once."""
-    pairs = bh * sum(min(lk, max(0, i + lk - lq + 1)) for i in range(lq))
+def flash_work(bh, lq, lk, d, itemsize, causal=True, bh_kv=None):
+    """Operations and bytes of each kernel, counting the visible (query,
+    key) pairs only (all of them when not causal) and each input and output
+    once; ``bh_kv`` the forward's narrow K/V rows under grouped-query
+    attention (the backward kernels take them repeated to ``bh``)."""
+    if causal:
+        pairs = bh * sum(min(lk, max(0, i + lk - lq + 1)) for i in range(lq))
+    else:
+        pairs = bh * lq * lk
     t_q, t_k = bh * lq * d * itemsize, bh * lk * d * itemsize
+    t_kv = (bh if bh_kv is None else bh_kv) * lk * d * itemsize
     row = bh * lq * 4                       # an fp32 value per query row
-    return {"flash_fwd": (4 * d * pairs, t_q + 2 * t_k + t_q + row),
+    return {"flash_fwd": (4 * d * pairs, t_q + 2 * t_kv + t_q + row),
             "flash_bwd_dq": (6 * d * pairs, 2 * t_q + 2 * t_k + 2 * row
                              + t_q),
             "flash_bwd_dkv": (8 * d * pairs, 2 * t_q + 2 * t_k + 2 * row
                               + 2 * t_k)}
 
 
-def phase_timing_flash(torch, dev, seed):
+def flash_timing(torch, dev, seed, b, h, kvh, L, d, causal):
+    """Each flash kernel alone at (B, H over KVH, L, D), bf16, launched
+    directly (no wrapper's host work between launches, which at BERT's
+    short rows outlasts the kernel): the forward on the narrow K/V, the
+    backward kernels on K/V repeated to the query heads, as the path calls
+    them;
+    their plain versions; scaled_dot_product_attention (enable_gqa where
+    KVH < H), forward and backward alone, for timing only. Rows with the
+    bound, and SDPA's times."""
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
-    dt_name, bh, L, _, d = MAIN_FLASH_CASE[:5]
-    b, h, sm, dt = GPT_BATCH, GPT_HEADS, d ** -0.5, getattr(torch, dt_name)
-    gen = torch.Generator(device=dev).manual_seed(seed + 5)
-    q, k, v, do = (torch.randn(bh, L, d, generator=gen, device=dev).to(dt)
-                   for _ in range(4))
-    o, lse = fa.fa_forward(q, k, v, True, sm)
+    bh, sm, dt = b * h, d ** -0.5, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(bh, L, d, generator=gen, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b * kvh, L, d, generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    heads = (h, kvh) if kvh != h else (None, None)
+    o, lse = fa.fa_forward(q, k, v, causal, sm, None, None, *heads)
+    km, vm = ((fa.gqa_repeat3(t, b, kvh, h // kvh).contiguous()
+               for t in (k, v)) if kvh != h else (k, v))
     delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    dq, dk, dv = (torch.empty_like(t) for t in (q, km, vm))
+    ptrs = (q.data_ptr(), km.data_ptr(), vm.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
-    common = (L, d, 0, L, 1, sm, 2)
+    common = (L, d, 0, L, int(causal), sm, 2)
+    groups = (h, kvh) if kvh != h else (1, 1)
     ms = {
-        "flash_fwd": event_ms(lambda: fa.fa_forward(q, k, v, True, sm),
-                              reps=20, inner=5),
+        "flash_fwd": event_ms(lambda: fa._launch(
+            "hvd_flash_fwd", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, L, *common[:5], sm, *groups,
+            2),
+            reps=20, inner=5),
         "flash_bwd_dq": event_ms(lambda: fa._launch(
             "hvd_flash_bwd_dq", dev, *ptrs, dq.data_ptr(), bh, L, *common),
             reps=20, inner=5),
@@ -1406,20 +1862,21 @@ def phase_timing_flash(torch, dev, seed):
             "hvd_flash_bwd_dkv", dev, *ptrs, dk.data_ptr(), dv.data_ptr(),
             bh, L, *common), reps=20, inner=5),
     }
-    plain_fwd = event_ms(lambda: fa.block_fwd_reference(q, k, v, True, sm),
-                         reps=10)
+    plain_fwd = event_ms(lambda: fa.block_fwd_reference(q, km, vm, causal,
+                                                        sm), reps=10)
     plain_bwd = event_ms(lambda: fa.block_bwd_reference(
-        q, k, v, o, lse, do, True, sm), reps=10)
-    q4, k4, v4 = (t.view(b, h, L, d).detach().requires_grad_()
-                  for t in (q, k, v))
+        q, km, vm, o, lse, do, causal, sm), reps=10)
+    q4 = q.view(b, h, L, d).detach().requires_grad_()
+    k4, v4 = (t.view(b, kvh, L, d).detach().requires_grad_() for t in (k, v))
+    gqa = {"enable_gqa": True} if kvh != h else {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd = event_ms(lambda: sdpa(q4, k4, v4, is_causal=True), reps=20,
-                        inner=5)
-    out4 = sdpa(q4, k4, v4, is_causal=True)
+    sdpa_fwd = event_ms(lambda: sdpa(q4, k4, v4, is_causal=causal, **gqa),
+                        reps=20, inner=5)
+    out4 = sdpa(q4, k4, v4, is_causal=causal, **gqa)
     do4 = do.view(b, h, L, d)
     sdpa_bwd = event_ms(lambda: torch.autograd.grad(
         out4, (q4, k4, v4), do4, retain_graph=True), reps=20, inner=5)
-    work = flash_work(bh, L, L, d, 2)
+    work = flash_work(bh, L, L, d, 2, causal, b * kvh)
     rows = {}
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
@@ -1435,24 +1892,54 @@ def phase_timing_flash(torch, dev, seed):
             rows[name]["plain_and_library_cover"] = (
                 "dq, dk and dv in one call, the same time for flash_bwd_dq "
                 "and flash_bwd_dkv")
-    emit({"phase": "timing_flash", "shape": {"BH": bh, "L": L, "D": d,
-                                             "dtype": dt_name,
-                                             "causal": True},
-          "kernels": rows, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
-          "sdpa_fwd_bwd_ms": sdpa_fwd + sdpa_bwd,
-          "sdpa_fwd_tflops": work["flash_fwd"][0] / sdpa_fwd / 1e9,
-          "sdpa_bwd_tflops": (work["flash_bwd_dq"][0]
-                              + work["flash_bwd_dkv"][0]) / sdpa_bwd / 1e9,
+    shape = {"BH": bh, "L": L, "D": d, "dtype": "bfloat16", "causal": causal}
+    if kvh != h:
+        shape.update(heads=h, kv_heads=kvh, BH_kv=b * kvh)
+    return rows, {"shape": shape, "sdpa_fwd_ms": sdpa_fwd,
+                  "sdpa_bwd_ms": sdpa_bwd,
+                  "sdpa_fwd_bwd_ms": sdpa_fwd + sdpa_bwd,
+                  "sdpa_fwd_tflops": work["flash_fwd"][0] / sdpa_fwd / 1e9,
+                  "sdpa_bwd_tflops": (work["flash_bwd_dq"][0]
+                                      + work["flash_bwd_dkv"][0])
+                  / sdpa_bwd / 1e9}
+
+
+def phase_timing_flash(torch, dev, seed):
+    """The flash kernels timed at the GPT main path's shape (the kernels
+    line's rows), then at the BERT and LLaMA paths' shapes."""
+    d = MAIN_FLASH_CASE[4]
+    rows, main = flash_timing(torch, dev, seed + 5, GPT_BATCH, GPT_HEADS,
+                              GPT_HEADS, GPT_SEQ, d, True)
+    paths = {}
+    for path, (b, case) in (("bert", (BERT_BATCH, BERT_FLASH_CASE)),
+                            ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE))):
+        _, bh, L, _, d, causal, _, h, kvh = case
+        h = h or bh // b
+        path_rows, extra = flash_timing(torch, dev, seed + 5, b, h,
+                                        kvh or h, L, d, causal)
+        paths[path] = {**extra, "kernels": path_rows}
+    emit({"phase": "timing_flash", **main, "kernels": rows, "paths": paths,
           "note": "ms: CUDA events, median of 20 runs of 5 back-to-back "
-                  "launches (forward through fa_forward, the backward "
-                  "kernels launched directly); tflops: the visible pairs' "
+                  "launches, each kernel launched directly; tflops: the "
+                  "visible pairs' "
                   "operations over ms; bound_share: bound_ms / ms; "
                   "plain_ms of both backward "
                   "kernels is the plain backward, which computes dq, dk and "
                   "dv together; library: scaled_dot_product_attention "
-                  "(is_causal) forward, and its backward alone, timed here "
-                  "only"})
-    return rows
+                  "(is_causal as the path; enable_gqa for LLaMA's grouped "
+                  "K/V) forward, and its backward alone, timed here only"})
+    return rows, paths
+
+
+def path_shapes(torch):
+    """The parameter shapes of the BERT and LLaMA paths' models, from
+    copies on the meta device (no memory, no weights)."""
+    from horovod_tpu_torch.models import BertForPreTraining, Llama
+    with torch.device("meta"):
+        models = {"bert_large": BertForPreTraining(bert_config(torch, True)),
+                  "llama_400m": Llama(llama_config(torch, True))}
+    return {name: [tuple(p.shape) for p in m.parameters()]
+            for name, m in models.items()}
 
 
 def main(argv=None):
@@ -1493,6 +1980,7 @@ def main(argv=None):
     gpt = build_gpt(torch, dev, args.seed)
     shapes = {name: [tuple(p.shape) for p in m.parameters()]
               for name, m in (("resnet50", model), ("gpt2_small", gpt))}
+    shapes.update(path_shapes(torch))
     max_err = run("kernel_vs_plain", phase_kernel_vs_plain, torch, shapes,
                   dev, args.seed)
     launches, buckets = run("train", phase_train, torch, hvd, model, dev,
@@ -1501,8 +1989,8 @@ def main(argv=None):
           f"the main path launched both kernels: {launches}")
     total = run("timing", phase_timing, torch, buckets, dev, args.seed)
     del model
-    flash_err = run("flash_vs_plain", phase_flash_vs_plain, torch, dev,
-                    args.seed)
+    flash_err, path_err = run("flash_vs_plain", phase_flash_vs_plain, torch,
+                              dev, args.seed)
     gpt, ids, gpt_launches = run("train_gpt", phase_train_gpt, torch, hvd,
                                  gpt, dev, args, card)
     check(all(gpt_launches[k] > 0 for k in FLASH_REPLACES),
@@ -1511,8 +1999,25 @@ def main(argv=None):
         dev)
     del gpt
     run("precision", phase_precision, torch, dev, args.seed)
-    flash_rows = run("timing_flash", phase_timing_flash, torch, dev,
-                     args.seed)
+    bert, batch, bert_launches = run("train_bert", phase_train_bert, torch,
+                                     hvd, dev, args, card)
+    run("bert_flash_vs_plain", phase_bert_flash_vs_plain, torch, bert, batch,
+        dev)
+    del bert, batch
+    gc.collect()
+    llama_state, ids, llama_launches = run("train_llama", phase_train_llama,
+                                           torch, hvd, dev, args, card)
+    run("llama_flash_vs_plain", phase_llama_flash_vs_plain, torch,
+        llama_state, ids, dev)
+    del llama_state, ids
+    gc.collect()
+    by_path = {"train_gpt": gpt_launches, "train_bert": bert_launches,
+               "train_llama": llama_launches}
+    check(all(n[k] > 0 for n in by_path.values() for k in STEP_COUNTS),
+          f"every transformer path launched every flash and scale kernel: "
+          f"{by_path}")
+    flash_rows, flash_paths = run("timing_flash", phase_timing_flash, torch,
+                                  dev, args.seed)
     adasum_err = run("adasum_vs_plain", phase_adasum_vs_plain, torch,
                      shapes["resnet50"], dev, args.seed)
     model = resnet50()
@@ -1532,15 +2037,17 @@ def main(argv=None):
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
+    transformer_paths = ("train_gpt", "train_bert", "train_llama")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
+    by_path.update(train=launches, train_adasum=ada_launches)
+    scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
+                   "train_adasum")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
-         "launches": launches[f"scale_{kind}"] + gpt_launches[
-             f"scale_{kind}"] + ada_launches[f"scale_{kind}"],
-         "launches_by_path": {"train": launches[f"scale_{kind}"],
-                              "train_gpt": gpt_launches[f"scale_{kind}"],
-                              "train_adasum": ada_launches[f"scale_{kind}"]},
+         "launches": sum(by_path[p][f"scale_{kind}"] for p in scale_paths),
+         "launches_by_path": {p: by_path[p][f"scale_{kind}"]
+                              for p in scale_paths},
          "checked_vs_plain": True, "max_abs_err": max_err,
          "ms": total[f"{kind}_ms"],
          "wrapper_ms": total[f"{kind}_wrapper_ms"],
@@ -1550,14 +2057,23 @@ def main(argv=None):
         for kind in ("pack", "unpack")]
     kernels += [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
-         "replaces": FLASH_REPLACES[name], "launches": gpt_launches[name],
+         "replaces": FLASH_REPLACES[name],
+         "launches": sum(by_path[p][name] for p in transformer_paths),
+         "launches_by_path": {p: by_path[p][name]
+                              for p in transformer_paths},
          **({"status": REDESIGNED[name]} if name in REDESIGNED else {}),
          "checked_vs_plain": True, "max_abs_err": flash_err[name],
+         "max_abs_err_by_path": {p: e[name] for p, e in path_err.items()},
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
          "library_ms": row["library_ms"],
          **({"plain_and_library_cover": row["plain_and_library_cover"]}
-            if "plain_and_library_cover" in row else {})}
+            if "plain_and_library_cover" in row else {}),
+         "times_note": "ms, plain_ms, bound_ms and library_ms at the GPT "
+                       "path's shape; by_path: the BERT and LLaMA shapes",
+         "by_path": {p: {k: r["kernels"][name][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+             for p, r in flash_paths.items()}}
         for name, row in flash_rows.items()]
     kernels.append(
         {"name": "adasum_combine", "route": "cuda", "source": ADASUM_SOURCE,

@@ -6,11 +6,13 @@ final LayerNorm and an fp32 ``lm_head`` with no bias and no weight tying;
 ``dtype`` activations over fp32 parameters. Attention in every block goes
 through the flash kernels when ``config.use_flash`` is set.
 
-Ported: the dense model, ``features_only``, and :func:`load_flax_gpt`, which
-fills a module from the Flax variable tree by name. Not yet: mesh axes
-(``tp_axis``, ``ep_axis``), MoE blocks (``num_experts > 0``), decode,
-sequence parallelism and ``remat`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+Ported: the dense model, ``features_only``, ``remat`` (each block under
+``torch.utils.checkpoint``, as ``nn.remat`` wraps it) and :func:`load_flax`,
+which fills any of the port's Flax-named models from its Flax variable tree
+by name (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama`` and
+``load_flax_mlp`` are this one function). Not yet: mesh axes (``tp_axis``,
+``ep_axis``), MoE blocks (``num_experts > 0``), decode and sequence
+parallelism raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ from torch import nn
 
 from horovod_tpu_torch.parallel.tp import (Dense, LayerNorm,
                                            TPTransformerBlock, _not_yet,
-                                           lecun_normal_)
+                                           lecun_normal_, remat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +110,6 @@ class GPT(nn.Module):
             _not_yet("decode with a KV cache", "A15")
         if c.sp_axis is not None:
             _not_yet("sequence parallelism (sp_axis)", "A12")
-        if c.remat:
-            _not_yet("remat", "A6")
         self.config = c
         self.embed = GPTEmbed(c)
         for i in range(c.num_layers):
@@ -131,7 +131,8 @@ class GPT(nn.Module):
             _not_yet("decode positions", "A15")
         x = self.embed(input_ids)
         for i in range(self.config.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            block = getattr(self, f"layer_{i}")
+            x = remat(block, (x,)) if self.config.remat else block(x)
         if features_only:
             return x
         return self.head(x)
@@ -149,13 +150,14 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "pos_emb": "pos_emb"}
 
 
-def load_flax_gpt(model, variables):
-    """Fill ``model`` from the JAX package's GPT variables
+def load_flax(model, variables):
+    """Fill ``model`` from the JAX package's variables of the same model
     (``{"params": ...}`` or the params tree itself, nested dicts of arrays
-    under Flax's names). Dense kernels go (in, out) -> (out, in); LayerNorm
-    ``scale`` -> ``weight``; ``embedding`` -> ``weight``. A Flax leaf with
-    no counterpart, a parameter with no Flax leaf, or a shape mismatch
-    raises."""
+    under Flax's names), for every model whose modules carry Flax's names
+    (GPT, BERT, LLaMA, the MLP). Dense kernels go (in, out) -> (out, in);
+    LayerNorm and RMSNorm ``scale`` -> ``weight``; ``embedding`` ->
+    ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
+    leaf, or a shape mismatch raises."""
     params = variables.get("params", variables)
     targets = dict(model.named_parameters())
     filled = set()
@@ -183,4 +185,7 @@ def load_flax_gpt(model, variables):
     return model
 
 
-__all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPT", "load_flax_gpt"]
+load_flax_gpt = load_flax
+
+__all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPT", "load_flax",
+           "load_flax_gpt"]

@@ -1,8 +1,10 @@
 """Transformer layers of the JAX package's ``parallel/tp.py``, at tp = 1.
 
-Port of the dense path GPT takes through ``ColumnParallelDense``,
-``RowParallelDense``, ``plain_attention``, ``TPSelfAttention`` (full
-sequence), ``TPMlp`` and ``TPTransformerBlock``. The port has no tensor-
+Port of the dense path GPT and LLaMA take through ``ColumnParallelDense``,
+``RowParallelDense``, ``apply_rope``, ``plain_attention``,
+``TPSelfAttention`` (full sequence, RoPE and grouped-query K/V), ``TPMlp``,
+``TPSwiGLUMlp`` and ``TPTransformerBlock``, with Flax's ``LayerNorm`` and
+``RMSNorm``. The port has no tensor-
 parallel mesh yet (ROADMAP A12), so the layers are what the JAX modules are
 outside ``shard_map``: the column- and row-parallel layers are dense layers,
 and the row-parallel psum is the identity.
@@ -18,11 +20,15 @@ Flax semantics kept on purpose:
   (DEFAULT: TF32 for an fp32 product on CUDA) or ``"highest"``
   (:func:`at_precision`, below). No layer of the JAX package sets one, and
   no layer here does; plain attention's fp32 einsums run at DEFAULT.
-- ``LayerNorm``: epsilon 1e-6, statistics in fp32, output cast to ``dtype``.
+- ``LayerNorm``: epsilon 1e-6, statistics in fp32, output cast to ``dtype``;
+  ``RMSNorm``: fp32 mean square, fp32 ``scale`` (here ``weight``), output
+  in ``dtype``.
 - ``gelu`` is the tanh approximation (``flax.linen.gelu``'s default).
 
-Decode, sequence parallelism (``sp_axis``) and RoPE raise
-``NotImplementedError`` naming the ROADMAP item that will bring them.
+:func:`remat` is ``nn.remat`` for a block: ``torch.utils.checkpoint``.
+
+Decode, per-row RoPE positions and sequence parallelism (``sp_axis``)
+raise ``NotImplementedError`` naming the ROADMAP item that will bring them.
 """
 
 import contextlib
@@ -32,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
-from torch.autograd.graph import get_gradient_edge
+from torch.autograd.graph import get_gradient_edge, saved_tensors_hooks
+from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.kernels.flash_attention import flash_attention
 
@@ -97,13 +104,20 @@ class _Scoped(torch.autograd.Function):
     inputs and keeps that graph's edge, not its output, so the output is
     freed with the caller's last use of it; the backward differentiates the
     graph, as the flags ask. Once differentiable: a double backward
-    raises."""
+    raises.
+
+    The inner graph keeps its saved tensors itself, past any saved-tensor
+    hooks of the caller: under :func:`remat`'s checkpoint, they would be
+    dropped and refilled from the recomputation by graph task, and the
+    backward's ``autograd.grad`` is a graph task of its own, so every scoped
+    product of a block would recompute the whole block once more."""
 
     @staticmethod
     def forward(ctx, fn, allow, *args):
         inputs = [a.detach().requires_grad_(a.requires_grad)
                   if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.enable_grad(), tf32_flags(allow):
+        with torch.enable_grad(), tf32_flags(allow), \
+                saved_tensors_hooks(_kept, _kept):
             out = fn(*inputs)
         ctx.allow, ctx.inputs = allow, inputs
         ctx.edge = get_gradient_edge(out) if out.requires_grad else None
@@ -124,6 +138,10 @@ class _Scoped(torch.autograd.Function):
                 grads[i] = g
         ctx.inputs = ctx.edge = None
         return (None, None, *grads)
+
+
+def _kept(t):
+    return t
 
 
 def at_precision(precision, fn, *args):
@@ -199,6 +217,66 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class RMSNorm(nn.Module):
+    """``flax.linen.RMSNorm(epsilon, dtype)`` over the last axis: the mean
+    square in fp32, ``x * (rsqrt(ms + eps) * scale)`` in fp32 with an fp32
+    ``scale`` (here ``weight``), output in ``dtype``."""
+
+    def __init__(self, features, dtype=torch.float32, epsilon=1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x):
+        xf = x.float()
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * (torch.rsqrt(ms + self.epsilon) * self.weight)).to(
+            self.dtype)
+
+
+def reset_flax_(model, generator=None):
+    """Flax's default initializers, drawn from ``generator``, on every
+    ``Dense``, norm and ``nn.Embedding`` (``flax.linen.Embed``: variance
+    1/features) of ``model``."""
+    for m in model.modules():
+        if isinstance(m, (Dense, LayerNorm, RMSNorm)):
+            m.reset_parameters(generator)
+        elif isinstance(m, nn.Embedding):
+            lecun_normal_(m.weight, m.weight.shape[1], generator)
+
+
+def remat(block, args, generator=None):
+    """``block(*args)`` under non-reentrant ``torch.utils.checkpoint``, as
+    ``nn.remat`` wraps a block in JAX: its activations are dropped after
+    the forward and recomputed in the backward; as it is when no gradient
+    is being recorded. Checkpoint restores the default generators for the
+    recomputation; ``generator``, an explicit one the block draws dropout
+    from, is put back to its state at the block's entry for it too, and
+    left where the forward left it after."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    if generator is None:
+        return checkpoint(block, *args, use_reentrant=False)
+    start, calls = generator.get_state(), []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return block(*a)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(*a)
+        finally:
+            generator.set_state(now)
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class ColumnParallelDense(nn.Module):
     """Linear layer split on its output dim; at tp = 1 a Dense named
     ``shard``."""
@@ -228,6 +306,24 @@ class RowParallelDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+
+def apply_rope(x, positions, theta):
+    """Rotary position embedding (rotate-half pairing), rotated in fp32 and
+    cast back to ``x``'s dtype. ``x``: (B, L, h, d), d even; ``positions``:
+    (L,) token positions. Per-row (B, L) positions are decode's (A15)."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"rope needs an even head_dim, got {d}")
+    if positions.dim() != 1:
+        _not_yet("per-row (B, L) rope positions", "A15")
+    inv = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=x.device) / d)          # (d/2,)
+    ang = positions.to(device=x.device, dtype=torch.float32)[:, None] * inv
+    cos, sin = torch.cos(ang)[None, :, None], torch.sin(ang)[None, :, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def plain_attention(q, k, v, out_dtype, mask=None, bias=None, causal=False):
@@ -261,7 +357,8 @@ class TPSelfAttention(nn.Module):
     """Multi-head self-attention with a fused QKV projection
     (column-parallel) and a row-parallel output projection.
     ``num_kv_heads`` < ``num_heads`` is grouped-query attention: the flash
-    kernel reads the narrow K/V, the plain path broadcasts them."""
+    kernel reads the narrow K/V, the plain path broadcasts them.
+    ``rope_theta`` rotates Q and K at positions 0..L-1 before attending."""
 
     def __init__(self, num_heads, hidden_size, dtype=torch.float32,
                  causal=False, use_flash=False, sp_axis=None, decode=False,
@@ -271,8 +368,6 @@ class TPSelfAttention(nn.Module):
             _not_yet("decode with a KV cache", "A15")
         if sp_axis is not None:
             _not_yet("sequence parallelism (sp_axis)", "A12")
-        if rope_theta is not None:
-            _not_yet("rotary position embedding", "A6, LLaMA")
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
             raise ValueError(f"num_kv_heads {kv_heads} must divide num_heads "
@@ -283,6 +378,7 @@ class TPSelfAttention(nn.Module):
         self.dtype = dtype
         self.causal = causal
         self.use_flash = use_flash
+        self.rope_theta = rope_theta
         self.qkv = ColumnParallelDense(
             hidden_size, (num_heads + 2 * kv_heads) * self.head_dim,
             use_bias=use_bias, dtype=dtype)
@@ -312,6 +408,10 @@ class TPSelfAttention(nn.Module):
             [self.num_heads * hd, self.num_kv_heads * hd,
              self.num_kv_heads * hd], dim=-1)
         q, k, v = (t.unflatten(-1, (-1, hd)) for t in (q, k, v))
+        if self.rope_theta is not None:
+            positions = torch.arange(x.shape[-2], device=x.device)
+            q = apply_rope(q, positions, self.rope_theta)
+            k = apply_rope(k, positions, self.rope_theta)
         out = self._attend(q, k, v, mask, bias=bias)
         return self.out(out.flatten(-2))
 
@@ -329,6 +429,31 @@ class TPMlp(nn.Module):
     def forward(self, x):
         h = getattr(self, "in")(x)
         return self.out(F.gelu(h, approximate="tanh"))
+
+
+class TPSwiGLUMlp(nn.Module):
+    """Gated MLP: a fused column-parallel ``gate_up`` projection,
+    ``act(gate) * up`` with ``"silu"`` (SwiGLU) or ``"gelu"`` (tanh; GEGLU),
+    and a row-parallel ``out`` contraction."""
+
+    ACTIVATIONS = {"silu": F.silu,
+                   "gelu": lambda h: F.gelu(h, approximate="tanh")}
+
+    def __init__(self, intermediate_size, hidden_size, dtype=torch.float32,
+                 use_bias=False, activation="silu"):
+        super().__init__()
+        if activation not in self.ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; choose "
+                             f"from {sorted(self.ACTIVATIONS)}")
+        self.act = self.ACTIVATIONS[activation]
+        self.gate_up = ColumnParallelDense(hidden_size, 2 * intermediate_size,
+                                           use_bias=use_bias, dtype=dtype)
+        self.out = RowParallelDense(intermediate_size, hidden_size,
+                                    use_bias=use_bias, dtype=dtype)
+
+    def forward(self, x):
+        g, u = self.gate_up(x).chunk(2, dim=-1)
+        return self.out(self.act(g) * u)
 
 
 class TPTransformerBlock(nn.Module):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Profile one of the PyTorch port's data-parallel training steps on one GPU.
 
-    python3 scripts/profile_torch_port.py [--model resnet50|gpt]
-        [--op average|adasum] [--seed 0] [--batch N] [--steps 10]
-        [--repeats 5] [--profile-steps 3] [--root DIR]
+    python3 scripts/profile_torch_port.py
+        [--model resnet50|gpt|bert|llama] [--remat] [--op average|adasum]
+        [--seed 0] [--batch N] [--seq L] [--steps 10] [--repeats 5]
+        [--profile-steps 3] [--root DIR]
 
 The steps are chip_smoke.py's, on cuda:0 after hvd.init():
 
@@ -15,7 +16,15 @@ The steps are chip_smoke.py's, on cuda:0 after hvd.init():
   combine, and unpacked);
 - ``gpt`` (default batch 8): GPT-2 small at full width, sequence 1024, bf16
   activations, fp32 parameters, the flash-attention kernels, next-token
-  loss, AdamW(lr=1e-4, weight_decay=1e-4) in hvd.DistributedOptimizer.
+  loss, AdamW(lr=1e-4, weight_decay=1e-4) in hvd.DistributedOptimizer;
+- ``bert`` (default batch 32, sequence 128): BERT-Large MLM + NSP, bf16,
+  flash (non-causal), no padding mask, dropout off, random MLM and NSP
+  labels, AdamW(lr=1e-5, weight_decay=1e-4);
+- ``llama`` (default batch 8, sequence 1024): LLaMA-400M (bench.py's
+  config), bf16, flash with 16 query heads over 8 kv heads, next-token
+  loss, AdamW(lr=1e-4, weight_decay=1e-4).
+
+``--remat`` checkpoints every transformer block (gpt, bert, llama).
 
 ``--root`` profiles the package of another checkout (say, a parent commit
 unpacked into build/), so two trees can be compared in one session.
@@ -30,9 +39,10 @@ Prints JSON lines:
   window in which the device runs any kernel or copy (union of the device
   intervals over the window's span), the kernels that take the most device
   time, and device time by kind of kernel (the port's flash and scale
-  kernels, NCCL, and for GPT LayerNorm, the lm_head's fp32 products,
-  TF32 at the port's default precision or full fp32 SIMT where a tree
-  asks for it, cross-entropy, AdamW);
+  kernels, NCCL, and for the transformers LayerNorm, the fp32 head's
+  products, TF32 at the port's default precision or full fp32 SIMT where a
+  tree asks for it, cross-entropy, AdamW), and the PyTorch operators whose
+  own kernels take the most device time;
 - the card's name, power limit, SM clock and power draw after the run.
 
 Needs one CUDA device; exits 1 without one. Fails if the profiler records
@@ -83,7 +93,7 @@ KINDS = (
     ("layer_norm", ("layer_norm", "layernorm")),
     ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
     ("adamw", ("adam", "multi_tensor_apply", "foreach")),
-    ("tf32_gemm", ("tf32",)),
+    ("tf32_gemm", ("tf32", "s1688gemm")),      # cutlass's TF32 m16n8k8
     ("fp32_gemm", ("sgemm", "f32f32", "gemm_f32", "_32x", "simt")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
     ("batch_norm", ("batch_norm", "batchnorm")),
@@ -97,6 +107,20 @@ def kind_of(name):
         if any(k in low for k in keys):
             return kind
     return "other"
+
+
+def top_ops(prof, steps, count=16):
+    """The PyTorch operators whose kernels take the most device time (each
+    operator's own, not its children's), per step: what the kernels
+    classed "other" belong to."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append([e.key[:60], us / 1e3 / steps])
+    return sorted(rows, key=lambda r: -r[1])[:count]
 
 
 def build_step(args, hvd, torch, dev):
@@ -115,15 +139,47 @@ def build_step(args, hvd, torch, dev):
         def loss():
             return F.cross_entropy(model(x), y)
         items, unit = args.batch, "images_per_sec"
+    elif args.model == "bert":
+        from horovod_tpu_torch.models import BertConfig, BertForPreTraining
+        cfg = BertConfig.large(dtype=torch.bfloat16, use_flash=True,
+                               remat=args.remat)
+        with torch.device(dev):
+            model = BertForPreTraining(cfg, generator=torch.Generator(
+                device=dev).manual_seed(args.seed))
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-5,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+        ids, labels = (torch.randint(0, cfg.vocab_size, (args.batch,
+                                                         args.seq),
+                                     generator=gen, device=dev)
+                       for _ in range(2))
+        nsp = torch.randint(0, 2, (args.batch,), generator=gen, device=dev)
+
+        def loss():
+            mlm, ns = model(ids)
+            return F.cross_entropy(mlm.flatten(0, 1), labels.flatten()) \
+                + F.cross_entropy(ns, nsp)
+        items, unit = args.batch, "sequences_per_sec"
     else:
-        from horovod_tpu_torch.models import GPT, GPTConfig
-        cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
-                        num_heads=12, intermediate_size=3072,
-                        max_position_embeddings=args.seq,
-                        dtype=torch.bfloat16, tp_axis=None, ep_axis=None,
-                        use_flash=True)
-        model = GPT(cfg, generator=torch.Generator().manual_seed(args.seed))
-        model = model.to(dev).train()
+        if args.model == "gpt":
+            from horovod_tpu_torch.models import GPT, GPTConfig
+            cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                            num_heads=12, intermediate_size=3072,
+                            max_position_embeddings=args.seq,
+                            dtype=torch.bfloat16, tp_axis=None, ep_axis=None,
+                            use_flash=True, remat=args.remat)
+            model = GPT(cfg,
+                        generator=torch.Generator().manual_seed(args.seed))
+            model = model.to(dev).train()
+        else:
+            from horovod_tpu_torch.models import Llama, LlamaConfig
+            cfg = LlamaConfig.bench(max_position_embeddings=args.seq,
+                                    dtype=torch.bfloat16, use_flash=True,
+                                    remat=args.remat)
+            with torch.device(dev):
+                model = Llama(cfg, generator=torch.Generator(
+                    device=dev).manual_seed(args.seed))
         opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=1e-4)
@@ -152,15 +208,19 @@ def build_step(args, hvd, torch, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("resnet50", "gpt"),
+    ap.add_argument("--model", choices=("resnet50", "gpt", "bert", "llama"),
                     default="resnet50")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint every transformer block")
     ap.add_argument("--op", choices=("average", "adasum"),
                     default="average",
                     help="the optimizer's reduction (adasum: resnet50 only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None,
-                    help="64 images for resnet50, 8 sequences for gpt")
-    ap.add_argument("--seq", type=int, default=1024)
+                    help="64 images for resnet50, 32 sequences for bert, "
+                         "8 for gpt and llama")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="128 tokens for bert, 1024 for gpt and llama")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -168,7 +228,11 @@ def main(argv=None):
                     help="the checkout whose horovod_tpu_torch is profiled")
     args = ap.parse_args(argv)
     if args.batch is None:
-        args.batch = 64 if args.model == "resnet50" else 8
+        args.batch = {"resnet50": 64, "bert": 32}.get(args.model, 8)
+    if args.seq is None:
+        args.seq = 128 if args.model == "bert" else 1024
+    if args.remat and args.model == "resnet50":
+        ap.error("--remat checkpoints transformer blocks")
     if args.op == "adasum" and args.model != "resnet50":
         ap.error("--op adasum profiles the resnet50 step")
 
@@ -202,6 +266,7 @@ def main(argv=None):
     q1, med, q3 = statistics.quantiles(rates, n=4) if len(rates) > 1 \
         else (rates[0],) * 3
     emit({"summary": unit, "model": args.model, "op": args.op,
+          "remat": args.remat, "batch": args.batch, "seq": args.seq,
           "repeats": len(rates),
           "steps_each": args.steps, "median": statistics.median(rates),
           "q1": q1, "q3": q3, "min": min(rates), "max": max(rates),
@@ -250,7 +315,8 @@ def main(argv=None):
           / 1e3 / n,
           "top_kernels_ms_per_step": [
               [k[:90], v / 1e3 / n] for k, v in sorted(
-                  by_name.items(), key=lambda kv: -kv[1])[:12]]})
+                  by_name.items(), key=lambda kv: -kv[1])[:12]],
+          "top_ops_self_device_ms_per_step": top_ops(prof, n)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"],

@@ -30,7 +30,9 @@ kernel, and the streaming one for a tensor past a round); its exact cases
 Dense at DEFAULT precision within the TF32 bound c 2^-11 |x| |W| of a
 float64 product (c = 4 + 2^-9 + (k + 1) 2^-13 for depth k: each operand
 rounded to TF32, at worst by truncation, and k fp32 additions), which a
-bf16 product fails.
+bf16 product fails. Remat on tiny fp32 GPT and LLaMA: gradients bit-equal
+to the run without it (the recomputation repeats the same kernels on the
+same inputs, and none uses atomics), and a lower peak of allocated memory.
 """
 
 import pytest
@@ -188,7 +190,9 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-4)}
 HALF = [torch.bfloat16, torch.float16]
 # (BH, Lq, Lk, D, causal, kv_valid, heads, kv_heads): every head dim at the
 # ragged L = 197, Lq < Lk and Lq > Lk (fully masked rows), kv_valid, GQA,
-# and the GPT-2 small main path's shape.
+# the GPT-2 small main path's shape, and the BERT-Large (non-causal, L =
+# 128) and LLaMA-400M (16 query heads over 8 kv heads, L = 1024) paths'
+# shapes at a reduced BH.
 FLASH_CASES = [(4, 197, 197, 64, True, None, None, None),
                (4, 197, 197, 16, False, None, None, None),
                (4, 197, 197, 32, False, None, None, None),
@@ -197,7 +201,9 @@ FLASH_CASES = [(4, 197, 197, 64, True, None, None, None),
                (4, 160, 96, 64, True, None, None, None),
                (4, 130, 200, 64, False, 150, None, None),
                (24, 197, 197, 64, True, None, 12, 4),
-               (96, 1024, 1024, 64, True, None, None, None)]
+               (96, 1024, 1024, 64, True, None, None, None),
+               (32, 128, 128, 64, False, None, None, None),
+               (32, 1024, 1024, 64, True, None, 16, 8)]
 
 
 def _close(got, want, dtype, name):
@@ -380,6 +386,47 @@ def test_cuda_flash_never_reaches_the_plain_version(dev, monkeypatch):
         torch.cuda.synchronize()
         assert (fa.fwd_launches, fa.bwd_dq_launches,
                 fa.bwd_dkv_launches) == tuple(n + 1 for n in before)
+
+
+def _remat_model(name, remat):
+    from horovod_tpu_torch.models import GPT, GPTConfig, Llama, LlamaConfig
+    if name == "gpt":
+        return GPT(GPTConfig.tiny(max_position_embeddings=512, use_flash=True,
+                                  remat=remat),
+                   generator=torch.Generator(device="cuda").manual_seed(3))
+    return Llama(LlamaConfig.tiny(use_flash=True, remat=remat),
+                 generator=torch.Generator(device="cuda").manual_seed(3))
+
+
+@pytest.mark.parametrize("name", ["gpt", "llama"])
+def test_fp32_remat_on_the_card(dev, name):
+    """Tiny fp32 GPT and LLaMA (4 layers, flash, 8 x 512 tokens), whose
+    products at DEFAULT precision go through ``at_precision``'s scoped
+    graph: with each block checkpointed, the same gradients bit for bit as
+    without, each block recomputed once (4 more forward launches, not one
+    more per scoped product) and a lower peak of allocated memory."""
+    ids = torch.randint(0, 256, (8, 512), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(4))
+    out = {}
+    for remat in (False, True):
+        with torch.device(dev):
+            m = _remat_model(name, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = fa.fwd_launches
+        logits = m(ids)
+        torch.nn.functional.cross_entropy(
+            logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten()).backward()
+        torch.cuda.synchronize()
+        out[remat] = (fa.fwd_launches - before,
+                      torch.cuda.max_memory_allocated(dev) - base,
+                      {n: p.grad for n, p in m.named_parameters()})
+    (n0, mem0, g0), (n1, mem1, g1) = out[False], out[True]
+    assert (n0, n1) == (4, 8)
+    assert mem1 < mem0, (mem1, mem0)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
 
 
 def test_flash_refuses_an_unsupported_head_dim(dev):

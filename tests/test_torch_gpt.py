@@ -147,8 +147,7 @@ def test_load_flax_gpt_refuses_missing_and_extra_leaves(flax_params):
 @pytest.mark.parametrize("kw,item", [({"tp_axis": "tp"}, "A12"),
                                      ({"ep_axis": "ep"}, "A12"),
                                      ({"num_experts": 2}, "A12"),
-                                     ({"sp_axis": "sp"}, "A12"),
-                                     ({"remat": True}, "A6")])
+                                     ({"sp_axis": "sp"}, "A12")])
 def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tg.GPT(tg.GPTConfig.tiny(**kw))
@@ -157,5 +156,17 @@ def test_unported_options_name_their_roadmap_item(kw, item):
 def test_decode_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="A15"):
         tg.GPT(tg.GPTConfig.tiny(), decode=True)
-    with pytest.raises(NotImplementedError, match="A6, LLaMA"):
-        ttp.TPSelfAttention(4, 64, rope_theta=10000.0)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_remat_matches_no_remat(flax_params, flash):
+    """Each block under torch.utils.checkpoint: the same gradients, bit for
+    bit, as without it."""
+    ids = torch.from_numpy(_ids(40)).long()
+    grads = []
+    for remat in (False, True):
+        m = _torch_model(flax_params, use_flash=flash, remat=remat)
+        _next_token_loss_torch(m(ids), ids).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for name in grads[0]:
+        assert torch.equal(grads[0][name], grads[1][name]), name

@@ -321,3 +321,42 @@ def dp_gpt(rank, size, params, config_kw, ids, steps, lr, weight_decay):
                    for n, p in named.items()},
             "nu": {n: to_np(opt.state[p]["exp_avg_sq"])
                    for n, p in named.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel slice: the MNIST-scale MLP trained with SGD.
+# ---------------------------------------------------------------------------
+
+def dp_mlp(rank, size, params, x, y, steps, lr):
+    """Rank 0 loads the Flax weights, the others get them by broadcast; each
+    rank trains on its rows of ``x``/``y`` with SGD(lr, momentum=0.9) in
+    ``hvd.DistributedOptimizer``. Returns the losses, the parameters and the
+    momentum, by parameter name."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import MLP, load_flax_mlp
+
+    model = MLP()
+    if rank == 0:
+        load_flax_mlp(model, params)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    shard = x.shape[0] // size
+    xs = torch.from_numpy(x[rank * shard:(rank + 1) * shard])
+    ys = torch.from_numpy(y[rank * shard:(rank + 1) * shard]).long()
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = F.cross_entropy(model(xs), ys)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    named = dict(model.named_parameters())
+    return {"losses": losses,
+            "params": {n: to_np(p) for n, p in named.items()},
+            "momentum": {n: to_np(opt.state[p]["momentum_buffer"])
+                         for n, p in named.items()}}
