@@ -15,11 +15,13 @@ Phases, one JSON line each (each with its seconds):
    with no spills and no stack at any head dim.
 3. kernel_vs_plain: each scale kernel against its plain PyTorch version on
    the card, on the gradient shapes of the main paths (ResNet-50's, GPT-2
-   small's up to its 38.6M-element token table and lm_head, BERT-Large's
-   and LLaMA-400M's, the last two from copies on the meta device) plus
-   edge cases (0 and 1 element, odd sizes, a tensor longer than a grid
-   row), in fp32, bf16 and fp16. Bit-equal, synchronising after every
-   launch.
+   small's up to its 38.6M-element token table and lm_head, BERT-Large's,
+   LLaMA-400M's and ViT-B/16's, the last three from copies on the meta
+   device) plus edge cases (0 and 1 element, odd sizes, a tensor longer
+   than a grid row), in fp32, bf16 and fp16; and the rank-major tables of
+   a grouped reducescatter over 4 and 8 ranks on ViT-B/16's gradients (the
+   pack's row blocks, the unpack's (m/n, ...) outputs). Bit-equal,
+   synchronising after every launch.
 4. train: the main path. Launch counts are zeroed, then hvd.init() on
    cuda:0, ResNet-50 (bf16 activations, fp32 parameters, 1000 classes) on a
    fixed synthetic batch made from --seed, SGD(lr=0.1, momentum=0.9) in
@@ -42,13 +44,15 @@ Phases, one JSON line each (each with its seconds):
    and 128 at the ragged length 197; Lq < Lk and Lq > Lk (causal, with fully
    masked rows that must be exact zeros); kv_valid < Lk; GQA with 12 query
    heads over 4 kv heads; the GPT path's L = 1024, D = 64; in bf16 the
-   BERT path's (BH = 512, L = 128, not causal) and the LLaMA path's (128
-   query rows over 64 kv rows, L = 1024, causal). fp32, and lse
+   BERT path's (BH = 512, L = 128, not causal), the LLaMA path's (128
+   query rows over 64 kv rows, L = 1024, causal) and the ViT path's (BH =
+   1536, L = 196, not causal: the last 64-key tile holds 4 keys). fp32, and lse
    in every dtype, within tolerance; the bf16/fp16 forward, dQ and dK/dV,
    which round P and dS on the tensor cores, within the rounding bound (c
    and u printed) of the plain versions that round where they do, and a
-   plain version with the causal diagonal off by one (at BERT's shape: one
-   that drops each row's last key) must fail that bound on every output.
+   plain version with the causal diagonal off by one (at BERT's and ViT's
+   shapes: one that drops each row's last key; at ViT's by 10x or more)
+   must fail that bound on every output.
    The max abs error and bound ratio of each case.
 7. train_gpt: the second main path. Launch counts are zeroed, then GPT-2
    small at full width (vocab 50304, 12 layers, 12 heads, hidden 768, bf16
@@ -93,15 +97,35 @@ Phases, one JSON line each (each with its seconds):
    llama_flash_vs_plain as for BERT, against plain attention with K/V
    repeated, within LLAMA_CMP_LIMITS; controls: flash not causal, dK and
    dV swapped.
-10. timing_flash: each flash kernel alone at the GPT path's shapes
-   (BH = 96, L = 1024, D = 64, bf16, causal), then at BERT's and LLaMA's,
+10. train_vit: the fifth path. ViT-B/16 (bench.py's leg: hidden 768, 12
+   layers, 12 heads, MLP 3072, patch 16, 1000 classes, 86,566,120
+   parameters) on 128 bf16 images of 224 x 224 x 3 and labels from
+   --seed, cross-entropy, AdamW(lr=1e-4); the same checks with 12 + 12 +
+   12 flash launches a step (non-causal, L = 196). Then remat on the
+   trained weights and batch: one step of a copy without and one with (24
+   forward launches; gradients equal bit for bit; a lower peak); then the
+   model timed on without and with remat: images/s as the median of 5
+   repeats, the device's busy ms a step (torch.profiler) and the peak of
+   allocated memory. Then vit_flash_vs_plain as for BERT, against plain
+   attention, within VIT_CMP_LIMITS; controls: flash masked causally, dK
+   and dV swapped.
+11. collectives: at 1 rank over NCCL, on CUDA tensors in fp32 and bf16:
+   ragged allgather (grouped and async too), alltoall with and without
+   splits, grouped reducescatter Sum and Average with a prescale and a
+   postscale (bit-equal to one rounding of x * prescale and of
+   y * postscale / n; one pack and one unpack launch each),
+   allgather_object, sparse_allreduce_async and join() (returns 0); every
+   tensor output on the card.
+12. timing_flash: each flash kernel alone at the GPT path's shapes
+   (BH = 96, L = 1024, D = 64, bf16, causal), then at BERT's, LLaMA's and
+   ViT's,
    its plain version and torch's scaled_dot_product_attention (forward, and
    backward alone; enable_gqa for LLaMA; for timing only, the port never
    calls it), CUDA events, median of repeats, beside the least time the
    card could take: achieved TFLOP/s and the share of that bound for
    each.
 
-11. adasum_vs_plain: the Adasum combine kernels against their plain
+13. adasum_vs_plain: the Adasum combine kernels against their plain
    versions on the card, synchronising after every launch: ResNet-50's 161
    gradient shapes as one bucket of segments (each at its own scale) and
    edge cases (0 and 1 element, odd sizes, a segment past a round and past
@@ -112,21 +136,21 @@ Phases, one JSON line each (each with its seconds):
    within a round's steps), against the plain version in the level kernel's tile
    order and the one with whole sums; the max error of each case beside
    its tolerance.
-12. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
+14. train_adasum: the Adasum path. Launch counts are zeroed, then a fresh
    ResNet-50 as in train with hvd.DistributedOptimizer(SGD, op=hvd.Adasum):
    each bucket is packed, all-gathered and reduced by
    ops.adasum.reduce_gathered, then unpacked. Checks: finite, falling loss;
    one pack and one unpack launch per bucket every step; no combine launch
    (one rank is a tree of one leaf); on one step the reduced gradients
    equal the local ones bit for bit.
-13. adasum_gathered: the combine kernel through reduce_gathered at the
+15. adasum_gathered: the combine kernel through reduce_gathered at the
    path's shapes: ResNet-50's gradients for K batches from --seed (what K
    ranks would hold), packed in train_adasum's bucket layout and stacked as
    the all-gather leaves them, for K = 4 and 3. Checks: within tolerance of
    the plain version; ceil(log2 K) launches per bucket, one per tree level,
    and none of the streaming route; a control with whole-bucket
    coefficients fails the same limit.
-14. timing_adasum: one combine over the path's fp32 buckets (a tree level
+16. timing_adasum: one combine over the path's fp32 buckets (a tree level
    at K = 2): the level kernel alone, through the wrapper, the plain
    version, beside the byte bound and its share (no single PyTorch call
    computes it), with each bucket's steps, grid and shared memory.
@@ -335,7 +359,11 @@ def phase_kernel_vs_plain(torch, shapes_by_path, dev, seed):
                               (a.float() - b.float()).abs().max().item())
             check(torch.equal(a, b), f"unpack_scale {dt} bit-equal")
         del ts, flat_k, flat_p, out_k, out_p
+    rank_major = rank_major_vs_plain(torch, shapes_by_path["vit_b16"], dev,
+                                     gen, pre, post)
+    max_err = max(max_err, rank_major.pop("max_abs_err"))
     emit({"phase": "kernel_vs_plain", "edge_tensors": len(edge),
+          "rank_major": rank_major,
           "paths": {name: {"tensors": len(shapes),
                            "elements": sum(int(torch.Size(s).numel())
                                            for s in shapes),
@@ -345,6 +373,56 @@ def phase_kernel_vs_plain(torch, shapes_by_path, dev, seed):
           "dtypes": [str(d) for d in sb.DTYPES], "prescale": pre,
           "postscale": post, "bit_equal": True, "max_abs_err": max_err})
     return max_err
+
+
+def rank_major_vs_plain(torch, shapes, dev, gen, pre, post):
+    """The tables of a grouped reducescatter over n ranks, as
+    collective_ops lays them out (``rank_major_blocks``: block r of every
+    tensor, then block r + 1), for n = 4 and 8 over ``shapes`` whose first
+    dim divides by n: the pack's rows (the blocks) and the unpack's (one
+    rank's outputs, (m/n, ...) each), launched directly, bit-equal to the
+    plain version in fp32, bf16 and fp16."""
+    from horovod_tpu_torch.ops.collective_ops import rank_major_blocks
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    report, max_err = {}, 0.0
+    for n in (4, 8):
+        kept = [s for s in shapes if s[0] % n == 0]
+        for dt in sb.DTYPES:
+            ts = [torch.randn(s, generator=gen, device=dev).to(dt)
+                  for s in kept]
+            blocks = rank_major_blocks(ts, n)
+            total = sum(t.numel() for t in ts)
+            flat_k = torch.empty(total, dtype=dt, device=dev)
+            flat_p = torch.empty_like(flat_k)
+            p0 = sb.pack_launches
+            sb.pack_scale(blocks, flat_k, pre)
+            torch.cuda.synchronize()
+            check(sb.pack_launches - p0 == -(-len(blocks) // sb._MAX_ROWS),
+                  f"the rank-major pack at n = {n} launched")
+            sb.pack_scale_reference(blocks, flat_p, pre)
+            check(torch.equal(flat_k, flat_p),
+                  f"rank-major pack, n = {n}, {dt}: bit-equal")
+            outs_k = [torch.empty((t.shape[0] // n,) + t.shape[1:],
+                                  dtype=dt, device=dev) for t in ts]
+            outs_p = [torch.empty_like(o) for o in outs_k]
+            mine = flat_k[:total // n]
+            sb.unpack_scale(mine, outs_k, post)
+            torch.cuda.synchronize()
+            sb.unpack_scale_reference(mine, outs_p, post)
+            check(all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
+                  f"rank-major unpack, n = {n}, {dt}: bit-equal")
+            max_err = max([max_err, (flat_k.float() - flat_p.float()).abs()
+                           .max().item()]
+                          + [(a.float() - b.float()).abs().max().item()
+                             for a, b in zip(outs_k, outs_p) if a.numel()])
+        report[n] = {"tensors": len(kept), "left_out": len(shapes) - len(kept),
+                     "blocks": n * len(kept),
+                     "elements": sum(int(torch.Size(s).numel())
+                                     for s in kept)}
+    return {"shapes": "ViT-B/16's gradients", "by_ranks": report,
+            "bit_equal": True, "max_abs_err": max_err,
+            "note": "left_out: shapes whose first dim does not divide by n "
+                    "(reducescatter refuses them)"}
 
 
 def reduced_equals_local(torch, model, step):
@@ -909,7 +987,18 @@ BERT_FLASH_CASE = ("bfloat16", BERT_BATCH * 16, BERT_SEQ, BERT_SEQ, 64,
                    False, None, None, None)
 LLAMA_FLASH_CASE = ("bfloat16", LLAMA_BATCH * 16, LLAMA_SEQ, LLAMA_SEQ, 64,
                     True, None, 16, 8)
-PATH_FLASH_CASES = {"bert": BERT_FLASH_CASE, "llama": LLAMA_FLASH_CASE}
+# The ViT path: bench.py's ViT-B/16 leg (bench.py:643-675), 128 bf16 images
+# of 224 x 224 x 3 a step: 14 x 14 = 196 patches (no cls token), so the
+# flash kernels' last 64-key tile holds 4 keys.
+VIT_BATCH, VIT_IMAGE, VIT_STEPS = 128, 224, 8
+VIT_PARAMS = 86_566_120             # 152 Flax leaves (jax.eval_shape)
+VIT_SEQ = (VIT_IMAGE // 16) ** 2
+VIT_FLASH_CASE = ("bfloat16", VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False,
+                  None, None, None)
+PATH_FLASH_CASES = {"bert": BERT_FLASH_CASE, "llama": LLAMA_FLASH_CASE,
+                    "vit": VIT_FLASH_CASE}
+# Repeats of the ViT step's timing (images/s is their median), steps each.
+VIT_REPEATS, VIT_REPEAT_STEPS = 5, 5
 
 
 def gpt_config(torch, use_flash):
@@ -1024,8 +1113,9 @@ def phase_flash_vs_plain(torch, dev, seed):
                     for key in ("o", "dq", "dk", "dv")])
                 check(min(ctl.values()) > 1.0, f"the off-by-one diagonal "
                       f"control {case} {ctl} is rejected by the bound")
-            elif case == BERT_FLASH_CASE:
-                # The non-causal control: every row misses its last key.
+            elif case in (BERT_FLASH_CASE, VIT_FLASH_CASE):
+                # The non-causal control: every row misses its last key (at
+                # ViT's L = 196, a key of the 4-key ragged tile).
                 o_c, _ = fa.block_fwd_reference(q, k, v, causal, sm, None,
                                                 lk - 1, round_p=dtype)
                 grads_c = fa.block_bwd_reference(
@@ -1039,6 +1129,9 @@ def phase_flash_vs_plain(torch, dev, seed):
                     for key in ("o", "dq", "dk", "dv")])
                 check(min(ctl.values()) > 1.0, f"the last-key-dropped "
                       f"control {case} {ctl} is rejected by the bound")
+                check(case != VIT_FLASH_CASE or min(ctl.values()) >= 10.0,
+                      f"the last-key-dropped control at ViT's shape {ctl} "
+                      f"fails the bound by 10x or more")
             for key, r in ratio.items():
                 ratios[key] = max(ratios.get(key, 0.0), r)
         if causal and lq - lk > 0:
@@ -1062,9 +1155,9 @@ def phase_flash_vs_plain(torch, dev, seed):
                        for key in ("o", "dq", "dk", "dv")])
     check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
     check(controls, "the off-by-one control ran")
-    check(len(path_err) == len(PATH_FLASH_CASES) and key_controls,
-          f"the BERT and LLaMA shapes were checked, with their controls: "
-          f"{sorted(path_err)}")
+    check(len(path_err) == len(PATH_FLASH_CASES) and len(key_controls) == 2,
+          f"the BERT, LLaMA and ViT shapes were checked, with their "
+          f"controls: {sorted(path_err)}")
     emit({"phase": "flash_vs_plain", "cases": len(rows),
           "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
                       "heads", "kv_heads", "err_o", "err_lse", "err_dq",
@@ -1096,8 +1189,9 @@ def phase_flash_vs_plain(torch, dev, seed):
               "columns": ["dtype", "BH", "L", "D", "ratio_o", "ratio_dq",
                           "ratio_dk", "ratio_dv"],
               "rows": key_controls, "rejected": True,
-              "note": "the non-causal BERT shape: a plain version whose "
-                      "rows miss their last key (kv_valid = L - 1)"},
+              "note": "the non-causal BERT and ViT shapes: a plain version "
+                      "whose rows miss their last key (kv_valid = L - 1; "
+                      "at ViT's, the 10x it must fail by)"},
           "reason": "fp32, and lse: kernel and plain both compute in "
                     "fp32 and round once; they sum in another order (~1e-6 "
                     "relative in fp32), which can flip the final rounding: "
@@ -1713,6 +1807,290 @@ def phase_llama_flash_vs_plain(torch, state, ids, dev):
         torch, F, run, LLAMA_CMP_LIMITS, ("not_causal", "swapped_dkv")))
 
 
+def vit_config(torch, use_flash, **kw):
+    from horovod_tpu_torch.models import ViTConfig
+    return ViTConfig.base(dtype=torch.bfloat16, use_flash=use_flash, **kw)
+
+
+def vit_loss(F, model, batch):
+    images, labels = batch
+    return F.cross_entropy(model(images), labels)
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals (as
+    scripts/profile_torch_port.py measures it; a copy, since a module named
+    ``scripts`` elsewhere on the path could shadow that directory)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def device_ms(torch, step, steps=2):
+    """torch.profiler over ``steps`` calls of ``step``: the device's busy
+    ms a step (the union of its kernels' and copies' intervals) and its
+    busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    check(device, "torch.profiler recorded device time")
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    return busy / 1e3 / steps, busy / span
+
+
+def phase_train_vit(torch, hvd, dev, args, card):
+    """ViT-B/16 at full width and depth, bf16, flash (non-causal, L = 196),
+    on 128 bf16 images and labels from --seed, AdamW(lr=1e-4). Then remat
+    on the trained weights and batch: one step of a copy without and one
+    with (gradients equal bit for bit, 12 more forward launches, peak
+    memory of each); then the model and optimizer timed on, with and
+    without remat: images/s (the median of repeats), the device's busy ms
+    a step (torch.profiler) and the peak of allocated memory."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ViT
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    model = build_on(torch, dev, lambda g: ViT(vit_config(torch, True),
+                                               generator=g), args.seed)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == VIT_PARAMS, f"ViT-B/16 has {VIT_PARAMS:,} parameters, "
+          f"this model {n_params}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    batch = (torch.randn((VIT_BATCH, VIT_IMAGE, VIT_IMAGE, 3), generator=gen,
+                         device=dev).to(torch.bfloat16),
+             torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen,
+                           device=dev))
+    layers = cfg.num_layers
+    opt, run = train_steps(torch, hvd, model,
+                           lambda: vit_loss(F, model, batch), args,
+                           VIT_STEPS, (layers,) * 3, lr=1e-4)
+    run["images_per_sec"] = VIT_BATCH * VIT_STEPS / run.pop("elapsed")
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    one = {}
+    for remat in (False, True):
+        with torch.device(dev):
+            m = ViT(vit_config(torch, True, remat=remat))
+        m.load_state_dict(trained)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        vit_loss(F, m, batch).backward()
+        torch.cuda.synchronize()
+        one[remat] = {
+            "launches": [fa.fwd_launches, fa.bwd_dq_launches,
+                         fa.bwd_dkv_launches],
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "grads": {n: p.grad for n, p in m.named_parameters()}}
+        del m
+    off, on = one[False], one[True]
+    check(off["launches"] == [layers] * 3, f"{layers} launches of each flash "
+          f"kernel without remat: {off['launches']}")
+    check(on["launches"] == [2 * layers, layers, layers],
+          f"remat: {2 * layers} forward launches, {layers} dQ and {layers} "
+          f"dK/dV: {on['launches']}")
+    unequal = [n for n in off["grads"]
+               if not torch.equal(off["grads"][n], on["grads"][n])]
+    check(not unequal, f"remat gradients equal those without, bit for bit: "
+          f"{unequal[:5]}")
+    check(on["peak_mem_gb"] < off["peak_mem_gb"],
+          f"remat lowers the step's peak memory: {on['peak_mem_gb']} vs "
+          f"{off['peak_mem_gb']} GB")
+    del one, off["grads"], on["grads"]
+
+    def step():
+        opt.zero_grad()
+        vit_loss(F, model, batch).backward()
+        opt.step()
+
+    timed = {}
+    for remat in (False, True):
+        model.config = dataclasses.replace(cfg, remat=remat)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rates = []
+        for _ in range(VIT_REPEATS):
+            t0 = time.perf_counter()
+            for _ in range(VIT_REPEAT_STEPS):
+                step()
+            torch.cuda.synchronize()
+            rates.append(VIT_BATCH * VIT_REPEAT_STEPS
+                         / (time.perf_counter() - t0))
+        busy_ms, busy_share = device_ms(torch, step)
+        q1, med, q3 = statistics.quantiles(rates, n=4)
+        timed["remat" if remat else "no_remat"] = {
+            "images_per_sec_median": statistics.median(rates),
+            "images_per_sec_q1_q3": [q1, q3], "images_per_sec": rates,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_share,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    model.config = cfg
+    emit({"phase": "train_vit", "model": "ViT-B/16", "params": n_params,
+          "batch": VIT_BATCH, "image": [VIT_IMAGE, VIT_IMAGE, 3],
+          "tokens": VIT_SEQ, "dtype": "bfloat16", "param_dtype": "float32",
+          "attention": "flash, non-causal, L = 196 (the last key tile "
+                       "holds 4 keys)",
+          "optimizer": ADAMW.format(lr=1e-4), **run,
+          "remat_one_step": {
+              "launches_without": off["launches"],
+              "launches_with": on["launches"], "grads_bit_equal": True,
+              "peak_mem_gb_without": off["peak_mem_gb"],
+              "peak_mem_gb_with": on["peak_mem_gb"],
+              "peak_mem_note": "the step's peak of allocated memory above "
+                               "what was allocated before it"},
+          "timed": timed,
+          "timed_note": f"{VIT_REPEATS} repeats of {VIT_REPEAT_STEPS} steps "
+                        "of the trained model and optimizer (host clock to "
+                        "a synchronize); device_busy: torch.profiler over 2 "
+                        "steps, the union of the device's kernel and copy "
+                        "intervals; peak: allocated memory over the "
+                        "repeats, weights and optimizer state included",
+          "card": card})
+    return trained, batch, run["launches"]
+
+
+# Limits of one ViT-B/16 step with flash attention against the same step on
+# plain attention (plain_attention: fp32 scores' softmax, probabilities
+# rounded to bf16), at the weights the main path ends with; like
+# BERT_CMP_LIMITS they sit between the sound pair's readings and the
+# controls' (flash masked causally; dK and dV swapped), which must fall
+# outside. Read on an NVIDIA H100 80GB HBM3 at 700 W as (loss_rel,
+# grad_rel, attn_cos), seeds 0, 1 and 2: flash 7.3e-5 / 4.6e-5 / 3.7e-5,
+# 0.0071 / 0.0068 / 0.0071 (patch_embed), >= 0.999997; causal flash
+# 2.42 / 2.17 / 3.17, 4.6 / 4.1 / 5.0, 0.50 / 0.58 / 0.48; dK and dV
+# swapped 1.413-1.416, <= 0.146. The step through the plain flash versions
+# rounding as the kernels do reads 9.0e-6 to 9.2e-5 in the loss and
+# 0.0067-0.0069 in the worst gradient against the kernels.
+VIT_CMP_LIMITS = {"loss_rel": 3e-4, "grad_rel": 0.05, "attn_cos_min": 0.9999}
+
+
+def phase_vit_flash_vs_plain(torch, state, batch, dev):
+    """One forward and backward of ViT-B/16 at the weights ``state`` with
+    flash attention against a copy on plain attention (same weights, same
+    batch, no optimizer); controls: flash masked causally, and dK and dV
+    swapped in the backward."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ViT
+    from horovod_tpu_torch.parallel.tp import TPSelfAttention
+
+    def run(use_flash, control):
+        with torch.device(dev):
+            m = ViT(vit_config(torch, use_flash))
+        m.load_state_dict(state)
+        for mod in m.modules():
+            if isinstance(mod, TPSelfAttention):
+                mod.causal = control == "causal"
+        ctx = {"swapped_dkv": swapped_dkv,
+               "plain_flash": functools.partial(plain_flash, True)}.get(
+                   control, contextlib.nullcontext)
+        with ctx():
+            loss = vit_loss(F, m, batch)
+            loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    check_readings("vit_flash_vs_plain", *grad_readings(
+        torch, F, run, VIT_CMP_LIMITS, ("causal", "swapped_dkv")))
+
+
+def phase_collectives(torch, hvd, dev):
+    """The rest of the collective surface at 1 rank over NCCL, on CUDA
+    tensors in fp32 and bf16, each against what the JAX package's
+    semantics give at n = 1, every tensor output on the card: ragged
+    allgather (a 0-d tensor and a group too), alltoall with and without
+    splits, reducescatter Sum and Average with a prescale and a postscale
+    (the pack rounds x * prescale once, the unpack y * postscale / n once:
+    bit-equal to that) and grouped (one pack and one unpack launch),
+    allgather_object, sparse_allreduce_async and join(), which returns 0.
+    Returns the scale kernels' launches."""
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sb.reset_launch_counts()                # the collectives path starts
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(6, 5, generator=gen, device=dev).to(dt)
+        outs = {"allgather": hvd.allgather(x),
+                "allgather_0d": hvd.allgather(x[0, 0]),
+                "alltoall": hvd.alltoall(x)}
+        out, received = hvd.alltoall(x, splits=[4])
+        outs.update(alltoall_splits=out, received_splits=received)
+        check(torch.equal(outs["allgather"], x)
+              and torch.equal(outs["allgather_0d"], x[0, :1])
+              and torch.equal(outs["alltoall"], x)
+              and torch.equal(out, x[:4])
+              and received.tolist() == [4] and received.dtype == torch.int64,
+              f"allgather and alltoall at 1 rank, {dt}")
+        group = [x, x[:2, :3].contiguous() * 2,
+                 torch.randn(5, 7, generator=gen, device=dev).to(dt)]
+        p0, u0 = sb.pack_launches, sb.unpack_launches
+        for op, pre, post in ((hvd.Sum, 1.0, 1.0), (hvd.Average, 0.5, 3.0)):
+            got = hvd.grouped_reducescatter(group, op=op, prescale_factor=pre,
+                                            postscale_factor=post)
+            want = [((t.float() * pre).to(dt).float() * post).to(dt)
+                    for t in group]
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"grouped reducescatter {op} at 1 rank, {dt}: bit-equal "
+                  f"to one rounding of x * prescale and of y * postscale")
+            outs[f"reducescatter_{op.name.lower()}"] = got[0]
+        check((sb.pack_launches - p0, sb.unpack_launches - u0) == (2, 2),
+              f"one pack and one unpack launch per grouped reducescatter, "
+              f"{dt}")
+        ragged = [h.synchronize() for h in hvd.grouped_allgather_async(
+            [x[:3], x[:0]])]
+        check(torch.equal(ragged[0], x[:3]) and ragged[1].shape == (0, 5),
+              f"grouped_allgather_async at 1 rank, {dt}")
+        dense = torch.where(x.float() > 0.5, x.float(), 0.0)
+        sparse = hvd.sparse_allreduce_async(dense.to_sparse_coo(), name="sp",
+                                            op=hvd.Average)
+        got = hvd.synchronize(sparse)
+        check(got.is_sparse and torch.equal(got.coalesce().to_dense(), dense),
+              f"sparse_allreduce_async at 1 rank, {dt}")
+        outs["sparse"] = got
+        check(all(t.is_cuda for t in outs.values()),
+              f"every output on the card: "
+              f"{[k for k, t in outs.items() if not t.is_cuda]}")
+        rows[str(dt)] = sorted(outs)
+    obj = {"rank": hvd.rank(), "x": [1, 2]}
+    check(hvd.allgather_object(obj) == [obj], "allgather_object at 1 rank")
+    joined = hvd.join()
+    check(joined == 0, f"join() at 1 rank returns 0, got {joined}")
+    launches = {"scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}   # the path ends
+    emit({"phase": "collectives", "ranks": hvd.size(),
+          "backend": "gloo" if hvd.gloo_enabled() else "nccl",
+          "checked": rows, "allgather_object": True, "join": joined,
+          "launches": launches,
+          "note": "1 rank over NCCL: every result equals what the JAX "
+                  "package's semantics give at n = 1; the grouped "
+                  "reducescatter packs its tensors rank-major with the "
+                  "prescale (one launch), reduce-scatters once and unpacks "
+                  "with the postscale (one launch)"})
+    return launches
+
+
 def phase_precision(torch, dev, seed):
     """The lm_head's product at full shape (8192 x 768 -> 50304, fp32)
     through the port's Dense at DEFAULT precision, forward and both
@@ -1906,13 +2284,14 @@ def flash_timing(torch, dev, seed, b, h, kvh, L, d, causal):
 
 def phase_timing_flash(torch, dev, seed):
     """The flash kernels timed at the GPT main path's shape (the kernels
-    line's rows), then at the BERT and LLaMA paths' shapes."""
+    line's rows), then at the BERT, LLaMA and ViT paths' shapes."""
     d = MAIN_FLASH_CASE[4]
     rows, main = flash_timing(torch, dev, seed + 5, GPT_BATCH, GPT_HEADS,
                               GPT_HEADS, GPT_SEQ, d, True)
     paths = {}
     for path, (b, case) in (("bert", (BERT_BATCH, BERT_FLASH_CASE)),
-                            ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE))):
+                            ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE)),
+                            ("vit", (VIT_BATCH, VIT_FLASH_CASE))):
         _, bh, L, _, d, causal, _, h, kvh = case
         h = h or bh // b
         path_rows, extra = flash_timing(torch, dev, seed + 5, b, h,
@@ -1927,17 +2306,19 @@ def phase_timing_flash(torch, dev, seed):
                   "kernels is the plain backward, which computes dq, dk and "
                   "dv together; library: scaled_dot_product_attention "
                   "(is_causal as the path; enable_gqa for LLaMA's grouped "
-                  "K/V) forward, and its backward alone, timed here only"})
+                  "K/V) forward, and its backward alone, timed here only; "
+                  "ViT: L = 196, non-causal, the last key tile ragged"})
     return rows, paths
 
 
 def path_shapes(torch):
-    """The parameter shapes of the BERT and LLaMA paths' models, from
+    """The parameter shapes of the BERT, LLaMA and ViT paths' models, from
     copies on the meta device (no memory, no weights)."""
-    from horovod_tpu_torch.models import BertForPreTraining, Llama
+    from horovod_tpu_torch.models import BertForPreTraining, Llama, ViT
     with torch.device("meta"):
         models = {"bert_large": BertForPreTraining(bert_config(torch, True)),
-                  "llama_400m": Llama(llama_config(torch, True))}
+                  "llama_400m": Llama(llama_config(torch, True)),
+                  "vit_b16": ViT(vit_config(torch, True))}
     return {name: [tuple(p.shape) for p in m.parameters()]
             for name, m in models.items()}
 
@@ -2011,8 +2392,18 @@ def main(argv=None):
         llama_state, ids, dev)
     del llama_state, ids
     gc.collect()
+    vit_state, vit_batch, vit_launches = run("train_vit", phase_train_vit,
+                                             torch, hvd, dev, args, card)
+    run("vit_flash_vs_plain", phase_vit_flash_vs_plain, torch, vit_state,
+        vit_batch, dev)
+    del vit_state, vit_batch
+    gc.collect()
+    coll_launches = run("collectives", phase_collectives, torch, hvd, dev)
+    check(coll_launches["scale_pack"] > 0 and coll_launches["scale_unpack"]
+          > 0, f"the collectives path launched both scale kernels: "
+          f"{coll_launches}")
     by_path = {"train_gpt": gpt_launches, "train_bert": bert_launches,
-               "train_llama": llama_launches}
+               "train_llama": llama_launches, "train_vit": vit_launches}
     check(all(n[k] > 0 for n in by_path.values() for k in STEP_COUNTS),
           f"every transformer path launched every flash and scale kernel: "
           f"{by_path}")
@@ -2037,11 +2428,13 @@ def main(argv=None):
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
-    transformer_paths = ("train_gpt", "train_bert", "train_llama")
+    transformer_paths = ("train_gpt", "train_bert", "train_llama",
+                         "train_vit")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
-    by_path.update(train=launches, train_adasum=ada_launches)
+    by_path.update(train=launches, train_adasum=ada_launches,
+                   collectives=coll_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
-                   "train_adasum")
+                   "train_vit", "train_adasum", "collectives")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
@@ -2070,7 +2463,8 @@ def main(argv=None):
          **({"plain_and_library_cover": row["plain_and_library_cover"]}
             if "plain_and_library_cover" in row else {}),
          "times_note": "ms, plain_ms, bound_ms and library_ms at the GPT "
-                       "path's shape; by_path: the BERT and LLaMA shapes",
+                       "path's shape; by_path: the BERT, LLaMA and ViT "
+                       "shapes",
          "by_path": {p: {k: r["kernels"][name][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
              for p, r in flash_paths.items()}}

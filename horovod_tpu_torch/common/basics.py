@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``common/basics.py`` (``init``, ``shutdown``,
 ``is_initialized``, the rank/size queries and the ``*_built`` capability
-queries; reference: horovod/common/basics.py:51-148, operations.cc:1119-1449).
+queries, ``ici_built`` among them; reference: horovod/common/basics.py:51-148, operations.cc:1119-1449).
 
 Where the JAX package bootstraps ``jax.distributed`` over the TPU mesh, the
 port creates one ``torch.distributed`` process group: NCCL on the GPU, gloo
@@ -42,6 +42,9 @@ class _State:
         self.cross_size = cross_size
         self.process_set_table = None   # set by process_sets._init_table
         self.fusion = None              # set lazily by ops.fusion
+        # Ranks that called hvd.join(), as the last join round showed them
+        # (ops/collective_ops.py); the global set's share of the protocol.
+        self.joined_ranks = set()
 
 
 def _no_gpu_error():
@@ -225,4 +228,9 @@ def rocm_built():
 
 def xla_built():
     """The port's data plane is NCCL/gloo, not XLA."""
+    return False
+
+
+def ici_built():
+    """No TPU interconnect (ICI) on a GPU."""
     return False

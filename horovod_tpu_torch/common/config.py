@@ -1,8 +1,9 @@
 """Runtime configuration knobs read from ``HOROVOD_*`` environment variables.
 
 Port of the JAX package's ``common/config.py``, cut to the fields the
-data-parallel training path reads: the fusion threshold, the cycle time and
-the launcher's rank/size/coordinator contract (``runner/launch.py``
+data-parallel training path reads: the fusion threshold, the cycle time,
+the join protocol's switch (``HOROVOD_JOIN_MODE``) and the launcher's
+rank/size/coordinator contract (``runner/launch.py``
 ``build_worker_env``: HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/
 CROSS_SIZE and HOROVOD_COORDINATOR_ADDR/PORT).
 """
@@ -19,6 +20,13 @@ def _env_int(name, default):
         return int(v)
     except ValueError:
         return default
+
+
+def _env_bool(name, default=False):
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
 
 
 def _env_float(name, default):
@@ -40,6 +48,10 @@ class Config:
     # no time-driven flush yet (buckets close on the threshold and on
     # synchronize), so nothing reads it.
     cycle_time_ms: float = 1.0
+    # Arms hvd.join() across processes: every collective then opens with a
+    # descriptor round among its set (ops/collective_ops.py, "Join"). Set it
+    # on every process or on none.
+    join_mode: bool = False
 
     # Bootstrap (reference gloo_run.py:203-214 env plumbing). -1 = unset.
     rank: int = 0
@@ -56,6 +68,7 @@ class Config:
         c = cls()
         c.fusion_threshold = _env_int("HOROVOD_FUSION_THRESHOLD", c.fusion_threshold)
         c.cycle_time_ms = _env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
+        c.join_mode = _env_bool("HOROVOD_JOIN_MODE", c.join_mode)
         c.rank = _env_int("HOROVOD_RANK", c.rank)
         c.local_rank = _env_int("HOROVOD_LOCAL_RANK", c.local_rank)
         c.cross_rank = _env_int("HOROVOD_CROSS_RANK", c.cross_rank)

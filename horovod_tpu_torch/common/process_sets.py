@@ -32,6 +32,9 @@ class ProcessSet:
         self.process_set_id = None
         # torch.distributed group; None is the default (world) group.
         self.group = None
+        # Ranks that called hvd.join(process_set=self), as the set's last
+        # join round showed them; the global set keeps its own in basics.
+        self.joined_ranks = set()
 
     def size(self):
         if self.process_set_id is None:

@@ -14,7 +14,8 @@ from horovod_tpu_torch.models.bert import (BertConfig, BertForPreTraining,
 from horovod_tpu_torch.models.llama import (Llama, LlamaBlock, LlamaConfig,
                                             load_flax_llama)
 from horovod_tpu_torch.models.mlp import MLP, load_flax_mlp
+from horovod_tpu_torch.models.vit import ViT, ViTConfig, load_flax_vit
 
 __all__ += ["BertConfig", "BertModel", "BertForPreTraining", "load_flax_bert",
             "Llama", "LlamaBlock", "LlamaConfig", "load_flax_llama", "MLP",
-            "load_flax_mlp"]
+            "load_flax_mlp", "ViT", "ViTConfig", "load_flax_vit"]

@@ -9,10 +9,11 @@ through the flash kernels when ``config.use_flash`` is set.
 Ported: the dense model, ``features_only``, ``remat`` (each block under
 ``torch.utils.checkpoint``, as ``nn.remat`` wraps it) and :func:`load_flax`,
 which fills any of the port's Flax-named models from its Flax variable tree
-by name (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama`` and
-``load_flax_mlp`` are this one function). Not yet: mesh axes (``tp_axis``,
-``ep_axis``), MoE blocks (``num_experts > 0``), decode and sequence
-parallelism raise ``NotImplementedError`` naming their ROADMAP item.
+by name (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama``,
+``load_flax_mlp`` and ``load_flax_vit`` are this one function). Not yet:
+mesh axes (``tp_axis``, ``ep_axis``), MoE blocks (``num_experts > 0``),
+decode and sequence parallelism raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 import dataclasses
@@ -154,9 +155,9 @@ def load_flax(model, variables):
     """Fill ``model`` from the JAX package's variables of the same model
     (``{"params": ...}`` or the params tree itself, nested dicts of arrays
     under Flax's names), for every model whose modules carry Flax's names
-    (GPT, BERT, LLaMA, the MLP). Dense kernels go (in, out) -> (out, in);
-    LayerNorm and RMSNorm ``scale`` -> ``weight``; ``embedding`` ->
-    ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
+    (GPT, BERT, LLaMA, the MLP, ViT). Dense kernels go (in, out) ->
+    (out, in), convolution kernels HWIO -> OIHW; LayerNorm and RMSNorm
+    ``scale`` -> ``weight``; ``embedding`` -> ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
     leaf, or a shape mismatch raises."""
     params = variables.get("params", variables)
     targets = dict(model.named_parameters())
@@ -170,7 +171,7 @@ def load_flax(model, variables):
                            f"{key} in the module")
         arr = np.array(value, dtype=np.float32)
         if path[-1] == "kernel":
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         t = targets[key]
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{key}: Flax shape {arr.shape} vs module shape "

@@ -57,15 +57,19 @@ def max_pool_same(x, k, s):
 
 
 class Conv(nn.Module):
-    """``flax.linen.Conv(use_bias=False)`` on NCHW: fp32 weight (OIHW) cast
-    to the activation dtype; ``padding`` is ``"SAME"`` or explicit
-    ``((top, bottom), (left, right))``; the product at DEFAULT."""
+    """``flax.linen.Conv`` on NCHW: fp32 weight (OIHW) cast to the
+    activation dtype; ``padding`` is ``"SAME"`` or explicit
+    ``((top, bottom), (left, right))``; the product at DEFAULT. With
+    ``use_bias`` (ResNet's convolutions have none), an fp32 bias cast to
+    the activation dtype is added to the product's rounded output, as Flax
+    adds it."""
 
     def __init__(self, in_features, features, kernel_size, strides=(1, 1),
-                 padding="SAME"):
+                 padding="SAME", use_bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
@@ -75,6 +79,8 @@ class Conv(nn.Module):
             self.kernel_size[1]
         with torch.no_grad():
             lecun_normal_(self.weight, fan_in, generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         if self.padding == "SAME":
@@ -86,8 +92,11 @@ class Conv(nn.Module):
         if ph[0] != ph[1] or pw[0] != pw[1]:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = (0, 0)
-        return at_precision(None, F.conv2d, x, self.weight.to(x.dtype), None,
-                            self.strides, pad)
+        y = at_precision(None, F.conv2d, x, self.weight.to(x.dtype), None,
+                         self.strides, pad)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
 
 
 class BatchNorm(nn.Module):

@@ -1,11 +1,12 @@
 """Eager collectives on per-rank torch tensors.
 
 Port of the JAX package's ``ops/collective_ops.py``: ``ReduceOp``,
-``allreduce``/``grouped_allreduce`` and their async handles,
-``allgather``, ``broadcast``, ``barrier`` and ``broadcast_object``. Tensors
-are per-rank, as in the reference's ``horovod.torch`` — not the JAX eager
-API's rank-major stacked layout — and live on the device ``hvd.init()``
-chose.
+``allreduce``/``grouped_allreduce`` and their async handles, ``allgather``
+(ragged first dims too), ``alltoall`` (with splits), ``reducescatter``,
+``broadcast``, ``barrier``, ``join``, ``broadcast_object`` and
+``allgather_object``. Tensors are per-rank, as in the reference's
+``horovod.torch`` — not the JAX eager API's rank-major stacked layout — and
+live on the device ``hvd.init()`` chose; no result goes through the host.
 
 Allreduce semantics follow ``_reduce_shard``: prescale each rank's tensor,
 reduce (Sum/Average/Min/Max/Product/Adasum), divide by the set size for
@@ -16,22 +17,37 @@ dtypes, which no kernel takes, are reduced one collective each. Adasum
 gathers every rank's tensor and runs the combine tree of ``ops/adasum.py``
 on it (float64 too, one gather each); it refuses integer tensors.
 
-``allgather`` concatenates the ranks' tensors, which must share one shape,
-along dim 0 (ragged first dims are not ported yet, ROADMAP A2).
+``allgather`` concatenates the ranks' tensors along dim 0; their first
+dims may differ. The first dims are exchanged (one small int64 all-gather,
+which also checks that the rest of the shape and the dtype agree), every
+rank's tensor is padded to the largest, gathered, and the padding is cut
+out, as JAX's padded program does. ``alltoall`` exchanges the split matrix
+the same way. A group of fp32/fp16/bf16 tensors reduce-scatters as one
+collective: each tensor's n row blocks are packed rank-major (block r of
+every tensor, then block r + 1) by the pack kernel with the prescale, one
+``reduce_scatter`` runs over the buffer, and the unpack kernel writes the
+outputs with the postscale, Average's ``1/n`` folded into it.
+
+Join (``HOROVOD_JOIN_MODE=1`` on every process; see "Join" below): a rank
+that called ``join()`` contributes nothing to the collectives of the ranks
+still active until every rank has joined.
 """
 
 import enum
 import hashlib
+import math
 import pickle
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.exceptions import (ProcessSetError,
+from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
+                                                  ProcessSetError,
                                                   TensorShapeMismatchError)
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.ops.kernels.scale_buffers import DTYPES as _KERNEL_DTYPES
+from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 
 
 class ReduceOp(enum.IntEnum):
@@ -56,6 +72,10 @@ Product = ReduceOp.PRODUCT
 # from torch 2.13 on).
 all_gather_flat = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+# Reduce a flat tensor and keep this rank's 1/n of it, the same way
+# (reduce_scatter_single takes over reduce_scatter_tensor's name).
+reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 # Average is a Sum on the wire; the 1/n is applied after it.
 DIST_OPS = {
@@ -77,16 +97,236 @@ def _process_set(process_set):
     return ps
 
 
-def rank_digests(sig, ps):
-    """A 64-bit hash of ``repr(sig)`` and every rank's hash of its own, in
-    rank order: one small all-gather, for checks that ranks agree."""
-    digest = int.from_bytes(
+def digest(sig):
+    """A 64-bit hash of ``repr(sig)``, as a signed int64."""
+    return int.from_bytes(
         hashlib.blake2b(repr(sig).encode(), digest_size=8).digest(),
         "little", signed=True)
-    mine = torch.tensor([digest], dtype=torch.int64, device=basics.device())
-    every = torch.empty(ps.size(), dtype=torch.int64, device=mine.device)
+
+
+def gather_int64(values, ps):
+    """Every rank's ``values`` (ints, as many on every rank), in rank order:
+    one small all-gather on the set's device."""
+    mine = torch.tensor(values, dtype=torch.int64, device=basics.device())
+    every = torch.empty(ps.size() * len(values), dtype=torch.int64,
+                        device=mine.device)
     all_gather_flat(every, mine, group=ps.group)
-    return digest, every.tolist()
+    return every.view(ps.size(), len(values)).tolist()
+
+
+def rank_digests(sig, ps):
+    """:func:`digest` of ``sig`` and every rank's digest of its own, in rank
+    order: one small all-gather, for checks that ranks agree."""
+    mine = digest(sig)
+    return mine, [row[0] for row in gather_int64([mine], ps)]
+
+
+# ---------------------------------------------------------------------------
+# Join (reference: torch/mpi_ops.py DoJoin, controller.cc:269-327; the JAX
+# package's _join_sync, _mirror_dispatch, _join_multiprocess and join)
+# ---------------------------------------------------------------------------
+# With HOROVOD_JOIN_MODE=1 on every process of a multi-process world, every
+# collective opens with one descriptor round among its set: one small int64
+# all-gather in which each active rank publishes what it launches next and
+# each joined rank that it has joined. A joined process sits in join(),
+# takes part in every round of its set and mirrors each descriptor with a
+# launch of the same collective, of the same size and dtype, whose
+# contribution is neutral: zeros for Sum, Average, reducescatter and the
+# Adasum gather, +inf / -inf (the integer bounds) for Min / Max, 1 for
+# Product, no rows for allgather. NCCL hangs rather than raises when ranks
+# launch different sequences, so a mirror launches exactly what the active
+# ranks do, and an active rank checks its arguments before it publishes.
+# The active ranks' results exclude the joined ones: Average divides by the
+# active count and Adasum drops their rows before the tree. A broadcast from
+# a joined root and an alltoall raise on every active rank after the round;
+# the joined process launches nothing for them and serves on. When a round
+# shows every rank joined, join() returns the last rank to join on every
+# process, and the state resets.
+#
+# A process inside join() serves its set's rounds only. While it is there,
+# the others issue collectives on that set alone; a collective on another set
+# that holds a rank joined to the global set raises instead of hanging.
+
+# A round's int64 slots: joined flag, kind, op, dtype, numel, root, digest.
+_ROUND = 7
+ALLREDUCE, ADASUM, ALLGATHER, BROADCAST, ALLTOALL, REDUCESCATTER, BARRIER = \
+    range(1, 8)
+_WIRE_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.float64,
+                torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.uint8, torch.bool)
+
+
+def join_armed():
+    """Whether collectives open with a join round: HOROVOD_JOIN_MODE=1 in a
+    world of more than one process."""
+    st = basics._get_state()
+    return st.config.join_mode and st.size > 1
+
+
+def _set_joined(ps, joined):
+    if ps.ranks is None:
+        basics._get_state().joined_ranks = joined
+    else:
+        ps.joined_ranks = joined
+
+
+def join_round(ps, kind, op=0, dtype=None, numel=0, root=0, sig=None,
+               agree=False):
+    """The round a collective on ``ps`` opens with: returns the global ranks
+    of ``ps`` that have joined (none when join is not armed). While armed,
+    this rank publishes its descriptor (``kind``, ``op``, ``dtype``,
+    ``numel``, ``root`` and the digest of ``sig``) and every active rank's
+    must be the same, else ``TensorShapeMismatchError`` on all of them.
+    Unarmed, ``agree`` checks the digests of ``sig`` alone (one small
+    all-gather); without it nothing is exchanged."""
+    if not join_armed():
+        if agree:
+            mine, every = rank_digests(sig, ps)
+            if any(h != mine for h in every):
+                raise TensorShapeMismatchError(
+                    f"{_KIND_NAMES[kind]}: the ranks' tensors differ (this "
+                    f"rank: {sig}); digests by rank: {every}")
+        return frozenset()
+    st = basics._get_state()
+    ranks = ps.rank_list()
+    if ps.ranks is not None:
+        away = st.joined_ranks & set(ranks)
+        if away:
+            raise HorovodInternalError(
+                f"{_KIND_NAMES[kind]} on process set {ranks} while rank(s) "
+                f"{sorted(away)} have joined the global set: a joined "
+                "process serves global-set collectives only")
+    else:
+        busy = [p.rank_list() for p in st.process_set_table.by_id.values()
+                if p.ranks is not None and p.joined_ranks]
+        if busy:
+            raise HorovodInternalError(
+                f"{_KIND_NAMES[kind]} on the global set while ranks have "
+                f"joined process set(s) {busy}: a process in "
+                "join(process_set=...) serves that set's collectives only")
+    if dtype is not None and dtype not in _WIRE_DTYPES:
+        raise TypeError(f"{dtype} is not supported while join is armed")
+    desc = [0, kind, int(op),
+            0 if dtype is None else _WIRE_DTYPES.index(dtype), int(numel),
+            int(root), 0 if sig is None else digest(sig)]
+    rows = gather_int64(desc, ps)
+    joined = frozenset(r for r, row in zip(ranks, rows) if row[0])
+    _set_joined(ps, set(joined))
+    bad = [row for row in rows if not row[0] and row != desc]
+    if bad:
+        raise TensorShapeMismatchError(
+            f"join-mode collective mismatch on {ranks}: this rank launches "
+            f"{_describe(desc)}, others {[_describe(b) for b in bad[:2]]}; "
+            "every rank must issue the same collectives in the same order")
+    return joined
+
+
+_KIND_NAMES = {ALLREDUCE: "allreduce", ADASUM: "Adasum allreduce",
+               ALLGATHER: "allgather", BROADCAST: "broadcast",
+               ALLTOALL: "alltoall", REDUCESCATTER: "reducescatter",
+               BARRIER: "barrier"}
+
+
+def _describe(desc):
+    _, kind, op, code, numel, root, _ = desc
+    return (f"{_KIND_NAMES.get(kind, kind)}(op={op}, "
+            f"dtype={_WIRE_DTYPES[code]}, numel={numel}, root={root})")
+
+
+def _neutral(op, dtype):
+    """The element a joined rank contributes to ``op``."""
+    if op == ReduceOp.PRODUCT:
+        return 1
+    if op not in (ReduceOp.MIN, ReduceOp.MAX):
+        return 0
+    if dtype == torch.bool:
+        return op == ReduceOp.MIN
+    if dtype.is_floating_point:
+        return math.inf if op == ReduceOp.MIN else -math.inf
+    info = torch.iinfo(dtype)
+    return info.max if op == ReduceOp.MIN else info.min
+
+
+def _mirror(desc, joined, ps):
+    """On a joined process: launch what the active ranks of ``ps`` launch
+    for ``desc``, with a neutral contribution."""
+    _, kind, op, code, numel, root, _ = desc
+    dtype, dev, n = _WIRE_DTYPES[code], basics.device(), ps.size()
+    if kind == ALLREDUCE:
+        op = ReduceOp(op)
+        buf = torch.full((numel,), _neutral(op, dtype), dtype=dtype,
+                         device=dev)
+        dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group)
+    elif kind == ADASUM:
+        all_gather_flat(torch.empty(n * numel, dtype=dtype, device=dev),
+                        torch.zeros(numel, dtype=dtype, device=dev),
+                        group=ps.group)
+    elif kind == ALLGATHER:
+        _gather_rows(None, ps, joined, dtype, numel)
+    elif kind == REDUCESCATTER:
+        reduce_scatter_flat(torch.empty(numel // n, dtype=dtype, device=dev),
+                            torch.zeros(numel, dtype=dtype, device=dev),
+                            op=dist.ReduceOp.SUM, group=ps.group)
+    elif kind == BROADCAST and root not in joined:
+        dist.broadcast(torch.empty(numel, dtype=dtype, device=dev), src=root,
+                       group=ps.group)
+    elif kind == BARRIER:
+        _barrier(ps)
+    # ALLTOALL, or a broadcast from a joined root: the active ranks raise
+    # after the round and launch nothing.
+
+
+def _serve(ps):
+    """join()'s loop: take part in every round of ``ps`` as joined and
+    mirror each descriptor, until a round shows every rank joined; returns
+    the highest rank that joined in that last round."""
+    ranks = ps.rank_list()
+    me = [1] + [0] * (_ROUND - 1)
+    prev = set(basics._get_state().joined_ranks if ps.ranks is None
+               else ps.joined_ranks)
+    while True:
+        rows = gather_int64(me, ps)
+        joined = {r for r, row in zip(ranks, rows) if row[0]}
+        _set_joined(ps, joined)
+        descs = [row for row in rows if not row[0]]
+        if not descs:
+            _set_joined(ps, set())
+            return max(joined - prev, default=ranks[-1])
+        if all(d == descs[0] for d in descs):
+            _mirror(descs[0], frozenset(joined), ps)
+        prev = joined
+
+
+def join(process_set=None):
+    """Signal that this rank's data ran out (reference semantics:
+    torch/mpi_ops.py DoJoin, controller.cc:269-327). Until every rank of
+    the set has joined, this rank contributes nothing to the active ranks'
+    collectives (Sum sees zeros, Average divides by the active count, Min,
+    Max, Product and Adasum exclude it, allgather drops its rows,
+    reducescatter excludes it). Returns the global rank of the last rank to
+    join, on every rank; the join state then resets.
+
+    Across processes it needs ``HOROVOD_JOIN_MODE=1`` on every process,
+    which makes every collective open with a descriptor round; without it,
+    join() in a world of more than one process raises. ``process_set``:
+    join within that set only; its other members go on with set-scoped
+    collectives, and the ranks outside it are not involved."""
+    ps = _process_set(process_set)
+    st = basics._get_state()
+    if st.fusion is not None:
+        st.fusion.flush_all()
+    if ps.size() == 1:
+        _set_joined(ps, set())
+        return ps.rank_list()[0]
+    if not st.config.join_mode:
+        # Not HorovodInternalError: the elastic wrapper retries on that, and
+        # this usage error would repeat forever.
+        raise NotImplementedError(
+            "hvd.join() across processes requires HOROVOD_JOIN_MODE=1 on "
+            "every process (it arms a descriptor round on every "
+            "collective); without it no process can drop out of the "
+            "collectives: pad uneven batches instead")
+    return _serve(ps)
 
 
 def _check_tensor(t, what):
@@ -123,15 +363,25 @@ def _allreduce_unfused(t, out, op, prescale, postscale, ps):
     if not t.is_floating_point() and (prescale != 1.0 or postscale != 1.0):
         raise ValueError("prescale/postscale factors need a floating-point "
                          "tensor")
+    joined = join_round(ps, ALLREDUCE, op, t.dtype, t.numel())
     out.copy_(t)
     if prescale != 1.0:
         out.mul_(prescale)
     dist.all_reduce(out, op=DIST_OPS[op], group=ps.group)
     if op == ReduceOp.AVERAGE:
-        out.div_(ps.size())
+        out.div_(ps.size() - len(joined))
     if postscale != 1.0:
         out.mul_(postscale)
     return Handle(out)
+
+
+def active_rows(gathered, ps, joined):
+    """The rows of a gathered (n, ...) tensor that active ranks sent: all
+    of it when no rank of ``ps`` has joined."""
+    if not joined:
+        return gathered
+    return gathered[[i for i, r in enumerate(ps.rank_list())
+                     if r not in joined]]
 
 
 def _adasum_unfused(t, out, prescale, postscale, ps):
@@ -139,12 +389,13 @@ def _adasum_unfused(t, out, prescale, postscale, ps):
     one gather, the combine tree (whose kernel reads float64 into fp32),
     postscale."""
     from horovod_tpu_torch.ops.adasum import reduce_gathered
+    joined = join_round(ps, ADASUM, ReduceOp.ADASUM, t.dtype, t.numel())
     x = t.reshape(-1) * prescale if prescale != 1.0 else t.reshape(-1)
     gathered = torch.empty(ps.size() * x.numel(), dtype=t.dtype,
                            device=t.device)
     all_gather_flat(gathered, x.contiguous(), group=ps.group)
-    out.copy_(reduce_gathered(gathered.view(ps.size(), -1),
-                              (x.numel(),)).view(out.shape))
+    rows = active_rows(gathered.view(ps.size(), -1), ps, joined)
+    out.copy_(reduce_gathered(rows, (x.numel(),)).view(out.shape))
     if postscale != 1.0:
         out.mul_(postscale)
     return Handle(out)
@@ -243,24 +494,208 @@ def grouped_allreduce(tensors, op=Average, prescale_factor=1.0,
         name=name)]
 
 
+def _gather_rows(t, ps, joined, dtype, row_numel):
+    """The gather's two launches: every rank's first dim (and a digest of
+    the rest of its shape and its dtype), then the ranks' rows padded to
+    the largest first dim, gathered flat. ``t``: this rank's contiguous
+    tensor of rank >= 1, or None for a joined rank's mirror, which sends no
+    rows. Returns the active ranks' rows concatenated along dim 0 and their
+    first dims, in rank order (None for the mirror)."""
+    n = ps.size()
+    mine = [0, 0] if t is None else \
+        [t.shape[0], digest((tuple(t.shape[1:]), str(t.dtype)))]
+    rows = gather_int64(mine, ps)
+    active = [i for i, r in enumerate(ps.rank_list()) if r not in joined]
+    if len({rows[i][1] for i in active}) > 1:
+        # Never on a mirror: the join round already held the active ranks'
+        # digests equal.
+        raise TensorShapeMismatchError(
+            f"allgather: the ranks' tensors differ beyond dim 0 or in dtype "
+            f"(this rank: {tuple(t.shape)} {t.dtype}); digests by rank: "
+            f"{[rows[i][1] for i in active]}")
+    sizes = [rows[i][0] for i in range(n)]
+    most = max(sizes)
+    per = most * row_numel
+    dev = basics.device()
+    src = torch.empty(0, dtype=dtype, device=dev) if t is None \
+        else t.reshape(-1)
+    if src.numel() < per:
+        src = torch.cat([src, src.new_zeros(per - src.numel())])
+    out = torch.empty(n * per, dtype=dtype, device=dev)
+    all_gather_flat(out, src, group=ps.group)
+    if t is None:
+        return None
+    kept = [sizes[i] for i in active]
+    if any(s != most for s in sizes):
+        out = torch.cat([out[i * per:i * per + sizes[i] * row_numel]
+                         for i in active])
+    return out.view((sum(kept),) + tuple(t.shape[1:])), kept
+
+
+def allgather_sizes(tensor, ps, what="allgather"):
+    """:func:`allgather` on a registered set ``ps``, with the first dims of
+    the ranks that sent rows, in rank order."""
+    _check_tensor(tensor, what)
+    t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
+    tail = tuple(t.shape[1:])
+    row_numel = math.prod(tail)
+    joined = join_round(ps, ALLGATHER, dtype=t.dtype, numel=row_numel,
+                        sig=(tail, str(t.dtype)))
+    return _gather_rows(t, ps, joined, t.dtype, row_numel)
+
+
 def allgather(tensor, process_set=None, name=None):
     """Every rank's tensor concatenated along dim 0, in rank order
-    (reference: hvd.allgather torch/mpi_ops.py:655-712). The ranks' tensors
-    must share one shape and dtype: a mismatch raises
-    ``TensorShapeMismatchError``. A 0-d tensor gathers into a vector."""
+    (reference: hvd.allgather torch/mpi_ops.py:655-712). The first dims may
+    differ; the rest of the shape and the dtype must agree, else
+    ``TensorShapeMismatchError``. A 0-d tensor gathers into a vector. The
+    rows of a rank that has joined are dropped."""
+    return allgather_sizes(tensor, _process_set(process_set))[0]
+
+
+def alltoall(tensor, splits=None, process_set=None, name=None):
+    """Scatter the rows of ``tensor`` to the ranks of the set and gather
+    what they send (reference: hvd.alltoall torch/mpi_ops.py:928-1014).
+    Without ``splits`` the first dim is split equally and must divide by the
+    set size; ``splits`` gives the rows for each rank, in set order (rows
+    past their sum are not sent). Returns the received rows, in rank order,
+    and with ``splits`` also the rows received from each rank (int64, on
+    the tensor's device). The ranks' tensors must agree beyond dim 0 and in
+    dtype. Raises while any rank has joined."""
     ps = _process_set(process_set)
-    _check_tensor(tensor, "allgather")
-    t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
-    digest, every = rank_digests((tuple(t.shape), str(t.dtype)), ps)
-    if any(h != digest for h in every):
+    _check_tensor(tensor, "alltoall")
+    n = ps.size()
+    if tensor.dim() < 1:
+        raise TensorShapeMismatchError("alltoall takes a tensor of rank >= 1")
+    m = tensor.shape[0]
+    if splits is None:
+        if m % n:
+            raise TensorShapeMismatchError(
+                f"alltoall without splits: the first dim {m} must divide by "
+                f"the set size {n}")
+        send = [m // n] * n
+    else:
+        send = torch.as_tensor(splits)
+        if send.dim() != 1 or send.numel() != n or (send < 0).any():
+            raise TensorShapeMismatchError(
+                f"alltoall splits must be {n} non-negative row counts, one "
+                f"per rank of the set, got {send.tolist()}")
+        send = [int(v) for v in send.tolist()]
+        if sum(send) > m:
+            raise TensorShapeMismatchError(
+                f"alltoall splits sum to {sum(send)} rows, but the tensor "
+                f"has {m}")
+    if join_round(ps, ALLTOALL):
+        raise HorovodInternalError(
+            "alltoall is not supported while ranks have joined (as the "
+            "reference: join covers allreduce, allgather and broadcast)")
+    tail = tuple(tensor.shape[1:])
+    rows = gather_int64(send + [digest((tail, str(tensor.dtype)))], ps)
+    if len({row[-1] for row in rows}) > 1:
         raise TensorShapeMismatchError(
-            f"allgather: the ranks' tensors differ in shape or dtype (this "
-            f"rank: {tuple(t.shape)} {t.dtype}); gathering ragged first dims "
-            "is not ported yet (ROADMAP A2)")
-    out = torch.empty((ps.size() * t.shape[0],) + tuple(t.shape[1:]),
-                      dtype=t.dtype, device=t.device)
-    all_gather_flat(out, t, group=ps.group)
-    return out
+            f"alltoall: the ranks' tensors differ beyond dim 0 or in dtype "
+            f"(this rank: {tuple(tensor.shape)} {tensor.dtype})")
+    me = ps.rank()
+    received = [row[me] for row in rows]
+    out = torch.empty((sum(received),) + tail, dtype=tensor.dtype,
+                      device=tensor.device)
+    dist.all_to_all_single(out, tensor[:sum(send)].contiguous(), received,
+                           send, group=ps.group)
+    if splits is None:
+        return out
+    return out, torch.tensor(received, dtype=torch.int64,
+                             device=tensor.device)
+
+
+def rank_major_blocks(tensors, n):
+    """Each tensor's n row blocks, block r of every tensor before block
+    r + 1: contiguous views whose concatenation a reduce-scatter over n
+    ranks leaves rank r the reduction of its blocks, in the tensors'
+    order."""
+    views = [t.reshape(n, -1) for t in tensors]
+    return [v[r] for r in range(n) for v in views]
+
+
+def _reducescatter(ts, outs, op, prescale, postscale, ps):
+    """One reduce-scatter of ``ts`` (one dtype; a list of more than one
+    only for the kernel's dtypes) into ``outs``."""
+    n, dtype = ps.size(), ts[0].dtype
+    total = sum(t.numel() for t in ts)
+    sig = (int(op), prescale, postscale, str(dtype),
+           tuple(tuple(t.shape) for t in ts))
+    joined = join_round(ps, REDUCESCATTER, op, dtype, total, sig=sig,
+                        agree=True)
+    if dtype in _KERNEL_DTYPES:
+        flat = torch.empty(total, dtype=dtype, device=ts[0].device)
+        pack_scale(rank_major_blocks(ts, n), flat, prescale)
+    else:
+        flat = ts[0].reshape(-1)
+        if prescale != 1.0:
+            flat = flat * prescale
+    out = torch.empty(total // n, dtype=dtype, device=flat.device)
+    reduce_scatter_flat(out, flat.contiguous(), op=dist.ReduceOp.SUM,
+                        group=ps.group)
+    if op == ReduceOp.AVERAGE:
+        postscale = postscale / (n - len(joined))
+    if dtype in _KERNEL_DTYPES:
+        unpack_scale(out, outs, postscale)
+    else:
+        outs[0].copy_(out.view(outs[0].shape))
+        if postscale != 1.0:
+            outs[0].mul_(postscale)
+
+
+def grouped_reducescatter_async(tensors, op=Sum, prescale_factor=1.0,
+                                postscale_factor=1.0, process_set=None,
+                                name=None):
+    """Reduce every tensor across the set and keep this rank's block of
+    rows: rank r gets rows r m/n .. (r + 1) m/n of the reduction of an
+    (m, ...) tensor (reference: hvd.reducescatter torch/mpi_ops.py:1066-1123;
+    EnqueueTensorReducescatters operations.cc:1797). Sum and Average only;
+    each first dim must divide by the set size. The tensors of each of the
+    kernel's dtypes go out as one collective: packed rank-major with the
+    prescale, one ``reduce_scatter``, unpacked with the postscale (and
+    Average's 1/n); others take one collective each. Returns a handle per
+    tensor."""
+    op = ReduceOp(op)
+    ps = _process_set(process_set)
+    n = ps.size()
+    tensors = list(tensors)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"reducescatter supports Sum and Average, not "
+                         f"{op.name} (as the reference: message.h:43-50)")
+    pre, post = float(prescale_factor), float(postscale_factor)
+    for t in tensors:
+        _check_tensor(t, "reducescatter")
+        if t.dim() < 1 or t.shape[0] % n:
+            raise TensorShapeMismatchError(
+                f"reducescatter: the first dim must divide by the set size "
+                f"{n}, got {tuple(t.shape)}")
+        if not t.is_floating_point():
+            if op == ReduceOp.AVERAGE:
+                raise ValueError("Average is not supported for integer "
+                                 "tensors; use hvd.Sum")
+            if pre != 1.0 or post != 1.0:
+                raise ValueError("prescale/postscale factors need a "
+                                 "floating-point tensor")
+    outs = [torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
+                        dtype=t.dtype, device=t.device) for t in tensors]
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype if t.dtype in _KERNEL_DTYPES else i,
+                          []).append(i)
+    for idxs in groups.values():
+        _reducescatter([tensors[i] for i in idxs], [outs[i] for i in idxs],
+                       op, pre, post, ps)
+    return [Handle(o, name) for o in outs]
+
+
+def reducescatter(tensor, op=Sum, prescale_factor=1.0, postscale_factor=1.0,
+                  process_set=None, name=None):
+    return grouped_reducescatter_async(
+        [tensor], op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set,
+        name=name)[0].synchronize()
 
 
 def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
@@ -275,6 +710,11 @@ def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
     if not isinstance(tensor, torch.Tensor):
         raise TypeError(f"broadcast takes torch tensors, got "
                         f"{type(tensor).__name__}")
+    joined = join_round(ps, BROADCAST, dtype=tensor.dtype,
+                        numel=tensor.numel(), root=root_rank)
+    if root_rank in joined:
+        raise HorovodInternalError(f"broadcast root_rank {root_rank} has "
+                                   "joined")
     out = tensor if inplace else tensor.clone()
     dev = basics.device()
     buf = out if out.device == dev and out.is_contiguous() \
@@ -289,6 +729,11 @@ def barrier(process_set=None, name=None):
     """Block until every rank of the set reaches the barrier (reference:
     hvd.barrier, operations.cc EnqueueBarrier)."""
     ps = _process_set(process_set)
+    join_round(ps, BARRIER)
+    _barrier(ps)
+
+
+def _barrier(ps):
     dev = basics.device()
     if dev.type == "cuda":
         dist.barrier(group=ps.group, device_ids=[dev.index])
@@ -318,3 +763,45 @@ def broadcast_object(obj, root_rank=0, process_set=None, name=None):
         buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
     broadcast(buf, root_rank, process_set=ps, name=name, inplace=True)
     return pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def allgather_object(obj, process_set=None, name=None):
+    """Every rank's object, in rank order: pickled, the bytes gathered by
+    the ragged allgather, unpickled (reference: torch/functions.py
+    allgather_object)."""
+    ps = _process_set(process_set)
+    payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                               dtype=torch.uint8).to(basics.device())
+    gathered, sizes = allgather_sizes(payload, ps, "allgather_object")
+    data = gathered.cpu().numpy().tobytes()
+    out, off = [], 0
+    for size in sizes:
+        out.append(pickle.loads(data[off:off + size]))
+        off += size
+    return out
+
+
+def sparse_allreduce(tensor, op=Average, process_set=None, name=None):
+    """Allreduce of a ``torch.sparse_coo_tensor``: every rank's indices and
+    values gathered (ragged), so duplicate coordinates sum when the result
+    is coalesced; Average divides the values by the number of ranks that
+    sent them (reference: torch/mpi_ops.py:591-612). Returns an uncoalesced
+    sparse tensor of the input's size."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"sparse allreduce supports Sum and Average, not "
+                         f"{op.name}")
+    if not isinstance(tensor, torch.Tensor) or not tensor.is_sparse:
+        raise TypeError("sparse_allreduce takes a torch.sparse_coo_tensor")
+    if op == ReduceOp.AVERAGE and not tensor.is_floating_point():
+        raise ValueError("Average is not supported for integer tensors; use "
+                         "hvd.Sum")
+    ps = _process_set(process_set)
+    indices, sizes = allgather_sizes(tensor._indices().t().contiguous(), ps,
+                                     "sparse_allreduce")
+    values, _ = allgather_sizes(tensor._values().contiguous(), ps,
+                                "sparse_allreduce")
+    if op == ReduceOp.AVERAGE:
+        values = values / len(sizes)
+    return torch.sparse_coo_tensor(indices.t(), values, tensor.size(),
+                                   check_invariants=False)

@@ -31,7 +31,11 @@ tensors forms the same buckets (the JAX runtime's debounced cycle thread and
 its coordinator-published boundaries are not ported yet). The rule is
 guarded: the first time a bucket signature (names, sizes, dtype, op, scales)
 is seen, ranks exchange its hash once and cache it, like the reference's
-response cache, and a mismatch raises ``TensorShapeMismatchError``.
+response cache, and a mismatch raises ``TensorShapeMismatchError``. While
+join is armed (``HOROVOD_JOIN_MODE=1``), every bucket opens with the join
+round instead (``collective_ops.join_round``), which carries that hash: a
+joined rank mirrors the bucket's collective, Average divides by the active
+ranks and an Adasum bucket drops the joined ranks' rows before the tree.
 
 Streams. On the GPU every bucket runs on one side stream, after the streams
 that produced its tensors; buckets therefore run in order and share one
@@ -48,8 +52,11 @@ import torch.distributed as dist
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import TensorShapeMismatchError
 from horovod_tpu_torch.ops.adasum import reduce_gathered
-from horovod_tpu_torch.ops.collective_ops import (DIST_OPS, ReduceOp,
+from horovod_tpu_torch.ops.collective_ops import (ADASUM, ALLREDUCE,
+                                                  DIST_OPS, ReduceOp,
+                                                  active_rows,
                                                   all_gather_flat,
+                                                  join_armed, join_round,
                                                   rank_digests)
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 
@@ -162,17 +169,19 @@ class FusionRuntime:
         del self._open_bytes[key]
         ps, op, prescale, postscale, dtype = key
         try:
-            self._check_signature(key, entries)
+            joined = self._check_signature(key, entries)
             event = None
             if self._stream is None:
-                self._reduce(entries, ps, op, prescale, postscale, dtype)
+                self._reduce(entries, ps, op, prescale, postscale, dtype,
+                             joined)
             else:
                 side = self._stream
                 for s in {e.stream.cuda_stream: e.stream
                           for e in entries}.values():
                     side.wait_stream(s)
                 with torch.cuda.stream(side):
-                    self._reduce(entries, ps, op, prescale, postscale, dtype)
+                    self._reduce(entries, ps, op, prescale, postscale, dtype,
+                                 joined)
                     event = torch.cuda.Event()
                     event.record(side)
                 # The caching allocator must not hand these blocks out again
@@ -188,7 +197,7 @@ class FusionRuntime:
             e.handle._event = event
             e.handle._dispatched = True
 
-    def _reduce(self, entries, ps, op, prescale, postscale, dtype):
+    def _reduce(self, entries, ps, op, prescale, postscale, dtype, joined):
         total = sum(e.tensor.numel() for e in entries)
         buf = self._buffer(dtype, total)
         pack_scale([e.tensor for e in entries], buf, prescale)
@@ -199,13 +208,14 @@ class FusionRuntime:
                                    device=self.device)
             all_gather_flat(gathered, buf, group=ps.group,
                             async_op=True).wait()
-            buf = reduce_gathered(gathered.view(ps.size(), total),
-                                  [e.tensor.numel() for e in entries])
+            buf = reduce_gathered(
+                active_rows(gathered.view(ps.size(), total), ps, joined),
+                [e.tensor.numel() for e in entries])
         else:
             dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group,
                             async_op=True).wait()
             if op == ReduceOp.AVERAGE:
-                postscale = postscale / ps.size()
+                postscale = postscale / (ps.size() - len(joined))
         unpack_scale(buf, [e.output for e in entries], postscale)
 
     def _buffer(self, dtype, total):
@@ -220,13 +230,19 @@ class FusionRuntime:
         return buf[:total]
 
     def _check_signature(self, key, entries):
+        """The bucket's check that every rank formed it; returns the joined
+        ranks of its set."""
         ps, op, prescale, postscale, dtype = key
         sig = (ps.process_set_id, int(op), prescale, postscale, str(dtype),
                tuple((e.name, e.tensor.numel()) for e in entries))
+        if join_armed():
+            return join_round(ps, ADASUM if op == ReduceOp.ADASUM
+                              else ALLREDUCE, op, dtype,
+                              sum(n for _, n in sig[-1]), sig=sig)
         if sig in self._verified:
-            return
-        digest, every = rank_digests(sig, ps)
-        if any(h != digest for h in every):
+            return frozenset()
+        mine, every = rank_digests(sig, ps)
+        if any(h != mine for h in every):
             raise TensorShapeMismatchError(
                 f"ranks formed different fusion buckets for {len(entries)} "
                 f"tensor(s) of {dtype} (op {op.name}); this rank's bucket: "
@@ -235,7 +251,8 @@ class FusionRuntime:
                 "tensors in the same order.")
         if len(self._verified) >= _MAX_SIGNATURES:
             self._verified.clear()
-        self._verified[sig] = digest
+        self._verified[sig] = mine
+        return frozenset()
 
 
 def get_runtime():

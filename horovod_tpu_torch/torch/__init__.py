@@ -1,19 +1,19 @@
 """The ``horovod.torch`` API surface of the PyTorch/CUDA port.
 
 Port of the JAX package's ``torch/__init__.py``: the same names and
-signatures, for the subset this port implements so far — init and the
-rank/size family, process sets, the allreduce (Sum, Average, Min, Max,
-Product, Adasum) and broadcast families with their async handles, allgather
-of equal shapes, barrier, compression, the parameter and optimizer-state
-broadcasts and ``DistributedOptimizer``. The rest of the reference surface
-(ragged allgather, alltoall, reducescatter, join, sparse allreduce,
-elastic, SyncBatchNorm, timeline) is listed in ROADMAP.md as still to
-port.
+signatures for init and the rank/size family (``ici_built`` among the
+capability queries), process sets, the allreduce (Sum, Average, Min, Max,
+Product, Adasum), allgather (ragged first dims too), alltoall,
+reducescatter and broadcast families with their async handles,
+``sparse_allreduce_async``, ``join``, barrier, compression, the parameter,
+optimizer-state and object broadcasts, ``allgather_object`` and
+``DistributedOptimizer``. The rest of the reference surface (elastic,
+SyncBatchNorm, the timeline) is listed in ROADMAP.md as still to port.
 """
 
 from horovod_tpu_torch.common.basics import (
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
-    gloo_built, gloo_enabled, init, is_homogeneous, is_initialized,
+    gloo_built, gloo_enabled, ici_built, init, is_homogeneous, is_initialized,
     local_rank, local_size, mpi_built, mpi_enabled, mpi_threads_supported,
     nccl_built, rank, rocm_built, shutdown, size, xla_built)
 from horovod_tpu_torch.common.exceptions import HorovodInternalError
@@ -29,15 +29,19 @@ from horovod_tpu_torch.common.util import (check_extension,
 from horovod_tpu_torch.torch.compression import (BF16Compressor, Compression,
                                                  Compressor, FP16Compressor,
                                                  NoneCompressor)
-from horovod_tpu_torch.torch.functions import (broadcast_object,
+from horovod_tpu_torch.torch.functions import (allgather_object,
+                                               broadcast_object,
                                                broadcast_optimizer_state,
                                                broadcast_parameters)
 from horovod_tpu_torch.torch.mpi_ops import (
     Adasum, Average, Max, Min, Product, ReduceOp, Sum, allgather,
     allgather_async, allreduce, allreduce_, allreduce_async, allreduce_async_,
-    barrier, broadcast, broadcast_, broadcast_async, broadcast_async_,
-    grouped_allgather, grouped_allreduce, grouped_allreduce_,
-    grouped_allreduce_async, grouped_allreduce_async_, poll, synchronize)
+    alltoall, alltoall_async, barrier, broadcast, broadcast_, broadcast_async,
+    broadcast_async_, grouped_allgather, grouped_allgather_async,
+    grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
+    grouped_allreduce_async_, grouped_reducescatter,
+    grouped_reducescatter_async, join, poll, reducescatter,
+    reducescatter_async, sparse_allreduce_async, synchronize)
 from horovod_tpu_torch.torch.optimizer import DistributedOptimizer
 
 __all__ = [
@@ -45,7 +49,7 @@ __all__ = [
     "size", "local_size", "cross_size", "device", "is_homogeneous",
     "mpi_threads_supported", "mpi_enabled", "mpi_built", "gloo_enabled",
     "gloo_built", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
-    "rocm_built", "xla_built",
+    "rocm_built", "xla_built", "ici_built",
     "ProcessSet", "add_process_set", "global_process_set",
     "process_set_by_id", "remove_process_set",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
@@ -54,9 +58,13 @@ __all__ = [
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
     "grouped_allreduce_async_", "allgather", "allgather_async",
-    "grouped_allgather", "broadcast", "broadcast_", "broadcast_async",
-    "broadcast_async_", "barrier", "poll", "synchronize",
+    "grouped_allgather", "grouped_allgather_async", "alltoall",
+    "alltoall_async", "reducescatter", "reducescatter_async",
+    "grouped_reducescatter", "grouped_reducescatter_async",
+    "sparse_allreduce_async", "broadcast", "broadcast_", "broadcast_async",
+    "broadcast_async_", "barrier", "join", "poll", "synchronize",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
+    "allgather_object",
     "DistributedOptimizer", "HorovodInternalError", "check_extension",
     "check_installed_version", "gpu_available", "num_rank_is_power_2",
     "split_list",

@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``torch/functions.py`` (reference:
 horovod/torch/functions.py broadcast_parameters, broadcast_optimizer_state,
-broadcast_object), used at train start so every rank begins from the root's
-state.
+broadcast_object, allgather_object), used at train start so every rank
+begins from the root's state.
 """
 
 import torch
@@ -28,6 +28,12 @@ def broadcast_object(obj, root_rank=0, name=None, process_set=None):
     functions.py:187-230)."""
     return C.broadcast_object(obj, root_rank=root_rank, name=name,
                               process_set=process_set)
+
+
+def allgather_object(obj, name=None, process_set=None):
+    """Every rank's object, in rank order (reference:
+    functions.py:233-260)."""
+    return C.allgather_object(obj, process_set=process_set, name=name)
 
 
 def broadcast_optimizer_state(optimizer, root_rank=0, process_set=None):

@@ -3,10 +3,12 @@
 Port of the JAX package's ``torch/mpi_ops.py`` (reference:
 horovod/torch/mpi_ops.py sync + async wrappers, handles :1245-1283): the
 allreduce family with compression (Adasum included), the legacy
-``average=`` flag and the in-place ``*_`` variants, allgather for tensors of
-one shape, the broadcast family, ``poll``, ``synchronize`` and ``barrier``. Where the JAX frontend moves torch tensors through numpy
-into XLA, the port keeps them on the device: an in-place allreduce is
-unpacked straight into the caller's tensor.
+``average=`` flag and the in-place ``*_`` variants, allgather (ragged first
+dims too), alltoall (with splits), the reducescatter family, the broadcast
+family, ``sparse_allreduce_async``, ``join``, ``poll``, ``synchronize`` and
+``barrier``. Where the JAX frontend moves torch tensors through numpy into
+XLA, the port keeps them on the device: an in-place allreduce is unpacked
+straight into the caller's tensor.
 """
 
 from horovod_tpu_torch.ops import collective_ops as C
@@ -18,8 +20,11 @@ __all__ = ["allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
            "grouped_allreduce", "grouped_allreduce_",
            "grouped_allreduce_async", "grouped_allreduce_async_",
            "allgather", "allgather_async", "grouped_allgather",
+           "grouped_allgather_async", "alltoall", "alltoall_async",
+           "reducescatter", "reducescatter_async", "grouped_reducescatter",
+           "grouped_reducescatter_async", "sparse_allreduce_async",
            "broadcast", "broadcast_", "broadcast_async", "broadcast_async_",
-           "barrier", "poll", "synchronize",
+           "barrier", "join", "poll", "synchronize",
            "Average", "Sum", "Adasum", "Min", "Max", "Product", "ReduceOp"]
 
 
@@ -166,8 +171,7 @@ def grouped_allreduce_(tensors, average=None, name=None, compression=None,
 
 def allgather(tensor, name=None, process_set=None):
     """reference: hvd.allgather (torch/mpi_ops.py:655-712): every rank's
-    tensor concatenated along dim 0. The ranks' tensors must share one
-    shape; gathering ragged first dims is not ported yet."""
+    tensor concatenated along dim 0; the first dims may differ."""
     return C.allgather(tensor, process_set=process_set, name=name)
 
 
@@ -179,6 +183,87 @@ def allgather_async(tensor, name=None, process_set=None):
 def grouped_allgather(tensors, name=None, process_set=None):
     return [allgather(t, name=name, process_set=process_set)
             for t in tensors]
+
+
+def grouped_allgather_async(tensors, name=None, process_set=None):
+    return [allgather_async(t, name=name, process_set=process_set)
+            for t in tensors]
+
+
+def alltoall(tensor, splits=None, name=None, process_set=None):
+    """reference: hvd.alltoall (torch/mpi_ops.py:928-1014): the rows of
+    ``tensor`` scattered to the ranks, equally or by ``splits``; returns the
+    received rows, and with ``splits`` also the received row counts."""
+    return C.alltoall(tensor, splits=splits, process_set=process_set,
+                      name=name)
+
+
+def alltoall_async(tensor, splits=None, name=None, process_set=None):
+    return C.Handle(alltoall(tensor, splits=splits, name=name,
+                             process_set=process_set), name)
+
+
+def reducescatter(tensor, op=Sum, name=None, process_set=None,
+                  prescale_factor=1.0, postscale_factor=1.0):
+    """reference: hvd.reducescatter (torch/mpi_ops.py:1066-1123): this
+    rank's rows ``rank*m/n:(rank+1)*m/n`` of the reduction (Sum or
+    Average)."""
+    return reducescatter_async(tensor, op=op, name=name,
+                               process_set=process_set,
+                               prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor).synchronize()
+
+
+def reducescatter_async(tensor, op=Sum, name=None, process_set=None,
+                        prescale_factor=1.0, postscale_factor=1.0):
+    return grouped_reducescatter_async(
+        [tensor], op=op, name=name, process_set=process_set,
+        prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor)[0]
+
+
+def grouped_reducescatter(tensors, op=Sum, name=None, process_set=None,
+                          prescale_factor=1.0, postscale_factor=1.0):
+    return [h.synchronize() for h in grouped_reducescatter_async(
+        tensors, op=op, name=name, process_set=process_set,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor)]
+
+
+def grouped_reducescatter_async(tensors, op=Sum, name=None,
+                                process_set=None, prescale_factor=1.0,
+                                postscale_factor=1.0):
+    """The group's tensors of each fusion dtype reduce-scatter as one
+    collective (one pack and one unpack launch on the card)."""
+    return C.grouped_reducescatter_async(
+        tensors, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set,
+        name=name)
+
+
+class _SparseHandle(C.Handle):
+    """The reference's sparse handle is a callable; ``synchronize`` takes it
+    too."""
+
+    __slots__ = ()
+
+    def __call__(self):
+        return self.synchronize()
+
+
+def sparse_allreduce_async(tensor, name, op, process_set=None):
+    """Allreduce of a ``torch.sparse_coo_tensor`` by gathering its indices
+    and values (duplicates sum on coalesce); returns a callable handle
+    (reference: torch/mpi_ops.py:591-612)."""
+    return _SparseHandle(C.sparse_allreduce(tensor, op=op,
+                                            process_set=process_set,
+                                            name=name), name)
+
+
+def join(device=None, process_set=None):
+    """reference: hvd.join (torch/mpi_ops_v2.cc DoJoin). ``device`` is
+    accepted for API compatibility; a process drives one device. Returns
+    the global rank of the last rank to join."""
+    return C.join(process_set=process_set)
 
 
 def broadcast(tensor, root_rank, name=None, process_set=None):

@@ -2,7 +2,8 @@
 """Profile one of the PyTorch port's data-parallel training steps on one GPU.
 
     python3 scripts/profile_torch_port.py
-        [--model resnet50|gpt|bert|llama] [--remat] [--op average|adasum]
+        [--model resnet50|gpt|bert|llama|vit] [--remat]
+        [--op average|adasum]
         [--seed 0] [--batch N] [--seq L] [--steps 10] [--repeats 5]
         [--profile-steps 3] [--root DIR]
 
@@ -22,9 +23,12 @@ The steps are chip_smoke.py's, on cuda:0 after hvd.init():
   labels, AdamW(lr=1e-5, weight_decay=1e-4);
 - ``llama`` (default batch 8, sequence 1024): LLaMA-400M (bench.py's
   config), bf16, flash with 16 query heads over 8 kv heads, next-token
-  loss, AdamW(lr=1e-4, weight_decay=1e-4).
+  loss, AdamW(lr=1e-4, weight_decay=1e-4);
+- ``vit`` (default batch 128): ViT-B/16 on 224 x 224 x 3 bf16 images, bf16
+  activations, flash (non-causal, 196 patches), cross-entropy over 1000
+  classes, AdamW(lr=1e-4, weight_decay=1e-4).
 
-``--remat`` checkpoints every transformer block (gpt, bert, llama).
+``--remat`` checkpoints every transformer block (gpt, bert, llama, vit).
 
 ``--root`` profiles the package of another checkout (say, a parent commit
 unpacked into build/), so two trees can be compared in one session.
@@ -161,6 +165,25 @@ def build_step(args, hvd, torch, dev):
             return F.cross_entropy(mlm.flatten(0, 1), labels.flatten()) \
                 + F.cross_entropy(ns, nsp)
         items, unit = args.batch, "sequences_per_sec"
+    elif args.model == "vit":
+        from horovod_tpu_torch.models import ViT, ViTConfig
+        cfg = ViTConfig.base(dtype=torch.bfloat16, use_flash=True,
+                             remat=args.remat)
+        with torch.device(dev):
+            model = ViT(cfg, generator=torch.Generator(
+                device=dev).manual_seed(args.seed))
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+        x = torch.randn((args.batch, 224, 224, 3), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = torch.randint(0, cfg.num_classes, (args.batch,), generator=gen,
+                          device=dev)
+
+        def loss():
+            return F.cross_entropy(model(x), y)
+        items, unit = args.batch, "images_per_sec"
     else:
         if args.model == "gpt":
             from horovod_tpu_torch.models import GPT, GPTConfig
@@ -208,7 +231,8 @@ def build_step(args, hvd, torch, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("resnet50", "gpt", "bert", "llama"),
+    ap.add_argument("--model",
+                    choices=("resnet50", "gpt", "bert", "llama", "vit"),
                     default="resnet50")
     ap.add_argument("--remat", action="store_true",
                     help="checkpoint every transformer block")
@@ -217,8 +241,8 @@ def main(argv=None):
                     help="the optimizer's reduction (adasum: resnet50 only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None,
-                    help="64 images for resnet50, 32 sequences for bert, "
-                         "8 for gpt and llama")
+                    help="64 images for resnet50, 128 for vit, 32 "
+                         "sequences for bert, 8 for gpt and llama")
     ap.add_argument("--seq", type=int, default=None,
                     help="128 tokens for bert, 1024 for gpt and llama")
     ap.add_argument("--steps", type=int, default=10)
@@ -228,7 +252,8 @@ def main(argv=None):
                     help="the checkout whose horovod_tpu_torch is profiled")
     args = ap.parse_args(argv)
     if args.batch is None:
-        args.batch = {"resnet50": 64, "bert": 32}.get(args.model, 8)
+        args.batch = {"resnet50": 64, "vit": 128,
+                      "bert": 32}.get(args.model, 8)
     if args.seq is None:
         args.seq = 128 if args.model == "bert" else 1024
     if args.remat and args.model == "resnet50":

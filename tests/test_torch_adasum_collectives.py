@@ -126,4 +126,6 @@ def test_allgather_matches_jax(hvd, trio, rows, port):
         np.testing.assert_array_equal(out["grouped_allgather"][0], ref[rank])
         np.testing.assert_array_equal(out["grouped_allgather"][1],
                                       ref[rank][:, :1])
-        assert out["ragged"] == "TensorShapeMismatchError"
+        # Ragged first dims gather; a mismatch beyond dim 0 is refused.
+        assert out["ragged"] == [0.0, 1.0, 1.0, 2.0, 2.0, 2.0]
+        assert out["ragged_tail"] == "TensorShapeMismatchError"

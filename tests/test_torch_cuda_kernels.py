@@ -7,7 +7,8 @@ runs without the suite's conftest:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: the scale kernels bit-equal (one fp32 multiply and one
-rounding on both sides), on buckets of one launch and of several. The flash kernels in fp32, and lse in every dtype, within
+rounding on both sides), on buckets of one launch and of several, and on
+a grouped reducescatter's rank-major tables. The flash kernels in fp32, and lse in every dtype, within
 atol + rtol * |plain| of the plain versions: both compute in fp32 and round
 once, but sum in another order (~1e-6 relative in fp32): 1e-4 relative
 (lse 1e-5). The bf16/fp16 forward, dQ and dK/dV kernels run their products
@@ -182,6 +183,58 @@ def test_fused_allreduce_on_the_card(dev):
         assert (sb.pack_launches - p0, sb.unpack_launches - u0) == (1, 1)
         assert all(o is t for o, t in zip(out, ts))
         assert all(torch.equal(t, w) for t, w in zip(ts, want))
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rank_major_pack_and_unpack_bit_equal(dev, dtype, n):
+    """A grouped reducescatter's tables over n ranks: the pack's rows are
+    every tensor's row blocks, rank-major (contiguous views at their own
+    addresses), the unpack's one rank's (m/n, ...) outputs; each one
+    launch, bit-equal to the plain version."""
+    from horovod_tpu_torch.ops.collective_ops import rank_major_blocks
+    g = torch.Generator(device=dev).manual_seed(50 + n)
+    shapes = [(n,), (3 * n, 5), (n, 3, 16, 16), (8 * n, 7), (2 * n, 1)]
+    ts = [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
+    blocks = rank_major_blocks(ts, n)
+    assert len(blocks) == n * len(ts)
+    flat = torch.empty(sum(t.numel() for t in ts), dtype=dtype, device=dev)
+    outs = [torch.empty((t.shape[0] // n,) + t.shape[1:], dtype=dtype,
+                        device=dev) for t in ts]
+    p0, u0 = sb.pack_launches, sb.unpack_launches
+    sb.pack_scale(blocks, flat, 0.5)
+    sb.unpack_scale(flat[:flat.numel() // n], outs, 1.0 / 3.0)
+    torch.cuda.synchronize()
+    assert (sb.pack_launches - p0, sb.unpack_launches - u0) == (1, 1)
+    assert torch.equal(flat, sb.pack_scale_reference(
+        blocks, torch.empty_like(flat), 0.5))
+    want = sb.unpack_scale_reference(flat[:flat.numel() // n],
+                                     [torch.empty_like(o) for o in outs],
+                                     1.0 / 3.0)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+def test_grouped_reducescatter_on_the_card(dev):
+    """1-rank world over NCCL: a grouped Average reducescatter is one pack
+    and one unpack launch, rounds x * prescale and y * postscale once each,
+    and stays on the card."""
+    hvd.init()
+    try:
+        g = torch.Generator(device=dev).manual_seed(60)
+        ts = [torch.randn(s, generator=g, device=dev).bfloat16()
+              for s in ((6, 5), (4,), (2, 3, 3))]
+        p0, u0 = sb.pack_launches, sb.unpack_launches
+        out = hvd.grouped_reducescatter(ts, op=hvd.Average,
+                                        prescale_factor=0.5,
+                                        postscale_factor=3.0)
+        torch.cuda.synchronize()
+        assert (sb.pack_launches - p0, sb.unpack_launches - u0) == (1, 1)
+        for o, t in zip(out, ts):
+            assert o.is_cuda and o.dtype == t.dtype
+            assert torch.equal(o, ((t.float() * 0.5).bfloat16().float()
+                                   * 3.0).bfloat16())
     finally:
         hvd.shutdown()
 

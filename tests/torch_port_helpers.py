@@ -231,11 +231,9 @@ def adasum_collectives(rank, size, rows, cases, group_sizes):
     out["allgather_scalar"] = hvd.allgather(torch.tensor(rank + 0.5)).tolist()
     out["grouped_allgather"] = [to_np(t) for t in hvd.grouped_allgather(
         [x, x[:, :1]])]
-    try:
-        hvd.allgather(torch.ones(rank + 1))
-        out["ragged"] = None
-    except Exception as e:  # noqa: BLE001 — the error's type is the result
-        out["ragged"] = type(e).__name__
+    out["ragged"] = hvd.allgather(torch.ones(rank + 1) * rank).tolist()
+    out["ragged_tail"] = _error_name(
+        lambda: hvd.allgather(torch.ones(2, rank + 1)))
     return out
 
 
@@ -360,3 +358,176 @@ def dp_mlp(rank, size, params, x, y, steps, lr):
             "params": {n: to_np(p) for n, p in named.items()},
             "momentum": {n: to_np(opt.state[p]["momentum_buffer"])
                          for n, p in named.items()}}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the collective surface: every case of
+# test_torch_collectives_surface in one world.
+# ---------------------------------------------------------------------------
+
+def _error_name(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the error's type is the result
+        return type(e).__name__
+    return None
+
+
+def collectives_surface(rank, size, data, rs_cases):
+    """``data[key]``: per-rank numpy inputs (this rank's is ``[rank]``).
+    ``rs_cases``: (op name, dtype, prescale, postscale) of reducescatter.
+    Returns the port's outputs by case, as numpy, and the refusals' error
+    names."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collective_ops as C
+
+    def mine(key):
+        return torch.from_numpy(data[key][rank])
+
+    out = {}
+    for key in ("ragged", "ragged_int", "ragged_empty"):
+        out[key] = hvd.allgather(mine(key)).numpy()
+    out["ragged_bf16"] = to_np(hvd.allgather(mine("ragged").bfloat16()))
+    out["ragged_async"] = [h.synchronize().numpy()
+                           for h in hvd.grouped_allgather_async(
+                               [mine("ragged"), mine("ragged_int")])]
+
+    out["a2a"] = hvd.alltoall(mine("a2a")).numpy()
+    rows, received = hvd.alltoall(mine("a2a_rows"),
+                                  splits=data["splits"][rank])
+    out["a2a_splits"] = (rows.numpy(), received.tolist(), str(received.dtype))
+    rows, received = hvd.alltoall_async(
+        mine("a2a_rows").bfloat16(),
+        splits=torch.from_numpy(data["splits"][rank])).synchronize()
+    out["a2a_splits_bf16"] = (to_np(rows), received.tolist())
+
+    for case in rs_cases:
+        op, dt, pre, post = case
+        y = hvd.reducescatter(mine("rs").to(_DTYPES[dt]), op=getattr(hvd, op),
+                              prescale_factor=pre, postscale_factor=post)
+        out[("rs",) + case] = (str(y.dtype), y.double().numpy())
+    calls = {"pack": 0, "unpack": 0}
+    raw = C.pack_scale, C.unpack_scale
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return call
+    C.pack_scale, C.unpack_scale = (counted("pack", raw[0]),
+                                    counted("unpack", raw[1]))
+    try:
+        group = [mine(k) for k in ("rs", "rs_b", "rs_c")]
+        hs = hvd.grouped_reducescatter_async(group, op=hvd.Average,
+                                             prescale_factor=0.5,
+                                             postscale_factor=3.0)
+        out["rs_group"] = [h.synchronize().numpy() for h in hs]
+        out["rs_group_launches"] = dict(calls)
+    finally:
+        C.pack_scale, C.unpack_scale = raw
+    out["rs_f64"] = hvd.reducescatter(mine("rs").double(), op=hvd.Average,
+                                      postscale_factor=3.0).numpy()
+    out["rs_int"] = hvd.reducescatter(mine("rs_int")).numpy()
+
+    out["objects"] = hvd.allgather_object({"rank": rank, "x": [rank] * rank})
+    sp = mine("dense").to_sparse_coo()
+    h = hvd.sparse_allreduce_async(sp, name="sp", op=hvd.Average)
+    got = hvd.synchronize(h)
+    out["sparse_callable"] = h() is got
+    out["sparse"] = (got.is_sparse, got.coalesce().to_dense().numpy())
+    out["sparse_sum"] = hvd.sparse_allreduce_async(
+        sp, name="sp", op=hvd.Sum)().coalesce().to_dense().numpy()
+
+    out["errors"] = {
+        "rs_not_divisible": _error_name(
+            lambda: hvd.reducescatter(torch.ones(size + 1))),
+        "rs_min": _error_name(
+            lambda: hvd.reducescatter(torch.ones(size), op=hvd.Min)),
+        "rs_shapes": _error_name(
+            lambda: hvd.reducescatter(torch.ones(size, 1 + rank))),
+        "allgather_tail": _error_name(
+            lambda: hvd.allgather(torch.ones(2, 2 + rank))),
+        "allgather_dtype": _error_name(
+            lambda: hvd.allgather(torch.ones(2, dtype=torch.float64
+                                             if rank else torch.float32))),
+        "a2a_splits_length": _error_name(
+            lambda: hvd.alltoall(torch.ones(size), splits=[1] * (size - 1))),
+        "a2a_splits_sum": _error_name(
+            lambda: hvd.alltoall(torch.ones(size), splits=[2] * size)),
+        "a2a_not_divisible": _error_name(
+            lambda: hvd.alltoall(torch.ones(size + 1))),
+        "a2a_tail": _error_name(
+            lambda: hvd.alltoall(torch.ones(size, 1 + rank)))}
+    out["ici_built"] = hvd.ici_built()
+    # The refusals left the ranks in step: a collective still lines up.
+    out["after"] = hvd.allreduce(torch.ones(2) * rank, op=hvd.Sum).tolist()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Join: every case of test_torch_join in one armed world.
+# ---------------------------------------------------------------------------
+
+def join_world(rank, size, data):
+    """HOROVOD_JOIN_MODE=1, 3 ranks: rank 2 joins at once (its data ran
+    out), ranks 0 and 1 run the contract's collectives without it, rank 1
+    joins, rank 0 runs one more and joins last. Then, with the join reset,
+    a collective of all three, and a join within process set [1, 2]."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collective_ops as C
+
+    def mine(key):
+        return torch.from_numpy(data[key][rank])
+
+    pair = hvd.add_process_set([1, 2])
+    out = {"armed": C.join_armed()}
+    if rank == 2:
+        out["join"] = hvd.join()
+    else:
+        x = mine("x")
+        for op in ("Sum", "Average", "Min", "Max", "Product"):
+            out[("fused", op)] = hvd.allreduce(x, op=getattr(hvd, op),
+                                               postscale_factor=2.0).numpy()
+            out[("unfused", op)] = hvd.allreduce(
+                x.double(), op=getattr(hvd, op)).numpy()
+        out["int_min"] = hvd.allreduce(mine("ints"), op=hvd.Min).tolist()
+        out["int_max"] = hvd.allreduce(mine("ints"), op=hvd.Max).tolist()
+        out["grouped"] = [t.numpy() for t in hvd.grouped_allreduce(
+            [x, x[:3] * 2], op=hvd.Average)]
+        out["adasum"] = hvd.allreduce(x, op=hvd.Adasum).numpy()
+        out["adasum_f64"] = hvd.allreduce(x.double(), op=hvd.Adasum).numpy()
+        out["allgather"] = hvd.allgather(x).numpy()
+        out["ragged"] = hvd.allgather(mine("ragged")).numpy()
+        out["rs"] = hvd.reducescatter(mine("rs"), op=hvd.Average).numpy()
+        out["broadcast"] = hvd.broadcast(x, root_rank=1).numpy()
+        out["objects"] = hvd.allgather_object(rank)
+        hvd.barrier()
+        out["errors"] = {
+            "broadcast_joined_root": _error_name(
+                lambda: hvd.broadcast(x, root_rank=2)),
+            "alltoall": _error_name(lambda: hvd.alltoall(x[:3]))}
+        if rank == 1:
+            out["errors"]["set_with_joined_rank"] = _error_name(
+                lambda: hvd.allreduce(x, process_set=pair))
+            out["join"] = hvd.join()
+        else:
+            out["alone"] = hvd.allreduce(x, op=hvd.Average).numpy()
+            out["join"] = hvd.join()
+    out["after"] = hvd.allreduce(mine("x"), op=hvd.Sum).numpy()
+    if rank == 1:
+        out["set_join"] = hvd.join(process_set=pair)
+    elif rank == 2:
+        out["set_sum"] = hvd.allreduce(mine("x"), op=hvd.Sum,
+                                       process_set=pair).numpy()
+        out["set_join"] = hvd.join(process_set=pair)
+    out["end"] = hvd.allreduce(mine("x"), op=hvd.Sum).numpy()
+    return out
+
+
+def join_unarmed(rank, size):
+    """Without HOROVOD_JOIN_MODE, join() in a world of two processes
+    raises on each, and the world goes on."""
+    import horovod_tpu_torch as hvd
+    return {"error": _error_name(hvd.join),
+            "after": hvd.allreduce(torch.ones(1) * (rank + 1),
+                                   op=hvd.Sum).tolist()}
