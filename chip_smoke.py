@@ -5,6 +5,9 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 0] [--steps 10] [--warmup 2] [--batch 64]
 
+(``--launched-worker gpt|fail|cpu_world`` is this script as a worker that
+the launch phases start through hvdrun-torch.)
+
 Phases, one JSON line each (each with its seconds):
 
 1. env: card, PyTorch, CUDA and nvcc versions. No CUDA device: exit 1.
@@ -155,6 +158,31 @@ Phases, one JSON line each (each with its seconds):
    version, beside the byte bound and its share (no single PyTorch call
    computes it), with each bucket's steps, grid and shared memory.
 
+17. launch: the port's launcher on the card: ``python -m
+   horovod_tpu_torch.runner -np 1 -H localhost:1 --cycle-time-ms 1`` on
+   this script as ``--launched-worker gpt``, which loads the kernels the
+   build phase built, calls hvd.init() (the card, NCCL) and trains GPT-2
+   small as train_gpt does, with its checks; it prints its HOROVOD_* rank
+   contract, its launches and buckets a step, the buckets its timer closed,
+   its new signatures a step and its losses. Checks: exit code 0, the
+   1-slot contract on cuda:0, every flash and both scale kernels launched,
+   buckets closed by the timer, loss falling, reduced gradients bit-equal.
+   Control: a worker that exits 1 (``--launched-worker fail``) makes the
+   launcher return 1, and its process is gone.
+18. launch_cpu_world: ``-np 2`` through the launcher with workers on the
+   CPU (gloo; NCCL refuses two ranks on one card), each sleeping seeded
+   times before CPU_WORLD_TENSORS async allreduces. Checks: each slot's
+   contract, the same buckets on both ranks with some closed by rank 0's
+   timer, the sums. A CPU run, printed as one.
+19. cycle: GPT-2 small and ResNet-50, in this process, at HOROVOD_CYCLE_TIME
+   0 and 1 ms: buckets, timer-closed buckets and new signatures a step,
+   tokens/s or images/s (median of repeats), the device's busy ms and
+   share (torch.profiler). Printed, not checked.
+
+The train phases run with the fusion runtime's cycle thread live (1 ms, the
+default): each step's pack and unpack launches are held to the buckets that
+closed in that step, by the timer, the threshold or synchronize.
+
 Then the kernels line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero.
@@ -167,6 +195,10 @@ import functools
 import gc
 import json
 import math
+import os
+import pathlib
+import random
+import signal
 import statistics
 import subprocess
 import sys
@@ -447,6 +479,38 @@ def reduced_equals_local(torch, model, step):
     return loss
 
 
+def buckets_since(mark):
+    """The fusion buckets closed since ``mark`` (a ``flush_stats()``
+    reading), oldest first, as (trigger, signature), and how many of them
+    the cycle timer closed and how many had a new signature."""
+    from horovod_tpu_torch.ops import fusion
+    rt = fusion.get_runtime()
+    now = rt.flush_stats()
+    n = now["buckets"] - mark["buckets"]
+    check(n <= fusion._RECENT, f"{n} buckets in one reading")
+    return rt.recent_buckets(n), [
+        n, now["closed_by"]["cycle"] - mark["closed_by"]["cycle"],
+        now["new_signatures"] - mark["new_signatures"]]
+
+
+def scale_launches(buckets):
+    """The pack (or unpack) launches of ``buckets``: one per bucket, one
+    more per ``_MAX_ROWS`` tensors past the first ``_MAX_ROWS``."""
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    return sum(-(-len(sig[-1]) // sb._MAX_ROWS) for _, sig in buckets)
+
+
+def step_buckets_report(per_bucket_step, warmup):
+    """Buckets, buckets the timer closed and new signatures of each step,
+    and their means over the steps after warm-up."""
+    timed = per_bucket_step[warmup:]
+    return {"buckets_timer_new_signatures_per_step": per_bucket_step,
+            "after_warmup_mean": {
+                k: statistics.mean(s[i] for s in timed)
+                for i, k in enumerate(("buckets", "timer_closed",
+                                       "new_signatures"))}}
+
+
 class KeptTableTally:
     """While active, counts for every launch of the scale kernels whether
     its rows (each tensor's pointer and numel) were those of an earlier
@@ -525,16 +589,19 @@ def phase_train(torch, hvd, model, dev, args, card):
         return (sb.pack_launches, sb.unpack_launches) + tally.counts()
 
     # Warm-up; the last warm-up step also checks the reduction.
-    losses, per_step = [], []
+    losses, per_step, closed, per_bucket = [], [], [], []
     with tally:
         for i in range(args.warmup + args.steps):
             if i == args.warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            c0 = counts()
+            c0, m0 = counts(), get_runtime().flush_stats()
             losses.append(reduced_equals_local(torch, model, step)
                           if i == args.warmup - 1 else step())
             per_step.append([b - a for a, b in zip(c0, counts())])
+            got, row = buckets_since(m0)
+            closed.append(got)
+            per_bucket.append(row)
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"scale_pack": sb.pack_launches,
@@ -544,8 +611,11 @@ def phase_train(torch, hvd, model, dev, args, card):
     check(losses[-1] < losses[0], f"loss falls: {losses}")
     check(all(s[0] >= 2 and s[1] >= 2 for s in per_step),
           f">= 2 pack and unpack launches a step: {per_step}")
-    buckets = [[n for _, n in sig[-1]]
-               for sig in get_runtime().verified_signatures()
+    check(all(s[0] == s[1] == scale_launches(c) for s, c in
+              zip(per_step, closed)),
+          f"a pack and an unpack launch per bucket (per 256 tensors) every "
+          f"step, the timer's buckets too: {per_step}, {per_bucket}")
+    buckets = [[n for _, n in sig[-1]] for _, sig in closed[-1]
                if sig[4] == str(torch.float32)]
     emit({"phase": "train", "model": "ResNet-50", "batch": args.batch,
           "image": [224, 224, 3], "dtype": "bfloat16", "param_dtype":
@@ -556,8 +626,10 @@ def phase_train(torch, hvd, model, dev, args, card):
           "launches_per_step": [s[:2] for s in per_step],
           "launches": launches,
           **kept_table_report(per_step, args.warmup, 2),
-          "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
-                           for b in buckets],
+          **step_buckets_report(per_bucket, args.warmup),
+          "cycle_time_ms": get_runtime()._cycle_s * 1e3,
+          "fp32_buckets_last_step": [{"tensors": len(b), "elements": sum(b)}
+                                     for b in buckets],
           "reduced_equals_local_bitwise": True,
           "fusion_threshold": get_runtime().threshold, "card": card})
     return launches, buckets
@@ -758,13 +830,11 @@ def phase_adasum_vs_plain(torch, shapes, dev, seed):
     return worst
 
 
-def adasum_buckets(torch, hvd, since):
-    """The fp32 Adasum buckets the runtime formed after its first
-    ``since`` signatures: [[(parameter name, numel), ...], ...]."""
-    from horovod_tpu_torch.ops.fusion import get_runtime
-    sigs = get_runtime().verified_signatures()[since:]
+def adasum_buckets(torch, hvd, closed):
+    """The fp32 Adasum buckets among ``closed`` (one step's, from
+    :func:`buckets_since`): [[(parameter name, numel), ...], ...]."""
     return [[(name.split(".", 1)[1], n) for name, n in sig[-1]]
-            for sig in sigs
+            for _, sig in closed
             if sig[1] == int(hvd.Adasum) and sig[4] == str(torch.float32)]
 
 
@@ -777,7 +847,6 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
     from horovod_tpu_torch.ops.kernels import adasum as ak
     from horovod_tpu_torch.ops.kernels import scale_buffers as sb
 
-    seen = len(get_runtime().verified_signatures())
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
     y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
@@ -806,16 +875,19 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
         opt.step()
         return loss.detach()
 
-    losses, per_step = [], []
+    losses, per_step, closed, per_bucket = [], [], [], []
     with tally:
         for i in range(args.warmup + args.steps):
             if i == args.warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            c0 = counts()
+            c0, m0 = counts(), get_runtime().flush_stats()
             losses.append(reduced_equals_local(torch, model, step)
                           if i == args.warmup - 1 else step())
             per_step.append([b - a for a, b in zip(c0, counts())])
+            got, row = buckets_since(m0)
+            closed.append(got)
+            per_bucket.append(row)
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(zip(("scale_pack", "scale_unpack", "adasum_combine"),
@@ -824,23 +896,24 @@ def phase_train_adasum(torch, hvd, model, dev, args, card):
     per_step = [s[:3] for s in per_step]
     opt._remove_hooks()
     losses = [l.item() for l in losses]
-    buckets = adasum_buckets(torch, hvd, seen)
+    buckets = adasum_buckets(torch, hvd, closed[-1])
     check(all(map(math.isfinite, losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
-    check(buckets and all(s == [len(buckets), len(buckets), 0]
-                          for s in per_step),
-          f"a pack and an unpack launch per Adasum bucket ({len(buckets)}) "
-          f"and no combine (one rank) every step: {per_step}")
+    check(buckets and all(
+        s[0] == s[1] == scale_launches(c) and s[2] == 0
+        for s, c in zip(per_step, closed)),
+          f"a pack and an unpack launch per Adasum bucket (per 256 tensors) "
+          f"and no combine (one rank) every step: {per_step}, {per_bucket}")
     emit({"phase": "train_adasum", "model": "ResNet-50", "op": "Adasum",
           "batch": args.batch, "warmup": args.warmup, "steps": args.steps,
           "losses": losses, "step_ms": 1e3 * elapsed / args.steps,
           "images_per_sec": args.batch * args.steps / elapsed,
           "launches_per_step": per_step,
           "launches_per_step_columns": list(launches), "launches": launches,
-          **tables,
-          "fp32_buckets": [{"tensors": len(b),
-                            "elements": sum(n for _, n in b)}
-                           for b in buckets],
+          **tables, **step_buckets_report(per_bucket, args.warmup),
+          "fp32_buckets_last_step": [{"tensors": len(b),
+                                      "elements": sum(n for _, n in b)}
+                                     for b in buckets],
           "reduced_equals_local_bitwise": True,
           "note": "one rank: the gather leaves a tree of one leaf, so the "
                   "combine kernel does not run in this path; "
@@ -904,9 +977,13 @@ def phase_adasum_gathered(torch, model, buckets, dev, args):
                   f"{streamed}")
             check(max(rel) <= limit, f"reduce_gathered K = {k}: {max(rel)} "
                   f"beyond {limit}")
-            check(max(ctl) > limit, f"the whole-bucket control K = {k} "
-                  f"({max(ctl)}) is rejected by the limit {limit}")
+            # A bucket of one tensor has one coefficient pair either way.
+            check(len(numels) == 1 or max(ctl) > limit,
+                  f"the whole-bucket control K = {k} ({max(ctl)}) is "
+                  f"rejected by the limit {limit}")
             del gathered, want, whole
+        check(any(r["tensors"] > 1 and r["ranks"] == k for r in rows),
+              f"a bucket of more than one tensor for the control, K = {k}")
     emit({"phase": "adasum_gathered", "rows": rows, "limit": limit,
           "max_abs_err": worst, "launches": total_launches,
           "metric": "max_rel: max |kernel - plain| / max |plain| per tensor "
@@ -1240,7 +1317,6 @@ def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     from horovod_tpu_torch.ops.kernels import scale_buffers as sb
 
-    seen = len(get_runtime().verified_signatures())
     fa.reset_launch_counts()              # the path starts here
     sb.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1266,44 +1342,45 @@ def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
         opt.step()
         return value.detach()
 
-    losses, per_step = [], []
+    losses, per_step, closed, per_bucket = [], [], [], []
     with tally:
         for i in range(args.warmup + steps):
             if i == args.warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            c0 = counts()
+            c0, m0 = counts(), get_runtime().flush_stats()
             losses.append(reduced_equals_local(torch, model, step)
                           if i == args.warmup - 1 else step())
             per_step.append([b - a for a, b in zip(c0, counts())])
+            got, row = buckets_since(m0)
+            closed.append(got)
+            per_bucket.append(row)
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(zip(STEP_COUNTS, counts()))     # the path ends
     tables = kept_table_report(per_step, args.warmup, 5)
     per_step = [s[:5] for s in per_step]
     losses = [l.item() for l in losses]
-    buckets = [[n for _, n in sig[-1]]
-               for sig in get_runtime().verified_signatures()[seen:]]
+    buckets = [[n for _, n in sig[-1]] for _, sig in closed[-1]]
     check(all(map(math.isfinite, losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls: {losses}")
     check(all(s[:3] == list(flash) for s in per_step),
           f"{flash} fwd, dQ and dK/dV flash launches a step: {per_step}")
-    if lr is not None:
-        check(buckets and all(s[3] == s[4] == len(buckets)
-                              for s in per_step),
-              f"a pack and an unpack launch per bucket ({len(buckets)}) "
-              f"every step: {per_step}")
-    else:
-        check(all(s[3] == s[4] == per_step[0][3] > 0 for s in per_step),
-              f"as many pack as unpack launches every step: {per_step}")
+    # Buckets the timer closed included: each step's pack and unpack
+    # launches are those of the buckets that closed in it.
+    check(all(r[0] > 0 and s[3] == s[4] == scale_launches(c)
+              for s, r, c in zip(per_step, per_bucket, closed)),
+          f"a pack and an unpack launch per bucket (per 256 tensors) every "
+          f"step: {per_step}, {per_bucket}")
     return opt, {
         "warmup": args.warmup, "steps": steps, "losses": losses,
         "step_ms": 1e3 * elapsed / steps, "elapsed": elapsed,
         "launches_per_step": per_step,
         "launches_per_step_columns": list(launches), "launches": launches,
-        **tables,
-        "fp32_buckets": [{"tensors": len(b), "elements": sum(b)}
-                         for b in buckets],
+        **tables, **step_buckets_report(per_bucket, args.warmup),
+        "cycle_time_ms": get_runtime()._cycle_s * 1e3,
+        "fp32_buckets_last_step": [{"tensors": len(b), "elements": sum(b)}
+                                   for b in buckets],
         "reduced_equals_local_bitwise": True,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1721,10 +1798,6 @@ def phase_train_llama(torch, hvd, dev, args, card):
                                args, LLAMA_STEPS,
                                (2 * layers, layers, layers), opt=opt)
     model.config = cfg
-    buckets = len(run["fp32_buckets"])
-    check(all(s[3] == buckets for s in remat_run["launches_per_step"]),
-          f"remat: a pack and an unpack per bucket ({buckets}) every step: "
-          f"{remat_run['launches_per_step']}")
     remat_elapsed = remat_run.pop("elapsed")
     remat_run["tokens_per_sec"] = tokens * LLAMA_STEPS / remat_elapsed
     gqa = gqa_copy_ms(torch, fa, dev, layers)
@@ -1745,7 +1818,8 @@ def phase_train_llama(torch, hvd, dev, args, card):
                                "of its copy and what earlier phases hold)"},
           "remat_training": {k: remat_run[k] for k in (
               "steps", "losses", "step_ms", "tokens_per_sec",
-              "launches_per_step", "peak_mem_gb")},
+              "launches_per_step", "buckets_timer_new_signatures_per_step",
+              "peak_mem_gb")},
           "gqa_backward_repeat_fold": gqa, "card": card})
     return trained, ids, run["launches"]
 
@@ -2323,14 +2397,292 @@ def path_shapes(torch):
             for name, m in models.items()}
 
 
+# ---------------------------------------------------------------------------
+# The launcher and the cycle thread: launch, launch_cpu_world, cycle.
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+CONTRACT = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+            "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE")
+LAUNCH_TIMEOUT = 420                # seconds, the launched GPT worker's run
+CPU_WORLD_TENSORS = 24
+CYCLE_REPEATS, CYCLE_STEPS = 3, 5
+CYCLE_ORDER = (0.0, 1.0, 1.0, 0.0)  # ms, in turns: host speed drifts
+
+
+def run_launcher(args, np_, worker, timeout):
+    """``python -m horovod_tpu_torch.runner -np np_ -H localhost:np_
+    --cycle-time-ms 1`` on this script's ``--launched-worker worker``, in
+    a session of its own that is killed whole on a timeout. Returns the
+    exit code, the workers' JSON lines (the launcher prefixes each with
+    ``[rank]<stdout>``) and the tail of the output."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", str(np_),
+           "-H", f"localhost:{np_}", "--cycle-time-ms", "1",
+           "--start-timeout", "120", sys.executable, str(ROOT / "chip_smoke.py"),
+           "--launched-worker", worker, "--seed", str(args.seed),
+           "--warmup", str(args.warmup)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"chip_smoke check failed: hvdrun-torch -np {np_} "
+                           f"({worker}) ran past {timeout} s:\n{out[-4000:]}")
+    lines = [json.loads(line[line.index("{"):]) for line in out.splitlines()
+             if '{"phase": "launched_worker"' in line]
+    return proc.returncode, lines, out[-4000:]
+
+
+def gone(pid, wait_s=10.0):
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def launched_worker(args):
+    """``--launched-worker``: this script as a process hvdrun-torch
+    started. ``gpt``: hvd.init() on the card, GPT-2 small trained as in
+    train_gpt (the same checks) with the cycle timer on; ``fail``:
+    hvd.init(), then exit 1; ``cpu_world``: hvd.init(device="cpu") and
+    jittered async allreduces."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    kind = args.launched_worker
+    if kind == "cpu_world":
+        return cpu_world_worker(torch, hvd, args)
+    hvd.init()
+    contract = {k: os.environ[k] for k in CONTRACT}
+    if kind == "fail":
+        emit({"phase": "launched_worker", "kind": kind, "pid": os.getpid(),
+              "contract": contract})
+        sys.exit(1)
+    dev = hvd.device()
+    check(dev == torch.device("cuda", hvd.local_rank()),
+          f"the launched worker runs on cuda:<local_rank>, got {dev}")
+    model = build_gpt(torch, dev, args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, model.config.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    _, run = train_steps(torch, hvd, model,
+                         lambda: next_token_loss(F, model(ids), ids), args,
+                         GPT_STEPS, (model.config.num_layers,) * 3, lr=1e-4)
+    elapsed = run.pop("elapsed")
+    emit({"phase": "launched_worker", "kind": kind, "pid": os.getpid(),
+          "contract": contract, "device": str(dev),
+          "cycle_time_ms": get_runtime()._cycle_s * 1e3,
+          "tokens_per_sec": GPT_BATCH * GPT_SEQ * GPT_STEPS / elapsed,
+          **run})
+    hvd.shutdown()
+    return 0
+
+
+def cpu_world_worker(torch, hvd, args):
+    """One rank of a 2-process gloo world: CPU_WORLD_TENSORS async
+    allreduces, each after a seeded sleep (rank 1 up to 8 cycles, rank 0
+    up to 4), then their values and the buckets this rank formed."""
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    hvd.init(device="cpu")
+    rank, rt = hvd.rank(), get_runtime()
+    delays = random.Random(args.seed + rank)
+    mark = rt.flush_stats()
+    handles = []
+    for i in range(CPU_WORLD_TENSORS):
+        time.sleep(delays.uniform(0.0, 0.008 if rank == 1 else 0.004))
+        dt = (torch.float32, torch.bfloat16)[i % 2]
+        handles.append(hvd.allreduce_async(
+            torch.full((3 + 7 * i,), float(rank + 1), dtype=dt),
+            op=hvd.Sum, name=f"cpu_world.{i}"))
+    values_ok = all(torch.equal(h.synchronize().float(),
+                                torch.full((3 + 7 * i,), 3.0))
+                    for i, h in enumerate(handles))
+    closed, row = buckets_since(mark)
+    emit({"phase": "launched_worker", "kind": "cpu_world", "rank": rank,
+          "contract": {k: os.environ[k] for k in CONTRACT},
+          "backend": "gloo" if hvd.gloo_enabled() else "nccl",
+          "buckets": [[why, sig[4], [n for _, n in sig[-1]]]
+                      for why, sig in closed],
+          "buckets_timer_new_signatures": row, "values_ok": values_ok})
+    hvd.shutdown()
+    return 0
+
+
+def phase_launch(torch, args, card):
+    """The port's launcher on the card: ``-np 1`` on the GPT worker, and a
+    worker that exits 1 as the control. Returns the worker's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc, lines, log = run_launcher(args, 1, "gpt", LAUNCH_TIMEOUT)
+    check(rc == 0 and len(lines) == 1,
+          f"the launched GPT-2 small worker exits 0 (rc {rc}):\n{log}")
+    w = lines[0]
+    check(w["contract"] == dict(zip(CONTRACT, "010101")),
+          f"the worker got the launcher's 1-slot contract: {w['contract']}")
+    check(w["device"] == "cuda:0", f"the worker ran on cuda:0: {w['device']}")
+    check(all(w["launches"][k] > 0 for k in STEP_COUNTS),
+          f"the worker launched every flash and both scale kernels: "
+          f"{w['launches']}")
+    timer = sum(r[1] for r in w["buckets_timer_new_signatures_per_step"])
+    check(timer > 0, f"the cycle timer closed buckets in the worker: "
+          f"{w['buckets_timer_new_signatures_per_step']}")
+    check(w["losses"][-1] < w["losses"][0] and w[
+          "reduced_equals_local_bitwise"], f"the worker's loss falls and its "
+          f"reduced gradients equal the local ones: {w['losses']}")
+    frc, flines, flog = run_launcher(args, 1, "fail", 180)
+    check(frc == 1 and len(flines) == 1 and gone(flines[0]["pid"]),
+          f"control: a worker that exits 1 fails the launch with 1 and is "
+          f"reaped (rc {frc}):\n{flog}")
+    emit({"phase": "launch", "command": "python -m horovod_tpu_torch.runner "
+          "-np 1 -H localhost:1 --cycle-time-ms 1 python chip_smoke.py "
+          "--launched-worker gpt", "worker": w,
+          "timer_closed_buckets": timer,
+          "control_fail": {"rc": frc, "worker_reaped": True},
+          "card": card})
+    return w["launches"]
+
+
+def phase_launch_cpu_world(args):
+    """``-np 2`` through the launcher with workers on the CPU (gloo): NCCL
+    refuses two ranks on one card, so this holds the per-slot env and the
+    boundary protocol on this machine's Python and torch, not two GPUs."""
+    rc, lines, log = run_launcher(args, 2, "cpu_world", 180)
+    check(rc == 0 and len(lines) == 2, f"the 2-process CPU world exits 0 "
+          f"(rc {rc}):\n{log}")
+    by_rank = {w["rank"]: w for w in lines}
+    check(sorted(by_rank) == [0, 1] and all(
+        w["contract"] == dict(zip(CONTRACT, (str(r), "2", str(r), "2", "0",
+                                             "1")))
+        for r, w in by_rank.items()),
+          f"each slot got its own contract: {[w['contract'] for w in lines]}")
+    check(by_rank[0]["buckets"] == by_rank[1]["buckets"],
+          "both ranks formed the same buckets")
+    check(by_rank[0]["buckets_timer_new_signatures"][1] > 0,
+          f"rank 0's timer closed buckets: {by_rank[0]['buckets']}")
+    check(all(w["values_ok"] and w["backend"] == "gloo" for w in lines),
+          "every value is the sum over the two ranks, over gloo")
+    emit({"phase": "launch_cpu_world", "run_on": "CPU (gloo), not the card",
+          "ranks": 2, "tensors": CPU_WORLD_TENSORS,
+          "buckets": by_rank[0]["buckets"],
+          "buckets_timer_new_signatures": by_rank[0][
+              "buckets_timer_new_signatures"],
+          "same_buckets_on_both_ranks": True})
+
+
+def phase_cycle(torch, hvd, dev, args, card):
+    """GPT-2 small and ResNet-50, in this process, at HOROVOD_CYCLE_TIME 0
+    and 1 ms (the runtime's cycle set between runs, in the turns of
+    CYCLE_ORDER): buckets a step, buckets the timer closed, new signatures
+    a step, tokens/s or images/s as the median of CYCLE_REPEATS repeats of
+    CYCLE_STEPS steps in each turn, and the device's busy ms a step and
+    busy share (torch.profiler, 2 steps). Printed, not checked."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    rt = get_runtime()
+    cycle0 = rt._cycle_s * 1e3
+    rows = []
+    for name in ("gpt2_small", "resnet50"):
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+        if name == "gpt2_small":
+            model = build_gpt(torch, dev, args.seed + 31)
+            ids = torch.randint(0, model.config.vocab_size,
+                                (GPT_BATCH, GPT_SEQ), generator=gen,
+                                device=dev)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                    weight_decay=1e-4)
+            units, unit = GPT_BATCH * GPT_SEQ, "tokens_per_sec"
+
+            def loss():
+                return next_token_loss(F, model(ids), ids)
+        else:
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(
+                                 args.seed + 31)).to(dev).train()
+            x = torch.randn((args.batch, 224, 224, 3), generator=gen,
+                            device=dev)
+            y = torch.randint(0, 1000, (args.batch,), generator=gen,
+                              device=dev)
+            opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+            units, unit = args.batch, "images_per_sec"
+
+            def loss():
+                return F.cross_entropy(model(x), y)
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+
+        def step():
+            opt.zero_grad()
+            loss().backward()
+            opt.step()
+
+        by_ms = {ms: {"per": [], "rates": [], "busy": []}
+                 for ms in CYCLE_ORDER}
+        for ms in CYCLE_ORDER:
+            rt.set_cycle_time_ms(ms)
+            for _ in range(args.warmup):
+                step()
+            got = by_ms[ms]
+            for _ in range(CYCLE_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CYCLE_STEPS):
+                    m0 = rt.flush_stats()
+                    step()
+                    got["per"].append(buckets_since(m0)[1])
+                torch.cuda.synchronize()
+                got["rates"].append(units * CYCLE_STEPS
+                                    / (time.perf_counter() - t0))
+            got["busy"].append(device_ms(torch, step))
+        for ms, got in by_ms.items():
+            per = got["per"]
+            rows.append({
+                "model": name, "cycle_time_ms": ms,
+                "buckets_per_step": statistics.mean(r[0] for r in per),
+                "timer_closed_per_step": statistics.mean(r[1] for r in per),
+                "new_signatures_per_step": statistics.mean(r[2] for r in per),
+                "buckets_timer_new_signatures_per_step": per,
+                unit: statistics.median(got["rates"]),
+                f"{unit}_repeats": got["rates"],
+                "device_busy_ms_per_step": [b for b, _ in got["busy"]],
+                "device_busy_share": [s for _, s in got["busy"]]})
+        opt._remove_hooks()
+        del model, opt
+        gc.collect()
+    rt.set_cycle_time_ms(cycle0)
+    emit({"phase": "cycle", "rows": rows, "order_ms": CYCLE_ORDER,
+          "repeats_per_turn": CYCLE_REPEATS, "steps_per_repeat": CYCLE_STEPS,
+          "checked": False, "card": card})
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--launched-worker", choices=("gpt", "fail", "cpu_world"),
+                    help="run as a worker that hvdrun-torch started (the "
+                         "launch phases)")
     args = ap.parse_args(argv)
     check(args.warmup >= 1 and args.steps >= 1, "--warmup and --steps >= 1")
+    if args.launched_worker:
+        return launched_worker(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -2402,8 +2754,11 @@ def main(argv=None):
     check(coll_launches["scale_pack"] > 0 and coll_launches["scale_unpack"]
           > 0, f"the collectives path launched both scale kernels: "
           f"{coll_launches}")
+    launch_launches = run("launch", phase_launch, torch, args, card)
+    run("launch_cpu_world", phase_launch_cpu_world, args)
     by_path = {"train_gpt": gpt_launches, "train_bert": bert_launches,
-               "train_llama": llama_launches, "train_vit": vit_launches}
+               "train_llama": llama_launches, "train_vit": vit_launches,
+               "launch": launch_launches}
     check(all(n[k] > 0 for n in by_path.values() for k in STEP_COUNTS),
           f"every transformer path launched every flash and scale kernel: "
           f"{by_path}")
@@ -2425,16 +2780,18 @@ def main(argv=None):
     ada_total = run("timing_adasum", phase_timing_adasum, torch, ada_buckets,
                     dev, args.seed)
     del model
+    gc.collect()
+    run("cycle", phase_cycle, torch, hvd, dev, args, card)
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
     transformer_paths = ("train_gpt", "train_bert", "train_llama",
-                         "train_vit")
+                         "train_vit", "launch")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
-                   "train_vit", "train_adasum", "collectives")
+                   "train_vit", "launch", "train_adasum", "collectives")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,

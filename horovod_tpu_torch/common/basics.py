@@ -12,7 +12,9 @@ HOROVOD_COORDINATOR_ADDR/PORT); with no env it is a 1-process world, as the
 reference at np=1. One process drives one device.
 """
 
+import atexit
 import datetime
+import os
 import threading
 
 import torch
@@ -42,6 +44,9 @@ class _State:
         self.cross_size = cross_size
         self.process_set_table = None   # set by process_sets._init_table
         self.fusion = None              # set lazily by ops.fusion
+        # The process group's store (the TCPStore rank 0 serves): the
+        # fusion runtime publishes and reads its flush boundaries there.
+        self.store = None
         # Ranks that called hvd.join(), as the last join round showed them
         # (ops/collective_ops.py); the global set's share of the protocol.
         self.joined_ranks = set()
@@ -91,6 +96,10 @@ def init(comm=None, process_sets=None, device=None):
         local_size = config.local_size if config.local_size > 0 else size
         cross_size = config.cross_size if config.cross_size > 0 else 1
         dev = _resolve_device(device, config.local_rank)
+        if os.environ.get("HOROVOD_KV_ADDR"):
+            # A launched worker: tell the launcher's watchdog it got here.
+            from horovod_tpu_torch.runner.task import register_bootstrap
+            register_bootstrap()
         if dist.is_initialized():
             raise HorovodInternalError(
                 "torch.distributed is already initialized; hvd.init() owns "
@@ -104,22 +113,43 @@ def init(comm=None, process_sets=None, device=None):
                 raise HorovodInternalError(
                     f"HOROVOD_SIZE={size} needs HOROVOD_COORDINATOR_ADDR/PORT "
                     "(set by the launcher)")
-            store = dist.TCPStore(config.coordinator_addr or "127.0.0.1",
-                                  config.coordinator_port, size,
-                                  is_master=(rank == 0),
-                                  timeout=_STORE_TIMEOUT)
+            addr = config.coordinator_addr or "127.0.0.1"
+            try:
+                store = dist.TCPStore(
+                    addr, config.coordinator_port, size,
+                    is_master=(rank == 0), timeout=datetime.timedelta(
+                        seconds=config.start_timeout))
+            except Exception as e:   # a port taken since the launcher's pick
+                raise HorovodInternalError(
+                    f"rank {rank}: the coordinator store at {addr}:"
+                    f"{config.coordinator_port} could not be "
+                    f"{'served' if rank == 0 else 'reached'} within "
+                    f"{config.start_timeout:.0f} s "
+                    f"(HOROVOD_START_TIMEOUT): {e}") from e
         st = _State(config, dev, rank, size, config.local_rank, local_size,
                     config.cross_rank, cross_size)
+        st.store = store
         dist.init_process_group(st.backend, store=store, rank=rank,
                                 world_size=size, timeout=_STORE_TIMEOUT)
         _state = st
         from horovod_tpu_torch.common import process_sets as _ps
         _ps._init_table(st, process_sets)
+        atexit.register(_stop_threads_at_exit, st)
+
+
+def _stop_threads_at_exit(st):
+    """A process that exits without ``shutdown()`` (a failed worker) stops
+    the fusion runtime's threads first: a thread inside a store call while
+    the interpreter finalizes would abort the process and lose its exit
+    code."""
+    if st.fusion is not None:
+        st.fusion.stop_threads()
 
 
 def shutdown():
-    """Flush pending fused collectives and tear down the process group
-    (reference: horovod_shutdown, operations.cc:1006-1013)."""
+    """Flush pending fused collectives, stop and join the fusion runtime's
+    threads, and tear down the process group (reference: horovod_shutdown,
+    operations.cc:1006-1013)."""
     global _state
     with _lock:
         if _state is None:

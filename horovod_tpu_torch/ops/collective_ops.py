@@ -31,6 +31,10 @@ outputs with the postscale, Average's ``1/n`` folded into it.
 Join (``HOROVOD_JOIN_MODE=1`` on every process; see "Join" below): a rank
 that called ``join()`` contributes nothing to the collectives of the ranks
 still active until every rank has joined.
+
+Every eager collective opens with :func:`fence`: the fusion runtime closes
+buckets on a timer, decided by rank 0, so the buckets in flight go first on
+every rank and each communicator sees the same sequence.
 """
 
 import enum
@@ -297,6 +301,20 @@ def _serve(ps):
         prev = joined
 
 
+def fence():
+    """The prologue of every eager collective (the JAX package's
+    ``FusionRuntime.fence``, ``horovod_tpu/ops/collective_ops.py:2185-2193``):
+    the fused buckets in flight go first on every process. Process 0
+    flushes what it has pending and publishes the boundary; another process
+    waits until process 0's boundaries cover its pending tensors. Buckets
+    close on a timer, so without this a rank could issue the eager
+    collective before a bucket another rank issued first: mismatched NCCL
+    launches, a hang."""
+    st = basics._get_state()
+    if st.fusion is not None:
+        st.fusion.fence()
+
+
 def join(process_set=None):
     """Signal that this rank's data ran out (reference semantics:
     torch/mpi_ops.py DoJoin, controller.cc:269-327). Until every rank of
@@ -312,13 +330,11 @@ def join(process_set=None):
     join within that set only; its other members go on with set-scoped
     collectives, and the ranks outside it are not involved."""
     ps = _process_set(process_set)
-    st = basics._get_state()
-    if st.fusion is not None:
-        st.fusion.flush_all()
+    fence()
     if ps.size() == 1:
         _set_joined(ps, set())
         return ps.rank_list()[0]
-    if not st.config.join_mode:
+    if not basics._get_state().config.join_mode:
         # Not HorovodInternalError: the elastic wrapper retries on that, and
         # this usage error would repeat forever.
         raise NotImplementedError(
@@ -363,6 +379,7 @@ def _allreduce_unfused(t, out, op, prescale, postscale, ps):
     if not t.is_floating_point() and (prescale != 1.0 or postscale != 1.0):
         raise ValueError("prescale/postscale factors need a floating-point "
                          "tensor")
+    fence()
     joined = join_round(ps, ALLREDUCE, op, t.dtype, t.numel())
     out.copy_(t)
     if prescale != 1.0:
@@ -389,6 +406,7 @@ def _adasum_unfused(t, out, prescale, postscale, ps):
     one gather, the combine tree (whose kernel reads float64 into fp32),
     postscale."""
     from horovod_tpu_torch.ops.adasum import reduce_gathered
+    fence()
     joined = join_round(ps, ADASUM, ReduceOp.ADASUM, t.dtype, t.numel())
     x = t.reshape(-1) * prescale if prescale != 1.0 else t.reshape(-1)
     gathered = torch.empty(ps.size() * x.numel(), dtype=t.dtype,
@@ -539,6 +557,7 @@ def allgather_sizes(tensor, ps, what="allgather"):
     t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
     tail = tuple(t.shape[1:])
     row_numel = math.prod(tail)
+    fence()
     joined = join_round(ps, ALLGATHER, dtype=t.dtype, numel=row_numel,
                         sig=(tail, str(t.dtype)))
     return _gather_rows(t, ps, joined, t.dtype, row_numel)
@@ -585,6 +604,7 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
             raise TensorShapeMismatchError(
                 f"alltoall splits sum to {sum(send)} rows, but the tensor "
                 f"has {m}")
+    fence()
     if join_round(ps, ALLTOALL):
         raise HorovodInternalError(
             "alltoall is not supported while ranks have joined (as the "
@@ -623,6 +643,7 @@ def _reducescatter(ts, outs, op, prescale, postscale, ps):
     total = sum(t.numel() for t in ts)
     sig = (int(op), prescale, postscale, str(dtype),
            tuple(tuple(t.shape) for t in ts))
+    fence()
     joined = join_round(ps, REDUCESCATTER, op, dtype, total, sig=sig,
                         agree=True)
     if dtype in _KERNEL_DTYPES:
@@ -710,6 +731,7 @@ def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
     if not isinstance(tensor, torch.Tensor):
         raise TypeError(f"broadcast takes torch tensors, got "
                         f"{type(tensor).__name__}")
+    fence()
     joined = join_round(ps, BROADCAST, dtype=tensor.dtype,
                         numel=tensor.numel(), root=root_rank)
     if root_rank in joined:
@@ -729,6 +751,7 @@ def barrier(process_set=None, name=None):
     """Block until every rank of the set reaches the barrier (reference:
     hvd.barrier, operations.cc EnqueueBarrier)."""
     ps = _process_set(process_set)
+    fence()
     join_round(ps, BARRIER)
     _barrier(ps)
 

@@ -115,10 +115,11 @@ def test_broadcast_matches_jax(hvd, pair_set, rows, port):
 
 
 def test_threshold_splits_buckets(port):
-    # 100-byte threshold, fp32: 10+10 elements fill 80 bytes and the next 10
-    # would pass it; 30 elements (120 bytes) is a bucket of its own; the
-    # 5-element tail closes when the group arrives; the group of 2x30 is one
-    # bucket whatever the threshold.
+    # The JAX runtime's rule at a 100-byte threshold, fp32: the third 10
+    # takes the pending bytes to 120 and flushes [10, 10, 10], which splits
+    # where the next 10 would pass the threshold; 30 elements (120 bytes)
+    # flush alone; the 5-element tail and the group of 2x30 flush together
+    # and form two buckets, the group one bucket whatever the threshold.
     for rank in range(2):
         assert port[rank]["buckets"] == [[10, 10], [10], [30], [5],
                                          [30, 30]]

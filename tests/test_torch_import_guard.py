@@ -17,6 +17,12 @@ import sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 import horovod_tpu_torch as hvd
 import horovod_tpu_torch.models
+import horovod_tpu_torch.runner
+import horovod_tpu_torch.runner.launch
+import horovod_tpu_torch.runner.task
+import horovod_tpu_torch.runner.mpi_run
+import horovod_tpu_torch.runner.js_run
+assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"
 jax_pkg = [m for m in sys.modules
            if m == "horovod_tpu" or m.startswith("horovod_tpu.")]
 assert not jax_pkg, jax_pkg
@@ -77,7 +83,8 @@ def test_pattern_tells_the_packages_apart():
 def test_port_modules_mirror_the_jax_package():
     port = ROOT / "horovod_tpu_torch"
     mirrored = [p.relative_to(port) for p in port.rglob("*.py")
-                if p.name != "__init__.py" and "kernels" not in p.parts]
+                if p.name not in ("__init__.py", "__main__.py")
+                and "kernels" not in p.parts]
     assert len(mirrored) >= 12
     missing = [str(p) for p in mirrored
                if not (ROOT / "horovod_tpu" / p).exists()]

@@ -161,16 +161,18 @@ def collectives(rank, size, rows, cases, sizes):
                                          root_rank=1)
     hvd.barrier()
 
-    # Threshold splits: a fresh runtime at a 100-byte threshold.
+    # Threshold splits at a 100-byte threshold, with the cycle timer
+    # paused so that only the threshold and synchronize close buckets.
     rt = get_runtime()
     rt.threshold = 100
     seen = len(rt.verified_signatures())
-    hs = [hvd.allreduce_async(torch.ones(n) * (rank + 1), op=hvd.Sum,
-                              name=f"split{i}")
-          for i, n in enumerate((10, 10, 10, 30, 5))]
-    hs += hvd.grouped_allreduce_async(
-        [torch.ones(30) * (rank + 1), torch.ones(30) * (rank + 1)],
-        op=hvd.Sum, name="group")
+    with rt.cycle_paused():
+        hs = [hvd.allreduce_async(torch.ones(n) * (rank + 1), op=hvd.Sum,
+                                  name=f"split{i}")
+              for i, n in enumerate((10, 10, 10, 30, 5))]
+        hs += hvd.grouped_allreduce_async(
+            [torch.ones(30) * (rank + 1), torch.ones(30) * (rank + 1)],
+            op=hvd.Sum, name="group")
     out["split_values"] = [to_np(h.synchronize()) for h in hs]
     out["buckets"] = [[n for _, n in sig[-1]]
                       for sig in rt.verified_signatures()[seen:]]
@@ -531,3 +533,117 @@ def join_unarmed(rank, size):
     return {"error": _error_name(hvd.join),
             "after": hvd.allreduce(torch.ones(1) * (rank + 1),
                                    op=hvd.Sum).tolist()}
+
+
+# ---------------------------------------------------------------------------
+# Fusion cycle scenarios: test_torch_fusion_cycle's worlds.
+# ---------------------------------------------------------------------------
+
+def _record_closes(rt):
+    """Wrap ``rt._close`` to log every bucket as it closes: (trigger, op,
+    dtype, element counts)."""
+    closed = []
+    raw = rt._close
+
+    def close(key, entries, why):
+        closed.append((why, key[1].name, str(key[4]).replace("torch.", ""),
+                       [e.tensor.numel() for e in entries]))
+        return raw(key, entries, why)
+    rt._close = close
+    return closed
+
+
+def fusion_stream(rank, size, stream, threshold, seed):
+    """Enqueue ``stream`` (items ("one", op, dtype, n), ("group", op, dtype,
+    [n, ...]) or ("flush",)) through the async allreduces at ``threshold``
+    bytes; returns the buckets as they closed, how many had closed after
+    each item, and the inputs and results."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    rt = get_runtime()
+    rt.threshold = threshold
+    closed = _record_closes(rt)
+    gen = np.random.default_rng(seed + rank)
+    handles, inputs, after = [], [], []
+    for item in stream:
+        if item[0] == "flush":
+            rt.flush_all()
+        else:
+            kind, op, dt, n = item
+            ts = [torch.from_numpy(gen.standard_normal(k).astype(np.float32))
+                  .to(_DTYPES[dt]) for k in (n if kind == "group" else [n])]
+            inputs += [to_np(t) for t in ts]
+            if kind == "group":
+                handles += hvd.grouped_allreduce_async(ts,
+                                                       op=getattr(hvd, op))
+            else:
+                handles.append(hvd.allreduce_async(ts[0],
+                                                   op=getattr(hvd, op)))
+        after.append(len(closed))
+    return {"closed": closed, "after": after, "inputs": inputs,
+            "outputs": [to_np(h.synchronize()) for h in handles],
+            "stats": rt.flush_stats()}
+
+
+def cycle_world(rank, size, rows, stream, delays):
+    """The cycle thread and the boundaries in a world of ``size`` ranks:
+    a tensor the timer alone must flush; ``stream`` ((op, dtype) per item,
+    this rank's tensor ``rows[i][rank]``) enqueued with each rank sleeping
+    ``delays[rank][i]`` seconds before each item; async allreduces fenced by an
+    eager one; a follower's synchronize on a tensor rank 0 never enqueues;
+    then shutdown, and the threads left."""
+    import threading
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    rt = get_runtime()
+    out = {"threads": sorted(t.name for t in rt.threads())}
+
+    h = hvd.allreduce_async(torch.ones(2) * (rank + 1), op=hvd.Sum,
+                            name="tick")
+    deadline = time.monotonic() + 10.0
+    while not h._inner._dispatched and time.monotonic() < deadline:
+        time.sleep(0.01)
+    out["tick_flushed_by_timer"] = h._inner._dispatched
+    out["tick"] = to_np(h.synchronize())
+
+    seen, before = len(rt.verified_signatures()), rt.flush_stats()
+    handles = []
+    for i, (op, dt) in enumerate(stream):
+        time.sleep(delays[rank][i])
+        x = torch.from_numpy(rows[i][rank]).to(_DTYPES[dt])
+        handles.append(hvd.allreduce_async(x, op=getattr(hvd, op),
+                                           name=f"jitter{i}"))
+    out["jitter"] = [to_np(h.synchronize()) for h in handles]
+    out["signatures"] = [(sig[1], sig[4], [n for _, n in sig[-1]])
+                         for sig in rt.verified_signatures()[seen:]]
+    after = rt.flush_stats()
+    out["closed_by"] = {k: after["closed_by"][k] - before["closed_by"][k]
+                        for k in after["closed_by"]}
+
+    hs = [hvd.allreduce_async(torch.ones(k) * (rank + 1), op=hvd.Sum,
+                              name=f"fence{k}") for k in (3, 5)]
+    out["eager"] = hvd.allreduce(
+        torch.ones(2, dtype=torch.float64) * (rank + 1), op=hvd.Sum).tolist()
+    out["fenced_before_eager"] = [h._inner._dispatched for h in hs]
+    out["fenced"] = [to_np(h.synchronize()) for h in hs]
+
+    if rank != 0:
+        rt.BOUNDARY_TIMEOUT_S = 2.0
+        h = hvd.allreduce_async(torch.ones(1), name="orphan")
+        t0 = time.monotonic()
+        try:
+            h.synchronize()
+            out["orphan"] = None
+        except Exception as e:  # noqa: BLE001 — the error is the result
+            out["orphan"] = (type(e).__name__, str(e))
+        out["orphan_seconds"] = time.monotonic() - t0
+
+    threads = rt.threads()
+    hvd.shutdown()
+    out["alive_after_shutdown"] = [t.name for t in threads if t.is_alive()]
+    out["fusion_threads_left"] = [t.name for t in threading.enumerate()
+                                  if t.name.startswith("hvd-fusion")]
+    return out
