@@ -5,8 +5,8 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 0] [--steps 10] [--warmup 2] [--batch 64]
 
-(``--launched-worker gpt|fail|cpu_world`` is this script as a worker that
-the launch phases start through hvdrun-torch.)
+(``--launched-worker gpt|fail|cpu_world|elastic|elastic_cpu`` is this
+script as a worker that the launch phases start through hvdrun-torch.)
 
 Phases, one JSON line each (each with its seconds):
 
@@ -178,6 +178,35 @@ Phases, one JSON line each (each with its seconds):
    0 and 1 ms: buckets, timer-closed buckets and new signatures a step,
    tokens/s or images/s (median of repeats), the device's busy ms and
    share (torch.profiler). Printed, not checked.
+20. train_elastic: ResNet-50 as in train (deterministic cuDNN), first 8
+   steps without a fault, then the elastic path: launch counts zeroed, 8
+   steps under hvd.elastic.run with TorchState(model, optimizer, step)
+   committed after each; at step 4, after the optimizer step and before
+   the commit, the training function raises HorovodInternalError, as a
+   failed collective does; the counts read after. Checks: after the
+   restore every parameter, buffer and momentum equals the commit bit for
+   bit, and the uncommitted state of step 4 does not (the control); one
+   re-init, a new NCCL group on cuda:0 and the state on the card; pack and
+   unpack launches in every step before and after the reset; finite,
+   falling loss; the final weights equal the run without the fault bit for
+   bit. Reported: commit ms a step (median), the reset's abort, restore,
+   init and sync ms, seconds from the fault to the first step after it,
+   images/s with and without a commit each step (medians of repeats in
+   turns), the commit copy's size and the peak of allocated memory.
+21. launch_elastic: ``python -m horovod_tpu_torch.runner -np 1 --min-np 1
+   --max-np 1 --host-discovery-script build/elastic/launch/discover.sh``
+   on this script as ``--launched-worker elastic``: the same loop and
+   fault in a worker of the elastic driver. Checks: exit code 0, the
+   1-slot contract, train_elastic's checks but the comparison with the
+   run without the fault, the re-init at the unchanged version 1 (after
+   the 30 s wait for a new version, printed), the worker reaped.
+22. launch_elastic_cpu_world: tests/test_elastic_failure.py's three
+   scenarios through the elastic launcher with CPU (gloo) workers
+   (``--launched-worker elastic_cpu``; NCCL refuses two ranks on one
+   card), at once: a worker killed at step 3 of 6 (w == [12] * 4, worlds
+   [2, 2, 2, 1, 1, 1]), a graceful removal (the survivor's pid and
+   uncommitted attribute kept), a host added (scaled up in place). A CPU
+   run, printed as one.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -2410,32 +2439,44 @@ CYCLE_REPEATS, CYCLE_STEPS = 3, 5
 CYCLE_ORDER = (0.0, 1.0, 1.0, 0.0)  # ms, in turns: host speed drifts
 
 
-def run_launcher(args, np_, worker, timeout):
+def start_launcher(args, np_, kind, launcher=None, worker=()):
     """``python -m horovod_tpu_torch.runner -np np_ -H localhost:np_
-    --cycle-time-ms 1`` on this script's ``--launched-worker worker``, in
-    a session of its own that is killed whole on a timeout. Returns the
-    exit code, the workers' JSON lines (the launcher prefixes each with
-    ``[rank]<stdout>``) and the tail of the output."""
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", str(np_),
-           "-H", f"localhost:{np_}", "--cycle-time-ms", "1",
-           "--start-timeout", "120", sys.executable, str(ROOT / "chip_smoke.py"),
-           "--launched-worker", worker, "--seed", str(args.seed),
-           "--warmup", str(args.warmup)]
+    --cycle-time-ms 1`` (``launcher`` in place of ``-np``/``-H``: the
+    elastic flags) on this script's ``--launched-worker kind`` with
+    ``worker``'s extra arguments, in a session of its own."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+           *(launcher or ["-np", str(np_), "-H", f"localhost:{np_}"]),
+           "--cycle-time-ms", "1", "--start-timeout", "120", sys.executable,
+           str(ROOT / "chip_smoke.py"), "--launched-worker", kind,
+           "--seed", str(args.seed), "--warmup", str(args.warmup),
+           "--batch", str(args.batch), *worker]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             start_new_session=True)
+
+
+def finish_launcher(proc, timeout, kind):
+    """Wait for a :func:`start_launcher` process, killing its session whole
+    past ``timeout``. Returns the exit code, the workers' JSON lines (the
+    launcher prefixes each with its tag and ``<stdout>``) and the tail of
+    the output."""
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise RuntimeError(f"chip_smoke check failed: hvdrun-torch -np {np_} "
-                           f"({worker}) ran past {timeout} s:\n{out[-4000:]}")
+        raise RuntimeError(f"chip_smoke check failed: hvdrun-torch ({kind}) "
+                           f"ran past {timeout} s:\n{out[-4000:]}")
     lines = [json.loads(line[line.index("{"):]) for line in out.splitlines()
              if '{"phase": "launched_worker"' in line]
     return proc.returncode, lines, out[-4000:]
+
+
+def run_launcher(args, np_, kind, timeout, launcher=None):
+    return finish_launcher(start_launcher(args, np_, kind, launcher),
+                           timeout, kind)
 
 
 def gone(pid, wait_s=10.0):
@@ -2464,6 +2505,10 @@ def launched_worker(args):
     kind = args.launched_worker
     if kind == "cpu_world":
         return cpu_world_worker(torch, hvd, args)
+    if kind == "elastic":
+        return elastic_launched_worker(torch, hvd, args)
+    if kind == "elastic_cpu":
+        return elastic_cpu_worker(torch, hvd, args)
     hvd.init()
     contract = {k: os.environ[k] for k in CONTRACT}
     if kind == "fail":
@@ -2670,15 +2715,461 @@ def phase_cycle(torch, hvd, dev, args, card):
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# Elastic: ResNet-50 under hvd.elastic.run, a fault, and the membership
+# changes through the launcher.
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS, ELASTIC_FAULT = 8, 4   # the fault at step 4, after its update
+ELASTIC_TURNS = (False, True, True, False)   # commit each step: off/on turns
+ELASTIC_REPEATS, ELASTIC_REPEAT_STEPS = 2, 5
+ELASTIC_LAUNCH_TIMEOUT = 300
+ELASTIC_CPU_SCENARIOS = ("kill", "remove", "add")
+
+
+def elastic_model(torch, hvd, dev, args):
+    """phase train's configuration: ResNet-50 from --seed, SGD(lr=0.1,
+    momentum=0.9) in hvd.DistributedOptimizer, a fixed batch."""
+    from horovod_tpu_torch.models import ResNet50
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(dev).train()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+
+    def step():
+        import torch.nn.functional as F
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return model, opt, step
+
+
+def state_tensors(model_state, opt_state):
+    """A model's and an optimizer's state_dict tensors, in one order."""
+    per_param = [opt_state["state"][i] for i in sorted(opt_state["state"])]
+    return list(model_state.values()) + [
+        v for s in per_param for _, v in sorted(s.items())
+        if hasattr(v, "data_ptr")]
+
+
+def all_equal(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
+def elastic_resnet(torch, hvd, dev, args):
+    """ResNet-50 under hvd.elastic.run with TorchState(model, optimizer,
+    step) committed after every step; at step ELASTIC_FAULT, after the
+    optimizer step and before the commit, the training function raises
+    HorovodInternalError, as a failed collective does. Timed by wrapping
+    basics.shutdown/init, the state's restore/sync and the wait for a new
+    version. Returns the readings, the optimizer and the state."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.elastic import worker
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.elastic import attach_listener
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    model, opt, step = elastic_model(torch, hvd, dev, args)
+    state = attach_listener(hvd.TorchState(model, opt, step=0))
+    spans, per_step, losses, commit_ms, seen = {}, [], {}, [], {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans.setdefault(name, []).append(
+                    (t0, time.perf_counter()))
+        return call
+
+    raw = (basics.shutdown, basics.init, worker.wait_for_version_change)
+    basics.shutdown = timed("shutdown", raw[0])
+    basics.init = timed("init", raw[1])
+    worker.wait_for_version_change = timed("wait", raw[2])
+    state.restore = timed("restore", state.restore)
+    state.sync = timed("sync", state.sync)
+
+    def committed():
+        return state_tensors(state._saved_model_state,
+                             state._saved_optimizer_state)
+
+    @hvd.elastic.run
+    def train(state):
+        if seen and "resumed" not in seen:
+            seen["resumed"] = time.perf_counter()
+            seen["restore_bit_equal"] = all_equal(
+                torch, state_tensors(model.state_dict(), opt.state_dict()),
+                committed())
+            seen["group_replaced"] = \
+                dist.distributed_c10d._get_default_group() is not seen["pg"]
+            del seen["pg"]
+        while state.step < ELASTIC_STEPS:
+            c0 = (sb.pack_launches, sb.unpack_launches)
+            loss = step()
+            torch.cuda.synchronize()
+            per_step.append([state.step, "resumed" in seen,
+                             sb.pack_launches - c0[0],
+                             sb.unpack_launches - c0[1]])
+            if state.step == ELASTIC_FAULT and not seen:
+                # The control: what the step changed is not in the commit.
+                seen["uncommitted_differs"] = not all_equal(
+                    torch, state_tensors(model.state_dict(),
+                                         opt.state_dict()), committed())
+                seen["pg"] = dist.distributed_c10d._get_default_group()
+                seen["fault"] = time.perf_counter()
+                raise hvd.HorovodInternalError(
+                    f"chip_smoke: a failed collective at step {state.step}")
+            if "resumed" in seen and "first_step" not in seen:
+                seen["first_step"] = time.perf_counter()
+            losses[state.step] = loss.item()
+            state.step += 1
+            t0 = time.perf_counter()
+            state.commit()
+            torch.cuda.synchronize()
+            commit_ms.append(1e3 * (time.perf_counter() - t0))
+
+    version0 = os.environ.get("HOROVOD_ELASTIC_INIT_VERSION")
+    sb.reset_launch_counts()                     # the elastic path starts
+    try:
+        train(state)
+    finally:
+        basics.shutdown, basics.init, worker.wait_for_version_change = raw
+    launches = {"scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}   # the path ends
+    check("resumed" in seen, "the training function was entered again")
+    first = {k: spans[k][0] for k in ("shutdown", "restore", "wait")}
+    init, sync = spans["init"][-1], spans["sync"][-1]
+    devices = {str(t.device) for t in state_tensors(model.state_dict(),
+                                                    opt.state_dict())}
+    st = basics._get_state()
+
+    def ms(span):
+        return 1e3 * (span[1] - span[0])
+    return {
+        "steps": ELASTIC_STEPS, "fault_step": ELASTIC_FAULT,
+        "losses": [losses[i] for i in range(ELASTIC_STEPS)],
+        "launches": launches,
+        "launches_per_step": per_step,
+        "launches_per_step_columns": ["step", "after_reset", "pack",
+                                      "unpack"],
+        "restore_bit_equal": seen["restore_bit_equal"],
+        "uncommitted_differs": seen["uncommitted_differs"],
+        "group_replaced": seen["group_replaced"],
+        "inits": len(spans["init"]), "backend": st.backend,
+        "device": str(hvd.device()), "state_devices": sorted(devices),
+        "version_before": version0,
+        "version_after": os.environ.get("HOROVOD_ELASTIC_INIT_VERSION"),
+        "commit_ms": commit_ms,
+        "commit_ms_median": statistics.median(commit_ms),
+        "abort_ms": ms(first["shutdown"]), "restore_ms": ms(first["restore"]),
+        "wait_for_version_s": first["wait"][1] - first["wait"][0],
+        "init_ms": ms(init), "sync_ms": ms(sync),
+        # abort/shutdown -> init -> sync, without the restore's copy and the
+        # wait for a new version
+        "reset_ms": ms(first["shutdown"]) + ms(init) + ms(sync),
+        "fault_to_resume_s": seen["resumed"] - seen["fault"],
+        "fault_to_first_step_s": seen["first_step"] - seen["fault"],
+    }, opt, state, step
+
+
+def check_elastic_run(run, where):
+    check(run["restore_bit_equal"], f"{where}: after the restore every "
+          "parameter, buffer and momentum equals the commit bit for bit")
+    check(run["uncommitted_differs"], f"{where}: control: the uncommitted "
+          "state of the fault step differs from the commit")
+    check(run["group_replaced"] and run["inits"] == 1
+          and run["backend"] == "nccl" and run["device"] == "cuda:0"
+          and run["state_devices"] == ["cuda:0"],
+          f"{where}: one re-init, a new NCCL group on cuda:0 and the state "
+          f"on the card: {run['inits']} inits, {run['backend']} on "
+          f"{run['device']}, state on {run['state_devices']}")
+    before = [s for s in run["launches_per_step"] if not s[1]]
+    after = [s for s in run["launches_per_step"] if s[1]]
+    check(before and after and all(s[2] > 0 and s[3] > 0
+                                   for s in before + after),
+          f"{where}: pack and unpack launches in every step before and after "
+          f"the reset: {run['launches_per_step']}")
+    check(run["losses"][-1] < run["losses"][0] and all(
+        map(math.isfinite, run["losses"])), f"{where}: finite, falling "
+          f"loss: {run['losses']}")
+
+
+def phase_train_elastic(torch, hvd, dev, args, card):
+    """Elastic ResNet-50 in this process: the fault, the reset and its
+    checks; the same steps without the fault from the same weights, held
+    bit-equal (deterministic cuDNN); then images/s with and without a
+    commit each step, in turns. Returns the path's launches."""
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    # What earlier phases left allocated: not this phase's.
+    base = torch.cuda.memory_allocated()
+    with deterministic_cudnn(torch):
+        model, opt, step = elastic_model(torch, hvd, dev, args)
+        for _ in range(ELASTIC_STEPS):
+            step()
+        reference = [t.clone() for t in state_tensors(model.state_dict(),
+                                                      opt.state_dict())]
+        opt._remove_hooks()
+        del model, opt, step
+        gc.collect()
+        run, opt, state, step = elastic_resnet(torch, hvd, dev, args)
+        resumed = state_tensors(state.model.state_dict(), opt.state_dict())
+        same = [torch.equal(a, b) for a, b in zip(resumed, reference)]
+        check(len(resumed) == len(reference) and all(same),
+              f"the resumed run's weights equal the run without the fault "
+              f"bit for bit: {same.count(False)} of {len(same)} tensors "
+              f"differ")
+    check_elastic_run(run, "train_elastic")
+    del reference, resumed
+    rates = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    for commit in ELASTIC_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(ELASTIC_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ELASTIC_REPEAT_STEPS):
+                step()
+                if commit:
+                    state.commit()
+            torch.cuda.synchronize()
+            rates[commit].append(args.batch * ELASTIC_REPEAT_STEPS
+                                 / (time.perf_counter() - t0))
+        peak[commit] = max(peak[commit], torch.cuda.max_memory_allocated())
+    copy_bytes = sum(t.numel() * t.element_size() for t in state_tensors(
+        state._saved_model_state, state._saved_optimizer_state))
+    opt._remove_hooks()
+    emit({"phase": "train_elastic", "model": "ResNet-50", "batch": args.batch,
+          "optimizer": "SGD(lr=0.1, momentum=0.9)",
+          "fusion_threshold": get_runtime().threshold,
+          "deterministic_cudnn": True, **run,
+          "resumed_equals_uninterrupted_bitwise": True,
+          "images_per_sec_no_commit": statistics.median(rates[False]),
+          "images_per_sec_commit_each_step": statistics.median(rates[True]),
+          "images_per_sec_repeats": {"no_commit": rates[False],
+                                     "commit_each_step": rates[True]},
+          "turns": ["commit" if c else "no_commit" for c in ELASTIC_TURNS],
+          "commit_copy_gb": copy_bytes / 1e9,
+          "peak_mem_gb_commit_each_step": (peak[True] - base) / 1e9,
+          "peak_mem_gb_no_commit": (peak[False] - base) / 1e9,
+          "peak_mem_note": "above what earlier phases left allocated "
+                           f"({base / 1e9:.3f} GB); the commit copy is "
+                           "held in both", "card": card})
+    del opt, state, step
+    gc.collect()
+    return run["launches"]
+
+
+def elastic_launched_worker(torch, hvd, args):
+    """``--launched-worker elastic``: hvd.init() on the card under the
+    elastic driver, the ResNet-50 elastic loop and its fault."""
+    hvd.init()
+    contract = {k: os.environ[k] for k in CONTRACT}
+    dev = hvd.device()
+    check(dev == torch.device("cuda", hvd.local_rank()),
+          f"the launched worker runs on cuda:<local_rank>, got {dev}")
+    with deterministic_cudnn(torch):
+        run, opt, state, _ = elastic_resnet(torch, hvd, dev, args)
+    emit({"phase": "launched_worker", "kind": "elastic", "pid": os.getpid(),
+          "contract": contract, **run})
+    hvd.shutdown()
+    return 0
+
+
+def elastic_cpu_worker(torch, hvd, args):
+    """``--launched-worker elastic_cpu``: one CPU (gloo) worker of
+    --elastic-scenario, tests/test_elastic_failure.py's scenarios: ``kill``
+    (the second host's rank drops it from discovery and dies at step 3 of
+    6), ``remove`` (a graceful removal at step 3: the survivor keeps its
+    pid and an uncommitted attribute) and ``add`` (discovery grows to two
+    hosts at step 3 of 8)."""
+    from horovod_tpu_torch.elastic import attach_listener
+    from horovod_tpu_torch.elastic.worker import (configured_version,
+                                                  wait_for_version_change)
+    hvd.init(device="cpu")
+    scenario, script = args.elastic_scenario, args.discovery_script
+    total = 8 if scenario == "add" else 6
+    n = 4 if scenario == "kill" else 2
+    state = attach_listener(hvd.TorchState(w=torch.zeros(n), step=0, pid0=0,
+                                           uncommitted=0, worlds=[]))
+
+    def discover(*hosts):
+        with open(script, "w") as f:
+            f.write("#!/bin/sh\n" + "".join(f"echo {h}\n" for h in hosts))
+
+    @hvd.elastic.run
+    def loop(state):
+        while state.step < total:
+            if state.step == 3 and scenario == "kill" and hvd.size() == 2 \
+                    and hvd.rank() == 1:
+                discover("localhost:1")
+                os._exit(1)
+            if state.step == 3 and scenario == "remove" and \
+                    hvd.size() == 2 and state.pid0 == 0:
+                state.pid0 = os.getpid()
+                state.commit()
+                state.uncommitted = 7        # not committed
+                known = configured_version()
+                if hvd.rank() == 1:
+                    discover("localhost:1")
+                wait_for_version_change(known, timeout=120)
+                state.check_host_updates()
+            if state.step == 3 and scenario == "add" and hvd.size() == 1:
+                known = configured_version()
+                discover("localhost:1", "127.0.0.1:1")
+                check(wait_for_version_change(known, timeout=120) != known,
+                      "the driver published the grown membership")
+            contrib = torch.ones(n) * (hvd.rank() + 1 if scenario == "kill"
+                                       else 1)
+            state.w = state.w + hvd.allreduce(contrib, op=hvd.Sum)
+            state.step += 1
+            state.worlds.append(hvd.size())
+            state.commit()
+        return {"steps": state.step, "w": state.w.tolist(),
+                "worlds": list(state.worlds), "pid0": state.pid0,
+                "uncommitted": state.uncommitted, "size": hvd.size(),
+                "rank": hvd.rank(), "backend": "gloo" if hvd.gloo_enabled()
+                else "nccl"}
+
+    emit({"phase": "launched_worker", "kind": "elastic_cpu",
+          "scenario": scenario, "pid": os.getpid(), **loop(state)})
+    hvd.shutdown()
+    return 0
+
+
+def discovery_script(name, *hosts):
+    """A discovery script under build/elastic/ (ignored by git)."""
+    d = ROOT / "build" / "elastic" / name
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "discover.sh"
+    path.write_text("#!/bin/sh\n" + "".join(f"echo {h}\n" for h in hosts))
+    path.chmod(0o755)
+    return path
+
+
+def elastic_flags(script, max_np):
+    return ["--min-np", "1", "--max-np", str(max_np),
+            "--host-discovery-script", str(script)]
+
+
+def phase_launch_elastic(torch, args, card):
+    """``hvdrun-torch -np 1 --min-np 1 --max-np 1 --host-discovery-script``
+    on this script as ``--launched-worker elastic``: the ResNet-50 elastic
+    loop and its fault in a worker the elastic driver started. Returns the
+    worker's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = discovery_script("launch", "localhost:1")
+    t0 = time.perf_counter()
+    rc, lines, log = run_launcher(
+        args, 1, "elastic", ELASTIC_LAUNCH_TIMEOUT,
+        launcher=["-np", "1"] + elastic_flags(script, 1))
+    seconds = time.perf_counter() - t0
+    check(rc == 0 and len(lines) == 1,
+          f"the elastic ResNet-50 worker exits 0 (rc {rc}):\n{log}")
+    w = lines[0]
+    check(w["contract"] == dict(zip(CONTRACT, "010101")),
+          f"the worker got the 1-slot contract: {w['contract']}")
+    check_elastic_run(w, "launch_elastic")
+    check(w["version_before"] == w["version_after"] == "1",
+          f"the re-init was at the unchanged version 1: "
+          f"{w['version_before']} -> {w['version_after']}")
+    check(gone(w["pid"]), "the worker was reaped")
+    emit({"phase": "launch_elastic", "command": "python -m "
+          "horovod_tpu_torch.runner -np 1 --min-np 1 --max-np 1 "
+          "--host-discovery-script build/elastic/launch/discover.sh python "
+          "chip_smoke.py --launched-worker elastic", "seconds": seconds,
+          "wait_for_version_s": w["wait_for_version_s"],
+          "wait_note": "JAX's semantics: after a failure a worker waits up "
+                       "to 30 s for a new membership version, then re-inits "
+                       "at the unchanged one",
+          "worker": w, "worker_reaped": True, "card": card})
+    return w["launches"]
+
+
+def phase_launch_elastic_cpu_world(args):
+    """The membership changes through the elastic launcher, with CPU
+    (gloo) workers: NCCL refuses two ranks on one card. The three
+    scenarios run at once, each held to tests/test_elastic_failure.py's
+    expected values."""
+    procs = {}
+    for name in ELASTIC_CPU_SCENARIOS:
+        hosts = ("localhost:1",) if name == "add" \
+            else ("localhost:1", "127.0.0.1:1")
+        script = discovery_script(name, *hosts)
+        procs[name] = start_launcher(
+            args, 1, "elastic_cpu", launcher=elastic_flags(script, 2),
+            worker=["--elastic-scenario", name, "--discovery-script",
+                    str(script)])
+    got = {name: finish_launcher(proc, ELASTIC_LAUNCH_TIMEOUT, "elastic_cpu")
+           for name, proc in procs.items()}
+    for name, (rc, lines, log) in got.items():
+        want = 2 if name == "add" else 1
+        check(rc == 0 and len(lines) == want and all(
+            w["backend"] == "gloo" for w in lines),
+              f"{name}: the launch exits 0 with {want} gloo worker(s) "
+              f"reporting (rc {rc}):\n{log}")
+    kill = got["kill"][1][0]
+    check(kill["steps"] == 6 and kill["size"] == 1 and kill["w"] == [12.0] * 4
+          and kill["worlds"] == [2, 2, 2, 1, 1, 1],
+          f"kill: w == [12] * 4 and worlds [2, 2, 2, 1, 1, 1]: {kill}")
+    rem = got["remove"][1][0]
+    check(rem["steps"] == 6 and rem["size"] == 1 and rem["pid0"] == rem["pid"]
+          and rem["uncommitted"] == 7 and rem["w"] == [9.0, 9.0]
+          and rem["worlds"] == [2, 2, 2, 1, 1, 1],
+          f"remove: the survivor keeps its pid and uncommitted state: {rem}")
+    add = sorted(got["add"][1], key=lambda w: w["rank"])
+    w0 = add[0]
+    check([w["rank"] for w in add] == [0, 1] and all(
+        w["steps"] == 8 and w["size"] == 2 and w["w"] == w0["w"]
+        for w in add) and w0["worlds"][0] == 1 and w0["worlds"][-1] == 2
+          and w0["worlds"].count(1) + 2 * w0["worlds"].count(2)
+          == w0["w"][0], f"add: scaled up in place: {add}")
+    emit({"phase": "launch_elastic_cpu_world",
+          "run_on": "CPU (gloo), not the card",
+          "scenarios": {name: lines for name, (_, lines, _) in got.items()}})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--launched-worker", choices=("gpt", "fail", "cpu_world"),
+    ap.add_argument("--launched-worker",
+                    choices=("gpt", "fail", "cpu_world", "elastic",
+                             "elastic_cpu"),
                     help="run as a worker that hvdrun-torch started (the "
                          "launch phases)")
+    ap.add_argument("--elastic-scenario", choices=ELASTIC_CPU_SCENARIOS,
+                    help="--launched-worker elastic_cpu's scenario")
+    ap.add_argument("--discovery-script",
+                    help="--launched-worker elastic_cpu's discovery script, "
+                         "which the scenario rewrites")
     args = ap.parse_args(argv)
     check(args.warmup >= 1 and args.steps >= 1, "--warmup and --steps >= 1")
     if args.launched_worker:
@@ -2782,6 +3273,11 @@ def main(argv=None):
     del model
     gc.collect()
     run("cycle", phase_cycle, torch, hvd, dev, args, card)
+    elastic_launches = run("train_elastic", phase_train_elastic, torch, hvd,
+                           dev, args, card)
+    launch_elastic_launches = run("launch_elastic", phase_launch_elastic,
+                                  torch, args, card)
+    run("launch_elastic_cpu_world", phase_launch_elastic_cpu_world, args)
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
@@ -2789,9 +3285,11 @@ def main(argv=None):
                          "train_vit", "launch")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
-                   collectives=coll_launches)
+                   collectives=coll_launches, train_elastic=elastic_launches,
+                   launch_elastic=launch_elastic_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
-                   "train_vit", "launch", "train_adasum", "collectives")
+                   "train_vit", "launch", "train_adasum", "collectives",
+                   "train_elastic", "launch_elastic")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,

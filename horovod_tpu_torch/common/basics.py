@@ -10,6 +10,15 @@ on the CPU. Rank and size come from the launcher's env contract
 (HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/CROSS_SIZE and
 HOROVOD_COORDINATOR_ADDR/PORT); with no env it is a 1-process world, as the
 reference at np=1. One process drives one device.
+
+Elastic runs (``elastic/state.py``) shut down and init again in one process
+at each membership change: ``shutdown(abort=True)`` aborts the process group
+instead of draining it, since peers may be dead, and the next ``init`` reads
+the refreshed HOROVOD_* contract, serves or reaches a new store at the
+version's coordinator port and builds a new group on the same device.
+``abort`` is the membership watchdog's: it aborts the group from another
+thread, so a collective blocked on a dead peer raises, and every later one
+raises ``HorovodInternalError`` until the shutdown.
 """
 
 import atexit
@@ -26,6 +35,7 @@ from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
 
 _lock = threading.Lock()
 _state = None
+_asked_device = None    # init()'s device argument, for an elastic re-init
 
 _STORE_TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -50,6 +60,8 @@ class _State:
         # Ranks that called hvd.join(), as the last join round showed them
         # (ops/collective_ops.py); the global set's share of the protocol.
         self.joined_ranks = set()
+        # Why the process group was aborted (abort()); None while it runs.
+        self.aborted = None
 
 
 def _no_gpu_error():
@@ -83,7 +95,7 @@ def init(comm=None, process_sets=None, device=None):
     plain PyTorch versions (the CPU test tier). ``comm`` is accepted for API
     compatibility; rank subsets use ``process_sets``.
     """
-    global _state
+    global _state, _asked_device
     with _lock:
         if _state is not None:
             return
@@ -106,6 +118,11 @@ def init(comm=None, process_sets=None, device=None):
                 "the process group")
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+            if config.elastic:
+                # On a collective error NCCL's watchdog aborts the
+                # communicators and the caller's wait raises, which the
+                # elastic loop recovers from, instead of ending the process.
+                os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
         if size == 1:
             store = dist.HashStore()
         else:
@@ -131,7 +148,7 @@ def init(comm=None, process_sets=None, device=None):
         st.store = store
         dist.init_process_group(st.backend, store=store, rank=rank,
                                 world_size=size, timeout=_STORE_TIMEOUT)
-        _state = st
+        _state, _asked_device = st, device
         from horovod_tpu_torch.common import process_sets as _ps
         _ps._init_table(st, process_sets)
         atexit.register(_stop_threads_at_exit, st)
@@ -146,15 +163,54 @@ def _stop_threads_at_exit(st):
         st.fusion.stop_threads()
 
 
-def shutdown():
+def asked_device():
+    """The ``device`` argument of the last ``init()`` that succeeded: an
+    elastic re-init asks for the same."""
+    return _asked_device
+
+
+def _abort_locked(st, reason):
+    """Fail the fusion runtime's pending handles and abort the process
+    group (every group of the world), with no store traffic and no wait on
+    peers."""
+    if st.aborted is None:
+        st.aborted = reason
+    if st.fusion is not None:
+        st.fusion.abort(HorovodInternalError(reason))
+    if dist.is_initialized():
+        dist.distributed_c10d._abort_process_group()
+
+
+def abort(reason):
+    """Abort the process group from any thread (the elastic membership
+    watchdog): a collective blocked on a dead peer raises, and every later
+    collective raises ``HorovodInternalError(reason)`` until
+    ``shutdown()``."""
+    with _lock:
+        if _state is not None and _state.aborted is None:
+            _abort_locked(_state, reason)
+
+
+def shutdown(abort=False):
     """Flush pending fused collectives, stop and join the fusion runtime's
     threads, and tear down the process group (reference: horovod_shutdown,
-    operations.cc:1006-1013)."""
+    operations.cc:1006-1013). ``abort=True``, or a group already aborted:
+    fail the pending handles and abort the group instead, without waiting
+    on peers that may be dead (the elastic reset)."""
     global _state
     with _lock:
         if _state is None:
             return
         st, _state = _state, None
+        if abort or st.aborted is not None:
+            _abort_locked(st, st.aborted or "the process group was shut "
+                          "down by an elastic reset")
+            if st.process_set_table is not None:
+                st.process_set_table.destroy_groups(aborted=True)
+            # The store (rank 0's server) goes with its last reference: a
+            # re-init at an unchanged version binds the same port again.
+            st.store = None
+            return
         try:
             if st.fusion is not None:
                 st.fusion.shutdown()

@@ -2,11 +2,14 @@
 
 Port of the JAX package's ``common/config.py``, cut to the fields the
 data-parallel training path reads: the fusion threshold, the cycle time,
-the join protocol's switch (``HOROVOD_JOIN_MODE``) and the launcher's
+the join protocol's switch (``HOROVOD_JOIN_MODE``), the launcher's
 rank/size/coordinator contract (``runner/launch.py``
 ``build_worker_env``: HOROVOD_RANK/SIZE/LOCAL_RANK/LOCAL_SIZE/CROSS_RANK/
 CROSS_SIZE and HOROVOD_COORDINATOR_ADDR/PORT, HOROVOD_START_TIMEOUT;
-with none of them, the MPI/PMI/Slurm env of a process mpirun started).
+with none of them, the MPI/PMI/Slurm env of a process mpirun started) and
+the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
+``HOROVOD_BLACKLIST_COOLDOWN_RANGE``, ``HOROVOD_HOST_KEY``,
+``HOROVOD_ELASTIC_INIT_VERSION``).
 """
 
 import dataclasses
@@ -69,6 +72,20 @@ class Config:
     # others (the launcher's --start-timeout, HOROVOD_START_TIMEOUT).
     start_timeout: float = 300.0
 
+    # --- elastic (elastic/, runner/elastic/) ---
+    # Set by the elastic driver on every worker it starts.
+    elastic: bool = False
+    # Seconds the elastic driver waits for --min-np slots
+    # (--elastic-timeout; 0 = the launcher's --start-timeout).
+    elastic_timeout: float = 0.0
+    # "base,cap" seconds of a failed host's exponential cooldown
+    # (--blacklist-cooldown-range; "" = 10 s doubling up to 600 s).
+    blacklist_cooldown_range: str = ""
+    # This worker's host in the driver's assignment rows.
+    host_key: str = ""
+    # The membership version this worker last initialized under.
+    elastic_init_version: int = 0
+
     @classmethod
     def from_env(cls):
         c = cls()
@@ -88,6 +105,14 @@ class Config:
         c.coordinator_port = _env_int("HOROVOD_COORDINATOR_PORT",
                                       c.coordinator_port)
         c.start_timeout = _env_float("HOROVOD_START_TIMEOUT", c.start_timeout)
+        c.elastic = _env_bool("HOROVOD_ELASTIC", c.elastic)
+        c.elastic_timeout = _env_float("HOROVOD_ELASTIC_TIMEOUT",
+                                       c.elastic_timeout)
+        c.blacklist_cooldown_range = os.environ.get(
+            "HOROVOD_BLACKLIST_COOLDOWN_RANGE", c.blacklist_cooldown_range)
+        c.host_key = os.environ.get("HOROVOD_HOST_KEY", c.host_key)
+        c.elastic_init_version = _env_int("HOROVOD_ELASTIC_INIT_VERSION",
+                                          c.elastic_init_version)
         return c
 
     def _mpi_fallback(self):

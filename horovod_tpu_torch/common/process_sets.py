@@ -111,11 +111,17 @@ class _ProcessSetTable:
         ps.process_set_id = None
         self._destroy(ps)
 
-    def destroy_groups(self):
+    def destroy_groups(self, aborted=False):
+        """Unregister every set but the global one and destroy its group;
+        ``aborted``: the groups went with the world's abort, only forget
+        them."""
         for ps in list(self.by_id.values()):
             if ps.ranks is not None:
                 ps.process_set_id = None
-                self._destroy(ps)
+                if aborted:
+                    ps.group = None
+                else:
+                    self._destroy(ps)
         self.by_id = {0: global_process_set}
 
     @staticmethod

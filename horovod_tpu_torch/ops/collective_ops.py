@@ -35,6 +35,12 @@ still active until every rank has joined.
 Every eager collective opens with :func:`fence`: the fusion runtime closes
 buckets on a timer, decided by rank 0, so the buckets in flight go first on
 every rank and each communicator sees the same sequence.
+
+Every ``torch.distributed`` call goes through :func:`launch`: a failure of
+the backend (a peer that died, a process group that was aborted) reaches
+the caller as ``HorovodInternalError``, the error the elastic loop
+(``elastic/state.py::run``) recovers from, with the backend's own error as
+its ``__cause__``.
 """
 
 import enum
@@ -91,6 +97,31 @@ DIST_OPS = {
 }
 
 
+def launch(fn, *args, **kwargs):
+    """Run one ``torch.distributed`` call ``fn(*args, **kwargs)``, waiting
+    on it when ``async_op=True``. A failure of the backend, or any call
+    once the process group has been aborted (``basics.abort``), raises
+    :class:`HorovodInternalError` from the original error."""
+    st = basics._get_state()
+    name = getattr(fn, "__name__", "collective")
+    if st.aborted is not None:
+        raise HorovodInternalError(f"{name}: {st.aborted}")
+    try:
+        work = fn(*args, **kwargs)
+        if kwargs.get("async_op"):
+            work.wait()
+    except HorovodInternalError:
+        raise
+    except Exception as e:
+        # torch.distributed's errors (DistError and gloo's) are
+        # RuntimeErrors; after an abort the group is gone and the call may
+        # raise anything.
+        if isinstance(e, RuntimeError) or st.aborted is not None:
+            raise HorovodInternalError(
+                f"{name} failed on rank {st.rank} of {st.size}: {e}") from e
+        raise
+
+
 def _process_set(process_set):
     ps = global_process_set if process_set is None else process_set
     if ps.process_set_id is None:
@@ -114,7 +145,7 @@ def gather_int64(values, ps):
     mine = torch.tensor(values, dtype=torch.int64, device=basics.device())
     every = torch.empty(ps.size() * len(values), dtype=torch.int64,
                         device=mine.device)
-    all_gather_flat(every, mine, group=ps.group)
+    launch(all_gather_flat, every, mine, group=ps.group)
     return every.view(ps.size(), len(values)).tolist()
 
 
@@ -260,20 +291,21 @@ def _mirror(desc, joined, ps):
         op = ReduceOp(op)
         buf = torch.full((numel,), _neutral(op, dtype), dtype=dtype,
                          device=dev)
-        dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group)
+        launch(dist.all_reduce, buf, op=DIST_OPS[op], group=ps.group)
     elif kind == ADASUM:
-        all_gather_flat(torch.empty(n * numel, dtype=dtype, device=dev),
-                        torch.zeros(numel, dtype=dtype, device=dev),
-                        group=ps.group)
+        launch(all_gather_flat,
+               torch.empty(n * numel, dtype=dtype, device=dev),
+               torch.zeros(numel, dtype=dtype, device=dev), group=ps.group)
     elif kind == ALLGATHER:
         _gather_rows(None, ps, joined, dtype, numel)
     elif kind == REDUCESCATTER:
-        reduce_scatter_flat(torch.empty(numel // n, dtype=dtype, device=dev),
-                            torch.zeros(numel, dtype=dtype, device=dev),
-                            op=dist.ReduceOp.SUM, group=ps.group)
+        launch(reduce_scatter_flat,
+               torch.empty(numel // n, dtype=dtype, device=dev),
+               torch.zeros(numel, dtype=dtype, device=dev),
+               op=dist.ReduceOp.SUM, group=ps.group)
     elif kind == BROADCAST and root not in joined:
-        dist.broadcast(torch.empty(numel, dtype=dtype, device=dev), src=root,
-                       group=ps.group)
+        launch(dist.broadcast, torch.empty(numel, dtype=dtype, device=dev),
+               src=root, group=ps.group)
     elif kind == BARRIER:
         _barrier(ps)
     # ALLTOALL, or a broadcast from a joined root: the active ranks raise
@@ -384,7 +416,7 @@ def _allreduce_unfused(t, out, op, prescale, postscale, ps):
     out.copy_(t)
     if prescale != 1.0:
         out.mul_(prescale)
-    dist.all_reduce(out, op=DIST_OPS[op], group=ps.group)
+    launch(dist.all_reduce, out, op=DIST_OPS[op], group=ps.group)
     if op == ReduceOp.AVERAGE:
         out.div_(ps.size() - len(joined))
     if postscale != 1.0:
@@ -411,7 +443,7 @@ def _adasum_unfused(t, out, prescale, postscale, ps):
     x = t.reshape(-1) * prescale if prescale != 1.0 else t.reshape(-1)
     gathered = torch.empty(ps.size() * x.numel(), dtype=t.dtype,
                            device=t.device)
-    all_gather_flat(gathered, x.contiguous(), group=ps.group)
+    launch(all_gather_flat, gathered, x.contiguous(), group=ps.group)
     rows = active_rows(gathered.view(ps.size(), -1), ps, joined)
     out.copy_(reduce_gathered(rows, (x.numel(),)).view(out.shape))
     if postscale != 1.0:
@@ -540,7 +572,7 @@ def _gather_rows(t, ps, joined, dtype, row_numel):
     if src.numel() < per:
         src = torch.cat([src, src.new_zeros(per - src.numel())])
     out = torch.empty(n * per, dtype=dtype, device=dev)
-    all_gather_flat(out, src, group=ps.group)
+    launch(all_gather_flat, out, src, group=ps.group)
     if t is None:
         return None
     kept = [sizes[i] for i in active]
@@ -619,8 +651,8 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
     received = [row[me] for row in rows]
     out = torch.empty((sum(received),) + tail, dtype=tensor.dtype,
                       device=tensor.device)
-    dist.all_to_all_single(out, tensor[:sum(send)].contiguous(), received,
-                           send, group=ps.group)
+    launch(dist.all_to_all_single, out, tensor[:sum(send)].contiguous(),
+           received, send, group=ps.group)
     if splits is None:
         return out
     return out, torch.tensor(received, dtype=torch.int64,
@@ -654,8 +686,8 @@ def _reducescatter(ts, outs, op, prescale, postscale, ps):
         if prescale != 1.0:
             flat = flat * prescale
     out = torch.empty(total // n, dtype=dtype, device=flat.device)
-    reduce_scatter_flat(out, flat.contiguous(), op=dist.ReduceOp.SUM,
-                        group=ps.group)
+    launch(reduce_scatter_flat, out, flat.contiguous(),
+           op=dist.ReduceOp.SUM, group=ps.group)
     if op == ReduceOp.AVERAGE:
         postscale = postscale / (n - len(joined))
     if dtype in _KERNEL_DTYPES:
@@ -741,7 +773,7 @@ def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
     dev = basics.device()
     buf = out if out.device == dev and out.is_contiguous() \
         else out.to(dev, memory_format=torch.contiguous_format)
-    dist.broadcast(buf, src=root_rank, group=ps.group)
+    launch(dist.broadcast, buf, src=root_rank, group=ps.group)
     if buf is not out:
         out.copy_(buf)
     return out
@@ -759,9 +791,9 @@ def barrier(process_set=None, name=None):
 def _barrier(ps):
     dev = basics.device()
     if dev.type == "cuda":
-        dist.barrier(group=ps.group, device_ids=[dev.index])
+        launch(dist.barrier, group=ps.group, device_ids=[dev.index])
     else:
-        dist.barrier(group=ps.group)
+        launch(dist.barrier, group=ps.group)
 
 
 def poll(handle):

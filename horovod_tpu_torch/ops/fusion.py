@@ -47,11 +47,12 @@ a timer local to each rank would split the same burst differently on
 different ranks, and NCCL turns mismatched collectives into a hang. Each of
 process 0's flushes publishes ``(boundary seq, last sequence number
 covered, trigger)`` through the ``TCPStore`` that ``hvd.init`` opened, from
-a publisher thread off the runtime lock; the keys carry an epoch and are
-deleted ``_BOUNDARY_GC_LAG`` flushes later. Every other process flushes
-exactly the published prefixes, in order: its follower thread waits on the
-store for the next key with a bounded wait (not a hot poll), defers a
-boundary ahead of its own enqueues until they catch up, and applies it;
+a publisher thread off the runtime lock; the keys carry the membership
+version the runtime was built under (its epoch: 0 outside elastic runs)
+and are deleted ``_BOUNDARY_GC_LAG`` flushes later. Every other process
+flushes exactly the published prefixes, in order: its follower thread waits
+on the store for the next key with a bounded wait (not a hot poll), defers
+a boundary ahead of its own enqueues until they catch up, and applies it;
 ``poll`` applies what is already published and ``synchronize`` waits until
 its entry is covered, raising ``HorovodInternalError`` after
 ``BOUNDARY_TIMEOUT_S``. SPMD makes every process enqueue the same sequence,
@@ -72,6 +73,14 @@ the active ranks and an Adasum bucket drops the joined ranks' rows before
 the tree. A bucket's collectives run on whichever thread closes it, under
 the runtime's one lock, so each rank's communicator sees buckets in flush
 order; eager collectives ``fence`` first.
+
+Failures. A bucket's collectives run through ``collective_ops.launch``, so
+a backend failure fails its handles with ``HorovodInternalError``. A follower
+that loses the store process 0 serves (process 0 died) fails its pending
+handles at once rather than after ``BOUNDARY_TIMEOUT_S``. ``abort`` is the
+elastic reset's shutdown: it fails every pending handle, stops the threads
+and touches no store, since peers may be dead; the next ``hvd.init`` builds
+a new runtime over a new store.
 
 Streams and threads. On the GPU every bucket runs on one side stream, after
 the streams that produced its tensors; buckets therefore run in order and
@@ -102,7 +111,7 @@ from horovod_tpu_torch.ops.collective_ops import (ADASUM, ALLREDUCE,
                                                   active_rows,
                                                   all_gather_flat,
                                                   join_armed, join_round,
-                                                  rank_digests)
+                                                  launch, rank_digests)
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 
 _MAX_SIGNATURES = 4096   # runaway-signature guard for the verified cache
@@ -184,7 +193,7 @@ class FusionRuntime:
     _FOLLOWER_WAIT_S = 0.3
 
     def __init__(self, threshold, device, cycle_time_ms=0.0, rank=0,
-                 size=1, store=None):
+                 size=1, store=None, epoch=0):
         self.threshold = int(threshold)
         self.device = device
         self._lock = threading.RLock()
@@ -204,7 +213,9 @@ class FusionRuntime:
         self._multi = size > 1 and store is not None
         self._coord = rank == 0
         self._store = store
-        self._epoch = 0          # of the membership; elastic (A9) bumps it
+        # The membership version this runtime was built under (elastic
+        # launches; 0 otherwise): its keys never meet another version's.
+        self._epoch = epoch
         self._client = None      # this runtime's own connection to the store
         self._cycle_s = max(float(cycle_time_ms), 0.0) / 1000.0
         self._cycle_pause = False
@@ -223,6 +234,8 @@ class FusionRuntime:
         self._stats = {"buckets": 0, "closed_by": dict.fromkeys(TRIGGERS, 0),
                        "new_signatures": 0}
         self._recent = collections.deque(maxlen=_RECENT)
+        # The error every handle fails with once the runtime is aborted.
+        self._failed = None
 
     # ---- threads ----------------------------------------------------------
 
@@ -355,6 +368,8 @@ class FusionRuntime:
                 try:
                     self._client.wait([key],
                                       datetime.timedelta(seconds=wait_s))
+                except dist.DistNetworkError:
+                    raise
                 except Exception:  # noqa: BLE001 — no boundary in the wait
                     left = wait_s - (time.monotonic() - t0)
                     if left > 0:   # the store failed fast: no hot loop
@@ -362,6 +377,14 @@ class FusionRuntime:
                     return None
             last, why = self._client.get(key).decode().split()
             return int(last), why
+        except dist.DistNetworkError as e:
+            # Process 0 serves the store: no boundary will ever come.
+            err = HorovodInternalError(
+                f"rank {self._rank} lost the store process 0 serves, so no "
+                f"fusion boundary can arrive: {e}")
+            err.__cause__ = e
+            self.abort(err)
+            return None
         finally:
             self._fetch_lock.release()
 
@@ -423,6 +446,8 @@ class FusionRuntime:
             if seq is None:
                 seq = self._next_seq - 1
             while seq > self._flushed_seq:
+                if self._failed is not None:
+                    raise self._failed
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise HorovodInternalError(
@@ -432,7 +457,7 @@ class FusionRuntime:
                         "must enqueue the same async allreduces in the same "
                         "order (the SPMD contract); did process 0 enqueue "
                         "them?")
-                self._flushed.wait(min(left, 1.0))
+                self._flushed.wait(min(left, 0.2))
 
     def fence(self):
         """Order an eager collective after every bucket in flight, on every
@@ -450,6 +475,8 @@ class FusionRuntime:
                tensors[0].dtype)
         stream = None if self._stream is None \
             else torch.cuda.current_stream(self.device)
+        if self._failed is not None:
+            raise self._failed
         own = join_armed() or process_set.size() < self._world
         if own:
             self.fence()
@@ -491,8 +518,17 @@ class FusionRuntime:
         if self._multi and not self._coord:
             self.fence()
             return
-        with self._lock:
+        # A thread may hold the lock inside a bucket's collective that the
+        # abort cannot end (a gloo peer alive but stuck): give up then.
+        while not self._lock.acquire(timeout=0.2):
+            if self._failed is not None:
+                raise self._failed
+        try:
+            if self._failed is not None:
+                raise self._failed
             self._flush_locked("sync")
+        finally:
+            self._lock.release()
 
     def _flush_locked(self, why, up_to=None):
         """Close the pending prefix (all of it, or a follower's boundary:
@@ -554,7 +590,10 @@ class FusionRuntime:
         """Stop and join the threads, flush what is left (a follower drains
         process 0's last boundaries and fails what none covers), and free
         the buffers. Process 0 then waits, bounded, for the followers to
-        have stopped reading the store it serves."""
+        have stopped reading the store it serves. After :meth:`abort`
+        there is nothing left to do."""
+        if self._failed is not None:
+            return
         self.stop_threads()
         if self._multi and not self._coord:
             deadline = time.monotonic() + min(30.0, self.BOUNDARY_TIMEOUT_S)
@@ -593,6 +632,25 @@ class FusionRuntime:
         if self._stream is not None:
             self._stream.synchronize()
         self._buffers.clear()
+
+    def abort(self, error):
+        """The elastic reset's shutdown, for when peers may be dead: fail
+        every pending handle with ``error`` at once, stop the threads, free
+        the buffers, and touch no store (``shutdown`` would wait on process
+        0 or the followers). A bucket already closing fails, or completes,
+        with its collective. Takes no lock: a thread may hold it inside a
+        collective until the process group's abort ends it."""
+        if self._failed is not None:
+            return
+        self._failed = error
+        self._stop.set()
+        self._wake.set()
+        if self._publish_queue is not None:
+            self._publish_queue.put(None)
+        for e in list(self._pending):
+            e.handle._error = error
+        self._store = self._client = None
+        self._buffers = {}
 
     def verified_signatures(self):
         """The bucket signatures all ranks have agreed on, oldest first:
@@ -661,14 +719,14 @@ class FusionRuntime:
             # tensor; the result is row 0. Adasum is no average: no 1/n.
             gathered = torch.empty(ps.size() * total, dtype=dtype,
                                    device=self.device)
-            all_gather_flat(gathered, buf, group=ps.group,
-                            async_op=True).wait()
+            launch(all_gather_flat, gathered, buf, group=ps.group,
+                   async_op=True)
             buf = reduce_gathered(
                 active_rows(gathered.view(ps.size(), total), ps, joined),
                 [e.tensor.numel() for e in entries])
         else:
-            dist.all_reduce(buf, op=DIST_OPS[op], group=ps.group,
-                            async_op=True).wait()
+            launch(dist.all_reduce, buf, op=DIST_OPS[op], group=ps.group,
+                   async_op=True)
             if op == ReduceOp.AVERAGE:
                 postscale = postscale / (ps.size() - len(joined))
         unpack_scale(buf, [e.output for e in entries], postscale)
@@ -715,7 +773,8 @@ def get_runtime():
         if st.fusion is None:
             rt = FusionRuntime(st.config.fusion_threshold, st.device,
                                cycle_time_ms=st.config.cycle_time_ms,
-                               rank=st.rank, size=st.size, store=st.store)
+                               rank=st.rank, size=st.size, store=st.store,
+                               epoch=st.config.elastic_init_version)
             rt.start()
             st.fusion = rt
         return st.fusion

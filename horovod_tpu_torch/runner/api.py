@@ -81,9 +81,57 @@ def run(func, args=(), kwargs=None, np=None, hosts=None, hostfile=None,
 
 def run_elastic(func, args=(), kwargs=None, min_np=1, max_np=None,
                 host_discovery_script=None, slots_per_host=None,
-                reset_limit=None, start_timeout=600, verbose=False):
+                reset_limit=None, start_timeout=600, verbose=False,
+                extra_env=None, device=None):
     """Elastic variant (reference: horovod.run with elastic args routing to
-    launch.py:689 ``_run_elastic``): not ported to horovod_tpu_torch yet."""
-    raise NotImplementedError(
-        "run_elastic: elastic training is not ported to horovod_tpu_torch "
-        "yet (ROADMAP A9); use run() with a fixed np")
+    launch.py:689 ``_run_elastic``): ``func`` runs on every slot the
+    discovery script reports, after ``hvd.init(device=device)``, and
+    typically wraps its loop in ``hvd.elastic.run``. Survivors of a
+    membership change keep their process and re-initialize in place;
+    workers of removed slots are reaped, new slots start fresh. Returns the
+    results of the final membership, by rank. With no discovery script,
+    this is :func:`run` on this process."""
+    kwargs = kwargs or {}
+    if host_discovery_script is None:
+        return run(func, args, kwargs, extra_env=extra_env, device=device)
+
+    import cloudpickle
+
+    from horovod_tpu_torch.runner.elastic.driver import run_elastic_driver
+    payload = cloudpickle.dumps((func, args, kwargs, device))
+    argv = ["--min-np", str(min_np)]
+    if max_np:
+        argv += ["--max-np", str(max_np)]
+    argv += ["--host-discovery-script", host_discovery_script]
+    if slots_per_host:
+        argv += ["--slots-per-host", str(slots_per_host)]
+    if reset_limit is not None:
+        argv += ["--reset-limit", str(reset_limit)]
+    argv += ["--start-timeout", str(start_timeout)]
+    if verbose:
+        argv += ["--verbose"]
+    argv += _TASK_CMD
+
+    harvested = {}
+
+    def harvest(kv):
+        # Workers key their results by the version they last initialized
+        # under (runner/task.py): only the final membership's count.
+        version = (kv.get("elastic", "version") or b"0").decode()
+        harvested["size"] = int(kv.get("elastic", "nslots") or b"0")
+        for rank in range(harvested["size"]):
+            v = kv.get("results", f"{version}/{rank}")
+            if v is not None:
+                harvested[rank] = cloudpickle.loads(v)
+
+    rc = run_elastic_driver(launch_mod.parse_args(argv), extra_env=extra_env,
+                            harvest=harvest,
+                            kv_preload={("func", "pickle"): payload})
+    if rc != 0:
+        raise RuntimeError(f"elastic run failed with exit code {rc}")
+    size = harvested.pop("size", 0)
+    missing = [r for r in range(size) if r not in harvested]
+    if missing or not size:
+        raise RuntimeError(f"elastic run completed but ranks {missing} of "
+                           f"the final {size} reported no result")
+    return [harvested[r] for r in range(size)]

@@ -61,6 +61,14 @@ def build_launch_command(hostname, command, env, local, ssh_port=None,
     return full, os.environ.copy(), secret_env
 
 
+def is_local(hostname):
+    """Whether ``hostname`` is this machine. Any 127.0.0.0/8 address is
+    (loopback aliases let tests model N distinct "hosts" locally, like the
+    reference's localhost-based integration tier)."""
+    return hostname in ("localhost", "::1", os.uname().nodename) \
+        or hostname.startswith("127.")
+
+
 class WorkerProcess:
     def __init__(self, hostname, command, env, tag, use_ssh=None,
                  ssh_port=None, ssh_identity_file=None, output_dir=None,
@@ -77,12 +85,7 @@ class WorkerProcess:
                                else f"host.{hostname}")
             os.makedirs(sub, exist_ok=True)
             self._sink = open(os.path.join(sub, "stdout"), "a")
-        # Any 127.0.0.0/8 address is this machine (loopback aliases let tests
-        # model N distinct "hosts" locally, like the reference's
-        # localhost-based integration tier).
-        local = (hostname in ("localhost", "::1", os.uname().nodename)
-                 or hostname.startswith("127.")) \
-            if use_ssh is None else not use_ssh
+        local = is_local(hostname) if use_ssh is None else not use_ssh
         full, run_env, secret_env = build_launch_command(
             hostname, command, env, local, ssh_port, ssh_identity_file)
         hvd_logging.debug("launching worker %s: %s", tag, full)

@@ -9,7 +9,8 @@ Port of the JAX package's ``runner/http_kv.py``: ``KVStoreServer`` and
 response, 404s included. The process group bootstraps through the
 ``TCPStore`` rank 0 serves (``common/basics.py``); this store carries what
 the launcher and the workers exchange around it: ``run()``'s pickled
-function and results, and the workers' bootstrap probes. The JAX store's
+function and results, the workers' bootstrap probes, and the elastic
+driver's membership versions, assignment rows and ready marks. The JAX store's
 chaos, flight-recorder and metrics hooks and its per-slice shard router are
 not ported (ROADMAP A16, A17).
 """
@@ -166,6 +167,16 @@ class KVStoreServer:
                 self._httpd.store.pop(scope, None)
             else:
                 self._httpd.store.get(scope, {}).pop(key, None)
+
+    def prune_scope(self, scope, keep_prefixes):
+        """Drop every key of ``scope`` that starts with none of
+        ``keep_prefixes`` (the elastic driver's garbage collection of
+        version-scoped keys)."""
+        with self._httpd.lock:
+            d = self._httpd.store.get(scope, {})
+            for k in [k for k in d
+                      if not any(k.startswith(p) for p in keep_prefixes)]:
+                del d[k]
 
 
 class KVStoreClient:

@@ -15,13 +15,15 @@ Example::
     python -m horovod_tpu_torch.runner -np 8 -H host1:4,host2:4 python train.py
     hvdrun-torch -np 4 python train.py        # 4 GPUs of this host
 
-Elastic launches (``--min-np``/``--max-np``/``--host-discovery-script``)
-are not ported yet (ROADMAP A9). The flags of the JAX package's other
-features (wire dtypes, hierarchical tiers, autotune, the autopilot,
-serving, tracing, goodput, the flight recorder) are kept and set their env
-vars on every worker, as the JAX launcher does; the port reads those of
-its own knobs (``common/config.py``) and not yet the others (ROADMAP A10,
-A11, A15-A17).
+Elastic launches (``--min-np``/``--max-np``/``--host-discovery-script``,
+``--reset-limit``, ``--elastic-timeout``, ``--blacklist-cooldown-range``)
+run ``runner/elastic/driver.py``: one worker per slot of each membership
+version, survivors re-initializing in place. The flags of the JAX
+package's other features (wire dtypes, hierarchical tiers, autotune, the
+autopilot, serving, tracing, goodput, the flight recorder) are kept and
+set their env vars on every worker, as the JAX launcher does; the port
+reads those of its own knobs (``common/config.py``) and not yet the others
+(ROADMAP A10, A11, A15-A17).
 """
 
 import argparse
@@ -456,7 +458,8 @@ def _resolve_launcher(args):
 _PROPAGATED = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
                "HOROVOD_JOIN_MODE", "HOROVOD_LOG_LEVEL",
                "HOROVOD_LOG_HIDE_TIME", "HOROVOD_KV_RETRIES",
-               "HOROVOD_KV_RETRY_BACKOFF_MS", "HOROVOD_KV_RETRY_BACKOFF_MAX_MS")
+               "HOROVOD_KV_RETRY_BACKOFF_MS", "HOROVOD_KV_RETRY_BACKOFF_MAX_MS",
+               "HOROVOD_ELASTIC_TIMEOUT", "HOROVOD_BLACKLIST_COOLDOWN_RANGE")
 
 
 def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,
@@ -637,9 +640,8 @@ def _run_static(args, extra_env=None, harvest=None, kv_preload=None):
 
 
 def _run_elastic(args):
-    raise NotImplementedError(
-        "elastic launches (--min-np/--max-np/--host-discovery-script) are "
-        "not ported to horovod_tpu_torch yet (ROADMAP A9)")
+    from horovod_tpu_torch.runner.elastic.driver import run_elastic_driver
+    return run_elastic_driver(args)
 
 
 def check_build_text():
@@ -659,7 +661,7 @@ def check_build_text():
             f"    [{mark(dist.is_mpi_available())}] MPI\n\n"
             f"CUDA: {'[X] ' + str(torch.version.cuda) if cuda else '[ ]'}\n\n"
             "Available Features:\n    [X] process sets\n    [X] Adasum\n"
-            "    [X] join\n    [ ] elastic\n    [ ] timeline\n")
+            "    [X] join\n    [X] elastic\n    [ ] timeline\n")
 
 
 def run_commandline(argv=None):

@@ -5,7 +5,9 @@ function, initializes, executes, reports the result. Port of the JAX
 package's ``runner/task.py``: the function comes from the launcher's KV
 store, ``hvd.init()`` (``common/basics.py``) takes the place of the
 ``jax.distributed`` bootstrap, and the result goes back to the store keyed
-by rank. The goodput hooks are not ported (ROADMAP A16).
+by rank (under an elastic launch, by the membership version the worker
+last initialized under, and the job is marked finished). The goodput hooks
+are not ported (ROADMAP A16).
 """
 
 import json
@@ -61,9 +63,19 @@ def main():
     kv_addr = os.environ.get("HOROVOD_KV_ADDR")
     kv_port = os.environ.get("HOROVOD_KV_PORT")
     if kv_addr and kv_port:
+        from horovod_tpu_torch.common.config import Config
         from horovod_tpu_torch.runner.http_kv import KVStoreClient
-        KVStoreClient(kv_addr, int(kv_port)).put(
-            "results", str(hvd.rank()), cloudpickle.dumps(result))
+        client = KVStoreClient(kv_addr, int(kv_port))
+        config = Config.from_env()
+        key = str(hvd.rank())
+        if config.elastic:
+            # Results of a superseded membership are never harvested.
+            key = f"{config.elastic_init_version}/{key}"
+        client.put("results", key, cloudpickle.dumps(result))
+        if config.elastic:
+            # The job winds down: the driver must not rebalance now, or the
+            # new membership would wait on this exited rank.
+            client.put("elastic", "finished", b"1")
     hvd.shutdown()
 
 

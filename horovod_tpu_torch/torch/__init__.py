@@ -7,8 +7,10 @@ Product, Adasum), allgather (ragged first dims too), alltoall,
 reducescatter and broadcast families with their async handles,
 ``sparse_allreduce_async``, ``join``, barrier, compression, the parameter,
 optimizer-state and object broadcasts, ``allgather_object`` and
-``DistributedOptimizer``. The rest of the reference surface (elastic,
-SyncBatchNorm, the timeline) is listed in ROADMAP.md as still to port.
+``DistributedOptimizer``, and elastic training (``elastic.run``,
+``TorchState``, ``ElasticSampler``, ``mark_new_rank_ready``,
+``read_new_rank_ready``). The rest of the reference surface
+(SyncBatchNorm, the timeline) is listed in ROADMAP.md as still to port.
 """
 
 from horovod_tpu_torch.common.basics import (
@@ -22,6 +24,8 @@ from horovod_tpu_torch.common.process_sets import (ProcessSet,
                                                    global_process_set,
                                                    process_set_by_id,
                                                    remove_process_set)
+from horovod_tpu_torch.elastic.worker import (mark_new_rank_ready,
+                                              read_new_rank_ready)
 from horovod_tpu_torch.common.util import (check_extension,
                                            check_installed_version,
                                            gpu_available,
@@ -42,6 +46,8 @@ from horovod_tpu_torch.torch.mpi_ops import (
     grouped_allreduce_async_, grouped_reducescatter,
     grouped_reducescatter_async, join, poll, reducescatter,
     reducescatter_async, sparse_allreduce_async, synchronize)
+from horovod_tpu_torch.torch import elastic
+from horovod_tpu_torch.torch.elastic import ElasticSampler, TorchState
 from horovod_tpu_torch.torch.optimizer import DistributedOptimizer
 
 __all__ = [
@@ -65,7 +71,9 @@ __all__ = [
     "broadcast_async_", "barrier", "join", "poll", "synchronize",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
     "allgather_object",
-    "DistributedOptimizer", "HorovodInternalError", "check_extension",
+    "DistributedOptimizer", "HorovodInternalError", "elastic",
+    "TorchState", "ElasticSampler", "mark_new_rank_ready",
+    "read_new_rank_ready", "check_extension",
     "check_installed_version", "gpu_available", "num_rank_is_power_2",
     "split_list",
 ]

@@ -108,10 +108,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def synchronize(self):
         """Drain outstanding reductions; the results are in ``p.grad``
-        (reference: optimizer.py:256-304)."""
-        for handle in self._handles.values():
-            handle.synchronize()
-        self._handles.clear()
+        (reference: optimizer.py:256-304). The handles are dropped even
+        when one raises (a failed collective): the elastic loop restores the
+        last commit and steps again, which must not find them in flight."""
+        try:
+            for handle in self._handles.values():
+                handle.synchronize()
+        finally:
+            self._handles.clear()
         self._synchronized = True
 
     def step(self, closure=None):

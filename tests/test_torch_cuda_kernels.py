@@ -34,6 +34,11 @@ rounded to TF32, at worst by truncation, and k fp32 additions), which a
 bf16 product fails. Remat on tiny fp32 GPT and LLaMA: gradients bit-equal
 to the run without it (the recomputation repeats the same kernels on the
 same inputs, and none uses atomics), and a lower peak of allocated memory.
+Elastic at 1 rank: after a fault and the reset of ``hvd.elastic.run`` the
+group is a new NCCL one on cuda:0, the scale kernels launch and the reduced
+gradients equal the local ones bit for bit (Average over one rank is x1);
+a ``TorchState`` commit of CUDA tensors stays on the card and restores
+bit for bit.
 """
 
 import pytest
@@ -721,3 +726,74 @@ def test_dense_runs_tf32_within_its_bound(dev):
     assert tf32_ratio(layer.weight.grad, gy.T, xd) <= tf32_product_c(1024)
     control = (xd.bfloat16() @ w.bfloat16().T).float()
     assert tf32_ratio(control, xd, w.T) > tf32_product_c(768)
+
+
+def test_elastic_reset_brings_a_new_nccl_group_up_on_the_card(dev):
+    """A fault in hvd.elastic.run at 1 rank: the group is aborted, the
+    commit restored and a new NCCL group built on cuda:0, through which the
+    next step's gradients go (pack and unpack launches, bit-equal to the
+    local gradients)."""
+    import torch.distributed as dist
+    hvd.init()
+    try:
+        g = torch.Generator(device=dev).manual_seed(70)
+        model = torch.nn.Linear(16, 8).to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        x = torch.randn(4, 16, generator=g, device=dev)
+        state = hvd.TorchState(model, opt, step=0)
+        state.commit()
+        seen = {}
+
+        @hvd.elastic.run
+        def train(state):
+            if not seen:
+                seen["pg"] = dist.distributed_c10d._get_default_group()
+                raise hvd.HorovodInternalError("injected")
+            local = {}
+            hooks = [p.register_hook(
+                lambda grad, p=p: local.__setitem__(p, grad.clone()))
+                for p in model.parameters()]
+            p0, u0 = sb.pack_launches, sb.unpack_launches
+            opt.zero_grad()
+            model(x).square().sum().backward()
+            opt.synchronize()
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            return (dist.distributed_c10d._get_default_group(),
+                    sb.pack_launches - p0, sb.unpack_launches - u0,
+                    all(torch.equal(p.grad, local[p])
+                        for p in model.parameters()))
+
+        pg, packs, unpacks, equal = train(state)
+        assert pg is not seen["pg"]
+        assert dist.get_backend() == "nccl" and hvd.device() == dev
+        assert packs > 0 and unpacks > 0 and equal
+        opt._remove_hooks()
+    finally:
+        hvd.shutdown()
+
+
+def test_torch_state_commit_stays_on_the_card(dev):
+    from horovod_tpu_torch.torch.elastic import TorchState
+    model = torch.nn.Linear(8, 4).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    model(torch.ones(2, 8, device=dev)).sum().backward()
+    opt.step()
+    state = TorchState(model=model, optimizer=opt, noise=torch.ones(3,
+                                                                    device=dev))
+    state.save()
+    saved = list(state._saved_model_state.values()) + [
+        v for s in state._saved_optimizer_state["state"].values()
+        for v in s.values() if torch.is_tensor(v)] + [
+        state._saved_state["noise"]]
+    assert saved and all(t.device == dev for t in saved)
+    want = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        model.weight.add_(1.0)
+    state.noise = None
+    state.restore()
+    assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items())
+    assert state.noise.device == dev

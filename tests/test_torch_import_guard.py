@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports without JAX, no source of it
-(or chip_smoke.py) imports JAX or the JAX package, and ``hvd.init()``
-refuses to carry on without a GPU unless ``device="cpu"`` is asked for."""
+"""The PyTorch port stands alone: it imports without JAX (the launcher and
+the elastic modules too), no source of it (or chip_smoke.py) imports JAX or
+the JAX package, and ``hvd.init()`` refuses to carry on without a GPU
+unless ``device="cpu"`` is asked for."""
 
 import os
 import pathlib
@@ -22,6 +23,12 @@ import horovod_tpu_torch.runner.launch
 import horovod_tpu_torch.runner.task
 import horovod_tpu_torch.runner.mpi_run
 import horovod_tpu_torch.runner.js_run
+import horovod_tpu_torch.runner.elastic.driver
+import horovod_tpu_torch.runner.elastic.discovery
+from horovod_tpu_torch.elastic import state, worker
+import horovod_tpu_torch.torch.elastic
+assert hvd.elastic is horovod_tpu_torch.torch.elastic
+assert hvd.elastic.run is state.run and hvd.TorchState and hvd.ElasticSampler
 assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"
 jax_pkg = [m for m in sys.modules
            if m == "horovod_tpu" or m.startswith("horovod_tpu.")]

@@ -9,7 +9,8 @@ concurrently), whose allreduces and broadcast equal the JAX eager ones on
 the same numpy rows (a process set of as many ranks on the 8-device CPU
 mesh; Sum and Average within rtol 1e-6, broadcast exact); ``run(fn, np=2)``
 returns the results by rank; a worker that exits 1 makes the launcher
-return 1 and leaves no worker behind.
+return 1 and leaves no worker behind; ``--min-np`` reaches the elastic
+driver (its runs are in ``test_torch_elastic.py``).
 """
 
 import dataclasses
@@ -246,18 +247,32 @@ def test_kv_speaks_the_jax_protocol():
         srv.stop()
 
 
-def test_sharded_kv_and_elastic_name_their_roadmap_items(monkeypatch):
-    from horovod_tpu_torch.runner import http_kv, launch, run_elastic
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_elastic(lambda: None, min_np=1, max_np=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        launch.run_commandline(["--min-np", "1", "--max-np", "2", "python",
-                                "x.py"])
+def test_sharded_kv_names_its_roadmap_item(monkeypatch):
+    from horovod_tpu_torch.runner import http_kv
     monkeypatch.setenv("HOROVOD_KV_SHARD_PORTS", "1234,1235")
     with pytest.raises(NotImplementedError, match="A17"):
         http_kv.KVStoreServer()
     with pytest.raises(NotImplementedError, match="A17"):
         http_kv.KVStoreClient("127.0.0.1", 1)
+
+
+def test_min_np_reaches_the_elastic_driver(monkeypatch):
+    """``--min-np`` (and a discovery script) route the CLI to
+    ``run_elastic_driver`` with the parsed flags; ``--check-build`` marks
+    elastic as built."""
+    from horovod_tpu_torch.runner import launch
+    from horovod_tpu_torch.runner.elastic import driver
+    seen = []
+    monkeypatch.setattr(driver, "run_elastic_driver",
+                        lambda args: seen.append(args) or 0)
+    assert launch.run_commandline(["--min-np", "1", "--max-np", "2",
+                                   "--reset-limit", "3", "python",
+                                   "x.py"]) == 0
+    assert launch.run_commandline(["--host-discovery-script", "d.sh",
+                                   "python", "x.py"]) == 0
+    assert [(a.min_np, a.max_np, a.reset_limit) for a in seen] == \
+        [(1, 2, 3), (None, None, None)]
+    assert "[X] elastic" in launch.check_build_text()
 
 
 def test_taken_coordinator_port_fails_with_a_named_error(monkeypatch):

@@ -2,11 +2,13 @@
 
 ``run_world(fn, size, args)`` starts ``size`` processes with the ``spawn``
 method, gives each the launcher's env contract (HOROVOD_RANK/SIZE/...,
-HOROVOD_COORDINATOR_ADDR/PORT), calls ``hvd.init(device="cpu")`` and returns
+HOROVOD_COORDINATOR_ADDR/PORT) and no other HOROVOD_* variable of the
+parent's, calls ``hvd.init(device="cpu")`` and returns
 ``[fn(rank, size, *args) for each rank]``; ``run_world_async`` does the
 same on a thread and returns a future. The scenarios below run in those
 processes: this module imports torch and the port only, never JAX, so a
-child starts in about a second.
+child starts in about a second. The elastic scenarios (``elastic_*``) are
+the functions ``runner.run_elastic`` ships to its workers.
 """
 
 import multiprocessing as mp
@@ -27,6 +29,10 @@ def _free_port():
 
 
 def _child(fn, rank, size, port, args, env, results):
+    # A HOROVOD_* variable an earlier test left in the parent (an elastic
+    # or join switch) must not reach the world: only its own contract.
+    for k in [k for k in os.environ if k.startswith("HOROVOD_")]:
+        del os.environ[k]
     os.environ.update(env)
     os.environ.update({
         "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": str(size),
@@ -47,7 +53,10 @@ def _child(fn, rank, size, port, args, env, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_world(fn, size=2, args=(), env=None, timeout=120.0):
+def run_world(fn, size=2, args=(), env=None, timeout=120.0, ranks=None):
+    """``ranks``: the ranks that report (default all); the others may leave
+    without a result, as a rank that dies in a failure scenario does."""
+    ranks = list(range(size)) if ranks is None else list(ranks)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
@@ -60,7 +69,7 @@ def run_world(fn, size=2, args=(), env=None, timeout=120.0):
     got = {}
     try:
         deadline = time.monotonic() + timeout
-        while len(got) < size:
+        while len(got) < len(ranks):
             try:
                 rank, ok, payload = results.get(
                     timeout=max(deadline - time.monotonic(), 0.1))
@@ -77,7 +86,7 @@ def run_world(fn, size=2, args=(), env=None, timeout=120.0):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    return [got[r] for r in range(size)]
+    return [got[r] for r in ranks]
 
 
 def run_world_async(fn, size=2, args=(), env=None, timeout=120.0):
@@ -646,4 +655,195 @@ def cycle_world(rank, size, rows, stream, delays):
     out["alive_after_shutdown"] = [t.name for t in threads if t.is_alive()]
     out["fusion_threads_left"] = [t.name for t in threading.enumerate()
                                   if t.name.startswith("hvd-fusion")]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Elastic: test_torch_elastic's worlds and the functions run_elastic ships.
+# ---------------------------------------------------------------------------
+
+def torch_state_sync(rank, size, seed):
+    """Every rank builds a different model, optimizer state and attributes;
+    after ``TorchState.sync`` each holds rank 0's."""
+    import horovod_tpu_torch as hvd
+    torch.manual_seed(seed + rank)
+    model = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4),
+                                torch.nn.Linear(4, 2))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    model(torch.randn(5, 3)).square().sum().backward()
+    opt.step()
+    state = hvd.TorchState(model, opt, epoch=rank + 3, note=f"rank{rank}")
+    before = {k: to_np(v).copy() for k, v in model.state_dict().items()}
+    state.sync()
+    return {"before": before,
+            "after": {k: to_np(v) for k, v in model.state_dict().items()},
+            "momentum": [to_np(opt.state[p]["momentum_buffer"])
+                         for p in model.parameters()],
+            "attrs": (state.epoch, state.note)}
+
+
+def peer_dies(rank, size, victim):
+    """``victim`` exits after one allreduce. The survivor reports its
+    pending async allreduce's and an eager allreduce's errors (type, the
+    type of ``__cause__``, seconds to raise), with the cycle timer paused
+    so that the async one stays pending until its synchronize."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    hvd.allreduce(torch.ones(3), op=hvd.Sum)
+    rt = get_runtime()
+    if rank == victim:
+        os._exit(0)
+    out = {"boundary_timeout_s": rt.BOUNDARY_TIMEOUT_S}
+
+    def failure(fn):
+        t0 = time.monotonic()
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — the error is the result
+            return (type(e).__name__, type(e.__cause__).__name__,
+                    time.monotonic() - t0)
+        return None
+
+    with rt.cycle_paused():
+        h = hvd.allreduce_async(torch.ones(5) * (rank + 1), op=hvd.Sum)
+        if rank == 0:
+            time.sleep(1.0)     # the victim has gone
+        out["pending"] = failure(h.synchronize)
+    out["eager"] = failure(lambda: hvd.allreduce(torch.ones(3), op=hvd.Sum))
+    hvd.shutdown(abort=True)
+    return out
+
+
+def elastic_kill(script_path, total_steps):
+    """tests/test_elastic_failure.py's first scenario on the port: the rank
+    of the second host drops it from discovery and dies at step 3."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import attach_listener
+
+    state = attach_listener(hvd.TorchState(w=torch.zeros(4), step=0,
+                                           worlds=[]))
+
+    @hvd.elastic.run
+    def loop(state):
+        while state.step < total_steps:
+            if state.step == 3 and hvd.size() == 2 and hvd.rank() == 1:
+                with open(script_path, "w") as f:
+                    f.write("#!/bin/sh\necho localhost:1\n")
+                os._exit(1)
+            contrib = torch.ones(4) * (hvd.rank() + 1)
+            state.w = state.w + hvd.allreduce(contrib, op=hvd.Sum)
+            state.step += 1
+            state.worlds.append(hvd.size())
+            state.commit()
+        return state.step, state.w.tolist(), list(state.worlds), hvd.size()
+
+    return loop(state)
+
+
+def elastic_remove(script_path, total_steps):
+    """The second scenario: a graceful removal at step 3. The survivor
+    keeps its process (the pid committed at step 3) and its uncommitted
+    attribute."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import attach_listener
+    from horovod_tpu_torch.elastic.worker import (configured_version,
+                                                  wait_for_version_change)
+
+    state = attach_listener(hvd.TorchState(w=torch.zeros(2), step=0, pid0=0,
+                                           uncommitted=0, worlds=[]))
+
+    @hvd.elastic.run
+    def loop(state):
+        while state.step < total_steps:
+            if state.step == 3 and hvd.size() == 2 and state.pid0 == 0:
+                state.pid0 = os.getpid()
+                state.commit()
+                state.uncommitted = 7       # not committed
+                known = configured_version()
+                if hvd.rank() == 1:
+                    with open(script_path, "w") as f:
+                        f.write("#!/bin/sh\necho localhost:1\n")
+                # Both idle at the fence, with no collective in flight:
+                # the survivor sees the removal at its next check.
+                wait_for_version_change(known, timeout=120)
+                state.check_host_updates()
+            state.w = state.w + hvd.allreduce(torch.ones(2), op=hvd.Sum)
+            state.step += 1
+            state.worlds.append(hvd.size())
+            state.commit()
+        return (state.step, state.w.tolist(), list(state.worlds), state.pid0,
+                os.getpid(), state.uncommitted, hvd.size())
+
+    return loop(state)
+
+
+def elastic_add(script_path, total_steps):
+    """The third scenario: discovery grows from 1 to 2 hosts at step 3; the
+    new worker starts from rank 0's state."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import attach_listener
+    from horovod_tpu_torch.elastic.worker import (configured_version,
+                                                  wait_for_version_change)
+
+    state = attach_listener(hvd.TorchState(w=torch.zeros(2), step=0,
+                                           worlds=[]))
+
+    @hvd.elastic.run
+    def loop(state):
+        while state.step < total_steps:
+            if state.step == 3 and hvd.size() == 1:
+                known = configured_version()
+                with open(script_path, "w") as f:
+                    f.write("#!/bin/sh\necho localhost:1\necho 127.0.0.1:1\n")
+                grown = wait_for_version_change(known, timeout=120)
+                assert grown != known, "no grown membership was published"
+            state.w = state.w + hvd.allreduce(torch.ones(2), op=hvd.Sum)
+            state.step += 1
+            state.worlds.append(hvd.size())
+            state.commit()
+        return (state.step, state.w.tolist(), list(state.worlds), hvd.rank(),
+                hvd.size())
+
+    return loop(state)
+
+
+def watchdog_aborts(rank, size):
+    """The membership watchdog in a world of one, armed at version 1 with
+    the launcher's KV store served here: a version that only adds slots
+    leaves the group running; one that removes a slot aborts it, and the
+    next collective raises."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.elastic import worker
+    from horovod_tpu_torch.runner.http_kv import KVStoreServer
+
+    kv = KVStoreServer(secret="")
+    os.environ.update({"HOROVOD_ELASTIC": "1", "HOROVOD_KV_ADDR": "127.0.0.1",
+                       "HOROVOD_KV_PORT": str(kv.start())})
+
+    def publish(version, removed):
+        kv.put("elastic", f"removed/{version}", removed)
+        kv.put("elastic", "version", str(version).encode())
+
+    def aborted_within(seconds):
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if basics._get_state().aborted is not None:
+                return True
+            time.sleep(0.05)
+        return False
+
+    publish(1, b"0")
+    worker.arm_collective_abort(1)
+    out = {"before": hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist()}
+    publish(2, b"0")
+    out["aborted_by_addition"] = aborted_within(1.5)
+    out["after_addition"] = hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist()
+    publish(3, b"1")
+    out["aborted_by_removal"] = aborted_within(5.0)
+    out["after_removal"] = _error_name(
+        lambda: hvd.allreduce(torch.ones(2), op=hvd.Sum))
+    worker.disarm_collective_abort()
+    hvd.shutdown(abort=True)
+    kv.stop()
     return out
