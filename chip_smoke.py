@@ -158,7 +158,38 @@ Phases, one JSON line each (each with its seconds):
    version, beside the byte bound and its share (no single PyTorch call
    computes it), with each bucket's steps, grid and shared memory.
 
-17. launch: the port's launcher on the card: ``python -m
+17. wire_vs_cpu: the quantized wire's arithmetic on the card against the
+   CPU: ``quantize_blocks`` (int8 and fp8), ``dequantize`` and the
+   exchange's fused multiply-add, bit-equal, on blocks the size of the
+   train phase's fp32 buckets (padded to whole blocks) with an all-zero
+   block and a block whose maximum is its last element, and on a tail
+   shorter than one block; then the scale kernels' mixed-dtype form
+   (bf16/fp16 tensors into an fp32 buffer and back, fp32 tensors into a
+   bf16/fp16 buffer and back, and a bucket mixing fp32 and bf16 tensors:
+   one launch per dtype) on ResNet-50's gradient shapes, bit-equal to the
+   plain versions, each pair timed (kernel alone, plain, library) beside
+   its byte bound.
+18. train_wire: the ResNet-50 of train (batch 64, SGD lr 0.1, momentum
+   0.9, 64 MiB threshold, weights from --seed) in three fresh 1-rank
+   worlds on the same weights and batch: exact, HOROVOD_WIRE_DTYPE=int8
+   and fp8, error feedback on. Launch counts are read per step. Checks:
+   a pack and an unpack launch per bucket; every bucket of n x BLOCK or
+   more quantized (flush_stats against the buckets); in the first two
+   steps, for every bucket, out = x + r_prev - r_new within fp32
+   rounding; step 1 (deterministic cuDNN) packs the exact run's
+   gradients and its averaged gradient is within the two-leg bound of
+   them (int8 max/254 a leg, fp8 the JAX tests' |x|/16 + max/256 a leg);
+   finite losses. Reported: images/s of each run, the exchange's device
+   ms a step (CUDA events on the fusion stream) and the wire bytes a step
+   by the JAX formulas (at one rank NCCL moves nothing: the ms are the
+   quantize and dequantize work).
+19. train_syncbn: the same ResNet-50 with every BatchNorm synchronized
+   over the world (``sync_batch_norm=hvd.global_process_set``) against
+   the plain one on the same weights and batch. Checks (SYNCBN_LIMITS):
+   step 1's loss, parameter update (cosine) and running statistics; a
+   forward and a backward collective per BatchNorm each step. Reported:
+   images/s of both.
+20. launch: the port's launcher on the card: ``python -m
    horovod_tpu_torch.runner -np 1 -H localhost:1 --cycle-time-ms 1`` on
    this script as ``--launched-worker gpt``, which loads the kernels the
    build phase built, calls hvd.init() (the card, NCCL) and trains GPT-2
@@ -169,16 +200,16 @@ Phases, one JSON line each (each with its seconds):
    buckets closed by the timer, loss falling, reduced gradients bit-equal.
    Control: a worker that exits 1 (``--launched-worker fail``) makes the
    launcher return 1, and its process is gone.
-18. launch_cpu_world: ``-np 2`` through the launcher with workers on the
+21. launch_cpu_world: ``-np 2`` through the launcher with workers on the
    CPU (gloo; NCCL refuses two ranks on one card), each sleeping seeded
    times before CPU_WORLD_TENSORS async allreduces. Checks: each slot's
    contract, the same buckets on both ranks with some closed by rank 0's
    timer, the sums. A CPU run, printed as one.
-19. cycle: GPT-2 small and ResNet-50, in this process, at HOROVOD_CYCLE_TIME
+22. cycle: GPT-2 small and ResNet-50, in this process, at HOROVOD_CYCLE_TIME
    0 and 1 ms: buckets, timer-closed buckets and new signatures a step,
    tokens/s or images/s (median of repeats), the device's busy ms and
    share (torch.profiler). Printed, not checked.
-20. train_elastic: ResNet-50 as in train (deterministic cuDNN), first 8
+23. train_elastic: ResNet-50 as in train (deterministic cuDNN), first 8
    steps without a fault, then the elastic path: launch counts zeroed, 8
    steps under hvd.elastic.run with TorchState(model, optimizer, step)
    committed after each; at step 4, after the optimizer step and before
@@ -193,14 +224,14 @@ Phases, one JSON line each (each with its seconds):
    init and sync ms, seconds from the fault to the first step after it,
    images/s with and without a commit each step (medians of repeats in
    turns), the commit copy's size and the peak of allocated memory.
-21. launch_elastic: ``python -m horovod_tpu_torch.runner -np 1 --min-np 1
+24. launch_elastic: ``python -m horovod_tpu_torch.runner -np 1 --min-np 1
    --max-np 1 --host-discovery-script build/elastic/launch/discover.sh``
    on this script as ``--launched-worker elastic``: the same loop and
    fault in a worker of the elastic driver. Checks: exit code 0, the
    1-slot contract, train_elastic's checks but the comparison with the
    run without the fault, the re-init at the unchanged version 1 (after
    the 30 s wait for a new version, printed), the worker reaped.
-22. launch_elastic_cpu_world: tests/test_elastic_failure.py's three
+25. launch_elastic_cpu_world: tests/test_elastic_failure.py's three
    scenarios through the elastic launcher with CPU (gloo) workers
    (``--launched-worker elastic_cpu``; NCCL refuses two ranks on one
    card), at once: a worker killed at step 3 of 6 (w == [12] * 4, worlds
@@ -1069,6 +1100,534 @@ def phase_timing_adasum(torch, buckets, dev, seed):
                   "and output byte once (3 N x 4 B) at 3.35 TB/s; library: "
                   "none, no single PyTorch call computes this combine"})
     return total
+
+
+# The quantized wire and SyncBatchNorm: ResNet-50 over the int8/fp8
+# block-scaled exchange, and with every BatchNorm synchronized.
+WIRE_PAIRS = (("bfloat16", "float32"), ("float16", "float32"),
+              ("float32", "bfloat16"), ("float32", "float16"))
+WIRE_RUNS = ("", "int8", "fp8")          # exact, then the two formats
+WIRE_CHECK_STEPS = 2                     # captured exchanges, then timed
+# Sync BN against an fp32-activation copy, no further than plain
+# BatchNorm's bf16 rounding leaves it: factor x plain's distance + floor.
+SYNCBN_LIMITS = {"factor": 2.0, "update_rel_floor": 1e-2,
+                 "loss_rel_floor": 1e-4, "stats_rel_floor": 1e-3}
+
+
+def quantize_cases(torch, buckets, seed):
+    """(name, fp32 CPU tensor of (blocks, BLOCK)) for each bucket total of
+    the main path (padded to whole blocks, as the exchange pads at one
+    rank), with an all-zero block and a block whose largest element is its
+    last, and a tail shorter than one block."""
+    from horovod_tpu_torch.ops import wire
+    gen = torch.Generator().manual_seed(seed + 5)
+    cases = []
+    for i, numels in enumerate(buckets):
+        total = sum(numels)
+        blocks = -(-total // wire.BLOCK)
+        x = torch.randn(blocks * wire.BLOCK, generator=gen)
+        x *= torch.exp(torch.randn(blocks, generator=gen) * 3) \
+            .repeat_interleave(wire.BLOCK)
+        x[total:] = 0.0
+        x = x.view(blocks, wire.BLOCK)
+        x[1] = 0.0
+        x[2, -1] = 3.0 * x[2].abs().max()
+        cases.append((f"bucket{i}", x))
+    cases.append(("tail", torch.randn((3, 700), generator=gen)))
+    return cases
+
+
+def phase_wire_vs_cpu(torch, buckets, shapes, dev, seed):
+    """The quantized wire's arithmetic on the card against the CPU, and the
+    scale kernels' mixed-dtype form against their plain versions."""
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    quant = {}
+    for name, x in quantize_cases(torch, buckets, seed):
+        for w in ("int8", "fp8"):
+            qc, sc = wire.quantize_blocks(x, w)
+            qg, sg = wire.quantize_blocks(x.to(dev), w)
+            dc, dg = wire.dequantize(qc, sc), wire.dequantize(qg, sg)
+            # One row's dequantize added onto another, as the exchange sums.
+            fc = wire._fma(dc, qc.flip(0), sc.flip(0))
+            fg = wire._fma(dg, qg.flip(0), sg.flip(0))
+            torch.cuda.synchronize()
+            same = (torch.equal(qc.view(torch.uint8),
+                                qg.cpu().view(torch.uint8))
+                    and torch.equal(sc.view(torch.int32),
+                                    sg.cpu().view(torch.int32))
+                    and torch.equal(dc.view(torch.int32),
+                                    dg.cpu().view(torch.int32))
+                    and torch.equal(fc.view(torch.int32),
+                                    fg.cpu().view(torch.int32)))
+            check(same, f"quantize_blocks/dequantize/_fma {w} on the card "
+                  f"bit-equal to the CPU on {name} {tuple(x.shape)}")
+            quant[f"{name}/{w}"] = {"blocks": x.shape[0],
+                                    "block": x.shape[1], "bit_equal": True}
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    pre, post = 0.5, 1.0 / 3.0
+    mixed, max_err = {}, 0.0
+    for a, b in WIRE_PAIRS:
+        ta, tb = getattr(torch, a), getattr(torch, b)
+        ts = [torch.randn(s, generator=gen, device=dev).to(ta)
+              for s in shapes]
+        numels = [t.numel() for t in ts]
+        flat_k = torch.empty(sum(numels), dtype=tb, device=dev)
+        flat_p = torch.empty_like(flat_k)
+        p0 = sb.pack_launches
+        sb.pack_scale(ts, flat_k, pre)
+        torch.cuda.synchronize()
+        check(sb.pack_launches - p0 == -(-len(ts) // sb._MAX_ROWS),
+              f"the {a} -> {b} pack launched")
+        sb.pack_scale_reference(ts, flat_p, pre)
+        check(torch.equal(flat_k, flat_p), f"pack {a} -> {b} bit-equal")
+        outs_k = [torch.empty_like(t) for t in ts]
+        outs_p = [torch.empty_like(t) for t in ts]
+        sb.unpack_scale(flat_k, outs_k, post)
+        torch.cuda.synchronize()
+        sb.unpack_scale_reference(flat_k, outs_p, post)
+        check(all(torch.equal(x, y) for x, y in zip(outs_k, outs_p)),
+              f"unpack {b} -> {a} bit-equal")
+        nbytes = sum(numels) * (torch.empty((), dtype=ta).element_size()
+                                + torch.empty((), dtype=tb).element_size()) \
+            + 24 * len(ts)
+        rows, bx = sb.table_rows(ts, numels)
+        tables = sb.launch_tables(rows)
+        urows, ubx = sb.table_rows(outs_k, numels)
+        utables = sb.launch_tables(urows)
+        mixed[f"{a}->{b}"] = {
+            "tensors": len(ts), "elements": sum(numels),
+            "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
+            "pack_ms": event_ms(lambda: sb._launch(
+                "hvd_scale_pack", tables, bx, flat_k, pre, ta), inner=10),
+            "pack_plain_ms": event_ms(
+                lambda: sb.pack_scale_reference(ts, flat_p, pre)),
+            "pack_library_ms": event_ms(
+                lambda: torch.cat([t.view(-1) for t in ts],
+                                  out=flat_p).mul_(pre)),
+            "unpack_ms": event_ms(lambda: sb._launch(
+                "hvd_scale_unpack", utables, ubx, flat_k, post, ta),
+                inner=10),
+            "unpack_plain_ms": event_ms(
+                lambda: sb.unpack_scale_reference(flat_k, outs_p, post)),
+            "unpack_library_ms": event_ms(
+                lambda: torch._foreach_mul(list(flat_k.split(numels)),
+                                           post))}
+        max_err = max(max_err, (flat_k.float() - flat_p.float()).abs().max()
+                      .item())
+        del ts, flat_k, flat_p, outs_k, outs_p
+    # A bucket that mixes fp32 and bf16 tensors in a bf16 buffer (the cast
+    # wire): one launch per tensor dtype.
+    ts = [torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16 if i % 3 == 0 else torch.float32)
+        for i, s in enumerate(shapes)]
+    flat_k = torch.empty(sum(t.numel() for t in ts), dtype=torch.bfloat16,
+                         device=dev)
+    flat_p = torch.empty_like(flat_k)
+    p0 = sb.pack_launches
+    sb.pack_scale(ts, flat_k, pre)
+    torch.cuda.synchronize()
+    check(sb.pack_launches - p0 == 2, "a two-dtype bucket: two launches")
+    sb.pack_scale_reference(ts, flat_p, pre)
+    check(torch.equal(flat_k, flat_p), "mixed bucket pack bit-equal")
+    outs_k = [torch.empty_like(t) for t in ts]
+    outs_p = [torch.empty_like(t) for t in ts]
+    sb.unpack_scale(flat_k, outs_k, post)
+    torch.cuda.synchronize()
+    sb.unpack_scale_reference(flat_k, outs_p, post)
+    check(all(torch.equal(x, y) for x, y in zip(outs_k, outs_p)),
+          "mixed bucket unpack bit-equal")
+    emit({"phase": "wire_vs_cpu", "quantize": quant,
+          "mixed_dtype": mixed, "shapes": "ResNet-50's gradients",
+          "prescale": pre, "postscale": post, "bit_equal": True,
+          "max_abs_err": max_err,
+          "note": "ms: the kernel alone, 10 launches back to back; plain: "
+                  "pack_scale_reference/unpack_scale_reference; library: "
+                  "torch.cat(out=).mul_ and torch._foreach_mul, as in "
+                  "timing; bound: each byte of the tensors and the buffer "
+                  "once at 3.35 TB/s"})
+    return mixed, max_err
+
+
+class ExchangeTap:
+    """While active, wraps ``wire.block_scaled_allreduce``: times each call
+    with CUDA events on its stream (the fusion side stream) and, while
+    ``capture`` is set, keeps its input, residual, output and new
+    residual."""
+
+    def __init__(self, torch, wire):
+        self.torch, self.wire, self.capture = torch, wire, False
+        self.events, self.calls = [], []
+
+    def __enter__(self):
+        raw = self.raw = self.wire.block_scaled_allreduce
+        torch = self.torch
+
+        def tapped(x, residual=None, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, new = raw(x, residual=residual, **kw)
+            b.record()
+            self.events.append((a, b))
+            if self.capture:
+                self.calls.append((x.clone(), None if residual is None
+                                   else residual.clone(), out.clone(),
+                                   None if new is None else new.clone(),
+                                   kw["wire"]))
+            return out, new
+        self.wire.block_scaled_allreduce = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.wire.block_scaled_allreduce = self.raw
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def two_leg_bound(torch, x, label):
+    """Per element of ``x`` (a bucket's flat fp32 buffer), the most the
+    exchange may move it at one rank: the first leg's error and the
+    second leg's, each at its block's maximum (int8: max/254 a leg; fp8:
+    |x|/16 + max/256 a leg, the JAX tests' bound)."""
+    from horovod_tpu_torch.ops import wire
+    pad = (-x.numel()) % wire.BLOCK
+    xb = torch.nn.functional.pad(x.double(), (0, pad)).view(-1, wire.BLOCK)
+    m = xb.abs().amax(dim=1, keepdim=True)
+    if label == "int8":
+        e1 = m / 254 + 0 * xb
+        e2 = (m + m / 254) / 254 + 0 * xb
+    else:
+        e1 = xb.abs() / 16 + m / 256
+        e2 = (xb.abs() + e1) / 16 + (m + m / 16 + m / 256) / 256
+    return (e1 + e2 + 1e-7 * m).reshape(-1)[:x.numel()]
+
+
+def phase_train_wire(torch, hvd, dev, args, card, make_model):
+    """ResNet-50 as in ``train``, on the same weights and batch, exact and
+    then on HOROVOD_WIRE_DTYPE=int8 and fp8 with error feedback, each in a
+    fresh 1-rank world."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+    model = make_model()
+    init = copy.deepcopy(model.state_dict())
+    names = {p: n for n, p in model.named_parameters()}
+    report, first_grads = {}, None
+    sb.reset_launch_counts()                 # the wire paths start here
+    for label in WIRE_RUNS:
+        hvd.shutdown()
+        os.environ["HOROVOD_WIRE_DTYPE"] = label
+        hvd.init()
+        rt = get_runtime()
+        check(rt.wire_dtype == label, f"the runtime's wire is {label!r}")
+        model.load_state_dict(init)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+
+        def step():
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        losses, per_step, stats, closed = [], [], [], []
+        with ExchangeTap(torch, wire) as tap:
+            for i in range(WIRE_CHECK_STEPS + args.warmup + args.steps):
+                if i == WIRE_CHECK_STEPS + args.warmup:
+                    torch.cuda.synchronize()
+                    tap.device_ms()
+                    t0 = time.perf_counter()
+                tap.capture = i < WIRE_CHECK_STEPS
+                c0, m0 = (sb.pack_launches, sb.unpack_launches), \
+                    rt.flush_stats()
+                if i == 0:
+                    with deterministic_cudnn(torch):
+                        losses.append(step())
+                    torch.cuda.synchronize()
+                    grads = [(names[p], p.grad.clone())
+                             for p in model.parameters()]
+                else:
+                    losses.append(step())
+                got, _ = buckets_since(m0)
+                closed.append(got)
+                m1 = rt.flush_stats()
+                per_step.append([sb.pack_launches - c0[0],
+                                 sb.unpack_launches - c0[1],
+                                 len(got), m1["quantized"] - m0["quantized"],
+                                 sum(sum(n for _, n in sig[-1]) >= wire.BLOCK
+                                     and sig[5] == label for _, sig in got)])
+                stats.append({k: m1["wire_bytes"].get(k, 0)
+                              - m0["wire_bytes"].get(k, 0)
+                              for k in m1["wire_bytes"]})
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            exchange_ms = tap.device_ms() / args.steps
+            calls = tap.calls
+        opt._remove_hooks()
+        losses = [l.item() for l in losses]
+        check(all(map(math.isfinite, losses)), f"{label or 'exact'}: finite "
+              f"losses {losses}")
+        check(all(s[0] == s[1] == s[2] for s in per_step),
+              f"{label or 'exact'}: a pack and an unpack launch per bucket "
+              f"every step: {per_step}")
+        row = {"losses": losses, "step_ms": 1e3 * elapsed / args.steps,
+               "images_per_sec": args.batch * args.steps / elapsed,
+               "buckets_per_step": [s[2] for s in per_step],
+               "wire_bytes_per_step": stats[-1]}
+        if not label:
+            first_grads = grads
+            check(all(s[3] == 0 for s in per_step), "exact: no quantized "
+                  f"bucket {per_step}")
+            report["exact"] = row
+            continue
+        check(all(s[3] == s[4] for s in per_step) and sum(
+            s[3] for s in per_step) > 0,
+              f"{label}: every bucket of n x BLOCK or more elements, and "
+              f"only those, quantized (flush_stats against the buckets; "
+              f"columns: pack, unpack, buckets, quantized, eligible): "
+              f"{per_step}")
+        check(len(calls) == sum(s[3] for s in per_step[:WIRE_CHECK_STEPS]),
+              f"{label}: one exchange per bucket ({len(calls)})")
+        # Error feedback at one rank: out = x + r_prev - r_new, per bucket.
+        ef_err = 0.0
+        for xin, r, out, new, _ in calls:
+            lhs = out.double()
+            rhs = xin.double() + r.double() - new.double()
+            tol = 2.0 ** -21 * (xin.double().abs() + r.double().abs()
+                                + lhs.abs()) + 1e-30
+            ef_err = max(ef_err, ((lhs - rhs).abs() / tol).max().item())
+        check(ef_err <= 1.0, f"{label}: out = x + r_prev - r_new within fp32 "
+              f"rounding in every bucket (worst share of the bound "
+              f"{ef_err})")
+        # Step 1 (deterministic cuDNN, zero residuals): the reduced
+        # gradients against the exact run's, within the two-leg bound.
+        now = dict(grads)
+        ratio, compared, moved = 0.0, 0, 0
+        first = calls[:per_step[0][3]]
+        exact = dict(first_grads)
+        quantized = [sig for _, sig in closed[0] if sig[5] == label and sum(
+            n for _, n in sig[-1]) >= wire.BLOCK]
+        for (xin, _, out, _, _), sig in zip(first, quantized):
+            order = [n.split(".", 1)[1] for n, _ in sig[-1]]
+            want = torch.cat([exact[n].reshape(-1) for n in order])
+            check(torch.equal(xin, want), f"{label}: step 1's packed "
+                  "gradients equal the exact run's")
+            got_g = torch.cat([now[n].reshape(-1) for n in order])
+            check(torch.equal(got_g, out), f"{label}: step 1's gradients "
+                  "are the exchange's output")
+            bound = two_leg_bound(torch, want, label)
+            diff = (got_g.double() - want.double()).abs()
+            # An all-zero block (the weights feeding a zero-scale BatchNorm
+            # get zero gradients at step 1) has a zero bound: exact there.
+            share = torch.where(bound > 0, diff / bound.clamp_min(1e-300),
+                                torch.where(diff > 0, math.inf, 0.0))
+            worst = share.max().item()
+            check(not math.isnan(worst), f"{label}: a NaN share")
+            ratio = max(ratio, worst)
+            compared += want.numel()
+            moved += int((got_g != want).sum())
+        check(compared == sum(sum(n for _, n in sig[-1]) for sig in quantized)
+              and len(quantized) == per_step[0][3] and moved > 0,
+              f"{label}: step 1 compared on every quantized bucket "
+              f"({compared} elements, {moved} moved by the wire)")
+        check(ratio <= 1.0, f"{label}: step 1's averaged gradient within the "
+              f"two-leg bound of the exact run's (worst share {ratio})")
+        row.update({"exchange_device_ms_per_step": exchange_ms,
+                    "ef_invariant_worst_share_of_fp32_bound": ef_err,
+                    "step1_worst_share_of_two_leg_bound": ratio,
+                    "step1_elements_compared_moved": [compared, moved],
+                    "quantized_buckets_per_step": [s[3] for s in per_step]})
+        report[label] = row
+        del calls
+    launches = {"scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}   # the wire paths end
+    hvd.shutdown()
+    os.environ.pop("HOROVOD_WIRE_DTYPE", None)
+    hvd.init()
+    check(get_runtime().wire_for() == "", "the world after the wire runs "
+          f"is exact, not {get_runtime().wire_for()!r}")
+    total = sum(p.numel() for p in model.parameters())
+    emit({"phase": "train_wire", "model": "ResNet-50", "batch": args.batch,
+          "warmup": args.warmup, "steps": args.steps, "runs": report,
+          "parameters": total,
+          "wire_bytes_formula": {
+              "int8": wire.exchange_wire_bytes(total, 1),
+              "exact_fp32": wire.allreduce_wire_bytes(4 * total, 4, 1, ""),
+              "ratio": wire.exchange_wire_bytes(total, 1)
+              / wire.allreduce_wire_bytes(4 * total, 4, 1, "")},
+          "launches": launches,
+          "note": "one rank: NCCL moves nothing across a link, so the "
+                  "exchange's device ms are the quantize and dequantize "
+                  "work; the byte saving (the JAX formulas, not a "
+                  "measurement) shows only on N cards. Step 1 of each run "
+                  "runs with deterministic cuDNN, the rest as in train.",
+          "card": card})
+    del model, init
+    return launches
+
+
+def sync_name(name):
+    return name.replace("SyncBatchNorm_", "BatchNorm_")
+
+
+def phase_train_syncbn(torch, hvd, dev, args, card, make_model):
+    """ResNet-50 with every BatchNorm synchronized over the world, against
+    the plain-BatchNorm ResNet-50 on the same weights and batch, both held
+    to an fp32-activation copy: sync BN must be as close to it as plain
+    BatchNorm's own bf16 rounding leaves plain BatchNorm."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops import sync_batch_norm as sbn
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+    plain = make_model()
+    state = {sync_name(k): v for k, v in plain.state_dict().items()}
+
+    def copy_of(**kw):
+        m = ResNet50(num_classes=1000, **kw).to(dev).train()
+        m.load_state_dict({k: state[sync_name(k)] for k in m.state_dict()})
+        return m
+
+    models = {"ref": copy_of(dtype=torch.float32), "plain": plain,
+              "sync": copy_of(dtype=torch.bfloat16,
+                              sync_batch_norm=hvd.global_process_set)}
+    n_bn = sum(isinstance(m, sbn.SyncBatchNorm)
+               for m in models["sync"].modules())
+    runs = {}
+    for name, model in models.items():
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        before = {sync_name(n): p.detach().clone()
+                  for n, p in model.named_parameters()}
+
+        def step():
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        with deterministic_cudnn(torch):
+            loss0 = step().item()
+        torch.cuda.synchronize()
+        runs[name] = {
+            "loss": loss0,
+            "update": {sync_name(n): p.detach() - before[sync_name(n)]
+                       for n, p in model.named_parameters()},
+            "stats": {sync_name(n): b.detach().clone()
+                      for n, b in model.named_buffers()
+                      if "running_" in n}}
+        if name == "ref":
+            opt._remove_hooks()
+            continue
+        sb.reset_launch_counts()             # this path starts here
+        sbn.launches = 0
+        for i in range(args.warmup + args.steps):
+            if i == args.warmup:
+                torch.cuda.synchronize()
+                c0 = sbn.launches
+                t0 = time.perf_counter()
+            step()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        runs[name].update({
+            "images_per_sec": args.batch * args.steps / elapsed,
+            "step_ms": 1e3 * elapsed / args.steps,
+            "bn_collectives_per_step": (sbn.launches - c0) / args.steps,
+            "launches": {"scale_pack": sb.pack_launches,
+                         "scale_unpack": sb.unpack_launches}})
+        opt._remove_hooks()
+    ref = runs["ref"]
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm()
+                / b.double().norm().clamp_min(1e-30)).item()
+
+    dev_of = {m: {k: rel(runs[m]["update"][k], v)
+                  for k, v in ref["update"].items() if v.abs().max() > 0}
+              for m in ("plain", "sync")}
+    stats_of = {m: {k: rel(runs[m]["stats"][k], v)
+                    for k, v in ref["stats"].items()}
+                for m in ("plain", "sync")}
+    loss_of = {m: abs(runs[m]["loss"] - ref["loss"]) for m in ("plain",
+                                                              "sync")}
+    lim = SYNCBN_LIMITS
+    keys = sorted(dev_of["sync"])
+    whole = {m: rel(torch.cat([runs[m]["update"][k].reshape(-1)
+                               for k in keys]),
+                    torch.cat([ref["update"][k].reshape(-1) for k in keys]))
+             for m in ("plain", "sync")}
+    median = {m: statistics.median(dev_of[m].values())
+              for m in ("plain", "sync")}
+    worse = max(whole["sync"] / (lim["factor"] * whole["plain"]
+                                 + lim["update_rel_floor"]),
+                median["sync"] / (lim["factor"] * median["plain"]
+                                  + lim["update_rel_floor"]))
+    per_tensor = sorted(((dev_of["sync"][k] / max(dev_of["plain"][k],
+                                                   1e-30), k)
+                         for k in keys), reverse=True)
+    stats_worse = max(stats_of["sync"][k]
+                      / (lim["factor"] * stats_of["plain"][k]
+                         + lim["stats_rel_floor"]) for k in stats_of["sync"])
+    check(math.isfinite(runs["sync"]["loss"]) and loss_of["sync"]
+          <= lim["factor"] * loss_of["plain"]
+          + lim["loss_rel_floor"] * abs(ref["loss"]),
+          f"sync BN step 1 loss {runs['sync']['loss']}, plain "
+          f"{runs['plain']['loss']}, fp32 {ref['loss']}")
+    check(worse <= 1.0, f"sync BN step 1 update, whole and the median "
+          f"tensor's, no further from the fp32 copy's than plain "
+          f"BatchNorm's (x{lim['factor']} + {lim['update_rel_floor']}): "
+          f"whole {whole}, median {median}")
+    check(stats_worse <= 1.0, f"sync BN running statistics after step 1: "
+          f"worst share {stats_worse}")
+    check(runs["sync"]["bn_collectives_per_step"] == 2 * n_bn,
+          f"{n_bn} BatchNorms, a forward and a backward collective each a "
+          f"step: {runs['sync']['bn_collectives_per_step']}")
+    cos = min(torch.nn.functional.cosine_similarity(
+        runs["sync"]["update"][k].double().reshape(1, -1),
+        runs["plain"]["update"][k].double().reshape(1, -1)).item()
+        for k in dev_of["sync"])
+    emit({"phase": "train_syncbn", "model": "ResNet-50",
+          "batch": args.batch, "sync_batchnorms": n_bn, "limits": lim,
+          "losses_step1": {m: runs[m]["loss"] for m in runs},
+          "update_rel_to_fp32": {
+              m: {"whole": whole[m], "median": median[m],
+                  "max": max(dev_of[m].values())} for m in dev_of},
+          "worst_share_of_limit": worse,
+          "tensors_most_above_plain": per_tensor[:3],
+          "stats_worst_share_of_limit": stats_worse,
+          "sync_vs_plain_update_cos_min": cos,
+          "runs": {k: {kk: vv for kk, vv in v.items()
+                       if kk not in ("update", "stats")}
+                   for k, v in runs.items() if k != "ref"},
+          "note": "one rank: the global statistics are the local ones; "
+                  "step 1 of each model with deterministic cuDNN, held to "
+                  "an fp32-activation copy (ref); images/s over the timed "
+                  "steps (host-bound: each BatchNorm's collective is a "
+                  "host round trip)",
+          "card": card})
+    del models, plain
+    return runs["sync"]["launches"]
 
 
 # The GPT main path: bench.py's GPT-2 small, 8 x 1024 tokens a step.
@@ -3272,6 +3831,13 @@ def main(argv=None):
                     dev, args.seed)
     del model
     gc.collect()
+    wire_mixed, wire_err = run("wire_vs_cpu", phase_wire_vs_cpu, torch,
+                               buckets, shapes["resnet50"], dev, args.seed)
+    wire_launches = run("train_wire", phase_train_wire, torch, hvd, dev, args,
+                        card, resnet50)
+    syncbn_launches = run("train_syncbn", phase_train_syncbn, torch, hvd,
+                          dev, args, card, resnet50)
+    gc.collect()
     run("cycle", phase_cycle, torch, hvd, dev, args, card)
     elastic_launches = run("train_elastic", phase_train_elastic, torch, hvd,
                            dev, args, card)
@@ -3286,22 +3852,37 @@ def main(argv=None):
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
-                   launch_elastic=launch_elastic_launches)
+                   launch_elastic=launch_elastic_launches,
+                   train_wire=wire_launches, train_syncbn=syncbn_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
-                   "train_elastic", "launch_elastic")
+                   "train_elastic", "launch_elastic", "train_wire",
+                   "train_syncbn")
+    check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn")
+              for k in ("scale_pack", "scale_unpack")),
+          f"the wire and SyncBatchNorm paths launched both scale kernels: "
+          f"{wire_launches}, {syncbn_launches}")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
          "launches": sum(by_path[p][f"scale_{kind}"] for p in scale_paths),
          "launches_by_path": {p: by_path[p][f"scale_{kind}"]
                               for p in scale_paths},
-         "checked_vs_plain": True, "max_abs_err": max_err,
+         "checked_vs_plain": True, "max_abs_err": max(max_err, wire_err),
          "ms": total[f"{kind}_ms"],
          "wrapper_ms": total[f"{kind}_wrapper_ms"],
          "plain_ms": total[f"{kind}_plain_ms"],
          "bound_ms": total["bound_ms"], "bound_by": "bytes",
-         "library_ms": total[f"{kind}_library_ms"]}
+         "library_ms": total[f"{kind}_library_ms"],
+         "mixed_dtype": {pair: {"ms": r[f"{kind}_ms"],
+                                "plain_ms": r[f"{kind}_plain_ms"],
+                                "bound_ms": r["bound_ms"],
+                                "library_ms": r[f"{kind}_library_ms"]}
+                         for pair, r in wire_mixed.items()},
+         "times_note": "ms, plain_ms, bound_ms and library_ms: the fp32 "
+                       "buckets of train; mixed_dtype: ResNet-50's "
+                       "gradients as one bucket, tensors -> buffer dtype "
+                       "(wire_vs_cpu)"}
         for kind in ("pack", "unpack")]
     kernels += [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.config import Config
+from horovod_tpu_torch.ops import wire
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  NotInitializedError)
 
@@ -202,6 +203,11 @@ def shutdown(abort=False):
         if _state is None:
             return
         st, _state = _state, None
+        # Residuals are sized and padded for this world: a resized one
+        # (the elastic reset) must not replay them. The runtime's synced
+        # wire goes with it; the user's pins stay.
+        wire.reset_error_feedback()
+        wire.clear_runtime_wire()
         if abort or st.aborted is not None:
             _abort_locked(st, st.aborted or "the process group was shut "
                           "down by an elastic reset")

@@ -9,7 +9,9 @@ CROSS_SIZE and HOROVOD_COORDINATOR_ADDR/PORT, HOROVOD_START_TIMEOUT;
 with none of them, the MPI/PMI/Slurm env of a process mpirun started) and
 the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
 ``HOROVOD_BLACKLIST_COOLDOWN_RANGE``, ``HOROVOD_HOST_KEY``,
-``HOROVOD_ELASTIC_INIT_VERSION``).
+``HOROVOD_ELASTIC_INIT_VERSION``) and the wire knobs
+(``HOROVOD_WIRE_DTYPE``, ``HOROVOD_WIRE_DTYPE_DCN``,
+``HOROVOD_WIRE_ERROR_FEEDBACK``).
 """
 
 import dataclasses
@@ -58,6 +60,16 @@ class Config:
     # descriptor round among its set (ops/collective_ops.py, "Join"). Set it
     # on every process or on none.
     join_mode: bool = False
+    # The fusion runtime's wire (ops/wire.py): "" (full precision), the
+    # cast wires "float16"/"bfloat16", or the quantized "int8"/"fp8"
+    # block-scaled exchange.
+    wire_dtype: str = ""
+    # The cross-slice leg's wire of the hierarchical tiers (ROADMAP A11):
+    # read and kept, used by nothing yet.
+    wire_dtype_dcn: str = ""
+    # Error feedback for the quantized wire: each bucket's fp32
+    # quantization error is added back before its next quantize.
+    wire_error_feedback: bool = True
 
     # Bootstrap (reference gloo_run.py:203-214 env plumbing). -1 = unset.
     rank: int = 0
@@ -92,6 +104,11 @@ class Config:
         c.fusion_threshold = _env_int("HOROVOD_FUSION_THRESHOLD", c.fusion_threshold)
         c.cycle_time_ms = _env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
         c.join_mode = _env_bool("HOROVOD_JOIN_MODE", c.join_mode)
+        c.wire_dtype = os.environ.get("HOROVOD_WIRE_DTYPE", c.wire_dtype)
+        c.wire_dtype_dcn = os.environ.get("HOROVOD_WIRE_DTYPE_DCN",
+                                          c.wire_dtype_dcn)
+        c.wire_error_feedback = _env_bool("HOROVOD_WIRE_ERROR_FEEDBACK",
+                                          c.wire_error_feedback)
         c.rank = _env_int("HOROVOD_RANK", c.rank)
         c.local_rank = _env_int("HOROVOD_LOCAL_RANK", c.local_rank)
         c.cross_rank = _env_int("HOROVOD_CROSS_RANK", c.cross_rank)

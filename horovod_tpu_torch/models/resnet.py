@@ -18,7 +18,9 @@ Flax semantics kept on purpose:
 - BatchNorm is Flax's: momentum 0.9 (torch's 0.1), epsilon 1e-5, statistics
   in fp32, and the running variance is fed the biased batch variance
   (``nn.BatchNorm2d`` feeds the unbiased one). The last BatchNorm of each
-  block starts at zero scale.
+  block starts at zero scale. ``sync_batch_norm=<process set>`` swaps every
+  BatchNorm for ``ops/sync_batch_norm.py::SyncBatchNorm`` over that set
+  (JAX's ``sync_batch_norm_axis``), under the same names.
 - Products at Flax's DEFAULT precision (``parallel/tp.py::at_precision``), as
   no layer of the Flax model sets one: on CUDA an fp32 convolution or
   classifier product runs in TF32, forward and backward (``Dense_0`` takes
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.tp import Dense, at_precision, lecun_normal_
 
 
@@ -137,24 +140,38 @@ class BatchNorm(nn.Module):
         return y
 
 
+def _add_norm(block, norm, features, zero_scale=False):
+    """Register the block's next BatchNorm under Flax's name for it
+    (``BatchNorm_<i>``, or ``SyncBatchNorm_<i>`` for the synchronized
+    class) and return it."""
+    prefix = getattr(norm, "func", norm).__name__
+    m = norm(features, zero_scale=zero_scale)
+    setattr(block, f"{prefix}_{len(block._norms)}", m)
+    block._norms.append(m)
+    return m
+
+
 class ResNetBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_features, filters, strides=(1, 1), act=F.relu):
+    def __init__(self, in_features, filters, strides=(1, 1), act=F.relu,
+                 norm=BatchNorm):
         super().__init__()
         self.act = act
+        self._norms = []
         self.Conv_0 = Conv(in_features, filters, (3, 3), strides)
-        self.BatchNorm_0 = BatchNorm(filters)
+        _add_norm(self, norm, filters)
         self.Conv_1 = Conv(filters, filters, (3, 3))
-        self.BatchNorm_1 = BatchNorm(filters, zero_scale=True)
+        _add_norm(self, norm, filters, zero_scale=True)
         self.has_proj = tuple(strides) != (1, 1) or in_features != filters
         if self.has_proj:
             self.conv_proj = Conv(in_features, filters, (1, 1), strides)
-            self.norm_proj = BatchNorm(filters)
+            self.norm_proj = norm(filters)
 
     def forward(self, x):
-        y = self.act(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
+        n0, n1 = self._norms
+        y = self.act(n0(self.Conv_0(x)))
+        y = n1(self.Conv_1(y))
         residual = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
         return self.act(residual + y)
 
@@ -162,25 +179,28 @@ class ResNetBlock(nn.Module):
 class BottleneckResNetBlock(nn.Module):
     expansion = 4
 
-    def __init__(self, in_features, filters, strides=(1, 1), act=F.relu):
+    def __init__(self, in_features, filters, strides=(1, 1), act=F.relu,
+                 norm=BatchNorm):
         super().__init__()
         self.act = act
+        self._norms = []
         self.Conv_0 = Conv(in_features, filters, (1, 1))
-        self.BatchNorm_0 = BatchNorm(filters)
+        _add_norm(self, norm, filters)
         self.Conv_1 = Conv(filters, filters, (3, 3), strides)
-        self.BatchNorm_1 = BatchNorm(filters)
+        _add_norm(self, norm, filters)
         self.Conv_2 = Conv(filters, filters * 4, (1, 1))
-        self.BatchNorm_2 = BatchNorm(filters * 4, zero_scale=True)
+        _add_norm(self, norm, filters * 4, zero_scale=True)
         self.has_proj = tuple(strides) != (1, 1) or \
             in_features != filters * 4
         if self.has_proj:
             self.conv_proj = Conv(in_features, filters * 4, (1, 1), strides)
-            self.norm_proj = BatchNorm(filters * 4)
+            self.norm_proj = norm(filters * 4)
 
     def forward(self, x):
-        y = self.act(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.act(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
+        n0, n1, n2 = self._norms
+        y = self.act(n0(self.Conv_0(x)))
+        y = self.act(n1(self.Conv_1(y)))
+        y = n2(self.Conv_2(y))
         residual = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
         return self.act(residual + y)
 
@@ -188,12 +208,18 @@ class BottleneckResNetBlock(nn.Module):
 class ResNet(nn.Module):
     """``stem="conv"``: the classic 7x7 stride-2 stem. ``"space_to_depth"``:
     2x2 pixel blocks folded into channels, then a 4x4 stride-1 conv over the
-    same 8x8 field (the JAX package's TPU stem, kept for parity)."""
+    same 8x8 field (the JAX package's TPU stem, kept for parity).
+    ``sync_batch_norm``: a process set whose ranks every BatchNorm's
+    statistics are synchronized over, or None for plain BatchNorm."""
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000,
                  num_filters=64, dtype=torch.bfloat16, act=F.relu,
-                 stem="conv", in_channels=3, generator=None):
+                 stem="conv", in_channels=3, generator=None,
+                 sync_batch_norm=None):
         super().__init__()
+        norm = BatchNorm if sync_batch_norm is None else partial(
+            SyncBatchNorm, momentum=0.9, epsilon=1e-5,
+            process_set=sync_batch_norm)
         self.dtype = dtype
         self.act = act
         self.stem = stem
@@ -205,7 +231,7 @@ class ResNet(nn.Module):
         else:
             raise ValueError(f"unknown stem {stem!r} "
                              "(use 'conv' or 'space_to_depth')")
-        self.bn_init = BatchNorm(num_filters)
+        self.bn_init = norm(num_filters)
         self.block_names = []
         features = num_filters
         for i, block_size in enumerate(stage_sizes):
@@ -214,7 +240,7 @@ class ResNet(nn.Module):
                 name = f"{block_cls.__name__}_{len(self.block_names)}"
                 filters = num_filters * 2 ** i
                 setattr(self, name, block_cls(features, filters, strides,
-                                              act=act))
+                                              act=act, norm=norm))
                 self.block_names.append(name)
                 features = filters * block_cls.expansion
         self.Dense_0 = Dense(features, num_classes)
@@ -223,7 +249,7 @@ class ResNet(nn.Module):
     def reset_parameters(self, generator=None):
         """Flax's initializers, drawn from ``generator``."""
         for m in self.modules():
-            if isinstance(m, (Conv, BatchNorm)):
+            if isinstance(m, (Conv, BatchNorm, SyncBatchNorm)):
                 m.reset_parameters(generator)
         self.Dense_0.reset_parameters(generator)
 

@@ -12,8 +12,10 @@ Allreduce semantics follow ``_reduce_shard``: prescale each rank's tensor,
 reduce (Sum/Average/Min/Max/Product/Adasum), divide by the set size for
 Average, postscale. fp32/fp16/bf16 tensors go through the fusion runtime
 (``ops/fusion.py``), where the pack kernel applies the prescale and the
-unpack kernel the postscale, with Average's ``1/n`` folded into it; other
-dtypes, which no kernel takes, are reduced one collective each. Adasum
+unpack kernel the postscale, with Average's ``1/n`` folded into it (on the
+quantized and cast wires of ``ops/wire.py`` the buckets round as JAX's
+fused program does instead); other dtypes, which no kernel takes, are
+reduced one collective each, exactly. Adasum
 gathers every rank's tensor and runs the combine tree of ``ops/adasum.py``
 on it (float64 too, one gather each); it refuses integer tensors.
 
@@ -56,6 +58,7 @@ from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                   ProcessSetError,
                                                   TensorShapeMismatchError)
 from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.ops.kernels.scale_buffers import DTYPES as _KERNEL_DTYPES
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 
@@ -461,7 +464,14 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
     ``outputs``: optional per-tensor contiguous destinations (``None``
     entries allocate one); an output may be its input, for the in-place
     variants.
+
+    A one-shot wire request (``Compression.int8``'s ``compress``) is
+    consumed here, as JAX's ``allreduce_async`` consumes it: on a runtime
+    whose own wire is quantized it changes nothing, and otherwise this
+    call's fp32/fp16/bf16 tensors become a bucket of their own on that wire
+    (float64 and integer tensors stay exact).
     """
+    request = _wire.quantized_label(_wire.consume_wire_request())
     op = ReduceOp(op)
     ps = _process_set(process_set)
     tensors = list(tensors)
@@ -504,11 +514,13 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
     if by_dtype:
         from horovod_tpu_torch.ops.fusion import get_runtime
         rt = get_runtime()
+        if request is not None and _wire.is_quantized(rt.wire_for(ps)):
+            request = None
         for idxs in by_dtype.values():
             hs = rt.enqueue([tensors[i].contiguous() for i in idxs],
                             [outputs[i] for i in idxs], op,
                             float(prescale_factor), float(postscale_factor),
-                            ps, [names[i] for i in idxs])
+                            ps, [names[i] for i in idxs], wire=request)
             for i, h in zip(idxs, hs):
                 handles[i] = h
     return handles

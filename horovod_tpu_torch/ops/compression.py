@@ -3,8 +3,10 @@
 Port of the JAX package's ``ops/compression.py`` on torch tensors
 (reference: horovod/torch/compression.py): ``Compression.none``,
 ``Compression.fp16`` — cast floating tensors to fp16 before the allreduce and
-back after — and ``Compression.bf16``, the same with bfloat16. The int8 wire
-and PowerSGD are not ported yet.
+back after — ``Compression.bf16``, the same with bfloat16, and
+``Compression.int8``, a routing marker into the quantized wire
+(``ops/wire.py``). PowerSGD (``Compression.powersgd``) is not ported yet
+(ROADMAP A13).
 """
 
 import torch
@@ -57,8 +59,31 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
+class Int8Compressor(Compressor):
+    """int8 on the wire. An int8 tensor cannot ride an ordinary allreduce
+    (n int8s overflow and the ranks' scales differ), so compress and
+    decompress are routing markers: ``compress()`` arms a one-shot request
+    that the allreduce it precedes consumes, and the block-scaled exchange
+    quantizes inside the collective (``wire.block_scaled_allreduce``: int8
+    on both legs, fp32 accumulation, one scale per 1024 elements, error
+    feedback). Lossy: each leg adds at most its block's max/254 per
+    element. Payloads the exchange cannot take (non-Sum/Average ops,
+    fewer than n×1024 elements, float64 or integer tensors) stay exact."""
+
+    @staticmethod
+    def compress(tensor):
+        from horovod_tpu_torch.ops import wire
+        wire.request_wire_once("int8")
+        return tensor, None
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        return tensor
+
+
 class Compression:
     """reference: compression.py Compression namespace."""
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
+    int8 = Int8Compressor

@@ -23,6 +23,34 @@ so it keeps one collective per bucket and still takes each tensor's own
 norms, the coefficients the JAX fused path gets by reducing each tensor of
 an Adasum bucket on its own (``horovod_tpu/ops/fusion.py:226-233``).
 
+The wire (``HOROVOD_WIRE_DTYPE``, ``ops/wire.py``). A flush takes one
+snapshot of the wire: the registry's entry for the set (``set_wire_dtype``
+pins it), else the runtime's knob; process 0 publishes it with the
+boundary and the others adopt it, as JAX's boundaries carry theirs. On a
+quantized wire (``int8``/``fp8``) a flat Sum/Average bucket of at least
+n×BLOCK elements with no joined rank (JAX's ``_bucket_quant``) rides the
+block-scaled exchange instead of the allreduce:
+
+    pack into an fp32 work buffer -> wire.block_scaled_allreduce (the
+    prescale, the bucket's residual, / n and the postscale in fp32) ->
+    unpack
+
+with error feedback on (``HOROVOD_WIRE_ERROR_FEEDBACK``, the default) the
+new residual is kept per bucket layout and membership epoch; a bucket that
+closes exact drops its residual. A bf16/fp16 bucket keeps its dtype (the
+pack kernel widens it into the work buffer). On a 16-bit cast wire
+(``bfloat16``/``float16``) floating buckets are keyed at the wire dtype:
+the pack kernel rounds each tensor to the wire dtype and scales it there,
+the allreduce sums in it, Average multiplies by 1/n in it (XLA's division
+by a constant), and the unpack kernel
+scales in it and widens back, JAX's rounding points. Every other bucket
+(Adasum, Min/Max/Product, joined ranks, small buckets) stays exact. A
+one-shot ``Compression.int8`` request on a runtime whose own wire is not
+quantized makes that call's tensors a bucket of their own, closed at once
+(trigger ``own``) on that wire, as JAX dispatches such a call by itself;
+its residual is kept per call signature (shapes and dtypes), as JAX's eager
+plan keys it.
+
 Flushes. Every enqueued tensor gets a sequence number and joins one pending
 list, across all keys, in enqueue order. A flush takes a prefix of that
 list: all of it when the pending bytes reach the threshold, on a cycle tick,
@@ -105,6 +133,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  TensorShapeMismatchError)
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.ops.adasum import reduce_gathered
 from horovod_tpu_torch.ops.collective_ops import (ADASUM, ALLREDUCE,
                                                   DIST_OPS, ReduceOp,
@@ -193,9 +222,14 @@ class FusionRuntime:
     _FOLLOWER_WAIT_S = 0.3
 
     def __init__(self, threshold, device, cycle_time_ms=0.0, rank=0,
-                 size=1, store=None, epoch=0):
+                 size=1, store=None, epoch=0, wire_dtype="",
+                 wire_error_feedback=True):
         self.threshold = int(threshold)
         self.device = device
+        # The wire knob (process 0's; a follower holds the last one process
+        # 0 published) and error feedback for the quantized wire.
+        self.wire_dtype = _wire.resolve_wire_dtype(wire_dtype)
+        self._wire_ef = bool(wire_error_feedback)
         self._lock = threading.RLock()
         self._flushed = threading.Condition(self._lock)
         self._pending = []       # _Entry, in sequence order, across keys
@@ -232,7 +266,8 @@ class FusionRuntime:
         self._publish_queue = None
         self._fetch_lock = threading.Lock()
         self._stats = {"buckets": 0, "closed_by": dict.fromkeys(TRIGGERS, 0),
-                       "new_signatures": 0}
+                       "new_signatures": 0, "quantized": 0,
+                       "wire_bytes": {}}
         self._recent = collections.deque(maxlen=_RECENT)
         # The error every handle fails with once the runtime is aborted.
         self._failed = None
@@ -341,9 +376,10 @@ class FusionRuntime:
             item = self._publish_queue.get()
             if item is None:
                 return
-            seq, last, why = item
+            seq, last, why, wire = item
             try:
-                self._client.set(self._boundary_key(seq), f"{last} {why}")
+                self._client.set(self._boundary_key(seq),
+                                 f"{last} {why} {wire or '-'}")
                 if seq >= self._BOUNDARY_GC_LAG:
                     self._client.delete_key(
                         self._boundary_key(seq - self._BOUNDARY_GC_LAG))
@@ -375,8 +411,8 @@ class FusionRuntime:
                     if left > 0:   # the store failed fast: no hot loop
                         time.sleep(min(left, 0.05))
                     return None
-            last, why = self._client.get(key).decode().split()
-            return int(last), why
+            last, why, wire = self._client.get(key).decode().split()
+            return int(last), why, "" if wire == "-" else wire
         except dist.DistNetworkError as e:
             # Process 0 serves the store: no boundary will ever come.
             err = HorovodInternalError(
@@ -401,7 +437,7 @@ class FusionRuntime:
                 payload = self._fetch(seq, wait_s)
                 if payload is None:
                     return False
-            last, why = payload
+            last, why, wire = payload
             with self._lock:
                 if self._boundary_seq != seq:   # another thread applied it
                     wait_s = 0
@@ -411,7 +447,11 @@ class FusionRuntime:
                     return True
                 self._deferred = None
                 self._boundary_seq += 1
-                self._flush_locked(why, up_to=last)
+                # Process 0's wire for this prefix (JAX's boundary "w").
+                self.wire_dtype = wire
+                if wire:
+                    _wire.runtime_sync_wire_dtype(wire, "global")
+                self._flush_locked(why, up_to=last, wire=wire)
             wait_s = 0
 
     def _follower_loop(self):
@@ -468,16 +508,19 @@ class FusionRuntime:
     # ---- enqueue and flush ------------------------------------------------
 
     def enqueue(self, tensors, outputs, op, prescale, postscale, process_set,
-                names):
+                names, wire=None):
         """Queue one unit — a tensor, or a group that shares a bucket — of
-        one dtype; returns a handle per tensor."""
+        one dtype; returns a handle per tensor. ``wire``: a one-shot
+        quantized wire for these tensors alone (``Compression.int8``), which
+        makes them a bucket of their own, closed at once."""
         key = (process_set, ReduceOp(op), prescale, postscale,
                tensors[0].dtype)
         stream = None if self._stream is None \
             else torch.cuda.current_stream(self.device)
         if self._failed is not None:
             raise self._failed
-        own = join_armed() or process_set.size() < self._world
+        own = join_armed() or process_set.size() < self._world \
+            or wire is not None
         if own:
             self.fence()
         with self._lock:
@@ -488,7 +531,11 @@ class FusionRuntime:
                                   FusedHandle(self, out, name, None), stream,
                                   None)
                            for t, out, name in zip(tensors, outputs, names)]
-                self._close(key, entries, "own")
+                eager = wire is not None
+                if not eager:
+                    wire = self._wire_snapshot(process_set)
+                self._close(_wire_key(key, wire), entries, "own", wire,
+                            eager=eager)
                 return [e.handle for e in entries]
             group = None
             if len(tensors) > 1:
@@ -530,9 +577,21 @@ class FusionRuntime:
         finally:
             self._lock.release()
 
-    def _flush_locked(self, why, up_to=None):
+    def _wire_snapshot(self, ps=None):
+        """The wire of the buckets about to close: the registry's entry for
+        the set (a user pin, or the knob synced into it), else the knob."""
+        if self.wire_dtype and _ps_label(ps) == "global":
+            _wire.runtime_sync_wire_dtype(self.wire_dtype, "global")
+        return self.wire_for(ps)
+
+    def wire_for(self, ps=None):
+        """The wire this runtime's next buckets of ``ps`` would ride."""
+        return _wire.wire_dtype_for(_ps_label(ps), self.wire_dtype)
+
+    def _flush_locked(self, why, up_to=None, wire=None):
         """Close the pending prefix (all of it, or a follower's boundary:
-        the entries with seq <= ``up_to``) as buckets."""
+        the entries with seq <= ``up_to``) as buckets on ``wire`` (a
+        follower's: process 0's; else this runtime's snapshot)."""
         if up_to is None:
             prefix, self._pending = self._pending, []
         else:
@@ -543,14 +602,17 @@ class FusionRuntime:
         if not prefix:
             return
         self._pending_bytes -= sum(e.nbytes for e in prefix)
+        if wire is None:
+            wire = self._wire_snapshot()
         if self._multi and self._coord:
-            self._publish_queue.put((self._boundary_seq, prefix[-1].seq, why))
+            self._publish_queue.put((self._boundary_seq, prefix[-1].seq, why,
+                                     wire))
             self._boundary_seq += 1
         error = None
         try:
-            for key, entries in self._assemble(prefix):
+            for key, entries in self._assemble(prefix, wire):
                 try:
-                    self._close(key, entries, why)
+                    self._close(key, entries, why, wire)
                 except Exception as exc:  # noqa: BLE001 — its handles hold it
                     error = error or exc
         finally:
@@ -559,19 +621,21 @@ class FusionRuntime:
         if error is not None:
             raise error
 
-    def _assemble(self, prefix):
+    def _assemble(self, prefix, wire=""):
         """The prefix's buckets, as [(key, entries)] in order of first
         appearance: one open bucket per key (per group for a group's
         entries), closed when the next entry would take it past the
-        threshold."""
+        threshold. On a cast wire the key's dtype is the wire's (JAX's
+        ``_bucket_key``): fp32 and bf16 tensors then share buckets."""
         buckets, open_ = [], {}
         for e in prefix:
             grouped = e.group is not None
-            slot = ("group", e.group) if grouped else e.key
+            key = _wire_key(e.key, wire)
+            slot = ("group", e.group) if grouped else key
             b = open_.get(slot)
             if b is None or (not grouped and b[2]
                              and b[2] + e.nbytes > self.threshold):
-                b = open_[slot] = [e.key, [], 0]
+                b = open_[slot] = [key, [], 0]
                 buckets.append(b)
             b[1].append(e)
             b[2] += e.nbytes
@@ -654,8 +718,9 @@ class FusionRuntime:
 
     def verified_signatures(self):
         """The bucket signatures all ranks have agreed on, oldest first:
-        (process set id, op, prescale, postscale, dtype, ((name, numel),
-        ...))."""
+        (process set id, op, prescale, postscale, dtype, wire, ((name,
+        numel), ...)); ``wire`` is the flush's wire dtype, '' for full
+        precision."""
         with self._lock:
             return list(self._verified)
 
@@ -668,25 +733,44 @@ class FusionRuntime:
 
     def flush_stats(self):
         """Buckets closed so far, by trigger (``TRIGGERS``; a follower counts
-        process 0's trigger), and the new signatures among them."""
+        process 0's trigger), the new signatures among them, how many rode
+        the quantized exchange, and the bytes on the wire by wire dtype (the
+        JAX formulas: ``wire.exchange_wire_bytes`` for a quantized bucket,
+        ``wire.allreduce_wire_bytes`` for the others)."""
         with self._lock:
             return {"buckets": self._stats["buckets"],
                     "closed_by": dict(self._stats["closed_by"]),
-                    "new_signatures": self._stats["new_signatures"]}
+                    "new_signatures": self._stats["new_signatures"],
+                    "quantized": self._stats["quantized"],
+                    "wire_bytes": dict(self._stats["wire_bytes"])}
 
-    def _close(self, key, entries, why):
+    def _close(self, key, entries, why, wire="", eager=False):
         ps, op, prescale, postscale, dtype = key
         sig = (ps.process_set_id, int(op), prescale, postscale, str(dtype),
-               tuple((e.name, e.tensor.numel()) for e in entries))
+               wire, tuple((e.name, e.tensor.numel()) for e in entries))
         self._stats["buckets"] += 1
         self._stats["closed_by"][why] += 1
         self._recent.append((why, sig))
         try:
             joined = self._check_signature(key, sig)
+            n = ps.size() - len(joined)
+            numels = [e.tensor.numel() for e in entries]
+            quant = _bucket_quant(wire, op, joined, numels, n)
+            # The wire this bucket rides: quantized, a cast, or '' (exact).
+            ride = quant or ("" if _wire.is_quantized(wire)
+                             or op == ReduceOp.ADASUM else wire)
+            # The residual's key: the bucket's layout and this runtime's
+            # membership epoch, or for a one-shot call its shapes and dtypes
+            # (JAX's eager plan key), without names.
+            res_key = ("fusion", self._epoch) + sig[:5] + sig[6:] \
+                if not eager else ("eager", self._epoch) + sig[:4] + tuple(
+                    (tuple(e.tensor.shape), str(e.tensor.dtype))
+                    for e in entries)
+            self._count_wire(ride, dtype, sum(numels), n)
             event = None
             if self._stream is None:
                 self._reduce(entries, ps, op, prescale, postscale, dtype,
-                             joined)
+                             joined, ride, res_key)
             else:
                 side = self._stream
                 for s in {e.stream.cuda_stream: e.stream
@@ -694,7 +778,7 @@ class FusionRuntime:
                     side.wait_stream(s)
                 with torch.cuda.stream(side):
                     self._reduce(entries, ps, op, prescale, postscale, dtype,
-                                 joined)
+                                 joined, ride, res_key)
                     event = torch.cuda.Event()
                     event.record(side)
                 # The caching allocator must not hand these blocks out again
@@ -710,10 +794,39 @@ class FusionRuntime:
             e.handle._event = event
             e.handle._dispatched = True
 
-    def _reduce(self, entries, ps, op, prescale, postscale, dtype, joined):
-        total = sum(e.tensor.numel() for e in entries)
+    def _count_wire(self, label, dtype, total, n):
+        if _wire.is_quantized(label):
+            self._stats["quantized"] += 1
+            nbytes = _wire.exchange_wire_bytes(total, n)
+        else:
+            label = label or str(dtype).replace("torch.", "")
+            item = torch.empty((), dtype=dtype).element_size()
+            nbytes = _wire.allreduce_wire_bytes(n * total * item, item, n,
+                                                label)
+        by = self._stats["wire_bytes"]
+        by[label] = by.get(label, 0) + nbytes
+
+    def _reduce(self, entries, ps, op, prescale, postscale, dtype, joined,
+                ride, res_key):
+        tensors = [e.tensor for e in entries]
+        outputs = [e.output for e in entries]
+        total = sum(t.numel() for t in tensors)
+        if _wire.is_quantized(ride):
+            self._reduce_quantized(tensors, outputs, ps, op, prescale,
+                                   postscale, ride, res_key, total)
+            return
+        # A bucket off the quantized wire drops the residual it may have
+        # kept there (a joined rank, a wire flip).
+        _wire.ef_pop(res_key)
+        cast = bool(ride)
+        if cast:
+            # JAX's rounding points on the cast wire: the scales in the wire
+            # dtype, Average's 1/n as its own product in it.
+            prescale, postscale = (
+                torch.tensor(v, dtype=dtype).item()
+                for v in (prescale, postscale))
         buf = self._buffer(dtype, total)
-        pack_scale([e.tensor for e in entries], buf, prescale)
+        pack_scale(tensors, buf, prescale)
         if op == ReduceOp.ADASUM:
             # Gather every rank's bucket and run the combine tree on it, per
             # tensor; the result is row 0. Adasum is no average: no 1/n.
@@ -723,13 +836,47 @@ class FusionRuntime:
                    async_op=True)
             buf = reduce_gathered(
                 active_rows(gathered.view(ps.size(), total), ps, joined),
-                [e.tensor.numel() for e in entries])
+                [t.numel() for t in tensors])
         else:
             launch(dist.all_reduce, buf, op=DIST_OPS[op], group=ps.group,
                    async_op=True)
             if op == ReduceOp.AVERAGE:
-                postscale = postscale / (ps.size() - len(joined))
-        unpack_scale(buf, [e.output for e in entries], postscale)
+                n = ps.size() - len(joined)
+                if cast:
+                    # XLA's y / n: a product with 1/n in the wire dtype.
+                    buf.mul_(torch.tensor(1.0 / n, dtype=dtype).item())
+                else:
+                    postscale = postscale / n
+        unpack_scale(buf, outputs, postscale)
+
+    def _reduce_quantized(self, tensors, outputs, ps, op, prescale,
+                          postscale, label, res_key, total):
+        """The quantized wire: pack (widened to fp32), the block-scaled
+        exchange with the bucket's residual, the prescale, Average's 1/n and
+        the postscale (in JAX's order and rounding), unpack (rounded to the
+        tensors' dtype)."""
+        work = self._buffer(torch.float32, total)
+        pack_scale(tensors, work, 1.0)
+        residual = None
+        if self._wire_ef:
+            # A bucket's first round on this wire starts from zero, as JAX's.
+            kept = _wire.ef_get(res_key)
+            residual = kept[1] if kept is not None and kept[0] == label \
+                else torch.zeros(total, dtype=torch.float32,
+                                 device=work.device)
+        try:
+            out, new_res = _wire.block_scaled_allreduce(
+                work, residual=residual, group=ps.group, wire=label,
+                average=op == ReduceOp.AVERAGE, prescale_factor=prescale,
+                postscale_factor=postscale)
+        except BaseException:
+            # Never resume error feedback over a failed exchange.
+            _wire.ef_pop(res_key)
+            raise
+        if self._wire_ef:
+            # Made on the side stream, whose allocator pool it belongs to.
+            _wire.ef_put(res_key, (label, new_res))
+        unpack_scale(out, outputs, 1.0)
 
     def _buffer(self, dtype, total):
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -756,15 +903,42 @@ class FusionRuntime:
         if any(h != mine for h in every):
             raise TensorShapeMismatchError(
                 f"ranks formed different fusion buckets for {len(sig[-1])} "
-                f"tensor(s) of {dtype} (op {op.name}); this rank's bucket: "
+                f"tensor(s) of {dtype} (op {op.name}, wire "
+                f"{sig[5] or 'full precision'}); this rank's bucket: "
                 f"{sig[-1][:4]}{'...' if len(sig[-1]) > 4 else ''}; bucket "
                 f"hashes by rank: {every}. Every rank must enqueue the same "
-                "tensors in the same order.")
+                "tensors in the same order, on the same wire.")
         if len(self._verified) >= _MAX_SIGNATURES:
             self._verified.clear()
         self._verified[sig] = mine
         self._stats["new_signatures"] += 1
         return frozenset()
+
+
+def _ps_label(ps):
+    """The wire registry's label of a process set (JAX's ``_ps_label``)."""
+    return "global" if ps is None or ps.ranks is None \
+        else f"set{ps.process_set_id}"
+
+
+def _wire_key(key, wire):
+    """A bucket key on ``wire``: a cast wire keys it at the wire dtype, a
+    quantized or full-precision wire at the tensors' own. Adasum reduces in
+    the tensors' own dtype on any wire, as JAX's fused program does."""
+    if not wire or _wire.is_quantized(wire) or key[1] == ReduceOp.ADASUM:
+        return key
+    return key[:4] + (_wire.wire_torch_type(wire),)
+
+
+def _bucket_quant(wire, op, joined, numels, n):
+    """JAX's ``_bucket_quant``: the quantized label a bucket rides, or None
+    for the exact path. Only flat Sum/Average buckets (every fusion dtype is
+    a float) with no joined rank and at least n×BLOCK elements."""
+    label = _wire.quantized_label(wire)
+    if label is None or joined or op not in (ReduceOp.SUM,
+                                             ReduceOp.AVERAGE):
+        return None
+    return label if sum(numels) >= n * _wire.BLOCK else None
 
 
 def get_runtime():
@@ -774,7 +948,10 @@ def get_runtime():
             rt = FusionRuntime(st.config.fusion_threshold, st.device,
                                cycle_time_ms=st.config.cycle_time_ms,
                                rank=st.rank, size=st.size, store=st.store,
-                               epoch=st.config.elastic_init_version)
+                               epoch=st.config.elastic_init_version,
+                               wire_dtype=st.config.wire_dtype,
+                               wire_error_feedback=(
+                                   st.config.wire_error_feedback))
             rt.start()
             st.fusion = rt
         return st.fusion

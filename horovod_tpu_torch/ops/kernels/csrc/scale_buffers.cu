@@ -5,18 +5,26 @@
 // which stands in for the reference's batched memcpy+scale of
 // horovod/common/ops/cuda/cuda_kernels.cu around each fusion bucket.
 //
-//   pack:   flat[off_i + k] = T(float(t_i[k]) * scale)   for every tensor i
-//   unpack: t_i[k]          = T(float(flat[off_i + k]) * scale)
+//   pack:   flat[off_i + k] = B(float(B(t_i[k])) * scale)   for every tensor i
+//   unpack: t_i[k]          = A(B(float(flat[off_i + k]) * scale))
 //
-// One fp32 multiply (__fmul_rn, never contracted) and one rounding back to T,
-// the TPU kernel's contract; so the kernel is bit-equal to the plain PyTorch
-// version, which does the same.
+// with A the tensors' type and B the buffer's (fp32, fp16 or bf16 each). When
+// they are the same type this is one fp32 multiply (__fmul_rn, never
+// contracted) and one rounding back to the type, the TPU kernel's contract.
+// The mixed-dtype form scales in the buffer's type: the tensor is rounded to
+// B before the multiply and the product rounded to B before it becomes an A,
+// the rounding points of the JAX fused program on the quantized wire (A =
+// bf16/fp16 into an fp32 work buffer: B(a) is exact) and on the 16-bit cast
+// wire (A = fp32 into a bf16/fp16 buffer: cast, then scale in the wire type;
+// back: scale in the wire type, then widen). Either way the kernel is
+// bit-equal to the plain PyTorch version, which rounds at the same points.
 //
 // Bound: bytes. Each element is read once and written once and the kernel
 // does one multiply per element, far below the card's ~300 flop/byte balance
 // point; the least time is 2 * bucket bytes / 3.35 TB/s (61 us for ResNet-50's
 // 102 MB of fp32 gradients). What the design does about it: a single launch
-// per bucket (no per-tensor launch overhead, as in the reference), a 2-D grid
+// per bucket, one per tensor type in a bucket that mixes them (no per-tensor
+// launch overhead, as in the reference), a 2-D grid
 // whose y walks the tensor table and whose x is grid-stride over each tensor
 // so neighbouring threads touch neighbouring addresses (coalesced), and no
 // staging beyond the fusion buffer itself. Vectorised 16-byte access, TMA and
@@ -52,30 +60,54 @@ struct Table {
   int64_t offset[kMaxRows];
 };
 
-template <typename T, bool kPack>
+template <typename A, typename B, bool kPack>
 __global__ void __launch_bounds__(kThreads)
-scale_copy_kernel(const __grid_constant__ Table table, int n_tensors, T* flat, float scale) {
+scale_copy_kernel(const __grid_constant__ Table table, int n_tensors, B* flat, float scale) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int j = blockIdx.y; j < n_tensors; j += gridDim.y) {
-    T* tensor = reinterpret_cast<T*>(table.ptr[j]);
+    A* tensor = reinterpret_cast<A*>(table.ptr[j]);
     const int64_t numel = table.numel[j];
-    T* slot = flat + table.offset[j];
+    B* slot = flat + table.offset[j];
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < numel;
          i += stride) {
       if (kPack) {
-        slot[i] = Cvt<T>::from_f32(__fmul_rn(Cvt<T>::to_f32(tensor[i]), scale));
+        const float x = Cvt<B>::to_f32(Cvt<B>::from_f32(Cvt<A>::to_f32(tensor[i])));
+        slot[i] = Cvt<B>::from_f32(__fmul_rn(x, scale));
       } else {
-        tensor[i] = Cvt<T>::from_f32(__fmul_rn(Cvt<T>::to_f32(slot[i]), scale));
+        const B y = Cvt<B>::from_f32(__fmul_rn(Cvt<B>::to_f32(slot[i]), scale));
+        tensor[i] = Cvt<A>::from_f32(Cvt<B>::to_f32(y));
       }
     }
+  }
+}
+
+template <typename A, typename B, bool kPack>
+void launch_typed(const Table& table, int n, dim3 grid, void* flat, float scale,
+                  cudaStream_t stream) {
+  scale_copy_kernel<A, B, kPack>
+      <<<grid, kThreads, 0, stream>>>(table, n, static_cast<B*>(flat), scale);
+}
+
+// The tensors' type A, then the buffer's B: 0 = float32, 1 = float16,
+// 2 = bfloat16. Returns false for another code.
+template <typename A, bool kPack>
+bool launch_buffer(int buffer_dtype, const Table& table, int n, dim3 grid, void* flat,
+                   float scale, cudaStream_t stream) {
+  switch (buffer_dtype) {
+    case 0: launch_typed<A, float, kPack>(table, n, grid, flat, scale, stream); return true;
+    case 1: launch_typed<A, __half, kPack>(table, n, grid, flat, scale, stream); return true;
+    case 2:
+      launch_typed<A, __nv_bfloat16, kPack>(table, n, grid, flat, scale, stream);
+      return true;
+    default: return false;
   }
 }
 
 // rows: n pointers, then n numels, then n offsets (host memory), copied into
 // the launch's parameters.
 template <bool kPack>
-int launch(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat, int dtype,
-           float scale, cudaStream_t stream) {
+int launch(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat, int buffer_dtype,
+           int tensor_dtype, float scale, cudaStream_t stream) {
   if (n_tensors <= 0 || n_tensors > kMaxRows || blocks_x <= 0 || blocks_x > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -86,22 +118,22 @@ int launch(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat, in
   memcpy(table.numel, r + n, n * sizeof(int64_t));
   memcpy(table.offset, r + 2 * n, n * sizeof(int64_t));
   const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(n));
-  switch (dtype) {
+  bool ok = false;
+  switch (tensor_dtype) {
     case 0:
-      scale_copy_kernel<float, kPack>
-          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<float*>(flat), scale);
+      ok = launch_buffer<float, kPack>(buffer_dtype, table, n, grid, flat, scale, stream);
       break;
     case 1:
-      scale_copy_kernel<__half, kPack>
-          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<__half*>(flat), scale);
+      ok = launch_buffer<__half, kPack>(buffer_dtype, table, n, grid, flat, scale, stream);
       break;
     case 2:
-      scale_copy_kernel<__nv_bfloat16, kPack>
-          <<<grid, kThreads, 0, stream>>>(table, n, static_cast<__nv_bfloat16*>(flat), scale);
+      ok = launch_buffer<__nv_bfloat16, kPack>(buffer_dtype, table, n, grid, flat, scale,
+                                               stream);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,17 +142,18 @@ int launch(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat, in
 extern "C" {
 
 // rows: the table as launch takes it, in host memory; n_tensors <=
-// kMaxRows. dtype: 0 = float32, 1 = float16, 2 = bfloat16. Returns a
+// kMaxRows. buffer_dtype, tensor_dtype: 0 = float32, 1 = float16,
+// 2 = bfloat16 (every tensor of one launch has the same type). Returns a
 // cudaError_t.
 int hvd_scale_pack(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat,
-                   int dtype, float scale, void* stream) {
-  return launch<true>(rows, n_tensors, blocks_x, flat, dtype, scale,
+                   int buffer_dtype, int tensor_dtype, float scale, void* stream) {
+  return launch<true>(rows, n_tensors, blocks_x, flat, buffer_dtype, tensor_dtype, scale,
                       static_cast<cudaStream_t>(stream));
 }
 
 int hvd_scale_unpack(const void* rows, int64_t n_tensors, int64_t blocks_x, void* flat,
-                     int dtype, float scale, void* stream) {
-  return launch<false>(rows, n_tensors, blocks_x, flat, dtype, scale,
+                     int buffer_dtype, int tensor_dtype, float scale, void* stream) {
+  return launch<false>(rows, n_tensors, blocks_x, flat, buffer_dtype, tensor_dtype, scale,
                        static_cast<cudaStream_t>(stream));
 }
 

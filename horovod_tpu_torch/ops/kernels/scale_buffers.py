@@ -11,6 +11,13 @@ bucket:
 - :func:`unpack_scale` writes each slot of the flat buffer, scaled, back into
   its tensor, in place (for the optimizer, ``p.grad``).
 
+The tensors and the buffer may differ in dtype (fp32, fp16 and bf16 each):
+the scale is then applied in the buffer's dtype, which is what the quantized
+wire (bf16/fp16 gradients into an fp32 work buffer) and the 16-bit cast wire
+(fp32 gradients into a bf16/fp16 buffer) need to round where the JAX fused
+program rounds. A bucket whose tensors mix dtypes takes one launch per
+dtype.
+
 The TPU kernel's (8, 128) row padding and its VMEM element cap are TPU layout
 moves and have no counterpart here.
 
@@ -71,13 +78,14 @@ def _check(tensors, flat, what):
                         f"{list(_DTYPE_CODES)}")
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: tensors on {flat.device} are not supported")
-    dtype, device = flat.dtype, flat.device
-    if not set(map(_DTYPE_OF, tensors)) <= {dtype} \
+    device = flat.device
+    if not set(map(_DTYPE_OF, tensors)) <= _DTYPE_CODES.keys() \
             or not set(map(_DEVICE_OF, tensors)) <= {device}:
         t = next(t for t in tensors
-                 if t.dtype != dtype or t.device != device)
+                 if t.dtype not in _DTYPE_CODES or t.device != device)
         raise TypeError(f"{what}: tensor {t.dtype} on {t.device} does not "
-                        f"match the buffer's {dtype} on {device}")
+                        f"match the buffer's {flat.dtype} on {device} (the "
+                        f"kernel takes {list(_DTYPE_CODES)})")
     if not all(map(torch.Tensor.is_contiguous, tensors)):
         raise ValueError(f"{what}: tensors must be contiguous")
     numels = list(map(torch.Tensor.numel, tensors))
@@ -93,17 +101,20 @@ def _f32_scale(scale):
 
 
 def pack_scale_reference(tensors, out_flat, scale):
-    """Plain version of :func:`pack_scale`: concatenate in fp32, scale, cast
-    back into ``out_flat``."""
+    """Plain version of :func:`pack_scale`: each tensor rounded to the
+    buffer's dtype, concatenated in fp32, scaled, rounded into
+    ``out_flat``."""
     if tensors:
-        cat = torch.cat([t.reshape(-1).float() for t in tensors])
-        out_flat.copy_((cat * _f32_scale(scale)).to(out_flat.dtype))
+        dt = out_flat.dtype
+        cat = torch.cat([t.reshape(-1).to(dt).float() for t in tensors])
+        out_flat.copy_((cat * _f32_scale(scale)).to(dt))
     return out_flat
 
 
 def unpack_scale_reference(flat, tensors, scale):
-    """Plain version of :func:`unpack_scale`: scale the buffer in fp32, cast
-    back, and copy each slice into its tensor."""
+    """Plain version of :func:`unpack_scale`: scale the buffer in fp32,
+    round to its dtype, and copy each slice into its tensor (rounding to the
+    tensor's dtype)."""
     scaled = (flat.float() * _f32_scale(scale)).to(flat.dtype)
     off = 0
     for t in tensors:
@@ -113,16 +124,17 @@ def unpack_scale_reference(flat, tensors, scale):
     return tensors
 
 
-def table_rows(tensors, numels):
+def table_rows(tensors, numels, offsets=None):
     """The kernel's rows, as (pointers, numels, offsets), and the grid's x
     size: ~4 elements a thread for a tensor of the bucket's mean size.
-    Host only."""
-    offsets = list(itertools.accumulate(numels, initial=0))
-    mean = max(offsets[-1] // max(len(numels), 1), 1)
+    ``offsets`` default to the running sum of ``numels``. Host only."""
+    if offsets is None:
+        offsets = list(itertools.accumulate(numels, initial=0))[:-1]
+    mean = max(sum(numels) // max(len(numels), 1), 1)
     blocks_x = min(max(-(-mean // (_THREADS * _ELEMS_PER_THREAD)), 1),
                    _MAX_BLOCKS_X)
     return (list(map(torch.Tensor.data_ptr, tensors)), numels,
-            offsets[:-1]), blocks_x
+            offsets), blocks_x
 
 
 def launch_tables(rows):
@@ -149,55 +161,78 @@ def _fn(name):
     if fn is None:
         fn = getattr(_build.load("scale_buffers"), name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _launch(fn_name, tables, blocks_x, flat, scale):
+def _launch(fn_name, tables, blocks_x, flat, scale, tensor_dtype=None):
     """One launch of ``fn_name`` per table of :func:`launch_tables`, on the
-    current stream; returns the number of launches. The tables are copied
-    into the launches' parameters before this returns."""
-    fn, code, scale = _fn(fn_name), _DTYPE_CODES[flat.dtype], float(scale)
+    current stream, for tensors of ``tensor_dtype`` (default: the buffer's);
+    returns the number of launches. The tables are copied into the
+    launches' parameters before this returns."""
+    fn, scale = _fn(fn_name), float(scale)
+    code = _DTYPE_CODES[flat.dtype]
+    tcode = _DTYPE_CODES[tensor_dtype or flat.dtype]
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         for table in tables:
             err = fn(table.buffer_info()[0], len(table) // 3, blocks_x,
-                     flat.data_ptr(), code, scale, stream)
+                     flat.data_ptr(), code, tcode, scale, stream)
             if err != 0:
                 raise RuntimeError(f"{fn_name} launch failed: "
                                    f"cudaGetLastError() = {err}")
     return len(tables)
 
 
+def _launch_bucket(fn_name, tensors, numels, flat, scale):
+    """The launches of one bucket: one per table, and, when its tensors mix
+    dtypes, one set of tables per dtype (rows keep their offsets into the
+    whole buffer)."""
+    dtypes = set(map(_DTYPE_OF, tensors))
+    if len(dtypes) == 1:
+        rows, blocks_x = table_rows(tensors, numels)
+        return _launch(fn_name, launch_tables(rows), blocks_x, flat, scale,
+                       tensors[0].dtype)
+    offsets = list(itertools.accumulate(numels, initial=0))
+    n = 0
+    for dt in sorted(dtypes, key=_DTYPE_CODES.get):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dt]
+        rows, blocks_x = table_rows([tensors[i] for i in idx],
+                                    [numels[i] for i in idx],
+                                    [offsets[i] for i in idx])
+        n += _launch(fn_name, launch_tables(rows), blocks_x, flat, scale, dt)
+    return n
+
+
 def pack_scale(tensors, out_flat, scale):
     """``out_flat[off_i : off_i + n_i] = (t_i as fp32 * scale) -> dtype`` for
     every tensor of one bucket, in one launch (one per ``_MAX_ROWS``
-    tensors). ``out_flat`` holds exactly the tensors' elements, in order."""
+    tensors, and per tensor dtype). ``out_flat`` holds exactly the tensors'
+    elements, in order; the scale is applied in its dtype."""
     global pack_launches
     tensors = list(tensors)
     numels = _check(tensors, out_flat, "pack_scale")
     if out_flat.device.type == "cpu":
         return pack_scale_reference(tensors, out_flat, scale)
     if out_flat.numel():
-        rows, blocks_x = table_rows(tensors, numels)
-        pack_launches += _launch("hvd_scale_pack", launch_tables(rows),
-                                 blocks_x, out_flat, scale)
+        pack_launches += _launch_bucket("hvd_scale_pack", tensors, numels,
+                                        out_flat, scale)
     return out_flat
 
 
 def unpack_scale(flat, tensors, scale):
     """Inverse of :func:`pack_scale`: each tensor's slot of ``flat``, scaled
-    in fp32, is written into the tensor in place, in one launch."""
+    in fp32 and rounded to ``flat``'s dtype, is written into the tensor in
+    place, in one launch."""
     global unpack_launches
     tensors = list(tensors)
     numels = _check(tensors, flat, "unpack_scale")
     if flat.device.type == "cpu":
         return unpack_scale_reference(flat, tensors, scale)
     if flat.numel():
-        rows, blocks_x = table_rows(tensors, numels)
-        unpack_launches += _launch("hvd_scale_unpack", launch_tables(rows),
-                                   blocks_x, flat, scale)
+        unpack_launches += _launch_bucket("hvd_scale_unpack", tensors, numels,
+                                          flat, scale)
     return tensors

@@ -21,9 +21,10 @@ run ``runner/elastic/driver.py``: one worker per slot of each membership
 version, survivors re-initializing in place. The flags of the JAX
 package's other features (wire dtypes, hierarchical tiers, autotune, the
 autopilot, serving, tracing, goodput, the flight recorder) are kept and
-set their env vars on every worker, as the JAX launcher does; the port
-reads those of its own knobs (``common/config.py``) and not yet the others
-(ROADMAP A10, A11, A15-A17).
+set their env vars on every worker, as the JAX launcher does. The workers
+read the wire knobs (``HOROVOD_WIRE_DTYPE``, ``HOROVOD_WIRE_DTYPE_DCN``,
+``HOROVOD_WIRE_ERROR_FEEDBACK``; ``common/config.py``) and not yet the
+others (ROADMAP A11, A15-A17).
 """
 
 import argparse

@@ -7,10 +7,11 @@ Product, Adasum), allgather (ragged first dims too), alltoall,
 reducescatter and broadcast families with their async handles,
 ``sparse_allreduce_async``, ``join``, barrier, compression, the parameter,
 optimizer-state and object broadcasts, ``allgather_object`` and
-``DistributedOptimizer``, and elastic training (``elastic.run``,
+``DistributedOptimizer``, elastic training (``elastic.run``,
 ``TorchState``, ``ElasticSampler``, ``mark_new_rank_ready``,
-``read_new_rank_ready``). The rest of the reference surface
-(SyncBatchNorm, the timeline) is listed in ROADMAP.md as still to port.
+``read_new_rank_ready``), ``SyncBatchNorm`` and the int8 wire's
+``Int8Compressor``. The timeline (``start_timeline``/``stop_timeline``,
+ROADMAP A16) is the only part of the reference surface still to port.
 """
 
 from horovod_tpu_torch.common.basics import (
@@ -32,6 +33,7 @@ from horovod_tpu_torch.common.util import (check_extension,
                                            num_rank_is_power_2, split_list)
 from horovod_tpu_torch.torch.compression import (BF16Compressor, Compression,
                                                  Compressor, FP16Compressor,
+                                                 Int8Compressor,
                                                  NoneCompressor)
 from horovod_tpu_torch.torch.functions import (allgather_object,
                                                broadcast_object,
@@ -49,6 +51,7 @@ from horovod_tpu_torch.torch.mpi_ops import (
 from horovod_tpu_torch.torch import elastic
 from horovod_tpu_torch.torch.elastic import ElasticSampler, TorchState
 from horovod_tpu_torch.torch.optimizer import DistributedOptimizer
+from horovod_tpu_torch.torch.sync_batch_norm import SyncBatchNorm
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "local_rank", "cross_rank",
@@ -60,7 +63,7 @@ __all__ = [
     "process_set_by_id", "remove_process_set",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "Compression", "Compressor", "NoneCompressor", "FP16Compressor",
-    "BF16Compressor",
+    "BF16Compressor", "Int8Compressor", "SyncBatchNorm",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
     "grouped_allreduce_async_", "allgather", "allgather_async",

@@ -4,7 +4,7 @@ directly, so the frontend's compressors are the ops layer's."""
 
 from horovod_tpu_torch.ops.compression import (BF16Compressor, Compression,
                                                Compressor, FP16Compressor,
-                                               NoneCompressor)
+                                               Int8Compressor, NoneCompressor)
 
 __all__ = ["Compression", "Compressor", "NoneCompressor", "FP16Compressor",
-           "BF16Compressor"]
+           "BF16Compressor", "Int8Compressor"]

@@ -6,6 +6,8 @@ broadcast_object, allgather_object), used at train start so every rank
 begins from the root's state.
 """
 
+import collections
+
 import torch
 
 from horovod_tpu_torch.ops import collective_ops as C
@@ -37,36 +39,56 @@ def allgather_object(obj, name=None, process_set=None):
 
 
 def broadcast_optimizer_state(optimizer, root_rank=0, process_set=None):
-    """Broadcast optimizer hyperparameters and per-parameter state tensors
-    from root (reference: functions.py:87-184: state_dict walk, scalars ride
-    a pickled blob, tensors ride broadcast)."""
+    """Broadcast optimizer hyperparameters and per-parameter state from root
+    (reference: functions.py:87-184: scalars ride a pickled blob, tensors
+    ride broadcast).
+
+    The root's state decides everything: its scalars and the layout of its
+    state tensors (parameter index, key, shape, dtype, CPU or not) ride the
+    blob, each rank allocates the tensors it lacks (a fresh optimizer has
+    none), and one broadcast runs per root tensor, in the root's order, so
+    a rank that joins a running job with a fresh optimizer launches the same
+    collectives as the ranks that have stepped. A tensor that the root
+    keeps on the CPU (AdamW's ``step`` unless ``capturable`` or ``fused``)
+    is allocated on the CPU here too, as the optimizer would, and the
+    broadcast stages it through the device. The reference instead steps a
+    fresh optimizer once on zero gradients (functions.py:103-121), which
+    under AdamW's decoupled weight decay moves the parameters that
+    ``broadcast_parameters`` has just synced."""
     state = optimizer.state_dict()
-    scalars = {}
-    tensors = {}
-
-    for gi, group in enumerate(state.get("param_groups", [])):
-        for k, v in group.items():
-            if k != "params":
-                scalars[f"group.{gi}.{k}"] = v
-    for pid, pstate in state.get("state", {}).items():
-        for k, v in pstate.items():
-            key = f"state.{pid}.{k}"
-            if isinstance(v, torch.Tensor):
-                tensors[key] = v
-            else:
-                scalars[key] = v
-
-    synced = broadcast_object(scalars, root_rank=root_rank,
-                              name="opt_scalars", process_set=process_set)
-    for key, t in tensors.items():
-        broadcast_(t, root_rank, name=f"opt.{key}", process_set=process_set)
-
-    for gi, group in enumerate(state.get("param_groups", [])):
-        for k in list(group.keys()):
-            if k != "params":
-                group[k] = synced[f"group.{gi}.{k}"]
-    for pid, pstate in state.get("state", {}).items():
-        for k in list(pstate.keys()):
-            if not isinstance(pstate[k], torch.Tensor):
-                pstate[k] = synced[f"state.{pid}.{k}"]
+    groups = [{k: v for k, v in g.items() if k != "params"}
+              for g in state.get("param_groups", [])]
+    # (parameter index, key, value), where a tensor's value is its spec.
+    entries = [(pid, k, _TensorSpec(tuple(v.shape), v.dtype,
+                                    v.device.type == "cpu")
+                if isinstance(v, torch.Tensor) else v)
+               for pid, pstate in state.get("state", {}).items()
+               for k, v in pstate.items()]
+    groups, entries = broadcast_object((groups, entries),
+                                       root_rank=root_rank,
+                                       name="opt_state",
+                                       process_set=process_set)
+    for group, synced in zip(state["param_groups"], groups):
+        group.update(synced)
+    dev = C.basics.device()
+    mine = state.get("state", {})
+    new_state = {}
+    for pid, k, v in entries:
+        if isinstance(v, _TensorSpec):
+            t = mine.get(pid, {}).get(k)
+            if not isinstance(t, torch.Tensor) or tuple(t.shape) != v.shape \
+                    or t.dtype != v.dtype:
+                t = torch.zeros(v.shape, dtype=v.dtype,
+                                device="cpu" if v.on_cpu else dev)
+            broadcast_(t, root_rank, name=f"opt.state.{pid}.{k}",
+                       process_set=process_set)
+            v = t
+        new_state.setdefault(pid, {})[k] = v
+    state["state"] = new_state
     optimizer.load_state_dict(state)
+
+
+class _TensorSpec(collections.namedtuple("_TensorSpec",
+                                         "shape dtype on_cpu")):
+    """A root state tensor's shape, dtype and placement (CPU or the
+    device), as the blob carries it."""

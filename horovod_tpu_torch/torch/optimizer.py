@@ -11,6 +11,13 @@ The gradients ride the fusion runtime (``ops/fusion.py``): a bucket's pack
 kernel reads them, one allreduce reduces the bucket, and its unpack kernel
 writes each reduced gradient back into ``p.grad`` in place — so, unlike the
 JAX frontend, ``synchronize()`` has no result to copy into ``p.grad``.
+
+``compression=hvd.Compression.int8`` arms the quantized wire for each
+gradient's allreduce: on a runtime whose own wire is not quantized, each
+gradient of at least n×1024 elements rides the block-scaled exchange as a
+bucket of its own, its error-feedback residual kept per call signature, as
+the JAX frontend's per-gradient ``allreduce_async`` calls do; under
+``HOROVOD_WIRE_DTYPE=int8`` the whole fused bucket rides it instead.
 """
 
 import torch

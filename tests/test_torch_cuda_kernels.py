@@ -8,7 +8,10 @@ runs without the suite's conftest:
 
 Tolerances: the scale kernels bit-equal (one fp32 multiply and one
 rounding on both sides), on buckets of one launch and of several, and on
-a grouped reducescatter's rank-major tables. The flash kernels in fp32, and lse in every dtype, within
+a grouped reducescatter's rank-major tables, and in their mixed-dtype form
+(the scale applied in the buffer's dtype); a quantized-wire bucket within
+its two-leg bound, max|block|/127. The flash kernels in fp32, and lse in
+every dtype, within
 atol + rtol * |plain| of the plain versions: both compute in fp32 and round
 once, but sum in another order (~1e-6 relative in fp32): 1e-4 relative
 (lse 1e-5). The bf16/fp16 forward, dQ and dK/dV kernels run their products
@@ -797,3 +800,62 @@ def test_torch_state_commit_stays_on_the_card(dev):
     state.restore()
     assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items())
     assert state.noise.device == dev
+
+
+@pytest.mark.parametrize("pair", [(torch.bfloat16, torch.float32),
+                                  (torch.float16, torch.float32),
+                                  (torch.float32, torch.bfloat16),
+                                  (torch.float32, torch.float16)],
+                         ids=lambda p: f"{p[0]}->{p[1]}")
+def test_mixed_dtype_scale_kernels_bit_equal_to_plain(dev, pair):
+    """The mixed-dtype form: tensors of one dtype packed into a buffer of
+    another (the scale applied in the buffer's dtype) and unpacked back,
+    bit-equal to the plain versions, one launch each."""
+    a, b = pair
+    ts = _tensors(dev, a, 3)
+    flat = torch.empty(sum(t.numel() for t in ts), dtype=b, device=dev)
+    ref = torch.empty_like(flat)
+    counts = (sb.pack_launches, sb.unpack_launches)
+    sb.pack_scale(ts, flat, 1.0 / 3.0)
+    sb.pack_scale_reference(ts, ref, 1.0 / 3.0)
+    outs = [torch.empty_like(t) for t in ts]
+    want = [torch.empty_like(t) for t in ts]
+    sb.unpack_scale(flat, outs, 0.7)
+    sb.unpack_scale_reference(flat, want, 0.7)
+    torch.cuda.synchronize()
+    assert (sb.pack_launches - counts[0], sb.unpack_launches - counts[1]) \
+        == (1, 1)
+    assert torch.equal(flat, ref)
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+def test_quantized_bucket_on_the_card(dev):
+    """1-rank world over NCCL on the int8 wire (a pinned registry entry):
+    a group of fp32 and of bf16 tensors each rides the block-scaled
+    exchange, pack and unpack launched once a bucket, the output within
+    the two-leg bound max|block|/127 of the input, and the residuals kept
+    until shutdown drops them."""
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    hvd.init()
+    try:
+        hvd.set_wire_dtype("int8")
+        for dtype in (torch.float32, torch.bfloat16):
+            ts = _tensors(dev, dtype, 4)
+            before = get_runtime().flush_stats()["quantized"]
+            counts = (sb.pack_launches, sb.unpack_launches)
+            outs = hvd.grouped_allreduce(ts, op=hvd.Sum)
+            torch.cuda.synchronize()
+            assert get_runtime().flush_stats()["quantized"] == before + 1
+            assert (sb.pack_launches - counts[0],
+                    sb.unpack_launches - counts[1]) == (1, 1)
+            x = torch.cat([t.float().reshape(-1) for t in ts])
+            y = torch.cat([o.float().reshape(-1) for o in outs])
+            m = x.abs().max()
+            slack = 2.0 ** -7 * y.abs() if dtype == torch.bfloat16 else 0.0
+            assert ((y - x).abs() <= m / 127 + slack + 1e-6 * m).all()
+        assert len(wire.ef_keys()) == 2
+    finally:
+        wire.clear_wire_registry()
+        hvd.shutdown()
+    assert wire.ef_keys() == []

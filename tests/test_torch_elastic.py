@@ -180,6 +180,40 @@ def test_torch_state_sync_gives_rank_0s_state():
                for k in zero["before"])
 
 
+@pytest.fixture(scope="module")
+def fresh_optimizer_world():
+    return helpers.run_world(helpers.fresh_optimizer_sync, size=2,
+                             args=(5,), timeout=60)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+def test_fresh_optimizer_sync_gives_rank_0s_state(fresh_optimizer_world,
+                                                  kind):
+    """A rank that joins with a fresh optimizer ends ``TorchState.sync``
+    with rank 0's parameters and optimizer state bit for bit (AdamW's
+    ``step`` on the CPU, as the optimizer keeps it), and the next step
+    through DistributedOptimizer leaves both ranks equal. Without the
+    root-driven layout the fresh rank launches no broadcasts and the world
+    fails or hangs."""
+    zero, one = (r[kind] for r in fresh_optimizer_world)
+    for when in ("synced", "stepped"):
+        a, b = zero[when], one[when]
+        assert set(a["params"]) == set(b["params"])
+        for k in a["params"]:
+            np.testing.assert_array_equal(b["params"][k], a["params"][k],
+                                          err_msg=f"{when} {k}")
+        assert set(a["state"]) == set(b["state"]) and a["state"]
+        for k, (v, dtype, where) in a["state"].items():
+            assert b["state"][k][1:] == (dtype, where), (when, k)
+            np.testing.assert_array_equal(b["state"][k][0], v,
+                                          err_msg=f"{when} {k}")
+    if kind == "adamw":
+        assert {k[1] for k in zero["synced"]["state"]} == {
+            "step", "exp_avg", "exp_avg_sq"}
+        assert all(w == "cpu" for k, (_, _, w) in
+                   zero["synced"]["state"].items() if k[1] == "step")
+
+
 # --- the driver -----------------------------------------------------------
 
 # Discovered hosts, then an exit (host, code) where the host dict is None.

@@ -27,6 +27,11 @@ import horovod_tpu_torch.runner.elastic.driver
 import horovod_tpu_torch.runner.elastic.discovery
 from horovod_tpu_torch.elastic import state, worker
 import horovod_tpu_torch.torch.elastic
+import horovod_tpu_torch.ops.wire
+import horovod_tpu_torch.ops.sync_batch_norm
+import horovod_tpu_torch.torch.sync_batch_norm
+assert hvd.wire is horovod_tpu_torch.ops.wire and hvd.Compression.int8
+assert hvd.SyncBatchNorm is horovod_tpu_torch.torch.sync_batch_norm.SyncBatchNorm
 assert hvd.elastic is horovod_tpu_torch.torch.elastic
 assert hvd.elastic.run is state.run and hvd.TorchState and hvd.ElasticSampler
 assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"

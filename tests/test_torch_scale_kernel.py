@@ -91,7 +91,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     if case == "int_dtype":
         ts, flat = [t.int() for t in ts], flat.int()
     elif case == "mixed_dtype":
-        ts = [ts[0], ts[1].half()]
+        # fp32/fp16/bf16 tensors may fill a buffer of another of the three
+        # (the mixed-dtype form); a float64 tensor may not.
+        ts = [ts[0], ts[1].double()]
     elif case == "size":
         flat = torch.empty(7)
     elif case == "non_contiguous":
@@ -143,11 +145,11 @@ def test_launch_tables_cover_a_bucket_in_order(n):
 @pytest.mark.parametrize("kind", ["dtype", "device"])
 def test_check_names_the_tensor_it_refuses(kind, where):
     """The checks run a pass per attribute over the whole bucket; the one
-    tensor of another dtype or device, wherever it sits, is refused and
-    named."""
+    tensor of a dtype the kernel does not take or of another device,
+    wherever it sits, is refused and named."""
     ts = [torch.ones(2) for _ in range(5)]
-    ts[where] = (torch.ones(2, dtype=torch.float16) if kind == "dtype"
+    ts[where] = (torch.ones(2, dtype=torch.float64) if kind == "dtype"
                  else torch.empty(2, device="meta"))
-    with pytest.raises(TypeError, match="float16 on cpu" if kind == "dtype"
+    with pytest.raises(TypeError, match="float64 on cpu" if kind == "dtype"
                        else "on meta"):
         sb._check(ts, torch.empty(10), "pack_scale")

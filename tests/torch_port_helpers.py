@@ -252,7 +252,9 @@ def adasum_collectives(rank, size, rows, cases, group_sizes):
 # Data-parallel slice: 3 steps of ResNet training through the optimizer.
 # ---------------------------------------------------------------------------
 
-def dp_resnet(rank, size, variables, x, y, steps, lr, op="Average"):
+def dp_resnet(rank, size, variables, x, y, steps, lr, op="Average",
+              sync_bn=False):
+    """``sync_bn``: every BatchNorm synchronized over the world."""
     import torch.nn.functional as F
 
     import horovod_tpu_torch as hvd
@@ -260,7 +262,9 @@ def dp_resnet(rank, size, variables, x, y, steps, lr, op="Average"):
     from horovod_tpu_torch.models.resnet import BottleneckResNetBlock
 
     model = ResNet([1, 1, 1, 1], BottleneckResNetBlock, num_classes=10,
-                   num_filters=8, dtype=torch.float32)
+                   num_filters=8, dtype=torch.float32,
+                   sync_batch_norm=hvd.global_process_set if sync_bn
+                   else None)
     if rank == 0:
         load_flax_variables(model, variables)   # other ranks get it below
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
@@ -283,6 +287,11 @@ def dp_resnet(rank, size, variables, x, y, steps, lr, op="Average"):
             "state": {k: to_np(v) for k, v in model.state_dict().items()},
             "momentum": {n: to_np(opt.state[p]["momentum_buffer"])
                          for n, p in model.named_parameters()}}
+
+
+def dp_resnet_sync_bn(rank, size, variables, x, y, steps, lr):
+    """:func:`dp_resnet` with every BatchNorm synchronized."""
+    return dp_resnet(rank, size, variables, x, y, steps, lr, sync_bn=True)
 
 
 # ---------------------------------------------------------------------------
@@ -554,10 +563,10 @@ def _record_closes(rt):
     closed = []
     raw = rt._close
 
-    def close(key, entries, why):
+    def close(key, entries, why, *wire, **eager):
         closed.append((why, key[1].name, str(key[4]).replace("torch.", ""),
                        [e.tensor.numel() for e in entries]))
-        return raw(key, entries, why)
+        return raw(key, entries, why, *wire, **eager)
     rt._close = close
     return closed
 
@@ -659,6 +668,209 @@ def cycle_world(rank, size, rows, stream, delays):
 
 
 # ---------------------------------------------------------------------------
+# The quantized and cast wire: test_torch_wire's worlds.
+# ---------------------------------------------------------------------------
+
+def wire_world(rank, size, data):
+    """Whatever of these ``data`` holds, in this order:
+
+    - ``exchange``: (case, rows, residual rows or None, wire, average,
+      prescale, postscale); ``wire.block_scaled_allreduce`` of this rank's
+      row over the world: the output and the new residual;
+    - ``fused``: (case, dtype, op, prescale, postscale, rounds), each round
+      a list of (size, ...) arrays: one grouped async allreduce of this
+      rank's rows per round (one bucket, on the world's
+      HOROVOD_WIRE_DTYPE), then the bucket's flush_stats and signature;
+    - ``exact``: (case, op, rows): one allreduce each, with the count of
+      quantized buckets it added;
+    - ``mismatch``: a set of ranks 0 and 1 whose wire rank 0 pins to int8;
+      the error type a 4096-element allreduce on it raises;
+    - ``shutdown``: the error-feedback keys and the global set's and a
+      pinned set's wire before and after hvd.shutdown.
+    """
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    out = {}
+    for case, rows, res, w, average, pre, post in data.get("exchange", ()):
+        r = None if res is None else torch.from_numpy(res[rank])
+        y, new = wire.block_scaled_allreduce(
+            torch.from_numpy(rows[rank]), residual=r, wire=w,
+            average=average, prescale_factor=pre, postscale_factor=post)
+        out[case] = (to_np(y), None if new is None else to_np(new))
+    rt = get_runtime()
+    for case, dt, op, pre, post, rounds in data.get("fused", ()):
+        got = []
+        for arrays in rounds:
+            ts = [torch.from_numpy(a[rank]).to(_DTYPES[dt]) for a in arrays]
+            before = rt.flush_stats()
+            hs = hvd.grouped_allreduce_async(
+                ts, op=getattr(hvd, op), prescale_factor=pre,
+                postscale_factor=post, name=case)
+            ys = [to_np(h.synchronize()) for h in hs]
+            after = rt.flush_stats()
+            got.append({"outs": ys,
+                        "quantized": after["quantized"] - before["quantized"],
+                        "signature": rt.recent_buckets(1)[0][1][4:6]})
+        out[case] = got
+    for case, op, rows in data.get("exact", ()):
+        before = rt.flush_stats()["quantized"]
+        y = hvd.allreduce(torch.from_numpy(rows[rank]), op=getattr(hvd, op),
+                          name=case)
+        out[case] = (to_np(y), rt.flush_stats()["quantized"] - before)
+    if data.get("mismatch"):
+        ps = hvd.add_process_set(hvd.ProcessSet([0, 1]))
+        if rank in (0, 1):
+            if rank == 0:
+                hvd.set_wire_dtype("int8", f"set{ps.process_set_id}")
+            try:
+                hvd.allreduce(torch.ones(4096), op=hvd.Sum, process_set=ps,
+                              name="mismatch")
+                out["mismatch"] = None
+            except Exception as e:  # noqa: BLE001 — the type is the result
+                out["mismatch"] = type(e).__name__
+        hvd.barrier()
+    out["stats"] = rt.flush_stats()
+    if data.get("shutdown"):
+        hvd.set_wire_dtype("fp16", "set9")          # a user pin
+        keys = len(wire.ef_keys())
+        before = (wire.wire_dtype_for("global"), wire.wire_dtype_for("set9"))
+        hvd.shutdown()
+        out["ef_keys"] = (keys, len(wire.ef_keys()))
+        out["registry"] = (before, (wire.wire_dtype_for("global"),
+                                    wire.wire_dtype_for("set9")))
+    return out
+
+
+def dp_mlp_int8(rank, size, params, x, y, steps, lr):
+    """``dp_mlp`` with ``compression=hvd.Compression.int8`` (error feedback
+    on, the default): also each step's local gradients (before the
+    reduction) and reduced ones, by parameter name."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import MLP, load_flax_mlp
+
+    model = MLP()
+    if rank == 0:
+        load_flax_mlp(model, params)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters(),
+                                   compression=hvd.Compression.int8)
+    named = dict(model.named_parameters())
+    local = {}
+    for n, p in named.items():
+        p.register_hook(lambda g, n=n: local.__setitem__(n, to_np(g).copy()))
+    shard = x.shape[0] // size
+    xs = torch.from_numpy(x[rank * shard:(rank + 1) * shard])
+    ys = torch.from_numpy(y[rank * shard:(rank + 1) * shard]).long()
+    losses, grads = [], []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = F.cross_entropy(model(xs), ys)
+        loss.backward()
+        opt.synchronize()
+        grads.append({"local": dict(local),
+                      "reduced": {n: to_np(p.grad).copy()
+                                  for n, p in named.items()}})
+        opt.step()                    # nothing left in flight to drain
+        losses.append(loss.item())
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    return {"losses": losses, "grads": grads,
+            "params": {n: to_np(p) for n, p in named.items()},
+            "quantized": get_runtime().flush_stats()["quantized"]}
+
+
+# ---------------------------------------------------------------------------
+# SyncBatchNorm: test_torch_sync_batch_norm's worlds.
+# ---------------------------------------------------------------------------
+
+def _bn_pass(module, x, w):
+    """One forward and backward of ``sum(module(x) * w)``: the output, the
+    input's and the parameters' gradients and the running statistics."""
+    x = torch.from_numpy(x).requires_grad_()
+    y = module(x)
+    (y * torch.from_numpy(w)).sum().backward()
+    out = {"y": to_np(y).copy(), "x_grad": to_np(x.grad).copy()}
+    for name, t in list(module.named_parameters()) + list(
+            module.named_buffers()):
+        v = t.grad if isinstance(t, torch.nn.Parameter) else t
+        out[name] = to_np(v).copy()
+    return out
+
+
+def sync_bn_world(rank, size, data):
+    """``data["frontend"]``: (case, per-rank inputs, per-rank loss weights,
+    scale, bias): ``hvd.SyncBatchNorm`` (momentum 0.1) on this rank's
+    input, one pass. ``data["model"]``: the same for the model-side
+    ``ops.sync_batch_norm.SyncBatchNorm`` (momentum 0.9). ``data["cases"]``
+    (a world of one): the JAX package's TestTorchSyncBatchNorm cases. Also
+    the collectives the module issued."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import sync_batch_norm as sbn
+
+    out = {}
+    for case, xs, ws, scale, bias in data.get("frontend", ()):
+        m = hvd.SyncBatchNorm(scale.shape[0], momentum=0.1)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(scale))
+            m.bias.copy_(torch.from_numpy(bias))
+        out[case] = _bn_pass(m, xs[rank], ws[rank])
+    for case, xs, ws, scale, bias in data.get("model", ()):
+        m = sbn.SyncBatchNorm(scale.shape[0], momentum=0.9)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(scale))
+            m.bias.copy_(torch.from_numpy(bias))
+        out[case] = _bn_pass(m, xs[rank], ws[rank])
+    if "cases" in data:
+        out["cases"] = torch_sync_bn_cases(hvd.SyncBatchNorm, data["cases"])
+    out["launches"] = sbn.launches
+    return out
+
+
+def torch_sync_bn_cases(cls, inputs):
+    """The cases of the JAX package's TestTorchSyncBatchNorm run through
+    ``cls`` on ``inputs`` (numpy arrays by case), each case's observables
+    as numpy."""
+    out = {}
+    torch.manual_seed(0)
+    m = cls(4, momentum=0.1)
+    m.train()
+    y = m(torch.from_numpy(inputs["forward"]))
+    out["forward"] = [to_np(y), to_np(m.running_mean), to_np(m.running_var)]
+    x = torch.from_numpy(inputs["backward"]).requires_grad_()
+    m = cls(3)
+    m.train()
+    m(x).square().sum().backward()
+    out["backward"] = [to_np(x.grad), to_np(m.weight.grad),
+                       to_np(m.bias.grad)]
+    m = cls(2)
+    m.train()
+    m(torch.from_numpy(inputs["eval"]))
+    m.eval()
+    out["eval"] = [to_np(m(torch.from_numpy(inputs["eval"]))),
+                   np.array([int(m.num_batches_tracked)])]
+    try:
+        cls(2)(torch.ones(3))
+        out["rejects_1d"] = None
+    except ValueError as e:
+        out["rejects_1d"] = str(e)
+    m = cls(3, momentum=None)
+    m.train()
+    for a in inputs["cumulative"]:
+        m(torch.from_numpy(a))
+    out["cumulative"] = [to_np(m.running_mean), to_np(m.running_var)]
+    m = cls(2, track_running_stats=False)
+    m.eval()
+    out["no_running_stats"] = [to_np(m(torch.from_numpy(
+        inputs["no_running_stats"])))]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Elastic: test_torch_elastic's worlds and the functions run_elastic ships.
 # ---------------------------------------------------------------------------
 
@@ -680,6 +892,49 @@ def torch_state_sync(rank, size, seed):
             "momentum": [to_np(opt.state[p]["momentum_buffer"])
                          for p in model.parameters()],
             "attrs": (state.epoch, state.note)}
+
+
+def fresh_optimizer_sync(rank, size, seed):
+    """Rank 0 has taken three local steps with its optimizer; rank 1 joins
+    with different weights and a fresh optimizer, first SGD with momentum,
+    then AdamW. Each rank wraps its optimizer in hvd.DistributedOptimizer,
+    runs ``TorchState.sync`` and then one step on the same batch. Returns,
+    per optimizer, the parameters and optimizer state after the sync and
+    after the step."""
+    import horovod_tpu_torch as hvd
+
+    def snapshot(model, opt):
+        st = opt.state_dict()["state"]
+        return {"params": {k: to_np(v).copy()
+                           for k, v in model.state_dict().items()},
+                "state": {(pid, k): (to_np(v).copy(), str(v.dtype),
+                                     v.device.type)
+                          for pid, s in st.items() for k, v in s.items()}}
+
+    out = {}
+    for kind in ("sgd", "adamw"):
+        torch.manual_seed(seed + rank)
+        model = torch.nn.Sequential(torch.nn.Linear(6, 5), torch.nn.Tanh(),
+                                    torch.nn.Linear(5, 3))
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9) \
+            if kind == "sgd" else torch.optim.AdamW(
+                model.parameters(), lr=0.01, weight_decay=0.1)
+        if rank == 0:
+            for _ in range(3):
+                opt.zero_grad()
+                model(torch.randn(4, 6)).square().sum().backward()
+                opt.step()
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+        state = hvd.TorchState(model, opt, step=0)
+        state.sync()
+        synced = snapshot(model, opt)
+        gen = torch.Generator().manual_seed(seed)
+        opt.zero_grad()
+        model(torch.randn(4, 6, generator=gen)).square().sum().backward()
+        opt.step()
+        out[kind] = {"synced": synced, "stepped": snapshot(model, opt)}
+    return out
 
 
 def peer_dies(rank, size, victim):
