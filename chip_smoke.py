@@ -5,8 +5,8 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 0] [--steps 10] [--warmup 2] [--batch 64]
 
-(``--launched-worker gpt|fail|cpu_world|elastic|elastic_cpu`` is this
-script as a worker that the launch phases start through hvdrun-torch.)
+(``--launched-worker gpt|fail|cpu_world|elastic|elastic_cpu|hier_cpu`` is
+this script as a worker that the launch phases start through hvdrun-torch.)
 
 Phases, one JSON line each (each with its seconds):
 
@@ -238,6 +238,42 @@ Phases, one JSON line each (each with its seconds):
    [2, 2, 2, 1, 1, 1]), a graceful removal (the survivor's pid and
    uncommitted attribute kept), a host added (scaled up in place). A CPU
    run, printed as one.
+
+Phases 26-29 run after train_syncbn.
+
+26. train_gpt_chunked: GPT-2 small on train_gpt's weights and batch through
+   the chunked next-token loss (``optim.next_token_xent_chunked``, chunk
+   128, over ``features_only`` states and ``model.head``) against the
+   full-logits loss: step 1's loss and every gradient within
+   GPT_CHUNK_LIMITS, which the labels not shifted and the -100 mask
+   dropped must fail; the largest tensor kept for the backward (the full
+   path's (B, L - 1, V) log-softmax; the chunked path less than one
+   chunk's logits); then each path trained with AdamW from the same
+   weights (12 + 12 + 12 flash launches a step): the peak of allocated
+   memory (the chunked one lower), tokens/s, device ms a step, and the
+   head's ms on the whole batch (the recompute's work).
+27. train_powersgd: the same model under
+   ``hvd.DistributedOptimizer(AdamW, compression=hvd.Compression.powersgd(4))``
+   against the exact optimizer, POWERSGD_STEPS steps each from the same
+   weights. Checks: JAX's compress-or-not rule on the Flax shapes
+   compresses every 2-D leaf and no 1-D one (51 of 149); on one more step,
+   per compressed leaf, M̂ + e_new = M + e_prev within fp32 rounding,
+   which the identity without e_prev fails; P and Q buckets every step;
+   finite, falling losses. Reported: the bucket kinds a step, the bytes a
+   step by ``powersgd_wire_numbers``, tokens/s, device ms and device
+   launches a step against exact, the final losses' distance.
+28. train_hierarchical: ResNet-50 as in train in a fresh 1-rank world per
+   strategy knob (HOROVOD_TORUS_ALLREDUCE, HOROVOD_HIERARCHICAL_ALLREDUCE,
+   HOROVOD_HIERARCHICAL_DISPATCH with HOROVOD_WIRE_DTYPE_DCN=int8): each
+   bucket's strategy in flush_stats (torus_qcross must run flat on one
+   slice), a pack and an unpack launch per bucket, the reduced gradients
+   bit-equal to the local ones; the world is flat again after.
+29. hier_cpu_world: ``-np 4 -H localhost:2,127.0.0.1:2`` through the
+   launcher with CPU (gloo) workers and HOROVOD_MESH_SLICES=2, the 2 x 2
+   layout: torus and hierarchical bit-equal to the sums each rank computes,
+   torus_qcross (int8 cross leg) within the two-leg bound, the tier bytes
+   equal to ``wire.hierarchical_wire_bytes``, the hierarchical allgather in
+   rank-major order. A CPU run, printed as one.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -1891,16 +1927,18 @@ ADAMW = "AdamW(lr={lr}, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)"
 
 
 def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
-                opt=None):
+                opt=None, exact=True):
     """A transformer path's steps. With ``lr``: the launch counts zeroed
     (the path starts here), then AdamW(lr) in hvd.DistributedOptimizer
     after broadcast_parameters and broadcast_optimizer_state; with ``opt``,
     that optimizer goes on, the counts zeroed first too. --warmup and
     ``steps`` timed steps of ``loss()``, the last warm-up step checking the
-    reduction; the counts are read right after (the path ends). Checks:
-    finite, falling loss; ``flash`` (forward, dQ, dK/dV) launches every
-    step; a pack and an unpack launch per fusion bucket every step.
-    Returns the optimizer and the run's readings."""
+    reduction (``exact``: bit-equal to the local gradients; a lossy
+    compression checks its own); the counts are read right after (the path
+    ends). Checks: finite, falling loss; ``flash`` (forward, dQ, dK/dV)
+    launches every step; a pack and an unpack launch per fusion bucket
+    every step. Returns the optimizer and the run's readings (``closed``:
+    each step's buckets, as ``buckets_since`` gives them)."""
     from horovod_tpu_torch.ops.fusion import get_runtime
     from horovod_tpu_torch.ops.kernels import flash_attention as fa
     from horovod_tpu_torch.ops.kernels import scale_buffers as sb
@@ -1938,7 +1976,7 @@ def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
                 t0 = time.perf_counter()
             c0, m0 = counts(), get_runtime().flush_stats()
             losses.append(reduced_equals_local(torch, model, step)
-                          if i == args.warmup - 1 else step())
+                          if exact and i == args.warmup - 1 else step())
             per_step.append([b - a for a, b in zip(c0, counts())])
             got, row = buckets_since(m0)
             closed.append(got)
@@ -1969,8 +2007,9 @@ def train_steps(torch, hvd, model, loss, args, steps, flash, lr=None,
         "cycle_time_ms": get_runtime()._cycle_s * 1e3,
         "fp32_buckets_last_step": [{"tensors": len(b), "elements": sum(b)}
                                    for b in buckets],
-        "reduced_equals_local_bitwise": True,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        "reduced_equals_local_bitwise": exact,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "closed": closed}
 
 
 def phase_train_gpt(torch, hvd, model, dev, args, card):
@@ -1985,6 +2024,7 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
                          lambda: next_token_loss(F, model(ids), ids), args,
                          GPT_STEPS, (cfg.num_layers,) * 3, lr=1e-4)
     elapsed = run.pop("elapsed")
+    run.pop("closed")
     emit({"phase": "train_gpt", "model": "GPT-2 small", "params": n_params,
           "batch": GPT_BATCH, "seq": GPT_SEQ, "dtype": "bfloat16",
           "param_dtype": "float32", "optimizer": ADAMW.format(lr=1e-4),
@@ -2247,6 +2287,7 @@ def phase_train_bert(torch, hvd, dev, args, card):
                          lambda: bert_loss(F, model, batch), args,
                          BERT_STEPS, (cfg.num_layers,) * 3, lr=1e-5)
     elapsed = run.pop("elapsed")
+    run.pop("closed")
     emit({"phase": "train_bert", "model": "BERT-Large (MLM + NSP)",
           "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
           "dtype": "bfloat16", "param_dtype": "float32",
@@ -2342,6 +2383,7 @@ def phase_train_llama(torch, hvd, dev, args, card):
                            LLAMA_STEPS, (layers,) * 3, lr=1e-4)
     tokens = LLAMA_BATCH * LLAMA_SEQ
     elapsed = run.pop("elapsed")
+    run.pop("closed")
     run["tokens_per_sec"] = tokens * LLAMA_STEPS / elapsed
 
     # Remat: one step of fresh copies on the trained weights, no optimizer.
@@ -2387,6 +2429,7 @@ def phase_train_llama(torch, hvd, dev, args, card):
                                (2 * layers, layers, layers), opt=opt)
     model.config = cfg
     remat_elapsed = remat_run.pop("elapsed")
+    remat_run.pop("closed")
     remat_run["tokens_per_sec"] = tokens * LLAMA_STEPS / remat_elapsed
     gqa = gqa_copy_ms(torch, fa, dev, layers)
     emit({"phase": "train_llama", "model": "LLaMA-400M (bench config)",
@@ -2496,10 +2539,11 @@ def busy_us(intervals):
     return total
 
 
-def device_ms(torch, step, steps=2):
+def device_ms(torch, step, steps=2, launches=False):
     """torch.profiler over ``steps`` calls of ``step``: the device's busy
     ms a step (the union of its kernels' and copies' intervals) and its
-    busy share of the window."""
+    busy share of the window; with ``launches``, also the device's kernels
+    and copies a step."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2515,6 +2559,8 @@ def device_ms(torch, step, steps=2):
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
     busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    if launches:
+        return busy / 1e3 / steps, busy / span, len(device) / steps
     return busy / 1e3 / steps, busy / span
 
 
@@ -2548,6 +2594,7 @@ def phase_train_vit(torch, hvd, dev, args, card):
                            lambda: vit_loss(F, model, batch), args,
                            VIT_STEPS, (layers,) * 3, lr=1e-4)
     run["images_per_sec"] = VIT_BATCH * VIT_STEPS / run.pop("elapsed")
+    run.pop("closed")
     trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     one = {}
@@ -3068,6 +3115,8 @@ def launched_worker(args):
         return elastic_launched_worker(torch, hvd, args)
     if kind == "elastic_cpu":
         return elastic_cpu_worker(torch, hvd, args)
+    if kind == "hier_cpu":
+        return hier_cpu_worker(torch, hvd, args)
     hvd.init()
     contract = {k: os.environ[k] for k in CONTRACT}
     if kind == "fail":
@@ -3085,6 +3134,7 @@ def launched_worker(args):
                          lambda: next_token_loss(F, model(ids), ids), args,
                          GPT_STEPS, (model.config.num_layers,) * 3, lr=1e-4)
     elapsed = run.pop("elapsed")
+    run.pop("closed")
     emit({"phase": "launched_worker", "kind": kind, "pid": os.getpid(),
           "contract": contract, "device": str(dev),
           "cycle_time_ms": get_runtime()._cycle_s * 1e3,
@@ -3713,6 +3763,533 @@ def phase_launch_elastic_cpu_world(args):
           "scenarios": {name: lines for name, (_, lines, _) in got.items()}})
 
 
+# The rest of A13 and A11's allreduce tiers on the card: the chunked
+# next-token loss and PowerSGD on GPT-2 small, the tiers at one rank and in
+# a 4-process CPU world.
+GPT_CHUNK = 128          # bench.py:555-556's chunk of the chunked loss
+# Limits of one GPT-2 small step through the chunked loss against the same
+# step through full logits (loss_rel; grad_rel: |g_chunk - g_full| /
+# |g_full| of the worst parameter). Two wrong controls must fall outside:
+# the labels not shifted, and the -100 mask dropped (the last position
+# trained on token 0). Read on an NVIDIA H100 80GB HBM3 at 700 W, seed 0,
+# as (loss_rel, grad_rel): chunked 0.0, 9.8e-3 (pos_emb: the head's
+# backward in other tiles moves fp32 roundings that the bf16 blocks'
+# backward turns into bf16 flips); labels not shifted 3.2e-4, 0.93; mask
+# dropped 8.2e-5, 0.10. grad_rel's limit is GPT_CMP_LIMITS' (flash against
+# plain attention on the same model).
+GPT_CHUNK_LIMITS = {"loss_rel": 2e-6, "grad_rel": 3e-2}
+POWERSGD_RANK, POWERSGD_STEPS = 4, 10
+# The three strategies at one rank, each in a fresh world under its knobs;
+# torus_qcross on the one-slice layout must run flat (JAX's refusal).
+HIER_RUNS = (("torus", {"HOROVOD_TORUS_ALLREDUCE": "1"}, "torus"),
+             ("hierarchical", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"},
+              "hierarchical"),
+             ("torus_qcross", {"HOROVOD_HIERARCHICAL_DISPATCH": "1",
+                               "HOROVOD_WIRE_DTYPE_DCN": "int8"}, "flat"))
+HIER_STEPS = 3
+# hier_cpu_world: 2 "hosts" of 2 CPU ranks, HOROVOD_MESH_SLICES=2.
+HIER_HOSTS = "localhost:2,127.0.0.1:2"
+HIER_ENV = {"HOROVOD_MESH_SLICES": "2", "HOROVOD_WIRE_DTYPE_DCN": "int8",
+            "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}
+HIER_BUCKET = (4500, 1500, 701)
+
+
+def grads_of(torch, model, loss_fn):
+    """One forward and backward of ``loss_fn()``: its value and every
+    parameter's gradient."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def rel_reading(lf, gf, lp, gp):
+    rel = {n: ((gf[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+           .item() for n in gp}
+    worst = max(rel, key=rel.get)
+    return {"loss": lf, "loss_rel": abs(lf - lp) / abs(lp),
+            "grad_rel": rel[worst], "grad_rel_worst": worst}
+
+
+def max_saved_numel(torch, fn):
+    """``fn()`` under saved-tensor hooks: its value and the largest tensor
+    (numel) autograd kept for the backward outside any checkpoint."""
+    most = [0]
+
+    def pack(t):
+        most[0] = max(most[0], t.numel())
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, most[0]
+
+
+def chunked_loss(model, ids, labels):
+    from horovod_tpu_torch.optim import next_token_xent_chunked
+    return next_token_xent_chunked(model.head, model(ids, features_only=True),
+                                   labels, chunk=GPT_CHUNK)
+
+
+def gpt_batch(torch, model, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    return torch.randint(0, model.config.vocab_size, (GPT_BATCH, GPT_SEQ),
+                         generator=gen, device=dev)
+
+
+def phase_train_gpt_chunked(torch, hvd, dev, args, card):
+    """GPT-2 small (train_gpt's weights and batch) through the chunked
+    next-token loss against the full-logits one: step 1's loss and every
+    gradient within GPT_CHUNK_LIMITS (controls: labels not shifted, the
+    -100 mask dropped), the largest tensor kept for the backward (no
+    (B, L, V) logits), then each trained GPT_STEPS steps with AdamW from
+    the same weights: peak memory, tokens/s, device ms a step, and the
+    recompute's ms (the head on the whole batch once more). Returns the
+    chunked run's launches."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel.sequence import next_token_labels
+
+    model = build_gpt(torch, dev, args.seed)
+    cfg = model.config
+    ids = gpt_batch(torch, model, dev, args.seed)
+    labels = next_token_labels(ids)
+    init = copy.deepcopy(model.state_dict())
+    fns = {"full": lambda: next_token_loss(F, model(ids), ids),
+           "chunked": lambda: chunked_loss(model, ids, labels)}
+    lf, gf = grads_of(torch, model, fns["full"])
+    readings = {"chunked": rel_reading(*grads_of(torch, model,
+                                                 fns["chunked"]), lf, gf)}
+    controls = {"labels_not_shifted": ids,
+                "mask_dropped": labels.clamp_min(0)}
+    for name, lab in controls.items():
+        readings[name] = rel_reading(*grads_of(
+            torch, model, lambda lab=lab: chunked_loss(model, ids, lab)),
+            lf, gf)
+    del gf
+    model.zero_grad(set_to_none=True)
+
+    def within(r):
+        return (r["loss_rel"] <= GPT_CHUNK_LIMITS["loss_rel"]
+                and r["grad_rel"] <= GPT_CHUNK_LIMITS["grad_rel"])
+    check(within(readings["chunked"]), f"the chunked loss and gradients "
+          f"within {GPT_CHUNK_LIMITS} of full logits: {readings['chunked']}")
+    for name in controls:
+        check(not within(readings[name]), f"control {name} "
+              f"{readings[name]} is rejected by {GPT_CHUNK_LIMITS}")
+    logits_numel = GPT_BATCH * GPT_SEQ * cfg.vocab_size
+    saved = {}
+    for name, fn in fns.items():
+        out, saved[name] = max_saved_numel(torch, fn)
+        del out
+    check(saved["full"] >= GPT_BATCH * (GPT_SEQ - 1) * cfg.vocab_size
+          and saved["chunked"] < logits_numel * GPT_CHUNK // GPT_SEQ,
+          f"the full loss keeps its (B, L, V) log-softmax for the backward, "
+          f"the chunked one nothing as large as one chunk's logits: {saved}")
+    with torch.no_grad():
+        h = model(ids, features_only=True)
+        recompute_ms = event_ms(lambda: model.head(h), reps=10)
+    del h
+    runs, launches = {}, None
+    for name, fn in fns.items():
+        model.load_state_dict(init)
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt, run = train_steps(torch, hvd, model, fn, args, GPT_STEPS,
+                               (cfg.num_layers,) * 3, lr=1e-4)
+        run.pop("closed")
+        run["tokens_per_sec"] = GPT_BATCH * GPT_SEQ * GPT_STEPS \
+            / run.pop("elapsed")
+
+        def step(fn=fn, opt=opt):
+            opt.zero_grad()
+            fn().backward()
+            opt.step()
+        run["device_ms_per_step"], run["device_busy_share"] = device_ms(
+            torch, step)
+        opt._remove_hooks()
+        runs[name] = run
+        launches = run["launches"]
+    del opt
+    saving = runs["full"]["peak_mem_gb"] - runs["chunked"]["peak_mem_gb"]
+    check(saving > 0, f"the chunked loss lowers the peak of allocated "
+          f"memory: {runs['full']['peak_mem_gb']} -> "
+          f"{runs['chunked']['peak_mem_gb']} GB")
+    emit({"phase": "train_gpt_chunked", "model": "GPT-2 small",
+          "params": sum(p.numel() for p in model.parameters()),
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "vocab": cfg.vocab_size,
+          "chunk": GPT_CHUNK, "optimizer": ADAMW.format(lr=1e-4),
+          "step1": readings, "limits": GPT_CHUNK_LIMITS,
+          "largest_saved_numel": saved, "logits_numel": logits_numel,
+          "peak_mem_saving_gb": saving,
+          "recompute_head_ms": recompute_ms,
+          "device_ms_difference": runs["chunked"]["device_ms_per_step"]
+          - runs["full"]["device_ms_per_step"],
+          "runs": runs,
+          "note": "full: bench.py's loss on (B, L, V) fp32 logits; chunked: "
+                  "optim.next_token_xent_chunked over features_only states "
+                  "and model.head, each chunk under checkpoint; "
+                  "recompute_head_ms: the head (LayerNorm and the fp32 "
+                  "lm_head product at DEFAULT precision) on the whole "
+                  "batch once, the work the backward adds",
+          "card": card})
+    del model, init
+    return launches
+
+
+def bucket_kind(sig):
+    kinds = {n.split(".")[1] if n.startswith("powersgd.") else "plain"
+             for n, _ in sig[-1]}
+    return "+".join(sorted(kinds))
+
+
+def phase_train_powersgd(torch, hvd, dev, args, card):
+    """GPT-2 small (train_gpt's weights and batch) under
+    hvd.DistributedOptimizer(AdamW, compression=Compression.powersgd(4))
+    against the exact optimizer, POWERSGD_STEPS steps each from the same
+    weights, at one rank. Checks: JAX's compress-or-not rule on the Flax
+    shapes compresses every 2-D leaf and no 1-D one; the per-leaf identity
+    M̂ + e_new = M (gradient + e_prev) within fp32 rounding, which a
+    control without e_prev fails; finite, falling losses. Reported: the P,
+    Q and plain buckets a step with their launches, the bytes a step by
+    powersgd_wire_numbers, tokens/s, device ms and device launches a step
+    against exact (the extra: the products, the QRs), the final losses'
+    distance. Returns the PowerSGD run's launches."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.optim.powersgd import (powersgd_wire_numbers,
+                                                  use_powersgd)
+    from horovod_tpu_torch.parallel.tp import flax_view
+    from horovod_tpu_torch.torch.optimizer import POWERSGD_ERR
+
+    model = build_gpt(torch, dev, args.seed)
+    cfg = model.config
+    ids = gpt_batch(torch, model, dev, args.seed)
+    init = copy.deepcopy(model.state_dict())
+    named = dict(model.named_parameters())
+    flax_shapes = {n: tuple(flax_view(p, p).shape) for n, p in named.items()}
+    compressed = sorted(n for n, s in flax_shapes.items()
+                        if use_powersgd(s, POWERSGD_RANK, 2.0))
+    check(compressed == sorted(n for n, p in named.items() if p.dim() >= 2),
+          f"JAX's rule on the Flax shapes compresses every 2-D kernel and "
+          f"embedding and no 1-D leaf: {compressed}")
+    wire, full = powersgd_wire_numbers(list(flax_shapes.values()),
+                                       POWERSGD_RANK)
+
+    def loss():
+        return next_token_loss(F, model(ids), ids)
+
+    runs, launches = {}, None
+    for name in ("exact", "powersgd"):
+        model.load_state_dict(init)
+        gc.collect()
+        torch.cuda.empty_cache()
+        comp = hvd.Compression.powersgd(POWERSGD_RANK) \
+            if name == "powersgd" else hvd.Compression.none
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(), compression=comp)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        opt, run = train_steps(torch, hvd, model, loss, args,
+                               POWERSGD_STEPS, (cfg.num_layers,) * 3,
+                               opt=opt, exact=name == "exact")
+        closed = run.pop("closed")
+        run["tokens_per_sec"] = GPT_BATCH * GPT_SEQ * POWERSGD_STEPS \
+            / run.pop("elapsed")
+        run["bucket_kinds_per_step"] = [[bucket_kind(sig) for _, sig in c]
+                                        for c in closed]
+
+        def step(opt=opt):
+            opt.zero_grad()
+            loss().backward()
+            opt.step()
+        run["device_ms_per_step"], run["device_busy_share"], \
+            run["device_launches_per_step"] = device_ms(torch, step,
+                                                        launches=True)
+        if name == "powersgd":
+            # One more step: M̂ + e_new = M + e_prev per compressed leaf.
+            prev = {p: opt.state[p][POWERSGD_ERR].clone()
+                    for p in named.values() if POWERSGD_ERR in opt.state[p]}
+            local = {}
+            hooks = [p.register_hook(
+                lambda g, p=p: local.__setitem__(p, g.detach().clone()))
+                for p in named.values()]
+            step()
+            for hk in hooks:
+                hk.remove()
+            torch.cuda.synchronize()
+            worst = control = 0.0
+            for p, e_prev in prev.items():
+                m = (flax_view(p, local[p]).float() + e_prev).double()
+                m_hat = flax_view(p, p.grad).double()
+                e_new = opt.state[p][POWERSGD_ERR].double()
+                tol = 2.0 ** -22 * (m_hat.abs() + e_new.abs() + m.abs()) \
+                    + 1e-30
+                worst = max(worst, ((m_hat + e_new - m).abs() / tol)
+                            .max().item())
+                g = flax_view(p, local[p]).double()
+                control = max(control, ((m_hat + e_new - g).abs() / tol)
+                              .max().item())
+            check(len(prev) == len(compressed) and worst <= 1.0 < control,
+                  f"M̂ + e_new = M + e_prev within fp32 rounding on every "
+                  f"compressed leaf (worst share {worst}); without e_prev "
+                  f"the identity fails (worst share {control})")
+            run["ef_identity_worst_share_of_fp32_bound"] = worst
+            run["ef_control_without_e_prev_worst_share"] = control
+        opt._remove_hooks()
+        runs[name] = run
+        launches = run["launches"]
+    del opt
+    extra = {k: runs["powersgd"][k] - runs["exact"][k]
+             for k in ("device_ms_per_step", "device_launches_per_step")}
+    kinds = runs["powersgd"]["bucket_kinds_per_step"]
+    check(all(any("p" in k.split("+") for k in s)
+              and any(k == "q" for k in s) for s in kinds),
+          f"every step's P's and Q's ride fusion buckets: {kinds}")
+    ex, ps = runs["exact"]["losses"], runs["powersgd"]["losses"]
+    emit({"phase": "train_powersgd", "model": "GPT-2 small",
+          "params": sum(p.numel() for p in model.parameters()),
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "rank": POWERSGD_RANK,
+          "optimizer": ADAMW.format(lr=1e-4),
+          "leaves": len(named), "compressed_leaves": len(compressed),
+          "wire_bytes_per_step": {"powersgd": wire, "full": full,
+                                  "ratio": wire / full,
+                                  "note": "powersgd_wire_numbers over the "
+                                          "Flax shapes (fp32); one rank "
+                                          "moves nothing across a link"},
+          "final_loss": {"exact": ex[-1], "powersgd": ps[-1],
+                         "rel_distance": abs(ps[-1] - ex[-1]) / abs(ex[-1])},
+          "tokens_per_sec": {k: r["tokens_per_sec"] for k, r in runs.items()},
+          "device_ms_per_step": {k: r["device_ms_per_step"]
+                                 for k, r in runs.items()},
+          "extra_per_step": {**extra, "launches_per_compressed_leaf":
+                             extra["device_launches_per_step"]
+                             / len(compressed)},
+          "runs": runs, "card": card})
+    del model, init
+    return launches
+
+
+def phase_train_hierarchical(torch, hvd, dev, args, card, make_model):
+    """ResNet-50 as in train, on the same weights and batch, in a fresh
+    1-rank world per HIER_RUNS entry: torus and hierarchical run as a
+    1 x 1 decomposition on NCCL subgroups of one rank, torus_qcross with
+    an int8 cross wire must run flat (one slice). Checks: each bucket's
+    strategy in flush_stats, a pack and an unpack launch per bucket, the
+    reduced gradients bit-equal to the local ones, finite losses. Returns
+    the launches of the three runs."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+    model = make_model()
+    init = copy.deepcopy(model.state_dict())
+    report = {}
+    sb.reset_launch_counts()                 # the tier paths start here
+    for name, env, runs_as in HIER_RUNS:
+        hvd.shutdown()
+        os.environ.update(env)
+        hvd.init()
+        rt = get_runtime()
+        topo = basics._get_state().topology
+        check(rt.strategy == name, f"the runtime's strategy is {name}")
+        model.load_state_dict(init)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+
+        def step():
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        losses, per_step = [], []
+        for i in range(args.warmup + HIER_STEPS):
+            c0, m0 = (sb.pack_launches, sb.unpack_launches), rt.flush_stats()
+            losses.append(reduced_equals_local(torch, model, step)
+                          if i == args.warmup - 1 else step())
+            got, _ = buckets_since(m0)
+            m1 = rt.flush_stats()
+            per_step.append({
+                "pack": sb.pack_launches - c0[0],
+                "unpack": sb.unpack_launches - c0[1],
+                "buckets": len(got),
+                "strategies": {k: v - m0["strategies"][k]
+                               for k, v in m1["strategies"].items()
+                               if v != m0["strategies"][k]},
+                "tiers": {t: sum(v.values()) - sum(m0["tiers"][t].values())
+                          for t, v in m1["tiers"].items()}})
+        opt._remove_hooks()
+        for k in env:
+            os.environ.pop(k)
+        losses = [v.item() for v in losses]
+        check(all(map(math.isfinite, losses)), f"{name}: finite losses "
+              f"{losses}")
+        check(all(s["pack"] == s["unpack"] == s["buckets"] > 0
+                  and s["strategies"] == {runs_as: s["buckets"]}
+                  and s["tiers"] == {"local": 0, "cross": 0}
+                  for s in per_step),
+              f"{name}: every bucket runs {runs_as}, one pack and one "
+              f"unpack launch each, no tier metered at one slice: "
+              f"{per_step}")
+        report[name] = {"knobs": env, "runs_as": runs_as,
+                        "layout": {"slices": topo.num_slices,
+                                   "node_shape": topo.node_shape(),
+                                   "strategy_shape":
+                                       topo.strategy_shape()},
+                        "losses": losses, "per_step": per_step,
+                        "reduced_equals_local_bitwise": True}
+    launches = {"scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}   # the tier paths end
+    hvd.shutdown()
+    hvd.init()
+    check(get_runtime().strategy == "flat", "the world after the tier runs "
+          "is flat")
+    emit({"phase": "train_hierarchical", "model": "ResNet-50",
+          "batch": args.batch, "warmup": args.warmup, "steps": HIER_STEPS,
+          "runs": report, "launches": launches,
+          "note": "one rank: the local and cross subgroups hold rank 0 "
+                  "alone, so each leg is a copy; this holds the strategy "
+                  "choice, the refusal and the kernels' launches, not a "
+                  "cross-node figure",
+          "card": card})
+    del model, init
+    return launches
+
+
+def hier_cpu_worker(torch, hvd, args):
+    """One rank of the 2 x 2 CPU world (HIER_HOSTS, HIER_ENV): each strategy
+    on a bucket of HIER_BUCKET elements a rank (Sum), the hierarchical
+    allgather of ragged rows; every rank's rows come from --seed, so each
+    rank computes the sums itself."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    hvd.init(device="cpu")
+    rank, rt = hvd.rank(), get_runtime()
+    topo = basics._get_state().topology
+    total = sum(HIER_BUCKET)
+    rows = torch.randn((4, total),
+                       generator=torch.Generator().manual_seed(args.seed + 40))
+    node = [rows[0] + rows[1], rows[2] + rows[3]]        # the local sums
+    want = node[0] + node[1]
+    out = {"rank": rank, "layout": [topo.num_slices, topo.slice_size,
+                                    list(topo.node_shape())]}
+    for strategy in ("torus", "hierarchical", "torus_qcross"):
+        rt.strategy = strategy
+        with rt.cycle_paused():
+            m0 = rt.flush_stats()
+            got = torch.cat(hvd.grouped_allreduce(
+                list(rows[rank].split(HIER_BUCKET)), op=hvd.Sum,
+                name=f"hier.{strategy}"))
+            m1 = rt.flush_stats()
+        cross = "int8" if strategy == "torus_qcross" else ""
+        h = wire.hierarchical_wire_bytes(total, 4, 2, 4, cross_wire=cross)
+        tiers = {t: {d: n - m0["tiers"][t].get(d, 0) for d, n in v.items()
+                     if n != m0["tiers"][t].get(d, 0)}
+                 for t, v in m1["tiers"].items()}
+        row = {"strategies": {k: v - m0["strategies"][k]
+                              for k, v in m1["strategies"].items()
+                              if v != m0["strategies"][k]},
+               "tiers": tiers,
+               "tiers_formula": {"local": {}, "cross": {}}
+               if strategy == "hierarchical" else {
+                   "local": {"float32": h["ici"]},
+                   "cross": {h["cross_label"] or "float32": h["dcn"]}}}
+        if cross:
+            # The cross leg's two-leg bound at cross n = 2: each node's
+            # quantization of its shard block, and the sum's requantization.
+            pad = (-total) % 2
+            shard = (total + pad) // 2
+            sums = [torch.nn.functional.pad(s, (0, pad)).view(2, shard)
+                    for s in node]
+            blk = -(-shard // (2 * wire.BLOCK)) * 2 * wire.BLOCK
+            ms = [torch.nn.functional.pad(s.abs(), (0, blk - shard))
+                  .view(2, -1, wire.BLOCK).amax(dim=2) for s in sums]
+            m = ms[0] + ms[1]
+            bound = (m / 254 + m * (1 + 1 / 254) / 254).repeat_interleave(
+                wire.BLOCK, dim=1)[:, :shard].reshape(-1)[:total]
+            share = ((got.double() - want.double()).abs()
+                     / (bound.double() + 1e-30)).max().item()
+            row["two_leg_worst_share"] = share
+            row["moved"] = int((got != want).sum())
+        else:
+            row["bit_equal"] = torch.equal(got, want)
+        out[strategy] = row
+    rt.strategy = "flat"
+    ragged = [torch.full((k, 3), float(r)) for r, k in enumerate((1, 3, 0,
+                                                                  2))]
+    gathered = hvd.allgather(ragged[rank])
+    out["allgather_rank_major"] = torch.equal(gathered, torch.cat(ragged))
+    out["allgather_node_shape"] = list(topo.node_shape())
+    emit({"phase": "launched_worker", "kind": "hier_cpu", **out})
+    hvd.shutdown()
+    return 0
+
+
+def phase_hier_cpu_world(args):
+    """``-np 4`` through the launcher on two "hosts" of 2 CPU (gloo) ranks
+    with HOROVOD_MESH_SLICES=2: the 2 x 2 layout. Checks: torus and
+    hierarchical bit-equal to the sums each rank computes, torus_qcross
+    (int8 cross leg) within the two-leg bound, per-tier bytes equal to
+    hierarchical_wire_bytes, the hierarchical allgather in rank-major
+    order. A CPU run, printed as one."""
+    saved = {k: os.environ.get(k) for k in HIER_ENV}
+    os.environ.update(HIER_ENV)
+    try:
+        rc, lines, log = run_launcher(args, 4, "hier_cpu", 240, launcher=[
+            "-np", "4", "-H", HIER_HOSTS])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0 and len(lines) == 4, f"the 4-process CPU world exits 0 "
+          f"(rc {rc}):\n{log}")
+    by_rank = {w["rank"]: w for w in lines}
+    check(sorted(by_rank) == [0, 1, 2, 3] and all(
+        w["layout"] == [2, 2, [2, 2]] for w in lines),
+        f"a 2 x 2 layout on every rank: {[w['layout'] for w in lines]}")
+    for w in lines:
+        for strategy in ("torus", "hierarchical", "torus_qcross"):
+            r = w[strategy]
+            check(r["strategies"] == {strategy: 1}
+                  and r["tiers"] == r["tiers_formula"],
+                  f"rank {w['rank']} {strategy}: one bucket, the per-tier "
+                  f"bytes of hierarchical_wire_bytes: {r}")
+        check(w["torus"]["bit_equal"] and w["hierarchical"]["bit_equal"],
+              f"rank {w['rank']}: torus and hierarchical bit-equal to the "
+              f"sums")
+        q = w["torus_qcross"]
+        check(q["two_leg_worst_share"] <= 1.0 and q["moved"] > 0,
+              f"rank {w['rank']}: torus_qcross within the int8 two-leg "
+              f"bound, and lossy: {q}")
+        check(w["allgather_rank_major"], f"rank {w['rank']}: the "
+              f"hierarchical allgather in rank-major order")
+    emit({"phase": "hier_cpu_world", "run_on": "CPU (gloo), not the card",
+          "hosts": HIER_HOSTS, "env": HIER_ENV, "ranks": 4,
+          "bucket": HIER_BUCKET,
+          "rank0": by_rank[0]})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3721,7 +4298,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--launched-worker",
                     choices=("gpt", "fail", "cpu_world", "elastic",
-                             "elastic_cpu"),
+                             "elastic_cpu", "hier_cpu"),
                     help="run as a worker that hvdrun-torch started (the "
                          "launch phases)")
     ap.add_argument("--elastic-scenario", choices=ELASTIC_CPU_SCENARIOS,
@@ -3838,6 +4415,16 @@ def main(argv=None):
     syncbn_launches = run("train_syncbn", phase_train_syncbn, torch, hvd,
                           dev, args, card, resnet50)
     gc.collect()
+    chunked_launches = run("train_gpt_chunked", phase_train_gpt_chunked,
+                           torch, hvd, dev, args, card)
+    gc.collect()
+    powersgd_launches = run("train_powersgd", phase_train_powersgd, torch,
+                            hvd, dev, args, card)
+    gc.collect()
+    hier_launches = run("train_hierarchical", phase_train_hierarchical,
+                        torch, hvd, dev, args, card, resnet50)
+    run("hier_cpu_world", phase_hier_cpu_world, args)
+    gc.collect()
     run("cycle", phase_cycle, torch, hvd, dev, args, card)
     elastic_launches = run("train_elastic", phase_train_elastic, torch, hvd,
                            dev, args, card)
@@ -3848,20 +4435,31 @@ def main(argv=None):
     emit({"phase": "seconds", **seconds})
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
     transformer_paths = ("train_gpt", "train_bert", "train_llama",
-                         "train_vit", "launch")
+                         "train_vit", "launch", "train_gpt_chunked",
+                         "train_powersgd")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
                    launch_elastic=launch_elastic_launches,
-                   train_wire=wire_launches, train_syncbn=syncbn_launches)
+                   train_wire=wire_launches, train_syncbn=syncbn_launches,
+                   train_gpt_chunked=chunked_launches,
+                   train_powersgd=powersgd_launches,
+                   train_hierarchical=hier_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
-                   "train_syncbn")
-    check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn")
+                   "train_syncbn", "train_gpt_chunked", "train_powersgd",
+                   "train_hierarchical")
+    check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
+                                          "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),
-          f"the wire and SyncBatchNorm paths launched both scale kernels: "
-          f"{wire_launches}, {syncbn_launches}")
+          f"the wire, SyncBatchNorm and tier paths launched both scale "
+          f"kernels: {wire_launches}, {syncbn_launches}, {hier_launches}")
+    check(all(by_path[p][k] > 0 for p in ("train_gpt_chunked",
+                                          "train_powersgd")
+              for k in STEP_COUNTS),
+          f"the chunked-loss and PowerSGD paths launched every flash and "
+          f"scale kernel: {chunked_launches}, {powersgd_launches}")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,

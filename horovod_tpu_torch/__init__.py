@@ -5,11 +5,12 @@ hvd``: collectives run over NCCL on the GPU (gloo on the CPU), and every
 TPU kernel of the JAX package on the ported path is a CUDA kernel written
 for Hopper (``ops/kernels/csrc``). The package imports PyTorch and never JAX
 or the JAX package. As the JAX package does, it also exports the quantized
-wire tier (``hvd.wire``, ``hvd.set_wire_dtype``, ``hvd.wire_dtype_for``).
+wire tier (``hvd.wire``, ``hvd.set_wire_dtype``, ``hvd.wire_dtype_for``)
+and the hierarchical tiers' strategy pin (``hvd.set_dispatch_strategy``).
 """
 
 from horovod_tpu_torch.torch import *  # noqa: F401,F403
 from horovod_tpu_torch.torch import __all__  # noqa: F401
 from horovod_tpu_torch.ops import wire  # noqa: F401
-from horovod_tpu_torch.ops.wire import (set_wire_dtype,  # noqa: F401
-                                        wire_dtype_for)
+from horovod_tpu_torch.ops.wire import (set_dispatch_strategy,  # noqa: F401
+                                        set_wire_dtype, wire_dtype_for)

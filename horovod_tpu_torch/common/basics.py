@@ -54,6 +54,7 @@ class _State:
         self.cross_rank = cross_rank
         self.cross_size = cross_size
         self.process_set_table = None   # set by process_sets._init_table
+        self.topology = None            # common.topology.Topology
         self.fusion = None              # set lazily by ops.fusion
         # The process group's store (the TCPStore rank 0 serves): the
         # fusion runtime publishes and reads its flush boundaries there.
@@ -150,6 +151,17 @@ def init(comm=None, process_sets=None, device=None):
         dist.init_process_group(st.backend, store=store, rank=rank,
                                 world_size=size, timeout=_STORE_TIMEOUT)
         _state, _asked_device = st, device
+        from horovod_tpu_torch.common import topology as _topology
+        st.topology = _topology.Topology(
+            size, rank, local_size, cross_size,
+            forced=_topology.parse_slices(config.mesh_slices))
+        # The subgroups of an armed tier, on every rank at once (a later
+        # first use would create them inside a flush).
+        if config.hierarchical_allreduce or config.torus_allreduce \
+                or config.hierarchical_dispatch:
+            st.topology.tiers(st.topology.strategy_shape())
+        if config.hierarchical_allgather:
+            st.topology.tiers(st.topology.node_shape())
         from horovod_tpu_torch.common import process_sets as _ps
         _ps._init_table(st, process_sets)
         atexit.register(_stop_threads_at_exit, st)
@@ -213,6 +225,8 @@ def shutdown(abort=False):
                           "down by an elastic reset")
             if st.process_set_table is not None:
                 st.process_set_table.destroy_groups(aborted=True)
+            if st.topology is not None:
+                st.topology.destroy(aborted=True)
             # The store (rank 0's server) goes with its last reference: a
             # re-init at an unchanged version binds the same port again.
             st.store = None
@@ -223,6 +237,8 @@ def shutdown(abort=False):
         finally:
             if st.process_set_table is not None:
                 st.process_set_table.destroy_groups()
+            if st.topology is not None:
+                st.topology.destroy()
             dist.destroy_process_group()
 
 

@@ -9,9 +9,12 @@ CROSS_SIZE and HOROVOD_COORDINATOR_ADDR/PORT, HOROVOD_START_TIMEOUT;
 with none of them, the MPI/PMI/Slurm env of a process mpirun started) and
 the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
 ``HOROVOD_BLACKLIST_COOLDOWN_RANGE``, ``HOROVOD_HOST_KEY``,
-``HOROVOD_ELASTIC_INIT_VERSION``) and the wire knobs
+``HOROVOD_ELASTIC_INIT_VERSION``), the wire knobs
 (``HOROVOD_WIRE_DTYPE``, ``HOROVOD_WIRE_DTYPE_DCN``,
-``HOROVOD_WIRE_ERROR_FEEDBACK``).
+``HOROVOD_WIRE_ERROR_FEEDBACK``) and the hierarchical tiers' knobs
+(``HOROVOD_HIERARCHICAL_ALLREDUCE``, ``HOROVOD_HIERARCHICAL_ALLGATHER``,
+``HOROVOD_TORUS_ALLREDUCE``, ``HOROVOD_HIERARCHICAL_DISPATCH``,
+``HOROVOD_CROSS_OVERLAP``, ``HOROVOD_MESH_SLICES``).
 """
 
 import dataclasses
@@ -64,12 +67,35 @@ class Config:
     # cast wires "float16"/"bfloat16", or the quantized "int8"/"fp8"
     # block-scaled exchange.
     wire_dtype: str = ""
-    # The cross-slice leg's wire of the hierarchical tiers (ROADMAP A11):
-    # read and kept, used by nothing yet.
+    # The wire of the torus_qcross strategy's cross-slice leg
+    # (ops/fusion.py; "" inherits wire_dtype): wire.cross_wire_for's
+    # default, after a per-tier registry entry.
     wire_dtype_dcn: str = ""
     # Error feedback for the quantized wire: each bucket's fp32
     # quantization error is added back before its next quantize.
     wire_error_feedback: bool = True
+
+    # --- the hierarchical tiers (parallel/strategies.py, ops/fusion.py) ---
+    # The fused buckets' allreduce strategy (reference common.h:130-132):
+    # "hierarchical" (a full local allreduce, then a cross allreduce),
+    # "torus" (local reduce-scatter, cross allreduce of the shard, local
+    # all-gather) or, with hierarchical_dispatch, "torus_qcross" (torus with
+    # the cross leg on wire_dtype_dcn). hierarchical_dispatch wins over
+    # torus_allreduce, which wins over hierarchical_allreduce.
+    hierarchical_allreduce: bool = False
+    torus_allreduce: bool = False
+    hierarchical_dispatch: bool = False
+    # hvd.allgather gathers within each node first, then one block per
+    # node across nodes.
+    hierarchical_allgather: bool = False
+    # JAX's cross-leg overlap: a hierarchical bucket's cross leg left in
+    # flight past its flush. Read and kept: its scheduler is steered by the
+    # step profiler, which comes with ROADMAP A16; until then every bucket
+    # completes inside its flush.
+    cross_overlap: bool = True
+    # HOROVOD_MESH_SLICES=k: the world as k slices of size/k ranks (JAX's
+    # forced slice layout); "" or 0: one slice per node.
+    mesh_slices: str = ""
 
     # Bootstrap (reference gloo_run.py:203-214 env plumbing). -1 = unset.
     rank: int = 0
@@ -109,6 +135,16 @@ class Config:
                                           c.wire_dtype_dcn)
         c.wire_error_feedback = _env_bool("HOROVOD_WIRE_ERROR_FEEDBACK",
                                           c.wire_error_feedback)
+        c.hierarchical_allreduce = _env_bool(
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", c.hierarchical_allreduce)
+        c.torus_allreduce = _env_bool("HOROVOD_TORUS_ALLREDUCE",
+                                      c.torus_allreduce)
+        c.hierarchical_dispatch = _env_bool("HOROVOD_HIERARCHICAL_DISPATCH",
+                                            c.hierarchical_dispatch)
+        c.hierarchical_allgather = _env_bool(
+            "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
+        c.cross_overlap = _env_bool("HOROVOD_CROSS_OVERLAP", c.cross_overlap)
+        c.mesh_slices = os.environ.get("HOROVOD_MESH_SLICES", c.mesh_slices)
         c.rank = _env_int("HOROVOD_RANK", c.rank)
         c.local_rank = _env_int("HOROVOD_LOCAL_RANK", c.local_rank)
         c.cross_rank = _env_int("HOROVOD_CROSS_RANK", c.cross_rank)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from horovod_tpu_torch.parallel.tp import (Dense, LayerNorm,
+from horovod_tpu_torch.parallel.tp import (Dense, FlaxKernel, LayerNorm,
                                            TPTransformerBlock, _not_yet,
                                            lecun_normal_, remat)
 
@@ -151,38 +151,65 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "pos_emb": "pos_emb"}
 
 
-def load_flax(model, variables):
+def flax_key(path):
+    """The port's parameter name of a Flax leaf path."""
+    return ".".join(path[:-1] + (_LEAF_NAMES[path[-1]],))
+
+
+def load_flax(model, variables, optimizer=None, powersgd_state=None):
     """Fill ``model`` from the JAX package's variables of the same model
     (``{"params": ...}`` or the params tree itself, nested dicts of arrays
     under Flax's names), for every model whose modules carry Flax's names
     (GPT, BERT, LLaMA, the MLP, ViT). Dense kernels go (in, out) ->
-    (out, in), convolution kernels HWIO -> OIHW; LayerNorm and RMSNorm
-    ``scale`` -> ``weight``; ``embedding`` -> ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
-    leaf, or a shape mismatch raises."""
+    (out, in), convolution kernels HWIO -> OIHW (``FlaxKernel``);
+    LayerNorm and RMSNorm ``scale`` -> ``weight``; ``embedding`` ->
+    ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
+    leaf, or a shape mismatch raises.
+
+    ``powersgd_state``: the JAX PowerSGD transform's state, ``{"q": ...,
+    "err": ...}`` with one entry per Flax leaf in ``tree_leaves`` order
+    (sorted paths), as numpy; each compressed leaf's Q and residual go into
+    ``optimizer.state[p]`` (a ``hvd.DistributedOptimizer`` with
+    ``Compression.powersgd``) under its keys, in the Flax view, as the port
+    keeps them."""
     params = variables.get("params", variables)
     targets = dict(model.named_parameters())
     filled = set()
     for path, value in _leaves(params):
         if path[-1] not in _LEAF_NAMES:
             raise KeyError(f"unexpected Flax leaf {'/'.join(path)}")
-        key = ".".join(path[:-1] + (_LEAF_NAMES[path[-1]],))
+        key = flax_key(path)
         if key not in targets:
             raise KeyError(f"Flax leaf {'/'.join(path)} has no counterpart "
                            f"{key} in the module")
-        arr = np.array(value, dtype=np.float32)
+        arr = torch.from_numpy(np.array(value, dtype=np.float32))
         if path[-1] == "kernel":
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            arr = FlaxKernel.from_flax(arr)
         t = targets[key]
         if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"{key}: Flax shape {arr.shape} vs module shape "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"{key}: Flax shape {tuple(arr.shape)} vs "
+                             f"module shape {tuple(t.shape)}")
         with torch.no_grad():
-            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            t.copy_(arr)
         filled.add(key)
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"no Flax variable for {missing[:5]}"
                        f"{' ...' if len(missing) > 5 else ''}")
+    if powersgd_state is not None:
+        from horovod_tpu_torch.torch.optimizer import POWERSGD_ERR, POWERSGD_Q
+        paths = sorted(path for path, _ in _leaves(params))
+        for path, q, err in zip(paths, powersgd_state["q"],
+                                powersgd_state["err"]):
+            if not np.size(q):
+                continue                 # an uncompressed leaf
+            t = targets[flax_key(path)]
+            err = np.asarray(err)          # in the leaf's or ef_dtype
+            optimizer.state[t][POWERSGD_Q] = torch.from_numpy(
+                np.array(q, dtype=np.float32)).to(t.device)
+            optimizer.state[t][POWERSGD_ERR] = torch.from_numpy(
+                err.astype(np.float32)).to(t.device, getattr(torch,
+                                                             err.dtype.name))
     return model
 
 

@@ -40,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
-from horovod_tpu_torch.parallel.tp import Dense, at_precision, lecun_normal_
+from horovod_tpu_torch.parallel.tp import (Dense, FlaxKernel, at_precision,
+                                           lecun_normal_)
 
 
 def _same_pads(size, k, s):
@@ -70,8 +71,8 @@ class Conv(nn.Module):
     def __init__(self, in_features, features, kernel_size, strides=(1, 1),
                  padding="SAME", use_bias=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, in_features,
-                                               *kernel_size))
+        self.weight = FlaxKernel(torch.empty(features, in_features,
+                                             *kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
@@ -315,15 +316,15 @@ def load_flax_variables(module, variables):
             if key not in targets:
                 raise KeyError(f"Flax leaf {'/'.join(path)} has no "
                                f"counterpart {key} in the module")
-            arr = np.array(value, dtype=np.float32)
+            arr = torch.from_numpy(np.array(value, dtype=np.float32))
             if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                arr = FlaxKernel.from_flax(arr)
             t = targets[key]
             if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{key}: Flax shape {arr.shape} vs module "
-                                 f"shape {tuple(t.shape)}")
+                raise ValueError(f"{key}: Flax shape {tuple(arr.shape)} vs "
+                                 f"module shape {tuple(t.shape)}")
             with torch.no_grad():
-                t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                t.copy_(arr)
             filled.add(key)
     missing = sorted(set(targets) - filled)
     if missing:

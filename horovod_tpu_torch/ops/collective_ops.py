@@ -23,7 +23,13 @@ on it (float64 too, one gather each); it refuses integer tensors.
 dims may differ. The first dims are exchanged (one small int64 all-gather,
 which also checks that the rest of the shape and the dtype agree), every
 rank's tensor is padded to the largest, gathered, and the padding is cut
-out, as JAX's padded program does. ``alltoall`` exchanges the split matrix
+out, as JAX's padded program does; under ``HOROVOD_HIERARCHICAL_ALLGATHER``
+the global set's gather runs in two levels (``parallel/strategies.py``).
+An allreduce of the global set rides the fusion runtime's strategy
+(``hierarchical``, ``torus``, ``torus_qcross``; ``ops/fusion.py``), so the
+JAX eager tier's verdict is the runtime's for that bucket; a one-shot
+``Compression.int8`` request rides the flat quantized exchange, never the
+tier, as in JAX. ``alltoall`` exchanges the split matrix
 the same way. A group of fp32/fp16/bf16 tensors reduce-scatters as one
 collective: each tensor's n row blocks are packed rank-major (block r of
 every tensor, then block r + 1) by the pack kernel with the prescale, one
@@ -583,8 +589,18 @@ def _gather_rows(t, ps, joined, dtype, row_numel):
         else t.reshape(-1)
     if src.numel() < per:
         src = torch.cat([src, src.new_zeros(per - src.numel())])
-    out = torch.empty(n * per, dtype=dtype, device=dev)
-    launch(all_gather_flat, out, src, group=ps.group)
+    st = basics._get_state()
+    if st.config.hierarchical_allgather and ps.ranks is None and not joined:
+        # HOROVOD_HIERARCHICAL_ALLGATHER: gather within each node, then one
+        # block per node across nodes (JAX's allgather_hierarchical over
+        # mesh2d); the same rank-major rows.
+        from horovod_tpu_torch.parallel.strategies import \
+            allgather_hierarchical
+        out = allgather_hierarchical(
+            src, st.topology.tiers(st.topology.node_shape())).view(-1)
+    else:
+        out = torch.empty(n * per, dtype=dtype, device=dev)
+        launch(all_gather_flat, out, src, group=ps.group)
     if t is None:
         return None
     kept = [sizes[i] for i in active]

@@ -5,8 +5,10 @@ Port of the JAX package's ``ops/compression.py`` on torch tensors
 ``Compression.fp16`` — cast floating tensors to fp16 before the allreduce and
 back after — ``Compression.bf16``, the same with bfloat16, and
 ``Compression.int8``, a routing marker into the quantized wire
-(``ops/wire.py``). PowerSGD (``Compression.powersgd``) is not ported yet
-(ROADMAP A13).
+(``ops/wire.py``), and ``Compression.powersgd(rank)``, the stateful
+low-rank marker that only ``DistributedOptimizer`` honors
+(``optim/powersgd.py``): its ``compress`` raises, so an allreduce handed it
+raises, as JAX's ``fused_allreduce_tree`` does.
 """
 
 import torch
@@ -81,9 +83,21 @@ class Int8Compressor(Compressor):
         return tensor
 
 
+def _powersgd(rank=4, min_compression_rate=2.0, ef_dtype=None):
+    """The stateful PowerSGD marker (low-rank factor exchange with error
+    feedback; honored by DistributedOptimizer only). ``ef_dtype`` keeps the
+    residual in a wider dtype than the gradients (torch.float32 under bf16
+    training)."""
+    from horovod_tpu_torch.optim.powersgd import PowerSGDCompressor
+    return PowerSGDCompressor(rank=rank,
+                              min_compression_rate=min_compression_rate,
+                              ef_dtype=ef_dtype)
+
+
 class Compression:
     """reference: compression.py Compression namespace."""
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
     int8 = Int8Compressor
+    powersgd = staticmethod(_powersgd)

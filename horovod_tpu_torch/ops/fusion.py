@@ -51,6 +51,29 @@ quantized makes that call's tensors a bucket of their own, closed at once
 its residual is kept per call signature (shapes and dtypes), as JAX's eager
 plan keys it.
 
+Strategies (``parallel/strategies.py``; JAX's fused strategy knob). A
+flush also takes one snapshot of the allreduce strategy: ``flat`` (one
+allreduce of the bucket), ``hierarchical`` (a full local allreduce, then a
+cross one), ``torus`` (local reduce-scatter, cross allreduce of the shard,
+local all-gather) or ``torus_qcross`` (torus with the cross leg on the
+per-tier wire, ``wire.cross_wire_for``: int8 or fp8 through the
+block-scaled exchange, with a residual of the shard's size kept per bucket
+layout as the flat wire's is). The knobs choose it
+(``HOROVOD_HIERARCHICAL_DISPATCH`` > ``HOROVOD_TORUS_ALLREDUCE`` >
+``HOROVOD_HIERARCHICAL_ALLREDUCE``), unless ``hvd.set_dispatch_strategy``
+pinned the global set: ``hier`` is torus and ``hier_qcross`` torus_qcross,
+as JAX's eager tier, which on a one-slice layout stays flat. Process 0
+publishes the snapshot and its cross wire with the boundary, and both ride
+the bucket signature. The decomposition is the slice layout, or with one
+slice the node layout (``common/topology.py``); torus buckets are packed
+into a buffer padded with zeros to a multiple of the local size. JAX's
+refusals keep a bucket flat: an op other than Sum and Average, a bucket of
+its own (a process set smaller than the world, join armed, a one-shot
+``Compression.int8`` request, which rides the flat quantized exchange), and
+``torus_qcross`` on a one-slice layout. A torus or torus_qcross bucket over
+more than one slice meters its bytes by tier (``flush_stats()['tiers']``,
+``wire.hierarchical_wire_bytes``), as the JAX runtime does.
+
 Flushes. Every enqueued tensor gets a sequence number and joins one pending
 list, across all keys, in enqueue order. A flush takes a prefix of that
 list: all of it when the pending bytes reach the threshold, on a cycle tick,
@@ -142,6 +165,7 @@ from horovod_tpu_torch.ops.collective_ops import (ADASUM, ALLREDUCE,
                                                   join_armed, join_round,
                                                   launch, rank_digests)
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
+from horovod_tpu_torch.parallel import strategies as _strategies
 
 _MAX_SIGNATURES = 4096   # runaway-signature guard for the verified cache
 _RECENT = 4096           # closed buckets kept for recent_buckets()
@@ -151,6 +175,22 @@ _runtime_lock = threading.Lock()
 # tick, a poll/synchronize/flush_all/fence, or its own call (a set smaller
 # than the world, or join armed).
 TRIGGERS = ("threshold", "cycle", "sync", "own")
+
+STRATEGIES = ("flat", "hierarchical", "torus", "torus_qcross")
+# A pinned dispatch strategy (the JAX eager tier's names) as a fused one.
+_PINNED = {"flat": "flat", "hier": "torus", "hier_qcross": "torus_qcross"}
+# A fused strategy as the registry's (JAX's _EAGER_STRATEGY): the legacy
+# "hierarchical" has no eager counterpart.
+_EAGER_STRATEGY = {"flat": "flat", "torus": "hier", "hierarchical": "flat",
+                   "torus_qcross": "hier_qcross"}
+
+
+def config_strategy(config):
+    """The strategy the knobs choose (JAX's ``FusionRuntime.strategy``)."""
+    return ("torus_qcross" if config.hierarchical_dispatch
+            else "torus" if config.torus_allreduce
+            else "hierarchical" if config.hierarchical_allreduce
+            else "flat")
 
 
 class FusedHandle:
@@ -223,13 +263,23 @@ class FusionRuntime:
 
     def __init__(self, threshold, device, cycle_time_ms=0.0, rank=0,
                  size=1, store=None, epoch=0, wire_dtype="",
-                 wire_error_feedback=True):
+                 wire_error_feedback=True, strategy="flat", wire_dtype_dcn="",
+                 topology=None):
         self.threshold = int(threshold)
         self.device = device
         # The wire knob (process 0's; a follower holds the last one process
         # 0 published) and error feedback for the quantized wire.
         self.wire_dtype = _wire.resolve_wire_dtype(wire_dtype)
         self._wire_ef = bool(wire_error_feedback)
+        # The strategy knob (a follower holds what process 0 last
+        # published) and the cross leg's wire knob (read through
+        # wire.cross_wire_for, which takes this runtime for the config).
+        if strategy not in STRATEGIES:
+            raise ValueError(f"fusion strategy {strategy!r}: expected one of "
+                             f"{STRATEGIES}")
+        self.strategy = strategy
+        self.wire_dtype_dcn = _wire.resolve_wire_dtype(wire_dtype_dcn)
+        self._topology = topology
         self._lock = threading.RLock()
         self._flushed = threading.Condition(self._lock)
         self._pending = []       # _Entry, in sequence order, across keys
@@ -267,7 +317,9 @@ class FusionRuntime:
         self._fetch_lock = threading.Lock()
         self._stats = {"buckets": 0, "closed_by": dict.fromkeys(TRIGGERS, 0),
                        "new_signatures": 0, "quantized": 0,
-                       "wire_bytes": {}}
+                       "wire_bytes": {},
+                       "strategies": dict.fromkeys(STRATEGIES, 0),
+                       "tiers": {"local": {}, "cross": {}}}
         self._recent = collections.deque(maxlen=_RECENT)
         # The error every handle fails with once the runtime is aborted.
         self._failed = None
@@ -376,10 +428,11 @@ class FusionRuntime:
             item = self._publish_queue.get()
             if item is None:
                 return
-            seq, last, why, wire = item
+            seq, last, why, wire, strategy, cross = item
             try:
                 self._client.set(self._boundary_key(seq),
-                                 f"{last} {why} {wire or '-'}")
+                                 f"{last} {why} {wire or '-'} {strategy} "
+                                 f"{cross or '-'}")
                 if seq >= self._BOUNDARY_GC_LAG:
                     self._client.delete_key(
                         self._boundary_key(seq - self._BOUNDARY_GC_LAG))
@@ -411,8 +464,10 @@ class FusionRuntime:
                     if left > 0:   # the store failed fast: no hot loop
                         time.sleep(min(left, 0.05))
                     return None
-            last, why, wire = self._client.get(key).decode().split()
-            return int(last), why, "" if wire == "-" else wire
+            last, why, wire, strategy, cross = \
+                self._client.get(key).decode().split()
+            return (int(last), why, "" if wire == "-" else wire, strategy,
+                    "" if cross == "-" else cross)
         except dist.DistNetworkError as e:
             # Process 0 serves the store: no boundary will ever come.
             err = HorovodInternalError(
@@ -437,7 +492,7 @@ class FusionRuntime:
                 payload = self._fetch(seq, wait_s)
                 if payload is None:
                     return False
-            last, why, wire = payload
+            last, why, wire, strategy, cross = payload
             with self._lock:
                 if self._boundary_seq != seq:   # another thread applied it
                     wait_s = 0
@@ -447,11 +502,15 @@ class FusionRuntime:
                     return True
                 self._deferred = None
                 self._boundary_seq += 1
-                # Process 0's wire for this prefix (JAX's boundary "w").
+                # Process 0's wire, strategy and cross wire for this prefix
+                # (JAX's boundary "w", "s" and "cw").
                 self.wire_dtype = wire
                 if wire:
                     _wire.runtime_sync_wire_dtype(wire, "global")
-                self._flush_locked(why, up_to=last, wire=wire)
+                self.strategy = strategy
+                _sync_policy(strategy, cross)
+                self._flush_locked(why, up_to=last,
+                                   policy=(wire, strategy, cross))
             wait_s = 0
 
     def _follower_loop(self):
@@ -534,6 +593,9 @@ class FusionRuntime:
                 eager = wire is not None
                 if not eager:
                     wire = self._wire_snapshot(process_set)
+                # A bucket of its own is flat (JAX dispatches it outside the
+                # runtime, where the tiers refuse sub-sets, join and a
+                # one-shot wire request).
                 self._close(_wire_key(key, wire), entries, "own", wire,
                             eager=eager)
                 return [e.handle for e in entries]
@@ -588,10 +650,30 @@ class FusionRuntime:
         """The wire this runtime's next buckets of ``ps`` would ride."""
         return _wire.wire_dtype_for(_ps_label(ps), self.wire_dtype)
 
-    def _flush_locked(self, why, up_to=None, wire=None):
+    def _strategy_snapshot(self):
+        """The strategy and cross wire of the buckets about to close: a
+        user's pinned dispatch strategy, else the knob; the cross wire
+        through ``wire.cross_wire_for`` (its ``dcn`` entry, else
+        ``wire_dtype_dcn``, else the wire knob). Synced into the registries
+        as JAX's ``_sync_eager_policy`` does."""
+        pin = _wire.pinned_dispatch_strategy("global")
+        strategy = self.strategy if pin is None else _PINNED[pin]
+        if pin in ("hier", "hier_qcross") and self._slices() <= 1:
+            strategy = "flat"     # JAX's eager tier: no slices, no tier
+        # This runtime stands for the config: its wire_dtype_dcn and
+        # wire_dtype are the knobs' (or process 0's).
+        cross = _wire.cross_wire_for("global", self)
+        _sync_policy(strategy, cross)
+        return strategy, cross
+
+    def _slices(self):
+        return 1 if self._topology is None else self._topology.num_slices
+
+    def _flush_locked(self, why, up_to=None, policy=None):
         """Close the pending prefix (all of it, or a follower's boundary:
-        the entries with seq <= ``up_to``) as buckets on ``wire`` (a
-        follower's: process 0's; else this runtime's snapshot)."""
+        the entries with seq <= ``up_to``) as buckets under ``policy``, a
+        (wire, strategy, cross wire) triple (a follower's: process 0's;
+        else this runtime's snapshot)."""
         if up_to is None:
             prefix, self._pending = self._pending, []
         else:
@@ -602,17 +684,18 @@ class FusionRuntime:
         if not prefix:
             return
         self._pending_bytes -= sum(e.nbytes for e in prefix)
-        if wire is None:
-            wire = self._wire_snapshot()
+        if policy is None:
+            policy = (self._wire_snapshot(),) + self._strategy_snapshot()
+        wire, strategy, cross = policy
         if self._multi and self._coord:
             self._publish_queue.put((self._boundary_seq, prefix[-1].seq, why,
-                                     wire))
+                                     wire, strategy, cross))
             self._boundary_seq += 1
         error = None
         try:
             for key, entries in self._assemble(prefix, wire):
                 try:
-                    self._close(key, entries, why, wire)
+                    self._close(key, entries, why, wire, strategy, cross)
                 except Exception as exc:  # noqa: BLE001 — its handles hold it
                     error = error or exc
         finally:
@@ -718,9 +801,10 @@ class FusionRuntime:
 
     def verified_signatures(self):
         """The bucket signatures all ranks have agreed on, oldest first:
-        (process set id, op, prescale, postscale, dtype, wire, ((name,
-        numel), ...)); ``wire`` is the flush's wire dtype, '' for full
-        precision."""
+        (process set id, op, prescale, postscale, dtype, wire, strategy,
+        cross wire, ((name, numel), ...)); ``wire`` is the flush's wire
+        dtype, '' for full precision; ``strategy`` and ``cross wire`` the
+        flush's snapshot (a bucket of its own: flat and '')."""
         with self._lock:
             return list(self._verified)
 
@@ -733,21 +817,30 @@ class FusionRuntime:
 
     def flush_stats(self):
         """Buckets closed so far, by trigger (``TRIGGERS``; a follower counts
-        process 0's trigger), the new signatures among them, how many rode
-        the quantized exchange, and the bytes on the wire by wire dtype (the
-        JAX formulas: ``wire.exchange_wire_bytes`` for a quantized bucket,
-        ``wire.allreduce_wire_bytes`` for the others)."""
+        process 0's trigger) and by the strategy each ran (after the
+        refusals), the new signatures among them, how many rode the
+        quantized exchange, the bytes on the wire by wire dtype (the JAX
+        formulas: ``wire.exchange_wire_bytes`` for a quantized bucket,
+        ``wire.hierarchical_wire_bytes`` for a torus or torus_qcross bucket
+        over slices, ``wire.allreduce_wire_bytes`` for the others), and the
+        tiered buckets' bytes by tier (``local``, ``cross``) and wire
+        dtype."""
         with self._lock:
             return {"buckets": self._stats["buckets"],
                     "closed_by": dict(self._stats["closed_by"]),
+                    "strategies": dict(self._stats["strategies"]),
                     "new_signatures": self._stats["new_signatures"],
                     "quantized": self._stats["quantized"],
-                    "wire_bytes": dict(self._stats["wire_bytes"])}
+                    "wire_bytes": dict(self._stats["wire_bytes"]),
+                    "tiers": {t: dict(v) for t, v in
+                              self._stats["tiers"].items()}}
 
-    def _close(self, key, entries, why, wire="", eager=False):
+    def _close(self, key, entries, why, wire="", strategy="flat", cross="",
+                eager=False):
         ps, op, prescale, postscale, dtype = key
         sig = (ps.process_set_id, int(op), prescale, postscale, str(dtype),
-               wire, tuple((e.name, e.tensor.numel()) for e in entries))
+               wire, strategy, cross,
+               tuple((e.name, e.tensor.numel()) for e in entries))
         self._stats["buckets"] += 1
         self._stats["closed_by"][why] += 1
         self._recent.append((why, sig))
@@ -755,22 +848,32 @@ class FusionRuntime:
             joined = self._check_signature(key, sig)
             n = ps.size() - len(joined)
             numels = [e.tensor.numel() for e in entries]
-            quant = _bucket_quant(wire, op, joined, numels, n)
+            # JAX's refusals: only Sum/Average, and torus_qcross needs slices.
+            if op not in (ReduceOp.SUM, ReduceOp.AVERAGE) or joined or (
+                    strategy == "torus_qcross" and self._slices() <= 1):
+                strategy = "flat"
+            self._stats["strategies"][strategy] += 1
+            quant = _bucket_quant(wire, op, joined, numels, n) \
+                if strategy == "flat" else None
             # The wire this bucket rides: quantized, a cast, or '' (exact).
             ride = quant or ("" if _wire.is_quantized(wire)
                              or op == ReduceOp.ADASUM else wire)
             # The residual's key: the bucket's layout and this runtime's
             # membership epoch, or for a one-shot call its shapes and dtypes
             # (JAX's eager plan key), without names.
-            res_key = ("fusion", self._epoch) + sig[:5] + sig[6:] \
+            res_key = ("fusion", self._epoch) + sig[:5] + sig[8:] \
                 if not eager else ("eager", self._epoch) + sig[:4] + tuple(
                     (tuple(e.tensor.shape), str(e.tensor.dtype))
                     for e in entries)
-            self._count_wire(ride, dtype, sum(numels), n)
+            tiers = None
+            if strategy != "flat":
+                tiers = self._topology.tiers(self._topology.strategy_shape())
+            plan = (strategy, tiers, cross)
+            self._count_wire(ride, dtype, sum(numels), n, plan)
             event = None
             if self._stream is None:
                 self._reduce(entries, ps, op, prescale, postscale, dtype,
-                             joined, ride, res_key)
+                             joined, ride, res_key, plan)
             else:
                 side = self._stream
                 for s in {e.stream.cuda_stream: e.stream
@@ -778,7 +881,7 @@ class FusionRuntime:
                     side.wait_stream(s)
                 with torch.cuda.stream(side):
                     self._reduce(entries, ps, op, prescale, postscale, dtype,
-                                 joined, ride, res_key)
+                                 joined, ride, res_key, plan)
                     event = torch.cuda.Event()
                     event.record(side)
                 # The caching allocator must not hand these blocks out again
@@ -794,7 +897,24 @@ class FusionRuntime:
             e.handle._event = event
             e.handle._dispatched = True
 
-    def _count_wire(self, label, dtype, total, n):
+    def _count_wire(self, label, dtype, total, n, plan):
+        by = self._stats["wire_bytes"]
+        strategy, tiers, cross = plan
+        if strategy in ("torus", "torus_qcross") and self._slices() > 1:
+            # JAX meters a torus bucket over slices by tier: the local legs
+            # at the payload's width, the cross leg at its wire.
+            label = label or str(dtype).replace("torch.", "")
+            item = torch.empty((), dtype=dtype).element_size()
+            h = _wire.hierarchical_wire_bytes(
+                total, n, tiers.rows, item,
+                cross_wire=cross if strategy == "torus_qcross" else "")
+            cross_label = h["cross_label"] or label
+            for tier, lab, nbytes in (("local", label, h["ici"]),
+                                      ("cross", cross_label, h["dcn"])):
+                by[lab] = by.get(lab, 0) + nbytes
+                t = self._stats["tiers"][tier]
+                t[lab] = t.get(lab, 0) + nbytes
+            return
         if _wire.is_quantized(label):
             self._stats["quantized"] += 1
             nbytes = _wire.exchange_wire_bytes(total, n)
@@ -803,11 +923,10 @@ class FusionRuntime:
             item = torch.empty((), dtype=dtype).element_size()
             nbytes = _wire.allreduce_wire_bytes(n * total * item, item, n,
                                                 label)
-        by = self._stats["wire_bytes"]
         by[label] = by.get(label, 0) + nbytes
 
     def _reduce(self, entries, ps, op, prescale, postscale, dtype, joined,
-                ride, res_key):
+                ride, res_key, plan):
         tensors = [e.tensor for e in entries]
         outputs = [e.output for e in entries]
         total = sum(t.numel() for t in tensors)
@@ -815,9 +934,6 @@ class FusionRuntime:
             self._reduce_quantized(tensors, outputs, ps, op, prescale,
                                    postscale, ride, res_key, total)
             return
-        # A bucket off the quantized wire drops the residual it may have
-        # kept there (a joined rank, a wire flip).
-        _wire.ef_pop(res_key)
         cast = bool(ride)
         if cast:
             # JAX's rounding points on the cast wire: the scales in the wire
@@ -825,6 +941,13 @@ class FusionRuntime:
             prescale, postscale = (
                 torch.tensor(v, dtype=dtype).item()
                 for v in (prescale, postscale))
+        if plan[0] != "flat":
+            self._reduce_tiered(tensors, outputs, ps, op, prescale,
+                                postscale, dtype, cast, res_key, total, plan)
+            return
+        # A bucket off the quantized wire drops the residual it may have
+        # kept there (a joined rank, a wire flip).
+        _wire.ef_pop(res_key)
         buf = self._buffer(dtype, total)
         pack_scale(tensors, buf, prescale)
         if op == ReduceOp.ADASUM:
@@ -878,6 +1001,54 @@ class FusionRuntime:
             _wire.ef_put(res_key, (label, new_res))
         unpack_scale(out, outputs, 1.0)
 
+    def _reduce_tiered(self, tensors, outputs, ps, op, prescale, postscale,
+                       dtype, cast, res_key, total, plan):
+        """A bucket on a 2-level strategy: pack into a buffer padded with
+        zeros to a multiple of the local size (torus), the schedule of
+        ``parallel/strategies.py`` on the layout's subgroups, unpack with
+        Average's reciprocal folded into the postscale as XLA folds it (on
+        a cast wire, its own product in the wire dtype, as on the flat
+        path). torus_qcross keeps a residual of the shard's size per
+        bucket layout, under its own kind, so a flip of wire or strategy
+        starts it from zero."""
+        strategy, tiers, cross = plan
+        pad = 0 if strategy == "hierarchical" else (-total) % tiers.cols
+        buf = self._buffer(dtype, total + pad)
+        pack_scale(tensors, buf[:total], prescale)
+        if pad:
+            buf[total:].zero_()
+        label = None
+        if strategy == "torus_qcross":
+            label = _strategies.cross_label(
+                cross, (total + pad) // tiers.cols, tiers.rows,
+                dtype.is_floating_point)
+        kind = f"cross:{label}"
+        residual = None
+        if label is not None and self._wire_ef:
+            kept = _wire.ef_get(res_key)
+            residual = kept[1] if kept is not None and kept[0] == kind \
+                else torch.zeros((total + pad) // tiers.cols,
+                                 dtype=torch.float32, device=buf.device)
+        else:
+            _wire.ef_pop(res_key)
+        if strategy == "hierarchical":
+            _strategies.hierarchical_(buf, tiers)
+        else:
+            try:
+                buf, new_res = _strategies.torus_(buf, tiers, label,
+                                                  residual)
+            except BaseException:
+                _wire.ef_pop(res_key)
+                raise
+            if residual is not None:
+                _wire.ef_put(res_key, (kind, new_res))
+        if op == ReduceOp.AVERAGE:
+            if cast:
+                buf.mul_(torch.tensor(1.0 / ps.size(), dtype=dtype).item())
+            else:
+                postscale = _strategies.fold_scale(ps.size(), postscale)
+        unpack_scale(buf[:total], outputs, postscale)
+
     def _buffer(self, dtype, total):
         itemsize = torch.empty((), dtype=dtype).element_size()
         if total * itemsize > self.threshold:
@@ -921,6 +1092,16 @@ def _ps_label(ps):
         else f"set{ps.process_set_id}"
 
 
+def _sync_policy(strategy, cross):
+    """The flush's strategy and cross wire into the registries, deferring
+    to the user's pins (JAX's ``_sync_eager_policy``)."""
+    mapped = _EAGER_STRATEGY[strategy]
+    if mapped != "flat" or _wire.dispatch_strategy_for("global"):
+        _wire.runtime_sync_dispatch_strategy(mapped, "global")
+    if cross:
+        _wire.runtime_sync_wire_dtype(cross, "global", tier="dcn")
+
+
 def _wire_key(key, wire):
     """A bucket key on ``wire``: a cast wire keys it at the wire dtype, a
     quantized or full-precision wire at the tensors' own. Adasum reduces in
@@ -951,7 +1132,10 @@ def get_runtime():
                                epoch=st.config.elastic_init_version,
                                wire_dtype=st.config.wire_dtype,
                                wire_error_feedback=(
-                                   st.config.wire_error_feedback))
+                                   st.config.wire_error_feedback),
+                               strategy=config_strategy(st.config),
+                               wire_dtype_dcn=st.config.wire_dtype_dcn,
+                               topology=st.topology)
             rt.start()
             st.fusion = rt
         return st.fusion

@@ -14,7 +14,8 @@ Port of the JAX package's ``ops/wire.py`` on torch tensors and
   requantizes it, and an all-gather of payload and scales gives every rank
   the whole buffer;
 - the error-feedback store (one fp32 residual per key, the oldest evicted
-  past 64), the wire-dtype registry (a user pin beats the runtime's sync)
+  past 64), the wire-dtype registry (a user pin beats the runtime's sync),
+  the dispatch-strategy registry of the hierarchical tiers (the same rule)
   and the one-shot request that ``Compression.int8`` arms;
 - the wire-byte accounting, the JAX package's integer formulas.
 
@@ -34,14 +35,16 @@ a product feeding a sum or a difference one fused multiply-add
 does. The 1-byte payloads cross the backends as ``torch.uint8`` views,
 which NCCL and gloo both take.
 
-The dispatch-strategy and alltoall-strategy registries of the JAX module
-(its hierarchical tiers) belong to ROADMAP A11 and are not here.
+The alltoall-strategy registry of the JAX module goes with the
+hierarchical alltoall (ROADMAP A12, beside ``parallel/moe.py``).
 """
 
 import threading
 
 import torch
 import torch.distributed as dist
+
+from horovod_tpu_torch.common.topology import slice_of_rank
 
 # One fp32 scale per this many elements (EQuARX's block quantization).
 BLOCK = 1024
@@ -304,7 +307,7 @@ def set_wire_dtype(dtype, ps_label="global", tier=None):
     """Pin the wire dtype of one process set ('' restores full precision);
     returns the normalized value. The fusion runtime's boundary sync no
     longer overwrites a pinned set. ``tier="dcn"`` sets the cross-slice
-    leg's policy (kept for ROADMAP A11)."""
+    leg's policy (the torus_qcross strategy's cross wire)."""
     name = _normalize(dtype)
     with _wire_lock:
         _wire_registry[_registry_key(ps_label, tier)] = (name, "user")
@@ -349,12 +352,80 @@ def clear_wire_registry():
 
 def clear_runtime_wire():
     """Drop the entries a fusion runtime synced in (its knob, or process
-    0's boundaries), keeping the user's pins: ``hvd.shutdown`` calls it, so
-    a runtime's wire does not outlive it into the next ``hvd.init``."""
+    0's boundaries), wires and strategies, keeping the user's pins:
+    ``hvd.shutdown`` calls it, so a runtime's policy does not outlive it
+    into the next ``hvd.init``."""
     with _wire_lock:
-        for key in [k for k, v in _wire_registry.items()
-                    if v[1] == "runtime"]:
-            del _wire_registry[key]
+        for reg in (_wire_registry, _strategy_registry):
+            for key in [k for k, v in reg.items() if v[1] == "runtime"]:
+                del reg[key]
+
+
+# ----------------------------------------------------------------------------
+# Per-process-set dispatch-strategy registry (flat / hier / hier_qcross):
+# the same rule as the wire dtype's. The fusion runtime syncs its strategy
+# into it at each flush, as the JAX runtime syncs its eager policy, and an
+# hvd.set_dispatch_strategy call pins the set against that sync; a pinned
+# "hier" or "hier_qcross" (or "flat") steers the runtime's next buckets
+# (ops/fusion.py: torus, torus_qcross, flat).
+# ----------------------------------------------------------------------------
+
+STRATEGIES = ("", "flat", "hier", "hier_qcross")
+
+_strategy_registry = {}        # ps_label -> (value, "user" | "runtime")
+
+
+def _normalize_strategy(strategy):
+    s = strategy or ""
+    if s not in STRATEGIES:
+        raise ValueError(
+            f"dispatch strategy {strategy!r}: expected one of {STRATEGIES}"
+            " ('' = config default; hier = 2-level RS/cross/AG; "
+            "hier_qcross = hierarchical with the cross leg on the "
+            "quantized wire)")
+    return s
+
+
+def set_dispatch_strategy(strategy, ps_label="global"):
+    """Pin the allreduce dispatch strategy of one process set ('' restores
+    the config default); returns the normalized value."""
+    s = _normalize_strategy(strategy)
+    with _wire_lock:
+        _strategy_registry[str(ps_label)] = (s, "user")
+    return s
+
+
+def runtime_sync_dispatch_strategy(strategy, ps_label="global"):
+    """The fusion runtime's adoption of its strategy: defers to a user pin
+    like :func:`runtime_sync_wire_dtype`."""
+    s = _normalize_strategy(strategy)
+    with _wire_lock:
+        cur = _strategy_registry.get(str(ps_label))
+        if cur is not None and cur[1] == "user":
+            return cur[0]
+        _strategy_registry[str(ps_label)] = (s, "runtime")
+    return s
+
+
+def dispatch_strategy_for(ps_label, default=""):
+    """Effective dispatch strategy of a process set: the registry's entry,
+    else ``default``."""
+    with _wire_lock:
+        v = _strategy_registry.get(str(ps_label))
+    return (default or "") if v is None or not v[0] else v[0]
+
+
+def pinned_dispatch_strategy(ps_label="global"):
+    """The user's pin for a process set, or None (the runtime's own syncs
+    are not pins)."""
+    with _wire_lock:
+        v = _strategy_registry.get(str(ps_label))
+    return v[0] if v is not None and v[1] == "user" and v[0] else None
+
+
+def clear_strategy_registry():
+    with _wire_lock:
+        _strategy_registry.clear()
 
 
 # ----------------------------------------------------------------------------
@@ -379,12 +450,6 @@ def consume_wire_request():
 # ----------------------------------------------------------------------------
 # Wire-byte accounting (the JAX package's integer formulas).
 # ----------------------------------------------------------------------------
-
-def slice_of_rank(rank, slice_size):
-    """Slice id of a rank under the rank-major (slice, ranks-in-slice)
-    layout (a copy of the JAX package's ``common/topology.py`` helper)."""
-    return int(rank) // max(int(slice_size), 1)
-
 
 def exchange_leg_bytes(per_rank_elems, n):
     """Bytes on the wire for ONE leg of the block-scaled exchange over

@@ -172,6 +172,36 @@ def lecun_normal_(w, fan_in, generator=None):
                               generator=generator)
 
 
+class FlaxKernel(nn.Parameter):
+    """A parameter that Flax names ``kernel``, kept in torch's layout: a
+    Dense weight (out, in) for Flax's (in, out), a convolution's OIHW for
+    Flax's HWIO. :meth:`to_flax` turns a tensor of its shape into Flax's
+    layout and :meth:`from_flax` back: ``load_flax`` loads through the
+    latter, and PowerSGD matrixizes through the former, as the JAX package
+    matrixizes its Flax leaves. A subclass, since ``copy.deepcopy`` and
+    ``Module.to`` keep a parameter's type but not its attributes."""
+
+    @staticmethod
+    def to_flax(t):
+        return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+
+    @staticmethod
+    def from_flax(t):
+        return t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+
+
+def flax_view(p, t):
+    """``t``, a tensor of parameter ``p``'s shape (its gradient, say), in
+    the layout of ``p``'s Flax leaf: a :class:`FlaxKernel` transposed, any
+    other parameter as it is."""
+    return FlaxKernel.to_flax(t) if isinstance(p, FlaxKernel) else t
+
+
+def from_flax_view(p, t):
+    """The inverse of :func:`flax_view`."""
+    return FlaxKernel.from_flax(t) if isinstance(p, FlaxKernel) else t
+
+
 class Dense(nn.Linear):
     """``flax.linen.Dense``: fp32 weight (out, in) and bias, the product in
     ``dtype`` at ``precision`` (forward and backward)."""
@@ -179,6 +209,7 @@ class Dense(nn.Linear):
     def __init__(self, in_features, features, use_bias=True,
                  dtype=torch.float32, precision=None):
         super().__init__(in_features, features, bias=use_bias)
+        self.weight = FlaxKernel(self.weight.detach())
         self.dtype = dtype
         self.precision = check_precision(precision)
 

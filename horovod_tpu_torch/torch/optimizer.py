@@ -18,14 +18,34 @@ gradient of at least n×1024 elements rides the block-scaled exchange as a
 bucket of its own, its error-feedback residual kept per call signature, as
 the JAX frontend's per-gradient ``allreduce_async`` calls do; under
 ``HOROVOD_WIRE_DTYPE=int8`` the whole fused bucket rides it instead.
+
+``compression=hvd.Compression.powersgd(rank)`` drives PowerSGD's core
+(``optim/powersgd.py``; the JAX optax optimizer's PowerSGD route): a
+parameter that is not compressed reduces as above; a compressed one's hook
+queues its P = M Q (M: the gradient in its Flax view, scaled, plus the
+residual) as an async Average, so phase 1 overlaps the backward.
+``synchronize()`` drains, orthonormalizes each P, queues the Q's as one
+group, drains again, writes M̂ back into ``p.grad`` in torch's layout and
+keeps Q and the residual for ``step()`` to store in ``state[p]`` under
+``powersgd_q`` and ``powersgd_err`` (kept out of the wrapped optimizer's
+step, whose lazy init wants a state without them), where
+``state_dict()``, ``broadcast_optimizer_state`` and the elastic
+``TorchState`` carry them.
+``backward_passes_per_step`` aggregates first, as JAX's local aggregation
+wraps the whole chain.
 """
 
 import torch
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.optim.powersgd import PowerSGD, PowerSGDCompressor
+from horovod_tpu_torch.parallel.tp import flax_view, from_flax_view
 from horovod_tpu_torch.torch import mpi_ops
 from horovod_tpu_torch.torch.compression import Compression
 from horovod_tpu_torch.torch.mpi_ops import Average, Sum
+
+# Keys of PowerSGD's per-parameter state (Q, the residual; Flax view).
+POWERSGD_Q, POWERSGD_ERR = "powersgd_q", "powersgd_err"
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -53,6 +73,22 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._passes = {}
         self._synchronized = False
         self._should_synchronize = True
+        self._powersgd = None
+        if isinstance(self._compression, PowerSGDCompressor):
+            c = self._compression
+            op, pre, post = self._op_and_scales()
+            self._powersgd = PowerSGD(
+                rank=c.rank, op=op, process_set=process_set,
+                min_compression_rate=c.min_compression_rate,
+                prescale_factor=pre, postscale_factor=post,
+                ef_dtype=c.ef_dtype)
+            self._compression = Compression.none
+            # Leaf i of the core (Q's seed), its phase-1 (M, P) until
+            # synchronize(), and the (Q, residual) step() stores.
+            self._leaf_index = {p: i for i, p in enumerate(
+                p for g in self.param_groups for p in g["params"])}
+            self._phase1 = {}
+            self._new_state = {}
         self._register_hooks()
 
     def _register_hooks(self):
@@ -87,11 +123,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._handles[p] = self._allreduce_grad_async(p)
         return hook
 
-    def _allreduce_grad_async(self, p):
-        name = self._param_names.get(p, "param")
-        prescale = 1.0
-        postscale = 1.0
-        op = self._op
+    def _op_and_scales(self):
+        op, prescale, postscale = self._op, 1.0, 1.0
         if self._gradient_predivide_factor != 1.0 and op == Average:
             # reference: gradient_predivide_factor splits the averaging
             # between pre- and post-scale (optimizer.py:188-200).
@@ -99,6 +132,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             postscale = self._gradient_predivide_factor / \
                 self._process_size()
             op = Sum
+        return op, prescale, postscale
+
+    def _allreduce_grad_async(self, p):
+        name = self._param_names.get(p, "param")
+        core = self._powersgd
+        if core is not None and core.compressed(flax_view(p, p).shape):
+            return self._powersgd_phase1(p, name)
+        op, prescale, postscale = self._op_and_scales()
         if self._backward_passes_per_step > 1:
             prescale = prescale / self._backward_passes_per_step
         # In place: the unpack kernel writes the reduced gradient into
@@ -108,6 +149,47 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             p.grad, op=op, name=f"allreduce.{name}",
             compression=self._compression, prescale_factor=prescale,
             postscale_factor=postscale, process_set=self._process_set)
+
+    def _powersgd_state(self, p):
+        st = self.state.get(p, {})
+        if POWERSGD_Q in st:
+            return st[POWERSGD_Q], st[POWERSGD_ERR]
+        return self._powersgd.init_leaf(flax_view(p, p.detach()),
+                                        self._leaf_index[p])
+
+    def _powersgd_phase1(self, p, name):
+        """Queue P = M Q of a compressed parameter (its Flax view)."""
+        core = self._powersgd
+        q, err = self._powersgd_state(p)
+        m = core.error_fed(flax_view(p, p.grad), err,
+                           1.0 / self._backward_passes_per_step)
+        pm = core.phase1(m, q)
+        self._phase1[p] = (m, pm, err.dtype)
+        return mpi_ops.allreduce_async_(pm, op=Average,
+                                        name=f"powersgd.p.{name}",
+                                        process_set=self._process_set)
+
+    def _powersgd_phase2(self):
+        """Orthonormalize the averaged P's, average the Q's as one group,
+        write each M̂ into ``p.grad`` and keep Q and the residual."""
+        core = self._powersgd
+        params = list(self._phase1)
+        phase1, self._phase1 = self._phase1, {}
+        if not params:
+            return
+        ps, qs = zip(*(core.phase2(phase1[p][0], phase1[p][1])
+                       for p in params))
+        handles = mpi_ops.grouped_allreduce_async_(
+            list(qs), op=Average, name="powersgd.q",
+            process_set=self._process_set)
+        for p, pq, h in zip(params, ps, handles):
+            q = h.synchronize()
+            m, _, err_dtype = phase1[p]
+            view = flax_view(p, p.grad)
+            out, err = core.finish(view.shape, p.grad.dtype, m, pq, q,
+                                   err_dtype)
+            p.grad.copy_(from_flax_view(p, out))
+            self._new_state[p] = (q, err)
 
     def _process_size(self):
         ps = self._process_set
@@ -121,15 +203,32 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         try:
             for handle in self._handles.values():
                 handle.synchronize()
+            if self._powersgd is not None:
+                self._powersgd_phase2()
         finally:
             self._handles.clear()
+            if self._powersgd is not None:
+                self._phase1.clear()
         self._synchronized = True
 
     def step(self, closure=None):
         if self._should_synchronize:
             self.synchronize()
         self._synchronized = False
-        return super(self.__class__, self).step(closure)
+        if self._powersgd is None:
+            return super(self.__class__, self).step(closure)
+        # The wrapped optimizer's lazy init (AdamW's) wants a state without
+        # PowerSGD's keys: they step aside and come back, renewed.
+        kept = {p: (st.pop(POWERSGD_Q), st.pop(POWERSGD_ERR))
+                for p, st in self.state.items() if POWERSGD_Q in st}
+        try:
+            return super(self.__class__, self).step(closure)
+        finally:
+            kept.update(self._new_state)
+            self._new_state = {}
+            for p, (q, err) in kept.items():
+                self.state[p][POWERSGD_Q] = q
+                self.state[p][POWERSGD_ERR] = err
 
     def zero_grad(self, *args, **kwargs):
         if self._handles:

@@ -859,3 +859,73 @@ def test_quantized_bucket_on_the_card(dev):
         wire.clear_wire_registry()
         hvd.shutdown()
     assert wire.ef_keys() == []
+
+
+def test_chunked_loss_lowers_the_peak_on_the_card(dev):
+    """GPT tiny (fp32, V = 4096, 4 x 512 tokens) on the card: the chunked
+    next-token loss and its gradients within 1e-5 (loss) and 1e-3 of each
+    gradient's largest entry of the full-logits loss (TF32 products in
+    other tiles), at a lower peak of allocated memory."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import GPT, GPTConfig
+    from horovod_tpu_torch.optim import next_token_xent_chunked
+    from horovod_tpu_torch.parallel.sequence import next_token_labels
+    gen = torch.Generator().manual_seed(0)
+    model = GPT(GPTConfig.tiny(num_layers=2, vocab_size=4096,
+                               max_position_embeddings=512),
+                generator=gen).to(dev)
+    ids = torch.randint(0, 4096, (4, 512), generator=gen).to(dev)
+    runs = {}
+    for name in ("full", "chunked"):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "full":
+            loss = F.cross_entropy(model(ids)[:, :-1].flatten(0, 1),
+                                   ids[:, 1:].flatten())
+        else:
+            loss = next_token_xent_chunked(
+                model.head, model(ids, features_only=True),
+                next_token_labels(ids), chunk=64)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), torch.cuda.max_memory_allocated(),
+                      {n: p.grad.clone() for n, p in model.named_parameters()})
+    (lf, pf, gf), (lc, pc, gc) = runs["full"], runs["chunked"]
+    assert abs(lc - lf) <= 1e-5 * abs(lf)
+    for n in gf:
+        assert (gc[n] - gf[n]).abs().max() <= 1e-3 * gf[n].abs().max(), n
+    assert pc < pf, (pc, pf)
+
+
+def test_powersgd_step_on_the_card_matches_the_cpu_core(dev):
+    """One PowerSGD round at one rank over NCCL (products at TF32) against
+    the same round of the core on the CPU (fp32): M̂ within 1e-2 of its
+    largest entry, the residual within 1e-2 of M's (TF32 keeps 10
+    mantissa bits), M̂ + e = M within fp32 rounding on the card."""
+    from horovod_tpu_torch.optim.powersgd import PowerSGD
+    gen = torch.Generator().manual_seed(1)
+    grads = [torch.randn(96, 64, generator=gen), torch.randn(64,
+                                                              generator=gen)]
+    core = PowerSGD(rank=4)
+    state = core.init(grads)
+    hvd.init()
+    try:
+        out, new = core.reduce([g.to(dev) for g in grads],
+                               {k: tuple(t.to(dev) for t in v)
+                                for k, v in state.items()})
+        torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        ref, ref_new = core.reduce(grads, state)
+    finally:
+        hvd.shutdown()
+    m_hat, e = out[0].cpu(), new["err"][0].cpu()
+    assert (m_hat - ref[0]).abs().max() <= 1e-2 * ref[0].abs().max()
+    assert (e - ref_new["err"][0]).abs().max() <= 1e-2 * grads[0].abs().max()
+    assert ((m_hat + e - grads[0]).abs()
+            <= 2.0 ** -22 * (m_hat.abs() + e.abs() + grads[0].abs())).all()
+    assert torch.equal(out[1].cpu(), grads[1])       # the plain bias

@@ -98,15 +98,21 @@ def jax_trajectory(data, op=Average):
 
 
 @pytest.fixture(scope="module")
-def jax_run(data):
+def port_future(data):
+    _, variables, x, y = data
+    return helpers.run_world_async(helpers.dp_resnet, 2,
+                                   args=(variables, x, y, STEPS, LR))
+
+
+@pytest.fixture(scope="module")
+def jax_run(data, port_future):
+    # The gloo world trains while JAX compiles and runs its reference.
     return jax_trajectory(data)
 
 
 @pytest.fixture(scope="module")
-def port_run(data):
-    _, variables, x, y = data
-    return helpers.run_world(helpers.dp_resnet, 2,
-                             args=(variables, x, y, STEPS, LR))
+def port_run(port_future):
+    return port_future.result()
 
 
 def _params(named):

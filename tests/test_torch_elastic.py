@@ -151,7 +151,20 @@ def test_torch_state_restore_does_not_alias_the_commit():
         assert all(torch.equal(now[0][k], v) for k, v in committed[0].items())
 
 
-def test_torch_state_sync_matches_jax_single_process(hvd):
+@pytest.fixture(scope="module")
+def state_sync_worlds():
+    """The TorchState sync worlds (1 and 2 ranks) and the fresh-optimizer
+    world, started at once."""
+    return {1: helpers.run_world_async(helpers.torch_state_sync, size=1,
+                                       args=(11,)),
+            2: helpers.run_world_async(helpers.torch_state_sync, size=2,
+                                       args=(11,)),
+            "fresh": helpers.run_world_async(helpers.fresh_optimizer_sync,
+                                             size=2, args=(5,), timeout=60)}
+
+
+def test_torch_state_sync_matches_jax_single_process(hvd,
+                                                     state_sync_worlds):
     """JAX's TestTorchState.test_sync_broadcasts: in a world of one a sync
     leaves the model and attributes as they are, in both packages."""
     from horovod_tpu.torch.elastic import TorchState as JaxState
@@ -161,14 +174,14 @@ def test_torch_state_sync_matches_jax_single_process(hvd):
     state.sync()
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k])
-    port = helpers.run_world(helpers.torch_state_sync, size=1, args=(11,))[0]
+    port = state_sync_worlds[1].result()[0]
     assert port["attrs"] == (3, "rank0")
     for k, v in port["after"].items():
         np.testing.assert_array_equal(v, port["before"][k])
 
 
-def test_torch_state_sync_gives_rank_0s_state():
-    got = helpers.run_world(helpers.torch_state_sync, size=2, args=(11,))
+def test_torch_state_sync_gives_rank_0s_state(state_sync_worlds):
+    got = state_sync_worlds[2].result()
     zero = got[0]
     for r in (0, 1):
         assert got[r]["attrs"] == (3, "rank0")
@@ -181,20 +194,20 @@ def test_torch_state_sync_gives_rank_0s_state():
 
 
 @pytest.fixture(scope="module")
-def fresh_optimizer_world():
-    return helpers.run_world(helpers.fresh_optimizer_sync, size=2,
-                             args=(5,), timeout=60)
+def fresh_optimizer_world(state_sync_worlds):
+    return state_sync_worlds["fresh"].result()
 
 
-@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+@pytest.mark.parametrize("kind", ["sgd", "adamw", "powersgd"])
 def test_fresh_optimizer_sync_gives_rank_0s_state(fresh_optimizer_world,
                                                   kind):
     """A rank that joins with a fresh optimizer ends ``TorchState.sync``
     with rank 0's parameters and optimizer state bit for bit (AdamW's
-    ``step`` on the CPU, as the optimizer keeps it), and the next step
-    through DistributedOptimizer leaves both ranks equal. Without the
-    root-driven layout the fresh rank launches no broadcasts and the world
-    fails or hangs."""
+    ``step`` on the CPU, as the optimizer keeps it; under PowerSGD its Q
+    and residual too, as JAX's elastic state carries its optax state), and
+    the next step through DistributedOptimizer leaves both ranks equal.
+    Without the root-driven layout the fresh rank launches no broadcasts
+    and the world fails or hangs."""
     zero, one = (r[kind] for r in fresh_optimizer_world)
     for when in ("synced", "stepped"):
         a, b = zero[when], one[when]
@@ -210,6 +223,10 @@ def test_fresh_optimizer_sync_gives_rank_0s_state(fresh_optimizer_world,
     if kind == "adamw":
         assert {k[1] for k in zero["synced"]["state"]} == {
             "step", "exp_avg", "exp_avg_sq"}
+    if kind == "powersgd":         # both weights compressed, no bias
+        keys = [k for k in zero["synced"]["state"] if "powersgd" in k[1]]
+        assert sorted(keys) == [(0, "powersgd_err"), (0, "powersgd_q"),
+                                (2, "powersgd_err"), (2, "powersgd_q")]
         assert all(w == "cpu" for k, (_, _, w) in
                    zero["synced"]["state"].items() if k[1] == "step")
 
@@ -349,6 +366,9 @@ def elastic_runs(tmp_path_factory):
             out[name] = e
         out[name + "_s"] = time.monotonic() - t0
 
+    # The base directory first: mktemp on three threads at once may each
+    # try to create it, and all but one then fail.
+    tmp_path_factory.getbasetemp()
     threads = [threading.Thread(target=one, args=(n,)) for n in SCENARIOS]
     for t in threads:
         t.start()

@@ -304,7 +304,8 @@ def test_enqueues_race_the_cycle_thread(monkeypatch):
                               cycle_time_ms=0.05)
     closed, whys = [], set()
 
-    def close(key, entries, why, wire="", eager=False):
+    def close(key, entries, why, wire="", strategy="flat", cross="",
+              eager=False):
         closed.extend(e.seq for e in entries)
         whys.add(why)
     rt._close = close

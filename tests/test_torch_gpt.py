@@ -44,8 +44,9 @@ def _to_np(tree):
 @pytest.fixture(scope="module")
 def flax_params():
     model = jg.GPT(jg.GPTConfig.tiny(**KW))
-    return _to_np(model.init(jax.random.PRNGKey(0),
-                             jnp.asarray(_ids(8)))["params"])
+    # Jitted: Flax's init op by op costs several times its compile here.
+    return _to_np(jax.jit(model.init)(jax.random.PRNGKey(0),
+                                      jnp.asarray(_ids(8)))["params"])
 
 
 def _torch_model(params, **kw):

@@ -74,7 +74,15 @@ def _loss(model, p, ids):
 
 
 @pytest.fixture(scope="module")
-def jax_run(data):
+def port_future(data):
+    _, params, ids = data
+    return helpers.run_world_async(helpers.dp_gpt, 2,
+                                   args=(params, KW, ids, STEPS, LR, WD))
+
+
+@pytest.fixture(scope="module")
+def jax_run(data, port_future):
+    # The gloo world trains while JAX compiles and runs its reference.
     model, params, ids = data
     mesh = Mesh(np.array(jax.devices()[:2]), (HVD_AXIS,))
     opt = DistributedOptimizer(optax.adamw(LR, weight_decay=WD))
@@ -97,10 +105,8 @@ def jax_run(data):
 
 
 @pytest.fixture(scope="module")
-def port_run(data):
-    _, params, ids = data
-    return helpers.run_world(helpers.dp_gpt, 2,
-                             args=(params, KW, ids, STEPS, LR, WD))
+def port_run(port_future):
+    return port_future.result()
 
 
 def _scaled(got, want, name, rel=1e-4):

@@ -30,7 +30,16 @@ import horovod_tpu_torch.torch.elastic
 import horovod_tpu_torch.ops.wire
 import horovod_tpu_torch.ops.sync_batch_norm
 import horovod_tpu_torch.torch.sync_batch_norm
+import horovod_tpu_torch.parallel.sequence
+import horovod_tpu_torch.optim.losses
+import horovod_tpu_torch.optim.powersgd
+import horovod_tpu_torch.common.topology
+import horovod_tpu_torch.parallel.strategies
 assert hvd.wire is horovod_tpu_torch.ops.wire and hvd.Compression.int8
+assert hvd.set_dispatch_strategy is horovod_tpu_torch.ops.wire.set_dispatch_strategy
+assert isinstance(hvd.Compression.powersgd(2),
+                  horovod_tpu_torch.optim.powersgd.PowerSGDCompressor)
+assert horovod_tpu_torch.optim.next_token_xent_chunked
 assert hvd.SyncBatchNorm is horovod_tpu_torch.torch.sync_batch_norm.SyncBatchNorm
 assert hvd.elastic is horovod_tpu_torch.torch.elastic
 assert hvd.elastic.run is state.run and hvd.TorchState and hvd.ElasticSampler

@@ -46,7 +46,9 @@ def run(request):
     jmodel = jr.ResNet(stage_sizes=[1, 1, 1, 1], block_cls=jblock,
                        num_classes=10, num_filters=8, dtype=jnp.float32,
                        stem=stem)
-    variables = _flax_to_numpy(jmodel.init(jax.random.PRNGKey(0), x[:1]))
+    # Jitted: Flax's init op by op costs several times its compile here.
+    variables = _flax_to_numpy(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                    x[:1]))
 
     def loss_fn(params):
         logits, upd = jmodel.apply(
@@ -142,8 +144,12 @@ def test_strided_max_pool_pads_like_flax():
 def test_load_flax_variables_rejects_a_missing_leaf():
     jmodel = jr.ResNet(stage_sizes=[1], block_cls=jr.ResNetBlock,
                        num_classes=3, num_filters=4, dtype=jnp.float32)
-    variables = _flax_to_numpy(jmodel.init(jax.random.PRNGKey(0),
-                                           np.zeros((1, 8, 8, 3), np.float32)))
+    # The tree's names and shapes are what the loader checks: zeros in
+    # jax.eval_shape's tree, not an init.
+    variables = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                       np.zeros((1, 8, 8, 3), np.float32)))
     tmodel = tr.ResNet([1], tr.ResNetBlock, num_classes=3, num_filters=4,
                        dtype=torch.float32)
     tr.load_flax_variables(tmodel, variables)

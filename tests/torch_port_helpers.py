@@ -28,16 +28,19 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _child(fn, rank, size, port, args, env, results):
+def _child(fn, rank, size, port, args, env, results, local_size=None):
     # A HOROVOD_* variable an earlier test left in the parent (an elastic
     # or join switch) must not reach the world: only its own contract.
     for k in [k for k in os.environ if k.startswith("HOROVOD_")]:
         del os.environ[k]
     os.environ.update(env)
+    local = local_size or size
     os.environ.update({
         "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": str(size),
-        "HOROVOD_LOCAL_RANK": str(rank), "HOROVOD_LOCAL_SIZE": str(size),
-        "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1",
+        "HOROVOD_LOCAL_RANK": str(rank % local),
+        "HOROVOD_LOCAL_SIZE": str(local),
+        "HOROVOD_CROSS_RANK": str(rank // local),
+        "HOROVOD_CROSS_SIZE": str(size // local),
         "HOROVOD_COORDINATOR_ADDR": "127.0.0.1",
         "HOROVOD_COORDINATOR_PORT": str(port)})
     torch.set_num_threads(2)
@@ -53,16 +56,18 @@ def _child(fn, rank, size, port, args, env, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_world(fn, size=2, args=(), env=None, timeout=120.0, ranks=None):
+def run_world(fn, size=2, args=(), env=None, timeout=120.0, ranks=None,
+              local_size=None):
     """``ranks``: the ranks that report (default all); the others may leave
-    without a result, as a rank that dies in a failure scenario does."""
+    without a result, as a rank that dies in a failure scenario does.
+    ``local_size``: ranks per node, host-major (default: one node)."""
     ranks = list(range(size)) if ranks is None else list(ranks)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_child, daemon=True,
                          args=(fn, rank, size, port, args, env or {},
-                               results))
+                               results, local_size))
              for rank in range(size)]
     for p in procs:
         p.start()
@@ -89,12 +94,14 @@ def run_world(fn, size=2, args=(), env=None, timeout=120.0, ranks=None):
     return [got[r] for r in ranks]
 
 
-def run_world_async(fn, size=2, args=(), env=None, timeout=120.0):
+def run_world_async(fn, size=2, args=(), env=None, timeout=120.0,
+                    local_size=None):
     """:func:`run_world` on a thread: returns a ``Future`` of its result, so
     the caller can compute its JAX reference while the world runs."""
     import concurrent.futures
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(run_world, fn, size, args, env, timeout)
+    future = pool.submit(run_world, fn, size, args, env, timeout, None,
+                         local_size)
     pool.shutdown(wait=False)
     return future
 
@@ -898,9 +905,13 @@ def fresh_optimizer_sync(rank, size, seed):
     """Rank 0 has taken three local steps with its optimizer; rank 1 joins
     with different weights and a fresh optimizer, first SGD with momentum,
     then AdamW. Each rank wraps its optimizer in hvd.DistributedOptimizer,
-    runs ``TorchState.sync`` and then one step on the same batch. Returns,
-    per optimizer, the parameters and optimizer state after the sync and
-    after the step."""
+    runs ``TorchState.sync`` and then one step on the same batch. Then
+    ``powersgd``: both ranks take two steps of AdamW under
+    ``Compression.powersgd(2)`` on their own batches (each keeps its own
+    residual), then rank 1 starts a fresh optimizer and the sync carries
+    rank 0's PowerSGD state (Q and residual) with AdamW's. Returns, per
+    optimizer, the parameters and optimizer state after the sync and after
+    the step."""
     import horovod_tpu_torch as hvd
 
     def snapshot(model, opt):
@@ -934,6 +945,33 @@ def fresh_optimizer_sync(rank, size, seed):
         model(torch.randn(4, 6, generator=gen)).square().sum().backward()
         opt.step()
         out[kind] = {"synced": synced, "stepped": snapshot(model, opt)}
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 24), torch.nn.Tanh(),
+                                torch.nn.Linear(24, 20))
+
+    def powersgd_opt():
+        return hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=0.01),
+            named_parameters=model.named_parameters(),
+            compression=hvd.Compression.powersgd(2))
+
+    opt = powersgd_opt()
+    torch.manual_seed(seed + rank)
+    for _ in range(2):
+        opt.zero_grad()
+        model(torch.randn(4, 6)).square().sum().backward()
+        opt.step()
+    if rank == 1:
+        opt._remove_hooks()
+        opt = powersgd_opt()
+    state = hvd.TorchState(model, opt, step=0)
+    state.sync()
+    synced = snapshot(model, opt)
+    gen = torch.Generator().manual_seed(seed)
+    opt.zero_grad()
+    model(torch.randn(4, 6, generator=gen)).square().sum().backward()
+    opt.step()
+    out["powersgd"] = {"synced": synced, "stepped": snapshot(model, opt)}
     return out
 
 
@@ -1101,4 +1139,194 @@ def watchdog_aborts(rank, size):
     worker.disarm_collective_abort()
     hvd.shutdown(abort=True)
     kv.stop()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical tiers: test_torch_hierarchy's worlds.
+# ---------------------------------------------------------------------------
+
+def _bucket_run(rt, hvd, rows_list, rank, op, pre, post, name, **kw):
+    """One grouped allreduce of this rank's rows: the outputs and what
+    flush_stats moved by (strategies, tiers, quantized)."""
+    before = rt.flush_stats()
+    hs = hvd.grouped_allreduce_async(
+        [torch.from_numpy(a[rank]) for a in rows_list], op=op,
+        prescale_factor=pre, postscale_factor=post, name=name, **kw)
+    outs = [to_np(h.synchronize()) for h in hs]
+    after = rt.flush_stats()
+    return {"outs": outs,
+            "strategies": {k: after["strategies"][k] - v
+                           for k, v in before["strategies"].items()
+                           if after["strategies"][k] != v},
+            "tiers": {t: {d: n - before["tiers"][t].get(d, 0)
+                          for d, n in after["tiers"][t].items()
+                          if n != before["tiers"][t].get(d, 0)}
+                      for t in after["tiers"]},
+            "quantized": after["quantized"] - before["quantized"]}
+
+
+def hier_world(rank, size, data):
+    """The tiers on the world's strategy layout, in this order:
+
+    - ``layout``: the topology's slices, node shape and this rank's local
+      and cross members;
+    - ``direct``: ``strategies.allreduce_torus`` / ``allreduce_hierarchical``
+      (Average) of ``data["x"]``'s row, ``allreduce_tiered`` with an int8
+      cross leg over two rounds (``data["tiered"]``: rows per round,
+      prescale, postscale; the residual carried), and
+      ``allgather_hierarchical`` of ``data["g"]``'s row;
+    - ``fused``: for each strategy in ``data["fused"]``, a grouped Average
+      allreduce of ``data["bucket"]``'s rows per round through the fusion
+      runtime set to it (outputs, strategies and tier bytes);
+    - ``refusals``: Min under torus, a 2-member set, a one-shot
+      ``Compression.int8`` request, and a pinned ``hier`` strategy over a
+      flat knob; the runtime's registry entry after a sync under the pin;
+    - ``allgather``: ``hvd.allgather`` of ragged rows
+      (HOROVOD_HIERARCHICAL_ALLGATHER in the world's env).
+    """
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import wire
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.parallel import strategies as S
+
+    topo = basics._get_state().topology
+    tiers = topo.tiers(topo.strategy_shape())
+    out = {"layout": (topo.num_slices, topo.slice_size, topo.node_shape(),
+                      tiers.local_ranks, tiers.cross_ranks)}
+    x = torch.from_numpy(data["x"][rank])
+    direct = {"torus": to_np(S.allreduce_torus(x, tiers, average=True)),
+              "hier": to_np(S.allreduce_hierarchical(x, tiers,
+                                                     average=True))}
+    rounds, pre, post = data["tiered"]
+    res = torch.zeros(-(-rounds[0].shape[1] // tiers.cols))
+    got = []
+    for r in rounds:
+        y, res = S.allreduce_tiered(torch.from_numpy(r[rank]), tiers,
+                                    average=True, cross_wire="int8",
+                                    residual=res, prescale_factor=pre,
+                                    postscale_factor=post)
+        got.append((to_np(y), to_np(res)))
+    direct["tiered"] = got
+    direct["gather"] = to_np(S.allgather_hierarchical(
+        torch.from_numpy(data["g"][rank]), tiers))
+    out["direct"] = direct
+    rt = get_runtime()
+    fused = {}
+    pre, post = data["scales"]
+    with rt.cycle_paused():
+        for strategy in data["fused"]:
+            rt.strategy = strategy
+            fused[strategy] = [
+                _bucket_run(rt, hvd, rnd, rank, hvd.Average, pre, post,
+                            f"bucket.{strategy}")
+                for rnd in data["bucket"]]
+        out["fused"] = fused
+        rt.strategy = "torus"
+        ref = {"min": _bucket_run(rt, hvd, data["bucket"][0], rank, hvd.Min,
+                                  1.0, 1.0, "min")}
+        ps = hvd.add_process_set(hvd.ProcessSet([0, 1]))
+        if rank in (0, 1):
+            ref["set"] = _bucket_run(rt, hvd, data["bucket"][0], rank,
+                                     hvd.Sum, 1.0, 1.0, "set",
+                                     process_set=ps)
+        hvd.barrier()
+        rt.strategy = "torus_qcross"
+        hvd.Compression.int8.compress(None)
+        ref["int8"] = _bucket_run(rt, hvd, data["bucket"][0][:1], rank,
+                                  hvd.Sum, 1.0, 1.0, "int8")
+        rt.strategy = "flat"
+        hvd.set_dispatch_strategy("hier")
+        ref["pinned"] = _bucket_run(rt, hvd, data["bucket"][0], rank,
+                                    hvd.Average, 1.0, 1.0, "pinned")
+        wire.runtime_sync_dispatch_strategy("flat")
+        ref["registry"] = wire.dispatch_strategy_for("global")
+        hvd.set_dispatch_strategy("")
+    out["refusals"] = ref
+    gathered = hvd.allgather(torch.from_numpy(data["ragged"][rank]))
+    out["allgather"] = to_np(gathered)
+    return out
+
+
+def one_slice_world(rank, size, rows):
+    """A node of ``size`` ranks and no forced slices: the strategy each
+    bucket ran, under the world's knobs, and its outputs."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops.fusion import get_runtime
+
+    rt = get_runtime()
+    topo = basics._get_state().topology
+    got = _bucket_run(rt, hvd, rows, rank, hvd.Sum, 1.0, 1.0, "one_slice")
+    got["layout"] = (topo.num_slices, topo.node_shape(), rt.strategy)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# PowerSGD: test_torch_powersgd's world.
+# ---------------------------------------------------------------------------
+
+def powersgd_world(rank, size, data):
+    """``data["core"]``: cases (case, op, prescale, postscale, rank,
+    rounds, state0); each round a list of per-leaf (size, ...) fp32 arrays
+    and dtype names, ``state0`` JAX's ``{"q", "err"}`` as numpy. Runs
+    ``optim.powersgd.PowerSGD.reduce`` round after round on this rank's
+    leaves (ef_dtype float32, the state carried) and returns each round's
+    outputs and state. ``data["mlp"]``: the MLP trained with
+    ``DistributedOptimizer(SGD, compression=Compression.powersgd(r))`` from
+    JAX's weights and initial PowerSGD state: the losses, the parameters,
+    and the names of each bucket a step closed."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import MLP, load_flax_mlp
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.optim.powersgd import PowerSGD
+
+    out = {}
+    for case, op, pre, post, r, rounds, state0 in data["core"]:
+        core = PowerSGD(rank=r, op=getattr(hvd, op), prescale_factor=pre,
+                        postscale_factor=post, ef_dtype=torch.float32)
+        state = {k: tuple(torch.from_numpy(np.asarray(v, np.float32))
+                          for v in vs) for k, vs in state0.items()}
+        got = []
+        for leaves in rounds:
+            grads = [torch.from_numpy(a[rank]).to(_DTYPES[dt])
+                     for a, dt in leaves]
+            red, state = core.reduce(grads, state)
+            got.append({"out": [to_np(t) for t in red],
+                        "q": [to_np(t) for t in state["q"]],
+                        "err": [to_np(t) for t in state["err"]]})
+        out[case] = got
+    params, state0, x, y, steps, lr, r = data["mlp"]
+    model = MLP()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.powersgd(r))
+    load_flax_mlp(model, params, optimizer=opt, powersgd_state=state0)
+    shard = x.shape[0] // size
+    xs = torch.from_numpy(x[rank * shard:(rank + 1) * shard])
+    ys = torch.from_numpy(y[rank * shard:(rank + 1) * shard]).long()
+    rt = get_runtime()
+    losses, buckets = [], []
+    with rt.cycle_paused():
+        for _ in range(steps):
+            opt.zero_grad()
+            # Before the backward: a follower applies process 0's boundary
+            # as soon as its own enqueues catch up, inside its backward.
+            before = rt.flush_stats()["buckets"]
+            loss = F.cross_entropy(model(xs), ys)
+            loss.backward()
+            opt.step()
+            n = rt.flush_stats()["buckets"] - before
+            buckets.append([[e for e, _ in sig[-1]]
+                            for _, sig in rt.recent_buckets(n)])
+            losses.append(loss.item())
+    out["mlp"] = {"losses": losses, "buckets": buckets,
+                  "params": {n: to_np(p) for n, p in
+                             model.named_parameters()},
+                  "state_keys": sorted({k for s in opt.state.values()
+                                        for k in s})}
     return out
