@@ -275,6 +275,40 @@ Phases 26-29 run after train_syncbn.
    equal to ``wire.hierarchical_wire_bytes``, the hierarchical allgather in
    rank-major order. A CPU run, printed as one.
 
+Phases 30-32 run after train_powersgd: A12's first half, in-step
+collectives over a DeviceMesh (``ops/in_step.py``).
+
+30. train_gpt_tp_sp: GPT-2 small (train_gpt's weights and batch) built
+   with ``tp_axis="tp"`` and ``sp_axis="sp"`` inside a (dp, sp, tp) =
+   (1, 1, 1) NCCL mesh, once with the ring (one causal hop through the
+   flash kernels, combined exactly) and once with Ulysses (all-to-alls of
+   one rank): step 1's loss and every gradient bit-equal to the no-axis
+   model's, then each trained through ``parallel/dp.py::make_train_step``
+   (AdamW in hvd.DistributedOptimizer on the dp axis's process set, the
+   gradients summed over sp), beside the same loop with no mesh: 12 + 12 +
+   12 flash launches and a pack and an unpack per bucket every step,
+   tokens/s and whether the losses stay equal.
+31. ring_flash: the flash ring's schedule (``parallel/sequence.py``'s
+   ``ring_flash_forward``/``ring_flash_backward``, which the ring over a
+   process group runs) for 4 virtual ranks in one process over an
+   8,192-token sequence (batch 2, head dim 64, bf16, causal) at GPT-2
+   small's attention (12 heads) and LLaMA-400M's (16 query heads over 8
+   narrow kv heads): the output and dQ/dK/dV against plain fp32
+   full-sequence attention on the card within the flash rounding bound of
+   one full-sequence call with c raised by one (by two under GQA), which
+   two controls must fail: hop 1 left out of the combine (the output) and
+   each hop's backward against its own lse (dQ, dK and dV); rank r runs
+   r + 1 hops, 10 launches of each kernel per case; the summed ring
+   against one full-sequence call (CUDA events).
+32. train_zero_fsdp (lines train_zero and train_fsdp): GPT-2 small at one
+   rank through ``make_zero_train_step`` (AdamW on the flat shard) and
+   ``make_fsdp_train_step`` (every leaf of 16384 elements or more sharded
+   over the one rank, gathered by hooks) against the replicated AdamW:
+   after one update every parameter within ZERO_FSDP_ULPS, each loss
+   within ZERO_FSDP_LOSS_REL, and ZeRO's first update bit-equal to the
+   replicated AdamW's with foreach forced on; tokens/s and the peak of
+   allocated memory.
+
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
 closed in that step, by the timer, the threshold or synchronize.
@@ -1922,6 +1956,7 @@ def build_gpt(torch, dev, seed):
 
 
 FLASH_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+READINGS = {}          # readings a later phase prints beside its own
 STEP_COUNTS = FLASH_COUNTS + ("scale_pack", "scale_unpack")
 ADAMW = "AdamW(lr={lr}, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)"
 
@@ -2025,6 +2060,9 @@ def phase_train_gpt(torch, hvd, model, dev, args, card):
                          GPT_STEPS, (cfg.num_layers,) * 3, lr=1e-4)
     elapsed = run.pop("elapsed")
     run.pop("closed")
+    READINGS["train_gpt"] = {
+        "tokens_per_sec": GPT_BATCH * GPT_SEQ * GPT_STEPS / elapsed,
+        "launches_per_step": run["launches_per_step"]}
     emit({"phase": "train_gpt", "model": "GPT-2 small", "params": n_params,
           "batch": GPT_BATCH, "seq": GPT_SEQ, "dtype": "bfloat16",
           "param_dtype": "float32", "optimizer": ADAMW.format(lr=1e-4),
@@ -4290,6 +4328,505 @@ def phase_hier_cpu_world(args):
           "rank0": by_rank[0]})
 
 
+# ---------------------------------------------------------------------------
+# A12's first half on the card: the mesh path, the flash ring, ZeRO and FSDP
+# ---------------------------------------------------------------------------
+
+# The (dp, sp, tp) mesh of train_gpt_tp_sp: one rank, every axis of size 1.
+TP_SP_MESH = {"dp": 1, "sp": 1, "tp": 1}
+# ring_flash: four virtual ranks over an 8,192-token sequence at GPT-2
+# small's attention (12 heads) and LLaMA-400M's (16 query heads over 8 kv
+# heads), head dim 64, batch 2, bf16, causal.
+RING_N, RING_BATCH, RING_SEQ, RING_HEAD_DIM = 4, 2, 8192, 64
+RING_CASES = {"gpt2_small": (12, 12), "llama_400m": (16, 8)}
+# The ring's limit: the flash rounding bound (flash_attention.
+# rounding_bounds, c = ROUNDING_C) of one full-sequence call, with c raised
+# by one. The ring rounds each hop's o (and each hop's dQ, dK and dV) to
+# bf16 before its fp32 sum, one more rounding of an operand whose size the
+# bound's u |A| |B| term already bounds (sum_h w_h |o_h| <= |P| |V| / l,
+# sum_h |dQ_h| <= |dS| |K|); the combine's own fp32 arithmetic is far below
+# it. Rows of 64 keys' tiles mask as one call's do.
+RING_C_EXTRA = 1.0
+RING_REF_ROWS = 2         # rows of (BH, L, D) per chunk of the fp32 plain
+ZERO_FSDP_STEPS = 3
+
+
+def ring_bound_ratios(torch, fa, q3, k3, v3, got, extra, group=1,
+                      do3=None, out3=None, lse=None):
+    """max |got - plain| / bound over the elements of each output in
+    ``got`` (full-sequence (BH, L, D) tensors; k3/v3 repeated to the query
+    rows): the plain fp32 version on the card, and the rounding bound of
+    one causal full-sequence call with c raised by ``extra``, in chunks of
+    whole GQA groups. With ``group`` > 1, dK and dV are the narrow rows:
+    the plain gradients and their bounds are summed over each group, as the
+    hops fold theirs."""
+    dt, scale = q3.dtype, q3.shape[-1] ** -0.5
+    rows = max(RING_REF_ROWS, group)
+    worst = dict.fromkeys(got, 0.0)
+    for i in range(0, q3.shape[0], rows):
+        sl = slice(i, i + rows)
+        q, k, v = q3[sl], k3[sl], v3[sl]
+        if "o" in got:
+            plain = {"o": fa.block_fwd_reference(q, k, v, True, scale)[0]
+                     .float()}
+            bounds = fa.rounding_bounds(plain, q, k, v, True, scale)
+        else:
+            dq, dk, dv = fa.block_bwd_reference(
+                q.float(), k.float(), v.float(), out3[sl].float(), lse[sl],
+                do3[sl].float(), True, scale)
+            plain = {"dq": dq, "dk": dk, "dv": dv}
+            bounds = fa.rounding_bounds(plain, q, k, v, True, scale,
+                                        o3=out3[sl], lse=lse[sl],
+                                        do3=do3[sl])
+        for name, b in bounds.items():
+            two_ulp = 2 * fa.ulp(plain[name], dt)
+            b = two_ulp + (b - two_ulp) * (fa.ROUNDING_C + extra) \
+                / fa.ROUNDING_C
+            want, have = plain[name], got[name][sl]
+            if group > 1 and name in ("dk", "dv"):
+                fold = (lambda t: t.reshape(-1, group, *t.shape[1:])
+                        .sum(dim=1))
+                want, b = fold(want), fold(b)
+                have = got[name][i // group:(i + rows) // group]
+            worst[name] = max(worst[name], fa.bound_ratio(have, want, b))
+        del plain, bounds
+    return worst
+
+
+def phase_ring_flash(torch, dev, seed, card):
+    """The flash ring's schedule (``sequence.ring_flash_forward``/
+    ``_backward``, the functions the ring over a process group runs) for
+    RING_N virtual ranks in one process (``sequence.rotate``), at GPT-2
+    small's and LLaMA-400M's attention over RING_SEQ tokens: the output and
+    dQ/dK/dV against the plain fp32 full-sequence attention on the card
+    within the ring's bound; two controls must fail it: each rank's hop 1
+    left out of the combine (the output), and each hop's backward against
+    its own lse instead of the ring-wide one (dQ, dK and dV); each rank r
+    runs r + 1 hops (10 launches of each kernel at n = 4, counted); the
+    summed ring against one full-sequence call of the same causal work
+    (CUDA events)."""
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.parallel import sequence as sq
+    n, L, d = RING_N, RING_SEQ, RING_HEAD_DIM
+    Ls, dt = L // n, torch.bfloat16
+    ranks = list(range(n))
+    out = {}
+    launches = dict.fromkeys(FLASH_COUNTS, 0)
+    for name, (h, kvh) in RING_CASES.items():
+        gen = torch.Generator(device=dev).manual_seed(seed + 11)
+        b = RING_BATCH
+        q, do = (torch.randn(b * h, L, d, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(b * kvh, L, d, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        heads = (h, kvh) if kvh != h else (None, None)
+        scale = d ** -0.5
+
+        def shards(t):
+            return [t[:, r * Ls:(r + 1) * Ls].contiguous() for r in range(n)]
+        qs, ks, vs, dos = shards(q), shards(k), shards(v), shards(do)
+
+        def forward(hop_forward=None):
+            return sq.ring_flash_forward(qs, ks, vs, ranks, n, True, scale,
+                                         sq.rotate, *heads,
+                                         hop_forward=hop_forward)
+
+        def backward(outs, hop_backward=None):
+            grads = sq.ring_flash_backward(
+                qs, ks, vs, [o for o, _ in outs], [lse for _, lse in outs],
+                dos, ranks, n, True, scale, sq.rotate, *heads,
+                hop_backward=hop_backward)
+            return [[t.to(dt) for t in g] for g in grads]
+
+        def drop_hop1(q3, k3, v3, diag, *rest):
+            # Rank r's hop on rank r + 1's block, weighted 0 in the combine.
+            o, lse = sq.ring_hop_forward(q3, k3, v3, diag, *rest)
+            r = [t is q3 for t in qs].index(True)
+            if k3 is ks[(r + 1) % n]:
+                lse = torch.full_like(lse, -math.inf)
+            return o, lse
+
+        def own_lse(q3, k3, v3, o3, lse, do3, diag, scale, *h):
+            own = sq.ring_hop_forward(q3, k3, v3, diag, scale, *h)[1]
+            return sq.ring_hop_backward(q3, k3, v3, o3, own, do3, diag,
+                                        scale, *h)
+        fa.reset_launch_counts()
+        outs, hops = forward()
+        grads = backward(outs)
+        torch.cuda.synchronize()
+        counts = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        want = sum(r + 1 for r in range(n))
+        check(hops == [r + 1 for r in range(n)] and counts == (want,) * 3,
+              f"{name}: rank r runs r + 1 hops, {want} launches of each "
+              f"flash kernel: hops {hops}, launches {counts}")
+        for key, c in zip(FLASH_COUNTS, counts):
+            launches[key] += c
+        full = lambda ts: torch.cat(ts, dim=1)          # noqa: E731
+        o_ring = full([o for o, _ in outs])
+        lse_ring = full([l for _, l in outs])
+        dq, dk, dv = (full(g) for g in grads)
+        km, vm = k, v
+        if kvh != h:
+            km, vm = (fa.gqa_repeat3(t, b, kvh, h // kvh).contiguous()
+                      for t in (k, v))
+        # One more rounding of each hop's outputs to bf16; under GQA one
+        # more again, the hop's bf16 fold of dK/dV over its group.
+        extra, g = RING_C_EXTRA + (kvh != h), h // kvh
+        ratios = ring_bound_ratios(torch, fa, q, km, vm, {"o": o_ring},
+                                   extra, g)
+        ratios.update(ring_bound_ratios(
+            torch, fa, q, km, vm, {"dq": dq, "dk": dk, "dv": dv}, extra, g,
+            do3=do, out3=o_ring, lse=lse_ring))
+        bad, _ = forward(drop_hop1)
+        control = ring_bound_ratios(torch, fa, q, km, vm,
+                                    {"o": full([o for o, _ in bad])},
+                                    extra, g)["o"]
+        bad_grads = [full(t) for t in backward(outs, own_lse)]
+        control_bwd = ring_bound_ratios(
+            torch, fa, q, km, vm, dict(zip(("dq", "dk", "dv"), bad_grads)),
+            extra, g, do3=do, out3=o_ring, lse=lse_ring)
+        check(all(r <= 1.0 for r in ratios.values()),
+              f"{name}: the ring within its bound: {ratios}")
+        check(control > 1.0, f"{name}: the control leaving hop 1 out of "
+              f"the combine fails the bound: {control}")
+        check(all(r > 1.0 for r in control_bwd.values()),
+              f"{name}: the control running each hop's backward against "
+              f"its own lse fails the bound on dQ, dK and dV: {control_bwd}")
+        ring_fwd_ms = event_ms(forward, reps=10)
+        ring_bwd_ms = event_ms(lambda: backward(outs), reps=10)
+        o1, lse1 = fa.fa_forward(q, k, v, True, scale, None, None, *heads)
+        full_fwd_ms = event_ms(lambda: fa.fa_forward(
+            q, k, v, True, scale, None, None, *heads), reps=10)
+        full_bwd_ms = event_ms(lambda: fa.fa_backward(
+            q, km, vm, o1, lse1, do, True, scale), reps=10)
+        hop_ms = sum(event_ms(lambda r=r, s=s: sq.ring_hop_forward(
+            qs[r], ks[(r + s) % n], vs[(r + s) % n], s == 0, scale, *heads),
+            reps=10) for s in range(n) for r in range(n)
+            if sq.ring_hop_plan(r, s, n, True)[0])
+        out[name] = {
+            "heads": h, "kv_heads": kvh, "batch": b, "seq": L, "shard": Ls,
+            "head_dim": d, "hops_per_rank": hops,
+            "launches": dict(zip(FLASH_COUNTS, counts)),
+            "bound_ratio": ratios, "bound_c": fa.ROUNDING_C + extra,
+            "control_drop_hop1_ratio": control,
+            "control_own_lse_bwd_ratio": control_bwd,
+            "ring_fwd_ms": ring_fwd_ms, "ring_bwd_ms": ring_bwd_ms,
+            "ring_fwd_hop_kernels_ms": hop_ms,
+            "full_fwd_ms": full_fwd_ms, "full_bwd_ms": full_bwd_ms,
+            "fwd_ratio": ring_fwd_ms / full_fwd_ms,
+            "bwd_ratio": ring_bwd_ms / full_bwd_ms}
+        del q, k, v, do, qs, ks, vs, dos, outs, grads, bad, bad_grads, o1, \
+            lse1
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ring_flash", "virtual_ranks": n, "dtype": "bfloat16",
+          "causal": True, "cases": out,
+          "limit": "flash_attention.rounding_bounds of one full-sequence "
+                   "causal call, c raised by one (each hop's outputs "
+                   "rounded to bf16 before the fp32 sum) and by one more "
+                   "under GQA (the hop's bf16 fold of dK/dV)",
+          "note": "ring_fwd/bwd_ms: every virtual rank's hops and the "
+                  "fp32 combine, one after another on one card (no "
+                  "transfer); full_*_ms: one call over the whole sequence "
+                  "(the backward on K/V repeated to the query heads)",
+          "card": card})
+    return launches
+
+
+def step_counts(fa, sb):
+    return (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+            sb.pack_launches, sb.unpack_launches)
+
+
+def timed_steps(torch, fa, sb, step, steps, warmup):
+    """``warmup`` + ``steps`` calls of ``step()`` (returning the loss):
+    the losses, each step's (flash fwd, dQ, dK/dV, pack, unpack) launches,
+    and the timed steps' seconds."""
+    losses, per_step = [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        c0 = step_counts(fa, sb)
+        losses.append(step())
+        per_step.append([b - a for a, b in zip(c0, step_counts(fa, sb))])
+    torch.cuda.synchronize()
+    return [l.item() for l in losses], per_step, time.perf_counter() - t0
+
+
+def phase_train_gpt_tp_sp(torch, hvd, dev, args, card, gpt_run):
+    """GPT-2 small (train_gpt's weights and batch) through
+    ``parallel/dp.py::make_train_step`` on a (dp, sp, tp) = (1, 1, 1) NCCL
+    mesh with ``tp_axis="tp"``, ``sp_axis="sp"``, once with the ring and
+    once with Ulysses: step 1's loss and every gradient bit-equal to the
+    no-axis model's (the row-parallel sums and the all-to-alls are copies,
+    the ring's one causal hop combines exactly); then each trained with
+    AdamW in ``hvd.DistributedOptimizer`` on the dp axis's process set,
+    beside the same loop with no mesh: launches a step (12 + 12 + 12 flash,
+    a pack and an unpack per bucket) and tokens/s."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops import in_step
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.parallel import dp
+
+    mesh = in_step.make_mesh(TP_SP_MESH)
+    ref = build_gpt(torch, dev, args.seed)
+    ids = gpt_batch(torch, ref, dev, args.seed)
+    lf, gf = grads_of(torch, ref, lambda: next_token_loss(F, ref(ids), ids))
+    init = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    del ref
+    runs, launches = {}, dict.fromkeys(STEP_COUNTS, 0)
+    for impl in ("none", "ring", "ulysses"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = gpt_config(torch, use_flash=True)
+        bound = impl != "none"
+        if bound:
+            cfg = dataclasses.replace(cfg, tp_axis="tp", sp_axis="sp",
+                                      sp_impl=impl)
+        with (in_step.axes(mesh) if bound else contextlib.nullcontext()):
+            model = GPT(cfg, generator=torch.Generator().manual_seed(
+                args.seed)).to(dev).train()
+        check(all(torch.equal(p, init[n])
+                  for n, p in model.named_parameters()),
+              f"{impl}: the same weights as train_gpt's")
+        loss_fn = (lambda m, batch:                     # noqa: E731
+                   next_token_loss(F, m(batch), batch))
+        if bound:
+            fa.reset_launch_counts()
+            with in_step.axes(mesh):
+                l1, g1 = grads_of(torch, model,
+                                  lambda: loss_fn(model, ids))
+            step1 = (fa.fwd_launches, fa.bwd_dq_launches,
+                     fa.bwd_dkv_launches)
+            check(l1 == lf and all(torch.equal(g1[n], gf[n]) for n in gf),
+                  f"{impl}: step 1's loss and every gradient bit-equal to "
+                  f"the no-axis model's: {l1} vs {lf}, differing "
+                  f"{[n for n in gf if not torch.equal(g1[n], gf[n])][:5]}")
+            check(step1 == (cfg.num_layers,) * 3,
+                  f"{impl}: step 1 launched {step1} flash kernels")
+            del g1
+            model.zero_grad(set_to_none=True)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters(),
+            process_set=dp.axis_process_set(mesh, "dp"))
+        state = dp.TrainState.create(model, opt)
+        if bound:
+            train = dp.make_train_step(loss_fn, opt, mesh, axis_name="dp",
+                                       sum_axes=("sp",))
+
+            def step():
+                return train(state, ids)[1]
+        else:
+            def step():
+                opt.zero_grad()
+                value = loss_fn(model, ids)
+                value.backward()
+                opt.step()
+                return value.detach()
+        fa.reset_launch_counts()
+        sb.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, per_step, elapsed = timed_steps(torch, fa, sb, step,
+                                                GPT_STEPS, args.warmup)
+        opt._remove_hooks()
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{impl}: finite, falling losses {losses}")
+        check(all(s[:3] == [cfg.num_layers] * 3 and s[3] == s[4] > 0
+                  for s in per_step),
+              f"{impl}: 12 + 12 + 12 flash launches and a pack and an "
+              f"unpack per bucket every step: {per_step}")
+        runs[impl] = {"losses": losses, "launches_per_step": per_step,
+                      "tokens_per_sec": GPT_BATCH * GPT_SEQ * GPT_STEPS
+                      / elapsed,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if bound:
+            for k, v in zip(STEP_COUNTS, step_counts(fa, sb)):
+                launches[k] += v
+        del model, opt, state, step
+        train = None
+    same = {impl: runs[impl]["losses"] == runs["none"]["losses"]
+            for impl in ("ring", "ulysses")}
+    emit({"phase": "train_gpt_tp_sp", "model": "GPT-2 small",
+          "mesh": TP_SP_MESH, "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "optimizer": ADAMW.format(lr=1e-4),
+          "step1_bit_equal_to_no_axis": True,
+          "losses_equal_to_no_axis_run": same, "runs": runs,
+          "train_gpt_tokens_per_sec": gpt_run.get("tokens_per_sec"),
+          "train_gpt_launches_per_step": gpt_run.get("launches_per_step"),
+          "note": "none: the same loop with no mesh in this phase; ring "
+                  "and ulysses: make_train_step on the mesh (sp and tp "
+                  "axes bound at size 1, every collective a copy)",
+          "card": card})
+    return launches
+
+
+# train_zero/train_fsdp against the replicated AdamW, one H100: after one
+# update every parameter within ZERO_FSDP_ULPS fp32 ulps (at the larger of
+# the parameter's size before and after) of the replicated path's, and
+# each step's loss within ZERO_FSDP_LOSS_REL. Not bit-equal: torch's AdamW
+# takes its foreach implementation only when every parameter's type is
+# Tensor or Parameter, so over the model's 149 tensors (FlaxKernel, a
+# Parameter subclass, among them) it runs the single-tensor one, and over
+# ZeRO's one flat vector the foreach one, which rounds some elements
+# differently. The phase holds ZeRO bit-equal to the replicated AdamW with
+# foreach forced on, which shows that cause. The limit: each side computes the update u = after - before
+# * (1 - lr wd) with four roundings after the moments (the square root,
+# the bias correction's division, the eps addition, the quotient), each
+# within 1 ulp of |u| <= |before| + |after| <= 2 scale: 2 sides x 4 x 2 =
+# 16 ulps of the scale. Read on an NVIDIA H100 80GB HBM3 at 700 W, seed 0:
+# one update from bit-equal gradients and parameters left 128 of 149
+# tensors apart, by at most 5 such ulps; over five steps the bf16
+# activations carried that into the losses, 1.5e-5 relative at step 5.
+ZERO_FSDP_ULPS = 16
+ZERO_FSDP_LOSS_REL = 1e-4
+
+
+def ulps_apart(torch, a, b, before):
+    """max |a - b| in fp32 ulps of the larger of |b| and |before| (the
+    parameter before the update): the update's roundings are within ulps
+    of its operands, and an element that cancels to near zero keeps their
+    error, not one of its own size."""
+    scale = torch.maximum(b.abs(), before.abs())
+    spacing = torch.nextafter(scale, torch.full_like(b, math.inf)) - scale
+    return ((a - b).abs() / spacing).max().item()
+
+
+def phase_train_zero_fsdp(torch, hvd, dev, args, card):
+    """GPT-2 small at one NCCL rank from train_gpt's weights and batch: the
+    replicated AdamW in hvd.DistributedOptimizer through
+    ``make_train_step``, ZeRO-1 (``make_zero_train_step``, AdamW on the flat
+    shard) and FSDP (``make_fsdp_train_step``, every leaf of 16384 elements
+    or more sharded over one rank), one step, then --warmup - 1 and
+    ZERO_FSDP_STEPS timed steps. Checks: after the first update every
+    parameter of ZeRO and FSDP within ZERO_FSDP_ULPS of the replicated
+    path's, each step's loss within ZERO_FSDP_LOSS_REL, and ZeRO's first
+    update bit-equal to the replicated path's with AdamW's foreach
+    implementation forced on (``foreach=True``, the one torch picks for
+    ZeRO's flat vector); 12 + 12 + 12 flash launches a step. Reported: bit-equality, tokens/s and the peak of
+    allocated memory of each (at n = 1 no saving is expected: ZeRO's shard
+    and FSDP's shards are whole)."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import in_step
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.parallel import dp
+    from horovod_tpu_torch.parallel import fsdp as tf
+
+    mesh = in_step.make_mesh({"hvd": 1})
+    tx = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999),
+                           eps=1e-8, weight_decay=1e-4)
+
+    def loss_fn(m, batch):
+        return next_token_loss(F, m(batch), batch)
+    runs, first, launches = {}, {}, {}
+    for kind in ("replicated", "replicated_foreach", "zero", "fsdp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_gpt(torch, dev, args.seed)
+        ids = gpt_batch(torch, model, dev, args.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if kind.startswith("replicated"):
+            opt = hvd.DistributedOptimizer(
+                tx(model.parameters(), foreach=True) if kind.endswith(
+                    "foreach") else tx(model.parameters()),
+                named_parameters=model.named_parameters())
+            state = dp.TrainState.create(model, opt)
+            train = dp.make_train_step(loss_fn, opt, mesh)
+
+            def step():
+                return train(state, ids)[1]
+        elif kind == "zero":
+            state = dp.ZeroTrainState.create(model, tx, mesh)
+            train = dp.make_zero_train_step(loss_fn, tx, mesh)
+
+            def step():
+                return train(state, ids)[1]
+        else:
+            init_fn, train = tf.make_fsdp_train_step(loss_fn, tx, mesh)
+            fsdp, opt = init_fn(model)
+
+            def step():
+                return train(fsdp, opt, ids)[2]
+        # Reference copies go to the host, out of the peaks measured.
+        if kind == "replicated":
+            before = {n: p.detach().cpu()
+                      for n, p in model.named_parameters()}
+        fa.reset_launch_counts()
+        sb.reset_launch_counts()
+        c0 = step_counts(fa, sb)
+        loss1 = step().item()
+        step1 = [b - a for a, b in zip(c0, step_counts(fa, sb))]
+        first[kind] = {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}
+        losses, per_step, elapsed = timed_steps(
+            torch, fa, sb, step, ZERO_FSDP_STEPS, args.warmup - 1)
+        losses, per_step = [loss1] + losses, [step1] + per_step
+        if kind.startswith("replicated"):
+            opt._remove_hooks()
+        if kind == "fsdp":
+            fsdp.remove()
+        check(all(s[:3] == [GPT_LAYERS] * 3 for s in per_step),
+              f"{kind}: 12 + 12 + 12 flash launches a step: {per_step}")
+        launches[kind] = dict(zip(STEP_COUNTS, step_counts(fa, sb)))
+        runs[kind] = {"losses": losses, "launches_per_step": per_step,
+                      "tokens_per_sec": GPT_BATCH * GPT_SEQ
+                      * ZERO_FSDP_STEPS / elapsed,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del model, step
+        state = opt = fsdp = train = None
+    ref = first["replicated"]
+    for kind in ("zero", "fsdp"):
+        r, got = runs[kind], first[kind]
+        r["step1_bit_equal"] = all(torch.equal(got[n], p)
+                                   for n, p in ref.items())
+        r["step1_tensors_differing"] = sum(not torch.equal(got[n], p)
+                                           for n, p in ref.items())
+        r["step1_max_ulps"] = max(ulps_apart(torch, got[n], p, before[n])
+                                  for n, p in ref.items())
+        r["step1_max_abs_diff"] = max((got[n] - p).abs().max().item()
+                                      for n, p in ref.items())
+        r["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+            r["losses"], runs["replicated"]["losses"]))
+    foreach = first["replicated_foreach"]
+    runs["zero"]["step1_bit_equal_to_foreach_adamw"] = all(
+        torch.equal(first["zero"][n], p) for n, p in foreach.items())
+    check(runs["zero"]["step1_bit_equal_to_foreach_adamw"],
+          "ZeRO's first update bit-equal to the replicated AdamW's with "
+          "foreach=True")
+    check(all(runs[k]["step1_max_ulps"] <= ZERO_FSDP_ULPS
+              and runs[k]["loss_rel"] <= ZERO_FSDP_LOSS_REL
+              for k in ("zero", "fsdp")),
+          f"after one update every parameter within {ZERO_FSDP_ULPS} ulps "
+          f"of the replicated path's, each loss within {ZERO_FSDP_LOSS_REL}: "
+          + ", ".join(f"{k} {runs[k]['step1_max_ulps']} ulps, "
+                      f"{runs[k]['loss_rel']}" for k in ("zero", "fsdp")))
+    for kind in ("zero", "fsdp"):
+        emit({"phase": f"train_{kind}", "model": "GPT-2 small",
+              "batch": GPT_BATCH, "seq": GPT_SEQ, "ranks": 1,
+              "optimizer": ADAMW.format(lr=1e-4), "run": runs[kind],
+              "replicated": runs["replicated"],
+              "replicated_foreach": runs["replicated_foreach"],
+              "limits": {"step1_ulps": ZERO_FSDP_ULPS,
+                         "loss_rel": ZERO_FSDP_LOSS_REL},
+              "note": "one rank: ZeRO's flat shard and FSDP's shards are "
+                      "the whole vectors, so no memory saving is expected",
+              "card": card})
+    return launches["zero"], launches["fsdp"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4421,6 +4958,16 @@ def main(argv=None):
     powersgd_launches = run("train_powersgd", phase_train_powersgd, torch,
                             hvd, dev, args, card)
     gc.collect()
+    tp_sp_launches = run("train_gpt_tp_sp", phase_train_gpt_tp_sp, torch,
+                         hvd, dev, args, card, READINGS.get("train_gpt", {}))
+    gc.collect()
+    ring_launches = run("ring_flash", phase_ring_flash, torch, dev,
+                        args.seed, card)
+    gc.collect()
+    zero_launches, fsdp_launches = run("train_zero_fsdp",
+                                       phase_train_zero_fsdp, torch, hvd,
+                                       dev, args, card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -4436,7 +4983,8 @@ def main(argv=None):
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
     transformer_paths = ("train_gpt", "train_bert", "train_llama",
                          "train_vit", "launch", "train_gpt_chunked",
-                         "train_powersgd")
+                         "train_powersgd", "train_gpt_tp_sp", "ring_flash",
+                         "train_zero", "train_fsdp")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -4444,19 +4992,27 @@ def main(argv=None):
                    train_wire=wire_launches, train_syncbn=syncbn_launches,
                    train_gpt_chunked=chunked_launches,
                    train_powersgd=powersgd_launches,
-                   train_hierarchical=hier_launches)
+                   train_hierarchical=hier_launches,
+                   train_gpt_tp_sp=tp_sp_launches, ring_flash=ring_launches,
+                   train_zero=zero_launches, train_fsdp=fsdp_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
-                   "train_hierarchical")
+                   "train_hierarchical", "train_gpt_tp_sp")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),
           f"the wire, SyncBatchNorm and tier paths launched both scale "
           f"kernels: {wire_launches}, {syncbn_launches}, {hier_launches}")
+    check(all(by_path[p][k] > 0 for p in ("train_zero", "train_fsdp",
+                                          "ring_flash")
+              for k in FLASH_COUNTS),
+          f"the ZeRO, FSDP and ring paths launched every flash kernel: "
+          f"{zero_launches}, {fsdp_launches}, {ring_launches}")
     check(all(by_path[p][k] > 0 for p in ("train_gpt_chunked",
-                                          "train_powersgd")
+                                          "train_powersgd",
+                                          "train_gpt_tp_sp")
               for k in STEP_COUNTS),
           f"the chunked-loss and PowerSGD paths launched every flash and "
           f"scale kernel: {chunked_launches}, {powersgd_launches}")

@@ -23,11 +23,22 @@ every column's group, in the same order, even those it is not in: at
 ``hvd.init`` when a knob arms a tier, else at the first use, which SPMD
 makes the same call on every rank. ``hvd.shutdown`` destroys them, and an
 elastic reset builds them anew with the next world.
+
+The mesh axis names are the JAX package's: ``HVD_AXIS`` (the flat world
+axis, the default of the in-step collectives and of sequence parallelism),
+``CROSS_AXIS``/``LOCAL_AXIS`` (the node layout) and the parallel
+strategies' ``DP_AXIS``, ``PP_AXIS``, ``TP_AXIS``, ``SP_AXIS`` and
+``EP_AXIS``. ``ops/in_step.py`` binds them to a ``DeviceMesh``'s dims.
 """
 
 import os
 
 import torch.distributed as dist
+
+HVD_AXIS = "hvd"
+CROSS_AXIS = "cross"
+LOCAL_AXIS = "local"
+DP_AXIS, PP_AXIS, TP_AXIS, SP_AXIS, EP_AXIS = "dp", "pp", "tp", "sp", "ep"
 
 
 def parse_slices(value):

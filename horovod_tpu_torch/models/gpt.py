@@ -6,14 +6,18 @@ final LayerNorm and an fp32 ``lm_head`` with no bias and no weight tying;
 ``dtype`` activations over fp32 parameters. Attention in every block goes
 through the flash kernels when ``config.use_flash`` is set.
 
-Ported: the dense model, ``features_only``, ``remat`` (each block under
-``torch.utils.checkpoint``, as ``nn.remat`` wraps it) and :func:`load_flax`,
-which fills any of the port's Flax-named models from its Flax variable tree
-by name (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama``,
-``load_flax_mlp`` and ``load_flax_vit`` are this one function). Not yet:
-mesh axes (``tp_axis``, ``ep_axis``), MoE blocks (``num_experts > 0``),
-decode and sequence parallelism raise ``NotImplementedError`` naming their
-ROADMAP item.
+Ported: the dense model, tensor parallelism (``tp_axis``: heads and MLP
+columns sharded over the in-step axis, ``parallel/tp.py``), sequence
+parallelism (``sp_axis``/``sp_impl``: token shards, ring or Ulysses
+attention, the position table indexed at the shard's global positions),
+``features_only``, ``remat`` (each block under ``torch.utils.checkpoint``,
+as ``nn.remat`` wraps it) and :func:`load_flax`, which fills any of the
+port's Flax-named models from its Flax variable tree by name
+(``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama``,
+``load_flax_mlp`` and ``load_flax_vit`` are this one function), slicing the
+tensor-parallel leaves for the rank's shard. Not yet: the expert axis and
+MoE blocks (``ep_axis``, ``num_experts > 0``; A12's second half) and decode
+(A15) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import dataclasses
@@ -23,7 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from horovod_tpu_torch.parallel.tp import (Dense, FlaxKernel, LayerNorm,
+from horovod_tpu_torch.ops import in_step
+from horovod_tpu_torch.parallel.tp import (ColumnParallelDense, Dense,
+                                           FlaxKernel, LayerNorm,
+                                           RowParallelDense,
                                            TPTransformerBlock, _not_yet,
                                            lecun_normal_, remat)
 
@@ -38,10 +45,11 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     num_experts: int = 0            # 0 -> dense MLP blocks only
     dtype: Any = torch.float32
-    tp_axis: Optional[str] = None   # no tensor-parallel mesh in the port yet
-    ep_axis: Optional[str] = None   # no expert-parallel mesh either
+    tp_axis: Optional[str] = None   # "tp": heads and MLP sharded over it
+    ep_axis: Optional[str] = None   # the expert axis: A12's second half
     use_flash: bool = False         # the CUDA flash kernels (ops/kernels)
-    sp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None   # sequence parallelism: tokens sharded
+    sp_impl: str = "ring"           # "ring" | "ulysses" (parallel/sequence)
     remat: bool = False
 
     @staticmethod
@@ -55,12 +63,14 @@ class GPTConfig:
 
 class GPTEmbed(nn.Module):
     """Token table cast to ``dtype``, plus the fp32 ``pos_emb[:L]`` cast to
-    it."""
+    it; under a bound ``sp_axis`` of n > 1 shards, the table's rows at the
+    shard's global positions."""
 
     def __init__(self, config):
         super().__init__()
         c = config
         self.dtype = c.dtype
+        self.sp_axis = c.sp_axis
         self.tok_emb = nn.Embedding(c.vocab_size, c.hidden_size)
         self.pos_emb = nn.Parameter(torch.empty(c.max_position_embeddings,
                                                 c.hidden_size))
@@ -79,6 +89,14 @@ class GPTEmbed(nn.Module):
             raise ValueError(f"sequence {L} exceeds max_position_embeddings="
                              f"{self.pos_emb.shape[0]}")
         tok = self.tok_emb(input_ids).to(self.dtype)
+        n_sp = in_step.axis_size_or_1(self.sp_axis)
+        if n_sp > 1:
+            if n_sp * L > self.pos_emb.shape[0]:
+                raise ValueError(
+                    f"global sequence {n_sp}x{L} exceeds "
+                    f"max_position_embeddings={self.pos_emb.shape[0]}")
+            off = in_step.axis_index(self.sp_axis) * L
+            return tok + self.pos_emb[off:off + L].to(self.dtype)[None]
         return tok + self.pos_emb[:L].to(self.dtype)[None]
 
 
@@ -103,20 +121,21 @@ class GPT(nn.Module):
     def __init__(self, config, decode=False, generator=None):
         super().__init__()
         c = config
-        if c.tp_axis is not None or c.ep_axis is not None:
-            _not_yet("a tensor- or expert-parallel mesh axis", "A12")
+        if c.ep_axis is not None:
+            _not_yet("an expert-parallel mesh axis (ep_axis)",
+                     "A12 (second half: moe.py)")
         if c.num_experts:
-            _not_yet("MoE blocks (num_experts > 0)", "A12")
+            _not_yet("MoE blocks (num_experts > 0)",
+                     "A12 (second half: moe.py)")
         if decode:
             _not_yet("decode with a KV cache", "A15")
-        if c.sp_axis is not None:
-            _not_yet("sequence parallelism (sp_axis)", "A12")
         self.config = c
         self.embed = GPTEmbed(c)
         for i in range(c.num_layers):
             setattr(self, f"layer_{i}", TPTransformerBlock(
                 c.num_heads, c.hidden_size, c.intermediate_size,
-                dtype=c.dtype, causal=True, use_flash=c.use_flash))
+                dtype=c.dtype, causal=True, use_flash=c.use_flash,
+                sp_axis=c.sp_axis, axis_name=c.tp_axis, sp_impl=c.sp_impl))
         self.head = GPTHead(c)
         self.reset_parameters(generator)
 
@@ -156,7 +175,40 @@ def flax_key(path):
     return ".".join(path[:-1] + (_LEAF_NAMES[path[-1]],))
 
 
-def load_flax(model, variables, optimizer=None, powersgd_state=None):
+def tp_leaves(model, tp_rank=None, tp_size=None):
+    """``{parameter name: (Flax axis, index, n)}`` for each tensor-parallel
+    leaf of ``model``: a column-parallel kernel or bias is cut on its last
+    Flax axis, a row-parallel kernel on its first. ``index`` and ``n``
+    are the shard the layer was built for; ``tp_rank``/``tp_size``, when
+    given, must agree with it."""
+    out = {}
+    for name, m in model.named_modules():
+        if not isinstance(m, (ColumnParallelDense, RowParallelDense)) \
+                or m.shard.shard_of is None:
+            continue
+        idx, n = m.shard.shard_of
+        if (tp_rank is not None and tp_rank != idx) \
+                or (tp_size is not None and tp_size != n):
+            raise ValueError(f"{name} holds shard {idx} of {n}, not shard "
+                             f"{tp_rank} of {tp_size}")
+        if isinstance(m, RowParallelDense):
+            out[f"{name}.shard.weight"] = (0, idx, n)
+            continue
+        for leaf in ("weight", "bias"):
+            if getattr(m.shard, leaf) is not None:
+                out[f"{name}.shard.{leaf}"] = (-1, idx, n)
+    return out
+
+
+def tp_slice(value, axis, idx, n):
+    """Shard ``idx`` of ``n`` of a Flax leaf as JAX's ``out_specs`` lay a
+    sharded one out: a plain cut (a fused leaf holds shard s's
+    ``[q_s|k_s|v_s]`` side by side)."""
+    return np.array_split(np.asarray(value), n, axis=axis)[idx]
+
+
+def load_flax(model, variables, optimizer=None, powersgd_state=None,
+              tp_rank=None, tp_size=None):
     """Fill ``model`` from the JAX package's variables of the same model
     (``{"params": ...}`` or the params tree itself, nested dicts of arrays
     under Flax's names), for every model whose modules carry Flax's names
@@ -166,6 +218,13 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None):
     ``weight``. A Flax leaf with no counterpart, a parameter with no Flax
     leaf, or a shape mismatch raises.
 
+    Tensor parallelism: a model built inside a tp axis holds one shard of
+    each column- and row-parallel layer, and takes its slice of the global
+    Flax leaf (:func:`tp_leaves`, :func:`tp_slice`): ``tp_rank`` and
+    ``tp_size`` are the shard's (by default the one its layers were built
+    for); the fused QKV and gate_up leaves are in JAX's sharded layout
+    (``[q_s|k_s|v_s] * n``).
+
     ``powersgd_state``: the JAX PowerSGD transform's state, ``{"q": ...,
     "err": ...}`` with one entry per Flax leaf in ``tree_leaves`` order
     (sorted paths), as numpy; each compressed leaf's Q and residual go into
@@ -174,6 +233,7 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None):
     keeps them."""
     params = variables.get("params", variables)
     targets = dict(model.named_parameters())
+    sharded = tp_leaves(model, tp_rank, tp_size)
     filled = set()
     for path, value in _leaves(params):
         if path[-1] not in _LEAF_NAMES:
@@ -182,6 +242,8 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None):
         if key not in targets:
             raise KeyError(f"Flax leaf {'/'.join(path)} has no counterpart "
                            f"{key} in the module")
+        if key in sharded:
+            value = tp_slice(value, *sharded[key])
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
         if path[-1] == "kernel":
             arr = FlaxKernel.from_flax(arr)
@@ -216,4 +278,4 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None):
 load_flax_gpt = load_flax
 
 __all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPT", "load_flax",
-           "load_flax_gpt"]
+           "load_flax_gpt", "tp_leaves", "tp_slice"]

@@ -10,9 +10,11 @@ fp32 parameters. Submodules carry Flax's names, so ``load_flax_llama``
 (:func:`horovod_tpu_torch.models.gpt.load_flax`) fills a module from the
 Flax variable tree.
 
-Ported: the dense model, ``features_only`` and ``remat``. Not yet: a
-tensor-parallel mesh axis and sequence parallelism (A12), decode and its
-int8 KV cache (A15) raise ``NotImplementedError`` naming their item.
+Ported: the dense model, tensor parallelism (``tp_axis``), sequence
+parallelism (``sp_axis``/``sp_impl``; each attention block rotates Q and K at
+the shard's global positions, as JAX's ``TPSelfAttention`` does),
+``features_only`` and ``remat``. Not yet: decode and its int8 KV cache
+(A15) raise ``NotImplementedError`` naming their item.
 """
 
 import dataclasses
@@ -39,9 +41,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: Any = torch.float32
-    tp_axis: Optional[str] = None   # no tensor-parallel mesh in the port yet
+    tp_axis: Optional[str] = None   # "tp": heads and MLP sharded over it
     use_flash: bool = False         # the CUDA flash kernels (ops/kernels)
-    sp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None   # sequence parallelism: tokens sharded
+    sp_impl: str = "ring"           # "ring" | "ulysses" (parallel/sequence)
     remat: bool = False
     kv_cache_int8: bool = False
 
@@ -90,10 +93,11 @@ class LlamaBlock(nn.Module):
         self.attention = TPSelfAttention(
             c.num_heads, c.hidden_size, dtype=c.dtype, causal=True,
             use_flash=c.use_flash, num_kv_heads=c.num_kv_heads,
-            rope_theta=c.rope_theta, use_bias=False)
+            rope_theta=c.rope_theta, use_bias=False, axis_name=c.tp_axis,
+            sp_axis=c.sp_axis, sp_impl=c.sp_impl)
         self.ln_mlp = RMSNorm(c.hidden_size, c.dtype, c.rms_eps)
         self.mlp = TPSwiGLUMlp(c.intermediate_size, c.hidden_size,
-                               dtype=c.dtype)
+                               dtype=c.dtype, axis_name=c.tp_axis)
 
     def forward(self, x):
         x = x + self.attention(self.ln_attn(x))
@@ -133,10 +137,6 @@ class Llama(nn.Module):
     def __init__(self, config, decode=False, generator=None):
         super().__init__()
         c = config
-        if c.tp_axis is not None:
-            _not_yet("a tensor-parallel mesh axis (tp_axis)", "A12")
-        if c.sp_axis is not None:
-            _not_yet("sequence parallelism (sp_axis)", "A12")
         if decode:
             _not_yet("decode with a KV cache", "A15")
         if c.kv_cache_int8:

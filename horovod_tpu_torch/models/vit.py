@@ -12,8 +12,8 @@ which they mask as it is.
 Submodules carry Flax's names (``patch_embed``, ``pos_emb``, ``layer_<i>``,
 ``ln_f``, ``head``), so ``load_flax_vit`` (:func:`load_flax`) fills a
 module from the Flax variable tree. ``remat`` runs each block under
-``torch.utils.checkpoint``; a tensor-parallel ``tp_axis`` raises naming
-ROADMAP A12.
+``torch.utils.checkpoint``; ``tp_axis`` shards the blocks' heads and MLP
+columns over that in-step axis (``parallel/tp.py``).
 """
 
 import dataclasses
@@ -25,8 +25,8 @@ from torch import nn
 from horovod_tpu_torch.models.gpt import load_flax
 from horovod_tpu_torch.models.resnet import Conv
 from horovod_tpu_torch.parallel.tp import (Dense, LayerNorm,
-                                           TPTransformerBlock, _not_yet,
-                                           remat, reset_flax_)
+                                           TPTransformerBlock, remat,
+                                           reset_flax_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +39,7 @@ class ViTConfig:
     intermediate_size: int = 3072
     num_classes: int = 1000
     dtype: Any = torch.float32
-    tp_axis: Optional[str] = None   # no tensor-parallel mesh in the port yet
+    tp_axis: Optional[str] = None   # tensor parallelism over heads/MLP
     use_flash: bool = False         # the CUDA flash kernels (ops/kernels)
     remat: bool = False
 
@@ -65,8 +65,6 @@ class ViT(nn.Module):
     def __init__(self, config, in_channels=3, generator=None):
         super().__init__()
         c = config
-        if c.tp_axis is not None:
-            _not_yet("a tensor-parallel mesh axis (tp_axis)", "A12")
         self.config = c
         p = c.patch_size
         self.patch_embed = Conv(in_channels, c.hidden_size, (p, p), (p, p),
@@ -77,7 +75,8 @@ class ViT(nn.Module):
         for i in range(c.num_layers):
             setattr(self, f"layer_{i}", TPTransformerBlock(
                 c.num_heads, c.hidden_size, c.intermediate_size,
-                dtype=c.dtype, causal=False, use_flash=c.use_flash))
+                dtype=c.dtype, causal=False, use_flash=c.use_flash,
+                axis_name=c.tp_axis))
         self.ln_f = LayerNorm(c.hidden_size, c.dtype)
         self.head = Dense(c.hidden_size, c.num_classes, dtype=torch.float32)
         self.reset_parameters(generator)

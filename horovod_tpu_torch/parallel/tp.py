@@ -1,19 +1,35 @@
-"""Transformer layers of the JAX package's ``parallel/tp.py``, at tp = 1.
+"""Tensor-parallel transformer layers: the JAX package's ``parallel/tp.py``.
 
-Port of the dense path GPT and LLaMA take through ``ColumnParallelDense``,
-``RowParallelDense``, ``apply_rope``, ``plain_attention``,
-``TPSelfAttention`` (full sequence, RoPE and grouped-query K/V), ``TPMlp``,
+Port of ``ColumnParallelDense``, ``RowParallelDense``, ``apply_rope``,
+``plain_attention``, ``TPSelfAttention`` (full sequence, RoPE, grouped-query
+K/V, its tp head split and its sequence-parallel route), ``TPMlp``,
 ``TPSwiGLUMlp`` and ``TPTransformerBlock``, with Flax's ``LayerNorm`` and
-``RMSNorm``. The port has no tensor-
-parallel mesh yet (ROADMAP A12), so the layers are what the JAX modules are
-outside ``shard_map``: the column- and row-parallel layers are dense layers,
-and the row-parallel psum is the identity.
+``RMSNorm``.
+
+Axes are the in-step axes of ``ops/in_step.py``. A layer sizes its
+parameters by the size of its ``axis_name`` when it is constructed: inside
+``in_step.axes(mesh)`` a column-parallel layer holds ``features / n``
+output columns and a row-parallel one ``in / n`` input rows; outside, as
+JAX's modules outside ``shard_map``, every layer is its dense form. At call
+time a bound axis adds the collectives: Megatron's "f" (``copy_to_axis``:
+the identity forward, the cotangent summed over tp backward, what JAX's
+varying-axes transpose gives) at a column-parallel input, and the
+row-parallel sum ("g", whenever the axis is bound, as JAX's ``psum`` is;
+at size 1 the identity, as XLA compiles a ``psum`` over one device) before
+the replicated bias is added once.
+
+Weights. ``shard_init``/``tp_shard_rng`` have no draw-for-draw counterpart
+(torch's generator is not JAX's): a sharded ``Dense`` draws one seed from the
+model's generator, the same on every rank, and its shard's weights from that
+seed with the shard index folded in (:func:`shard_generator`). Weights for
+parity with JAX come through ``models/gpt.py::load_flax``, which slices each
+sharded Flax leaf as JAX lays it out.
 
 Flax semantics kept on purpose:
 
 - Submodules carry Flax's names (``qkv``/``out``/``in`` with a ``shard``
   Dense, the row-parallel ``bias`` added after the product, ``ln_attn``,
-  ``ln_mlp``, ``attention``, ``mlp``), so ``models/gpt.py::load_flax_gpt``
+  ``ln_mlp``, ``attention``, ``mlp``), so ``models/gpt.py::load_flax``
   maps a Flax tree onto a module by name.
 - ``Dense(dtype=..., precision=...)``: fp32 parameters, input, kernel and
   bias cast to ``dtype`` for the product; ``precision`` as Flax's, None
@@ -27,7 +43,7 @@ Flax semantics kept on purpose:
 
 :func:`remat` is ``nn.remat`` for a block: ``torch.utils.checkpoint``.
 
-Decode, per-row RoPE positions and sequence parallelism (``sp_axis``)
+Decode and per-row RoPE positions (A15) and ``TPCrossAttention`` (A14)
 raise ``NotImplementedError`` naming the ROADMAP item that will bring them.
 """
 
@@ -41,7 +57,10 @@ from torch.autograd.function import once_differentiable
 from torch.autograd.graph import get_gradient_edge, saved_tensors_hooks
 from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch.common.topology import TP_AXIS
+from horovod_tpu_torch.ops import in_step
 from horovod_tpu_torch.ops.kernels.flash_attention import flash_attention
+from horovod_tpu_torch.parallel import sequence
 
 # ---------------------------------------------------------------------------
 # fp32 products at the precision the JAX package asks for
@@ -172,6 +191,21 @@ def lecun_normal_(w, fan_in, generator=None):
                               generator=generator)
 
 
+def shard_generator(generator, shard):
+    """The generator a tensor-parallel shard draws from: ``generator`` as
+    it is unsharded (``shard`` None or of one shard), else a new one seeded
+    from one draw of ``generator`` (the same draw on every rank, so the
+    replicated parameters drawn after stay alike) with the shard index
+    folded in, as ``tp_shard_rng`` folds the tp coordinate into JAX's key."""
+    if shard is None or shard[1] == 1:
+        return generator
+    dev = generator.device if generator is not None else torch.device("cpu")
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=dev))
+    return torch.Generator(device=dev).manual_seed(
+        (seed * 1_000_003 + int(shard[0]) + 1) % 2 ** 63)
+
+
 class FlaxKernel(nn.Parameter):
     """A parameter that Flax names ``kernel``, kept in torch's layout: a
     Dense weight (out, in) for Flax's (in, out), a convolution's OIHW for
@@ -212,8 +246,11 @@ class Dense(nn.Linear):
         self.weight = FlaxKernel(self.weight.detach())
         self.dtype = dtype
         self.precision = check_precision(precision)
+        self.shard_of = None        # (index, n) of a tensor-parallel shard
 
     def reset_parameters(self, generator=None):
+        generator = shard_generator(generator, getattr(self, "shard_of",
+                                                       None))
         lecun_normal_(self.weight, self.in_features, generator)
         if self.bias is not None:
             with torch.no_grad():
@@ -309,31 +346,47 @@ def remat(block, args, generator=None):
 
 
 class ColumnParallelDense(nn.Module):
-    """Linear layer split on its output dim; at tp = 1 a Dense named
-    ``shard``."""
+    """Linear layer split on its output dim: ``features`` is the global
+    width, each shard of ``axis_name`` holds ``features / n`` columns (a
+    Dense named ``shard``) and gives the matching activation shard."""
 
     def __init__(self, in_features, features, use_bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, axis_name=TP_AXIS):
         super().__init__()
-        self.shard = Dense(in_features, features, use_bias, dtype)
+        n = in_step.axis_size_or_1(axis_name)
+        if features % n:
+            raise ValueError(f"features {features} not divisible by tp={n}")
+        self.axis_name = axis_name
+        self.shard = Dense(in_features, features // n, use_bias, dtype)
+        if n > 1:
+            self.shard.shard_of = (in_step.axis_index(axis_name), n)
 
     def forward(self, x):
-        return self.shard(x)
+        return self.shard(in_step.copy_to_axis(x, self.axis_name))
 
 
 class RowParallelDense(nn.Module):
-    """Linear layer split on its input dim; the partial products' psum is
-    the identity at tp = 1, and the bias is added after it."""
+    """Linear layer split on its input dim: consumes a column-parallel
+    activation shard (``in_features / n`` of it), sums the partial products
+    over ``axis_name`` whenever it is bound, then adds the replicated bias
+    once."""
 
     def __init__(self, in_features, features, use_bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, axis_name=TP_AXIS):
         super().__init__()
+        n = in_step.axis_size_or_1(axis_name)
+        if in_features % n:
+            raise ValueError(f"in_features {in_features} not divisible by "
+                             f"tp={n}")
         self.dtype = dtype
-        self.shard = Dense(in_features, features, False, dtype)
+        self.axis_name = axis_name
+        self.shard = Dense(in_features // n, features, False, dtype)
+        if n > 1:
+            self.shard.shard_of = (in_step.axis_index(axis_name), n)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
-        y = self.shard(x)
+        y = in_step.reduce_from_axis(self.shard(x), self.axis_name)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -385,43 +438,70 @@ def _not_yet(what, item):
 
 
 class TPSelfAttention(nn.Module):
-    """Multi-head self-attention with a fused QKV projection
-    (column-parallel) and a row-parallel output projection.
+    """Multi-head self-attention with heads sharded over ``axis_name``: a
+    fused column-parallel QKV projection (shard s holds ``[q_s|k_s|v_s]``
+    for its ``num_heads / n`` heads and ``num_kv_heads / n`` kv heads) and
+    a row-parallel output projection, one sum per block.
     ``num_kv_heads`` < ``num_heads`` is grouped-query attention: the flash
-    kernel reads the narrow K/V, the plain path broadcasts them.
-    ``rope_theta`` rotates Q and K at positions 0..L-1 before attending."""
+    kernels and the sequence-parallel schemes keep K/V narrow, the plain
+    path broadcasts them. ``rope_theta`` rotates Q and K at their global
+    positions (under ``sp_axis``, the shard's). ``sp_axis`` routes
+    attention over the token shards by ``sp_impl`` (``"ring"`` or
+    ``"ulysses"``, ``parallel/sequence.py``)."""
 
     def __init__(self, num_heads, hidden_size, dtype=torch.float32,
                  causal=False, use_flash=False, sp_axis=None, decode=False,
-                 num_kv_heads=None, rope_theta=None, use_bias=True):
+                 num_kv_heads=None, rope_theta=None, use_bias=True,
+                 axis_name=TP_AXIS, sp_impl="ring"):
         super().__init__()
         if decode:
             _not_yet("decode with a KV cache", "A15")
-        if sp_axis is not None:
-            _not_yet("sequence parallelism (sp_axis)", "A12")
+        n = in_step.axis_size_or_1(axis_name)
         kv_heads = num_kv_heads or num_heads
+        if num_heads % n or kv_heads % n:
+            raise ValueError(f"num_heads {num_heads} / num_kv_heads "
+                             f"{kv_heads} not divisible by tp={n}")
         if num_heads % kv_heads:
             raise ValueError(f"num_kv_heads {kv_heads} must divide num_heads "
                              f"{num_heads}")
         self.num_heads = num_heads
         self.num_kv_heads = kv_heads
+        self.local_heads, self.local_kv = num_heads // n, kv_heads // n
         self.head_dim = hidden_size // num_heads
         self.dtype = dtype
         self.causal = causal
         self.use_flash = use_flash
         self.rope_theta = rope_theta
+        self.sp_axis, self.sp_impl = sp_axis, sp_impl
         self.qkv = ColumnParallelDense(
             hidden_size, (num_heads + 2 * kv_heads) * self.head_dim,
-            use_bias=use_bias, dtype=dtype)
+            use_bias=use_bias, dtype=dtype, axis_name=axis_name)
         self.out = RowParallelDense(num_heads * self.head_dim, hidden_size,
-                                    use_bias=use_bias, dtype=dtype)
+                                    use_bias=use_bias, dtype=dtype,
+                                    axis_name=axis_name)
 
     def _attend(self, q, k, v, mask, bias=None):
-        """Flash when ``use_flash`` and no mask, else plain attention."""
+        """The sequence-parallel schemes, flash (``use_flash``, no mask) or
+        plain attention. Narrow K/V are broadcast only for the plain
+        path."""
         flash = self.use_flash and mask is None
-        if bias is not None and flash:
+        if bias is not None and (self.sp_axis is not None or flash):
             raise ValueError("additive attention bias is supported on the "
-                             "plain path only (not flash)")
+                             "plain path only (not flash/sp)")
+        if self.sp_axis is not None:
+            if mask is not None:
+                raise ValueError(
+                    "padding masks are not supported with sp_axis (causal "
+                    "masking is handled inside the sp schemes)")
+            if self.sp_impl == "ring":
+                return sequence.ring_attention(
+                    q, k, v, axis_name=self.sp_axis, causal=self.causal,
+                    use_flash=self.use_flash)
+            if self.sp_impl == "ulysses":
+                return sequence.ulysses_attention(
+                    q, k, v, axis_name=self.sp_axis, causal=self.causal,
+                    use_flash=self.use_flash)
+            raise ValueError(f"unknown sp_impl {self.sp_impl!r}")
         if flash:
             return flash_attention(q, k, v, causal=self.causal)
         g = q.shape[2] // k.shape[2]
@@ -436,26 +516,40 @@ class TPSelfAttention(nn.Module):
             _not_yet("decode positions", "A15")
         hd = self.head_dim
         q, k, v = self.qkv(x).split(
-            [self.num_heads * hd, self.num_kv_heads * hd,
-             self.num_kv_heads * hd], dim=-1)
+            [self.local_heads * hd, self.local_kv * hd,
+             self.local_kv * hd], dim=-1)
         q, k, v = (t.unflatten(-1, (-1, hd)) for t in (q, k, v))
         if self.rope_theta is not None:
-            positions = torch.arange(x.shape[-2], device=x.device)
+            L = x.shape[-2]
+            off = 0
+            if in_step.axis_size_or_1(self.sp_axis) > 1:
+                off = in_step.axis_index(self.sp_axis) * L
+            positions = off + torch.arange(L, device=x.device)
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
         out = self._attend(q, k, v, mask, bias=bias)
         return self.out(out.flatten(-2))
 
 
-class TPMlp(nn.Module):
-    """Column-parallel expansion, tanh gelu, row-parallel contraction."""
+class TPCrossAttention(nn.Module):
+    """Encoder-decoder cross-attention comes with T5."""
 
-    def __init__(self, intermediate_size, hidden_size, dtype=torch.float32):
+    def __init__(self, *args, **kwargs):
         super().__init__()
-        setattr(self, "in", ColumnParallelDense(hidden_size, intermediate_size,
-                                                dtype=dtype))
+        _not_yet("TPCrossAttention (encoder-decoder attention, T5)", "A14")
+
+
+class TPMlp(nn.Module):
+    """Column-parallel expansion, tanh gelu, row-parallel contraction: one
+    sum over ``axis_name`` per block."""
+
+    def __init__(self, intermediate_size, hidden_size, dtype=torch.float32,
+                 axis_name=TP_AXIS):
+        super().__init__()
+        setattr(self, "in", ColumnParallelDense(
+            hidden_size, intermediate_size, dtype=dtype, axis_name=axis_name))
         self.out = RowParallelDense(intermediate_size, hidden_size,
-                                    dtype=dtype)
+                                    dtype=dtype, axis_name=axis_name)
 
     def forward(self, x):
         h = getattr(self, "in")(x)
@@ -463,24 +557,26 @@ class TPMlp(nn.Module):
 
 
 class TPSwiGLUMlp(nn.Module):
-    """Gated MLP: a fused column-parallel ``gate_up`` projection,
-    ``act(gate) * up`` with ``"silu"`` (SwiGLU) or ``"gelu"`` (tanh; GEGLU),
-    and a row-parallel ``out`` contraction."""
+    """Gated MLP: a fused column-parallel ``gate_up`` projection (shard s
+    holds ``[gate_s|up_s]``), ``act(gate) * up`` with ``"silu"`` (SwiGLU)
+    or ``"gelu"`` (tanh; GEGLU), and a row-parallel ``out`` contraction."""
 
     ACTIVATIONS = {"silu": F.silu,
                    "gelu": lambda h: F.gelu(h, approximate="tanh")}
 
     def __init__(self, intermediate_size, hidden_size, dtype=torch.float32,
-                 use_bias=False, activation="silu"):
+                 use_bias=False, activation="silu", axis_name=TP_AXIS):
         super().__init__()
         if activation not in self.ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; choose "
                              f"from {sorted(self.ACTIVATIONS)}")
         self.act = self.ACTIVATIONS[activation]
         self.gate_up = ColumnParallelDense(hidden_size, 2 * intermediate_size,
-                                           use_bias=use_bias, dtype=dtype)
+                                           use_bias=use_bias, dtype=dtype,
+                                           axis_name=axis_name)
         self.out = RowParallelDense(intermediate_size, hidden_size,
-                                    use_bias=use_bias, dtype=dtype)
+                                    use_bias=use_bias, dtype=dtype,
+                                    axis_name=axis_name)
 
     def forward(self, x):
         g, u = self.gate_up(x).chunk(2, dim=-1)
@@ -488,18 +584,22 @@ class TPSwiGLUMlp(nn.Module):
 
 
 class TPTransformerBlock(nn.Module):
-    """Pre-LN block: x + attention(ln_attn(x)), then + mlp(ln_mlp(x))."""
+    """Pre-LN block: x + attention(ln_attn(x)), then + mlp(ln_mlp(x)); two
+    sums over ``axis_name``, the norms replicated."""
 
     def __init__(self, num_heads, hidden_size, intermediate_size,
                  dtype=torch.float32, causal=False, use_flash=False,
-                 sp_axis=None, decode=False):
+                 sp_axis=None, decode=False, axis_name=TP_AXIS,
+                 sp_impl="ring"):
         super().__init__()
         self.ln_attn = LayerNorm(hidden_size, dtype)
         self.attention = TPSelfAttention(
             num_heads, hidden_size, dtype=dtype, causal=causal,
-            use_flash=use_flash, sp_axis=sp_axis, decode=decode)
+            use_flash=use_flash, sp_axis=sp_axis, decode=decode,
+            axis_name=axis_name, sp_impl=sp_impl)
         self.ln_mlp = LayerNorm(hidden_size, dtype)
-        self.mlp = TPMlp(intermediate_size, hidden_size, dtype=dtype)
+        self.mlp = TPMlp(intermediate_size, hidden_size, dtype=dtype,
+                         axis_name=axis_name)
 
     def forward(self, x, mask=None, pos=None):
         x = x + self.attention(self.ln_attn(x), mask, pos=pos)

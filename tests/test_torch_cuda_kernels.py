@@ -447,6 +447,24 @@ def test_cuda_flash_never_reaches_the_plain_version(dev, monkeypatch):
         torch.cuda.synchronize()
         assert (fa.fwd_launches, fa.bwd_dq_launches,
                 fa.bwd_dkv_launches) == tuple(n + 1 for n in before)
+        # The ring's hops (GQA narrow K/V too) reach the kernels the same
+        # way, against the ring-wide lse, and never the plain versions.
+        from horovod_tpu_torch.parallel import sequence as sq
+        before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        q3 = torch.randn(4, 64, 32, device=dev, dtype=dtype)
+        k3 = torch.randn(2, 64, 32, device=dev, dtype=dtype)
+        for causal in (True, False):
+            o, lse = sq.ring_hop_forward(q3, k3, k3, causal, 0.2, 2, 1)
+            state = sq.ring_combine(sq.ring_init(q3), o, lse)
+            out, lse = sq.ring_output(state, dtype)
+            sq.ring_hop_backward(q3, k3, k3, out, lse, q3, causal, 0.2, 2, 1)
+        torch.cuda.synchronize()
+        assert (fa.fwd_launches, fa.bwd_dq_launches,
+                fa.bwd_dkv_launches) == tuple(n + 2 for n in before)
+        with pytest.raises(ValueError, match="head dims"):
+            sq.ring_hop_forward(q3[..., :24].contiguous(),
+                                k3[..., :24].contiguous(),
+                                k3[..., :24].contiguous(), True, 0.2, 2, 1)
 
 
 def _remat_model(name, remat):

@@ -183,8 +183,10 @@ def test_remat_matches_no_remat(flax_params):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(tp_axis="tp")), "A12"),
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(sp_axis="sp")), "A12"),
+    (lambda: tl.Llama(tl.LlamaConfig.tiny(tp_axis="tp"), decode=True),
+     "A15"),
+    (lambda: tl.Llama(tl.LlamaConfig.tiny(sp_axis="sp",
+                                          kv_cache_int8=True)), "A15"),
     (lambda: tl.Llama(tl.LlamaConfig.tiny(), decode=True), "A15"),
     (lambda: tl.Llama(tl.LlamaConfig.tiny(kv_cache_int8=True)), "A15"),
     (lambda: tl.Llama(tl.LlamaConfig.tiny())(torch.zeros(1, 4).long(),

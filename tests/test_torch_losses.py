@@ -109,5 +109,8 @@ def test_next_token_labels_match_jax():
                                      pad_id=pad))
         got = next_token_labels(torch.from_numpy(ids), pad_id=pad).numpy()
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="A12"):
-        next_token_labels(torch.from_numpy(ids), axis_name="sp")
+    # An axis that is not bound (no in-step mesh here) is the plain shift,
+    # as JAX's outside shard_map; the sharded form is test_torch_sequence's.
+    want = np.asarray(jax_labels(jnp.asarray(ids), axis_name="sp"))
+    got = next_token_labels(torch.from_numpy(ids), axis_name="sp").numpy()
+    np.testing.assert_array_equal(got, want)

@@ -143,8 +143,20 @@ def test_wrong_image_size_raises(flax_params):
 
 
 def test_tp_axis_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tv.ViT(tv.ViTConfig.tiny(tp_axis="tp"))
+    """``tp_axis`` is ported (test_torch_tp.py): outside an in-step mesh the
+    model is its dense form, parameter for parameter; what still refuses is
+    the encoder-decoder attention of T5 (A14)."""
+    dense = tv.ViT(tv.ViTConfig.tiny(), generator=torch.Generator()
+                   .manual_seed(0))
+    named = tv.ViT(tv.ViTConfig.tiny(tp_axis="tp"),
+                   generator=torch.Generator().manual_seed(0))
+    a, b = dict(dense.named_parameters()), dict(named.named_parameters())
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    from horovod_tpu_torch.parallel.tp import TPCrossAttention
+    with pytest.raises(NotImplementedError, match="A14"):
+        TPCrossAttention(4, 64)
 
 
 def test_vit_b16_parameters_match_flax():
