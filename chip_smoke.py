@@ -308,6 +308,32 @@ collectives over a DeviceMesh (``ops/in_step.py``).
    within ZERO_FSDP_LOSS_REL, and ZeRO's first update bit-equal to the
    replicated AdamW's with foreach forced on; tokens/s and the peak of
    allocated memory.
+33. train_gpt_moe: GPT-2 small's widths with 8 experts in every second
+   block (Switch: top-1, capacity factor 2.0; 361,304,064 parameters),
+   bf16, flash, AdamW in hvd.DistributedOptimizer, 8 x 1024 tokens,
+   through ``parallel/dp.py::make_train_step`` with the ``ep`` axis bound
+   at size 1, beside the same weights with ``ep_axis=None`` and no mesh:
+   losses bit-equal, finite and falling, 12 + 12 + 12 flash launches and
+   a pack and an unpack per bucket every step; tokens/s, the peak, each
+   MoE layer's forward split into router, dispatch, expert products and
+   combine (CUDA events) and its share of dropped tokens.
+34. train_composite: on a (dp, pp, tp) = (1, 1, 1) mesh,
+   ``parallel/composite.py``'s CompositeGPT (GPT-2 small's widths, a
+   shared 8-expert MoE FFN after the embedding, gpipe) and CompositeLlama
+   (LLaMA-400M, GQA 16/8; gpipe and 1F1B, each with and without remat),
+   4 microbatches of 2 x 1024, bf16, flash, AdamW: the first step's loss
+   and gradients against the same modules run on the whole batch with no
+   pipeline (COMPOSITE_LIMITS); 1F1B's first-step gradients against
+   gpipe's (F1B_LIMITS); 1F1B's peak below gpipe's without remat; flash
+   launches a step (12 or 24 layers x 4 microbatches; 1F1B adds a
+   recomputed forward per microbatch); tokens/s and the peak of each.
+35. pipeline_virtual: the pipeline schedules (``parallel/pp.py``'s stage
+   functions) over S = 4 virtual stages in one process at GPT-2 small's
+   width (12 blocks, 3 a stage), 8 microbatches of 2 x 1024, bf16, flash:
+   each stage's output handed to the next where the ppermute would. GPipe
+   and 1F1B outputs and gradients against the sequential stack, within
+   VIRTUAL_LIMITS; M + S - 1 and M + 2S - 2 ticks; a control with one
+   hop dropped that must fail the output bound by more than 10x.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -1703,6 +1729,7 @@ def phase_train_syncbn(torch, hvd, dev, args, card, make_model):
 # The GPT main path: bench.py's GPT-2 small, 8 x 1024 tokens a step.
 GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 8
 GPT_HIDDEN, GPT_HEADS, GPT_LAYERS, GPT_VOCAB = 768, 12, 12, 50304
+GPT_FFN = 3072
 GPT_HEAD_DIM = GPT_HIDDEN // GPT_HEADS
 # The attention shape every flash launch of that path sees.
 MAIN_FLASH_CASE = ("bfloat16", GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ,
@@ -1730,7 +1757,16 @@ VIT_PARAMS = 86_566_120             # 152 Flax leaves (jax.eval_shape)
 VIT_SEQ = (VIT_IMAGE // 16) ** 2
 VIT_FLASH_CASE = ("bfloat16", VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False,
                   None, None, None)
+# The composite trainers' and the virtual pipeline's microbatches: 2 x 1024
+# tokens, at GPT-2 small's 12 heads and LLaMA-400M's 16 over 8.
+COMPOSITE_MB = 2
+COMPOSITE_GPT_FLASH_CASE = ("bfloat16", COMPOSITE_MB * GPT_HEADS, GPT_SEQ,
+                            GPT_SEQ, GPT_HEAD_DIM, True, None, None, None)
+COMPOSITE_LLAMA_FLASH_CASE = ("bfloat16", COMPOSITE_MB * 16, LLAMA_SEQ,
+                              LLAMA_SEQ, 64, True, None, 16, 8)
 PATH_FLASH_CASES = {"bert": BERT_FLASH_CASE, "llama": LLAMA_FLASH_CASE,
+                    "composite_gpt": COMPOSITE_GPT_FLASH_CASE,
+                    "composite_llama": COMPOSITE_LLAMA_FLASH_CASE,
                     "vit": VIT_FLASH_CASE}
 # Repeats of the ViT step's timing (images/s is their median), steps each.
 VIT_REPEATS, VIT_REPEAT_STEPS = 5, 5
@@ -1741,7 +1777,7 @@ def gpt_config(torch, use_flash):
     # bench.py's GPT-2 small: untied fp32 lm_head, 163,109,376 parameters.
     return GPTConfig(vocab_size=GPT_VOCAB, hidden_size=GPT_HIDDEN,
                      num_layers=GPT_LAYERS, num_heads=GPT_HEADS,
-                     intermediate_size=3072,
+                     intermediate_size=GPT_FFN,
                      max_position_embeddings=GPT_SEQ, dtype=torch.bfloat16,
                      tp_axis=None, ep_axis=None, use_flash=use_flash)
 
@@ -3036,9 +3072,12 @@ def phase_timing_flash(torch, dev, seed):
     rows, main = flash_timing(torch, dev, seed + 5, GPT_BATCH, GPT_HEADS,
                               GPT_HEADS, GPT_SEQ, d, True)
     paths = {}
-    for path, (b, case) in (("bert", (BERT_BATCH, BERT_FLASH_CASE)),
-                            ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE)),
-                            ("vit", (VIT_BATCH, VIT_FLASH_CASE))):
+    for path, (b, case) in (
+            ("bert", (BERT_BATCH, BERT_FLASH_CASE)),
+            ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE)),
+            ("vit", (VIT_BATCH, VIT_FLASH_CASE)),
+            ("composite_gpt", (COMPOSITE_MB, COMPOSITE_GPT_FLASH_CASE)),
+            ("composite_llama", (COMPOSITE_MB, COMPOSITE_LLAMA_FLASH_CASE))):
         _, bh, L, _, d, causal, _, h, kvh = case
         h = h or bh // b
         path_rows, extra = flash_timing(torch, dev, seed + 5, b, h,
@@ -3054,7 +3093,10 @@ def phase_timing_flash(torch, dev, seed):
                   "dv together; library: scaled_dot_product_attention "
                   "(is_causal as the path; enable_gqa for LLaMA's grouped "
                   "K/V) forward, and its backward alone, timed here only; "
-                  "ViT: L = 196, non-causal, the last key tile ragged"})
+                  "ViT: L = 196, non-causal, the last key tile ragged; "
+                  "composite_gpt, composite_llama: the composite "
+                  "trainers' and pipeline_virtual's 2 x 1024 "
+                  "microbatches"})
     return rows, paths
 
 
@@ -4827,6 +4869,489 @@ def phase_train_zero_fsdp(torch, hvd, dev, args, card):
     return launches["zero"], launches["fsdp"]
 
 
+# ---------------------------------------------------------------------------
+# A12's second half: MoE, the pipelines and the composite trainer.
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's widths with 8 experts in every second block (Switch
+# Transformer's layout: top-1, capacity factor 2.0, JAX's default), and the
+# load-balancing loss at Switch's weight.
+MOE_EXPERTS, MOE_CF, MOE_AUX = 8, 2.0, 0.01
+GPT_MOE_PARAMS = 361_304_064
+MOE_PHASES = ("start", "router", "dispatch", "experts", "combine")
+# The composite trainers: 4 microbatches of COMPOSITE_MB x 1024 (GPT_BATCH
+# x GPT_SEQ a step), COMPOSITE_STEPS timed steps after --warmup.
+COMPOSITE_MICRO, COMPOSITE_STEPS = GPT_BATCH // COMPOSITE_MB, 4
+# The composite's first step against the same modules on the whole batch
+# with no pipeline: the blocks' bf16 products run at 2,048 rows a
+# microbatch in the one and 8,192 in the other, so cuBLAS may round them
+# otherwise (a bf16 rounding, 2^-8, of an activation here and there,
+# carried through 12-24 blocks); the embedding, the MoE FFN (its route
+# included) and the head see the same inputs either way. The limits: the
+# loss within 2e-3 relative (half a bf16 rounding), each gradient within
+# 0.05 of its norm (GPT_CMP_LIMITS's 3e-2 is two bf16 attention paths
+# against each other).
+COMPOSITE_LIMITS = {"loss_rel": 2e-3, "grad_rel": 5e-2}
+# 1F1B against gpipe, first step, the same weights and batch: the same
+# products in each microbatch; the head's TF32 products on a microbatch
+# (2,048 rows) instead of the whole batch, and each parameter's gradient
+# summed over the microbatches in the other order (fp32).
+F1B_LIMITS = {"loss_rel": 1e-4, "grad_rel": 2e-2}
+# pipeline_virtual: S stages of GPT-2 small's blocks, M microbatches of
+# COMPOSITE_MB x GPT_SEQ tokens. Each stage runs the sequential stack's
+# products on the same inputs, so outputs may differ by no rounding and
+# gradients by the order of their M fp32 sums; the limits allow one bf16
+# rounding of an output and twice the (M - 1) u sum_m |g_m| error bound of
+# a sum of M terms, in any order.
+VIRTUAL_STAGES, VIRTUAL_MICRO = 4, 8
+VIRTUAL_LIMITS = {"out": "|y - y_seq| <= 2^-8 |y_seq|",
+                  "grad": "|g - g_seq| <= 2 (M - 1) 2^-24 sum_m |g_m|"}
+
+
+def moe_config(torch, ep_axis):
+    import dataclasses
+    return dataclasses.replace(gpt_config(torch, use_flash=True),
+                               num_experts=MOE_EXPERTS, moe_k=1,
+                               capacity_factor=MOE_CF, ep_axis=ep_axis)
+
+
+def moe_loss(F, model, ids):
+    """Next-token loss plus the MoE blocks' load-balancing losses."""
+    return next_token_loss(F, model(ids), ids) + MOE_AUX * sum(model.moe_aux)
+
+
+def moe_split(torch, model, ids):
+    """One forward with a CUDA event at each MoE layer's marks: each
+    layer's router, dispatch, expert-product and combine ms, and its share
+    of dropped choices."""
+    from horovod_tpu_torch.parallel.moe import MoEMlp
+    marks = []
+    layers = [m for m in model.modules() if isinstance(m, MoEMlp)]
+
+    def hook(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+    for m in layers:
+        m.phase_hook = hook
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        for m in layers:
+            m.phase_hook = None
+    torch.cuda.synchronize()
+    n = len(MOE_PHASES)
+    check(len(marks) == n * len(layers) and all(
+        [k for k, _ in marks[i:i + n]] == list(MOE_PHASES)
+        for i in range(0, len(marks), n)),
+        f"the MoE layers marked their phases: {[k for k, _ in marks]}")
+    tokens = ids.numel()
+    out = []
+    for i, moe in zip(range(0, len(marks), n), layers):
+        ev = [e for _, e in marks[i:i + n]]
+        out.append({**{MOE_PHASES[j + 1]: ev[j].elapsed_time(ev[j + 1])
+                       for j in range(n - 1)},
+                    "dropped_share": int(moe.last_dropped) / tokens})
+    return out
+
+
+def phase_train_gpt_moe(torch, hvd, dev, args, card):
+    """GPT-2 small's widths with 8 experts in every second block, through
+    ``make_train_step`` on a (dp, ep) = (1, 1) mesh with ``ep_axis="ep"``
+    beside the same weights with ``ep_axis=None`` and no mesh: losses
+    bit-equal, 12 + 12 + 12 flash launches and a pack and an unpack per
+    bucket every step; tokens/s, the peak, the MoE layers' forward split
+    and dropped shares."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops import in_step
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.parallel import dp
+
+    mesh = in_step.make_mesh({"dp": 1, "ep": 1})
+    runs, init, ids, launches, split = {}, None, None, None, None
+    for impl in ("none", "ep"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound = impl == "ep"
+        cfg = moe_config(torch, "ep" if bound else None)
+        with (in_step.axes(mesh) if bound else contextlib.nullcontext()):
+            model = GPT(cfg, generator=torch.Generator().manual_seed(
+                args.seed)).to(dev).train()
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == GPT_MOE_PARAMS, f"the MoE GPT has "
+              f"{GPT_MOE_PARAMS:,} parameters, this model {n_params}")
+        if init is None:
+            init = {n: p.detach().clone() for n, p in model.named_parameters()}
+            ids = gpt_batch(torch, model, dev, args.seed)
+        else:
+            check(all(torch.equal(p, init[n])
+                      for n, p in model.named_parameters()),
+                  f"{impl}: the same weights as the no-axis model's")
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters(),
+            process_set=dp.axis_process_set(mesh, "dp") if bound else None)
+        if bound:
+            state = dp.TrainState.create(model, opt)
+            train = dp.make_train_step(
+                lambda m, batch: moe_loss(F, m, batch), opt, mesh,
+                axis_name="dp")
+
+            def step():
+                return train(state, ids)[1]
+        else:
+            def step():
+                opt.zero_grad()
+                value = moe_loss(F, model, ids)
+                value.backward()
+                opt.step()
+                return value.detach()
+        fa.reset_launch_counts()          # the path starts here
+        sb.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, per_step, elapsed = timed_steps(torch, fa, sb, step,
+                                                GPT_STEPS, args.warmup)
+        if bound:
+            launches = dict(zip(STEP_COUNTS, step_counts(fa, sb)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        opt._remove_hooks()
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{impl}: finite, falling losses {losses}")
+        check(all(s[:3] == [cfg.num_layers] * 3 and s[3] == s[4] > 0
+                  for s in per_step),
+              f"{impl}: 12 + 12 + 12 flash launches and a pack and an "
+              f"unpack per bucket every step: {per_step}")
+        runs[impl] = {"losses": losses, "launches_per_step": per_step,
+                      "tokens_per_sec": GPT_BATCH * GPT_SEQ * GPT_STEPS
+                      / elapsed, "peak_mem_gb": peak}
+        if bound:
+            with in_step.axes(mesh):
+                split = moe_split(torch, model, ids)
+        del model, opt, step
+        state = train = None
+    check(runs["ep"]["losses"] == runs["none"]["losses"],
+          f"the ep-bound losses bit-equal to the no-axis model's: "
+          f"{runs['ep']['losses']} vs {runs['none']['losses']}")
+    total = {k: sum(layer[k] for layer in split)
+             for k in MOE_PHASES[1:]}
+    emit({"phase": "train_gpt_moe", "model": "GPT-2 small MoE",
+          "params": GPT_MOE_PARAMS, "experts": MOE_EXPERTS,
+          "moe_layers": len(split), "k": 1, "capacity_factor": MOE_CF,
+          "aux_weight": MOE_AUX, "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "optimizer": ADAMW.format(lr=1e-4), "mesh": {"dp": 1, "ep": 1},
+          "losses_bit_equal_to_no_axis": True, "runs": runs,
+          "moe_forward_ms_by_layer": split, "moe_forward_ms_total": total,
+          "dropped_share_by_layer": [l["dropped_share"] for l in split],
+          "note": "none: the same weights with ep_axis=None and no mesh; "
+                  "ep: make_train_step on the mesh; moe_forward_ms: CUDA "
+                  "events at the layer's marks in one forward (no "
+                  "gradient recorded), after the training steps",
+          "card": card})
+    return launches
+
+
+def composite_reference(torch, comp, ids):
+    """The composite's modules on the whole batch with no pipeline and no
+    microbatches, and a plain next-token loss (the trainer's own head loss
+    is not used): its loss."""
+    m = comp.model
+    x = m.embed(ids)
+    aux = None
+    if m.moe is not None:
+        h, aux = m.moe(x)
+        x = x + h
+    for block in m.stages:
+        x = block(x)
+    logits = m.head(x)[:, :-1].float()
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1))
+    return loss if aux is None else loss + comp.aux_weight * aux
+
+
+def composite_grads(torch, comp, fn):
+    """``fn()``'s loss and every parameter's gradient, copied."""
+    loss = fn()
+    torch.cuda.synchronize()
+    return float(loss), {n: p.grad.detach().clone()
+                         for n, p in comp.model.named_parameters()}
+
+
+def composite_run(torch, fa, comp, ids, schedule, args, steps):
+    """--warmup and ``steps`` timed steps: losses, flash launches a step,
+    tokens/s and the peak of allocated memory (reset before the first)."""
+    step = comp.make_train_step(schedule)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    for i in range(args.warmup + steps):
+        if i == args.warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        c0 = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        losses.append(step(ids))
+        per_step.append([b - a for a, b in zip(c0, (
+            fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches))])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{schedule}: finite, falling losses {losses}")
+    return {"losses": losses, "launches_per_step": per_step,
+            "tokens_per_sec": ids.numel() * steps / elapsed,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_train_composite(torch, dev, args, card):
+    """CompositeGPT (GPT-2 small's widths with the shared 8-expert MoE FFN,
+    gpipe) and CompositeLlama (LLaMA-400M, gpipe and 1F1B, each with and
+    without remat) on a (1, 1, 1) mesh, 4 microbatches of 2 x 1024: the
+    first step against the whole-batch modules, 1F1B's against gpipe's,
+    1F1B's peak below gpipe's, flash launches a step; tokens/s and peaks."""
+    import dataclasses
+    import functools
+
+    from horovod_tpu_torch.ops import in_step
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.parallel import (CompositeGPT, CompositeLlama,
+                                            build_mesh3d)
+
+    mesh = build_mesh3d(1, 1, 1)
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    out, launches = {}, dict.fromkeys(FLASH_COUNTS, 0)
+    families = (
+        ("gpt", CompositeGPT, dataclasses.replace(
+            gpt_config(torch, use_flash=True), num_experts=MOE_EXPERTS,
+            capacity_factor=MOE_CF), ("gpipe",)),
+        ("llama", CompositeLlama, llama_config(torch, True),
+         ("gpipe", "1f1b")))
+    for family, cls, cfg, schedules in families:
+        ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                            generator=gen, device=dev)
+
+        def build(remat=False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            with torch.device(dev), in_step.axes(mesh):
+                comp = cls(dataclasses.replace(cfg, remat=remat), mesh,
+                           adamw, n_micro=COMPOSITE_MICRO)
+            return comp.init(torch.Generator(device=dev).manual_seed(
+                args.seed))
+
+        comp = build()
+        layers = cfg.num_layers
+        fa.reset_launch_counts()
+        first = {s: composite_grads(torch, comp, lambda s=s:
+                                    comp.loss_and_grads(ids, s))
+                 for s in schedules}
+        counts = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        for p in comp.model.parameters():
+            p.grad = None
+
+        def whole():
+            loss = composite_reference(torch, comp, ids)
+            loss.backward()
+            return loss.detach()
+        ref = composite_grads(torch, comp, whole)
+        readings = {"vs_whole_batch": rel_reading(*first["gpipe"], *ref)}
+        r = readings["vs_whole_batch"]
+        check(r["loss_rel"] <= COMPOSITE_LIMITS["loss_rel"]
+              and r["grad_rel"] <= COMPOSITE_LIMITS["grad_rel"],
+              f"{family}: the composite's first step against the "
+              f"whole-batch modules {r} within {COMPOSITE_LIMITS}")
+        if "1f1b" in first:
+            r = readings["1f1b_vs_gpipe"] = rel_reading(*first["1f1b"],
+                                                        *first["gpipe"])
+            check(r["loss_rel"] <= F1B_LIMITS["loss_rel"]
+                  and r["grad_rel"] <= F1B_LIMITS["grad_rel"],
+                  f"{family}: 1F1B's first step against gpipe's {r} "
+                  f"within {F1B_LIMITS}")
+        mb = COMPOSITE_MICRO * layers
+        want = {"gpipe": [mb] * 3, "1f1b": [2 * mb, mb, mb]}
+        check(list(counts) == [sum(want[s][i] for s in schedules)
+                               for i in range(3)],
+              f"{family}: first steps launched {counts} flash kernels")
+        del first, ref
+        comp.model.zero_grad(set_to_none=True)
+        runs = {}
+        for schedule in schedules:
+            for remat in (False, True):
+                if remat or schedule != schedules[0]:
+                    del comp
+                    comp = build(remat)
+                fa.reset_launch_counts()       # the path starts here
+                run = composite_run(torch, fa, comp, ids, schedule, args,
+                                    COMPOSITE_STEPS)
+                for k, v in zip(FLASH_COUNTS, (fa.fwd_launches,
+                                               fa.bwd_dq_launches,
+                                               fa.bwd_dkv_launches)):
+                    launches[k] += v
+                step_want = list(want[schedule])
+                if remat and schedule == "gpipe":
+                    step_want[0] += mb           # the recomputed forward
+                check(all(s == step_want for s in run["launches_per_step"]),
+                      f"{family} {schedule} remat={remat}: {step_want} "
+                      f"flash launches a step: {run['launches_per_step']}")
+                runs[f"{schedule}{'_remat' if remat else ''}"] = run
+        if "1f1b" in schedules:
+            check(runs["1f1b"]["peak_mem_gb"] < runs["gpipe"]["peak_mem_gb"],
+                  f"{family}: 1F1B's peak {runs['1f1b']['peak_mem_gb']} GB "
+                  f"below gpipe's {runs['gpipe']['peak_mem_gb']} GB")
+        out[family] = {"layers": layers, "params": sum(
+            p.numel() for p in comp.model.parameters()),
+            "readings": readings, "runs": runs}
+        del comp
+    emit({"phase": "train_composite", "mesh": {"dp": 1, "pp": 1, "tp": 1},
+          "n_micro": COMPOSITE_MICRO, "microbatch": [GPT_BATCH //
+                                                     COMPOSITE_MICRO,
+                                                     GPT_SEQ],
+          "optimizer": ADAMW.format(lr=1e-4), "steps": COMPOSITE_STEPS,
+          "composite_limits": COMPOSITE_LIMITS, "f1b_limits": F1B_LIMITS,
+          **out,
+          "depth_cut": None,
+          "note": "gpt: CompositeGPT with the shared 8-expert MoE FFN "
+                  "(top-1, capacity 2.0, aux 0.01); llama: CompositeLlama "
+                  "at full depth; vs_whole_batch: the first step's loss and "
+                  "gradients against the same modules on the whole batch "
+                  "with no pipeline; 1f1b_remat: 1F1B ignores remat (it "
+                  "recomputes by construction)",
+          "card": card})
+    return launches
+
+
+def phase_pipeline_virtual(torch, dev, args, card):
+    """The schedules over S = 4 virtual stages of GPT-2 small's blocks (3
+    a stage), 8 microbatches of 2 x 1024: GPipe and 1F1B outputs and
+    gradients against the sequential stack, the tick counts, and a
+    dropped-hop control."""
+    from torch import nn
+
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.parallel import pp
+    from horovod_tpu_torch.parallel.tp import TPTransformerBlock, reset_flax_
+
+    S, M = VIRTUAL_STAGES, VIRTUAL_MICRO
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    with torch.device(dev):
+        blocks = [TPTransformerBlock(GPT_HEADS, GPT_HIDDEN, GPT_FFN, dtype=dt,
+                                     causal=True, use_flash=True,
+                                     axis_name=None)
+                  for _ in range(GPT_LAYERS)]
+    for b in blocks:
+        reset_flax_(b, gen)
+    lps = GPT_LAYERS // S
+    stages = [nn.ModuleList(blocks[s * lps:(s + 1) * lps]) for s in range(S)]
+    params = [p for b in blocks for p in b.parameters()]
+    mbs = torch.randn(M, COMPOSITE_MB, GPT_SEQ, GPT_HIDDEN, generator=gen,
+                      device=dev).to(dt)
+    tgt = torch.randn(M, COMPOSITE_MB, GPT_SEQ, GPT_HIDDEN, generator=gen,
+                      device=dev).to(dt)
+
+    def layer(block, h):
+        return block(h)
+
+    # The sequential stack, one microbatch at a time; the loss
+    # sum_m <y_m, t_m> / M, so each output's gradient is t_m / M.
+    ref_out, ref_g, abs_g = [], None, None
+    for m in range(M):
+        x = mbs[m]
+        for b in blocks:
+            x = b(x)
+        g = torch.autograd.grad((x.float() * tgt[m].float()).sum() / M,
+                                params)
+        ref_out.append(x.detach())
+        ref_g = list(g) if ref_g is None else [a + b for a, b in
+                                               zip(ref_g, g)]
+        abs_g = [t.abs() for t in g] if abs_g is None else [
+            a + b.abs() for a, b in zip(abs_g, g)]
+    ref_out = torch.stack(ref_out)
+    g_out = (tgt.float() / M).to(dt)
+    # Outputs: one bf16 rounding of each; gradients: any order of M fp32
+    # sums, (M - 1) u of the sum of magnitudes.
+    unit = 2.0 ** -24
+
+    def out_ratio(out):
+        bound = 2.0 ** -8 * ref_out.float().abs() + 2.0 ** -133
+        return ((out.float() - ref_out.float()).abs() / bound).max().item()
+
+    def grad_ratio(grads):
+        return max(((a - b).abs() / (2 * (M - 1) * unit * c + 2.0 ** -149))
+                   .max().item() for a, b, c in zip(grads, ref_g, abs_g))
+
+    def stage_runs():
+        return [pp.StageRun(layer, stages[s], s, S, mbs) for s in range(S)]
+
+    def counts():
+        return [fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches]
+
+    readings = {}
+    fa.reset_launch_counts()                   # the path starts here
+    runs = stage_runs()
+    ticks_f = pp.gpipe_forward(runs, pp.virtual_hop)
+    out = torch.stack([runs[-1].outputs[m] for m in range(M)])
+    ticks_b = pp.gpipe_backward(runs, pp.virtual_hop, [g_out] * S)
+    grads = [g for r in runs for g in r.grads]
+    readings["gpipe"] = {"ticks": ticks_f, "backward_ticks": ticks_b,
+                         "out_ratio": out_ratio(out),
+                         "grad_ratio": grad_ratio(grads),
+                         "launches": counts()}
+    del runs, grads
+    c0 = counts()
+    seen = []
+    head = pp.Head(lambda hp, y, t: (seen.append(y.detach()) or
+                                     (y.float() * t.float()).sum()),
+                   [], tgt, M)
+    runs = stage_runs()
+    ticks = pp.run_1f1b(runs, pp.virtual_hop, [None] * (S - 1) + [head])
+    grads = [g for r in runs for g in r.grads]
+    readings["1f1b"] = {"ticks": ticks, "stash_slots": runs[0].ssize,
+                        "out_ratio": out_ratio(torch.stack(seen)),
+                        "grad_ratio": grad_ratio(grads),
+                        "launches": [b - a for a, b in zip(c0, counts())]}
+    launches = dict(zip(FLASH_COUNTS, counts()))    # the path ends
+    del runs, grads, seen
+    # The control: stage 2's input at tick 4 (microbatch 2) dropped.
+    calls = []
+
+    def dropping(sends, step):
+        got = pp.virtual_hop(sends, step)
+        calls.append(None)
+        if len(calls) == 4:
+            got[2] = torch.zeros_like(got[2])
+        return got
+    runs = stage_runs()
+    pp.gpipe_forward(runs, dropping)
+    control = out_ratio(torch.stack([runs[-1].outputs[m] for m in range(M)]))
+    del runs
+    n = GPT_LAYERS * M
+    g, f = readings["gpipe"], readings["1f1b"]
+    check(g["ticks"] == g["backward_ticks"] == M + S - 1
+          and f["ticks"] == M + 2 * S - 2 and f["stash_slots"] == min(
+              M, 2 * S - 1),
+          f"M + S - 1 and M + 2S - 2 ticks: {g['ticks']}, {f['ticks']}")
+    check(g["launches"] == [n, n, n] and f["launches"] == [2 * n, n, n],
+          f"flash launches {g['launches']} (gpipe), {f['launches']} (1f1b)")
+    for name in ("gpipe", "1f1b"):
+        r = readings[name]
+        check(r["out_ratio"] <= 1.0 and r["grad_ratio"] <= 1.0,
+              f"{name}: outputs and gradients within VIRTUAL_LIMITS: {r}")
+    check(control > 10.0, f"the dropped-hop control fails the output bound "
+          f"by more than 10x: {control}")
+    emit({"phase": "pipeline_virtual", "stages": S, "n_micro": M,
+          "microbatch": [COMPOSITE_MB, GPT_SEQ], "blocks": GPT_LAYERS,
+          "dtype": "bfloat16", **readings, "dropped_hop_control": control,
+          "limits": VIRTUAL_LIMITS, "card": card})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4968,6 +5493,15 @@ def main(argv=None):
                                        phase_train_zero_fsdp, torch, hvd,
                                        dev, args, card)
     gc.collect()
+    moe_launches = run("train_gpt_moe", phase_train_gpt_moe, torch, hvd,
+                       dev, args, card)
+    gc.collect()
+    composite_launches = run("train_composite", phase_train_composite,
+                             torch, dev, args, card)
+    gc.collect()
+    virtual_launches = run("pipeline_virtual", phase_pipeline_virtual,
+                           torch, dev, args, card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -4984,7 +5518,8 @@ def main(argv=None):
     transformer_paths = ("train_gpt", "train_bert", "train_llama",
                          "train_vit", "launch", "train_gpt_chunked",
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
-                         "train_zero", "train_fsdp")
+                         "train_zero", "train_fsdp", "train_gpt_moe",
+                         "train_composite", "pipeline_virtual")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -4994,28 +5529,34 @@ def main(argv=None):
                    train_powersgd=powersgd_launches,
                    train_hierarchical=hier_launches,
                    train_gpt_tp_sp=tp_sp_launches, ring_flash=ring_launches,
-                   train_zero=zero_launches, train_fsdp=fsdp_launches)
+                   train_zero=zero_launches, train_fsdp=fsdp_launches,
+                   train_gpt_moe=moe_launches,
+                   train_composite=composite_launches,
+                   pipeline_virtual=virtual_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
-                   "train_hierarchical", "train_gpt_tp_sp")
+                   "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),
           f"the wire, SyncBatchNorm and tier paths launched both scale "
           f"kernels: {wire_launches}, {syncbn_launches}, {hier_launches}")
     check(all(by_path[p][k] > 0 for p in ("train_zero", "train_fsdp",
-                                          "ring_flash")
+                                          "ring_flash", "train_composite",
+                                          "pipeline_virtual")
               for k in FLASH_COUNTS),
-          f"the ZeRO, FSDP and ring paths launched every flash kernel: "
-          f"{zero_launches}, {fsdp_launches}, {ring_launches}")
+          f"the ZeRO, FSDP, ring, composite and virtual-pipeline paths "
+          f"launched every flash kernel: {zero_launches}, {fsdp_launches}, "
+          f"{ring_launches}, {composite_launches}, {virtual_launches}")
     check(all(by_path[p][k] > 0 for p in ("train_gpt_chunked",
                                           "train_powersgd",
-                                          "train_gpt_tp_sp")
+                                          "train_gpt_tp_sp", "train_gpt_moe")
               for k in STEP_COUNTS),
-          f"the chunked-loss and PowerSGD paths launched every flash and "
-          f"scale kernel: {chunked_launches}, {powersgd_launches}")
+          f"the chunked-loss, PowerSGD, mesh and MoE paths launched every "
+          f"flash and scale kernel: {chunked_launches}, "
+          f"{powersgd_launches}, {tp_sp_launches}, {moe_launches}")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,

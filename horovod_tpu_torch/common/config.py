@@ -14,7 +14,9 @@ the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
 ``HOROVOD_WIRE_ERROR_FEEDBACK``) and the hierarchical tiers' knobs
 (``HOROVOD_HIERARCHICAL_ALLREDUCE``, ``HOROVOD_HIERARCHICAL_ALLGATHER``,
 ``HOROVOD_TORUS_ALLREDUCE``, ``HOROVOD_HIERARCHICAL_DISPATCH``,
-``HOROVOD_CROSS_OVERLAP``, ``HOROVOD_MESH_SLICES``).
+``HOROVOD_CROSS_OVERLAP``, ``HOROVOD_MESH_SLICES``) with the alltoall
+tier's (``HOROVOD_HIERARCHICAL_ALLTOALL``,
+``HOROVOD_ALLTOALL_CROSS_DTYPE``).
 """
 
 import dataclasses
@@ -93,6 +95,15 @@ class Config:
     # step profiler, which comes with ROADMAP A16; until then every bucket
     # completes inside its flush.
     cross_overlap: bool = True
+    # The hierarchical alltoall (parallel/strategies.py::alltoall_tiered):
+    # over more than one slice, an equal-splits hvd.alltoall and the MoE
+    # layer's expert dispatch and combine run a slice-local leg, then one
+    # cross-slice leg. Apart from the allreduce knobs on purpose: an
+    # alltoall moves activations.
+    hierarchical_alltoall: bool = False
+    # The wire of that cross-slice leg ("" exact, "int8"/"fp8"
+    # block-scaled); never inherited from wire_dtype or wire_dtype_dcn.
+    alltoall_cross_dtype: str = ""
     # HOROVOD_MESH_SLICES=k: the world as k slices of size/k ranks (JAX's
     # forced slice layout); "" or 0: one slice per node.
     mesh_slices: str = ""
@@ -144,6 +155,12 @@ class Config:
         c.hierarchical_allgather = _env_bool(
             "HOROVOD_HIERARCHICAL_ALLGATHER", c.hierarchical_allgather)
         c.cross_overlap = _env_bool("HOROVOD_CROSS_OVERLAP", c.cross_overlap)
+        c.hierarchical_alltoall = _env_bool("HOROVOD_HIERARCHICAL_ALLTOALL",
+                                            c.hierarchical_alltoall)
+        v = os.environ.get("HOROVOD_ALLTOALL_CROSS_DTYPE",
+                           c.alltoall_cross_dtype)
+        c.alltoall_cross_dtype = {"fp16": "float16",
+                                  "bf16": "bfloat16"}.get(v, v)
         c.mesh_slices = os.environ.get("HOROVOD_MESH_SLICES", c.mesh_slices)
         c.rank = _env_int("HOROVOD_RANK", c.rank)
         c.local_rank = _env_int("HOROVOD_LOCAL_RANK", c.local_rank)

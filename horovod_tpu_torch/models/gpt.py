@@ -10,14 +10,19 @@ Ported: the dense model, tensor parallelism (``tp_axis``: heads and MLP
 columns sharded over the in-step axis, ``parallel/tp.py``), sequence
 parallelism (``sp_axis``/``sp_impl``: token shards, ring or Ulysses
 attention, the position table indexed at the shard's global positions),
+MoE blocks (``num_experts > 0``: :class:`GPTMoEBlock` every
+``moe_every``-th layer, experts over ``ep_axis``, ``parallel/moe.py``),
 ``features_only``, ``remat`` (each block under ``torch.utils.checkpoint``,
 as ``nn.remat`` wraps it) and :func:`load_flax`, which fills any of the
 port's Flax-named models from its Flax variable tree by name
 (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama``,
 ``load_flax_mlp`` and ``load_flax_vit`` are this one function), slicing the
-tensor-parallel leaves for the rank's shard. Not yet: the expert axis and
-MoE blocks (``ep_axis``, ``num_experts > 0``; A12's second half) and decode
-(A15) raise ``NotImplementedError`` naming their ROADMAP item.
+tensor- and expert-parallel leaves for the rank's shard. Not yet: decode
+(A15) raises ``NotImplementedError`` naming its ROADMAP item.
+
+The MoE blocks' load-balancing losses, which JAX sows into the
+``losses/moe_aux`` collection, are the list ``model.moe_aux`` after each
+forward: one scalar per MoE block, in layer order.
 """
 
 import dataclasses
@@ -28,9 +33,10 @@ import torch
 from torch import nn
 
 from horovod_tpu_torch.ops import in_step
+from horovod_tpu_torch.parallel.moe import MoEMlp
 from horovod_tpu_torch.parallel.tp import (ColumnParallelDense, Dense,
                                            FlaxKernel, LayerNorm,
-                                           RowParallelDense,
+                                           RowParallelDense, TPSelfAttention,
                                            TPTransformerBlock, _not_yet,
                                            lecun_normal_, remat)
 
@@ -44,9 +50,14 @@ class GPTConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 1024
     num_experts: int = 0            # 0 -> dense MLP blocks only
+    moe_k: int = 1
+    capacity_factor: float = 2.0
+    # The experts' 2-level dispatch over ep_axis: None asks the alltoall
+    # registry (HOROVOD_HIERARCHICAL_ALLTOALL), True/False force it.
+    moe_hierarchical: Optional[bool] = None
     dtype: Any = torch.float32
     tp_axis: Optional[str] = None   # "tp": heads and MLP sharded over it
-    ep_axis: Optional[str] = None   # the expert axis: A12's second half
+    ep_axis: Optional[str] = None   # "ep": the MoE blocks' experts over it
     use_flash: bool = False         # the CUDA flash kernels (ops/kernels)
     sp_axis: Optional[str] = None   # sequence parallelism: tokens sharded
     sp_impl: str = "ring"           # "ring" | "ulysses" (parallel/sequence)
@@ -114,34 +125,66 @@ class GPTHead(nn.Module):
         return self.lm_head(self.ln_f(x))
 
 
-class GPT(nn.Module):
-    """Embed -> ``num_layers`` dense blocks named ``layer_<i>`` -> head.
-    Parameters are drawn from ``generator`` with Flax's initializers."""
+class GPTMoEBlock(nn.Module):
+    """Pre-LN block: tensor-parallel causal attention, then the
+    expert-parallel MoE FFN (experts over ``config.ep_axis``). Returns the
+    hidden state alone (shape-invariant); the load-balancing loss of the
+    last forward is ``self.aux``."""
 
-    def __init__(self, config, decode=False, generator=None):
+    def __init__(self, config):
         super().__init__()
         c = config
-        if c.ep_axis is not None:
-            _not_yet("an expert-parallel mesh axis (ep_axis)",
-                     "A12 (second half: moe.py)")
-        if c.num_experts:
-            _not_yet("MoE blocks (num_experts > 0)",
-                     "A12 (second half: moe.py)")
+        self.ln_attn = LayerNorm(c.hidden_size, c.dtype)
+        self.attention = TPSelfAttention(
+            c.num_heads, c.hidden_size, dtype=c.dtype, causal=True,
+            use_flash=c.use_flash, sp_axis=c.sp_axis, axis_name=c.tp_axis,
+            sp_impl=c.sp_impl)
+        self.ln_mlp = LayerNorm(c.hidden_size, c.dtype)
+        self.moe = MoEMlp(c.num_experts, c.hidden_size, c.intermediate_size,
+                          k=c.moe_k, capacity_factor=c.capacity_factor,
+                          dtype=c.dtype, axis_name=c.ep_axis,
+                          hierarchical=c.moe_hierarchical)
+        self.aux = None
+
+    def forward(self, x):
+        x = x + self.attention(self.ln_attn(x))
+        h, self.aux = self.moe(self.ln_mlp(x))
+        return x + h
+
+
+class GPT(nn.Module):
+    """Embed -> ``num_layers`` blocks named ``layer_<i>`` -> head: dense
+    blocks, and with ``config.num_experts`` a :class:`GPTMoEBlock` at each
+    layer ``i`` with ``i % moe_every == moe_every - 1``. Parameters are
+    drawn from ``generator`` with Flax's initializers. After a forward,
+    ``moe_aux`` holds the MoE blocks' load-balancing losses in layer order
+    (JAX's sown ``losses/moe_aux``)."""
+
+    def __init__(self, config, decode=False, generator=None, moe_every=2):
+        super().__init__()
+        c = config
         if decode:
             _not_yet("decode with a KV cache", "A15")
         self.config = c
+        self.moe_every = moe_every
         self.embed = GPTEmbed(c)
         for i in range(c.num_layers):
-            setattr(self, f"layer_{i}", TPTransformerBlock(
-                c.num_heads, c.hidden_size, c.intermediate_size,
-                dtype=c.dtype, causal=True, use_flash=c.use_flash,
-                sp_axis=c.sp_axis, axis_name=c.tp_axis, sp_impl=c.sp_impl))
+            if c.num_experts and i % moe_every == moe_every - 1:
+                block = GPTMoEBlock(c)
+            else:
+                block = TPTransformerBlock(
+                    c.num_heads, c.hidden_size, c.intermediate_size,
+                    dtype=c.dtype, causal=True, use_flash=c.use_flash,
+                    sp_axis=c.sp_axis, axis_name=c.tp_axis,
+                    sp_impl=c.sp_impl)
+            setattr(self, f"layer_{i}", block)
         self.head = GPTHead(c)
+        self.moe_aux = []
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
         for m in self.modules():
-            if isinstance(m, (Dense, LayerNorm, GPTEmbed)):
+            if isinstance(m, (Dense, LayerNorm, GPTEmbed, MoEMlp)):
                 m.reset_parameters(generator)
 
     def forward(self, input_ids, pos=None, features_only=False):
@@ -150,9 +193,12 @@ class GPT(nn.Module):
         if pos is not None:
             _not_yet("decode positions", "A15")
         x = self.embed(input_ids)
+        self.moe_aux = []
         for i in range(self.config.num_layers):
             block = getattr(self, f"layer_{i}")
             x = remat(block, (x,)) if self.config.remat else block(x)
+            if isinstance(block, GPTMoEBlock):
+                self.moe_aux.append(block.aux)
         if features_only:
             return x
         return self.head(x)
@@ -167,7 +213,8 @@ def _leaves(tree, prefix=()):
 
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-               "bias": "bias", "pos_emb": "pos_emb"}
+               "bias": "bias", "pos_emb": "pos_emb", "w_in": "w_in",
+               "w_out": "w_out"}
 
 
 def flax_key(path):
@@ -176,13 +223,18 @@ def flax_key(path):
 
 
 def tp_leaves(model, tp_rank=None, tp_size=None):
-    """``{parameter name: (Flax axis, index, n)}`` for each tensor-parallel
-    leaf of ``model``: a column-parallel kernel or bias is cut on its last
-    Flax axis, a row-parallel kernel on its first. ``index`` and ``n``
-    are the shard the layer was built for; ``tp_rank``/``tp_size``, when
-    given, must agree with it."""
+    """``{parameter name: (Flax axis, index, n)}`` for each tensor- or
+    expert-parallel leaf of ``model``: a column-parallel kernel or bias is
+    cut on its last Flax axis, a row-parallel kernel on its first, an MoE
+    layer's ``w_in``/``w_out`` on the expert axis (its first). ``index``
+    and ``n`` are the shard the layer was built for; ``tp_rank``/
+    ``tp_size``, when given, must agree with a tensor-parallel one."""
     out = {}
     for name, m in model.named_modules():
+        if isinstance(m, MoEMlp) and m.shard_of is not None:
+            for leaf in ("w_in", "w_out"):
+                out[f"{name}.{leaf}" if name else leaf] = (0,) + m.shard_of
+            continue
         if not isinstance(m, (ColumnParallelDense, RowParallelDense)) \
                 or m.shard.shard_of is None:
             continue
@@ -223,7 +275,9 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None,
     Flax leaf (:func:`tp_leaves`, :func:`tp_slice`): ``tp_rank`` and
     ``tp_size`` are the shard's (by default the one its layers were built
     for); the fused QKV and gate_up leaves are in JAX's sharded layout
-    (``[q_s|k_s|v_s] * n``).
+    (``[q_s|k_s|v_s] * n``). Expert parallelism likewise: an MoE layer
+    built inside its ep axis takes its block of experts of JAX's global
+    ``(E, d, f)`` ``w_in`` and ``(E, f, d)`` ``w_out``.
 
     ``powersgd_state``: the JAX PowerSGD transform's state, ``{"q": ...,
     "err": ...}`` with one entry per Flax leaf in ``tree_leaves`` order
@@ -277,5 +331,5 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None,
 
 load_flax_gpt = load_flax
 
-__all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPT", "load_flax",
-           "load_flax_gpt", "tp_leaves", "tp_slice"]
+__all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPTMoEBlock", "GPT",
+           "load_flax", "load_flax_gpt", "tp_leaves", "tp_slice"]

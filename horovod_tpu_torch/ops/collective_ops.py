@@ -640,7 +640,15 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
     past their sum are not sent). Returns the received rows, in rank order,
     and with ``splits`` also the rows received from each rank (int64, on
     the tensor's device). The ranks' tensors must agree beyond dim 0 and in
-    dtype. Raises while any rank has joined."""
+    dtype. Raises while any rank has joined.
+
+    Equal splits on the global set take the hierarchical route (JAX's
+    eager tier: ``parallel/strategies.py::alltoall_tiered``, a slice-local
+    leg, then one cross-slice leg on ``hvd.set_alltoall_cross_dtype``'s
+    wire) when ``hvd.set_alltoall_strategy("hier"|"hier_qcross")`` or
+    ``HOROVOD_HIERARCHICAL_ALLTOALL`` arms it over more than one slice; a
+    one-slice layout stays flat. Both routes book their bytes by tier
+    (``strategies.a2a_wire_bytes``)."""
     ps = _process_set(process_set)
     _check_tensor(tensor, "alltoall")
     n = ps.size()
@@ -677,6 +685,17 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
             f"(this rank: {tuple(tensor.shape)} {tensor.dtype})")
     me = ps.rank()
     received = [row[me] for row in rows]
+    if splits is None:
+        from horovod_tpu_torch.parallel import strategies as _strategies
+        hier = _a2a_hier_for(ps, tensor)
+        if hier is not None:
+            st = basics._get_state()
+            slices, cross = hier
+            tiers = st.topology.tiers((slices, n // slices))
+            with torch.no_grad():
+                return _strategies.alltoall_tiered(tensor.contiguous(), tiers,
+                                                   cross)
+        _strategies._record_a2a_flat(tensor, n, ps.rank_list())
     out = torch.empty((sum(received),) + tail, dtype=tensor.dtype,
                       device=tensor.device)
     launch(dist.all_to_all_single, out, tensor[:sum(send)].contiguous(),
@@ -685,6 +704,34 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
         return out
     return out, torch.tensor(received, dtype=torch.int64,
                              device=tensor.device)
+
+
+def _a2a_hier_for(ps, tensor):
+    """``(num_slices, cross label or None)`` when an equal-splits alltoall
+    of ``tensor`` on ``ps`` takes the hierarchical route, else None (JAX's
+    ``_eager_a2a_hier_for``): the global set only, the alltoall-strategy
+    registry's ``hier``/``hier_qcross`` (``hier_qcross`` by default under
+    ``HOROVOD_HIERARCHICAL_ALLTOALL``), more than one live slice; the cross
+    wire (``wire.alltoall_cross_wire_for``, never the allreduce knobs) only
+    under ``hier_qcross`` and for a float payload of a BLOCK or more per
+    destination slice."""
+    from horovod_tpu_torch.parallel import strategies as _strategies
+    cfg = basics._get_state().config
+    if ps.ranks is not None or not (cfg.hierarchical_alltoall
+                                    or _wire.alltoall_strategy_pinned()):
+        return None
+    strategy = _wire.alltoall_strategy_for(
+        "global", "hier_qcross" if cfg.hierarchical_alltoall else "")
+    if strategy not in ("hier", "hier_qcross"):
+        return None
+    slices, _ = _strategies.live_slices(ps.size())
+    if slices <= 1:
+        return None
+    cross = None
+    if strategy == "hier_qcross":
+        cross = _strategies._cross_label(
+            tensor, _wire.alltoall_cross_wire_for("global", cfg), slices)
+    return slices, cross
 
 
 def rank_major_blocks(tensors, n):

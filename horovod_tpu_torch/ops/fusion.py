@@ -97,7 +97,9 @@ Boundaries. With more than one process only process 0's triggers flush
 a timer local to each rank would split the same burst differently on
 different ranks, and NCCL turns mismatched collectives into a hang. Each of
 process 0's flushes publishes ``(boundary seq, last sequence number
-covered, trigger)`` through the ``TCPStore`` that ``hvd.init`` opened, from
+covered, trigger)`` and the policy it closed under (wire, strategy, cross
+wire, alltoall strategy and alltoall cross wire, which the followers adopt
+under their own pins) through the ``TCPStore`` that ``hvd.init`` opened, from
 a publisher thread off the runtime lock; the keys carry the membership
 version the runtime was built under (its epoch: 0 outside elastic runs)
 and are deleted ``_BOUNDARY_GC_LAG`` flushes later. Every other process
@@ -428,11 +430,12 @@ class FusionRuntime:
             item = self._publish_queue.get()
             if item is None:
                 return
-            seq, last, why, wire, strategy, cross = item
+            seq, last, why, wire, strategy, cross, a2a, a2a_cross = item
             try:
                 self._client.set(self._boundary_key(seq),
                                  f"{last} {why} {wire or '-'} {strategy} "
-                                 f"{cross or '-'}")
+                                 f"{cross or '-'} {a2a or '-'} "
+                                 f"{a2a_cross or '-'}")
                 if seq >= self._BOUNDARY_GC_LAG:
                     self._client.delete_key(
                         self._boundary_key(seq - self._BOUNDARY_GC_LAG))
@@ -464,10 +467,10 @@ class FusionRuntime:
                     if left > 0:   # the store failed fast: no hot loop
                         time.sleep(min(left, 0.05))
                     return None
-            last, why, wire, strategy, cross = \
-                self._client.get(key).decode().split()
-            return (int(last), why, "" if wire == "-" else wire, strategy,
-                    "" if cross == "-" else cross)
+            last, why, *rest = self._client.get(key).decode().split()
+            wire, strategy, cross, a2a, a2a_cross = (
+                "" if v == "-" else v for v in rest)
+            return int(last), why, wire, strategy, cross, a2a, a2a_cross
         except dist.DistNetworkError as e:
             # Process 0 serves the store: no boundary will ever come.
             err = HorovodInternalError(
@@ -492,7 +495,7 @@ class FusionRuntime:
                 payload = self._fetch(seq, wait_s)
                 if payload is None:
                     return False
-            last, why, wire, strategy, cross = payload
+            last, why, wire, strategy, cross, a2a, a2a_cross = payload
             with self._lock:
                 if self._boundary_seq != seq:   # another thread applied it
                     wait_s = 0
@@ -502,13 +505,14 @@ class FusionRuntime:
                     return True
                 self._deferred = None
                 self._boundary_seq += 1
-                # Process 0's wire, strategy and cross wire for this prefix
-                # (JAX's boundary "w", "s" and "cw").
+                # Process 0's wire, strategy and cross wire for this prefix,
+                # and its alltoall strategy and cross wire (JAX's boundary
+                # "w", "s", "cw", "as" and "acw").
                 self.wire_dtype = wire
                 if wire:
                     _wire.runtime_sync_wire_dtype(wire, "global")
                 self.strategy = strategy
-                _sync_policy(strategy, cross)
+                _sync_policy(strategy, cross, a2a, a2a_cross)
                 self._flush_locked(why, up_to=last,
                                    policy=(wire, strategy, cross))
             wait_s = 0
@@ -688,8 +692,12 @@ class FusionRuntime:
             policy = (self._wire_snapshot(),) + self._strategy_snapshot()
         wire, strategy, cross = policy
         if self._multi and self._coord:
-            self._publish_queue.put((self._boundary_seq, prefix[-1].seq, why,
-                                     wire, strategy, cross))
+            # The alltoall policy rides the same boundary: process 0's
+            # registries hold it for this prefix.
+            self._publish_queue.put((
+                self._boundary_seq, prefix[-1].seq, why, wire, strategy,
+                cross, _wire.alltoall_strategy_for("global"),
+                _wire.wire_dtype_for("a2a:global", "", tier="dcn")))
             self._boundary_seq += 1
         error = None
         try:
@@ -1092,14 +1100,21 @@ def _ps_label(ps):
         else f"set{ps.process_set_id}"
 
 
-def _sync_policy(strategy, cross):
-    """The flush's strategy and cross wire into the registries, deferring
-    to the user's pins (JAX's ``_sync_eager_policy``)."""
+def _sync_policy(strategy, cross, a2a="", a2a_cross=""):
+    """The flush's strategy and cross wire, and a follower's alltoall
+    strategy and cross wire from process 0's boundary, into the registries,
+    deferring to the user's pins (JAX's ``_sync_eager_policy``). 'flat' is
+    synced only over an existing entry, so the default steady state adds
+    no registry entry."""
     mapped = _EAGER_STRATEGY[strategy]
     if mapped != "flat" or _wire.dispatch_strategy_for("global"):
         _wire.runtime_sync_dispatch_strategy(mapped, "global")
     if cross:
         _wire.runtime_sync_wire_dtype(cross, "global", tier="dcn")
+    if a2a and (a2a != "flat" or _wire.alltoall_strategy_for("global")):
+        _wire.runtime_sync_alltoall_strategy(a2a, "global")
+    if a2a_cross:
+        _wire.runtime_sync_alltoall_cross_dtype(a2a_cross, "global")
 
 
 def _wire_key(key, wire):

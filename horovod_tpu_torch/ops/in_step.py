@@ -126,6 +126,15 @@ def axis_index(axis_name=HVD_AXIS):
     return mesh.get_coordinate()[_dim(mesh, axis_name)]
 
 
+def axis_ranks(axis_name=HVD_AXIS):
+    """The global ranks of this rank's row along ``axis_name``, in axis
+    order (the mesh's coordinates; no process group is asked)."""
+    mesh = _bound_mesh(axis_name)
+    idx = list(mesh.get_coordinate())
+    idx[_dim(mesh, axis_name)] = slice(None)
+    return mesh.mesh[tuple(idx)].tolist()
+
+
 def axis_group(axis_name=HVD_AXIS):
     """The process group of this rank's row along ``axis_name``."""
     return _bound_mesh(axis_name).get_group(axis_name)

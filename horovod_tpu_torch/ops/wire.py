@@ -35,8 +35,10 @@ a product feeding a sum or a difference one fused multiply-add
 does. The 1-byte payloads cross the backends as ``torch.uint8`` views,
 which NCCL and gloo both take.
 
-The alltoall-strategy registry of the JAX module goes with the
-hierarchical alltoall (ROADMAP A12, beside ``parallel/moe.py``).
+- the alltoall-strategy and cross-wire registry of the hierarchical
+  alltoall (``parallel/strategies.py::alltoall_tiered``, the MoE layer's
+  expert dispatch and the eager ``hvd.alltoall``): a registry of its own,
+  and a cross wire that never falls back to the allreduce knobs.
 """
 
 import threading
@@ -356,7 +358,8 @@ def clear_runtime_wire():
     ``hvd.shutdown`` calls it, so a runtime's policy does not outlive it
     into the next ``hvd.init``."""
     with _wire_lock:
-        for reg in (_wire_registry, _strategy_registry):
+        for reg in (_wire_registry, _strategy_registry,
+                    _a2a_strategy_registry):
             for key in [k for k, v in reg.items() if v[1] == "runtime"]:
                 del reg[key]
 
@@ -426,6 +429,77 @@ def pinned_dispatch_strategy(ps_label="global"):
 def clear_strategy_registry():
     with _wire_lock:
         _strategy_registry.clear()
+        _a2a_strategy_registry.clear()
+
+
+# ----------------------------------------------------------------------------
+# Per-process-set ALLTOALL strategy and cross-wire registry: the
+# hierarchical alltoall's own pair of levers (flat / hier / hier_qcross, and
+# the cross-slice leg's wire), kept apart from the allreduce pair because an
+# alltoall moves activations without error feedback. The cross dtype lives
+# in the wire registry under the key ``a2a:<ps>@dcn``, so pins, the
+# runtime's syncs and the clears behave as the wire's do.
+# ----------------------------------------------------------------------------
+
+_a2a_strategy_registry = {}    # ps_label -> (value, "user" | "runtime")
+
+
+def set_alltoall_strategy(strategy, ps_label="global"):
+    """Pin the alltoall dispatch strategy of one process set ('' restores
+    the config default); returns the normalized value."""
+    s = _normalize_strategy(strategy)
+    with _wire_lock:
+        _a2a_strategy_registry[str(ps_label)] = (s, "user")
+    return s
+
+
+def runtime_sync_alltoall_strategy(strategy, ps_label="global"):
+    """A runtime's adoption of an alltoall strategy: defers to a user pin
+    like :func:`runtime_sync_dispatch_strategy`."""
+    s = _normalize_strategy(strategy)
+    with _wire_lock:
+        cur = _a2a_strategy_registry.get(str(ps_label))
+        if cur is not None and cur[1] == "user":
+            return cur[0]
+        _a2a_strategy_registry[str(ps_label)] = (s, "runtime")
+    return s
+
+
+def alltoall_strategy_for(ps_label, default=""):
+    """Effective alltoall strategy of a process set: the registry's entry,
+    else ``default`` (``hier_qcross`` under
+    ``HOROVOD_HIERARCHICAL_ALLTOALL``)."""
+    with _wire_lock:
+        v = _a2a_strategy_registry.get(str(ps_label))
+    return (default or "") if v is None or not v[0] else v[0]
+
+
+def alltoall_strategy_pinned():
+    """True when any process set has an alltoall strategy entry (the eager
+    route's fast exit when the tier is disarmed everywhere)."""
+    with _wire_lock:
+        return bool(_a2a_strategy_registry)
+
+
+def set_alltoall_cross_dtype(dtype, ps_label="global"):
+    """Pin the wire of the hierarchical alltoall's cross-slice leg for one
+    process set ('' restores the config default)."""
+    return set_wire_dtype(dtype, f"a2a:{ps_label}", tier="dcn")
+
+
+def runtime_sync_alltoall_cross_dtype(dtype, ps_label="global"):
+    """A runtime's adoption of the alltoall cross wire; defers to a user
+    pin."""
+    return runtime_sync_wire_dtype(dtype, f"a2a:{ps_label}", tier="dcn")
+
+
+def alltoall_cross_wire_for(ps_label, config):
+    """Effective wire of the hierarchical alltoall's cross-slice leg: the
+    ``a2a:<ps>@dcn`` entry, else ``HOROVOD_ALLTOALL_CROSS_DTYPE``. Never
+    the allreduce's DCN wire: an alltoall moves activations without error
+    feedback, so quantizing them is an explicit choice."""
+    default = getattr(config, "alltoall_cross_dtype", "")
+    return wire_dtype_for(f"a2a:{ps_label}", default, tier="dcn")
 
 
 # ----------------------------------------------------------------------------

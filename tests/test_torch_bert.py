@@ -40,7 +40,8 @@ def draw_params(model, *args, seed=0):
     kernels normal with variance 1/fan-in, embeddings normal with variance
     1/features, norm scales 1 + N(0, 0.1), biases N(0, 0.02)."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            *args)["params"]
 
     def draw(path, leaf):
         name, shape = path[-1].key, leaf.shape
@@ -54,7 +55,7 @@ def draw_params(model, *args, seed=0):
         else:
             z = 0.02 * z
         return z.astype(np.float32)
-    return jax.tree_util.tree_map_with_path(draw, shapes)["params"]
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def _batch(seed=1):

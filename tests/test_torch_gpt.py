@@ -28,6 +28,7 @@ from horovod_tpu.models import gpt as jg
 from horovod_tpu.parallel import tp as jtp
 from horovod_tpu_torch.models import gpt as tg
 from horovod_tpu_torch.parallel import tp as ttp
+from test_torch_bert import draw_params
 
 KW = dict(num_layers=2, max_position_embeddings=128, tp_axis=None,
           ep_axis=None)
@@ -145,17 +146,38 @@ def test_load_flax_gpt_refuses_missing_and_extra_leaves(flax_params):
         _torch_model(bad)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"tp_axis": "tp", "ep_axis": "ep"}, "A12"),
-    ({"ep_axis": "ep"}, "A12"),
-    ({"num_experts": 2}, "A12"),
-    ({"sp_axis": "sp", "num_experts": 2}, "A12")])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    """The expert axis and MoE blocks (A12's second half) still refuse, with
-    the tensor and sequence axes (ported) beside them or not."""
-    with pytest.raises(NotImplementedError, match=item) as e:
-        tg.GPT(tg.GPTConfig.tiny(**kw))
-    assert "moe.py" in str(e.value)
+EXPERT_OPTIONS = [{"tp_axis": "tp", "ep_axis": "ep"}, {"ep_axis": "ep"},
+                  {"num_experts": 2}, {"sp_axis": "sp", "num_experts": 2}]
+
+
+@pytest.mark.parametrize("kw", EXPERT_OPTIONS)
+def test_expert_options_build_and_match_jax(kw):
+    """The expert axis and MoE blocks (ported with A12's second half) build,
+    with the tensor and sequence axes beside them or not, and with no axis
+    bound give JAX's logits for the same config and Flax weights (MoE blocks
+    every second layer)."""
+    ids = _ids(16)
+    jm = jg.GPT(jg.GPTConfig.tiny(num_layers=2, max_position_embeddings=64,
+                                  **{"tp_axis": None, "ep_axis": None,
+                                     **kw}))
+    params = draw_params(jm, jnp.asarray(ids), seed=3)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids)))
+    m = tg.load_flax_gpt(tg.GPT(tg.GPTConfig.tiny(
+        num_layers=2, max_position_embeddings=64, **kw)), params)
+    assert isinstance(m.layer_1, tg.GPTMoEBlock) == bool(
+        kw.get("num_experts"))
+    got = m(torch.from_numpy(ids).long()).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [{}, {"num_experts": 2}])
+def test_unported_options_name_their_roadmap_item(kw):
+    """Decode (A15) still refuses, on the dense model and the MoE one."""
+    with pytest.raises(NotImplementedError, match="A15"):
+        tg.GPT(tg.GPTConfig.tiny(**kw), decode=True)
+    m = tg.GPT(tg.GPTConfig.tiny(num_layers=2, **kw))
+    with pytest.raises(NotImplementedError, match="A15"):
+        m(torch.zeros(1, 4, dtype=torch.long), pos=0)
 
 
 def test_decode_is_not_ported_yet():

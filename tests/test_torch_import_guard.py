@@ -40,6 +40,17 @@ import horovod_tpu_torch.parallel.tp
 import horovod_tpu_torch.parallel.dp
 import horovod_tpu_torch.parallel.fsdp
 from horovod_tpu_torch.elastic import sharded
+import horovod_tpu_torch.parallel.moe
+import horovod_tpu_torch.parallel.pp
+import horovod_tpu_torch.parallel.composite
+from horovod_tpu_torch.parallel import (pipeline, pipeline_1f1b,
+    split_microbatches, stack_stage_params, MoEMlp, CompositeGPT,
+    CompositeLlama, build_mesh3d, build_mesh4d)
+from horovod_tpu_torch.parallel.strategies import (alltoall_tiered,
+    alltoall_tiered_groups, a2a_hierarchy_for)
+assert hvd.set_alltoall_strategy is horovod_tpu_torch.ops.wire.set_alltoall_strategy
+assert hvd.set_alltoall_cross_dtype is horovod_tpu_torch.ops.wire.set_alltoall_cross_dtype
+assert horovod_tpu_torch.models.gpt.GPTMoEBlock
 assert sharded.gather_to_host and sharded.zero_reshard and sharded.fsdp_reshard
 assert horovod_tpu_torch.parallel.sequence.ring_hop_forward
 assert horovod_tpu_torch.common.topology.TP_AXIS == "tp"
