@@ -49,7 +49,10 @@ Phases, one JSON line each (each with its seconds):
    heads over 4 kv heads; the GPT path's L = 1024, D = 64; in bf16 the
    BERT path's (BH = 512, L = 128, not causal), the LLaMA path's (128
    query rows over 64 kv rows, L = 1024, causal) and the ViT path's (BH =
-   1536, L = 196, not causal: the last 64-key tile holds 4 keys). fp32, and lse
+   1536, L = 196, not causal: the last 64-key tile holds 4 keys), the
+   composites' microbatches, and the GPT decodes' re-forwards (BH = 96 and
+   384 at L = 128; speculative decoding's BH = 96 at L = 133, whose last
+   64-key tile holds 5 keys). fp32, and lse
    in every dtype, within tolerance; the bf16/fp16 forward, dQ and dK/dV,
    which round P and dS on the tensor cores, within the rounding bound (c
    and u printed) of the plain versions that round where they do, and a
@@ -120,8 +123,8 @@ Phases, one JSON line each (each with its seconds):
    allgather_object, sparse_allreduce_async and join() (returns 0); every
    tensor output on the card.
 12. timing_flash: each flash kernel alone at the GPT path's shapes
-   (BH = 96, L = 1024, D = 64, bf16, causal), then at BERT's, LLaMA's and
-   ViT's,
+   (BH = 96, L = 1024, D = 64, bf16, causal), then at every other path's
+   shape (BERT's, LLaMA's, ViT's, the composites' and the decodes'),
    its plain version and torch's scaled_dot_product_attention (forward, and
    backward alone; enable_gqa for LLaMA; for timing only, the port never
    calls it), CUDA events, median of repeats, beside the least time the
@@ -335,9 +338,46 @@ collectives over a DeviceMesh (``ops/in_step.py``).
    VIRTUAL_LIMITS; M + S - 1 and M + 2S - 2 ticks; a control with one
    hop dropped that must fail the output bound by more than 10x.
 
+Phases 36-40 run after pipeline_virtual: A14, the remaining models.
+
+36. train_t5: T5-small (bench.py:615-640: vocab 32128, hidden 512, 6 + 6
+   layers, 8 heads, GEGLU 1024, 70,664,704 parameters, bf16) on 16 x 512
+   source and 512 target tokens from --seed, next-token loss in fp32,
+   AdamW(1e-4) in hvd.DistributedOptimizer, remat off and then on from
+   the same weights: finite, falling losses, bit-equal between the two, a
+   lower peak with remat, a pack and an unpack per bucket every step (no
+   flash: the relative bias keeps attention on the plain path). Reported:
+   tokens/s, device ms a step by kind (torch.profiler) and the step's 18
+   plain attentions timed apart at its shapes.
+37-38. train_vgg16 and train_inception3: VGG-16 (classic head, 138,357,544
+   parameters) on 64 x 224 x 224 and Inception V3 (aux head on, its loss
+   added at 0.4; 27,161,264 parameters) on 64 x 299 x 299 images from
+   --seed, 1000 classes, bf16, dropout 0, SGD with momentum 0.9 (lr 0.1,
+   bench.py's; VGG-16 0.01, its paper's: it diverges at 0.1) in
+   hvd.DistributedOptimizer: finite, falling losses, a pack and an unpack
+   per bucket every step; images/s, device ms by kind, the peak.
+39. train_lora: GPT-2 small (train_gpt's configuration and batch, flash)
+   with rank-8 adapters on every attention and MLP kernel (48), AdamW(1e-3)
+   over the adapters in hvd.DistributedOptimizer, merged functionally into
+   the frozen base: the first loss equal to the base model's (b starts at
+   zero), the base bit-unchanged after the steps, the bytes packed each
+   step equal to lora_wire_numbers' adapter bytes (printed beside the full
+   model's), 12 + 12 + 12 flash launches a step; tokens/s.
+40. generate: bench.py:1196-1240's setting on GPT-2 small (flash; batch 8,
+   a 32-token prompt, max_len 128): greedy generate, beam search (k = 4),
+   sampled generate twice from one generator seed (bit-equal), greedy
+   speculative decoding with the target as its own draft (gamma 4;
+   bit-equal to greedy generate in ceil(96 / 5) = 20 blocks); then T5-small's
+   greedy and beam (k = 4) re-forward decodes of 32 tokens over a 512-token
+   source. Generated tokens/s of each; flash forward launches and no
+   backward ones (flash_vs_plain holds the forward at the decodes' shapes).
+
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
-closed in that step, by the timer, the threshold or synchronize.
+closed in that step, by the timer, the threshold or synchronize. Each phase
+starts after a collection, with the peak statistics reset; the allocated
+memory at each start is printed, and a phase that builds its own models must
+start below OWN_MODEL_START_GB, so every peak_mem_gb is its phase's own.
 
 Then the kernels line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -1220,7 +1260,9 @@ def quantize_cases(torch, buckets, seed):
     cases = []
     for i, numels in enumerate(buckets):
         total = sum(numels)
-        blocks = -(-total // wire.BLOCK)
+        # At least the three blocks the cases below write: the cycle timer
+        # can close a bucket of one small tensor.
+        blocks = max(-(-total // wire.BLOCK), 3)
         x = torch.randn(blocks * wire.BLOCK, generator=gen)
         x *= torch.exp(torch.randn(blocks, generator=gen) * 3) \
             .repeat_interleave(wire.BLOCK)
@@ -1764,10 +1806,24 @@ COMPOSITE_GPT_FLASH_CASE = ("bfloat16", COMPOSITE_MB * GPT_HEADS, GPT_SEQ,
                             GPT_SEQ, GPT_HEAD_DIM, True, None, None, None)
 COMPOSITE_LLAMA_FLASH_CASE = ("bfloat16", COMPOSITE_MB * 16, LLAMA_SEQ,
                               LLAMA_SEQ, 64, True, None, 16, 8)
+# The decodes on GPT-2 small (bench.py:1196-1240): each re-forward runs the
+# whole buffer, max_len columns (B x k rows for the beams), and speculative
+# decoding's max_len + gamma + 1, whose last 64-key tile holds 5 keys.
+GEN_BATCH, GEN_PROMPT, GEN_LEN, GEN_GAMMA = 8, 32, 128, 4
+GEN_BEAMS, GEN_TOP_K, T5_GEN_LEN = 4, 50, 32
+GEN_FLASH_CASE = ("bfloat16", GEN_BATCH * GPT_HEADS, GEN_LEN, GEN_LEN,
+                  GPT_HEAD_DIM, True, None, None, None)
+BEAM_FLASH_CASE = ("bfloat16", GEN_BATCH * GEN_BEAMS * GPT_HEADS, GEN_LEN,
+                   GEN_LEN, GPT_HEAD_DIM, True, None, None, None)
+SPEC_WIDTH = GEN_LEN + GEN_GAMMA + 1
+SPEC_FLASH_CASE = ("bfloat16", GEN_BATCH * GPT_HEADS, SPEC_WIDTH, SPEC_WIDTH,
+                   GPT_HEAD_DIM, True, None, None, None)
 PATH_FLASH_CASES = {"bert": BERT_FLASH_CASE, "llama": LLAMA_FLASH_CASE,
                     "composite_gpt": COMPOSITE_GPT_FLASH_CASE,
                     "composite_llama": COMPOSITE_LLAMA_FLASH_CASE,
-                    "vit": VIT_FLASH_CASE}
+                    "vit": VIT_FLASH_CASE, "generate": GEN_FLASH_CASE,
+                    "beam_search": BEAM_FLASH_CASE,
+                    "speculative": SPEC_FLASH_CASE}
 # Repeats of the ViT step's timing (images/s is their median), steps each.
 VIT_REPEATS, VIT_REPEAT_STEPS = 5, 5
 
@@ -1927,8 +1983,8 @@ def phase_flash_vs_plain(torch, dev, seed):
     check(main_err, f"the main path's shape {MAIN_FLASH_CASE} was checked")
     check(controls, "the off-by-one control ran")
     check(len(path_err) == len(PATH_FLASH_CASES) and len(key_controls) == 2,
-          f"the BERT, LLaMA and ViT shapes were checked, with their "
-          f"controls: {sorted(path_err)}")
+          f"every path's shape was checked, with its control: "
+          f"{sorted(path_err)}")
     emit({"phase": "flash_vs_plain", "cases": len(rows),
           "columns": ["dtype", "BH", "Lq", "Lk", "D", "causal", "kv_valid",
                       "heads", "kv_heads", "err_o", "err_lse", "err_dq",
@@ -2597,9 +2653,7 @@ def vit_loss(F, model, batch):
 
 
 def busy_us(intervals):
-    """Length of the union of (start, end) intervals (as
-    scripts/profile_torch_port.py measures it; a copy, since a module named
-    ``scripts`` elsewhere on the path could shadow that directory)."""
+    """Length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
     for a, b in sorted(intervals):
         if cur_e is None or a > cur_e:
@@ -2613,11 +2667,9 @@ def busy_us(intervals):
     return total
 
 
-def device_ms(torch, step, steps=2, launches=False):
-    """torch.profiler over ``steps`` calls of ``step``: the device's busy
-    ms a step (the union of its kernels' and copies' intervals) and its
-    busy share of the window; with ``launches``, also the device's kernels
-    and copies a step."""
+def device_events(torch, step, steps):
+    """torch.profiler over ``steps`` calls of ``step``: the device's kernels
+    and copies, and the window's span in us."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2630,8 +2682,15 @@ def device_ms(torch, step, steps=2, launches=False):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     check(device, "torch.profiler recorded device time")
-    span = (max(e.time_range.end for e in events)
-            - min(e.time_range.start for e in events))
+    return device, (max(e.time_range.end for e in events)
+                    - min(e.time_range.start for e in events))
+
+
+def device_ms(torch, step, steps=2, launches=False):
+    """The device's busy ms a step under torch.profiler (the union of its
+    kernels' and copies' intervals) and its busy share of the window; with
+    ``launches``, also the device's kernels and copies a step."""
+    device, span = device_events(torch, step, steps)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
     if launches:
         return busy / 1e3 / steps, busy / span, len(device) / steps
@@ -3067,7 +3126,7 @@ def flash_timing(torch, dev, seed, b, h, kvh, L, d, causal):
 
 def phase_timing_flash(torch, dev, seed):
     """The flash kernels timed at the GPT main path's shape (the kernels
-    line's rows), then at the BERT, LLaMA and ViT paths' shapes."""
+    line's rows), then at every other path's shape (the decodes' included)."""
     d = MAIN_FLASH_CASE[4]
     rows, main = flash_timing(torch, dev, seed + 5, GPT_BATCH, GPT_HEADS,
                               GPT_HEADS, GPT_SEQ, d, True)
@@ -3077,7 +3136,10 @@ def phase_timing_flash(torch, dev, seed):
             ("llama", (LLAMA_BATCH, LLAMA_FLASH_CASE)),
             ("vit", (VIT_BATCH, VIT_FLASH_CASE)),
             ("composite_gpt", (COMPOSITE_MB, COMPOSITE_GPT_FLASH_CASE)),
-            ("composite_llama", (COMPOSITE_MB, COMPOSITE_LLAMA_FLASH_CASE))):
+            ("composite_llama", (COMPOSITE_MB, COMPOSITE_LLAMA_FLASH_CASE)),
+            ("generate", (GEN_BATCH, GEN_FLASH_CASE)),
+            ("beam_search", (GEN_BATCH * GEN_BEAMS, BEAM_FLASH_CASE)),
+            ("speculative", (GEN_BATCH, SPEC_FLASH_CASE))):
         _, bh, L, _, d, causal, _, h, kvh = case
         h = h or bh // b
         path_rows, extra = flash_timing(torch, dev, seed + 5, b, h,
@@ -3096,18 +3158,28 @@ def phase_timing_flash(torch, dev, seed):
                   "ViT: L = 196, non-causal, the last key tile ragged; "
                   "composite_gpt, composite_llama: the composite "
                   "trainers' and pipeline_virtual's 2 x 1024 "
-                  "microbatches"})
+                  "microbatches; generate, beam_search, speculative: the "
+                  "decodes' re-forwards (forward alone on that path)"})
     return rows, paths
 
 
 def path_shapes(torch):
-    """The parameter shapes of the BERT, LLaMA and ViT paths' models, from
-    copies on the meta device (no memory, no weights)."""
-    from horovod_tpu_torch.models import BertForPreTraining, Llama, ViT
+    """The parameter shapes of the BERT, LLaMA, ViT, T5, VGG-16 and
+    Inception V3 paths' models and of the LoRA path's adapters, from copies
+    on the meta device (no memory, no weights)."""
+    from horovod_tpu_torch.models import (GPT, T5, VGG16, BertForPreTraining,
+                                          InceptionV3, Llama, ViT, lora_init)
     with torch.device("meta"):
         models = {"bert_large": BertForPreTraining(bert_config(torch, True)),
                   "llama_400m": Llama(llama_config(torch, True)),
-                  "vit_b16": ViT(vit_config(torch, True))}
+                  "vit_b16": ViT(vit_config(torch, True)),
+                  "t5_small": T5(t5_config(torch)),
+                  "vgg16": VGG16(num_classes=1000),
+                  "inception_v3": InceptionV3(num_classes=1000,
+                                              aux_logits=True),
+                  "gpt2_small_lora": lora_init(
+                      GPT(gpt_config(torch, use_flash=True)),
+                      rank=LORA_RANK, targets=LORA_TARGETS)["adapters"]}
     return {name: [tuple(p.shape) for p in m.parameters()]
             for name, m in models.items()}
 
@@ -3900,7 +3972,10 @@ def max_saved_numel(torch, fn):
 
     def pack(t):
         most[0] = max(most[0], t.numel())
-        return t
+        # Detached: a saved output returned as it is would close a cycle
+        # through the C++ graph (node -> tensor -> node), and the graph,
+        # never differentiated here, would outlive the phase.
+        return t.detach()
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         out = fn()
     return out, most[0]
@@ -5352,6 +5427,449 @@ def phase_pipeline_virtual(torch, dev, args, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# A14, the remaining models: train_t5, train_vgg16, train_inception3,
+# train_lora, generate.
+# ---------------------------------------------------------------------------
+
+T5_BATCH, T5_SEQ, T5_STEPS = 16, 512, 6     # bench.py:615-640's T5-small
+T5_VOCAB = 32128
+T5_PARAMS = 70_664_704
+IMAGE_BATCH, IMAGE_STEPS = 64, 6            # bench.py:686-689's settings
+# (name, image side, parameters, SGD learning rate). bench.py's 0.1 for
+# both; VGG-16, which has no BatchNorm, diverges there from Flax's init
+# (loss 6.9 at step 1, 62 at step 5, nan at step 8 on an H100), so it takes
+# its paper's 0.01 (Simonyan and Zisserman 2014, section 3.1).
+IMAGE_MODELS = {"vgg16": ("VGG-16", 224, 138_357_544, 0.01),
+                "inception3": ("Inception V3", 299, 27_161_264, 0.1)}
+INCEPTION_AUX_WEIGHT = 0.4      # the aux loss's weight in the Inception recipe
+LORA_RANK, LORA_STEPS = 8, 6
+LORA_TARGETS = r"layer_\d+/(attention|mlp)/"   # every attention and MLP kernel
+# The phases that build their own models, and what may still be allocated
+# when one starts (the fusion runtime's persistent buffers, ids and the like):
+# every earlier phase's models and optimizer states are gone by then, so each
+# phase's peak_mem_gb is its own.
+OWN_MODEL_PHASES = ("train_bert", "train_llama", "train_vit",
+                    "train_gpt_chunked", "train_powersgd", "train_gpt_tp_sp",
+                    "ring_flash", "train_zero_fsdp", "train_gpt_moe",
+                    "train_composite", "pipeline_virtual", "train_t5",
+                    "train_vgg16", "train_inception3", "train_lora",
+                    "generate")
+OWN_MODEL_START_GB = 1.0
+# Device time by kind of kernel, matched on the kernel's name (lower case),
+# first match wins: cuDNN's convolutions, whose names carry "gemm" too, are
+# matched before the GEMMs. scripts/profile_torch_port.py uses this table.
+KINDS = (
+    ("flash_fwd", ("fa_fwd_kernel", "fa_fwd_mma_kernel")),
+    ("flash_bwd_dq", ("fa_bwd_dq_kernel", "fa_bwd_dq_mma_kernel")),
+    ("flash_bwd_dkv", ("fa_bwd_dkv_kernel", "fa_bwd_dkv_mma_kernel")),
+    ("scale_pack_unpack", ("scale_copy_kernel",)),
+    ("adasum_combine", ("adasum_level_kernel", "adasum_partials_kernel",
+                        "adasum_apply_kernel")),
+    ("nccl", ("nccl",)),
+    ("norm", ("layer_norm", "layernorm", "rms")),
+    ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
+    ("optimizer", ("adam", "sgd", "multi_tensor_apply", "foreach")),
+    ("conv", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
+    ("tf32_gemm", ("tf32", "s1688gemm")),
+    ("fp32_gemm", ("sgemm", "f32f32", "gemm_f32", "_32x", "simt")),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("pool", ("pool",)),
+)
+
+
+def kind_of(name):
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "elementwise_and_other"
+
+
+def device_by_kind(torch, step, steps=2):
+    """:func:`device_ms`'s busy ms a step and busy share, and the device's
+    kernels' and copies' ms a step by kind (``KINDS``)."""
+    device, span = device_events(torch, step, steps)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    kinds = {}
+    for e in device:
+        k = kind_of(e.name)
+        kinds[k] = kinds.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    return busy / 1e3 / steps, busy / span, dict(
+        sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
+def held_tensors(torch, n=12):
+    """The ``n`` largest CUDA tensors the garbage collector can see, as
+    (shape, dtype, GB), largest first: what still holds memory between
+    phases (a tensor held only inside autograd's graph is not seen)."""
+    seen = {}
+    for o in gc.get_objects():
+        try:
+            if torch.is_tensor(o) and o.is_cuda:
+                key = o.untyped_storage().data_ptr()
+                gb = o.untyped_storage().nbytes() / 1e9
+                if gb > seen.get(key, (0,))[0]:
+                    seen[key] = (gb, list(o.shape), str(o.dtype))
+        except Exception:  # noqa: BLE001 — a lazy or odd object: skip it
+            continue
+    return [[shape, dtype, gb] for gb, shape, dtype in
+            sorted(seen.values(), key=lambda r: -r[0])[:n]]
+
+
+def t5_config(torch, **kw):
+    from horovod_tpu_torch.models import T5Config
+    return T5Config(vocab_size=T5_VOCAB, hidden_size=512, num_layers=6,
+                    num_heads=8, intermediate_size=1024,
+                    dtype=torch.bfloat16, tp_axis=None, **kw)
+
+
+def build_t5(torch, dev, seed, **kw):
+    from horovod_tpu_torch.models import T5
+    model = build_on(torch, dev, lambda g: T5(t5_config(torch, **kw),
+                                              generator=g), seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == T5_PARAMS, f"T5-small (6 + 6 layers, untied lm_head) "
+          f"has {T5_PARAMS:,} parameters, this model {n_params}")
+    return model
+
+
+def t5_attention_ms(torch, dev):
+    """The plain attention of one T5-small step, apart: forward and
+    backward of each kind at the step's shapes (CUDA events, median), and
+    the step's total (6 layers of each)."""
+    from horovod_tpu_torch.parallel.tp import plain_attention
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf16
+                           ).requires_grad_()
+    q, k, v = (leaf(T5_BATCH, T5_SEQ, 8, 64) for _ in range(3))
+    bias = leaf(8, T5_SEQ, T5_SEQ)
+    grad = torch.randn(T5_BATCH, T5_SEQ, 8, 64, generator=gen, device=dev,
+                       dtype=bf16)
+    cases = {"encoder_self_bias": dict(bias=bias, causal=False),
+             "decoder_self_bias_causal": dict(bias=bias, causal=True),
+             "cross": dict()}
+    ms = {name: event_ms(lambda kw=kw: torch.autograd.backward(
+        plain_attention(q, k, v, bf16, **kw), grad), reps=10)
+        for name, kw in cases.items()}
+    return {"fwd_bwd_ms_by_kind": ms,
+            "per_step_ms": 6 * sum(ms.values())}
+
+
+def phase_train_t5(torch, hvd, dev, args, card):
+    """T5-small at bench.py's widths, bf16, 16 x 512 -> 512 tokens from
+    --seed, next-token loss in fp32, AdamW(1e-4) in hvd.DistributedOptimizer,
+    remat off and then on from the same weights: finite, falling losses,
+    bit-equal between the two, a lower peak with remat, a pack and an
+    unpack per bucket every step; tokens/s, device ms by kind with the
+    plain attention (relative bias) apart."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 15)
+    src, tgt = (torch.randint(0, T5_VOCAB, (T5_BATCH, T5_SEQ),
+                              generator=gen, device=dev) for _ in range(2))
+    runs, launches, split = {}, None, None
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_t5(torch, dev, args.seed, remat=remat)
+
+        def loss(model=model):
+            return next_token_loss(F, model(src, tgt), tgt)
+        opt, run = train_steps(torch, hvd, model, loss, args, T5_STEPS,
+                               (0, 0, 0), lr=1e-4)
+        elapsed = run.pop("elapsed")
+        run.pop("closed")
+        run["tokens_per_sec"] = T5_BATCH * T5_SEQ * T5_STEPS / elapsed
+        if not remat:
+            launches = run["launches"]
+
+            def step(model=model, opt=opt):
+                opt.zero_grad()
+                loss(model).backward()
+                opt.step()
+            busy, share, kinds = device_by_kind(torch, step)
+            run.update(device_ms_per_step=busy, device_busy_share=share,
+                       device_ms_by_kind_per_step=kinds)
+        runs["remat" if remat else "no_remat"] = run
+        del model, opt
+    off, on = runs["no_remat"], runs["remat"]
+    check(on["losses"] == off["losses"],
+          f"remat's losses bit-equal: {on['losses']} vs {off['losses']}")
+    check(on["peak_mem_gb"] < off["peak_mem_gb"],
+          f"remat lowers the peak: {on['peak_mem_gb']} vs "
+          f"{off['peak_mem_gb']} GB")
+    attention = t5_attention_ms(torch, dev)
+    attention["share_of_step_device_ms"] = (
+        attention["per_step_ms"] / off["device_ms_per_step"])
+    emit({"phase": "train_t5", "model": "T5-small", "params": T5_PARAMS,
+          "layers_per_stack": 6, "batch": T5_BATCH, "source": T5_SEQ,
+          "target": T5_SEQ, "dtype": "bfloat16",
+          "optimizer": ADAMW.format(lr=1e-4), **runs,
+          "remat_losses_bit_equal": True,
+          "plain_attention_apart": attention,
+          "note": "tokens: decoder tokens; plain_attention_apart: the "
+                  "step's 18 plain attentions (6 encoder with the "
+                  "relative bias, 6 decoder causal with it, 6 cross) "
+                  "timed alone at its shapes, forward and backward",
+          "card": card})
+    return launches
+
+
+def phase_train_image(torch, hvd, dev, args, card, which):
+    """VGG-16 (224 x 224, classic head) or Inception V3 (299 x 299, the aux
+    head on, its loss added at INCEPTION_AUX_WEIGHT), 1000 classes, bf16,
+    dropout 0, 64 images and labels from --seed, SGD (IMAGE_MODELS' rate,
+    momentum 0.9) in hvd.DistributedOptimizer: finite, falling losses, a
+    pack and an unpack per bucket every step; images/s, device ms by kind,
+    the peak."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import VGG16, InceptionV3
+    name, side, n_want, lr = IMAGE_MODELS[which]
+    if which == "vgg16":
+        model = build_on(torch, dev, lambda g: VGG16(
+            num_classes=1000, dtype=torch.bfloat16, dropout_rate=0.0,
+            image_size=side, generator=g), args.seed)
+
+        def loss():
+            return F.cross_entropy(model(x), y)
+    else:
+        model = build_on(torch, dev, lambda g: InceptionV3(
+            num_classes=1000, dtype=torch.bfloat16, aux_logits=True,
+            dropout_rate=0.0, generator=g), args.seed)
+
+        def loss():
+            logits, aux = model(x)
+            return F.cross_entropy(logits, y) + INCEPTION_AUX_WEIGHT * \
+                F.cross_entropy(aux, y)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == n_want, f"{name} has {n_want:,} parameters, this "
+          f"model {n_params}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 18)
+    x = torch.randn((IMAGE_BATCH, side, side, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (IMAGE_BATCH,), generator=gen, device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    opt, run = train_steps(torch, hvd, model, loss, args, IMAGE_STEPS,
+                           (0, 0, 0), opt=opt)
+    elapsed = run.pop("elapsed")
+    run.pop("closed")
+
+    def step():
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+    busy, share, kinds = device_by_kind(torch, step)
+    emit({"phase": f"train_{which}", "model": name, "params": n_params,
+          "batch": IMAGE_BATCH, "image": [side, side, 3],
+          "dtype": "bfloat16", "param_dtype": "float32",
+          "optimizer": f"SGD(lr={lr}, momentum=0.9)", "dropout_rate": 0.0,
+          **({"aux_logits": True, "aux_weight": INCEPTION_AUX_WEIGHT}
+             if which == "inception3" else {"classic_head": True}),
+          **run, "images_per_sec": IMAGE_BATCH * IMAGE_STEPS / elapsed,
+          "device_ms_per_step": busy, "device_busy_share": share,
+          "device_ms_by_kind_per_step": kinds, "card": card})
+    return run["launches"]
+
+
+def phase_train_lora(torch, hvd, dev, args, card):
+    """GPT-2 small (train_gpt's configuration, flash) with rank-8 adapters
+    on every attention and MLP kernel, AdamW(1e-3) over the adapters in
+    hvd.DistributedOptimizer, the base frozen: the first loss equal to the
+    base model's, the base bit-unchanged after the steps, the bytes packed
+    each step equal to lora_wire_numbers' adapter bytes, every flash kernel
+    and both scale kernels launched; tokens/s."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import lora as L
+
+    model = build_gpt(torch, dev, args.seed)
+    ids = gpt_batch(torch, model, dev, args.seed)
+    lora = L.lora_init(model, rank=LORA_RANK, targets=LORA_TARGETS,
+                       rng=torch.Generator().manual_seed(args.seed + 16))
+    adapters = lora["adapters"]
+    check(len(adapters) == 4 * GPT_LAYERS,
+          f"adapters on the 4 kernels of each block: {len(adapters)}")
+    base = L.frozen_params(model)
+    before = {n: t.clone() for n, t in base.items()}
+
+    def loss_fn(params, batch):
+        return next_token_loss(F, torch.func.functional_call(
+            model, params, (batch,)), batch)
+    adapter_loss = L.adapter_loss_fn(loss_fn, base, lora)
+    with torch.no_grad():
+        base_loss = next_token_loss(F, model(ids), ids).item()
+    adapter_bytes, full_bytes = L.lora_wire_numbers(model, lora)
+    opt, run = train_steps(torch, hvd, adapters,
+                           lambda: adapter_loss(adapters, ids), args,
+                           LORA_STEPS, (GPT_LAYERS,) * 3, lr=1e-3)
+    elapsed = run.pop("elapsed")
+    closed = run.pop("closed")
+    packed = [sum(n * getattr(torch, sig[4].split(".")[-1]).itemsize
+                  for _, sig in step for _, n in sig[-1])
+              for step in closed]
+    check(run["losses"][0] == base_loss,
+          f"the first loss is the base model's (b starts at zero): "
+          f"{run['losses'][0]} vs {base_loss}")
+    check(all(torch.equal(p, before[n]) for n, p in model.named_parameters()),
+          "the base parameters are bit-unchanged after the steps")
+    check(all(b == adapter_bytes for b in packed),
+          f"the bytes packed each step are the adapters': {packed} vs "
+          f"{adapter_bytes}")
+    emit({"phase": "train_lora", "model": "GPT-2 small + LoRA",
+          "rank": LORA_RANK, "targets": LORA_TARGETS,
+          "adapters": len(adapters),
+          "adapter_params": sum(p.numel() for p in adapters.parameters()),
+          "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "optimizer": ADAMW.format(lr=1e-3) + " over the adapters",
+          **run, "base_loss": base_loss, "first_loss_is_base": True,
+          "base_bit_unchanged": True, "packed_bytes_per_step": packed,
+          "lora_wire_numbers": {"adapter_bytes": adapter_bytes,
+                                "full_bytes": full_bytes,
+                                "share": adapter_bytes / full_bytes},
+          "tokens_per_sec": GPT_BATCH * GPT_SEQ * LORA_STEPS / elapsed,
+          "card": card})
+    return run["launches"]
+
+
+def timed_call(torch, fn):
+    """``fn()`` and its seconds, host clock to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_generate(torch, dev, args, card):
+    """bench.py's decoding setting on GPT-2 small (flash; batch 8, a 32-token
+    prompt, max_len 128): greedy generate, beam search (k = 4), sampled
+    generate twice from one generator seed (bit-equal streams), greedy
+    speculative decoding with the target as its own draft (gamma 4:
+    bit-equal to greedy generate in the minimal block count); then T5-small's
+    greedy and beam re-forward decodes of 32 tokens over a 512-token
+    source. Generated tokens/s of each; flash forward launches, no
+    backward."""
+    from horovod_tpu_torch.models import (beam_search, generate,
+                                          speculative_generate,
+                                          t5_beam_decode, t5_greedy_decode)
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    model = build_gpt(torch, dev, args.seed).eval()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    prompt = torch.randint(0, GPT_VOCAB, (GEN_BATCH, GEN_PROMPT),
+                           generator=gen, device=dev)
+    t5 = build_t5(torch, dev, args.seed).eval()
+    src = torch.randint(0, T5_VOCAB, (GEN_BATCH, T5_SEQ), generator=gen,
+                        device=dev)
+    generate(model, prompt, GEN_PROMPT + 8)           # warm-up, unchecked
+    fa.reset_launch_counts()                          # the path starts here
+    sb.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    new = GEN_BATCH * (GEN_LEN - GEN_PROMPT)
+    out, rates = {}, {}
+    greedy, s = timed_call(torch, lambda: generate(model, prompt, GEN_LEN))
+    rates["greedy"] = new / s
+    (beams, scores), s = timed_call(torch, lambda: beam_search(
+        model, prompt, GEN_LEN, num_beams=GEN_BEAMS))
+    rates["beam_k4"] = new / s
+    sampled = []
+    for _ in range(2):
+        g = torch.Generator(device=dev).manual_seed(args.seed + 19)
+        toks, s = timed_call(torch, lambda g=g: generate(
+            model, prompt, GEN_LEN, temperature=1.0, top_k=GEN_TOP_K, rng=g))
+        sampled.append(toks)
+        rates.setdefault("sampled", []).append(new / s)
+    (spec, stats), s = timed_call(torch, lambda: speculative_generate(
+        model, model, prompt, GEN_LEN, gamma=GEN_GAMMA, return_stats=True))
+    rates["speculative_greedy"] = new / s
+    t5_new = GEN_BATCH * (T5_GEN_LEN - 1)
+    t5_greedy, s = timed_call(torch, lambda: t5_greedy_decode(
+        t5, src, T5_GEN_LEN))
+    rates["t5_greedy"] = t5_new / s
+    (t5_beams, t5_scores), s = timed_call(torch, lambda: t5_beam_decode(
+        t5, src, T5_GEN_LEN, num_beams=GEN_BEAMS))
+    rates["t5_beam_k4"] = t5_new / s
+    launches = dict(zip(STEP_COUNTS, step_counts(fa, sb)))   # the path ends
+    blocks_min = math.ceil((GEN_LEN - GEN_PROMPT) / (GEN_GAMMA + 1))
+    for name, toks in (("greedy", greedy), ("beam", beams),
+                       ("sampled", sampled[0]), ("speculative", spec)):
+        check(toks.shape == (GEN_BATCH, GEN_LEN) and torch.equal(
+            toks[:, :GEN_PROMPT], prompt) and int(toks.min()) >= 0
+            and int(toks.max()) < GPT_VOCAB,
+            f"{name}: (B, max_len) tokens after the prompt")
+    check(torch.equal(sampled[0], sampled[1]),
+          "one generator seed, one sampled stream")
+    check(not torch.equal(sampled[0], greedy),
+          "the sampled stream is not the greedy one")
+    check(torch.equal(spec, greedy),
+          "greedy speculative decoding equals greedy generate")
+    check(stats["blocks"] == blocks_min,
+          f"a perfect draft's block count {blocks_min}: {stats}")
+    check(bool(torch.isfinite(scores).all()) and bool(
+        torch.isfinite(t5_scores).all()), "finite beam scores")
+    for toks in (t5_greedy, t5_beams):
+        check(toks.shape == (GEN_BATCH, T5_GEN_LEN)
+              and bool((toks[:, 0] == 0).all()),
+              "T5: (B, 32) tokens after bos")
+    check(launches["flash_fwd"] > 0 and launches["flash_bwd_dq"] == 0
+          and launches["flash_bwd_dkv"] == 0,
+          f"flash forward launches and no backward: {launches}")
+    emit({"phase": "generate", "model": "GPT-2 small; T5-small",
+          "batch": GEN_BATCH, "prompt": GEN_PROMPT, "max_len": GEN_LEN,
+          "gamma": GEN_GAMMA, "beams": GEN_BEAMS, "top_k": GEN_TOP_K,
+          "t5_source": T5_SEQ, "t5_max_len": T5_GEN_LEN,
+          "generated_tokens_per_sec": rates,
+          "speculative_bit_equal_to_greedy": True,
+          "speculative_blocks": stats["blocks"],
+          "beam_scores_mean": float(scores.mean()),
+          "sampled_streams_bit_equal": True, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "note": "re-forward decoding: each generated token is one "
+                  "forward of the whole buffer (the KV cache is A15); "
+                  "tokens/s: generated tokens over the host clock",
+          "card": card})
+    return launches
+
+
+class PhaseRunner:
+    """``run(name, fn, *args)`` calls one phase and returns what it returns.
+    Each phase's peak is its own: what earlier phases left is collected and
+    the peak statistics reset first, and what is still allocated is
+    recorded in ``start_gb`` (with the largest tensors the collector sees,
+    where a phase that builds its own models starts holding too much). A
+    phase's exception propagates, after the starts so far are printed."""
+
+    def __init__(self, torch):
+        self.torch, self.seconds, self.start_gb = torch, {}, {}
+
+    def __call__(self, name, fn, *args):
+        torch = self.torch
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        gb = self.start_gb[name] = torch.cuda.memory_allocated() / 1e9
+        if name in OWN_MODEL_PHASES and gb >= OWN_MODEL_START_GB:
+            emit({"phase": f"{name}_starts_holding", "allocated_gb": gb,
+                  "largest_visible_tensors": held_tensors(torch)})
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        except BaseException:
+            emit({"phase": "allocated_gb_at_phase_start", **self.start_gb})
+            raise
+        self.seconds[name] = time.perf_counter() - t0
+        return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5383,13 +5901,8 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.benchmark = True
-    seconds = {}
-
-    def run(name, fn, *a):
-        t0 = time.perf_counter()
-        out = fn(*a)
-        seconds[name] = time.perf_counter() - t0
-        return out
+    run = PhaseRunner(torch)
+    seconds, start_gb = run.seconds, run.start_gb
 
     def resnet50():
         m = ResNet50(num_classes=1000, dtype=torch.bfloat16,
@@ -5501,6 +6014,16 @@ def main(argv=None):
     gc.collect()
     virtual_launches = run("pipeline_virtual", phase_pipeline_virtual,
                            torch, dev, args, card)
+    t5_launches = run("train_t5", phase_train_t5, torch, hvd, dev, args,
+                      card)
+    vgg_launches = run("train_vgg16", phase_train_image, torch, hvd, dev,
+                       args, card, "vgg16")
+    inception_launches = run("train_inception3", phase_train_image, torch,
+                             hvd, dev, args, card, "inception3")
+    lora_launches = run("train_lora", phase_train_lora, torch, hvd, dev,
+                        args, card)
+    generate_launches = run("generate", phase_generate, torch, dev, args,
+                            card)
     gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
@@ -5514,12 +6037,17 @@ def main(argv=None):
     run("launch_elastic_cpu_world", phase_launch_elastic_cpu_world, args)
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
+    emit({"phase": "allocated_gb_at_phase_start", **start_gb})
+    check(all(start_gb[p] < OWN_MODEL_START_GB for p in OWN_MODEL_PHASES),
+          f"the phases that build their own models start with less than "
+          f"{OWN_MODEL_START_GB} GB allocated: {start_gb}")
     source = "horovod_tpu_torch/ops/kernels/csrc/scale_buffers.cu"
     transformer_paths = ("train_gpt", "train_bert", "train_llama",
                          "train_vit", "launch", "train_gpt_chunked",
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
                          "train_zero", "train_fsdp", "train_gpt_moe",
-                         "train_composite", "pipeline_virtual")
+                         "train_composite", "pipeline_virtual", "train_lora",
+                         "generate")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -5532,12 +6060,17 @@ def main(argv=None):
                    train_zero=zero_launches, train_fsdp=fsdp_launches,
                    train_gpt_moe=moe_launches,
                    train_composite=composite_launches,
-                   pipeline_virtual=virtual_launches)
+                   pipeline_virtual=virtual_launches,
+                   train_t5=t5_launches, train_vgg16=vgg_launches,
+                   train_inception3=inception_launches,
+                   train_lora=lora_launches, generate=generate_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
-                   "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe")
+                   "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe",
+                   "train_t5", "train_vgg16", "train_inception3",
+                   "train_lora")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),
@@ -5557,6 +6090,16 @@ def main(argv=None):
           f"the chunked-loss, PowerSGD, mesh and MoE paths launched every "
           f"flash and scale kernel: {chunked_launches}, "
           f"{powersgd_launches}, {tp_sp_launches}, {moe_launches}")
+    check(all(by_path[p][k] > 0 for p in ("train_t5", "train_vgg16",
+                                          "train_inception3", "train_lora")
+              for k in ("scale_pack", "scale_unpack")),
+          f"the T5, VGG-16, Inception V3 and LoRA paths launched both scale "
+          f"kernels: {t5_launches}, {vgg_launches}, {inception_launches}, "
+          f"{lora_launches}")
+    check(all(lora_launches[k] > 0 for k in FLASH_COUNTS)
+          and generate_launches["flash_fwd"] > 0,
+          f"the LoRA path launched every flash kernel and generate the "
+          f"forward: {lora_launches}, {generate_launches}")
     kernels = [
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
@@ -5594,8 +6137,8 @@ def main(argv=None):
          **({"plain_and_library_cover": row["plain_and_library_cover"]}
             if "plain_and_library_cover" in row else {}),
          "times_note": "ms, plain_ms, bound_ms and library_ms at the GPT "
-                       "path's shape; by_path: the BERT, LLaMA and ViT "
-                       "shapes",
+                       "path's shape; by_path: the other paths' shapes "
+                       "(the decodes run the forward alone)",
          "by_path": {p: {k: r["kernels"][name][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
              for p, r in flash_paths.items()}}

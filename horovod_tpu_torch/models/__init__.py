@@ -19,3 +19,26 @@ from horovod_tpu_torch.models.vit import ViT, ViTConfig, load_flax_vit
 __all__ += ["BertConfig", "BertModel", "BertForPreTraining", "load_flax_bert",
             "Llama", "LlamaBlock", "LlamaConfig", "load_flax_llama", "MLP",
             "load_flax_mlp", "ViT", "ViTConfig", "load_flax_vit"]
+from horovod_tpu_torch.models.vgg import (VGG, VGG11, VGG13, VGG16, VGG19,
+                                          load_flax_vgg)
+from horovod_tpu_torch.models.inception import (InceptionV3,
+                                                load_flax_inception)
+from horovod_tpu_torch.models.t5 import (T5, T5Config, load_flax_t5,
+                                         t5_beam_decode, t5_generate,
+                                         t5_greedy_decode)
+from horovod_tpu_torch.models.generate import (beam_search, generate,
+                                               prefill_prefix)
+from horovod_tpu_torch.models.lora import (adapter_loss_fn,
+                                           adapter_loss_fn_via_extra,
+                                           lora_apply, lora_init, lora_merge,
+                                           lora_wire_numbers)
+from horovod_tpu_torch.models.speculative import (speculative_accept,
+                                                  speculative_generate)
+
+__all__ += ["VGG", "VGG11", "VGG13", "VGG16", "VGG19", "load_flax_vgg",
+            "InceptionV3", "load_flax_inception", "T5", "T5Config",
+            "load_flax_t5", "t5_beam_decode", "t5_generate",
+            "t5_greedy_decode", "beam_search", "generate", "prefill_prefix",
+            "adapter_loss_fn", "adapter_loss_fn_via_extra", "lora_apply",
+            "lora_init", "lora_merge", "lora_wire_numbers",
+            "speculative_accept", "speculative_generate"]

@@ -214,7 +214,7 @@ def _leaves(tree, prefix=()):
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "pos_emb": "pos_emb", "w_in": "w_in",
-               "w_out": "w_out"}
+               "w_out": "w_out", "rel_bias": "rel_bias"}
 
 
 def flax_key(path):
@@ -264,7 +264,7 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None,
     """Fill ``model`` from the JAX package's variables of the same model
     (``{"params": ...}`` or the params tree itself, nested dicts of arrays
     under Flax's names), for every model whose modules carry Flax's names
-    (GPT, BERT, LLaMA, the MLP, ViT). Dense kernels go (in, out) ->
+    (GPT, BERT, LLaMA, the MLP, ViT, T5, VGG). Dense kernels go (in, out) ->
     (out, in), convolution kernels HWIO -> OIHW (``FlaxKernel``);
     LayerNorm and RMSNorm ``scale`` -> ``weight``; ``embedding`` ->
     ``weight``. A Flax leaf with no counterpart, a parameter with no Flax

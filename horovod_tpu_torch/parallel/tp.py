@@ -2,9 +2,10 @@
 
 Port of ``ColumnParallelDense``, ``RowParallelDense``, ``apply_rope``,
 ``plain_attention``, ``TPSelfAttention`` (full sequence, RoPE, grouped-query
-K/V, its tp head split and its sequence-parallel route), ``TPMlp``,
-``TPSwiGLUMlp`` and ``TPTransformerBlock``, with Flax's ``LayerNorm`` and
-``RMSNorm``.
+K/V, its tp head split and its sequence-parallel route),
+``TPCrossAttention`` (T5's encoder-decoder attention, with its fused K/V of
+the memory projected once and fed back), ``TPMlp``, ``TPSwiGLUMlp`` and
+``TPTransformerBlock``, with Flax's ``LayerNorm`` and ``RMSNorm``.
 
 Axes are the in-step axes of ``ops/in_step.py``. A layer sizes its
 parameters by the size of its ``axis_name`` when it is constructed: inside
@@ -43,8 +44,8 @@ Flax semantics kept on purpose:
 
 :func:`remat` is ``nn.remat`` for a block: ``torch.utils.checkpoint``.
 
-Decode and per-row RoPE positions (A15) and ``TPCrossAttention`` (A14)
-raise ``NotImplementedError`` naming the ROADMAP item that will bring them.
+Decode and per-row RoPE positions (A15) raise ``NotImplementedError``
+naming the ROADMAP item that will bring them.
 """
 
 import contextlib
@@ -160,7 +161,11 @@ class _Scoped(torch.autograd.Function):
 
 
 def _kept(t):
-    return t
+    # The data without its history: a tensor that its own node saves (a
+    # softmax's output) would otherwise close a cycle through autograd's
+    # C++ graph (node -> saved tensor -> node) that the collector cannot
+    # see, and a forward whose backward never runs would keep its graph.
+    return t.detach()
 
 
 def at_precision(precision, fn, *args):
@@ -532,11 +537,45 @@ class TPSelfAttention(nn.Module):
 
 
 class TPCrossAttention(nn.Module):
-    """Encoder-decoder cross-attention comes with T5."""
+    """Encoder-decoder attention with heads sharded over ``axis_name``: the
+    queries from a column-parallel ``q`` over the decoder stream, K and V
+    from one fused column-parallel ``kv`` over ``memory`` (shard s holds
+    ``[k_s|v_s]``), plain attention with ``memory_mask`` (B, Lk) True on
+    valid keys, and a row-parallel ``out``: one sum over the axis a block,
+    as :class:`TPSelfAttention`."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, num_heads, hidden_size, dtype=torch.float32,
+                 axis_name=TP_AXIS, use_bias=True):
         super().__init__()
-        _not_yet("TPCrossAttention (encoder-decoder attention, T5)", "A14")
+        n = in_step.axis_size_or_1(axis_name)
+        if num_heads % n:
+            raise ValueError(f"num_heads {num_heads} not divisible by tp={n}")
+        self.head_dim = hidden_size // num_heads
+        self.dtype = dtype
+        self.q = ColumnParallelDense(hidden_size, hidden_size,
+                                     use_bias=use_bias, dtype=dtype,
+                                     axis_name=axis_name)
+        self.kv = ColumnParallelDense(hidden_size, 2 * hidden_size,
+                                      use_bias=use_bias, dtype=dtype,
+                                      axis_name=axis_name)
+        self.out = RowParallelDense(hidden_size, hidden_size,
+                                    use_bias=use_bias, dtype=dtype,
+                                    axis_name=axis_name)
+
+    def forward(self, x, memory, memory_mask=None, cached_kv=None,
+                project_only=False):
+        """``project_only=True`` returns the fused K/V of ``memory`` (``x``
+        ignored): a decode loop projects the static memory once and feeds
+        the result back each step as ``cached_kv``."""
+        if project_only:
+            return self.kv(memory)
+        q = self.q(x)
+        kv = cached_kv if cached_kv is not None else self.kv(memory)
+        k, v = kv.chunk(2, dim=-1)
+        q, k, v = (t.unflatten(-1, (-1, self.head_dim)) for t in (q, k, v))
+        out = plain_attention(q, k, v, out_dtype=self.dtype,
+                              mask=memory_mask)
+        return self.out(out.flatten(-2))
 
 
 class TPMlp(nn.Module):

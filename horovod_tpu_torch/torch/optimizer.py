@@ -33,7 +33,15 @@ step, whose lazy init wants a state without them), where
 ``TorchState`` carry them.
 ``backward_passes_per_step`` aggregates first, as JAX's local aggregation
 wraps the whole chain.
+
+Each parameter's hook holds the wrapper weakly. A strong reference would
+close a cycle (parameter -> hook -> optimizer -> parameter) that Python's
+collector cannot break, since it does not traverse a tensor that autograd
+also holds: the model, its gradients and the optimizer state would outlive
+the caller's last reference. A hook whose wrapper is gone does nothing.
 """
+
+import weakref
 
 import torch
 
@@ -109,7 +117,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._handles.clear()
 
     def _make_hook(self):
+        ref = weakref.ref(self)
+
         def hook(p):
+            self = ref()
+            if self is None:
+                return   # the wrapper is gone (see the module docstring)
             self._passes[p] += 1
             if self._passes[p] < self._backward_passes_per_step:
                 return  # local aggregation; reduce on the final pass

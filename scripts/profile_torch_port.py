@@ -42,11 +42,11 @@ Prints JSON lines:
 - a torch.profiler window of ``--profile-steps`` steps: the share of the
   window in which the device runs any kernel or copy (union of the device
   intervals over the window's span), the kernels that take the most device
-  time, and device time by kind of kernel (the port's flash and scale
-  kernels, NCCL, and for the transformers LayerNorm, the fp32 head's
-  products, TF32 at the port's default precision or full fp32 SIMT where a
-  tree asks for it, cross-entropy, AdamW), and the PyTorch operators whose
-  own kernels take the most device time;
+  time, and device time by kind of kernel (``chip_smoke.KINDS``, the
+  table its phases use too: the port's flash, scale and Adasum kernels,
+  NCCL, norms, cross-entropy, the optimizer, convolutions, TF32, fp32 SIMT
+  and other GEMMs, BatchNorm, pools), and the PyTorch operators whose own
+  kernels take the most device time;
 - the card's name, power limit, SM clock and power draw after the run.
 
 Needs one CUDA device; exits 1 without one. Fails if the profiler records
@@ -55,7 +55,6 @@ no device time.
 
 import argparse
 import collections
-import json
 import os
 import statistics
 import subprocess
@@ -63,60 +62,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def emit(obj):
-    print(json.dumps(obj), flush=True)
-
-
-def busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
-# Device time by kind of kernel, matched on the kernel's name (lower case),
-# first match wins.
-KINDS = (
-    ("flash_fwd", ("fa_fwd_kernel", "fa_fwd_mma_kernel")),
-    ("flash_bwd_dq", ("fa_bwd_dq_kernel", "fa_bwd_dq_mma_kernel")),
-    ("flash_bwd_dkv", ("fa_bwd_dkv_kernel", "fa_bwd_dkv_mma_kernel")),
-    ("scale_pack_unpack", ("scale_copy_kernel",)),
-    ("adasum_combine", ("adasum_level_kernel", "adasum_partials_kernel",
-                        "adasum_apply_kernel")),
-    ("nccl", ("nccl",)),
-    ("layer_norm", ("layer_norm", "layernorm")),
-    ("cross_entropy", ("softmax", "nll_loss", "cross_entropy")),
-    ("adamw", ("adam", "multi_tensor_apply", "foreach")),
-    ("tf32_gemm", ("tf32", "s1688gemm")),      # cutlass's TF32 m16n8k8
-    ("fp32_gemm", ("sgemm", "f32f32", "gemm_f32", "_32x", "simt")),
-    ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
-    ("batch_norm", ("batch_norm", "batchnorm")),
-    ("conv", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
-)
-
-
-def kind_of(name):
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "other"
+sys.path.insert(0, ROOT)
+from chip_smoke import busy_us, emit, kind_of  # noqa: E402
 
 
 def top_ops(prof, steps, count=16):
     """The PyTorch operators whose kernels take the most device time (each
     operator's own, not its children's), per step: what the kernels
-    classed "other" belong to."""
+    classed "elementwise_and_other" belong to."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)

@@ -62,6 +62,23 @@ assert horovod_tpu_torch.optim.next_token_xent_chunked
 assert hvd.SyncBatchNorm is horovod_tpu_torch.torch.sync_batch_norm.SyncBatchNorm
 assert hvd.elastic is horovod_tpu_torch.torch.elastic
 assert hvd.elastic.run is state.run and hvd.TorchState and hvd.ElasticSampler
+from horovod_tpu_torch.models import (T5, T5Config, VGG, VGG11, VGG13,
+    VGG16, VGG19, InceptionV3, beam_search, generate, prefill_prefix,
+    lora_init, lora_apply, lora_merge, lora_wire_numbers, adapter_loss_fn,
+    adapter_loss_fn_via_extra, speculative_accept, speculative_generate,
+    t5_greedy_decode, t5_generate, t5_beam_decode, load_flax_t5,
+    load_flax_vgg, load_flax_inception)
+import horovod_tpu_torch.models.t5
+import horovod_tpu_torch.models.vgg
+import horovod_tpu_torch.models.inception
+import horovod_tpu_torch.models.lora
+import horovod_tpu_torch.models.speculative
+gen = sys.modules["horovod_tpu_torch.models.generate"]
+assert gen.generate is generate and gen.beam_reorder_cache
+assert horovod_tpu_torch.parallel.tp.TPCrossAttention
+assert horovod_tpu_torch.models.t5.T5RelativeBias
+assert horovod_tpu_torch.models.inception.InceptionAux
+assert horovod_tpu_torch.models.speculative.rewind_cache
 assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"
 jax_pkg = [m for m in sys.modules
            if m == "horovod_tpu" or m.startswith("horovod_tpu.")]

@@ -145,7 +145,8 @@ def test_wrong_image_size_raises(flax_params):
 def test_tp_axis_raises_naming_its_item():
     """``tp_axis`` is ported (test_torch_tp.py): outside an in-step mesh the
     model is its dense form, parameter for parameter; what still refuses is
-    the encoder-decoder attention of T5 (A14)."""
+    attention in decode mode with a KV cache (A15). T5's encoder-decoder
+    attention, once refused naming A14, builds since A14 landed."""
     dense = tv.ViT(tv.ViTConfig.tiny(), generator=torch.Generator()
                    .manual_seed(0))
     named = tv.ViT(tv.ViTConfig.tiny(tp_axis="tp"),
@@ -154,9 +155,11 @@ def test_tp_axis_raises_naming_its_item():
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    from horovod_tpu_torch.parallel.tp import TPCrossAttention
-    with pytest.raises(NotImplementedError, match="A14"):
-        TPCrossAttention(4, 64)
+    from horovod_tpu_torch.parallel.tp import (TPCrossAttention,
+                                               TPSelfAttention)
+    with pytest.raises(NotImplementedError, match="A15"):
+        TPSelfAttention(4, 64, decode=True)
+    assert TPCrossAttention(4, 64).kv.shard.weight.shape == (128, 64)
 
 
 def test_vit_b16_parameters_match_flax():

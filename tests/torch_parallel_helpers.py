@@ -161,6 +161,66 @@ def sp_models_world(rank, size, axes_, cases):
     return out
 
 
+def t5_tp_world(rank, size, params, src, tgt, mask):
+    """T5 tiny built inside a ``tp`` axis of ``size`` ranks, filled with its
+    shard of ``params`` (JAX's sharded layout): the encoder memory and the
+    logits on the whole batch, and the rows of the first encoder layer's
+    QKV shard."""
+    from horovod_tpu_torch.models.t5 import T5, T5Config, load_flax_t5
+    from horovod_tpu_torch.ops import in_step
+
+    mesh = in_step.make_mesh({"tp": size})
+    with in_step.axes(mesh), torch.no_grad():
+        m = load_flax_t5(T5(T5Config.tiny(tp_axis="tp")), params)
+        tsrc, ttgt, tmask = _t(src).long(), _t(tgt).long(), _t(mask)
+        return {"memory": _np(m.encode(tsrc, tmask)),
+                "logits": _np(m(tsrc, ttgt, tmask)),
+                "qkv_rows": m.encoder.layer_0.attention.qkv.shard.weight
+                .shape[0]}
+
+
+def lora_train_step_world(rank, size, params, config_kw, ids):
+    """GPT tiny (Flax ``params``) with LoRA adapters stepped by
+    ``make_train_step`` and a ``DistributedOptimizer`` on a dp mesh over
+    the world: the losses, whether the base moved, and every fused
+    bucket's (name, numel) entries."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import GPT, GPTConfig, load_flax, lora
+    from horovod_tpu_torch.ops import in_step
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.parallel import dp
+
+    model = load_flax(GPT(GPTConfig.tiny(**config_kw)), params)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lo = lora.lora_init(model, rank=4, rng=torch.Generator().manual_seed(1))
+
+    def loss_fn(p, batch):
+        logits = torch.func.functional_call(model, p, (batch,))
+        return torch.nn.functional.cross_entropy(
+            logits[:, :-1].flatten(0, 1), batch[:, 1:].flatten())
+    mesh = in_step.make_mesh({"dp": size})
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(lo["adapters"].parameters(), lr=1e-2),
+        named_parameters=lo["adapters"].named_parameters(),
+        process_set=dp.axis_process_set(mesh, "dp"))
+    step = dp.make_train_step(lora.adapter_loss_fn(
+        loss_fn, lora.frozen_params(model), lo), opt, mesh, axis_name="dp")
+    state = dp.TrainState.create(lo["adapters"], opt)
+    mark = get_runtime().flush_stats()["buckets"]
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, _t(ids).long())
+        losses.append(loss.item())
+    closed = get_runtime().recent_buckets(
+        get_runtime().flush_stats()["buckets"] - mark)
+    return {"losses": losses,
+            "base_moved": any(not torch.equal(p, before[n])
+                              for n, p in model.named_parameters()),
+            "entries": [e for _, sig in closed for e in sig[-1]],
+            "adapters": {n: p.numel() for n, p in
+                         lo["adapters"].named_parameters()}}
+
+
 IN_STEP_SET = [0, 2, 3]      # positions on the axis: a 3-member set of 4
 
 
