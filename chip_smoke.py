@@ -338,7 +338,8 @@ collectives over a DeviceMesh (``ops/in_step.py``).
    VIRTUAL_LIMITS; M + S - 1 and M + 2S - 2 ticks; a control with one
    hop dropped that must fail the output bound by more than 10x.
 
-Phases 36-40 run after pipeline_virtual: A14, the remaining models.
+Phases 36-41 run after pipeline_virtual: A14, the remaining models,
+and A15's decode cache.
 
 36. train_t5: T5-small (bench.py:615-640: vocab 32128, hidden 512, 6 + 6
    layers, 8 heads, GEGLU 1024, 70,664,704 parameters, bf16) on 16 x 512
@@ -371,6 +372,22 @@ Phases 36-40 run after pipeline_virtual: A14, the remaining models.
    greedy and beam (k = 4) re-forward decodes of 32 tokens over a 512-token
    source. Generated tokens/s of each; flash forward launches and no
    backward ones (flash_vs_plain holds the forward at the decodes' shapes).
+41. generate_cached: the decode cache (A15's first half) at generate's
+   settings. GPT-2 small (bf16, capacity 1024): cached greedy, sampled
+   twice from one generator seed (bit-equal), beam search (k = 4), greedy
+   speculative decoding with the target as its own draft, prefill_prefix
+   of a 16-token shared prefix then generate(prefix_state=...), a per-row
+   batch at staggered positions; LLaMA-400M (capacity 4096) cached greedy
+   with the bf16 and the int8 cache; T5-small cached greedy and beam
+   decodes of 32 tokens over 512. Each route's feeding pattern,
+   teacher-forced with the re-forward's tokens, gives logits within
+   FORCED_C times the bf16 re-forward's distance from an fp32 re-forward
+   of the same weights, which a cursor off by one and a cache hiding each
+   query's newest row must fail; the int8 cache within 0.15 max|logit| of
+   the bf16 cache (JAX's bound); no flash launch in a cached route; every
+   feed one forward of s tokens on the cache. Printed: generated tokens/s
+   beside the re-forward's, device ms and launches a decode step, cache
+   bytes, the peak, each route's token agreement with the re-forward.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -387,6 +404,7 @@ non-zero.
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import gc
 import json
@@ -5439,7 +5457,8 @@ IMAGE_BATCH, IMAGE_STEPS = 64, 6            # bench.py:686-689's settings
 # (name, image side, parameters, SGD learning rate). bench.py's 0.1 for
 # both; VGG-16, which has no BatchNorm, diverges there from Flax's init
 # (loss 6.9 at step 1, 62 at step 5, nan at step 8 on an H100), so it takes
-# its paper's 0.01 (Simonyan and Zisserman 2014, section 3.1).
+# its paper's 0.01 (Simonyan and Zisserman 2014, section 3.1). The JAX
+# model diverges there too (scripts/check_vgg_lr.py).
 IMAGE_MODELS = {"vgg16": ("VGG-16", 224, 138_357_544, 0.01),
                 "inception3": ("Inception V3", 299, 27_161_264, 0.1)}
 INCEPTION_AUX_WEIGHT = 0.4      # the aux loss's weight in the Inception recipe
@@ -5454,7 +5473,7 @@ OWN_MODEL_PHASES = ("train_bert", "train_llama", "train_vit",
                     "ring_flash", "train_zero_fsdp", "train_gpt_moe",
                     "train_composite", "pipeline_virtual", "train_t5",
                     "train_vgg16", "train_inception3", "train_lora",
-                    "generate")
+                    "generate", "generate_cached")
 OWN_MODEL_START_GB = 1.0
 # Device time by kind of kernel, matched on the kernel's name (lower case),
 # first match wins: cuDNN's convolutions, whose names carry "gemm" too, are
@@ -5824,6 +5843,7 @@ def phase_generate(torch, dev, args, card):
     check(launches["flash_fwd"] > 0 and launches["flash_bwd_dq"] == 0
           and launches["flash_bwd_dkv"] == 0,
           f"flash forward launches and no backward: {launches}")
+    READINGS["generate"] = rates
     emit({"phase": "generate", "model": "GPT-2 small; T5-small",
           "batch": GEN_BATCH, "prompt": GEN_PROMPT, "max_len": GEN_LEN,
           "gamma": GEN_GAMMA, "beams": GEN_BEAMS, "top_k": GEN_TOP_K,
@@ -5835,8 +5855,421 @@ def phase_generate(torch, dev, args, card):
           "sampled_streams_bit_equal": True, "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "note": "re-forward decoding: each generated token is one "
-                  "forward of the whole buffer (the KV cache is A15); "
-                  "tokens/s: generated tokens over the host clock",
+                  "forward of the whole buffer (the cached routes are "
+                  "generate_cached's); tokens/s: generated tokens over "
+                  "the host clock",
+          "card": card})
+    return launches
+
+
+# The cached decodes (A15's first half): the generate phase's settings, a
+# 16-token shared prefix, LLaMA-400M at its full 4096-position capacity.
+GEN_PREFIX = 16
+LLAMA_GEN_CAPACITY = 4096
+# A cached route's teacher-forced logits must lie within FORCED_C times the
+# bf16 re-forward's own distance from an fp32 re-forward of the same weights
+# and tokens (max |difference| over every row, position and logit): two bf16
+# routes that round at different points are each about that far from the
+# fp32 result, so their distance is at most about twice it; C = 3 leaves
+# room for the tail of a max over ~5e7 logits. A cursor off by one or a
+# cache that hides each query's newest row must fail it.
+FORCED_C = 3.0
+INT8_REL = 0.15          # JAX's int8-cache bound: 0.15 x max|logit|
+
+
+def feeds_of(module):
+    """Every forward of ``module`` as (tokens fed, whether a cache was
+    given); the handle removes the hook."""
+    seen = []
+
+    def hook(m, args, kwargs):
+        if args[0] is not None:              # not T5's cross K/V projection
+            seen.append((int(args[0].shape[1]), kwargs.get("cache")
+                         is not None))
+    return seen, module.register_forward_pre_hook(hook, with_kwargs=True)
+
+
+def forced(torch, model, toks, spans, cache):
+    """Teacher forcing: ``toks[:, a:b]`` through ``cache`` for each (a, b) of
+    ``spans``, fp32 logits of the positions fed, concatenated."""
+    return torch.cat([model(toks[:, a:b], pos=a, cache=cache).float()
+                      for a, b in spans], dim=1)
+
+
+def spans_of(P, L, step, start=0):
+    """The feeds of a cached route over positions [start, L - 1): the prompt
+    chunk [start, P - 1), then ``step`` tokens a feed."""
+    out = [(start, P - 1)] if P - 1 > start else []
+    out += [(a, min(a + step, L - 1)) for a in range(P - 1, L - 1, step)]
+    return out
+
+
+@contextlib.contextmanager
+def newest_row_hidden():
+    """The control of a cache that drops its last row: every cached query's
+    newest visible position (its own row) masked out."""
+    from horovod_tpu_torch.parallel import tp
+    attend = tp._grouped_attend
+
+    def hidden(qg, keys, vals, bias, invalid, dtype):
+        valid = ~invalid
+        newest = valid & (valid.long().cumsum(-1)
+                          == valid.sum(-1, keepdim=True))
+        return attend(qg, keys, vals, bias, invalid | newest, dtype)
+    tp._grouped_attend = hidden
+    try:
+        yield
+    finally:
+        tp._grouped_attend = attend
+
+
+def fp32_twin(torch, model, make):
+    """``make(config)`` at fp32 activations on ``model``'s device, holding
+    ``model``'s weights: the teacher-forced bound's reference."""
+    with torch.device(next(model.parameters()).device):
+        twin = make(dataclasses.replace(model.config, dtype=torch.float32))
+    twin.load_state_dict(model.state_dict())
+    return twin.eval()
+
+
+def phase_generate_cached(torch, dev, args, card):
+    """The cached decodes at the generate phase's settings (bench.py:
+    1196-1240; batch 8, a 32-token prompt, max_len 128), one rank, weights
+    from --seed. GPT-2 small (bf16, capacity 1024): cached greedy, sampled
+    twice from one generator seed, beam search (k = 4), greedy speculative
+    decoding with the target as its own draft (gamma 4), prefill_prefix of
+    a 16-token shared prefix then generate(prefix_state=...), and a per-row
+    batch at staggered positions (row b b steps late, parked at position 0:
+    the serving pattern). LLaMA-400M (GQA 16/8, capacity 4096): cached
+    greedy with the bf16 and the int8 cache. T5-small: cached greedy and
+    beam decodes of 32 tokens over a 512-token source.
+
+    Checks: each route's feeding pattern, teacher-forced with the
+    re-forward greedy tokens, gives logits within FORCED_C times the bf16
+    re-forward's distance from an fp32 re-forward, which a cursor off by
+    one and a cache hiding each query's newest row must fail; the int8
+    cache within INT8_REL max|logit| of the bf16 cache; no flash launch in
+    a cached route and every feed one forward of s tokens against the
+    cache; the sampled streams bit-equal; shapes and prompts. Printed:
+    generated tokens/s beside the re-forward's (the generate phase's, and
+    LLaMA's here), device ms and kernel launches a decode step (profiled),
+    cache bytes, the peak, and each route's token agreement with the
+    re-forward stream."""
+    from horovod_tpu_torch.models import (GPT, T5, Llama, LlamaConfig,
+                                          beam_search, generate,
+                                          init_decode_cache, prefill_prefix,
+                                          rewind_cache, speculative_generate,
+                                          t5_beam_decode, t5_greedy_decode)
+    from horovod_tpu_torch.models import beam_reorder_cache
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    out = {"routes": {}, "teacher_forced": {}, "controls": {}}
+    launches = dict.fromkeys(STEP_COUNTS, 0)     # the cached routes' sum
+
+    def take(cached):
+        """Ends a stretch of runs: its launch counts are added to the
+        cached routes' sum where ``cached`` (else dropped: a re-forward
+        run), and the counts zeroed, so the next stretch starts there."""
+        got = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+               sb.pack_launches, sb.unpack_launches)
+        if cached:
+            for k, v in zip(STEP_COUNTS, got):
+                launches[k] += v
+        fa.reset_launch_counts()
+        sb.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    P, L, B = GEN_PROMPT, GEN_LEN, GEN_BATCH
+    new = B * (L - P)
+
+    def agreement(toks, ref):
+        same = toks[:, P:] == ref[:, P:]
+        return float(same.float().mean())
+
+    def route(name, fn, n_new=new):
+        got, s = timed_call(torch, fn)
+        out["routes"][name] = {"generated_tokens_per_sec": n_new / s}
+        return got
+
+    def within(name, got, ref, bound):
+        err = float((got - ref).abs().max())
+        out["teacher_forced"][name] = {"max_abs_err": err, "bound": bound,
+                                       "ratio": err / bound}
+        check(err <= bound, f"{name}: teacher-forced logits {err} within "
+              f"{bound}")
+
+    def fails(name, got, ref, bound):
+        err = float((got - ref).abs().max())
+        out["controls"][name] = {"max_abs_err": err, "ratio": err / bound}
+        check(err > bound, f"control {name} fails the bound: {err} > {bound}")
+
+    with torch.no_grad():
+        # --- GPT-2 small ------------------------------------------------
+        model = build_gpt(torch, dev, args.seed).eval()
+        prompt = torch.randint(0, GPT_VOCAB, (B, P), generator=gen,
+                               device=dev)
+        greedy = generate(model, prompt, L)            # the re-forward route
+        ref = model(greedy).float()[:, :L - 1]
+        twin = fp32_twin(torch, model, lambda c: GPT(c))
+        bound = FORCED_C * float((twin(greedy).float()[:, :L - 1]
+                                  - ref).abs().max())
+        del twin
+        out["bound_gpt2_small"] = bound
+        generate(model, prompt, P + 8, use_cache=True)    # warm-up
+        take(False)                                    # the path starts here
+        torch.cuda.reset_peak_memory_stats()
+        seen, hook = feeds_of(model)
+        cached = route("greedy", lambda: generate(model, prompt, L,
+                                                  use_cache=True))
+        check(seen == [(P - 1, True)] + [(1, True)] * (L - P),
+              f"greedy: one prompt chunk, then one token a feed: {seen[:4]}")
+        out["routes"]["greedy"]["token_agreement"] = agreement(cached, greedy)
+        sampled = []
+        for i in range(2):
+            g = torch.Generator(device=dev).manual_seed(args.seed + 19)
+            sampled.append(route(f"sampled_{i}", lambda g=g: generate(
+                model, prompt, L, temperature=1.0, top_k=GEN_TOP_K, rng=g,
+                use_cache=True)))
+        check(torch.equal(sampled[0], sampled[1]),
+              "one generator seed, one cached sampled stream")
+        seen.clear()
+        beams, scores = route("beam_k4", lambda: beam_search(
+            model, prompt, L, num_beams=GEN_BEAMS, use_cache=True))
+        check(seen == [(P - 1, True)] + [(1, True)] * (L - P),
+              f"beam: one prompt chunk at batch B, then one token a "
+              f"hypothesis a feed: {seen[:4]}")
+        check(bool(torch.isfinite(scores).all()), "finite beam scores")
+        seen.clear()
+        spec, stats = route("speculative_greedy", lambda: speculative_generate(
+            model, model, prompt, L, gamma=GEN_GAMMA, use_cache=True,
+            return_stats=True))
+        # the target's own feeds: the prompt chunk, one chunk a block, and
+        # as its own draft gamma single feeds and a re-feed of the block
+        check(all(c for _, c in seen) and seen.count(
+            (GEN_GAMMA + 1, True)) == 2 * stats["blocks"],
+              f"speculative: cached feeds, one verify chunk a block: "
+              f"{seen[:8]}")
+        out["routes"]["speculative_greedy"].update(
+            blocks=stats["blocks"],
+            blocks_min=math.ceil((L - P) / (GEN_GAMMA + 1)),
+            token_agreement=agreement(spec, greedy))
+        state = prefill_prefix(model, prompt[:1, :GEN_PREFIX])
+        shared = prompt.clone()
+        shared[:, :GEN_PREFIX] = prompt[:1, :GEN_PREFIX]
+        prefixed = route("prefix", lambda: generate(
+            model, shared, L, use_cache=True, prefix_state=state))
+        cold = generate(model, shared, L, use_cache=True)
+        out["routes"]["prefix"]["token_agreement_with_cold"] = agreement(
+            prefixed, cold)
+        hook.remove()
+        take(True)
+        for name, toks in (("greedy", cached), ("beam", beams),
+                           ("sampled", sampled[0]),
+                           ("speculative", spec), ("prefix", prefixed)):
+            check(toks.shape == (B, L) and int(toks.min()) >= 0
+                  and int(toks.max()) < GPT_VOCAB and torch.equal(
+                      toks[:, :P], shared if name == "prefix" else prompt),
+                  f"{name}: (B, max_len) tokens after the prompt")
+        # device ms and launches a decode step, cached and re-forward
+        for name, fn in (("cached", lambda: generate(model, prompt, L,
+                                                     use_cache=True)),
+                         ("reforward", lambda: generate(model, prompt, L))):
+            busy, share, n = device_ms(torch, fn, steps=1, launches=True)
+            out[f"{name}_device_ms_per_step"] = busy / (L - P)
+            out[f"{name}_launches_per_step"] = n / (L - P)
+            out[f"{name}_device_busy_share"] = share
+            take(name == "cached")
+        # teacher forcing through each route's feeding pattern
+        cache = init_decode_cache(model, B)
+        within("greedy", forced(torch, model, greedy, spans_of(P, L, 1),
+                                cache), ref, bound)
+        cache = init_decode_cache(model, B)
+        within("speculative", forced(
+            torch, model, greedy, spans_of(P, L, GEN_GAMMA + 1), cache), ref,
+            bound)
+        pstate = prefill_prefix(model, greedy[:, :GEN_PREFIX])
+        within("prefix", forced(torch, model, greedy, spans_of(
+            P, L, 1, GEN_PREFIX), pstate["cache"]), ref[:, GEN_PREFIX:],
+            bound)
+        # beams: k copies of each row (any reorder within a batch row keeps
+        # their histories), reordered by a random origin every step
+        k = GEN_BEAMS
+        cache = init_decode_cache(model, B)
+        model(greedy[:, :P - 1], pos=0, cache=cache)
+        cache = cache.map(lambda t: t.repeat_interleave(k, dim=0))
+        toks_k = greedy.repeat_interleave(k, dim=0)
+        worst = 0.0
+        for t in range(P - 1, L - 1):
+            lg = model(toks_k[:, t:t + 1], pos=t, cache=cache)[:, 0].float()
+            worst = max(worst, float((lg - ref[:, t].repeat_interleave(
+                k, dim=0)).abs().max()))
+            origin = torch.argsort(torch.rand(B, k, generator=gen,
+                                              device=dev), dim=1)
+            beam_reorder_cache(cache, origin, B, k)
+        # a reorder alone: every K/V row read and written once
+        moved = 2 * cache.nbytes()
+        out["beam_reorder"] = {
+            "ms": event_ms(lambda: beam_reorder_cache(cache, origin, B, k),
+                           reps=10),
+            "bound_ms": moved / H100_BYTES_PER_S * 1e3, "bytes": moved,
+            "rows": B * k}
+        out["teacher_forced"]["beam"] = {"max_abs_err": worst,
+                                         "bound": bound,
+                                         "ratio": worst / bound}
+        check(worst <= bound, f"beam: teacher-forced logits {worst} within "
+              f"{bound}")
+        # per-row positions, row b b steps late and parked at 0 meanwhile
+        cache = init_decode_cache(model, B)
+        rows = torch.arange(B, device=dev)
+        per_row = torch.zeros_like(ref)
+        for step in range(L - 1 + B - 1):
+            pos = torch.clamp(step - rows, 0, L - 2)
+            lg = model(greedy[rows, pos][:, None], pos=pos,
+                       cache=cache)[:, 0].float()
+            live = (step - rows >= 0) & (step - rows <= L - 2)
+            per_row[rows[live], pos[live]] = lg[live]
+        within("per_row_staggered", per_row, ref, bound)
+        shared_cursor = forced(torch, model, greedy, spans_of(1, L, 1),
+                               init_decode_cache(model, B))
+        out["per_row_vs_shared_cursor_max_abs"] = float(
+            (per_row - shared_cursor).abs().max())
+        # the controls, on the greedy pattern
+        cache = rewind_cache(init_decode_cache(model, B), 1)
+        fails("cursor_off_by_one", forced(
+            torch, model, greedy, spans_of(P, L, 1), cache), ref, bound)
+        with newest_row_hidden():
+            fails("newest_row_hidden", forced(
+                torch, model, greedy, spans_of(P, L, 1),
+                init_decode_cache(model, B)), ref, bound)
+        take(True)
+        out["gpt2_small_cache_bytes_bf16"] = init_decode_cache(
+            model, B).nbytes()
+        del model, cache, ref, per_row, shared_cursor, state, pstate
+        gc.collect()
+
+        # --- LLaMA-400M ---------------------------------------------------
+        llama = build_on(torch, dev, lambda g: Llama(LlamaConfig.bench(
+            max_position_embeddings=LLAMA_GEN_CAPACITY,
+            dtype=torch.bfloat16, use_flash=True), generator=g), args.seed)
+        llama.eval()
+        n_params = sum(p.numel() for p in llama.parameters())
+        check(n_params == LLAMA_PARAMS, f"LLaMA-400M has {LLAMA_PARAMS:,} "
+              f"parameters, this model {n_params}")
+        lprompt = torch.randint(0, 32000, (B, P), generator=gen, device=dev)
+        lgreedy = route("llama_reforward_greedy",
+                        lambda: generate(llama, lprompt, L))
+        lref = llama(lgreedy).float()[:, :L - 1]
+        twin = fp32_twin(torch, llama, lambda c: Llama(c))
+        lbound = FORCED_C * float((twin(lgreedy).float()[:, :L - 1]
+                                   - lref).abs().max())
+        del twin
+        out["bound_llama_400m"] = lbound
+        take(False)
+        attns = [m for m in llama.modules() if hasattr(m, "kv_cache_int8")]
+        forced_int8 = {}
+        for int8 in (False, True):
+            for m in attns:
+                m.kv_cache_int8 = int8
+            tag = "int8" if int8 else "bf16"
+            out[f"llama_400m_cache_bytes_{tag}"] = init_decode_cache(
+                llama, B).nbytes()
+            seen, hook = feeds_of(llama)
+            toks = route(f"llama_greedy_{tag}", lambda: generate(
+                llama, lprompt, L, use_cache=True))
+            hook.remove()
+            check(seen == [(P - 1, True)] + [(1, True)] * (L - P),
+                  f"LLaMA {tag}: cached feeds {seen[:4]}")
+            out["routes"][f"llama_greedy_{tag}"]["token_agreement"] = \
+                agreement(toks, lgreedy)
+            forced_int8[int8] = forced(torch, llama, lgreedy,
+                                       spans_of(P, L, 1),
+                                       init_decode_cache(llama, B))
+        for m in attns:
+            m.kv_cache_int8 = False
+        within("llama_bf16", forced_int8[False], lref, lbound)
+        lim = INT8_REL * float(forced_int8[False].abs().max())
+        err8 = float((forced_int8[True] - forced_int8[False]).abs().max())
+        out["llama_int8_vs_bf16"] = {"max_abs_err": err8, "bound": lim}
+        check(err8 < lim, f"int8 cache within {INT8_REL} max|logit| of the "
+              f"bf16 cache: {err8} < {lim}")
+        with newest_row_hidden():
+            fails("llama_newest_row_hidden", forced(
+                torch, llama, lgreedy, spans_of(P, L, 1),
+                init_decode_cache(llama, B)), lref, lbound)
+        out["llama_int8_over_bf16_bytes"] = (
+            out["llama_400m_cache_bytes_int8"]
+            / out["llama_400m_cache_bytes_bf16"])
+        take(True)
+        del llama, lref, forced_int8
+        gc.collect()
+
+        # --- T5-small -----------------------------------------------------
+        t5 = build_t5(torch, dev, args.seed).eval()
+        src = torch.randint(0, T5_VOCAB, (B, T5_SEQ), generator=gen,
+                            device=dev)
+        t5_ref_toks = t5_greedy_decode(t5, src, T5_GEN_LEN)
+        memory = t5.encode(src)
+        tref = t5.decode(t5_ref_toks, memory).float()[:, :T5_GEN_LEN - 1]
+        twin = fp32_twin(torch, t5, lambda c: T5(c))
+        tbound = FORCED_C * float((twin.decode(
+            t5_ref_toks, twin.encode(src)).float()[:, :T5_GEN_LEN - 1]
+            - tref).abs().max())
+        del twin
+        out["bound_t5_small"] = tbound
+        take(False)
+        t5_new = B * (T5_GEN_LEN - 1)
+        seen, hook = feeds_of(t5.decoder)
+        t5_toks = route("t5_greedy", lambda: t5_greedy_decode(
+            t5, src, T5_GEN_LEN, use_cache=True), t5_new)
+        check(seen == [(1, True)] * (T5_GEN_LEN - 1),
+              f"T5: one token a feed: {seen[:4]}")
+        seen.clear()
+        t5_beams, t5_scores = route("t5_beam_k4", lambda: t5_beam_decode(
+            t5, src, T5_GEN_LEN, num_beams=GEN_BEAMS, use_cache=True),
+            t5_new)
+        hook.remove()
+        check(seen == [(1, True)] * (T5_GEN_LEN - 1)
+              and bool(torch.isfinite(t5_scores).all()),
+              f"T5 beam: one token a hypothesis a feed: {seen[:4]}")
+        out["routes"]["t5_greedy"]["token_agreement"] = float(
+            (t5_toks == t5_ref_toks).float().mean())
+        for toks in (t5_toks, t5_beams):
+            check(toks.shape == (B, T5_GEN_LEN)
+                  and bool((toks[:, 0] == 0).all()),
+                  "T5: (B, 32) tokens after bos")
+        cross_kv = t5.project_cross_kv(memory)
+
+        def t5_forced():
+            cache = init_decode_cache(t5, B)
+            return torch.cat([t5.decode(t5_ref_toks[:, t:t + 1], memory,
+                                        pos=t, cross_kv=cross_kv,
+                                        cache=cache).float()
+                              for t in range(T5_GEN_LEN - 1)], dim=1)
+        within("t5", t5_forced(), tref, tbound)
+        with newest_row_hidden():
+            fails("t5_newest_row_hidden", t5_forced(), tref, tbound)
+        take(True)
+        del t5, memory, cross_kv, tref
+    check(all(launches[k] == 0 for k in FLASH_COUNTS),
+          f"no flash launch inside a cached route: {launches}")
+    reforward = READINGS.get("generate", {})
+    emit({"phase": "generate_cached",
+          "model": "GPT-2 small; LLaMA-400M; T5-small", "batch": B,
+          "prompt": P, "max_len": L, "gamma": GEN_GAMMA, "beams": GEN_BEAMS,
+          "top_k": GEN_TOP_K, "shared_prefix": GEN_PREFIX,
+          "capacity": {"gpt2_small": GPT_SEQ,
+                       "llama_400m": LLAMA_GEN_CAPACITY,
+                       "t5_small": 512},
+          "t5_source": T5_SEQ, "t5_max_len": T5_GEN_LEN,
+          "reforward_generated_tokens_per_sec": reforward,
+          **out, "launches_in_cached_routes": launches,
+          "sampled_streams_bit_equal": True,
+          "bound": f"{FORCED_C} x max|bf16 re-forward - fp32 re-forward| "
+                   f"logits of the same weights and tokens",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "note": "tokens/s: generated tokens over the host clock; device "
+                  "ms and launches a decode step (B tokens) under "
+                  "torch.profiler over one whole decode",
           "card": card})
     return launches
 
@@ -6025,6 +6458,9 @@ def main(argv=None):
     generate_launches = run("generate", phase_generate, torch, dev, args,
                             card)
     gc.collect()
+    cached_launches = run("generate_cached", phase_generate_cached, torch,
+                          dev, args, card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -6126,8 +6562,9 @@ def main(argv=None):
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "replaces": FLASH_REPLACES[name],
          "launches": sum(by_path[p][name] for p in transformer_paths),
-         "launches_by_path": {p: by_path[p][name]
-                              for p in transformer_paths},
+         "launches_by_path": {
+             **{p: by_path[p][name] for p in transformer_paths},
+             "generate_cached": cached_launches[name]},
          **({"status": REDESIGNED[name]} if name in REDESIGNED else {}),
          "checked_vs_plain": True, "max_abs_err": flash_err[name],
          "max_abs_err_by_path": {p: e[name] for p, e in path_err.items()},

@@ -26,19 +26,25 @@ from horovod_tpu_torch.models.inception import (InceptionV3,
 from horovod_tpu_torch.models.t5 import (T5, T5Config, load_flax_t5,
                                          t5_beam_decode, t5_generate,
                                          t5_greedy_decode)
-from horovod_tpu_torch.models.generate import (beam_search, generate,
+from horovod_tpu_torch.models.generate import (beam_reorder_cache,
+                                               beam_search, generate,
+                                               init_decode_cache,
                                                prefill_prefix)
+from horovod_tpu_torch.models.gpt import cache_from_flax, cache_to_numpy
 from horovod_tpu_torch.models.lora import (adapter_loss_fn,
                                            adapter_loss_fn_via_extra,
                                            lora_apply, lora_init, lora_merge,
                                            lora_wire_numbers)
-from horovod_tpu_torch.models.speculative import (speculative_accept,
+from horovod_tpu_torch.models.speculative import (rewind_cache,
+                                                  speculative_accept,
                                                   speculative_generate)
 
 __all__ += ["VGG", "VGG11", "VGG13", "VGG16", "VGG19", "load_flax_vgg",
             "InceptionV3", "load_flax_inception", "T5", "T5Config",
             "load_flax_t5", "t5_beam_decode", "t5_generate",
             "t5_greedy_decode", "beam_search", "generate", "prefill_prefix",
+            "init_decode_cache", "beam_reorder_cache", "rewind_cache",
+            "cache_from_flax", "cache_to_numpy",
             "adapter_loss_fn", "adapter_loss_fn_via_extra", "lora_apply",
             "lora_init", "lora_merge", "lora_wire_numbers",
             "speculative_accept", "speculative_generate"]

@@ -1,27 +1,32 @@
 """Autoregressive generation for the port's causal LMs (GPT, LLaMA, the MoE
 GPT): greedy and sampled decoding and beam search.
 
-Port of the JAX package's ``models/generate.py``, its re-forward half: each
-step runs the model on the whole fixed-length buffer (static shapes; the
-causal structure ignores the tail not yet written), under
-``torch.no_grad()``. JAX compiles the loop into one program; here it is an
-eager Python loop, one forward per generated token, with the model's own
-kernels (flash attention when the model has ``use_flash``).
+Port of the JAX package's ``models/generate.py``. JAX compiles each loop
+into one program; here it is an eager Python loop under
+``torch.no_grad()``, with the model's own kernels.
+
+- The re-forward route (the default): each step runs the model on the
+  whole fixed-length buffer (static shapes; the causal structure ignores
+  the tail not yet written), one forward per generated token, through the
+  flash kernels when the model has ``use_flash``.
+- The cached route (``use_cache=True``; dense GPT and LLaMA): one forward
+  of s tokens per feed against a ``parallel/tp.py::DecodeCache``
+  (:func:`init_decode_cache`), the prompt prefilled in chunks of up to 512
+  tokens; beam search reorders the cache by beam origin after each
+  expansion (:func:`beam_reorder_cache`), and :func:`prefill_prefix` keeps
+  a shared prefix's cache for later calls (``prefix_state``). The cached
+  attend is plain PyTorch, as JAX leaves its cached attend to XLA.
 
 Sampling takes a ``torch.Generator`` (``rng``, on the logits' device) where
 JAX takes a PRNG key: the same seed gives the same stream, but not JAX's
-stream. Greedy decoding and beam search draw nothing and follow JAX's
-tokens.
-
-Waiting for A15 (the KV cache): ``use_cache=True``, ``prefix_state``,
-:func:`init_decode_cache`, :func:`prefill_prefix` and
-:func:`beam_reorder_cache` raise ``NotImplementedError`` naming it.
+stream; the cached and re-forward routes draw the same stream. Greedy
+decoding and beam search draw nothing and follow JAX's tokens.
 """
 
 import numpy as np
 import torch
 
-from horovod_tpu_torch.parallel.tp import _not_yet
+from horovod_tpu_torch.parallel.tp import DecodeCache, TPSelfAttention
 
 
 def _filter_logits(logits, top_k, top_p):
@@ -82,7 +87,10 @@ def check_sampling(temperature, rng, top_k, top_p):
 
 def _check_position_capacity(model, max_len):
     """Fail loudly when ``max_len`` exceeds the model's position table
-    (``config.max_position_embeddings``, where the model has one)."""
+    (``config.max_position_embeddings``, where the model has one), on every
+    decode route: the cache's capacity is that table's, and a write past it
+    raises rather than clamping onto the last rows as JAX's
+    ``dynamic_update_slice`` would."""
     cap = getattr(getattr(model, "config", None),
                   "max_position_embeddings", None)
     if cap is not None and max_len > cap:
@@ -97,6 +105,95 @@ def _prompt(model, prompt):
     if not torch.is_tensor(prompt):
         prompt = torch.from_numpy(np.asarray(prompt))
     return prompt.to(dev, torch.long)
+
+
+# ---------------------------------------------------------------------------
+# The decode cache
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(model, batch, device=None):
+    """A zeroed ``DecodeCache`` for ``batch`` rows of ``model``: every causal
+    ``TPSelfAttention`` with a capacity (``cache_len``: GPT's and LLaMA's
+    ``max_position_embeddings``, T5's decoder's ``max_decode_len``) gets its
+    K/V (and int8 scales) at full capacity and its cursor at 0, under its
+    module path (``layer_0/attention``, T5's ``decoder/layer_0/attention``),
+    as JAX's cache tree nests them. ``device``: the model's by default."""
+    if device is None:
+        device = next(model.parameters()).device
+    cache = DecodeCache()
+    for name, m in model.named_modules():
+        if isinstance(m, TPSelfAttention) and m.causal and m.cache_len > 0:
+            m.init_cache(cache.sub(name.replace(".", "/")), batch, device)
+    if not cache.entries:
+        raise ValueError(f"{type(model).__name__} has no causal attention "
+                         f"with a decode cache capacity")
+    return cache
+
+
+def _decode_feed(model):
+    """One cached feed of a (B, s) chunk at position ``t``: returns the cache
+    (written in place) and the FIRST fed token's next-token logits (B, V)."""
+
+    def feed(cache, tok, t):
+        return cache, model(tok, pos=t, cache=cache)[:, 0]
+
+    return feed
+
+
+def _chunk_feed(model):
+    """A cached feed returning every one of the s logit rows (B, s, V): the
+    chunked prefill, prefix caching and the speculative verifier."""
+
+    def feed(cache, toks, t):
+        return cache, model(toks, pos=t, cache=cache)
+
+    return feed
+
+
+def _prefill_cache(feed, cache, prompt, chunk=512, start=0, end=None):
+    """Teacher-force prompt tokens ``[start, end)`` into the cache in feeds
+    of up to ``chunk`` tokens (the score transient stays (B, heads, chunk,
+    capacity)); ``end`` defaults to P - 1, the last prompt token being the
+    first decode step's input. The logits are dropped."""
+    end = prompt.shape[1] - 1 if end is None else end
+    for s in range(start, end, chunk):
+        cache, _ = feed(cache, prompt[:, s:min(s + chunk, end)], s)
+    return cache
+
+
+@torch.no_grad()
+def prefill_prefix(model, prefix):
+    """The decode cache of a fixed prompt prefix (the shared system prompt):
+    all ``Pp`` tokens fed once, for ``generate(..., use_cache=True,
+    prefix_state=state)`` to start from; each call copies it, so the state
+    serves any number of calls. ``prefix``: (B, Pp), or (1, Pp) to tile to
+    any batch. Returns ``{"cache", "len", "prefix"}``."""
+    prefix = _prompt(model, prefix)
+    _check_position_capacity(model, prefix.shape[1])
+    cache = init_decode_cache(model, prefix.shape[0])
+    cache = _prefill_cache(_chunk_feed(model), cache, prefix,
+                           end=prefix.shape[1])
+    return {"cache": cache, "len": int(prefix.shape[1]), "prefix": prefix}
+
+
+@torch.no_grad()
+def _generate_cached(model, cache, prompt, max_len, temperature, rng,
+                     top_k, top_p, eos_id, prefill_start=0):
+    """The cached decode: the prompt (after ``prefill_start`` tokens the
+    cache already holds) prefilled without sampling, so the generator's
+    stream stays the re-forward route's, then one token a feed."""
+    B, P = prompt.shape
+    buf = torch.zeros((B, max_len), dtype=torch.long, device=prompt.device)
+    buf[:, :P] = prompt
+    feed = _decode_feed(model)
+    cache = _prefill_cache(feed, cache, prompt, start=prefill_start)
+    done = torch.zeros(B, dtype=torch.bool, device=prompt.device)
+    for t in range(P - 1, max_len - 1):
+        cache, logits = feed(cache, buf[:, t:t + 1], t)
+        nxt = sample_or_argmax(logits, rng, temperature, top_k, top_p)
+        nxt, done = _absorb_eos(nxt, done, eos_id)
+        buf[:, t + 1] = nxt
+    return buf
 
 
 @torch.no_grad()
@@ -131,7 +228,13 @@ def generate(model, prompt, max_len, temperature=0.0, rng=None,
     - ``top_k`` / ``top_p``: sampling filters (0 / 1.0 = off).
     - ``eos_id``: once a row GENERATES it, the row pads with ``eos_id`` to
       ``max_len``; EOS tokens inside the prompt do not count.
-    - ``use_cache`` and ``prefix_state``: the KV-cached decode, A15's.
+    - ``use_cache``: the cached decode (dense GPT and LLaMA), one token a
+      feed against the decode cache; the same tokens as the re-forward
+      route, and for one generator seed the same sampled stream.
+    - ``prefix_state`` (with ``use_cache``): a :func:`prefill_prefix`
+      result; only the prompt tokens after the prefix are prefilled.
+      ``prompt`` carries the whole sequence and must begin with the prefix
+      (checked); a (1, Pp) prefix tiles to the batch.
 
     Returns (B, max_len) int64 token ids: the prompt, then the generated
     tokens."""
@@ -141,12 +244,41 @@ def generate(model, prompt, max_len, temperature=0.0, rng=None,
             f"prompt length {P} must be in [1, max_len={max_len}] "
             "(position 0 must come from the prompt)")
     check_sampling(temperature, rng, top_k, top_p)
-    if use_cache or prefix_state is not None:
-        _not_yet("the KV-cached decode (use_cache, prefix_state)", "A15")
     _check_position_capacity(model, max_len)
-    return _generate(model, _prompt(model, prompt), int(max_len),
-                     float(temperature), rng, int(top_k), float(top_p),
-                     None if eos_id is None else int(eos_id))
+    if prefix_state is not None and not use_cache:
+        raise ValueError("prefix_state requires use_cache=True (the "
+                         "prefix lives in the decode cache)")
+    prompt = _prompt(model, prompt)
+    eos = None if eos_id is None else int(eos_id)
+    if not use_cache:
+        return _generate(model, prompt, int(max_len), float(temperature),
+                         rng, int(top_k), float(top_p), eos)
+    start = 0
+    if prefix_state is None:
+        cache = init_decode_cache(model, B)
+    else:
+        start, pfx = int(prefix_state["len"]), prefix_state["prefix"]
+        if start >= P:
+            # The prefix cache's cursor sits past its last token, and the
+            # decode loop feeds prompt[:, P-1] again: a duplicate row.
+            raise ValueError(
+                f"prefix length {start} must be SHORTER than the prompt "
+                f"({P}): the last prompt token is the first decode input")
+        if pfx.shape[0] not in (1, B):
+            raise ValueError(f"prefix batch {pfx.shape[0]} incompatible "
+                             f"with prompt batch {B} (use 1 or {B})")
+        if not torch.equal(prompt[:, :start],
+                           pfx.to(prompt.device).expand(B, start)):
+            raise ValueError(
+                "prompt does not begin with the prefix the prefix_state was "
+                "built from: the cached K/V rows would describe other text")
+        tile = pfx.shape[0] == 1 and B > 1
+        cache = prefix_state["cache"].map(
+            (lambda t: t.repeat_interleave(B, dim=0)) if tile
+            else torch.clone)
+    return _generate_cached(model, cache, prompt, int(max_len),
+                            float(temperature), rng, int(top_k),
+                            float(top_p), eos, start)
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +360,21 @@ def beam_finalize(bufs, scores, fin_bufs, fin_scores, prompt_len, eos_id,
 
 
 def beam_reorder_cache(cache, origin, B, k):
-    """The decode cache's rows reordered by beam origin (A15)."""
-    _not_yet("reordering a decode cache by beam (beam_reorder_cache)",
-             "A15")
+    """The decode cache's rows reordered so each new beam holds its origin
+    beam's history (the causal and seq2seq cached searches): every tensor
+    whose leading dim is B * k is gathered by ``b * k + origin[b, j]``
+    into the cache's spare buffer of its shape, and the two swap, so a
+    step allocates nothing; the cursors are shared by the beams. Returns
+    ``cache``."""
+    Bk = B * k
+    flat = (torch.arange(B, device=origin.device)[:, None] * k
+            + origin).reshape(Bk)
+    for path, t in cache.items():
+        if torch.is_tensor(t) and t.dim() >= 1 and t.shape[0] == Bk:
+            spare = cache.spare(path)
+            torch.index_select(t, 0, flat.to(t.device), out=spare)
+            cache.entries[path], cache.spares[path] = spare, t
+    return cache
 
 
 @torch.no_grad()
@@ -257,6 +401,40 @@ def _beam_search(model, prompt, max_len, num_beams, eos_id, length_penalty):
                          length_penalty)
 
 
+@torch.no_grad()
+def _beam_search_cached(model, cache, prompt, max_len, num_beams, eos_id,
+                        length_penalty):
+    """The cached beam search: the prompt prefilled once at batch B, the
+    cache's rows repeated to B * k (row b * k + j is batch b's beam j, as
+    ``bufs.reshape(B * k, L)``), then one token a hypothesis a step, the
+    cache reordered by beam origin after each expansion but the last."""
+    B, P = prompt.shape
+    k = num_beams
+    dev = prompt.device
+    bufs = torch.zeros((B, k, max_len), dtype=torch.long, device=dev)
+    bufs[:, :, :P] = prompt[:, None]
+    scores = beam_init_scores(B, k, dev)
+    fin_bufs = torch.zeros_like(bufs)
+    fin_scores = torch.full((B, k), -torch.inf, device=dev)
+    feed = _decode_feed(model)
+    cache = _prefill_cache(feed, cache, prompt)
+    cache = cache.map(lambda t: t.repeat_interleave(k, dim=0))
+    for t in range(P, max_len):
+        tok = bufs.reshape(B * k, max_len)[:, t - 1:t]
+        cache, logits = feed(cache, tok, t - 1)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, -1)
+        if eos_id is None:
+            bufs, scores, origin = beam_expand(logp, bufs, scores, t)
+        else:
+            bufs, scores, fin_bufs, fin_scores, origin = beam_step_eos(
+                logp, bufs, scores, fin_bufs, fin_scores, t, P, eos_id,
+                length_penalty)
+        if t < max_len - 1:
+            cache = beam_reorder_cache(cache, origin, B, k)
+    return beam_finalize(bufs, scores, fin_bufs, fin_scores, P, eos_id,
+                         length_penalty)
+
+
 def beam_search(model, prompt, max_len, num_beams=4, eos_id=None,
                 length_penalty=0.0, use_cache=False):
     """Beam-search decoding for the causal LMs: ``num_beams`` hypotheses
@@ -269,7 +447,9 @@ def beam_search(model, prompt, max_len, num_beams=4, eos_id=None,
     slots, merged by normalised score, never evicted by later live
     expansions) and pads with ``eos_id``; live beams go on with the EOS
     move excluded. ``length_penalty``: GNMT's ``score / gen_len**alpha``.
-    ``use_cache=True`` (the KV-cached search) is A15's."""
+    ``use_cache``: the cached search (dense GPT and LLaMA), the caches
+    reordered by beam origin after each expansion; the re-forward search's
+    sequences and scores."""
     B, P = prompt.shape
     if not 1 <= P < max_len:
         raise ValueError(
@@ -279,23 +459,15 @@ def beam_search(model, prompt, max_len, num_beams=4, eos_id=None,
     if length_penalty < 0:
         raise ValueError(
             f"length_penalty must be >= 0, got {length_penalty}")
-    if use_cache:
-        _not_yet("the KV-cached beam search (use_cache=True)", "A15")
     _check_position_capacity(model, max_len)
-    return _beam_search(model, _prompt(model, prompt), int(max_len),
-                        int(num_beams),
-                        None if eos_id is None else int(eos_id),
-                        float(length_penalty))
-
-
-def init_decode_cache(decoder, *args, **kwargs):
-    """A zeroed decode cache for a decode-mode model (A15)."""
-    _not_yet("the decode cache (init_decode_cache)", "A15")
-
-
-def prefill_prefix(model, prefix):
-    """The decode cache of a fixed prompt prefix (A15)."""
-    _not_yet("prefix caching (prefill_prefix)", "A15")
+    prompt = _prompt(model, prompt)
+    args = (int(max_len), int(num_beams),
+            None if eos_id is None else int(eos_id), float(length_penalty))
+    if use_cache:
+        # A batch-B cache: the prompt's prefill is shared by the beams.
+        return _beam_search_cached(model, init_decode_cache(model, B),
+                                   prompt, *args)
+    return _beam_search(model, prompt, *args)
 
 
 __all__ = ["generate", "beam_search", "sample_or_argmax", "beam_init_scores",

@@ -17,8 +17,13 @@ as ``nn.remat`` wraps it) and :func:`load_flax`, which fills any of the
 port's Flax-named models from its Flax variable tree by name
 (``load_flax_gpt``, ``load_flax_bert``, ``load_flax_llama``,
 ``load_flax_mlp`` and ``load_flax_vit`` are this one function), slicing the
-tensor- and expert-parallel leaves for the rank's shard. Not yet: decode
-(A15) raises ``NotImplementedError`` naming its ROADMAP item.
+tensor- and expert-parallel leaves for the rank's shard, and the decode
+route: ``model(ids, pos=t, cache=cache)`` runs s tokens at position ``t``
+(a host int, or a (B,) tensor of per-row positions) through a
+``parallel/tp.py::DecodeCache`` of capacity ``max_position_embeddings``
+(``models/generate.py::init_decode_cache``), the int8 cache with
+``kv_cache_int8``. :func:`cache_from_flax` and :func:`cache_to_numpy`
+carry a cache between JAX's Flax ``cache`` collection and the port.
 
 The MoE blocks' load-balancing losses, which JAX sows into the
 ``losses/moe_aux`` collection, are the list ``model.moe_aux`` after each
@@ -35,10 +40,11 @@ from torch import nn
 from horovod_tpu_torch.ops import in_step
 from horovod_tpu_torch.parallel.moe import MoEMlp
 from horovod_tpu_torch.parallel.tp import (ColumnParallelDense, Dense,
-                                           FlaxKernel, LayerNorm,
-                                           RowParallelDense, TPSelfAttention,
-                                           TPTransformerBlock, _not_yet,
-                                           lecun_normal_, remat)
+                                           DecodeCache, FlaxKernel,
+                                           LayerNorm, RowParallelDense,
+                                           TPSelfAttention,
+                                           TPTransformerBlock, lecun_normal_,
+                                           remat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +68,7 @@ class GPTConfig:
     sp_axis: Optional[str] = None   # sequence parallelism: tokens sharded
     sp_impl: str = "ring"           # "ring" | "ulysses" (parallel/sequence)
     remat: bool = False
+    kv_cache_int8: bool = False     # the int8 decode cache (serving)
 
     @staticmethod
     def tiny(**kw):
@@ -75,7 +82,9 @@ class GPTConfig:
 class GPTEmbed(nn.Module):
     """Token table cast to ``dtype``, plus the fp32 ``pos_emb[:L]`` cast to
     it; under a bound ``sp_axis`` of n > 1 shards, the table's rows at the
-    shard's global positions."""
+    shard's global positions. ``pos`` (decode): the position of the first
+    of the L tokens, an int (rows ``pos..pos+L-1``), or a (B,) tensor, each
+    row at its own position (the table gathered per row)."""
 
     def __init__(self, config):
         super().__init__()
@@ -94,12 +103,23 @@ class GPTEmbed(nn.Module):
         with torch.no_grad():
             self.pos_emb.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, pos=None):
         L = input_ids.shape[-1]
-        if L > self.pos_emb.shape[0]:
+        cap = self.pos_emb.shape[0]
+        if L > cap:
             raise ValueError(f"sequence {L} exceeds max_position_embeddings="
-                             f"{self.pos_emb.shape[0]}")
+                             f"{cap}")
         tok = self.tok_emb(input_ids).to(self.dtype)
+        if torch.is_tensor(pos) and pos.dim() == 1:     # per-row positions
+            rows = pos.to(tok.device, torch.long)[:, None] + torch.arange(
+                L, device=tok.device)
+            return tok + self.pos_emb[rows].to(self.dtype)
+        if pos is not None:
+            pos = int(pos)
+            if pos < 0 or pos + L > cap:
+                raise ValueError(f"positions {pos}..{pos + L - 1} exceed "
+                                 f"max_position_embeddings={cap}")
+            return tok + self.pos_emb[pos:pos + L].to(self.dtype)[None]
         n_sp = in_step.axis_size_or_1(self.sp_axis)
         if n_sp > 1:
             if n_sp * L > self.pos_emb.shape[0]:
@@ -158,14 +178,16 @@ class GPT(nn.Module):
     layer ``i`` with ``i % moe_every == moe_every - 1``. Parameters are
     drawn from ``generator`` with Flax's initializers. After a forward,
     ``moe_aux`` holds the MoE blocks' load-balancing losses in layer order
-    (JAX's sown ``losses/moe_aux``)."""
+    (JAX's sown ``losses/moe_aux``). ``decode=True``: a model that runs
+    the decode route alone (a cache on every call)."""
 
     def __init__(self, config, decode=False, generator=None, moe_every=2):
         super().__init__()
         c = config
-        if decode:
-            _not_yet("decode with a KV cache", "A15")
+        if decode and c.num_experts:
+            raise ValueError("decode mode does not support MoE blocks")
         self.config = c
+        self.decode = decode
         self.moe_every = moe_every
         self.embed = GPTEmbed(c)
         for i in range(c.num_layers):
@@ -176,7 +198,8 @@ class GPT(nn.Module):
                     c.num_heads, c.hidden_size, c.intermediate_size,
                     dtype=c.dtype, causal=True, use_flash=c.use_flash,
                     sp_axis=c.sp_axis, axis_name=c.tp_axis,
-                    sp_impl=c.sp_impl)
+                    sp_impl=c.sp_impl, cache_len=c.max_position_embeddings,
+                    kv_cache_int8=c.kv_cache_int8)
             setattr(self, f"layer_{i}", block)
         self.head = GPTHead(c)
         self.moe_aux = []
@@ -187,15 +210,30 @@ class GPT(nn.Module):
             if isinstance(m, (Dense, LayerNorm, GPTEmbed, MoEMlp)):
                 m.reset_parameters(generator)
 
-    def forward(self, input_ids, pos=None, features_only=False):
+    def forward(self, input_ids, pos=None, features_only=False, cache=None):
         """``input_ids`` (B, L) -> fp32 logits (B, L, vocab), or the pre-head
-        hidden states (B, L, H) with ``features_only``."""
-        if pos is not None:
-            _not_yet("decode positions", "A15")
-        x = self.embed(input_ids)
+        hidden states (B, L, H) with ``features_only``. With ``cache`` (a
+        ``DecodeCache``), the decode route: the L tokens at position
+        ``pos`` (an int, or a (B,) tensor of per-row positions); without
+        it ``pos`` is not read, as JAX's model outside decode mode."""
+        decode = cache is not None
+        if self.decode and not decode:
+            raise ValueError("decode mode reads a decode cache: pass cache= "
+                             "(generate.init_decode_cache)")
+        if decode:
+            if self.config.num_experts:
+                raise ValueError("decode mode does not support MoE blocks")
+            if pos is None:
+                raise ValueError("decode mode requires pos (the token's "
+                                 "global position)")
+            cache = cache.for_feed()
+        x = self.embed(input_ids, pos if decode else None)
         self.moe_aux = []
         for i in range(self.config.num_layers):
             block = getattr(self, f"layer_{i}")
+            if decode:
+                x = block(x, pos=pos, cache=cache.sub(f"layer_{i}"))
+                continue
             x = remat(block, (x,)) if self.config.remat else block(x)
             if isinstance(block, GPTMoEBlock):
                 self.moe_aux.append(block.aux)
@@ -329,7 +367,48 @@ def load_flax(model, variables, optimizer=None, powersgd_state=None,
     return model
 
 
+def cache_from_flax(tree, device=None):
+    """A ``DecodeCache`` holding JAX's Flax ``cache`` collection ``tree``
+    (nested dicts of arrays, as ``decoder.apply(..., mutable=["cache"])``
+    returns it): one entry per leaf, keyed by its path; JAX's (B, L, kv, d)
+    K/V and (B, L, kv) scales in the port's (B, kv, L, ...) layout, bf16
+    kept, ``idx`` a host int."""
+    cache = DecodeCache()
+    for path, leaf in _leaves(tree.get("cache", tree)):
+        key = "/".join(path)
+        arr = np.asarray(leaf)
+        if path[-1] == "idx":
+            cache.entries[key] = int(arr)
+            continue
+        dt = None
+        if arr.dtype.name == "bfloat16":
+            arr, dt = arr.astype(np.float32), torch.bfloat16
+        t = torch.from_numpy(np.array(arr)).transpose(1, 2).contiguous()
+        cache.entries[key] = t.to(device=device, dtype=dt)
+    return cache
+
+
+def cache_to_numpy(cache):
+    """``cache``'s entries as JAX's Flax ``cache`` tree: nested dicts by
+    path, numpy arrays in JAX's (B, L, kv, ...) layout (bf16 widened to
+    fp32), ``idx`` an int32 scalar."""
+    tree = {}
+    for key, v in cache.entries.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        if torch.is_tensor(v):
+            v = v.detach().cpu().transpose(1, 2)
+            node[leaf] = (v.float() if v.dtype == torch.bfloat16
+                          else v).numpy()
+        else:
+            node[leaf] = np.asarray(v, np.int32)
+    return tree
+
+
 load_flax_gpt = load_flax
 
 __all__ = ["GPTConfig", "GPTEmbed", "GPTHead", "GPTMoEBlock", "GPT",
-           "load_flax", "load_flax_gpt", "tp_leaves", "tp_slice"]
+           "load_flax", "load_flax_gpt", "tp_leaves", "tp_slice",
+           "cache_from_flax", "cache_to_numpy"]

@@ -13,8 +13,9 @@ Flax variable tree.
 Ported: the dense model, tensor parallelism (``tp_axis``), sequence
 parallelism (``sp_axis``/``sp_impl``; each attention block rotates Q and K at
 the shard's global positions, as JAX's ``TPSelfAttention`` does),
-``features_only`` and ``remat``. Not yet: decode and its int8 KV cache
-(A15) raise ``NotImplementedError`` naming their item.
+``features_only``, ``remat`` and the decode route (``model(ids, pos=t,
+cache=cache)``, as GPT's: the cache keeps the kv heads narrow, holds K
+rotated at its positions, and is int8 with ``kv_cache_int8``).
 """
 
 import dataclasses
@@ -25,8 +26,7 @@ from torch import nn
 
 from horovod_tpu_torch.models.gpt import load_flax
 from horovod_tpu_torch.parallel.tp import (Dense, RMSNorm, TPSelfAttention,
-                                           TPSwiGLUMlp, _not_yet, remat,
-                                           reset_flax_)
+                                           TPSwiGLUMlp, remat, reset_flax_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +94,17 @@ class LlamaBlock(nn.Module):
             c.num_heads, c.hidden_size, dtype=c.dtype, causal=True,
             use_flash=c.use_flash, num_kv_heads=c.num_kv_heads,
             rope_theta=c.rope_theta, use_bias=False, axis_name=c.tp_axis,
-            sp_axis=c.sp_axis, sp_impl=c.sp_impl)
+            sp_axis=c.sp_axis, sp_impl=c.sp_impl,
+            cache_len=c.max_position_embeddings,
+            kv_cache_int8=c.kv_cache_int8)
         self.ln_mlp = RMSNorm(c.hidden_size, c.dtype, c.rms_eps)
         self.mlp = TPSwiGLUMlp(c.intermediate_size, c.hidden_size,
                                dtype=c.dtype, axis_name=c.tp_axis)
 
-    def forward(self, x):
-        x = x + self.attention(self.ln_attn(x))
+    def forward(self, x, pos=None, cache=None):
+        x = x + self.attention(self.ln_attn(x), pos=pos,
+                               cache=None if cache is None
+                               else cache.sub("attention"))
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -112,7 +116,8 @@ class LlamaEmbed(nn.Module):
         self.dtype = config.dtype
         self.tok_emb = nn.Embedding(config.vocab_size, config.hidden_size)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, pos=None):
+        """``pos`` is taken for the decoder interface; it embeds nothing."""
         return self.tok_emb(input_ids).to(self.dtype)
 
 
@@ -132,15 +137,13 @@ class LlamaHead(nn.Module):
 
 class Llama(nn.Module):
     """Embed -> ``num_layers`` blocks named ``layer_<i>`` -> head.
-    Parameters are drawn from ``generator`` with Flax's initializers."""
+    Parameters are drawn from ``generator`` with Flax's initializers.
+    ``decode=True``: a model that runs the decode route alone."""
 
     def __init__(self, config, decode=False, generator=None):
         super().__init__()
         c = config
-        if decode:
-            _not_yet("decode with a KV cache", "A15")
-        if c.kv_cache_int8:
-            _not_yet("the int8 KV cache (kv_cache_int8)", "A15")
+        self.decode = decode
         self.config = c
         self.embed = LlamaEmbed(c)
         for i in range(c.num_layers):
@@ -148,15 +151,28 @@ class Llama(nn.Module):
         self.head = LlamaHead(c)
         reset_flax_(self, generator)
 
-    def forward(self, input_ids, pos=None, features_only=False):
+    def forward(self, input_ids, pos=None, features_only=False, cache=None):
         """``input_ids`` (B, L) -> fp32 logits (B, L, vocab), or the pre-head
-        hidden states (B, L, H) with ``features_only``."""
-        if pos is not None:
-            _not_yet("decode positions", "A15")
-        x = self.embed(input_ids)
+        hidden states (B, L, H) with ``features_only``. With ``cache``, the
+        decode route at position ``pos`` (an int, or (B,) per-row)."""
+        decode = cache is not None
+        if self.decode and not decode:
+            raise ValueError("decode mode reads a decode cache: pass cache= "
+                             "(generate.init_decode_cache)")
+        if decode and pos is None:
+            raise ValueError("decode mode requires pos (the token's "
+                             "global position)")
+        if decode:
+            cache = cache.for_feed()
+        x = self.embed(input_ids, pos)
         for i in range(self.config.num_layers):
             block = getattr(self, f"layer_{i}")
-            x = remat(block, (x,)) if self.config.remat else block(x)
+            if decode:
+                x = block(x, pos=pos, cache=cache.sub(f"layer_{i}"))
+            elif self.config.remat:
+                x = remat(block, (x,))
+            else:
+                x = block(x)
         if features_only:
             return x
         return self.head(x)

@@ -18,16 +18,22 @@ drawn from ``max(p - q, 0)`` renormalised; after ``gamma`` acceptances a
 bonus token comes from the target's next position. The uniforms ``u`` are
 passed in; the draws come from a ``torch.Generator`` where JAX takes keys.
 
-Waiting for A15: ``use_cache=True`` (``_speculative_cached``) and
-:func:`rewind_cache` raise ``NotImplementedError`` naming it.
+The cached route (``use_cache=True``): the draft takes ``gamma`` one-token
+cached feeds, the target verifies the block in ONE chunked cached feed of
+``gamma + 1`` tokens, and a rejection is a rewind of the cache cursors
+(:func:`rewind_cache`; the stale rows past the cursor are masked, then
+overwritten). The rows advance in lockstep, by the block's smallest
+accepted count: the cursor is one host int for the batch.
 """
 
 import torch
 
 from horovod_tpu_torch.models.generate import (_check_position_capacity,
-                                               _filter_logits, _prompt,
-                                               categorical, check_sampling)
-from horovod_tpu_torch.parallel.tp import _not_yet
+                                               _chunk_feed, _decode_feed,
+                                               _filter_logits, _prefill_cache,
+                                               _prompt, categorical,
+                                               check_sampling,
+                                               init_decode_cache)
 
 
 def _spec_probs(logits, temperature, top_k, top_p):
@@ -97,8 +103,14 @@ def _eos_pad(out, P, eos_id):
 
 
 def rewind_cache(cache, new_idx):
-    """Roll every layer's decode-cache cursor back to ``new_idx`` (A15)."""
-    _not_yet("rewinding a decode cache (rewind_cache)", "A15")
+    """Move every layer's decode-cache cursor to ``new_idx``, the rejection
+    primitive: the K/V rows past it stay as they are, masked by the decode
+    attend (``valid = position <= idx + i``) until a later feed overwrites
+    them. Returns ``cache``."""
+    for path, _ in cache.items():
+        if path.rsplit("/", 1)[-1] == "idx":
+            cache.entries[path] = int(new_idx)
+    return cache
 
 
 @torch.no_grad()
@@ -150,6 +162,74 @@ def _speculative(target, draft, prompt, max_len, gamma, temperature, rng,
     return _eos_pad(buf[:, :max_len], P, eos_id), nblk
 
 
+@torch.no_grad()
+def _speculative_cached(target, draft, t_cache, d_cache, prompt, max_len,
+                        gamma, temperature, rng, top_k, top_p, eos_id,
+                        width):
+    """The cached speculative decode; returns ``(buffer, n_blocks)``."""
+    B, P = prompt.shape
+    dev = prompt.device
+    cols = torch.arange(width, device=dev)[None]
+    buf = torch.zeros((B, width), dtype=torch.long, device=dev)
+    buf[:, :P] = prompt
+    t_chunk, d_chunk = _chunk_feed(target), _chunk_feed(draft)
+    d_feed = _decode_feed(draft)
+    # prompt tokens 0..P-2 enter each cache; the cursors land at P - 1
+    t_cache = _prefill_cache(t_chunk, t_cache, prompt)
+    d_cache = _prefill_cache(d_chunk, d_cache, prompt)
+    pos = P
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    nblk = 0
+    while True:
+        xs, qs = [], []
+        for i in range(gamma):
+            d_cache, lg = d_feed(d_cache, buf[:, pos + i - 1:pos + i],
+                                 pos + i - 1)
+            if temperature == 0.0:
+                nxt = torch.argmax(lg, dim=-1)
+            else:
+                qfull = _spec_probs(lg, temperature, top_k, top_p)
+                nxt = categorical(torch.clamp(qfull, min=1e-30), rng)
+                qs.append(qfull)
+            buf[:, pos + i] = nxt
+            xs.append(nxt)
+        xs = torch.stack(xs, dim=1)                         # (B, gamma)
+        # ONE chunked target feed verifies the block: the tokens at
+        # positions pos-1 .. pos+gamma-1
+        t_cache, p_logits = t_chunk(t_cache, buf[:, pos - 1:pos + gamma],
+                                    pos - 1)
+        if temperature == 0.0:
+            toks, count = _greedy_accept(p_logits, xs)
+        else:
+            p = _spec_probs(p_logits, temperature, top_k, top_p)
+            u = torch.rand(xs.shape, generator=rng, device=dev)
+            toks, count = speculative_accept(p, torch.stack(qs, dim=1), xs,
+                                             u, rng)
+        # lockstep: the smallest accepted count of the active rows, bounded
+        # by the room left
+        count = torch.where(done, gamma + 1, count)
+        adv = min(int(count.min()), max_len - pos)
+        per_row = torch.where(done, 0, adv)
+        in_block = (cols >= pos) & (cols < pos + per_row[:, None])
+        slot = torch.clamp(cols - pos, 0, gamma).expand(B, -1)
+        buf = torch.where(in_block, toks.gather(1, slot), buf)
+        if eos_id is not None:
+            done = done | (in_block & (buf == eos_id)).any(dim=1)
+        # The draft never fed its last proposal: feed the committed block
+        # again from pos - 1 before the rewind, or a fully accepted block
+        # would leave a row the draft never wrote under its cursor.
+        d_cache = rewind_cache(d_cache, pos - 1)
+        d_cache, _ = d_chunk(d_cache, buf[:, pos - 1:pos + gamma], pos - 1)
+        # tokens 0..pos+adv-2 are committed; pos+adv-1 is the next input
+        rewind_cache(t_cache, pos - 1 + adv)
+        rewind_cache(d_cache, pos - 1 + adv)
+        pos += adv
+        nblk += 1
+        done = done | (pos >= max_len)
+        if bool(done.all()):
+            return _eos_pad(buf[:, :max_len], P, eos_id), nblk
+
+
 def speculative_generate(target_model, draft_model, prompt, max_len,
                          gamma=4, temperature=0.0, rng=None, top_k=0,
                          top_p=1.0, eos_id=None, use_cache=False,
@@ -165,7 +245,11 @@ def speculative_generate(target_model, draft_model, prompt, max_len,
       Otherwise the tokens follow the target's tempered, filtered
       distribution exactly; ``rng`` (a ``torch.Generator``) draws them.
     - ``top_k``/``top_p``/``eos_id``: as in ``generate``.
-    - ``use_cache=True`` (KV-cached speculation) is A15's.
+    - ``use_cache=True``: the cached speculation (dense GPT and LLaMA):
+      one-token cached draft feeds, ONE chunked cached target feed a
+      block, rejections rewind the cursors; the rows advance in lockstep
+      by the block's smallest accepted count. Greedy output still equals
+      target-only greedy decoding.
 
     Returns (B, max_len) token ids; with ``return_stats``, ``(tokens,
     {"blocks": n})``, n the speculation blocks (= target forwards)."""
@@ -176,15 +260,18 @@ def speculative_generate(target_model, draft_model, prompt, max_len,
     if gamma < 1:
         raise ValueError(f"gamma must be >= 1, got {gamma}")
     check_sampling(temperature, rng, top_k, top_p)
-    if use_cache:
-        _not_yet("KV-cached speculative decoding (use_cache=True)", "A15")
     width = int(max_len) + int(gamma) + 1
     _check_position_capacity(target_model, width)
     _check_position_capacity(draft_model, width)
-    out, nblk = _speculative(
-        target_model, draft_model, _prompt(target_model, prompt),
-        int(max_len), int(gamma), float(temperature), rng, int(top_k),
-        float(top_p), None if eos_id is None else int(eos_id), width)
+    prompt = _prompt(target_model, prompt)
+    args = (int(max_len), int(gamma), float(temperature), rng, int(top_k),
+            float(top_p), None if eos_id is None else int(eos_id), width)
+    if use_cache:
+        out, nblk = _speculative_cached(
+            target_model, draft_model, init_decode_cache(target_model, B),
+            init_decode_cache(draft_model, B), prompt, *args)
+    else:
+        out, nblk = _speculative(target_model, draft_model, prompt, *args)
     if return_stats:
         return out, {"blocks": nblk}
     return out

@@ -48,8 +48,8 @@ scales in it and widens back, JAX's rounding points. Every other bucket
 one-shot ``Compression.int8`` request on a runtime whose own wire is not
 quantized makes that call's tensors a bucket of their own, closed at once
 (trigger ``own``) on that wire, as JAX dispatches such a call by itself;
-its residual is kept per call signature (shapes and dtypes), as JAX's eager
-plan keys it.
+its residual is kept per call signature (names, shapes and dtypes; JAX's
+eager plan key leaves the names out), and an unnamed call keeps none.
 
 Strategies (``parallel/strategies.py``; JAX's fused strategy knob). A
 flush also takes one snapshot of the allreduce strategy: ``flat`` (one
@@ -867,12 +867,20 @@ class FusionRuntime:
             ride = quant or ("" if _wire.is_quantized(wire)
                              or op == ReduceOp.ADASUM else wire)
             # The residual's key: the bucket's layout and this runtime's
-            # membership epoch, or for a one-shot call its shapes and dtypes
-            # (JAX's eager plan key), without names.
-            res_key = ("fusion", self._epoch) + sig[:5] + sig[8:] \
-                if not eager else ("eager", self._epoch) + sig[:4] + tuple(
-                    (tuple(e.tensor.shape), str(e.tensor.dtype))
+            # membership epoch, or for a one-shot call its names, shapes and
+            # dtypes. JAX's eager plan key leaves the names out, so two
+            # same-shaped tensors there share one residual; here each keeps
+            # its own, as the fused buckets' keys do. An unnamed one-shot
+            # call keeps none (None): nothing ties it to a later call, so
+            # each such call starts from zero.
+            if not eager:
+                res_key = ("fusion", self._epoch) + sig[:5] + sig[8:]
+            elif all(e.name is not None for e in entries):
+                res_key = ("eager", self._epoch) + sig[:4] + tuple(
+                    (e.name, tuple(e.tensor.shape), str(e.tensor.dtype))
                     for e in entries)
+            else:
+                res_key = None
             tiers = None
             if strategy != "flat":
                 tiers = self._topology.tiers(self._topology.strategy_shape())
@@ -988,8 +996,9 @@ class FusionRuntime:
         tensors' dtype)."""
         work = self._buffer(torch.float32, total)
         pack_scale(tensors, work, 1.0)
+        keep = self._wire_ef and res_key is not None
         residual = None
-        if self._wire_ef:
+        if keep:
             # A bucket's first round on this wire starts from zero, as JAX's.
             kept = _wire.ef_get(res_key)
             residual = kept[1] if kept is not None and kept[0] == label \
@@ -1004,7 +1013,7 @@ class FusionRuntime:
             # Never resume error feedback over a failed exchange.
             _wire.ef_pop(res_key)
             raise
-        if self._wire_ef:
+        if keep:
             # Made on the side stream, whose allocator pool it belongs to.
             _wire.ef_put(res_key, (label, new_res))
         unpack_scale(out, outputs, 1.0)

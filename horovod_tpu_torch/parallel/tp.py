@@ -44,8 +44,16 @@ Flax semantics kept on purpose:
 
 :func:`remat` is ``nn.remat`` for a block: ``torch.utils.checkpoint``.
 
-Decode and per-row RoPE positions (A15) raise ``NotImplementedError``
-naming the ROADMAP item that will bring them.
+Decoding against a KV cache: JAX keeps the cache in a mutable Flax
+collection and builds a second module over the same parameters
+(``decode=True``); the port keeps one module and one set of weights, and
+the cache is an explicit :class:`DecodeCache`, passed down the model as
+``cache=`` (``TPSelfAttention.forward(x, pos=..., cache=...)``), keyed by
+the Flax cache path (``layer_0/attention/k``). Its tensors are allocated
+once at full capacity, and every token writes into them in place at the
+cursor: a host int on the shared-cursor path, a (B,) device tensor of
+per-row positions on the serving path. ``decode=True`` stays accepted, as
+JAX's spelling: such a module refuses to run without a cache.
 """
 
 import contextlib
@@ -61,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from horovod_tpu_torch.common.topology import TP_AXIS
 from horovod_tpu_torch.ops import in_step
 from horovod_tpu_torch.ops.kernels.flash_attention import flash_attention
+from horovod_tpu_torch.ops.wire import symmetric_int8_quantize
 from horovod_tpu_torch.parallel import sequence
 
 # ---------------------------------------------------------------------------
@@ -400,16 +409,27 @@ class RowParallelDense(nn.Module):
 def apply_rope(x, positions, theta):
     """Rotary position embedding (rotate-half pairing), rotated in fp32 and
     cast back to ``x``'s dtype. ``x``: (B, L, h, d), d even; ``positions``:
-    (L,) token positions. Per-row (B, L) positions are decode's (A15)."""
-    d = x.shape[-1]
+    (L,) token positions, or (B, L) per-row positions (the decode cache's
+    serving path, each row at its own offset)."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta, x.device))
+
+
+def rope_cos_sin(positions, d, theta, device):
+    """The fp32 (cos, sin) of :func:`apply_rope`'s angles, shaped to
+    broadcast over (B, L, h, d/2)."""
     if d % 2:
         raise ValueError(f"rope needs an even head_dim, got {d}")
-    if positions.dim() != 1:
-        _not_yet("per-row (B, L) rope positions", "A15")
     inv = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
-                                  device=x.device) / d)          # (d/2,)
-    ang = positions.to(device=x.device, dtype=torch.float32)[:, None] * inv
-    cos, sin = torch.cos(ang)[None, :, None], torch.sin(ang)[None, :, None]
+                                  device=device) / d)            # (d/2,)
+    ang = positions.to(device=device, dtype=torch.float32)[..., None] * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    if positions.dim() == 1:
+        cos, sin = cos[None], sin[None]                  # broadcast batch
+    return cos, sin
+
+
+def rotate(x, cos, sin):
+    """``x`` rotated by :func:`rope_cos_sin`'s (cos, sin), in fp32."""
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
@@ -438,8 +458,97 @@ def _plain_attention(q, k, v, out_dtype, mask, bias, causal):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _not_yet(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+# ---------------------------------------------------------------------------
+# The decode cache
+# ---------------------------------------------------------------------------
+
+
+class DecodeCache:
+    """Every cached attention's KV decode cache, keyed by its Flax cache
+    path: ``<module path>/k`` and ``/v``, or int8 with ``/k_scale`` and
+    ``/v_scale`` fp32 for an int8 cache, and the cursor ``/idx``, a host
+    int. ``sub(name)`` is the view a submodule reads (its entries under
+    ``name/``); every view shares the one store.
+
+    K and V are held (B, kv heads, capacity, head_dim), the scales (B, kv
+    heads, capacity): the layout whose batched products the attend runs
+    without a copy. JAX's tree holds them (B, capacity, kv heads, ...);
+    ``models/gpt.py``'s ``cache_from_flax``/``cache_to_numpy`` swap the two
+    axes.
+
+    The tensors are written in place, so a decode step allocates none of
+    them; a beam reorder gathers into a spare buffer of the same shape
+    (``spare``), kept here, and swaps the two.
+
+    ``feed`` is the scratch of one model forward (:meth:`for_feed`): what
+    every layer of that feed reads alike (the masks, the rotations), made
+    by the first layer and read by the rest. A view with none (an
+    attention called on its own) makes its own each call."""
+
+    def __init__(self, entries=None, prefix="", spares=None, feed=None):
+        self.entries = {} if entries is None else entries
+        self.prefix = prefix
+        self.spares = {} if spares is None else spares
+        self.feed = feed
+
+    def sub(self, name):
+        if not name:
+            return self
+        return DecodeCache(self.entries, f"{self.prefix}{name}/",
+                           self.spares, self.feed)
+
+    def for_feed(self):
+        """This view with a fresh ``feed``: a model's cached forward
+        takes one, and its layers share it."""
+        return DecodeCache(self.entries, self.prefix, self.spares, {})
+
+    def __getitem__(self, key):
+        return self.entries[self.prefix + key]
+
+    def __setitem__(self, key, value):
+        self.entries[self.prefix + key] = value
+
+    def items(self):
+        """(path, value) of every entry under this view, the path whole."""
+        return [(k, v) for k, v in self.entries.items()
+                if k.startswith(self.prefix)]
+
+    def spare(self, path):
+        """A buffer shaped as entry ``path`` for a gather to land in."""
+        t = self.entries[path]
+        s = self.spares.get(path)
+        if s is None or s.shape != t.shape or s.dtype != t.dtype \
+                or s.device != t.device:
+            s = self.spares[path] = torch.empty_like(t)
+        return s
+
+    def map(self, fn):
+        """A new cache: ``fn`` of every tensor, the cursors as they are."""
+        return DecodeCache({k: fn(v) if torch.is_tensor(v) else v
+                            for k, v in self.entries.items()})
+
+    def nbytes(self):
+        """Bytes of every tensor (the cursors live on the host)."""
+        return sum(v.numel() * v.element_size()
+                   for v in self.entries.values() if torch.is_tensor(v))
+
+
+def _grouped_attend(qg, keys, vals, bias, invalid, dtype):
+    """The cached attend: grouped queries (B, kv, g, s, d) against the
+    narrow (B, kv, L, d) cache, no broadcast of K/V (query head j of group
+    n is head n * g + j); ``bias`` (kv, g, 1, L) added to the scores;
+    ``invalid`` (broadcast to (B, kv, g, s, L)) masked at -1e9; an fp32
+    softmax. Returns (B, kv, g, s, d)."""
+    B, kv, g, s, d = qg.shape
+    scores = torch.matmul(qg.reshape(B, kv, g * s, d),
+                          keys.transpose(-1, -2)) / math.sqrt(d)
+    scores = scores.view(B, kv, g, s, -1)
+    if bias is not None:
+        scores = scores + bias[None].to(scores.dtype)
+    scores = scores.masked_fill(invalid, -1e9)
+    probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(dtype)
+    return torch.matmul(probs.view(B, kv, g * s, -1), vals).view(
+        B, kv, g, s, d)
 
 
 class TPSelfAttention(nn.Module):
@@ -452,15 +561,19 @@ class TPSelfAttention(nn.Module):
     path broadcasts them. ``rope_theta`` rotates Q and K at their global
     positions (under ``sp_axis``, the shard's). ``sp_axis`` routes
     attention over the token shards by ``sp_impl`` (``"ring"`` or
-    ``"ulysses"``, ``parallel/sequence.py``)."""
+    ``"ulysses"``, ``parallel/sequence.py``).
+
+    Decoding: ``forward(x, pos=..., cache=...)`` runs ``x`` (B, s) tokens
+    against the layer's entries of a :class:`DecodeCache` of capacity
+    ``cache_len`` (``kv_cache_int8``: int8 rows with an fp32 scale per
+    (row, position, kv head)); :meth:`init_cache` allocates them."""
 
     def __init__(self, num_heads, hidden_size, dtype=torch.float32,
                  causal=False, use_flash=False, sp_axis=None, decode=False,
                  num_kv_heads=None, rope_theta=None, use_bias=True,
-                 axis_name=TP_AXIS, sp_impl="ring"):
+                 axis_name=TP_AXIS, sp_impl="ring", cache_len=0,
+                 kv_cache_int8=False):
         super().__init__()
-        if decode:
-            _not_yet("decode with a KV cache", "A15")
         n = in_step.axis_size_or_1(axis_name)
         kv_heads = num_kv_heads or num_heads
         if num_heads % n or kv_heads % n:
@@ -478,6 +591,9 @@ class TPSelfAttention(nn.Module):
         self.use_flash = use_flash
         self.rope_theta = rope_theta
         self.sp_axis, self.sp_impl = sp_axis, sp_impl
+        self.decode = decode
+        self.cache_len = cache_len
+        self.kv_cache_int8 = kv_cache_int8
         self.qkv = ColumnParallelDense(
             hidden_size, (num_heads + 2 * kv_heads) * self.head_dim,
             use_bias=use_bias, dtype=dtype, axis_name=axis_name)
@@ -516,14 +632,139 @@ class TPSelfAttention(nn.Module):
         return plain_attention(q, k, v, out_dtype=self.dtype, mask=mask,
                                bias=bias, causal=self.causal)
 
-    def forward(self, x, mask=None, bias=None, pos=None):
-        if pos is not None:
-            _not_yet("decode positions", "A15")
+    def init_cache(self, cache, batch, device):
+        """Zeroed entries at full capacity for ``batch`` rows under
+        ``cache`` (this layer's view), the cursor at 0."""
+        if self.cache_len < 1:
+            raise ValueError("decode=True requires cache_len >= 1")
+        shape = (batch, self.local_kv, self.cache_len, self.head_dim)
+        dt = torch.int8 if self.kv_cache_int8 else self.dtype
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=dt, device=device)
+            if self.kv_cache_int8:
+                cache[f"{name}_scale"] = torch.zeros(
+                    shape[:-1], dtype=torch.float32, device=device)
+        cache["idx"] = 0
+
+    def _decode_attend(self, q, k, v, cache, bias=None, pos=None):
+        """``s`` query tokens against the cache: q (B, s, h, d), k/v (B, s,
+        kv, d). The new K/V rows go in place at the cursor ``idx`` (RoPE
+        at the cache positions first, so the cache holds rotated K), or,
+        with ``pos`` a (B,) tensor, row b's at ``pos[b] + i`` (the cursor
+        then still advances by s, as JAX's does, and is not read). Query i
+        sees cache positions <= idx + i (per row: <= pos[b] + i), causal
+        within the chunk. ``bias``: (local heads, 1, cache_len), one
+        token's T5 relative-position row. A write past the capacity
+        raises; it is never clamped. The masks and rotations are made once
+        a feed, for every layer (``DecodeCache.feed``)."""
+        B, s, h, d = q.shape
+        kv = k.shape[2]
+        L = self.cache_len
+        if tuple(cache["k"].shape) != (B, kv, L, d):
+            raise ValueError(f"the decode cache holds "
+                             f"{tuple(cache['k'].shape)} rows for a ({B}, "
+                             f"{kv}, {L}, {d}) feed")
+        idx = cache["idx"]
+        per_row = torch.is_tensor(pos) and pos.dim() == 1
+        if s > L:
+            raise ValueError(f"{s} tokens exceed the decode cache's "
+                             f"capacity {L}")
+        dev = q.device
+        feed = {} if cache.feed is None else cache.feed
+
+        def once(key, make):
+            # Keyed by what it is made of, so layers whose cursors differ
+            # never share it.
+            if key not in feed:
+                feed[key] = make()
+            return feed[key]
+        ar = once(("arange", L), lambda: torch.arange(L, device=dev))
+        if per_row:
+            if bias is not None:
+                raise ValueError("per-row decode positions do not compose "
+                                 "with an attention bias (T5 relative "
+                                 "positions feed the shared-cursor path)")
+            at = ("rows", s, L)
+
+            def rows():
+                # Checked where it costs no wait on the card: positions on
+                # the host (on the card an index past the end is a device
+                # assert, never a clamp).
+                if not pos.is_cuda and (int(pos.min()) < 0
+                                        or int(pos.max()) + s > L):
+                    raise ValueError(
+                        f"per-row positions {pos.tolist()} + {s} exceed "
+                        f"the decode cache's capacity {L}")
+                posm = pos.to(dev, torch.long)[:, None] + ar[:s]   # (B, s)
+                return posm, (ar[None, None, :]
+                              > posm[:, :, None])[:, None, None]
+            posm, invalid = once(at, rows)
+        else:
+            if idx + s > L:
+                raise ValueError(f"the decode cache is full: cursor {idx} + "
+                                 f"{s} tokens exceed its capacity {L}")
+            at = ("cursor", idx, s, L)
+            invalid = once(at, lambda: ar[None, :] > (idx + ar[:s])[:, None])
+        if self.rope_theta is not None:
+            cos, sin = once(at + ("rope", d, self.rope_theta),
+                            lambda: rope_cos_sin(
+                                posm if per_row else ar[idx:idx + s],
+                                d, self.rope_theta, dev))
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)  # K kept rotated
+        rows = {"k": k, "v": v}
+        if self.kv_cache_int8:
+            for name, t in list(rows.items()):
+                # one fp32 scale per (B, s, kv) row, over the head dim
+                rows[name], rows[f"{name}_scale"] = symmetric_int8_quantize(
+                    t.float())
+        for name, t in rows.items():
+            if per_row:
+                cache[name][once(("arange", B), lambda: torch.arange(
+                    B, device=dev))[:, None], :, posm] = t
+            else:
+                cache[name][:, :, idx:idx + s] = t.transpose(1, 2)
+        cache["idx"] = idx + s
+        keys, vals = cache["k"], cache["v"]
+        if self.kv_cache_int8:
+            keys = (keys.float() * cache["k_scale"][..., None]).to(q.dtype)
+            vals = (vals.float() * cache["v_scale"][..., None]).to(q.dtype)
+        # Query head j reads kv head j // g, as the plain path's
+        # repeat_interleave pairs them.
+        g = h // kv
+        if bias is not None:
+            bias = bias.reshape(kv, g, 1, L)
+        qg = q.reshape(B, s, kv, g, d).permute(0, 2, 3, 1, 4)
+        out = at_precision(None, _grouped_attend, qg, keys, vals, bias,
+                           invalid, self.dtype)
+        return out.permute(0, 3, 1, 2, 4).reshape(B, s, h, d)
+
+    def forward(self, x, mask=None, bias=None, pos=None, cache=None):
+        """``x`` (B, L, hidden). With ``cache`` (this layer's view of a
+        :class:`DecodeCache`), the decode route: ``x`` holds s tokens at
+        the cursor, or at the (B,) per-row positions ``pos``. Without it
+        ``pos`` is not read, as JAX's module outside decode mode."""
+        if cache is None and self.decode:
+            raise ValueError("decode mode reads a decode cache: pass cache= "
+                             "(generate.init_decode_cache)")
+        if cache is not None:
+            if self.sp_axis is not None or mask is not None:
+                raise ValueError(
+                    "decode mode supports neither sp_axis nor masks")
+            if bias is not None and x.shape[1] != 1:
+                raise ValueError(
+                    f"decode with an attention bias (T5 relative "
+                    f"positions) feeds ONE token per call, got "
+                    f"{x.shape[1]}")
+            if self.cache_len < 1:
+                raise ValueError("decode=True requires cache_len >= 1")
         hd = self.head_dim
         q, k, v = self.qkv(x).split(
             [self.local_heads * hd, self.local_kv * hd,
              self.local_kv * hd], dim=-1)
         q, k, v = (t.unflatten(-1, (-1, hd)) for t in (q, k, v))
+        if cache is not None:
+            out = self._decode_attend(q, k, v, cache, bias=bias, pos=pos)
+            return self.out(out.flatten(-2))
         if self.rope_theta is not None:
             L = x.shape[-2]
             off = 0
@@ -629,17 +870,20 @@ class TPTransformerBlock(nn.Module):
     def __init__(self, num_heads, hidden_size, intermediate_size,
                  dtype=torch.float32, causal=False, use_flash=False,
                  sp_axis=None, decode=False, axis_name=TP_AXIS,
-                 sp_impl="ring"):
+                 sp_impl="ring", cache_len=0, kv_cache_int8=False):
         super().__init__()
         self.ln_attn = LayerNorm(hidden_size, dtype)
         self.attention = TPSelfAttention(
             num_heads, hidden_size, dtype=dtype, causal=causal,
             use_flash=use_flash, sp_axis=sp_axis, decode=decode,
-            axis_name=axis_name, sp_impl=sp_impl)
+            axis_name=axis_name, sp_impl=sp_impl, cache_len=cache_len,
+            kv_cache_int8=kv_cache_int8)
         self.ln_mlp = LayerNorm(hidden_size, dtype)
         self.mlp = TPMlp(intermediate_size, hidden_size, dtype=dtype,
                          axis_name=axis_name)
 
-    def forward(self, x, mask=None, pos=None):
-        x = x + self.attention(self.ln_attn(x), mask, pos=pos)
+    def forward(self, x, mask=None, pos=None, cache=None):
+        x = x + self.attention(self.ln_attn(x), mask, pos=pos,
+                               cache=None if cache is None
+                               else cache.sub("attention"))
         return x + self.mlp(self.ln_mlp(x))

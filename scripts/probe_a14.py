@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's A14 phases alone, on one GPU.
+"""chip_smoke.py's A14 and A15 phases alone, on one GPU.
 
     python3 scripts/probe_a14.py [--phases p1,p2,...] [--root DIR]
 
@@ -7,8 +7,9 @@ Builds the kernels and runs, in this order, the chosen ones of
 ``flash_vs_plain`` (which holds the flash kernels against their plain
 versions at every path's shape, the decodes' included), ``train_gpt``
 (GPT-2 small, dropped after it), ``train_t5``, ``train_vgg16``,
-``train_inception3``, ``train_lora`` and ``generate``; all of them by
-default. Each phase goes through chip_smoke.py's ``PhaseRunner``: a
+``train_inception3``, ``train_lora``, ``generate`` and ``generate_cached``
+(the decode cache's routes, which print their tokens/s beside
+``generate``'s when both run); all of them by default. Each phase goes through chip_smoke.py's ``PhaseRunner``: a
 collection and a peak reset first, its JSON lines, then its seconds and the
 memory still allocated when it started (what a dropped model left behind).
 A phase that fails ends the probe with its exception and a nonzero exit.
@@ -18,7 +19,7 @@ parent commit unpacked into build/), so two trees' models can be compared
 in one run of the card, alternating.
 
 About three minutes on an H100 for every phase, the kernels' build
-included."""
+included; ``generate_cached`` about a minute and a half more."""
 import argparse
 import os
 import sys
@@ -28,7 +29,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("flash_vs_plain", "train_gpt", "train_t5", "train_vgg16",
-          "train_inception3", "train_lora", "generate")
+          "train_inception3", "train_lora", "generate", "generate_cached")
 
 
 def main(argv=None):
@@ -66,7 +67,9 @@ def main(argv=None):
         "train_inception3": (cs.phase_train_image, torch, hvd, dev, args,
                              card, "inception3"),
         "train_lora": (cs.phase_train_lora, torch, hvd, dev, args, card),
-        "generate": (cs.phase_generate, torch, dev, args, card)}
+        "generate": (cs.phase_generate, torch, dev, args, card),
+        "generate_cached": (cs.phase_generate_cached, torch, dev, args,
+                            card)}
     for name in (p for p in PHASES if p in phases):
         if name == "train_gpt":
             gpt = cs.build_gpt(torch, dev, args.seed)

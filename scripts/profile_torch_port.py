@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Profile one of the PyTorch port's data-parallel training steps on one GPU.
+"""Profile one of the PyTorch port's data-parallel training steps, or one
+of its decodes, on one GPU.
 
     python3 scripts/profile_torch_port.py
         [--model resnet50|gpt|bert|llama|vit] [--remat]
-        [--op average|adasum]
+        [--op average|adasum] [--decode cached|reforward]
         [--seed 0] [--batch N] [--seq L] [--steps 10] [--repeats 5]
         [--profile-steps 3] [--root DIR]
 
@@ -30,6 +31,15 @@ The steps are chip_smoke.py's, on cuda:0 after hvd.init():
 
 ``--remat`` checkpoints every transformer block (gpt, bert, llama, vit).
 
+``--decode`` (gpt or llama, eval mode, no optimizer) makes a "step" one
+whole greedy decode at chip_smoke.py's generate settings (batch 8, a
+32-token prompt, max_len 128): ``generate(use_cache=True)`` (cached) or
+the loop that re-runs the buffer every token (reforward). ``--seq`` is
+then the model's capacity (1024 for gpt, 4096 for llama), and the rate is
+generated tokens per second; the profile's JSON line also gives
+``decode_steps`` (96 a decode: divide a per-step figure by it for one
+token of each row).
+
 ``--root`` profiles the package of another checkout (say, a parent commit
 unpacked into build/), so two trees can be compared in one session.
 
@@ -45,8 +55,10 @@ Prints JSON lines:
   time, and device time by kind of kernel (``chip_smoke.KINDS``, the
   table its phases use too: the port's flash, scale and Adasum kernels,
   NCCL, norms, cross-entropy, the optimizer, convolutions, TF32, fp32 SIMT
-  and other GEMMs, BatchNorm, pools), and the PyTorch operators whose own
-  kernels take the most device time;
+  and other GEMMs, BatchNorm, pools), the PyTorch operators whose own
+  kernels take the most device time, the device's kernels and copies a
+  step, and the operators that take the most host time (self CPU ms and
+  calls a step);
 - the card's name, power limit, SM clock and power draw after the run.
 
 Needs one CUDA device; exits 1 without one. Fails if the profiler records
@@ -63,6 +75,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+import chip_smoke as cs  # noqa: E402
 from chip_smoke import busy_us, emit, kind_of  # noqa: E402
 
 
@@ -78,6 +91,46 @@ def top_ops(prof, steps, count=16):
         if us > 0:
             rows.append([e.key[:60], us / 1e3 / steps])
     return sorted(rows, key=lambda r: -r[1])[:count]
+
+
+def top_host_ops(prof, steps, count=14):
+    """The PyTorch operators that take the most host time (each one's own,
+    not its children's): [name, self CPU ms, calls] a step."""
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return [[a.key[:60], a.self_cpu_time_total / 1e3 / steps,
+             a.count / steps] for a in ops[:count]]
+
+
+def build_decode(args, torch, dev):
+    """(decode function, generated tokens a decode, unit) for ``--decode``:
+    GPT-2 small or LLaMA-400M, bf16, flash, eval mode, capacity ``--seq``;
+    a prompt of chip_smoke's GEN_PROMPT tokens from ``--seed``."""
+    from horovod_tpu_torch.models import (GPT, GPTConfig, Llama,
+                                          LlamaConfig, generate)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    with torch.device(dev):
+        if args.model == "gpt":
+            model = GPT(GPTConfig(vocab_size=50304, hidden_size=768,
+                                  num_layers=12, num_heads=12,
+                                  intermediate_size=3072,
+                                  max_position_embeddings=args.seq,
+                                  dtype=torch.bfloat16, tp_axis=None,
+                                  ep_axis=None, use_flash=True), generator=g)
+        else:
+            model = Llama(LlamaConfig.bench(max_position_embeddings=args.seq,
+                                            dtype=torch.bfloat16,
+                                            use_flash=True), generator=g)
+    model.eval()
+    P, L = cs.GEN_PROMPT, cs.GEN_LEN
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    prompt = torch.randint(0, model.config.vocab_size, (args.batch, P),
+                           generator=gen, device=dev)
+    cached = args.decode == "cached"
+
+    def step():
+        with torch.no_grad():
+            generate(model, prompt, L, use_cache=cached)
+    return step, args.batch * (L - P), "generated_tokens_per_sec"
 
 
 def build_step(args, hvd, torch, dev):
@@ -192,12 +245,16 @@ def main(argv=None):
     ap.add_argument("--op", choices=("average", "adasum"),
                     default="average",
                     help="the optimizer's reduction (adasum: resnet50 only)")
+    ap.add_argument("--decode", choices=("cached", "reforward"),
+                    default=None,
+                    help="profile a greedy decode (gpt or llama)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None,
                     help="64 images for resnet50, 128 for vit, 32 "
                          "sequences for bert, 8 for gpt and llama")
     ap.add_argument("--seq", type=int, default=None,
-                    help="128 tokens for bert, 1024 for gpt and llama")
+                    help="128 tokens for bert, 1024 for gpt and llama; "
+                         "with --decode the capacity, 4096 for llama")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -208,11 +265,17 @@ def main(argv=None):
         args.batch = {"resnet50": 64, "vit": 128,
                       "bert": 32}.get(args.model, 8)
     if args.seq is None:
-        args.seq = 128 if args.model == "bert" else 1024
+        args.seq = 128 if args.model == "bert" else \
+            cs.LLAMA_GEN_CAPACITY if args.decode and args.model == "llama" \
+            else 1024
     if args.remat and args.model == "resnet50":
         ap.error("--remat checkpoints transformer blocks")
     if args.op == "adasum" and args.model != "resnet50":
         ap.error("--op adasum profiles the resnet50 step")
+    if args.decode and (args.model not in ("gpt", "llama") or args.remat
+                        or args.op != "average"):
+        ap.error("--decode profiles a gpt or llama decode, without --remat "
+                 "or --op")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -226,7 +289,8 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     hvd.init()
     dev = hvd.device()
-    step, items, unit = build_step(args, hvd, torch, dev)
+    step, items, unit = build_decode(args, torch, dev) if args.decode \
+        else build_step(args, hvd, torch, dev)
 
     for _ in range(3):                       # cuDNN autotuning, buffers
         step()
@@ -244,6 +308,7 @@ def main(argv=None):
     q1, med, q3 = statistics.quantiles(rates, n=4) if len(rates) > 1 \
         else (rates[0],) * 3
     emit({"summary": unit, "model": args.model, "op": args.op,
+          "decode": args.decode,
           "remat": args.remat, "batch": args.batch, "seq": args.seq,
           "repeats": len(rates),
           "steps_each": args.steps, "median": statistics.median(rates),
@@ -294,7 +359,11 @@ def main(argv=None):
           "top_kernels_ms_per_step": [
               [k[:90], v / 1e3 / n] for k, v in sorted(
                   by_name.items(), key=lambda kv: -kv[1])[:12]],
-          "top_ops_self_device_ms_per_step": top_ops(prof, n)})
+          "top_ops_self_device_ms_per_step": top_ops(prof, n),
+          "device_events_per_step": len(device) / n,
+          "top_ops_self_cpu_ms_per_step": top_host_ops(prof, n),
+          **({"decode_steps": cs.GEN_LEN - cs.GEN_PROMPT}
+             if args.decode else {})})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"],

@@ -18,7 +18,11 @@ and ``speculative.py``) against the JAX package's, on the same weights
 - Greedy ``speculative_generate`` equal to greedy ``generate`` with an
   independent draft and with the target as its own draft (the block count
   then minimal), and under EOS.
-- Every KV-cache route raises ``NotImplementedError`` naming A15.
+- Every KV-cache route runs (its parity with the re-forward routes and
+  with JAX is ``test_torch_decode_cache.py``'s): the cached generate, beam
+  search and speculative decoding give the re-forward tokens, a
+  ``prefix_state`` without ``use_cache`` raises JAX's ``ValueError``, and
+  the cache helpers allocate, prefill, reorder and rewind.
 """
 
 import importlib
@@ -241,19 +245,60 @@ def test_greedy_speculative_equals_greedy_generate(gpt):
     assert torch.equal(sampled[0][:, :4], want[:, :4])
 
 
+def _reordered(m):
+    """Rows 0..5 of a 2 x 3-beam cache, filled with their row index, after
+    a reorder by origin [[2, 2, 0], [1, 0, 1]]: each row holds its origin
+    beam's, the cursors shared."""
+    cache = tgen.init_decode_cache(m, 6)
+    for path, t in cache.items():
+        if torch.is_tensor(t):
+            t.copy_(torch.arange(6.0).view(6, *[1] * (t.dim() - 1))
+                    .expand_as(t))
+    out = tgen.beam_reorder_cache(cache, torch.tensor([[2, 2, 0],
+                                                       [1, 0, 1]]), 2, 3)
+    rows = [t[:, 0, 0, 0].tolist() for p, t in out.items()
+            if torch.is_tensor(t)]
+    return all(r == [2, 2, 0, 4, 3, 4] for r in rows) and all(
+        v == 0 for p, v in out.items() if p.endswith("/idx"))
+
+
+def _prefix_needs_cache(m):
+    with pytest.raises(ValueError, match="requires use_cache"):
+        tgen.generate(m, _prompt(), 8, prefix_state={})
+    return True
+
+
+def _rewound(m):
+    cache = tgen.init_decode_cache(m, 3)
+    with torch.no_grad():
+        m(torch.from_numpy(_prompt()).long(), pos=0, cache=cache)
+    return all(v == 1 for p, v in tspec.rewind_cache(cache, 1).items()
+               if p.endswith("/idx"))
+
+
 @pytest.mark.parametrize("call", [
-    lambda m: tgen.generate(m, _prompt(), 8, use_cache=True),
-    lambda m: tgen.generate(m, _prompt(), 8, prefix_state={}),
-    lambda m: tgen.beam_search(m, _prompt(), 8, use_cache=True),
-    lambda m: tspec.speculative_generate(m, m, _prompt(), 8,
-                                         use_cache=True),
-    lambda m: tgen.init_decode_cache(m),
-    lambda m: tgen.prefill_prefix(m, _prompt()),
-    lambda m: tgen.beam_reorder_cache({}, None, 1, 1),
-    lambda m: tspec.rewind_cache({}, 0),
+    lambda m: torch.equal(tgen.generate(m, _prompt(), 8, use_cache=True),
+                          tgen.generate(m, _prompt(), 8)),
+    _prefix_needs_cache,
+    lambda m: torch.equal(
+        tgen.beam_search(m, _prompt(), 8, use_cache=True)[0],
+        tgen.beam_search(m, _prompt(), 8)[0]),
+    lambda m: torch.equal(
+        tspec.speculative_generate(m, m, _prompt(), 8, use_cache=True),
+        tgen.generate(m, _prompt(), 8)),
+    lambda m: sorted(tgen.init_decode_cache(m, 3).entries) == [
+        f"layer_{i}/attention/{n}" for i in range(2)
+        for n in ("idx", "k", "v")],
+    lambda m: all(v == 4 for p, v in tgen.prefill_prefix(
+        m, _prompt())["cache"].items() if p.endswith("/idx")),
+    _reordered,
+    _rewound,
 ], ids=["generate_cache", "prefix_state", "beam_cache", "speculative_cache",
         "init_decode_cache", "prefill_prefix", "beam_reorder_cache",
         "rewind_cache"])
 def test_cache_routes_raise_naming_a15(gpt, call):
-    with pytest.raises(NotImplementedError, match="A15"):
-        call(gpt[2])
+    """Once each of these raised naming A15; now each runs: the cached
+    generate, beam search and speculation give the re-forward tokens, the
+    cache helpers allocate, prefill, reorder and rewind, and a
+    ``prefix_state`` without ``use_cache`` raises JAX's ``ValueError``."""
+    assert call(gpt[2])

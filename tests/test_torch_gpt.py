@@ -172,17 +172,41 @@ def test_expert_options_build_and_match_jax(kw):
 
 @pytest.mark.parametrize("kw", [{}, {"num_experts": 2}])
 def test_unported_options_name_their_roadmap_item(kw):
-    """Decode (A15) still refuses, on the dense model and the MoE one."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        tg.GPT(tg.GPTConfig.tiny(**kw), decode=True)
-    m = tg.GPT(tg.GPTConfig.tiny(num_layers=2, **kw))
-    with pytest.raises(NotImplementedError, match="A15"):
-        m(torch.zeros(1, 4, dtype=torch.long), pos=0)
+    """Decode, once refused naming A15, is ported: the dense model builds
+    with ``decode=True`` and runs a cache feed, and without a cache ``pos``
+    is not read, as JAX's model outside decode mode; the MoE model refuses
+    decode with JAX's ``ValueError``."""
+    import importlib
+    gen = importlib.import_module("horovod_tpu_torch.models.generate")
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    m = tg.GPT(tg.GPTConfig.tiny(num_layers=2, **kw),
+               generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(m(ids, pos=3), m(ids))
+    if kw:
+        with pytest.raises(ValueError, match="MoE"):
+            tg.GPT(tg.GPTConfig.tiny(**kw), decode=True)
+        with pytest.raises(ValueError, match="MoE"):
+            m(ids, pos=0, cache=gen.init_decode_cache(m, 1))
+        return
+    dec = tg.GPT(tg.GPTConfig.tiny(num_layers=2), decode=True)
+    with torch.no_grad():
+        out = dec(ids, pos=0, cache=gen.init_decode_cache(dec, 1))
+    assert out.shape == (1, 4, 256)
+    with pytest.raises(ValueError, match="decode cache"):
+        dec(ids)
 
 
 def test_decode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A15"):
-        tg.GPT(tg.GPTConfig.tiny(), decode=True)
+    """Decode is ported now: a decode-mode GPT reads its cache, and refuses
+    to run without one or without a position, as JAX's decode mode."""
+    import importlib
+    gen = importlib.import_module("horovod_tpu_torch.models.generate")
+    m = tg.GPT(tg.GPTConfig.tiny(), decode=True)
+    cache = gen.init_decode_cache(m, 2)
+    assert cache["layer_3/attention/k"].shape == (2, 4, 64, 16)
+    with pytest.raises(ValueError, match="requires pos"):
+        m(torch.zeros(2, 1, dtype=torch.long), cache=cache)
 
 
 @pytest.mark.parametrize("flash", [False, True])

@@ -67,7 +67,13 @@ from horovod_tpu_torch.models import (T5, T5Config, VGG, VGG11, VGG13,
     lora_init, lora_apply, lora_merge, lora_wire_numbers, adapter_loss_fn,
     adapter_loss_fn_via_extra, speculative_accept, speculative_generate,
     t5_greedy_decode, t5_generate, t5_beam_decode, load_flax_t5,
-    load_flax_vgg, load_flax_inception)
+    load_flax_vgg, load_flax_inception, init_decode_cache,
+    beam_reorder_cache, rewind_cache, cache_from_flax, cache_to_numpy)
+from horovod_tpu_torch.parallel.tp import DecodeCache
+assert init_decode_cache(horovod_tpu_torch.models.GPT(
+    horovod_tpu_torch.models.GPTConfig.tiny(num_layers=1)), 1).entries
+assert horovod_tpu_torch.models.t5.relative_position_buckets_causal_jnp(
+    3, [0, 1, 2, 3], 8, 16).tolist() == [3, 2, 1, 0]
 import horovod_tpu_torch.models.t5
 import horovod_tpu_torch.models.vgg
 import horovod_tpu_torch.models.inception

@@ -182,18 +182,73 @@ def test_remat_matches_no_remat(flax_params):
         assert torch.equal(grads[0][name], grads[1][name]), name
 
 
-@pytest.mark.parametrize("make,item", [
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(tp_axis="tp"), decode=True),
-     "A15"),
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(sp_axis="sp",
-                                          kv_cache_int8=True)), "A15"),
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(), decode=True), "A15"),
-    (lambda: tl.Llama(tl.LlamaConfig.tiny(kv_cache_int8=True)), "A15"),
-    (lambda: tl.Llama(tl.LlamaConfig.tiny())(torch.zeros(1, 4).long(),
-                                              pos=torch.tensor([3])), "A15"),
-    (lambda: ttp.apply_rope(torch.zeros(2, 4, 1, 8),
-                            torch.zeros(2, 4).long(), 1e4), "A15"),
+def _feed(m, ids, pos=0):
+    import importlib
+    gen = importlib.import_module("horovod_tpu_torch.models.generate")
+    with torch.no_grad():
+        return m(ids, pos=pos, cache=gen.init_decode_cache(m, ids.shape[0]))
+
+
+def _decode_tp_axis():
+    # Outside an in-step mesh a tp_axis model is its dense form: it decodes.
+    m = tl.Llama(tl.LlamaConfig.tiny(tp_axis="tp", num_layers=2),
+                 decode=True)
+    return _feed(m, torch.zeros(1, 3).long()).shape == (1, 3, 256)
+
+
+def _decode_sp_axis():
+    # JAX's decode refuses sp_axis.
+    m = tl.Llama(tl.LlamaConfig.tiny(sp_axis="sp", kv_cache_int8=True,
+                                     num_layers=2))
+    with pytest.raises(ValueError, match="sp_axis"):
+        _feed(m, torch.zeros(1, 3).long())
+    return True
+
+
+def _decode():
+    m = tl.Llama(tl.LlamaConfig.tiny(num_layers=2), decode=True)
+    with pytest.raises(ValueError, match="decode cache"):
+        m(torch.zeros(1, 3).long())
+    return _feed(m, torch.zeros(1, 3).long()).shape == (1, 3, 256)
+
+
+def _int8_cache():
+    import importlib
+    gen = importlib.import_module("horovod_tpu_torch.models.generate")
+    m = tl.Llama(tl.LlamaConfig.tiny(kv_cache_int8=True))
+    cache = gen.init_decode_cache(m, 2)
+    # GQA: the cache keeps the 2 kv heads, one fp32 scale per row and head
+    return (cache["layer_0/attention/k"].dtype == torch.int8
+            and cache["layer_0/attention/k"].shape == (2, 2, 64, 16)
+            and cache["layer_0/attention/k_scale"].shape == (2, 2, 64))
+
+
+def _pos_without_cache():
+    # Outside decode, pos is not read (JAX's model outside decode mode).
+    m = tl.Llama(tl.LlamaConfig.tiny(num_layers=2),
+                 generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 256, (1, 4), generator=torch.Generator()
+                        .manual_seed(1))
+    with torch.no_grad():
+        return torch.equal(m(ids, pos=torch.tensor([3])), m(ids))
+
+
+def _rope_rows():
+    # Per-row (B, L) positions: each row rotated at its own positions.
+    x = torch.randn(2, 4, 1, 8, generator=torch.Generator().manual_seed(2))
+    pos = torch.tensor([[0, 1, 2, 3], [5, 6, 7, 8]])
+    rows = ttp.apply_rope(x, pos, 1e4)
+    return all(torch.equal(rows[b:b + 1], ttp.apply_rope(x[b:b + 1], pos[b],
+                                                         1e4))
+               for b in range(2))
+
+
+@pytest.mark.parametrize("check", [
+    _decode_tp_axis, _decode_sp_axis, _decode, _int8_cache,
+    _pos_without_cache, _rope_rows,
 ], ids=["tp_axis", "sp_axis", "decode", "kv_cache_int8", "pos", "rope_rows"])
-def test_unported_options_name_their_roadmap_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def test_unported_options_name_their_roadmap_item(check):
+    """These once raised naming A15; decode is ported now: each option
+    runs, or raises JAX's ``ValueError`` where JAX refuses it (decode with
+    sp_axis)."""
+    assert check()

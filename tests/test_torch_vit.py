@@ -144,9 +144,11 @@ def test_wrong_image_size_raises(flax_params):
 
 def test_tp_axis_raises_naming_its_item():
     """``tp_axis`` is ported (test_torch_tp.py): outside an in-step mesh the
-    model is its dense form, parameter for parameter; what still refuses is
-    attention in decode mode with a KV cache (A15). T5's encoder-decoder
-    attention, once refused naming A14, builds since A14 landed."""
+    model is its dense form, parameter for parameter. Attention in decode
+    mode, once refused naming A15, builds since A15's decode cache landed,
+    and refuses a decode call without a capacity as JAX does; T5's
+    encoder-decoder attention, once refused naming A14, builds since A14
+    landed."""
     dense = tv.ViT(tv.ViTConfig.tiny(), generator=torch.Generator()
                    .manual_seed(0))
     named = tv.ViT(tv.ViTConfig.tiny(tp_axis="tp"),
@@ -155,10 +157,12 @@ def test_tp_axis_raises_naming_its_item():
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    from horovod_tpu_torch.parallel.tp import (TPCrossAttention,
+    from horovod_tpu_torch.parallel.tp import (DecodeCache,
+                                               TPCrossAttention,
                                                TPSelfAttention)
-    with pytest.raises(NotImplementedError, match="A15"):
-        TPSelfAttention(4, 64, decode=True)
+    attn = TPSelfAttention(4, 64, decode=True)
+    with pytest.raises(ValueError, match="cache_len >= 1"):
+        attn(torch.zeros(1, 1, 64), cache=DecodeCache())
     assert TPCrossAttention(4, 64).kv.shard.weight.shape == (128, 64)
 
 

@@ -26,12 +26,18 @@ Tolerances:
   wire's scales here are powers of two and 3.0: with a prescale of 1/3,
   XLA's CPU program for the JAX cast bucket rounds the prescaled bf16
   product otherwise than one rounding to nearest (toward zero in the
-  elements looked at), which the port does not copy;
+  elements looked at), which the port does not copy: there the port's cast
+  bucket, fp32 and bf16 tensors at a prescale of 1/3, is held bit-equal to
+  a numpy oracle: the tensor and the scale in bf16, their fp32 product
+  rounded once, to nearest even;
 - small buckets, Min, Max and Adasum on the int8 wire: exact, and no
   quantized bucket;
 - the 2-rank MLP trained with ``Compression.int8``: at every step the
   reduced gradients equal JAX's eager quantized allreduce of the same local
-  gradients (its error feedback carried across the steps), bit for bit.
+  gradients (its error feedback carried across the steps), bit for bit;
+- two same-shaped ``Compression.int8`` tensors, interleaved, keep a
+  residual each: their outputs and residuals bit-equal to those each gets
+  alone (JAX's eager plan key, without the name, would share one).
 """
 
 import jax
@@ -273,6 +279,17 @@ CAST_FUSED = [
     ("cast_bf16_sum", "bfloat16", "Sum", 0.5, 3.0,
      _fused_rounds(10, "bfloat16", SHAPES, rounds=1)),
 ]
+# The cast wire at a prescale of 1/3, read after the flush statistics.
+CAST_THIRD = [
+    ("cast_f32_third", "float32", "Sum", 1.0 / 3.0, 1.0,
+     _fused_rounds(15, "float32", SHAPES, rounds=1)),
+    ("cast_bf16_third", "bfloat16", "Sum", 1.0 / 3.0, 1.0,
+     _fused_rounds(16, "bfloat16", SHAPES, rounds=1)),
+]
+# Two same-shaped Compression.int8 tensors, two rounds each (the second
+# reads the first's residual).
+TWINS = {name: [_rows(seed + i, 2, 4096) for i in range(2)]
+         for name, seed in (("twin_a", 17), ("twin_b", 19))}
 EXACT = [
     ("small_sum", "Sum", _rows(11, 2, 100)),
     ("big_max", "Max", _rows(12, 2)),
@@ -300,7 +317,9 @@ def worlds():
                 "exact": EXACT, "shutdown": True},),
             env={"HOROVOD_WIRE_DTYPE": "int8"}),
         "cast": helpers.run_world_async(
-            helpers.wire_world, 2, args=({"fused": CAST_FUSED},),
+            helpers.wire_world, 2, args=({"fused": CAST_FUSED,
+                                          "late_fused": CAST_THIRD,
+                                          "twins": TWINS},),
             env={"HOROVOD_WIRE_DTYPE": "bfloat16"}),
         "three": helpers.run_world_async(
             helpers.wire_world, 3, args=({"exchange": _exchange_data(3),
@@ -374,6 +393,75 @@ def test_fused_bucket_matches_jax(worlds, case):
                     g.reshape(-1).view(np.uint32),
                     w[r].reshape(-1).view(np.uint32),
                     err_msg=f"{case} round {i} rank {r}")
+
+
+def _bf16_rne(x):
+    """fp32 -> bf16 (as fp32), one rounding to nearest even."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CAST_THIRD])
+def test_cast_wire_rounds_a_third_prescale_once(worlds, case):
+    """The bf16 cast bucket at a prescale of 1/3: the tensor and the scale
+    in the wire dtype (JAX's rounding points), their fp32 product (exact)
+    rounded once to bf16, the two ranks' summed and rounded once, the
+    postscale 1 (ROADMAP C2)."""
+    port = _world(worlds, "cast")
+    (_, dt, op, pre, post, rounds), = [c for c in CAST_THIRD if c[0] == case]
+    third = _bf16_rne(np.float32(pre))
+    for r in range(2):
+        got, = port[r][case]
+        assert got["quantized"] == 0
+        assert got["signature"] == ("torch.bfloat16", "bfloat16")
+        for g, a in zip(got["outs"], rounds[0]):
+            packed = _bf16_rne(_bf16_rne(a.astype(np.float32)) * third)
+            want = _bf16_rne(packed[0] + packed[1])
+            np.testing.assert_array_equal(
+                g.reshape(-1).view(np.uint32), want.reshape(-1).view(
+                    np.uint32), err_msg=f"{case} rank {r}")
+
+
+def test_int8_compression_keeps_a_residual_per_tensor(worlds):
+    """Two same-shaped tensors under Compression.int8, interleaved: each
+    output and each error-feedback residual bit-equal to the one the tensor
+    gets when it is the only one of its shape, one store key each
+    (ROADMAP C1)."""
+    for r, port in enumerate(_world(worlds, "cast")):
+        twins = port["twins"]
+        assert twins["keys"] == 2
+        for name in TWINS:
+            (outs, res), (outs1, res1) = twins["alone"][name], \
+                twins["both"][name]
+            assert len(res) == 1 and len(res1) == 1
+            assert np.abs(res[0]).max() > 0          # a quantized round
+            np.testing.assert_array_equal(res1[0].view(np.uint32),
+                                          res[0].view(np.uint32))
+            for a, b in zip(outs, outs1):
+                np.testing.assert_array_equal(
+                    b.view(np.uint32), a.view(np.uint32),
+                    err_msg=f"{name} rank {r}")
+        a, b = (twins["alone"][n][0][1] for n in TWINS)
+        assert not np.array_equal(a, b)
+
+
+def test_unnamed_int8_calls_keep_no_residual(worlds):
+    """Two same-shaped tensors under Compression.int8 with no name,
+    interleaved: the store keeps nothing, and every round's output is
+    bit-equal to that round alone on an empty store, not to a round that
+    reads the other tensor's residual (ROADMAP C1)."""
+    for r, port in enumerate(_world(worlds, "cast")):
+        twins = port["twins"]
+        assert twins["unnamed_keys"] == 0
+        for name in TWINS:
+            got, fresh = twins["unnamed"][name], twins["fresh"][name]
+            for i, (a, b) in enumerate(zip(got, fresh)):
+                np.testing.assert_array_equal(
+                    a.view(np.uint32), b.view(np.uint32),
+                    err_msg=f"{name} round {i} rank {r}")
+            # The second round with a residual differs: a shared one shows.
+            assert not np.array_equal(fresh[1], twins["alone"][name][0][1])
 
 
 @pytest.mark.parametrize("case", [c[0] for c in EXACT])

@@ -693,7 +693,17 @@ def wire_world(rank, size, data):
     - ``mismatch``: a set of ranks 0 and 1 whose wire rank 0 pins to int8;
       the error type a 4096-element allreduce on it raises;
     - ``shutdown``: the error-feedback keys and the global set's and a
-      pinned set's wire before and after hvd.shutdown.
+      pinned set's wire before and after hvd.shutdown;
+
+    and after the flush statistics are read:
+
+    - ``late_fused``: as ``fused``;
+    - ``twins``: {name: rounds}, same-shaped (size, ...) arrays: each
+      name's ``Compression.int8`` one-shot Average alone (the outputs and
+      its error-feedback residual, the store emptied before and after), then
+      all names' rounds interleaved, and the keys the store then holds; the
+      same rounds interleaved with no name, and each round alone on an
+      empty store.
     """
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import wire
@@ -707,20 +717,24 @@ def wire_world(rank, size, data):
             average=average, prescale_factor=pre, postscale_factor=post)
         out[case] = (to_np(y), None if new is None else to_np(new))
     rt = get_runtime()
-    for case, dt, op, pre, post, rounds in data.get("fused", ()):
-        got = []
-        for arrays in rounds:
-            ts = [torch.from_numpy(a[rank]).to(_DTYPES[dt]) for a in arrays]
-            before = rt.flush_stats()
-            hs = hvd.grouped_allreduce_async(
-                ts, op=getattr(hvd, op), prescale_factor=pre,
-                postscale_factor=post, name=case)
-            ys = [to_np(h.synchronize()) for h in hs]
-            after = rt.flush_stats()
-            got.append({"outs": ys,
-                        "quantized": after["quantized"] - before["quantized"],
-                        "signature": rt.recent_buckets(1)[0][1][4:6]})
-        out[case] = got
+
+    def fused(cases):
+        for case, dt, op, pre, post, rounds in cases:
+            got = []
+            for arrays in rounds:
+                ts = [torch.from_numpy(a[rank]).to(_DTYPES[dt])
+                      for a in arrays]
+                before = rt.flush_stats()
+                hs = hvd.grouped_allreduce_async(
+                    ts, op=getattr(hvd, op), prescale_factor=pre,
+                    postscale_factor=post, name=case)
+                ys = [to_np(h.synchronize()) for h in hs]
+                after = rt.flush_stats()
+                got.append({"outs": ys, "quantized": after["quantized"]
+                            - before["quantized"],
+                            "signature": rt.recent_buckets(1)[0][1][4:6]})
+            out[case] = got
+    fused(data.get("fused", ()))
     for case, op, rows in data.get("exact", ()):
         before = rt.flush_stats()["quantized"]
         y = hvd.allreduce(torch.from_numpy(rows[rank]), op=getattr(hvd, op),
@@ -739,6 +753,9 @@ def wire_world(rank, size, data):
                 out["mismatch"] = type(e).__name__
         hvd.barrier()
     out["stats"] = rt.flush_stats()
+    fused(data.get("late_fused", ()))
+    if data.get("twins"):
+        out["twins"] = _twins(rank, data["twins"])
     if data.get("shutdown"):
         hvd.set_wire_dtype("fp16", "set9")          # a user pin
         keys = len(wire.ef_keys())
@@ -748,6 +765,53 @@ def wire_world(rank, size, data):
         out["registry"] = (before, (wire.wire_dtype_for("global"),
                                     wire.wire_dtype_for("set9")))
     return out
+
+
+def _twins(rank, twins):
+    """``wire_world``'s ``twins``: one-shot int8 allreduces of same-shaped
+    tensors, each name alone and then interleaved."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import wire
+
+    def call(name, x):
+        wire.request_wire_once("int8")
+        return to_np(hvd.allreduce(torch.from_numpy(x[rank]),
+                                   op=hvd.Average, name=name))
+
+    def residual(name):
+        kept = [wire.ef_get(k)[1] for k in wire.ef_keys()
+                if k[0] == "eager" and k[-1][0] == name]
+        return [to_np(r).copy() for r in kept]
+
+    alone = {}
+    for name, rounds in twins.items():
+        wire.reset_error_feedback()
+        outs = [call(name, x) for x in rounds]
+        alone[name] = (outs, residual(name))
+    wire.reset_error_feedback()
+    outs = {name: [] for name in twins}
+    for i in range(len(next(iter(twins.values())))):
+        for name, rounds in twins.items():
+            outs[name].append(call(name, rounds[i]))
+    both = {name: (outs[name], residual(name)) for name in twins}
+    keys = len(wire.ef_keys())
+    # The same rounds unnamed and interleaved, then each round alone on an
+    # empty store.
+    wire.reset_error_feedback()
+    unnamed = {name: [] for name in twins}
+    for i in range(len(next(iter(twins.values())))):
+        for name, rounds in twins.items():
+            unnamed[name].append(call(None, rounds[i]))
+    unnamed_keys = len(wire.ef_keys())
+    fresh = {}
+    for name, rounds in twins.items():
+        fresh[name] = []
+        for x in rounds:
+            wire.reset_error_feedback()
+            fresh[name].append(call(name, x))
+    wire.reset_error_feedback()
+    return {"alone": alone, "both": both, "keys": keys, "unnamed": unnamed,
+            "unnamed_keys": unnamed_keys, "fresh": fresh}
 
 
 def dp_mlp_int8(rank, size, params, x, y, steps, lr):
