@@ -389,6 +389,38 @@ and A15's decode cache.
    beside the re-forward's, device ms and launches a decode step, cache
    bytes, the peak, each route's token agreement with the re-forward.
 
+Phases 42-43 run after generate_cached: A15's second half, serving.
+
+42. serve: the continuous-batching engine (``horovod_tpu_torch/serving``)
+   on GPT-2 small (bf16, capacity 1024; 8 slots, prefill_chunk 64,
+   max_len 1024) under 32 requests from --seed submitted up front (prompts
+   of 16-512 tokens, budgets of 16-128; 8 sampled at temperature 0.8,
+   top-k 50, top-p 0.95, a seed each; 2 greedy ones with an EOS taken from
+   a first run), then LLaMA-400M with the int8 cache through 4 slots (8
+   requests). Checks: every request completes with its budget or at its
+   EOS; every greedy token within FORCED_C x the bf16 re-forward's
+   distance of the largest fp32 re-forward logit (LLaMA int8: 0.15 x the
+   row's max|logit|), which an engine feeding each row one position late
+   and one installing into the neighbouring slot must fail; a repeat of
+   the same submissions bit-equal; a mid-run kv_snapshot ->
+   detach_to_host -> reset_runtime(kv=...) bit-equal to the undisturbed
+   run, with no migrated request prefilled again; a mid-run ServingState
+   commit, restore and reset losing no request and keeping every committed
+   prefix; no flash and no scale launch in the engine's runs; the HTTP
+   frontend (concurrent POSTs, /health, /debug/trace/<rid>) and the
+   metrics endpoint (/metrics, /serving/health). Printed: tokens/s and
+   steps/s beside cached generate at batch 8, TTFT and inter-token
+   latency p50/p99 from the registry, host and device ms, busy share and
+   launches a decode step, prefill tokens/s, install and migration ms and
+   bytes, commit ms, cache bytes, the peak, agreement with batch-1
+   generate.
+43. launch_serving: ``hvdrun-torch -np 1 --serving --serving-port <free>
+   python -m horovod_tpu_torch.serving`` with HOROVOD_SERVING_MODEL=gpt2
+   on the card: four concurrent POSTs, /health, the metrics endpoint's
+   /serving/health, /debug/trace/<rid>, then SIGTERM to the worker: the
+   launcher exits 0, the worker is gone, its trace shard holds the four
+   requests.
+
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
 closed in that step, by the timer, the threshold or synchronize. Each phase
@@ -5473,7 +5505,8 @@ OWN_MODEL_PHASES = ("train_bert", "train_llama", "train_vit",
                     "ring_flash", "train_zero_fsdp", "train_gpt_moe",
                     "train_composite", "pipeline_virtual", "train_t5",
                     "train_vgg16", "train_inception3", "train_lora",
-                    "generate", "generate_cached")
+                    "generate", "generate_cached", "serve",
+                    "launch_serving")
 OWN_MODEL_START_GB = 1.0
 # Device time by kind of kernel, matched on the kernel's name (lower case),
 # first match wins: cuDNN's convolutions, whose names carry "gemm" too, are
@@ -6274,6 +6307,744 @@ def phase_generate_cached(torch, dev, args, card):
     return launches
 
 
+# The serving engine (A15's second half): GPT-2 small at capacity 1024
+# through 8 slots, chunked prefill of 64 (JAX's default), 32 requests
+# submitted up front; LLaMA-400M with the int8 cache through 4 slots.
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_LEN = 8, 64, 1024
+SERVE_REQUESTS, SERVE_SAMPLED, SERVE_EOS = 32, 8, 2
+SERVE_PROMPT, SERVE_NEW = (16, 512), (16, 128)
+SERVE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+SERVE_DISRUPT_AT = 40        # engine steps before the migration / commit
+SERVE_ROLLBACK_AFTER = 6     # steps past the commit before the restore
+SERVE_AGREEMENT = 8          # greedy requests decoded again at batch 1
+SERVE_STEADY_STEPS = 30      # decode steps of the steady-batch probe
+LLAMA_SERVE_SLOTS, LLAMA_SERVE_REQUESTS = 4, 8
+LLAMA_SERVE_PROMPT, LLAMA_SERVE_NEW = (16, 256), (16, 64)
+LAUNCH_SERVING_TIMEOUT = 300  # seconds for the launched serving worker
+# The launched worker's model and its device (a CPU rehearsal swaps them
+# for gpt_tiny and ("--device", "cpu")).
+LAUNCH_SERVING_MODEL, LAUNCH_SERVING_ARGS = "gpt2", ()
+LAUNCH_SERVING_DEVICE = "cuda:0"
+
+
+def serve_traffic(seed, vocab, n, n_sampled, prompt, new):
+    """``n`` requests from ``seed``: prompt lengths in ``prompt`` and
+    budgets in ``new`` (both inclusive), ``n_sampled`` of them sampled at
+    SERVE_SAMPLING with a seed each, the rest greedy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n)
+    news = rng.integers(new[0], new[1] + 1, n)
+    sampled = set(rng.choice(n, n_sampled, replace=False).tolist())
+    out = []
+    for i in range(n):
+        r = {"prompt": rng.integers(0, vocab, int(lens[i])).tolist(),
+             "max_new": int(news[i])}
+        if i in sampled:
+            r.update(SERVE_SAMPLING, seed=int(rng.integers(0, 2 ** 31)))
+        out.append(r)
+    return out
+
+
+def serve_run(torch, eng, traffic, after_step=None):
+    """Every request of ``traffic`` submitted up front, the engine stepped
+    until idle, ``after_step(step)`` after each step (the disruptions).
+    Returns the requests, the seconds (host clock; each step ends in the
+    logits' copy to the host) and the steps."""
+    reqs = [eng.submit(**r) for r in traffic]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while not eng.idle():
+        eng.step()
+        steps += 1
+        if after_step is not None:
+            after_step(steps)
+    return reqs, time.perf_counter() - t0, steps
+
+
+def check_served(reqs, traffic, what):
+    """Every request done, its prompt first, then its whole budget or a
+    stream ending at its first EOS."""
+    for r, t in zip(reqs, traffic):
+        gen, eos = r.committed, t.get("eos_id")
+        check(r.done() and r.state == "done"
+              and r.result(0)[:len(t["prompt"])] == t["prompt"],
+              f"{what}: request {r.rid} done with its prompt first")
+        early = eos is not None and eos in gen[:-1]
+        check(not early and (len(gen) == t["max_new"]
+                             or (eos is not None and gen[-1:] == [eos])),
+              f"{what}: request {r.rid} has its whole budget "
+              f"({len(gen)} of {t['max_new']}) or ends at its EOS {eos}")
+
+
+def streams(reqs):
+    return [r.result(0) for r in reqs]
+
+
+def hist_quantiles(reg, name, qs=(0.5, 0.99)):
+    """Quantiles of a registry histogram as the upper bounds of the buckets
+    they fall in (what a Prometheus histogram_quantile reads at most)."""
+    series = reg.snapshot()[name]["series"]
+    if not series or not series[0]["count"]:
+        return {}
+    buckets, total = series[0]["buckets"], series[0]["count"]
+    out = {}
+    for q in qs:
+        for le, n in buckets:
+            if n >= q * total:
+                out[f"p{round(q * 100)}_le_s"] = le
+                break
+    out["count"] = total
+    out["mean_s"] = series[0]["sum"] / total
+    return out
+
+
+def forced_ratio(torch, model, twin, reqs, int8=False):
+    """Teacher forcing of every greedy request: the fp32 twin's logits on
+    its prompt and stream; each generated token's gap below its row's
+    largest fp32 logit over the bound, the worst of them. The bound:
+    FORCED_C x max|bf16 re-forward - fp32 re-forward| over the request's
+    generated rows (``int8``: INT8_REL x the row's max|fp32 logit|, JAX's
+    int8-cache limit)."""
+    dev = next(model.parameters()).device
+    worst, rows = 0.0, 0
+    with torch.no_grad():
+        for r in reqs:
+            if r.temperature:
+                continue
+            seq, P = r.full_tokens(), len(r.prompt)
+            ids = torch.tensor([seq[:-1]], device=dev)
+            z = twin(ids).float()[0, P - 1:]
+            tok = torch.tensor(seq[P:], device=dev)
+            gap = z.max(-1).values - z.gather(1, tok[:, None])[:, 0]
+            if int8:
+                bound = INT8_REL * z.abs().max(-1).values
+            else:
+                bound = FORCED_C * (model(ids).float()[0, P - 1:]
+                                    - z).abs().max()
+            worst = max(worst, float((gap / bound).max()))
+            rows += len(tok)
+    return worst, rows
+
+
+def serve_control(torch, model, traffic, how):
+    """A short run of ``traffic`` through an engine with one program made
+    wrong (``how``): every row fed one position late, or each admission
+    installed into the neighbouring slot."""
+    from horovod_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        prefill_chunk=SERVE_CHUNK)
+    if how == "late":
+        right = eng._step_fn
+        eng._step_fn = lambda m, c, toks, pos: right(m, c, toks, pos + 1)
+    else:
+        right = eng._install_fn
+        eng._install_fn = lambda big, small, slot: right(
+            big, small, (slot + 1) % SERVE_SLOTS)
+    reqs, _, _ = serve_run(torch, eng, traffic)
+    return reqs
+
+
+def phase_serve(torch, dev, args, card):
+    """The serving engine on GPT-2 small (bf16, capacity 1024; 8 slots,
+    prefill_chunk 64, max_len 1024) under SERVE_REQUESTS requests from
+    --seed, all submitted up front (prompts of 16-512 tokens, budgets of
+    16-128; SERVE_SAMPLED sampled at temperature 0.8, top-k 50, top-p 0.95,
+    a seed each; SERVE_EOS greedy ones with an EOS picked from a first run
+    of the same traffic), then LLaMA-400M with the int8 cache (GQA 16/8)
+    through 4 slots.
+
+    Checks: every request completes with its whole budget or at its EOS;
+    each greedy token within FORCED_C x the bf16 re-forward's distance of
+    the largest logit of an fp32 re-forward of the prompt and the tokens
+    before it, which an engine feeding each row one position late and one
+    installing into the neighbouring slot must fail; a second run of the
+    same submissions bit-equal; mid-run, kv_snapshot -> detach_to_host ->
+    reset_runtime(kv=...) bit-equal to the undisturbed run with no prefill
+    of a migrated request after it; mid-run, a ServingState commit, more
+    steps, a restore and a reset: no request lost, none ahead of its
+    commit, every committed prefix kept; no flash and no scale launch in
+    the engine's runs; the frontend answers concurrent POSTs, /health and
+    /debug/trace/<rid>, the metrics endpoint /metrics (the serving series)
+    and /serving/health; LLaMA's int8 tokens within INT8_REL max|logit|.
+
+    Printed: generated tokens/s and steps/s beside cached generate at batch
+    8; TTFT and inter-token latency p50/p99 from the registry; host ms,
+    device ms, busy share and launches a decode step; prefill tokens/s;
+    install ms and bytes beside the byte bound; commit ms; kv_snapshot and
+    restore ms and bytes; cache bytes (bf16, int8); the peak; token
+    agreement with batch-1 generate(use_cache=True). Returns the launch
+    counts of the engine's runs."""
+    import threading
+    from urllib import request as urlrequest
+
+    import numpy as np
+
+    from horovod_tpu_torch.metrics import instruments as ins
+    from horovod_tpu_torch.metrics.server import MetricsServer
+    from horovod_tpu_torch.models import (Llama, LlamaConfig, generate,
+                                          init_decode_cache)
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.serving import (Request, ServingEngine,
+                                           ServingState, sample_token)
+    from horovod_tpu_torch.serving.server import ServingFrontend
+
+    out = {"runs": {}, "teacher_forced": {}, "controls": {},
+           "peak_gb_by_part": {}}
+
+    def part(name):
+        """The peak of allocated memory since the last part, then reset."""
+        out["peak_gb_by_part"][name] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return dict(zip(STEP_COUNTS, (
+            fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+            sb.pack_launches, sb.unpack_launches)))
+
+    def engine(m, slots=SERVE_SLOTS, **kw):
+        return ServingEngine(m, num_slots=slots, max_len=SERVE_MAX_LEN,
+                             prefill_chunk=SERVE_CHUNK, **kw)
+
+    def reading(name, reqs, seconds, steps):
+        toks = sum(len(r.committed) for r in reqs)
+        out["runs"][name] = {"generated_tokens": toks, "steps": steps,
+                             "seconds": seconds,
+                             "generated_tokens_per_sec": toks / seconds,
+                             "steps_per_sec": steps / seconds}
+
+    model = build_gpt(torch, dev, args.seed).eval()
+    traffic = serve_traffic(args.seed + 31, GPT_VOCAB, SERVE_REQUESTS,
+                            SERVE_SAMPLED, SERVE_PROMPT, SERVE_NEW)
+    check(all(len(t["prompt"]) + t["max_new"] <= SERVE_MAX_LEN
+              for t in traffic), "the traffic fits max_len")
+    fa.reset_launch_counts()
+    sb.reset_launch_counts()
+
+    # Run 0 (warm-up, no EOS): two greedy requests take an EOS from it.
+    reqs, s, n = serve_run(torch, engine(model), traffic)
+    check_served(reqs, traffic, "run 0")
+    reading("warmup_no_eos", reqs, s, n)
+    greedy = [i for i, t in enumerate(traffic) if "temperature" not in t]
+    for i in greedy[:SERVE_EOS]:
+        gen = reqs[i].committed
+        traffic[i]["eos_id"] = gen[len(gen) // 2]
+    run0 = streams(reqs)
+
+    # Run 1, the reference: TTFT and inter-token latency from the registry,
+    # and each admission's prefill and install timed to a synchronize.
+    ins.REGISTRY.reset()
+    ref_eng = engine(model)
+    prefill = {"seconds": 0.0, "tokens": 0}
+    admit = ref_eng._prefill_into
+
+    def timed_prefill(slot, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit(slot, req)
+        torch.cuda.synchronize()
+        prefill["seconds"] += time.perf_counter() - t0
+        prefill["tokens"] += len(req.full_tokens()) - 1
+    ref_eng._prefill_into = timed_prefill
+    reqs1, s, n = serve_run(torch, ref_eng, traffic)
+    out["prefill"] = {**prefill, "share_of_run": prefill["seconds"] / s,
+                      "tokens_per_sec": prefill["tokens"]
+                      / prefill["seconds"]}
+    check_served(reqs1, traffic, "run 1")
+    reading("reference", reqs1, s, n)
+    ref = streams(reqs1)
+    out["ttft"] = hist_quantiles(ins.REGISTRY, "serving_ttft_seconds")
+    out["inter_token_latency"] = hist_quantiles(
+        ins.REGISTRY, "serving_token_latency_seconds")
+    ttft = sorted(r.t_first - r.t_submit for r in reqs1)
+    out["ttft_exact_s"] = {"p50": ttft[len(ttft) // 2], "max": ttft[-1]}
+    out["eos_requests"] = [
+        {"eos_id": traffic[i]["eos_id"], "generated": len(reqs1[i].committed),
+         "budget": traffic[i]["max_new"],
+         "prefix_of_run0": run0[i][:len(ref[i])] == ref[i]}
+        for i in greedy[:SERVE_EOS]]
+
+    # Run 2: the same submissions, bit-equal.
+    part("runs_0_1")
+    reqs2, s, n = serve_run(torch, engine(model), traffic)
+    reading("repeat", reqs2, s, n)
+    check(streams(reqs2) == ref, "a second run of the same submissions is "
+          "bit-equal, the sampled streams too")
+
+    # Run 3: the KV migration mid-run.
+    mig_eng = engine(model)
+    mig = {}
+
+    def migrate(step):
+        if step != SERVE_DISRUPT_AT:
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = mig_eng.kv_snapshot()
+        t1 = time.perf_counter()
+        mig_eng.detach_to_host()
+        t2 = time.perf_counter()
+        mig_eng.reset_runtime(kv=kv)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        moved = mig_eng._cache.nbytes()
+        mig.update(rids={r.rid for r in mig_eng._sched.active().values()},
+                   kv_snapshot_ms=(t1 - t0) * 1e3,
+                   detach_ms=(t2 - t1) * 1e3, restore_ms=(t3 - t2) * 1e3,
+                   bytes=moved, kv_snapshot_gb_per_s=moved / (t1 - t0) / 1e9,
+                   restore_gb_per_s=moved / (t3 - t2) / 1e9)
+        real = mig_eng._prefill_into
+        mig["prefilled_after"] = []
+
+        def counted(slot, req):
+            mig["prefilled_after"].append(req.rid)
+            return real(slot, req)
+        mig_eng._prefill_into = counted
+    reqs3, s, n = serve_run(torch, mig_eng, traffic, migrate)
+    reading("migration", reqs3, s, n)
+    check(mig.get("rids"), "the migration ran with requests in flight")
+    check(streams(reqs3) == ref and all(r.requeues == 0 for r in reqs3),
+          "migrated streams bit-equal to the undisturbed run, no requeue")
+    check(not mig["rids"] & set(mig["prefilled_after"]),
+          "no migrated request prefilled again after the migration")
+    out["migration"] = {k: v for k, v in mig.items()
+                        if k not in ("rids", "prefilled_after")}
+    out["migration"]["in_flight"] = len(mig["rids"])
+
+    # Run 4: commit, steps past it, restore, reset (re-prefill).
+    rb_eng = engine(model)
+    state = ServingState(rb_eng, step=0)
+    rb = {}
+
+    def rollback(step):
+        if step == SERVE_DISRUPT_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.save()
+            t1 = time.perf_counter()
+            state.save()
+            t2 = time.perf_counter()
+            rb.update(first_commit_ms=(t1 - t0) * 1e3,
+                      commit_ms=(t2 - t1) * 1e3,
+                      committed={rs["rid"]: list(rs["committed"])
+                                 for rs in state.reqs["active"]
+                                 + state.reqs["queued"]})
+        if step == SERVE_DISRUPT_AT + SERVE_ROLLBACK_AFTER:
+            rb["at_restore"] = {r.rid for r in rb_eng._sched.active().values()}
+            t0 = time.perf_counter()
+            state.restore()
+            torch.cuda.synchronize()
+            rb["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            live = {r.rid: list(r.committed) for r in rb_eng._requests.values()}
+            rb["kept_at_restore"] = all(
+                live.get(rid) == c for rid, c in rb["committed"].items())
+            state.reset()
+    reqs4, s, n = serve_run(torch, rb_eng, traffic, rollback)
+    check_served(reqs4, traffic, "rollback")
+    reading("rollback", reqs4, s, n)
+    check(rb.get("kept_at_restore"), "the restore put every request back at "
+          "its committed tokens: none lost, none ahead")
+    by_rid = {r.rid: r for r in reqs4}
+    check(all(by_rid[rid].committed[:len(c)] == c
+              for rid, c in rb["committed"].items()),
+          "every committed prefix kept to the end")
+    check(rb["at_restore"] and all(by_rid[rid].requeues >= 1
+                                   for rid in rb["at_restore"]),
+          "the requests in flight at the restore were requeued")
+    out["rollback"] = {k: rb[k] for k in ("first_commit_ms", "commit_ms",
+                                          "restore_ms")}
+    out["rollback"]["in_flight"] = len(rb["at_restore"])
+    out["rollback"]["token_agreement_with_reference"] = float(np.mean([
+        np.mean([a == b for a, b in zip(x, y)])
+        for x, y in zip(streams(reqs4), ref)]))
+    del state
+    part("runs_2_4")
+    engine_launches = counts()
+    check(all(v == 0 for v in engine_launches.values()),
+          f"no flash and no scale launch in the engine's runs: "
+          f"{engine_launches}")
+
+    # Teacher forcing, then the two wrong controls on the first greedy
+    # requests (budgets cut to 16).
+    twin = fp32_twin(torch, model, lambda c: GPT(c))
+    worst, rows = forced_ratio(torch, model, twin, reqs1)
+    out["teacher_forced"]["gpt2_small"] = {"worst_ratio": worst,
+                                           "tokens": rows}
+    check(worst <= 1.0, f"every greedy token within the bound: worst "
+          f"{worst} of it")
+    ctl = [dict(traffic[i], max_new=16) for i in greedy[:SERVE_SLOTS]]
+    for t in ctl:
+        t.pop("eos_id", None)
+    for how in ("late", "neighbour"):
+        w, _ = forced_ratio(torch, model, twin,
+                            serve_control(torch, model, ctl, how))
+        out["controls"][how] = {"worst_ratio": w}
+        check(w > 1.0, f"control {how} fails the bound: {w}")
+    del twin
+    gc.collect()
+    part("teacher_forcing_and_controls")
+
+    # Batch-1 cached generate on some greedy requests; cached generate at
+    # batch 8 (the generate phases' setting) for tokens/s.
+    same = []
+    with torch.no_grad():
+        for i in greedy[:SERVE_AGREEMENT]:
+            t = traffic[i]
+            g = generate(model, torch.tensor([t["prompt"]], device=dev),
+                         len(t["prompt"]) + t["max_new"],
+                         use_cache=True)[0].tolist()
+            same.append(float(np.mean([a == b for a, b in zip(
+                g[len(t["prompt"]):], ref[i][len(t["prompt"]):])])))
+        gen8 = torch.randint(0, GPT_VOCAB, (GEN_BATCH, GEN_PROMPT),
+                             generator=torch.Generator(device=dev).manual_seed(
+                                 args.seed + 37), device=dev)
+        generate(model, gen8, GEN_LEN, use_cache=True)
+        _, s8 = timed_call(torch, lambda: generate(model, gen8, GEN_LEN,
+                                                   use_cache=True))
+    out["token_agreement_batch1_generate"] = {
+        "requests": len(same), "mean": float(np.mean(same)),
+        "identical": sum(x == 1.0 for x in same)}
+    out["cached_generate_batch8_tokens_per_sec"] = \
+        GEN_BATCH * (GEN_LEN - GEN_PROMPT) / s8
+    out["engine_over_generate_batch8"] = (
+        out["runs"]["reference"]["generated_tokens_per_sec"]
+        / out["cached_generate_batch8_tokens_per_sec"])
+    part("generate")
+
+    # A steady batch: 8 requests admitted at once, then decode steps only:
+    # a step's host time, and apart, its forward with the logits' copy and
+    # the host sampling of its 8 rows.
+    steady = engine(model)
+    for i in range(SERVE_SLOTS):
+        steady.submit(traffic[i]["prompt"][:64], max_new=SERVE_NEW[1],
+                      **{k: traffic[i][k] for k in ("temperature", "top_k",
+                                                    "top_p", "seed")
+                         if k in traffic[i]})
+    steady.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEADY_STEPS):
+        steady.step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEADY_STEPS
+    feed = torch.from_numpy(np.stack([steady._tokens, steady._pos]).astype(
+        np.int64)).to(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(SERVE_STEADY_STEPS):
+            rows = steady._step_fn(model, steady._cache, feed[0],
+                                   feed[1])[0].float().cpu().numpy()
+        forward_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEADY_STEPS
+    live = list(steady._sched.active().items())
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEADY_STEPS):
+        for slot, r in live:
+            sample_token(rows[slot], r.temperature, r.top_k, r.top_p, r.seed,
+                         len(r.committed))
+    sample_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEADY_STEPS
+    row = np.random.default_rng(args.seed).standard_normal(
+        GPT_VOCAB).astype(np.float32)
+    for name, kw in (("greedy", {"temperature": 0.0, "top_k": 0,
+                                 "top_p": 1.0}),
+                     ("top_k_top_p", dict(SERVE_SAMPLING)),
+                     ("top_p_only", {"temperature": 0.8, "top_k": 0,
+                                     "top_p": 0.95})):
+        t0 = time.perf_counter()
+        for i in range(20):
+            sample_token(row, kw["temperature"], kw["top_k"], kw["top_p"], 1,
+                         i)
+        out.setdefault("host_sample_ms_a_row", {})[name] = \
+            (time.perf_counter() - t0) * 1e3 / 20
+    # Install alone: the batch-1 template's rows into one slot.
+    small_bytes = steady._small_zero.nbytes()
+    out["install"] = {
+        "ms": event_ms(lambda: steady._install_fn(steady._cache,
+                                                  steady._small_zero, 0),
+                       reps=20),
+        "bytes": 2 * small_bytes,
+        "bound_ms": 2 * small_bytes / H100_BYTES_PER_S * 1e3}
+    out["cache_bytes_bf16"] = steady._cache.nbytes()
+    out["decode_step"] = {
+        "host_ms": host_ms, "forward_and_logits_copy_ms": forward_ms,
+        "host_sampling_ms": sample_ms,
+        "sampled_rows": sum(1 for _, r in live if r.temperature),
+        "slots": SERVE_SLOTS}
+    part("steady_probe")
+
+    # The frontend, its drive thread, the metrics endpoint.
+    fe_eng = engine(model)
+    fe = ServingFrontend(fe_eng, port=0, addr="127.0.0.1",
+                         request_timeout=120)
+    srv = MetricsServer(port=0, addr="127.0.0.1")
+    fe.start()
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{fe.port}"
+
+        def post(i, body):
+            req = urlrequest.Request(
+                base + "/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urlrequest.urlopen(req, timeout=120) as resp:
+                answers[i] = (resp.status, json.loads(resp.read()))
+        bodies = [{"prompt": traffic[i]["prompt"][:32], "max_new": 16,
+                   **({"temperature": 0.8, "top_k": 50, "top_p": 0.95,
+                       "seed": 5} if i == 0 else {})}
+                  for i in range(SERVE_SLOTS)]
+        answers = [None] * len(bodies)
+        threads = [threading.Thread(target=post, args=(i, b))
+                   for i, b in enumerate(bodies)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        fe_s = time.perf_counter() - t0
+        check(all(a is not None and a[0] == 200
+                  and a[1]["tokens"][:len(b["prompt"])] == b["prompt"]
+                  and len(a[1]["tokens"]) == len(b["prompt"]) + 16
+                  for a, b in zip(answers, bodies)),
+              f"the frontend answered every concurrent POST: {answers}")
+
+        def get(url):
+            with urlrequest.urlopen(url, timeout=30) as resp:
+                return resp.status, resp.read()
+        code, body = get(base + "/health")
+        check(code == 200 and json.loads(body)["served"] == len(bodies),
+              "GET /health")
+        code, body = get(f"{base}/debug/trace/{answers[1][1]['rid']}")
+        tree = json.loads(body)
+        check(code == 200 and tree["done"] and [c["name"] for c in
+                                                tree["children"]][:4]
+              == ["submit", "queue", "prefill", "decode"],
+              "GET /debug/trace/<rid>: the request's span tree")
+        code, body = get(f"http://127.0.0.1:{srv.port}/metrics")
+        check(code == 200 and b"horovod_serving_tokens_total" in body
+              and b"horovod_serving_ttft_seconds_bucket" in body,
+              "the metrics endpoint's /metrics carries the serving series")
+        code, body = get(f"http://127.0.0.1:{srv.port}/serving/health")
+        check(code == 200 and json.loads(body)["served"] == len(bodies),
+              "the metrics endpoint serves /serving/health")
+        check(fe.drive_errors == 0, "no drive-thread error")
+        out["frontend"] = {"requests": len(bodies), "seconds": fe_s,
+                           "trace_children": [c["name"] for c in
+                                              tree["children"]]}
+    finally:
+        fe.stop()
+        srv.stop()
+    model_ref = model
+    del fe, fe_eng, ref_eng, mig_eng, rb_eng, model
+    gc.collect()
+    part("frontend")
+
+    # LLaMA-400M, the int8 cache, 4 slots.
+    llama = build_on(torch, dev, lambda g: Llama(LlamaConfig.bench(
+        dtype=torch.bfloat16, use_flash=True, kv_cache_int8=True),
+        generator=g), args.seed).eval()
+    ltraffic = serve_traffic(args.seed + 41, 32000, LLAMA_SERVE_REQUESTS, 0,
+                             LLAMA_SERVE_PROMPT, LLAMA_SERVE_NEW)
+    fa.reset_launch_counts()
+    sb.reset_launch_counts()
+    leng = ServingEngine(llama, num_slots=LLAMA_SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+    lreqs, s, n = serve_run(torch, leng, ltraffic)
+    check_served(lreqs, ltraffic, "LLaMA int8")
+    reading("llama_400m_int8", lreqs, s, n)
+    llama_launches = counts()
+    check(all(v == 0 for v in llama_launches.values()),
+          f"no flash and no scale launch in LLaMA's engine run: "
+          f"{llama_launches}")
+    for k, v in llama_launches.items():
+        engine_launches[k] += v
+    out["cache_bytes_int8_llama_400m"] = leng._cache.nbytes()
+    for m in llama.modules():
+        if hasattr(m, "kv_cache_int8"):
+            m.kv_cache_int8 = False
+    out["cache_bytes_bf16_llama_400m"] = init_decode_cache(
+        llama, LLAMA_SERVE_SLOTS).nbytes()
+    ltwin = fp32_twin(torch, llama, lambda c: Llama(c))
+    lworst, lrows = forced_ratio(torch, llama, ltwin, lreqs, int8=True)
+    out["teacher_forced"]["llama_400m_int8"] = {"worst_ratio": lworst,
+                                                "tokens": lrows}
+    check(lworst <= 1.0, f"every LLaMA int8 token within {INT8_REL} "
+          f"max|logit| of the fp32 re-forward's largest: worst {lworst}")
+    del llama, ltwin, leng
+    part("llama_400m_int8")
+    # The steady batch's device time, last, so that no timed part runs
+    # after a torch.profiler window; the forward timed again after it.
+    busy, share, launches = device_ms(torch, steady.step, steps=10,
+                                      launches=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(SERVE_STEADY_STEPS):
+            steady._step_fn(model_ref, steady._cache, feed[0],
+                            feed[1])[0].float().cpu()
+        after_ms = (time.perf_counter() - t0) * 1e3 / SERVE_STEADY_STEPS
+    out["decode_step"].update(
+        device_ms=busy, device_busy_share=share, launches=launches,
+        forward_and_logits_copy_ms_after_profiler=after_ms)
+    del steady, model_ref
+    emit({"phase": "serve", "model": "GPT-2 small; LLaMA-400M (int8 cache)",
+          "slots": SERVE_SLOTS, "prefill_chunk": SERVE_CHUNK,
+          "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
+          "sampled": SERVE_SAMPLED, "sampling": SERVE_SAMPLING,
+          "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+          "llama_slots": LLAMA_SERVE_SLOTS,
+          "llama_requests": LLAMA_SERVE_REQUESTS, **out,
+          "launches_in_engine_runs": engine_launches,
+          "bound": f"greedy: {FORCED_C} x max|bf16 re-forward - fp32 "
+                   f"re-forward| logits of the request; int8: {INT8_REL} x "
+                   f"the row's max|fp32 logit|",
+          "peak_mem_gb": max(out["peak_gb_by_part"].values()),
+          "note": "tokens/s: generated tokens over the host clock of a run "
+                  "(every request submitted up front); TTFT and latency "
+                  "quantiles: the registry bucket's upper bound",
+          "card": card})
+    return engine_launches
+
+
+def phase_launch_serving(torch, args, card):
+    """``hvdrun-torch -np 1 --serving --serving-port <free port>
+    --serving-slots 4 python -m horovod_tpu_torch.serving`` with
+    HOROVOD_SERVING_MODEL=gpt2 (fp32, 1024 positions, weights from the
+    worker's fixed seed) on the card, HOROVOD_METRICS_PORT and
+    HOROVOD_TRACE_DIR set: four concurrent POST /generate (one sampled),
+    GET /health, the metrics endpoint's /serving/health and
+    /debug/trace/<rid>, then SIGTERM to the worker. Checks: the answers
+    (prompt, then the budget), the worker on cuda:0, the launcher's exit
+    code 0 and the worker gone, the trace shard holding the four requests.
+    Printed: the seconds to the first answer and the answers' tokens/s,
+    and the greedy answers' agreement with batch-1 generate on the same
+    model in this process."""
+    import socket
+    import threading
+    from urllib import request as urlrequest
+
+    from horovod_tpu_torch.models import generate
+    from horovod_tpu_torch.serving.__main__ import build_model
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+    port, mport = free_port(), free_port()
+    trace_dir = ROOT / "build" / "launch_serving"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    shard = trace_dir / "trace_r0.json"
+    if shard.exists():
+        shard.unlink()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]),
+        HOROVOD_SERVING_MODEL=LAUNCH_SERVING_MODEL,
+        HOROVOD_SERVING_MAX_LEN="1024",
+        HOROVOD_TRACE_DIR=str(trace_dir), HOROVOD_METRICS_PORT=str(mport))
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+           "-H", "localhost:1", "--serving", "--serving-port", str(port),
+           "--serving-slots", "4", sys.executable, "-m",
+           "horovod_tpu_torch.serving", *LAUNCH_SERVING_ARGS]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    lines, ready = [], threading.Event()
+    started = {}
+
+    def reader():
+        for line in proc.stdout:
+            lines.append(line)
+            if f"# serving {LAUNCH_SERVING_MODEL} on :" in line \
+                    and not ready.is_set():
+                started["line"] = line.strip()
+                started["pid"] = int(line.rsplit("pid=", 1)[1].split(")")[0])
+                ready.set()
+        ready.set()
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    try:
+        check(ready.wait(LAUNCH_SERVING_TIMEOUT) and "pid" in started,
+              f"the serving worker started: {''.join(lines)[-3000:]}")
+        pid = started["pid"]
+        ready_s = time.perf_counter() - t_start
+        check(f"on :{port} " in started["line"]
+              and f"device={LAUNCH_SERVING_DEVICE}" in started["line"],
+              f"the worker serves on its port, on {LAUNCH_SERVING_DEVICE}: "
+              f"{started['line']}")
+        import numpy as np
+        rng = np.random.default_rng(args.seed + 43)
+        bodies = [{"prompt": rng.integers(0, GPT_VOCAB, 32).tolist(),
+                   "max_new": 16} for _ in range(4)]
+        bodies[3].update(temperature=0.8, top_k=50, top_p=0.95, seed=9)
+        answers = [None] * 4
+
+        def post(i):
+            req = urlrequest.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps(bodies[i]).encode(),
+                headers={"Content-Type": "application/json"})
+            with urlrequest.urlopen(req, timeout=120) as resp:
+                answers[i] = (resp.status, json.loads(resp.read()))
+        t0 = time.perf_counter()
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(150)
+        answer_s = time.perf_counter() - t0
+        check(all(a is not None and a[0] == 200
+                  and a[1]["tokens"][:32] == b["prompt"]
+                  and len(a[1]["tokens"]) == 48
+                  for a, b in zip(answers, bodies)),
+              f"four answers, each its prompt then 16 tokens: {answers}")
+
+        def get(url):
+            with urlrequest.urlopen(url, timeout=30) as resp:
+                return resp.status, json.loads(resp.read())
+        code, health = get(f"http://127.0.0.1:{port}/health")
+        check(code == 200 and health["served"] == 4 and health["slots"] == 4,
+              f"GET /health: {health}")
+        code, mhealth = get(f"http://127.0.0.1:{mport}/serving/health")
+        check(code == 200 and mhealth["served"] == 4,
+              "the metrics endpoint's /serving/health")
+        code, tree = get(f"http://127.0.0.1:{port}/debug/trace/"
+                         f"{answers[0][1]['rid']}")
+        check(code == 200 and tree["done"], "GET /debug/trace/<rid>")
+        os.kill(pid, signal.SIGTERM)
+        rc = proc.wait(60)
+        th.join(10)
+        check(rc == 0, f"the launcher exits 0 after the worker's SIGTERM: "
+              f"{rc}\n{''.join(lines)[-3000:]}")
+        check(gone(pid), "the worker is gone")
+        dumped = json.loads(shard.read_text())
+        check(sorted(t["rid"] for t in dumped["traces"])
+              == sorted(a[1]["rid"] for a in answers),
+              "the trace shard holds the four requests")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    dev = torch.device(LAUNCH_SERVING_DEVICE)
+    model = build_model(LAUNCH_SERVING_MODEL, 1024, dev)
+    same = []
+    with torch.no_grad():
+        for a, b in zip(answers[:3], bodies[:3]):
+            g = generate(model, torch.tensor([b["prompt"]], device=dev), 48,
+                         use_cache=True)[0].tolist()
+            same.append(sum(x == y for x, y in zip(g[32:], a[1]["tokens"][
+                32:])) / 16)
+    del model
+    emit({"phase": "launch_serving",
+          "model": f"{LAUNCH_SERVING_MODEL} (fp32)",
+          "worker": started["line"], "seconds_to_ready": ready_s,
+          "answer_seconds": answer_s,
+          "generated_tokens_per_sec": 4 * 16 / answer_s,
+          "ttft_s": [a[1]["ttft_s"] for a in answers],
+          "greedy_agreement_with_batch1_generate": same,
+          "exit_code": rc, "trace_shard_requests": len(dumped["traces"]),
+          "card": card})
+
+
 class PhaseRunner:
     """``run(name, fn, *args)`` calls one phase and returns what it returns.
     Each phase's peak is its own: what earlier phases left is collected and
@@ -6461,6 +7232,10 @@ def main(argv=None):
     cached_launches = run("generate_cached", phase_generate_cached, torch,
                           dev, args, card)
     gc.collect()
+    serve_launches = run("serve", phase_serve, torch, dev, args, card)
+    gc.collect()
+    run("launch_serving", phase_launch_serving, torch, args, card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -6540,8 +7315,9 @@ def main(argv=None):
         {"name": f"scale_{kind}", "route": "cuda", "source": source,
          "replaces": replaces,
          "launches": sum(by_path[p][f"scale_{kind}"] for p in scale_paths),
-         "launches_by_path": {p: by_path[p][f"scale_{kind}"]
-                              for p in scale_paths},
+         "launches_by_path": {**{p: by_path[p][f"scale_{kind}"]
+                                 for p in scale_paths},
+                              "serve": serve_launches[f"scale_{kind}"]},
          "checked_vs_plain": True, "max_abs_err": max(max_err, wire_err),
          "ms": total[f"{kind}_ms"],
          "wrapper_ms": total[f"{kind}_wrapper_ms"],
@@ -6564,7 +7340,8 @@ def main(argv=None):
          "launches": sum(by_path[p][name] for p in transformer_paths),
          "launches_by_path": {
              **{p: by_path[p][name] for p in transformer_paths},
-             "generate_cached": cached_launches[name]},
+             "generate_cached": cached_launches[name],
+             "serve": serve_launches[name]},
          **({"status": REDESIGNED[name]} if name in REDESIGNED else {}),
          "checked_vs_plain": True, "max_abs_err": flash_err[name],
          "max_abs_err_by_path": {p: e[name] for p, e in path_err.items()},

@@ -165,6 +165,30 @@ def init(comm=None, process_sets=None, device=None):
         from horovod_tpu_torch.common import process_sets as _ps
         _ps._init_table(st, process_sets)
         atexit.register(_stop_threads_at_exit, st)
+        _configure_observability(config, st.local_rank)
+
+
+def _configure_observability(config, local_rank):
+    """Request tracing and the declared SLOs, then the metrics registry's
+    switches and, with ``HOROVOD_METRICS_PORT``, its scrape endpoint at
+    ``port + local_rank``, as JAX's ``init`` arms them. The trace store and
+    the registry survive a re-init: a requeued request's spans are its
+    history. A port that will not bind is logged, never fatal."""
+    from horovod_tpu_torch import metrics as hvd_metrics
+    from horovod_tpu_torch import trace as _trace
+    from horovod_tpu_torch.common import logging as hvd_logging
+    from horovod_tpu_torch.telemetry import slo as _slo
+    _trace.configure(config)
+    _slo.configure(config)
+    hvd_metrics.set_enabled(config.metrics)
+    hvd_metrics.set_prefix(config.metrics_prefix)
+    if config.metrics and config.metrics_port:
+        try:
+            port = hvd_metrics.start_http_server(
+                config.metrics_port + local_rank, addr=config.metrics_addr)
+            hvd_logging.info("metrics scrape endpoint on :%d", port)
+        except OSError as e:
+            hvd_logging.warning("metrics endpoint failed to bind: %s", e)
 
 
 def _stop_threads_at_exit(st):
@@ -215,6 +239,8 @@ def shutdown(abort=False):
         if _state is None:
             return
         st, _state = _state, None
+        from horovod_tpu_torch.metrics.server import stop_http_server
+        stop_http_server()
         # Residuals are sized and padded for this world: a resized one
         # (the elastic reset) must not replay them. The runtime's synced
         # wire goes with it; the user's pins stay.

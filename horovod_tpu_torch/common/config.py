@@ -16,7 +16,9 @@ the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
 ``HOROVOD_TORUS_ALLREDUCE``, ``HOROVOD_HIERARCHICAL_DISPATCH``,
 ``HOROVOD_CROSS_OVERLAP``, ``HOROVOD_MESH_SLICES``) with the alltoall
 tier's (``HOROVOD_HIERARCHICAL_ALLTOALL``,
-``HOROVOD_ALLTOALL_CROSS_DTYPE``).
+``HOROVOD_ALLTOALL_CROSS_DTYPE``), and the serving, tracing, SLO and
+metrics knobs (``HOROVOD_SERVING*``, ``HOROVOD_TRACE*``,
+``HOROVOD_SLO_*``, ``HOROVOD_METRICS*``) with JAX's defaults.
 """
 
 import dataclasses
@@ -135,6 +137,68 @@ class Config:
     # The membership version this worker last initialized under.
     elastic_init_version: int = 0
 
+    # --- serving (serving/; `hvdrun-torch --serving` sets HOROVOD_SERVING,
+    # `python -m horovod_tpu_torch.serving` is the worker it launches) ---
+    serving: bool = False
+    # Request-frontend base port (each process binds port + local_rank,
+    # like the metrics endpoint; 0 = bind a free port).
+    serving_port: int = 0
+    # Decode-batch slot count: the continuous batch's fixed width.
+    serving_slots: int = 4
+    # KV-cache capacity per slot in tokens (prompt + generation; 0 = the
+    # model config's max_position_embeddings).
+    serving_max_len: int = 0
+    # Chunked-prefill feed width in tokens (TTFT costs ~P/chunk forwards).
+    serving_prefill_chunk: int = 64
+    # Admission-queue capacity (0 = unbounded). At the limit submits are
+    # rejected (HTTP 503 + Retry-After) and /serving/health is saturated.
+    serving_queue_limit: int = 0
+    # Migrate in-flight KV caches through elastic membership changes as
+    # host copies; off: in-flight requests re-queue from their last
+    # committed token and re-prefill (the same token streams either way).
+    serving_migrate_kv: bool = False
+    # Reference-worker model selector (gpt_tiny | gpt2 | llama_tiny).
+    serving_model: str = "gpt_tiny"
+    # Elastic commit cadence in engine steps.
+    serving_commit_steps: int = 1
+
+    # --- request tracing and SLO burn rates (trace/, telemetry/slo.py) ---
+    trace: bool = True
+    # Live request traces kept per process (step traces have their own cap).
+    trace_capacity: int = 256
+    # Directory for per-rank trace shard dumps ("" = none): the serving
+    # frontend writes trace_r<rank>.json when it stops.
+    trace_dir: str = ""
+    # Declared SLO objectives (0 = not declared): p99 TTFT in ms and a
+    # generated-tokens/s floor, over a window of slo_window_s seconds.
+    slo_ttft_p99_ms: float = 0.0
+    slo_tps: float = 0.0
+    slo_window_s: float = 60.0
+
+    # --- metrics (metrics/) ---
+    metrics: bool = True
+    # Scrape endpoint port; 0 = no HTTP server. Each process binds
+    # port + local_rank.
+    metrics_port: int = 0
+    metrics_addr: str = "0.0.0.0"
+    # Series-name prefix in the text exposition.
+    metrics_prefix: str = "horovod"
+
+    def __post_init__(self):
+        if self.trace_capacity < 1:
+            raise ValueError(
+                f"trace_capacity={self.trace_capacity}: need >= 1 (the "
+                "trace store must hold at least the request being read)")
+        if self.slo_ttft_p99_ms < 0.0 or self.slo_tps < 0.0:
+            raise ValueError(
+                f"SLO targets must be >= 0 (0 = not declared), got "
+                f"slo_ttft_p99_ms={self.slo_ttft_p99_ms}, "
+                f"slo_tps={self.slo_tps}")
+        if self.slo_window_s <= 0.0:
+            raise ValueError(
+                f"slo_window_s={self.slo_window_s}: the burn-rate "
+                "window must be positive")
+
     @classmethod
     def from_env(cls):
         c = cls()
@@ -183,6 +247,38 @@ class Config:
         c.host_key = os.environ.get("HOROVOD_HOST_KEY", c.host_key)
         c.elastic_init_version = _env_int("HOROVOD_ELASTIC_INIT_VERSION",
                                           c.elastic_init_version)
+        c.serving = _env_bool("HOROVOD_SERVING", c.serving)
+        c.serving_port = _env_int("HOROVOD_SERVING_PORT", c.serving_port)
+        c.serving_slots = _env_int("HOROVOD_SERVING_SLOTS",
+                                   c.serving_slots)
+        c.serving_max_len = _env_int("HOROVOD_SERVING_MAX_LEN",
+                                     c.serving_max_len)
+        c.serving_prefill_chunk = _env_int("HOROVOD_SERVING_PREFILL_CHUNK",
+                                           c.serving_prefill_chunk)
+        c.serving_queue_limit = _env_int("HOROVOD_SERVING_QUEUE_LIMIT",
+                                         c.serving_queue_limit)
+        c.serving_migrate_kv = _env_bool("HOROVOD_SERVING_MIGRATE_KV",
+                                         c.serving_migrate_kv)
+        c.serving_model = os.environ.get("HOROVOD_SERVING_MODEL",
+                                         c.serving_model)
+        c.serving_commit_steps = _env_int("HOROVOD_SERVING_COMMIT_STEPS",
+                                          c.serving_commit_steps)
+        c.trace = _env_bool("HOROVOD_TRACE", c.trace)
+        c.trace_capacity = _env_int("HOROVOD_TRACE_CAPACITY",
+                                    c.trace_capacity)
+        c.trace_dir = os.environ.get("HOROVOD_TRACE_DIR", c.trace_dir)
+        c.slo_ttft_p99_ms = _env_float("HOROVOD_SLO_TTFT_P99_MS",
+                                       c.slo_ttft_p99_ms)
+        c.slo_tps = _env_float("HOROVOD_SLO_TPS", c.slo_tps)
+        c.slo_window_s = _env_float("HOROVOD_SLO_WINDOW_S",
+                                    c.slo_window_s)
+        c.metrics = _env_bool("HOROVOD_METRICS", c.metrics)
+        c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
+        c.metrics_addr = os.environ.get("HOROVOD_METRICS_ADDR",
+                                        c.metrics_addr)
+        c.metrics_prefix = os.environ.get("HOROVOD_METRICS_PREFIX",
+                                          c.metrics_prefix)
+        c.__post_init__()     # re-validate what the env set
         return c
 
     def _mpi_fallback(self):

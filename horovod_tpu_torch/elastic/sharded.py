@@ -10,6 +10,9 @@ n changes:
   ``n * shard_len`` to the new world's ``n' * shard_len'``;
 - :func:`fsdp_reshard` cuts a host tree (Flax layout) into this rank's
   shards under the new world's :func:`parallel.fsdp.fsdp_spec` layout;
+- :func:`kv_reshard` cuts a host decode KV-cache tree (the serving
+  engine's migration payload) into this rank's slots under the new world:
+  a pure layout move, nothing flattened or re-padded;
 - :func:`zero_restore` and :func:`fsdp_restore` put host values back into
   a live state. They also load a JAX state: JAX's flat ZeRO moments (the
   port flattens in ``ravel_pytree``'s order and layout) and its FSDP
@@ -27,8 +30,6 @@ re-partition runs in a reset callback, on the new world's mesh::
         new = dp.ZeroTrainState.create(model, tx, new_mesh)
         sharded.zero_restore(new, sharded.zero_reshard(saved["host"],
                                                        new_mesh))
-
-``kv_reshard`` (the serving KV cache) comes with ROADMAP A15.
 """
 
 import numpy as np
@@ -65,9 +66,14 @@ def _np(t):
 def _layout(mesh, axis_name):
     """(n, this rank's position) on ``mesh``'s ``axis_name``; ``mesh`` may
     be the new size n itself, for a world that is not built yet (position
-    0)."""
+    0), or an ``(n, position)`` pair."""
     if isinstance(mesh, int):
         return mesh, 0
+    if isinstance(mesh, tuple):
+        n, idx = (int(v) for v in mesh)
+        if not 0 <= idx < n:
+            raise ValueError(f"position {idx} is outside a world of {n}")
+        return n, idx
     return (mesh.size(mesh.mesh_dim_names.index(axis_name)),
             mesh.get_local_rank(axis_name))
 
@@ -163,6 +169,34 @@ def zero_restore(state, host):
                 st[k] = torch.as_tensor(v.copy(), device=dev)
     state.step = host.step
     return state
+
+
+def kv_reshard(cache_host, mesh, axis_name=HVD_AXIS):
+    """This rank's part of a host decode KV-cache tree under ``mesh``'s
+    ``axis_name`` (or n ranks, ``mesh`` an int; ``(n, position)`` for
+    another rank's part) after a membership change: the serving fleet's
+    migration leg.
+
+    ``cache_host`` is the serving engine's payload (``kv_snapshot()["cache"]``:
+    ``{cache path: CPU tensor}`` in the port's (slots, kv heads, capacity,
+    ...) layout), a nested dict as ``models.gpt.cache_to_numpy`` gives it,
+    or either's leaves as numpy. A leaf is cut along its slot axis (the
+    first) when the slot count divides n, else kept whole, as a fresh
+    engine of the new world would lay it out; the cursors (host ints) are
+    kept as they are. K/V rows are position-addressed, so nothing is
+    flattened or re-padded: the values are unchanged and decoding
+    continues token for token."""
+    n, idx = _layout(mesh, axis_name)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)) \
+                or x.ndim < 1 or x.shape[0] % n:
+            return x
+        rows = x.shape[0] // n
+        return x[idx * rows:(idx + 1) * rows]
+    return leaf(cache_host)
 
 
 def fsdp_reshard(tree_host, mesh, axis_name=HVD_AXIS, min_size=16384):

@@ -58,6 +58,12 @@ class State:
     def sync(self):
         raise NotImplementedError
 
+    def detach_to_host(self):
+        """Move live device state that must outlive the process group to
+        the host. Called by the elastic re-init before the group comes
+        down (the serving engine's K/V migration payload). Default: no-op;
+        a commit's tensors stay on their device."""
+
     def reset(self):
         pass
 
@@ -133,6 +139,7 @@ def _reset(state):
     (reference: common/elastic.py:168 run_fn's shutdown, re-rendezvous,
     re-init)."""
     from horovod_tpu_torch.elastic.worker import refresh_assignment_env
+    state.detach_to_host()
     basics.shutdown(abort=True)
     consumed_version = refresh_assignment_env()
     if consumed_version is None:

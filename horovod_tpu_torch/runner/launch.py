@@ -19,12 +19,25 @@ Elastic launches (``--min-np``/``--max-np``/``--host-discovery-script``,
 ``--reset-limit``, ``--elastic-timeout``, ``--blacklist-cooldown-range``)
 run ``runner/elastic/driver.py``: one worker per slot of each membership
 version, survivors re-initializing in place. The flags of the JAX
-package's other features (wire dtypes, hierarchical tiers, autotune, the
-autopilot, serving, tracing, goodput, the flight recorder) are kept and
-set their env vars on every worker, as the JAX launcher does. The workers
-read the wire knobs (``HOROVOD_WIRE_DTYPE``, ``HOROVOD_WIRE_DTYPE_DCN``,
-``HOROVOD_WIRE_ERROR_FEEDBACK``; ``common/config.py``) and not yet the
-others (ROADMAP A11, A15-A17).
+package's other features are kept and set their env vars on every worker,
+as the JAX launcher does, and ambient serving, tracing, SLO and metrics
+knobs ride along. The workers read (``common/config.py``):
+
+- the wire (``--wire-dtype``, ``--no-wire-error-feedback``:
+  ``HOROVOD_WIRE_DTYPE``, ``_DCN``, ``HOROVOD_WIRE_ERROR_FEEDBACK``);
+- the tiers (``--hierarchical-allreduce``, ``--hierarchical-allgather``,
+  ``--torus-allreduce``, ``--hierarchical-alltoall``,
+  ``--alltoall-cross-dtype``, with ``HOROVOD_HIERARCHICAL_DISPATCH``,
+  ``HOROVOD_CROSS_OVERLAP`` and ``HOROVOD_MESH_SLICES``);
+- serving (``--serving``, ``--serving-port``, ``--serving-slots``,
+  ``--serving-queue-limit``: ``HOROVOD_SERVING*``; ``python -m
+  horovod_tpu_torch.serving`` is the worker);
+- tracing (``--trace``, ``--no-trace``, ``--trace-dir``:
+  ``HOROVOD_TRACE*``), the SLOs (``HOROVOD_SLO_*``) and metrics
+  (``HOROVOD_METRICS*``).
+
+Still set but not read: autotune and the autopilot (ROADMAP A17), goodput
+and the flight recorder (A16).
 """
 
 import argparse
@@ -460,7 +473,14 @@ _PROPAGATED = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
                "HOROVOD_JOIN_MODE", "HOROVOD_LOG_LEVEL",
                "HOROVOD_LOG_HIDE_TIME", "HOROVOD_KV_RETRIES",
                "HOROVOD_KV_RETRY_BACKOFF_MS", "HOROVOD_KV_RETRY_BACKOFF_MAX_MS",
-               "HOROVOD_ELASTIC_TIMEOUT", "HOROVOD_BLACKLIST_COOLDOWN_RANGE")
+               "HOROVOD_ELASTIC_TIMEOUT", "HOROVOD_BLACKLIST_COOLDOWN_RANGE",
+               "HOROVOD_SERVING_MAX_LEN", "HOROVOD_SERVING_PREFILL_CHUNK",
+               "HOROVOD_SERVING_MIGRATE_KV", "HOROVOD_SERVING_MODEL",
+               "HOROVOD_SERVING_COMMIT_STEPS", "HOROVOD_TRACE_CAPACITY",
+               "HOROVOD_SLO_TTFT_P99_MS", "HOROVOD_SLO_TPS",
+               "HOROVOD_SLO_WINDOW_S", "HOROVOD_METRICS",
+               "HOROVOD_METRICS_PORT", "HOROVOD_METRICS_ADDR",
+               "HOROVOD_METRICS_PREFIX")
 
 
 def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,

@@ -7,9 +7,11 @@ Builds the kernels and runs, in this order, the chosen ones of
 ``flash_vs_plain`` (which holds the flash kernels against their plain
 versions at every path's shape, the decodes' included), ``train_gpt``
 (GPT-2 small, dropped after it), ``train_t5``, ``train_vgg16``,
-``train_inception3``, ``train_lora``, ``generate`` and ``generate_cached``
+``train_inception3``, ``train_lora``, ``generate``, ``generate_cached``
 (the decode cache's routes, which print their tokens/s beside
-``generate``'s when both run); all of them by default. Each phase goes through chip_smoke.py's ``PhaseRunner``: a
+``generate``'s when both run), ``serve`` (the serving engine on GPT-2
+small and LLaMA-400M) and ``launch_serving`` (``hvdrun-torch --serving``
+on the card); all of them by default. Each phase goes through chip_smoke.py's ``PhaseRunner``: a
 collection and a peak reset first, its JSON lines, then its seconds and the
 memory still allocated when it started (what a dropped model left behind).
 A phase that fails ends the probe with its exception and a nonzero exit.
@@ -19,7 +21,8 @@ parent commit unpacked into build/), so two trees' models can be compared
 in one run of the card, alternating.
 
 About three minutes on an H100 for every phase, the kernels' build
-included; ``generate_cached`` about a minute and a half more."""
+included; ``generate_cached`` about a minute and a half more, ``serve``
+and ``launch_serving`` about two minutes together."""
 import argparse
 import os
 import sys
@@ -29,7 +32,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("flash_vs_plain", "train_gpt", "train_t5", "train_vgg16",
-          "train_inception3", "train_lora", "generate", "generate_cached")
+          "train_inception3", "train_lora", "generate", "generate_cached",
+          "serve", "launch_serving")
 
 
 def main(argv=None):
@@ -69,7 +73,9 @@ def main(argv=None):
         "train_lora": (cs.phase_train_lora, torch, hvd, dev, args, card),
         "generate": (cs.phase_generate, torch, dev, args, card),
         "generate_cached": (cs.phase_generate_cached, torch, dev, args,
-                            card)}
+                            card),
+        "serve": (cs.phase_serve, torch, dev, args, card),
+        "launch_serving": (cs.phase_launch_serving, torch, args, card)}
     for name in (p for p in PHASES if p in phases):
         if name == "train_gpt":
             gpt = cs.build_gpt(torch, dev, args.seed)

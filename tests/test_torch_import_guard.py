@@ -85,6 +85,18 @@ assert horovod_tpu_torch.parallel.tp.TPCrossAttention
 assert horovod_tpu_torch.models.t5.T5RelativeBias
 assert horovod_tpu_torch.models.inception.InceptionAux
 assert horovod_tpu_torch.models.speculative.rewind_cache
+import horovod_tpu_torch.trace
+import horovod_tpu_torch.metrics
+import horovod_tpu_torch.metrics.server
+import horovod_tpu_torch.telemetry.slo
+import horovod_tpu_torch.serving.server
+import horovod_tpu_torch.serving.__main__
+from horovod_tpu_torch.serving import (ServingEngine, ServingState, Request,
+    SlotScheduler, QueueFull, get_engine, sample_token, serving_snapshot)
+from horovod_tpu_torch.elastic import kv_reshard
+assert sample_token(__import__("numpy").arange(4.0), 0.0, 0, 1.0, 0, 0) == 3
+assert horovod_tpu_torch.metrics.REGISTRY.render_text().count(
+    "# TYPE horovod_serving_") == 6
 assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"
 jax_pkg = [m for m in sys.modules
            if m == "horovod_tpu" or m.startswith("horovod_tpu.")]
