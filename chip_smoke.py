@@ -201,6 +201,11 @@ Phases, one JSON line each (each with its seconds):
    its new signatures a step and its losses. Checks: exit code 0, the
    1-slot contract on cuda:0, every flash and both scale kernels launched,
    buckets closed by the timer, loss falling, reduced gradients bit-equal.
+   The launch passes ``--timeline-filename``, ``--goodput --goodput-dir``,
+   ``--run-history-dir`` and ``--flight-dir``: the worker's timeline opens
+   with clock_sync and holds its allreduce spans, its goodput summary is
+   conserved within 1%, it left one flight dump, and ``python -m
+   horovod_tpu_torch.goodput`` reads the run as ended cleanly.
    Control: a worker that exits 1 (``--launched-worker fail``) makes the
    launcher return 1, and its process is gone.
 21. launch_cpu_world: ``-np 2`` through the launcher with workers on the
@@ -233,7 +238,8 @@ Phases, one JSON line each (each with its seconds):
    fault in a worker of the elastic driver. Checks: exit code 0, the
    1-slot contract, train_elastic's checks but the comparison with the
    run without the fault, the re-init at the unchanged version 1 (after
-   the 30 s wait for a new version, printed), the worker reaped.
+   the wait for a new version, cut from 30 s to ELASTIC_WAIT_S, printed),
+   the worker reaped.
 25. launch_elastic_cpu_world: tests/test_elastic_failure.py's three
    scenarios through the elastic launcher with CPU (gloo) workers
    (``--launched-worker elastic_cpu``; NCCL refuses two ranks on one
@@ -420,6 +426,31 @@ Phases 42-43 run after generate_cached: A15's second half, serving.
    /serving/health, /debug/trace/<rid>, then SIGTERM to the worker: the
    launcher exits 0, the worker is gone, its trace shard holds the four
    requests.
+
+Phase 44 runs after launch_serving: A16's first half, the per-rank
+observability planes.
+
+44. observe: GPT-2 small at full width at train_gpt's settings (8 x 1024,
+   bf16, flash, AdamW in hvd.DistributedOptimizer, fused buckets; the
+   flash kernels first held against their plain versions at the path's
+   shape within the rounding bound, the scale kernels by one step's
+   reduced gradients bit-equal to the local ones), OBSERVE_ROUNDS rounds
+   of OBSERVE_BLOCK_STEPS steps with every plane disarmed, then armed:
+   the timeline (a file per armed block), the flight recorder, the step
+   profiler with its watchdog (MFU against the H100 row, the step's FLOPs
+   from FlopCounterMode plus the flash kernels' attention term, which it
+   cannot see), goodput and metrics, the scrape endpoint serving. Checks:
+   12 launches of each flash kernel a step and the scale kernels'; goodput
+   conserved within 1% at every snapshot; every flight dispatch with its
+   complete and the global seqs contiguous; the timeline valid JSON, opened
+   by clock_sync, its collective spans equal to the buckets dispatched;
+   one step record per optimizer step, each split into the attribution
+   categories; MFU in (0, 1); the buckets' device times read from CUDA
+   events; a capture of the last armed block's last steps whose trace
+   names fa_fwd_mma_kernel and scale_copy_kernel; /debug/steps and
+   /debug/flight served; a forced flight.dump("ondemand") read back by
+   flight.analyze. Printed: tokens/s armed against disarmed, the
+   attribution split, device against host collective ms, MFU.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -3247,13 +3278,15 @@ CYCLE_REPEATS, CYCLE_STEPS = 3, 5
 CYCLE_ORDER = (0.0, 1.0, 1.0, 0.0)  # ms, in turns: host speed drifts
 
 
-def start_launcher(args, np_, kind, launcher=None, worker=()):
+def start_launcher(args, np_, kind, launcher=None, worker=(), flags=()):
     """``python -m horovod_tpu_torch.runner -np np_ -H localhost:np_
     --cycle-time-ms 1`` (``launcher`` in place of ``-np``/``-H``: the
-    elastic flags) on this script's ``--launched-worker kind`` with
-    ``worker``'s extra arguments, in a session of its own."""
+    elastic flags; ``flags``: more launcher flags) on this script's
+    ``--launched-worker kind`` with ``worker``'s extra arguments, in a
+    session of its own."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
            *(launcher or ["-np", str(np_), "-H", f"localhost:{np_}"]),
+           *flags,
            "--cycle-time-ms", "1", "--start-timeout", "120", sys.executable,
            str(ROOT / "chip_smoke.py"), "--launched-worker", kind,
            "--seed", str(args.seed), "--warmup", str(args.warmup),
@@ -3282,9 +3315,9 @@ def finish_launcher(proc, timeout, kind):
     return proc.returncode, lines, out[-4000:]
 
 
-def run_launcher(args, np_, kind, timeout, launcher=None):
-    return finish_launcher(start_launcher(args, np_, kind, launcher),
-                           timeout, kind)
+def run_launcher(args, np_, kind, timeout, launcher=None, flags=()):
+    return finish_launcher(start_launcher(args, np_, kind, launcher,
+                                          flags=flags), timeout, kind)
 
 
 def gone(pid, wait_s=10.0):
@@ -3337,6 +3370,10 @@ def launched_worker(args):
                          GPT_STEPS, (model.config.num_layers,) * 3, lr=1e-4)
     elapsed = run.pop("elapsed")
     run.pop("closed")
+    if os.environ.get("HOROVOD_FLIGHT_DIR"):
+        # hvdrun-torch --flight-dir: this worker's ring, on demand.
+        check(hvd.flight.dump("launched_worker") is not None,
+              "the launched worker dumped its flight ring")
     emit({"phase": "launched_worker", "kind": kind, "pid": os.getpid(),
           "contract": contract, "device": str(dev),
           "cycle_time_ms": get_runtime()._cycle_s * 1e3,
@@ -3379,11 +3416,19 @@ def cpu_world_worker(torch, hvd, args):
 def phase_launch(torch, args, card):
     """The port's launcher on the card: ``-np 1`` on the GPT worker, and a
     worker that exits 1 as the control. Returns the worker's launches."""
+    import tempfile
     gc.collect()
     torch.cuda.empty_cache()
-    rc, lines, log = run_launcher(args, 1, "gpt", LAUNCH_TIMEOUT)
+    out = pathlib.Path(tempfile.mkdtemp(prefix="hvd_launch_planes_"))
+    flags = ["--timeline-filename", str(out / "timeline.json"),
+             "--goodput", "--goodput-dir", str(out / "goodput"),
+             "--run-history-dir", str(out / "history"),
+             "--flight-dir", str(out / "flight")]
+    rc, lines, log = run_launcher(args, 1, "gpt", LAUNCH_TIMEOUT,
+                                  flags=flags)
     check(rc == 0 and len(lines) == 1,
           f"the launched GPT-2 small worker exits 0 (rc {rc}):\n{log}")
+    planes = launched_planes(out)
     w = lines[0]
     check(w["contract"] == dict(zip(CONTRACT, "010101")),
           f"the worker got the launcher's 1-slot contract: {w['contract']}")
@@ -3406,8 +3451,40 @@ def phase_launch(torch, args, card):
           "--launched-worker gpt", "worker": w,
           "timer_closed_buckets": timer,
           "control_fail": {"rc": frc, "worker_reaped": True},
-          "card": card})
+          "planes": planes, "card": card})
     return w["launches"]
+
+
+def launched_planes(out):
+    """What the planes of a worker launched with --timeline-filename,
+    --goodput --goodput-dir, --run-history-dir and --flight-dir left:
+    each file, and ``python -m horovod_tpu_torch.goodput`` reading the
+    run."""
+    with open(out / "timeline.json") as f:
+        tl = json.load(f)["traceEvents"]
+    spans = sum(1 for e in tl if e.get("cat") == "ALLREDUCE")
+    check(tl[0]["name"] == "clock_sync" and spans > 0,
+          f"the worker's timeline opens with clock_sync and holds its "
+          f"allreduce spans ({spans})")
+    with open(out / "goodput" / "goodput_r00.json") as f:
+        gp = json.load(f)
+    check(gp["conservation_error"] <= 0.01 and gp["steps"] > 0,
+          f"the worker's goodput summary is conserved: {gp}")
+    dumps = sorted(p.name for p in (out / "flight").glob("flight_*.jsonl"))
+    check(len(dumps) == 1, f"the worker's flight dump: {dumps}")
+    rep = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.goodput",
+                          "--dir", str(out / "history")],
+                         capture_output=True, text=True, timeout=60,
+                         cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(
+                             ROOT)))
+    check(rep.returncode == 0 and "[ended cleanly]" in rep.stdout
+          and "productive_compute" in rep.stdout,
+          f"python -m horovod_tpu_torch.goodput reads the run "
+          f"(rc {rep.returncode}):\n{rep.stdout}{rep.stderr[-2000:]}")
+    return {"timeline_allreduce_spans": spans,
+            "goodput_ratio": gp["goodput_ratio"],
+            "conservation_error": gp["conservation_error"],
+            "flight_dump": dumps[0], "goodput_report": rep.stdout}
 
 
 def phase_launch_cpu_world(args):
@@ -3536,6 +3613,8 @@ ELASTIC_STEPS, ELASTIC_FAULT = 8, 4   # the fault at step 4, after its update
 ELASTIC_TURNS = (False, True, True, False)   # commit each step: off/on turns
 ELASTIC_REPEATS, ELASTIC_REPEAT_STEPS = 2, 5
 ELASTIC_LAUNCH_TIMEOUT = 300
+# A failed worker's wait for a new membership version (JAX: 30 s).
+ELASTIC_WAIT_S = 5.0
 ELASTIC_CPU_SCENARIOS = ("kill", "remove", "add")
 
 
@@ -3618,7 +3697,11 @@ def elastic_resnet(torch, hvd, dev, args):
     raw = (basics.shutdown, basics.init, worker.wait_for_version_change)
     basics.shutdown = timed("shutdown", raw[0])
     basics.init = timed("init", raw[1])
-    worker.wait_for_version_change = timed("wait", raw[2])
+    # The wait for a new version, cut from JAX's 30 s to ELASTIC_WAIT_S:
+    # under the launcher no version comes at one slot, so the whole wait
+    # is the phase's idle time (outside a launch it returns at once).
+    worker.wait_for_version_change = timed("wait", functools.partial(
+        raw[2], timeout=ELASTIC_WAIT_S))
     state.restore = timed("restore", state.restore)
     state.sync = timed("sync", state.sync)
 
@@ -3915,9 +3998,10 @@ def phase_launch_elastic(torch, args, card):
           "--host-discovery-script build/elastic/launch/discover.sh python "
           "chip_smoke.py --launched-worker elastic", "seconds": seconds,
           "wait_for_version_s": w["wait_for_version_s"],
-          "wait_note": "JAX's semantics: after a failure a worker waits up "
-                       "to 30 s for a new membership version, then re-inits "
-                       "at the unchanged one",
+          "wait_note": "JAX's semantics: after a failure a worker waits "
+                       "for a new membership version (30 s by default, "
+                       f"{ELASTIC_WAIT_S} s here), then re-inits at the "
+                       "unchanged one",
           "worker": w, "worker_reaped": True, "card": card})
     return w["launches"]
 
@@ -7017,8 +7101,13 @@ def phase_launch_serving(torch, args, card):
               f"{rc}\n{''.join(lines)[-3000:]}")
         check(gone(pid), "the worker is gone")
         dumped = json.loads(shard.read_text())
-        check(sorted(t["rid"] for t in dumped["traces"])
-              == sorted(a[1]["rid"] for a in answers),
+        # The engine's steps, marked for the step profiler, leave step
+        # traces beside the requests' (kind "step"), as JAX's do.
+        check(sorted(t["rid"] for t in dumped["traces"]
+                     if t["kind"] == "request")
+              == sorted(a[1]["rid"] for a in answers)
+              and {t["kind"] for t in dumped["traces"]} <= {"request",
+                                                            "step"},
               "the trace shard holds the four requests")
     finally:
         if proc.poll() is None:
@@ -7043,6 +7132,313 @@ def phase_launch_serving(torch, args, card):
           "greedy_agreement_with_batch1_generate": same,
           "exit_code": rc, "trace_shard_requests": len(dumped["traces"]),
           "card": card})
+
+
+OBSERVE_ROUNDS = 4          # rounds of (disarmed block, armed block)
+OBSERVE_BLOCK_STEPS = 4     # optimizer steps a block
+OBSERVE_CAPTURE_STEPS = 2   # steps of the last armed block under capture
+OBSERVE_KERNELS = ("fa_fwd_mma_kernel", "scale_copy_kernel")
+
+
+def arm_planes(on):
+    """Every per-rank observability plane on or off (the timeline is
+    started and stopped around each armed block apart)."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.flight import recorder
+    from horovod_tpu_torch.goodput import ledger as goodput
+    from horovod_tpu_torch.profile import ledger
+    recorder.set_enabled(on)
+    ledger.set_enabled(on)
+    goodput.armed = on
+    metrics.set_enabled(on)
+    if on:
+        ledger.reset_window()       # the disarmed block is no step window
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def flash_main_case_vs_plain(torch, dev, seed):
+    """The three flash kernels at the observe path's shape (GPT-2 small's
+    attention: BH 96, L 1024, d 64, bf16, causal) against their plain
+    versions rounding P and dS as the kernels do: each within the rounding
+    bound. Returns each kernel's max abs error."""
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    dt, bh, lq, lk, d, causal = MAIN_FLASH_CASE[:6]
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=dev)
+                   .to(dtype) for n in (lq, lk, lk, lq))
+    sm = d ** -0.5
+    o, lse = fa.fa_forward(q, k, v, causal, sm)
+    dq, dk, dv = fa.fa_backward(q, k, v, o, lse, do, causal, sm)
+    torch.cuda.synchronize()
+    o_r, _ = fa.block_fwd_reference(q, k, v, causal, sm, None, None,
+                                    round_p=dtype)
+    dq_r, dk_r, dv_r = fa.block_bwd_reference(q, k, v, o, lse, do, causal,
+                                              sm, None, None, round_p=dtype)
+    plain = {"o": o_r, "dq": dq_r, "dk": dk_r, "dv": dv_r}
+    bounds = fa.rounding_bounds(plain, q, k, v, causal, sm, None, None,
+                                o3=o, lse=lse, do3=do)
+    errs = {}
+    for name, key, got in (("flash_fwd", "o", o), ("flash_bwd_dq", "dq", dq),
+                           ("flash_bwd_dk", "dk", dk),
+                           ("flash_bwd_dv", "dv", dv)):
+        ratio = fa.bound_ratio(got, plain[key], bounds[key])
+        check(ratio <= 1.0, f"observe: {name} at {MAIN_FLASH_CASE}: "
+              f"{ratio} of the rounding bound")
+        errs[name] = (got.float() - plain[key].float()).abs().max().item()
+    return errs
+
+
+def phase_observe(torch, hvd, dev, args, card):
+    """A16's per-rank planes on GPT-2 small at full width (train_gpt's
+    settings: 8 x 1024 tokens, bf16, flash, AdamW in
+    hvd.DistributedOptimizer, fused buckets). OBSERVE_ROUNDS rounds of a
+    disarmed then an armed block of OBSERVE_BLOCK_STEPS steps, every block
+    timed from an idle card. Armed: the timeline (a file per block), the
+    flight recorder, the step profiler with its watchdog and MFU (the step's
+    FLOPs counted by FlopCounterMode plus the flash kernels' attention
+    term, which it cannot see), goodput and metrics, with the scrape
+    endpoint serving. Returns the path's launch counts."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.flight import analyze
+    from horovod_tpu_torch.flight import recorder
+    from horovod_tpu_torch.goodput import ledger as goodput
+    from horovod_tpu_torch.metrics import server as msrv
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.profile import capture, ledger, roofline
+
+    work = tempfile.mkdtemp(prefix="hvd_observe_")
+    capture.configure_window("", base_dir=work)     # captures go here
+    flash_err = flash_main_case_vs_plain(torch, dev, args.seed)
+    model = build_gpt(torch, dev, args.seed)
+    cfg = model.config
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+
+    # Explicit step marks: an earlier phase's explicit marks (the serving
+    # engine's, an elastic commit's) suppress the optimizer's auto marks
+    # for the rest of the process, as JAX's recorder does. The ledger's
+    # history is bounded (earlier phases filled it): a block's records are
+    # those of its epoch, which arming opens.
+    marks = [0]
+
+    def mark():
+        marks[0] += 1
+        hvd.step_marker(marks[0])
+        return marks[0]
+
+    def step():
+        opt.zero_grad()
+        value = next_token_loss(F, model(ids), ids)
+        value.backward()
+        opt.step()
+        mark()
+        return value.detach()
+
+    arm_planes(False)
+    for _ in range(args.warmup):
+        step()
+    # The scale kernels held against the local gradients, as train_gpt.
+    reduced_equals_local(torch, model, step)
+    counted, _ = roofline.flops_of_step(step)
+    check(counted, "FlopCounterMode counted the step")
+    attn = cfg.num_layers * roofline.attention_flops(
+        GPT_BATCH * GPT_HEADS, GPT_SEQ, GPT_SEQ, GPT_HEAD_DIM, causal=True)
+    flops = counted + attn
+    hvd.set_flops_per_step(flops)
+    port = msrv.start_http_server(0, addr="127.0.0.1")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()                  # the path starts here
+    sb.reset_launch_counts()
+    rt = get_runtime()
+    tokens = GPT_BATCH * GPT_SEQ * OBSERVE_BLOCK_STEPS
+    # The last armed block runs its last steps under torch.profiler: its
+    # tokens/s stands apart ("armed_capture").
+    tps = {"disarmed": [], "armed": [], "armed_capture": []}
+    blocks, snaps, device_s, device_buckets = [], [], 0.0, 0
+    capture_dir = None
+    for rnd in range(OBSERVE_ROUNDS):
+        for on in (False, True):
+            arm_planes(on)
+            last = on and rnd == OBSERVE_ROUNDS - 1
+            if on:
+                tl_path = os.path.join(work, f"timeline_{rnd}.json")
+                hvd.start_timeline(tl_path)
+                i0 = recorder.get().appended()
+                epoch = ledger.get()._epoch
+                b0 = rt.flush_stats()["buckets"]
+                mark()                        # opens the block's first window
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(OBSERVE_BLOCK_STEPS):
+                if last and i == OBSERVE_BLOCK_STEPS - OBSERVE_CAPTURE_STEPS:
+                    capture_dir = capture.start("observe")
+                    check(capture_dir is not None, f"the capture started: "
+                          f"{capture.last_refusal}")
+                step()
+                if on:
+                    snaps.append(goodput.snapshot())
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            tps["armed_capture" if last else "armed" if on
+                else "disarmed"].append(tokens / elapsed)
+            if not on:
+                continue
+            if last:
+                check(capture.stop() == capture_dir, "the capture stopped")
+            # The blocks' last buckets, done by now: read without a wait.
+            rest = ledger.get().harvest_device()
+            buckets = rt.flush_stats()["buckets"] - b0
+            hvd.stop_timeline()
+            recs = [r for r in ledger.get().records()
+                    if r["epoch"] == epoch]
+            events = [e for e in recorder.events() if e["i"] >= i0]
+            with open(tl_path) as f:
+                tl = json.load(f)["traceEvents"]
+            blocks.append({"records": recs, "events": events, "tl": tl,
+                           "buckets": buckets})
+            device_s += sum(r.get("device_collective_s", 0.0)
+                            for r in recs) + sum(d[3] for d in rest)
+            device_buckets += sum(r.get("device_buckets", 0)
+                                  for r in recs) + len(rest)
+            if rnd == 0:
+                code_s, body_s = http_get(port, "/debug/steps?last=4")
+                code_f, body_f = http_get(port, "/debug/flight")
+    launches = {"flash_fwd": fa.fwd_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches,
+                "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}   # the path ends
+    arm_planes(True)
+    msrv.stop_http_server()
+    steps_armed = OBSERVE_ROUNDS * OBSERVE_BLOCK_STEPS
+    n_steps = OBSERVE_ROUNDS * OBSERVE_BLOCK_STEPS * 2
+    check(all(launches[k] == cfg.num_layers * n_steps for k in FLASH_COUNTS)
+          and launches["scale_pack"] > 0
+          and launches["scale_pack"] == launches["scale_unpack"],
+          f"observe: {cfg.num_layers} launches of each flash kernel a step "
+          f"and both scale kernels: {launches}")
+    # goodput: conserved at every snapshot
+    worst = max(s["conservation_error"] for s in snaps)
+    check(all(s.get("enabled") for s in snaps) and worst <= 0.01,
+          f"goodput conserved within 1% at every snapshot (worst {worst})")
+    # step records, flight pairs, timeline spans
+    recs = [r for b in blocks for r in b["records"]]
+    check(all(len(b["records"]) == OBSERVE_BLOCK_STEPS for b in blocks),
+          f"one step record per optimizer step: "
+          f"{[len(b['records']) for b in blocks]}")
+    cats = set(ledger.CATEGORIES) | {"compute"}
+    check(all(set(r["attribution"]) == cats for r in recs),
+          "every record splits its wall into the attribution categories")
+    mfus = [r.get("mfu") for r in recs]
+    check(all(m is not None and 0.0 < m < 1.0 for m in mfus),
+          f"MFU against the {recs[0].get('chip')} row in (0, 1): {mfus}")
+    check(recs[0].get("chip") == "h100", f"the H100 row: {recs[0]['chip']}")
+    seqs = []
+    for b in blocks:
+        disp = {(e.get("ps"), e.get("seq")) for e in b["events"]
+                if e.get("kind") == "dispatch"}
+        done = {(e.get("ps"), e.get("seq")) for e in b["events"]
+                if e.get("kind") == "complete"}
+        check(disp and disp == done, "every flight dispatch has its "
+              "complete")
+        seqs += sorted(s for ps, s in disp if ps == "global")
+        tl = b["tl"]
+        check(tl[0]["name"] == "clock_sync" and tl[0]["ph"] == "M",
+              "the timeline opens with clock_sync")
+        spans = [e for e in tl if e.get("cat") == "ALLREDUCE"
+                 and e["name"].startswith("fused_allreduce")]
+        execute = [e for e in tl if e.get("cat") == "execute"]
+        check(len(spans) == b["buckets"] > 0, f"the timeline's collective "
+              f"spans equal the buckets dispatched: {len(spans)} vs "
+              f"{b['buckets']}")
+        b["execute"] = len(execute)
+    check(seqs == list(range(seqs[0], seqs[0] + len(seqs))),
+          "the flight recorder's global seqs are contiguous over the blocks")
+    check(device_buckets > 0, "the buckets' device times were read")
+    # the capture
+    trace_text = pathlib.Path(capture_dir, "trace.json").read_text()
+    missing = [k for k in OBSERVE_KERNELS if k not in trace_text]
+    check(not missing, f"the capture names {OBSERVE_KERNELS}: missing "
+          f"{missing}")
+    # the scrape endpoint
+    steps_body = json.loads(body_s)
+    check(code_s == 200 and steps_body["records"], "/debug/steps served "
+          "the step records")
+    flight_lines = body_f.splitlines()
+    check(code_f == 200 and json.loads(flight_lines[0])["kind"] == "meta"
+          and len(flight_lines) > 1, "/debug/flight served the ring")
+    # a forced dump read back by the analyzer
+    dump_dir = os.path.join(work, "flight")
+    path = recorder.dump("ondemand", directory=dump_dir, force=True)
+    check(path is not None, "flight.dump('ondemand') wrote a file")
+    events, metas, marks = analyze.load_dir(dump_dir)
+    report = analyze.analyze(events, metas, marks)
+    check(report["ranks"] == [0] and metas[0]["reason"] == "ondemand"
+          and not report["desync"]["global"]["desynced"],
+          f"the analyzer read the dump: {report['desync']}")
+    att_mean = {c: statistics.mean(r["attribution"][c] for r in recs)
+                for c in sorted(cats)}
+    wall_mean = statistics.mean(r["wall_s"] for r in recs)
+    device_ms_bucket = 1e3 * device_s / max(device_buckets, 1)
+    host_coll_ms = 1e3 * att_mean["collective"]
+    buckets_step = sum(b["buckets"] for b in blocks) / steps_armed
+    emit({"phase": "observe", "model": "GPT-2 small", "params": sum(
+        p.numel() for p in model.parameters()), "batch": GPT_BATCH,
+        "seq": GPT_SEQ, "dtype": "bfloat16",
+        "optimizer": ADAMW.format(lr=1e-4),
+        "rounds": OBSERVE_ROUNDS, "block_steps": OBSERVE_BLOCK_STEPS,
+        "tokens_per_sec": {k: v for k, v in tps.items()},
+        "tokens_per_sec_median": {k: statistics.median(v)
+                                  for k, v in tps.items()},
+        "armed_note": "armed: the armed blocks without the capture; "
+                      "armed_capture: the last, whose last "
+                      f"{OBSERVE_CAPTURE_STEPS} steps ran under "
+                      "torch.profiler",
+        "armed_over_disarmed": statistics.median(tps["armed"])
+        / statistics.median(tps["disarmed"]),
+        "step_wall_ms_mean": 1e3 * wall_mean,
+        "attribution_ms_mean": {k: 1e3 * v for k, v in att_mean.items()},
+        "attribution_share": {k: v / wall_mean for k, v in att_mean.items()},
+        "buckets_per_step": buckets_step,
+        "device_collective_ms_per_bucket": device_ms_bucket,
+        "device_collective_ms_per_step": 1e3 * device_s / steps_armed,
+        "host_collective_ms_per_step": host_coll_ms,
+        "device_buckets_read": device_buckets,
+        "flops_per_step": flops, "flops_counted": counted,
+        "flops_attention_added": attn, "mfu": {
+            "mean": statistics.mean(mfus), "min": min(mfus),
+            "max": max(mfus)},
+        "peak": roofline.chip_peaks(),
+        "goodput": {"worst_conservation_error": worst,
+                    "last": snaps[-1]},
+        "flight": {"dispatches": len(seqs),
+                   "dump": os.path.basename(path),
+                   "analyzer_steps_marked":
+                       report["steps"]["0"]["steps_marked"]},
+        "timeline_spans_per_block": [b["buckets"] for b in blocks],
+        "timeline_execute_spans_per_block": [b["execute"] for b in blocks],
+        "capture": {"dir": os.path.basename(capture_dir),
+                    "kernels": list(OBSERVE_KERNELS)},
+        "launches": launches, "flash_max_abs_err": flash_err,
+        "card": card})
+    return launches
 
 
 class PhaseRunner:
@@ -7236,6 +7632,9 @@ def main(argv=None):
     gc.collect()
     run("launch_serving", phase_launch_serving, torch, args, card)
     gc.collect()
+    observe_launches = run("observe", phase_observe, torch, hvd, dev, args,
+                           card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -7258,7 +7657,7 @@ def main(argv=None):
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
                          "train_zero", "train_fsdp", "train_gpt_moe",
                          "train_composite", "pipeline_virtual", "train_lora",
-                         "generate")
+                         "generate", "observe")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -7274,14 +7673,15 @@ def main(argv=None):
                    pipeline_virtual=virtual_launches,
                    train_t5=t5_launches, train_vgg16=vgg_launches,
                    train_inception3=inception_launches,
-                   train_lora=lora_launches, generate=generate_launches)
+                   train_lora=lora_launches, generate=generate_launches,
+                   observe=observe_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
                    "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe",
                    "train_t5", "train_vgg16", "train_inception3",
-                   "train_lora")
+                   "train_lora", "observe")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),

@@ -19,6 +19,14 @@ version's coordinator port and builds a new group on the same device.
 ``abort`` is the membership watchdog's: it aborts the group from another
 thread, so a collective blocked on a dead peer raises, and every later one
 raises ``HorovodInternalError`` until the shutdown.
+
+``init`` also arms the per-rank observability planes from the config (the
+flight recorder, the step profiler and goodput before the bootstrap; the
+trace store, the SLOs, metrics and its endpoint, the timeline and the run
+journal after it), and ``shutdown`` closes them (the timeline written with
+the registry's totals, the step profiler's open window dropped, a capture
+still open written out). ``start_timeline``/``stop_timeline`` are the
+reference's (operations.cc:1079-1111).
 """
 
 import atexit
@@ -64,6 +72,7 @@ class _State:
         self.joined_ranks = set()
         # Why the process group was aborted (abort()); None while it runs.
         self.aborted = None
+        self.timeline = None            # set by start_timeline
 
 
 def _no_gpu_error():
@@ -102,6 +111,11 @@ def init(comm=None, process_sets=None, device=None):
         if _state is not None:
             return
         config = Config.from_env()
+        # The per-rank observability planes arm before the bootstrap, so
+        # the flight ring covers it and goodput books it to init_compile;
+        # each survives an elastic re-init (the ring, the completed step
+        # records and the goodput decomposition are the evidence).
+        _arm_planes(config)
         size = config.size if config.size > 0 else 1
         rank = config.rank
         if not 0 <= rank < size:
@@ -166,6 +180,64 @@ def init(comm=None, process_sets=None, device=None):
         _ps._init_table(st, process_sets)
         atexit.register(_stop_threads_at_exit, st)
         _configure_observability(config, st.local_rank)
+        if config.timeline_filename:
+            _start_timeline_locked(st, config.timeline_filename,
+                                   config.timeline_mark_cycles)
+        # The durable run journal (HOROVOD_RUN_HISTORY_DIR), on rank 0 once
+        # the world is known; armed once: an elastic re-init keeps
+        # appending to the same run's journal.
+        try:
+            from horovod_tpu_torch.goodput import history as _run_history
+            if _run_history.get_journal() is None:
+                _run_history.journal_configure(
+                    config, rank=rank, world=size,
+                    run_id=config.run_id or None)
+        except Exception as e:  # noqa: BLE001 — must not block init
+            from horovod_tpu_torch.common import logging as hvd_logging
+            hvd_logging.warning("run-history journal failed to arm: %s", e)
+
+
+def _arm_planes(config):
+    """The flight recorder, the step profiler and the goodput ledger, from
+    the config (JAX's ``init`` arms them in this order)."""
+    from horovod_tpu_torch.flight import recorder as _flight
+    from horovod_tpu_torch.goodput import ledger as _goodput
+    from horovod_tpu_torch.profile import ledger as _profile
+    _flight.configure(config)
+    _profile.configure(config)
+    _goodput.configure(config)
+
+
+def _close_planes(st):
+    """At shutdown (an elastic reset's too): the timeline ends with the
+    registry's totals as counter events, the run journal gets the goodput
+    summary, the step profiler discards its OPEN window (recovery traffic
+    must not land in the first step after it) and a capture still open is
+    written out. Never raises."""
+    from horovod_tpu_torch import metrics as hvd_metrics
+    if st.timeline is not None:
+        try:
+            hvd_metrics.emit_timeline_counters(st.timeline)
+            st.timeline.close()
+        except Exception:  # noqa: BLE001 — observability must not block
+            pass
+        st.timeline = None
+    try:
+        from horovod_tpu_torch.goodput import history as _run_history
+        if _run_history.get_journal() is not None:
+            from horovod_tpu_torch.goodput import ledger as _goodput
+            _run_history.journal_append("goodput",
+                                        summary=_goodput.snapshot())
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        from horovod_tpu_torch.profile import capture as _capture
+        from horovod_tpu_torch.profile import ledger as _profile
+        _profile.reset_window()
+        _capture.shutdown()
+    except Exception:  # noqa: BLE001
+        pass
+    hvd_metrics.instruments.reset_tier_split()
 
 
 def _configure_observability(config, local_rank):
@@ -239,33 +311,41 @@ def shutdown(abort=False):
         if _state is None:
             return
         st, _state = _state, None
-        from horovod_tpu_torch.metrics.server import stop_http_server
-        stop_http_server()
-        # Residuals are sized and padded for this world: a resized one
-        # (the elastic reset) must not replay them. The runtime's synced
-        # wire goes with it; the user's pins stay.
-        wire.reset_error_feedback()
-        wire.clear_runtime_wire()
-        if abort or st.aborted is not None:
-            _abort_locked(st, st.aborted or "the process group was shut "
-                          "down by an elastic reset")
-            if st.process_set_table is not None:
-                st.process_set_table.destroy_groups(aborted=True)
-            if st.topology is not None:
-                st.topology.destroy(aborted=True)
-            # The store (rank 0's server) goes with its last reference: a
-            # re-init at an unchanged version binds the same port again.
-            st.store = None
-            return
         try:
-            if st.fusion is not None:
-                st.fusion.shutdown()
+            _shutdown_locked(st, abort)
         finally:
-            if st.process_set_table is not None:
-                st.process_set_table.destroy_groups()
-            if st.topology is not None:
-                st.topology.destroy()
-            dist.destroy_process_group()
+            _close_planes(st)
+
+
+def _shutdown_locked(st, abort):
+    """The process group's teardown: aborted, or drained and destroyed."""
+    from horovod_tpu_torch.metrics.server import stop_http_server
+    stop_http_server()
+    # Residuals are sized and padded for this world: a resized one
+    # (the elastic reset) must not replay them. The runtime's synced
+    # wire goes with it; the user's pins stay.
+    wire.reset_error_feedback()
+    wire.clear_runtime_wire()
+    if abort or st.aborted is not None:
+        _abort_locked(st, st.aborted or "the process group was shut "
+                      "down by an elastic reset")
+        if st.process_set_table is not None:
+            st.process_set_table.destroy_groups(aborted=True)
+        if st.topology is not None:
+            st.topology.destroy(aborted=True)
+        # The store (rank 0's server) goes with its last reference: a
+        # re-init at an unchanged version binds the same port again.
+        st.store = None
+        return
+    try:
+        if st.fusion is not None:
+            st.fusion.shutdown()
+    finally:
+        if st.process_set_table is not None:
+            st.process_set_table.destroy_groups()
+        if st.topology is not None:
+            st.topology.destroy()
+        dist.destroy_process_group()
 
 
 def is_initialized():
@@ -368,3 +448,52 @@ def xla_built():
 def ici_built():
     """No TPU interconnect (ICI) on a GPU."""
     return False
+
+
+# --- timeline control (reference: horovod_start_timeline,
+# operations.cc:1079-1111) ---
+
+def _start_timeline_locked(st, file_path, mark_cycles=False):
+    from horovod_tpu_torch.timeline import Timeline
+    if st.timeline is not None:
+        st.timeline.close()
+    st.timeline = Timeline(file_path, mark_cycles=mark_cycles,
+                           device=st.device)
+    return st.timeline
+
+
+def start_timeline(file_path, mark_cycles=False):
+    """Start (or restart) the Chrome-trace timeline of this process's
+    collectives into ``file_path`` (written when it stops, or at
+    ``shutdown()``). ``hvd.init()`` starts it when ``HOROVOD_TIMELINE``
+    is set."""
+    return _start_timeline_locked(_get_state(), file_path, mark_cycles)
+
+
+def stop_timeline():
+    """Stop the timeline and write its file."""
+    st = _get_state()
+    if st.timeline is not None:
+        st.timeline.close()
+        st.timeline = None
+
+
+def timeline():
+    """The running :class:`~horovod_tpu_torch.timeline.Timeline`, or
+    None (also before ``init``)."""
+    st = _state
+    return st.timeline if st is not None else None
+
+
+def metrics_snapshot():
+    """JSON-able dict of every metrics series' current value. Works before
+    init too — the registry is process-global."""
+    from horovod_tpu_torch import metrics as hvd_metrics
+    return hvd_metrics.snapshot()
+
+
+def metrics_text():
+    """The metrics registry in Prometheus text exposition format 0.0.4 —
+    the payload the ``HOROVOD_METRICS_PORT`` scrape endpoint serves."""
+    from horovod_tpu_torch import metrics as hvd_metrics
+    return hvd_metrics.render_text()

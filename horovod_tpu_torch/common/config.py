@@ -18,7 +18,11 @@ the elastic knobs (``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_TIMEOUT``,
 tier's (``HOROVOD_HIERARCHICAL_ALLTOALL``,
 ``HOROVOD_ALLTOALL_CROSS_DTYPE``), and the serving, tracing, SLO and
 metrics knobs (``HOROVOD_SERVING*``, ``HOROVOD_TRACE*``,
-``HOROVOD_SLO_*``, ``HOROVOD_METRICS*``) with JAX's defaults.
+``HOROVOD_SLO_*``, ``HOROVOD_METRICS*``) and the per-rank observability
+planes' knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
+``HOROVOD_STEP_PROFILER``, ``HVD_STEP_REPORT_FILE``, ``HOROVOD_PROFILE_*``,
+``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``, ``HOROVOD_RUN_ID``) with
+JAX's defaults.
 """
 
 import dataclasses
@@ -92,10 +96,10 @@ class Config:
     # hvd.allgather gathers within each node first, then one block per
     # node across nodes.
     hierarchical_allgather: bool = False
-    # JAX's cross-leg overlap: a hierarchical bucket's cross leg left in
-    # flight past its flush. Read and kept: its scheduler is steered by the
-    # step profiler, which comes with ROADMAP A16; until then every bucket
-    # completes inside its flush.
+    # JAX's cross-leg overlap, parsed and without effect: the port's
+    # buckets run on the fusion stream and only a handle's consumer waits
+    # on its bucket's event, so the overlap is there either way
+    # (ops/fusion.py).
     cross_overlap: bool = True
     # The hierarchical alltoall (parallel/strategies.py::alltoall_tiered):
     # over more than one slice, an equal-splits hvd.alltoall and the MoE
@@ -175,6 +179,45 @@ class Config:
     slo_tps: float = 0.0
     slo_window_s: float = 60.0
 
+    # --- timeline (reference common.h:117-118; timeline.py) ---
+    timeline_filename: str = ""
+    timeline_mark_cycles: bool = False
+
+    # --- flight recorder (flight/): the always-on bounded event ring,
+    # dumped on failure paths ---
+    flight: bool = True
+    # Ring capacity in events (two per collective: dispatch + complete).
+    flight_capacity: int = 4096
+    # Dump directory ("" = ./flight_dumps); hvdrun-torch --flight-dir
+    # exports it to every worker.
+    flight_dir: str = ""
+
+    # --- step profiler (profile/) ---
+    step_profiler: bool = True
+    # JSONL stream of per-step records ("" = in-memory ring only);
+    # rendered by `python -m horovod_tpu_torch.profile.report`.
+    step_report_file: str = ""
+    # "a:b" = capture a torch.profiler trace from the step-a marker to the
+    # step-b marker ("" = off).
+    profile_steps: str = ""
+    # Capture output directory ("" = ./profile_traces).
+    profile_dir: str = ""
+    # Watchdog cross-rank publish cadence in steps (0 = local-only).
+    profile_publish_steps: int = 16
+
+    # --- goodput/badput accounting + durable run history (goodput/) ---
+    goodput: bool = True
+    # Directory for per-rank goodput summary dumps at shutdown
+    # (goodput_r<rank>.json; "" = no dumps).
+    goodput_dir: str = ""
+    # Durable cross-run history: rank 0 appends run_<id>.jsonl journals
+    # under this directory, one flushed line per record. "" = off.
+    run_history_dir: str = ""
+    # Journal goodput-heartbeat cadence in seconds.
+    goodput_journal_s: float = 10.0
+    # Run id override: names the journal file run_<id>.jsonl.
+    run_id: str = ""
+
     # --- metrics (metrics/) ---
     metrics: bool = True
     # Scrape endpoint port; 0 = no HTTP server. Each process binds
@@ -198,6 +241,20 @@ class Config:
             raise ValueError(
                 f"slo_window_s={self.slo_window_s}: the burn-rate "
                 "window must be positive")
+        # The goodput paths: surrounding whitespace in an env var must not
+        # make another directory, and the journal's heartbeat IS the
+        # goodput summary.
+        self.goodput_dir = (self.goodput_dir or "").strip()
+        self.run_history_dir = (self.run_history_dir or "").strip()
+        if self.run_history_dir and not self.goodput:
+            raise ValueError(
+                "run_history_dir requires goodput=True "
+                "(HOROVOD_GOODPUT=1): the run journal's heartbeat IS the "
+                "goodput summary")
+        if self.goodput_journal_s <= 0.0:
+            raise ValueError(
+                f"goodput_journal_s={self.goodput_journal_s}: the journal "
+                "heartbeat cadence must be positive")
 
     @classmethod
     def from_env(cls):
@@ -272,6 +329,30 @@ class Config:
         c.slo_tps = _env_float("HOROVOD_SLO_TPS", c.slo_tps)
         c.slo_window_s = _env_float("HOROVOD_SLO_WINDOW_S",
                                     c.slo_window_s)
+        c.timeline_filename = os.environ.get("HOROVOD_TIMELINE",
+                                             c.timeline_filename)
+        c.timeline_mark_cycles = _env_bool("HOROVOD_TIMELINE_MARK_CYCLES",
+                                           c.timeline_mark_cycles)
+        c.flight = _env_bool("HOROVOD_FLIGHT_RECORDER", c.flight)
+        c.flight_capacity = _env_int("HOROVOD_FLIGHT_CAPACITY",
+                                     c.flight_capacity)
+        c.flight_dir = os.environ.get("HOROVOD_FLIGHT_DIR", c.flight_dir)
+        c.step_profiler = _env_bool("HOROVOD_STEP_PROFILER",
+                                    c.step_profiler)
+        c.step_report_file = os.environ.get("HVD_STEP_REPORT_FILE",
+                                            c.step_report_file)
+        c.profile_steps = os.environ.get("HOROVOD_PROFILE_STEPS",
+                                         c.profile_steps)
+        c.profile_dir = os.environ.get("HOROVOD_PROFILE_DIR", c.profile_dir)
+        c.profile_publish_steps = _env_int("HOROVOD_PROFILE_PUBLISH_STEPS",
+                                           c.profile_publish_steps)
+        c.goodput = _env_bool("HOROVOD_GOODPUT", c.goodput)
+        c.goodput_dir = os.environ.get("HOROVOD_GOODPUT_DIR", c.goodput_dir)
+        c.run_history_dir = os.environ.get("HOROVOD_RUN_HISTORY_DIR",
+                                           c.run_history_dir)
+        c.goodput_journal_s = _env_float("HOROVOD_GOODPUT_JOURNAL_S",
+                                         c.goodput_journal_s)
+        c.run_id = os.environ.get("HOROVOD_RUN_ID", c.run_id)
         c.metrics = _env_bool("HOROVOD_METRICS", c.metrics)
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
         c.metrics_addr = os.environ.get("HOROVOD_METRICS_ADDR",

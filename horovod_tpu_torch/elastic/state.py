@@ -12,16 +12,27 @@ A commit is a deep copy on the tensors' own device: CUDA tensors outlive
 the process group, so where the JAX package detaches its commits to the
 host before it rebuilds its backend, this one leaves them on the card.
 ``TpuState`` (JAX trees) has no counterpart here; ``torch/elastic.py``'s
-``TorchState`` takes its place. The JAX module's chaos, flight, goodput and
-metrics hooks are not ported (ROADMAP A16, A17).
+``TorchState`` takes its place. The JAX module's flight, goodput and
+metrics hooks are here: a commit books its seconds to goodput's
+``checkpoint_commit`` and marks the step (a state with a ``step``
+attribute); the run loop records the elastic events (``sync``,
+``restore``, ``host_update``, ``reset``), books the recovery to
+``elastic_recovery_seconds`` and goodput, flips goodput to
+``rendezvous_recovery`` at a failure or a membership change, and dumps the
+flight ring at a collective failure and at a removal. Its chaos hooks are
+ROADMAP A17.
 """
 
 import copy
+import time
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  HostsUpdatedInterrupt)
+from horovod_tpu_torch.flight import recorder as _flight
+from horovod_tpu_torch.goodput import ledger as _goodput
+from horovod_tpu_torch.metrics import instruments as _metrics
 
 
 class State:
@@ -46,7 +57,14 @@ class State:
     def commit(self):
         """Save, then check for a new membership (reference:
         elastic.py:54)."""
+        t_save = time.monotonic()
         self.save()
+        _goodput.note_commit(time.monotonic() - t_save)
+        step = getattr(self, "step", None)
+        if step is not None:
+            # Only with a real step attribute: a step-less State must not
+            # burn the auto counter the optimizer wrapper may be driving.
+            _flight.step_marker(step)
         self.check_host_updates()
 
     def save(self):
@@ -139,11 +157,14 @@ def _reset(state):
     (reference: common/elastic.py:168 run_fn's shutdown, re-rendezvous,
     re-init)."""
     from horovod_tpu_torch.elastic.worker import refresh_assignment_env
+    _metrics.record_elastic_event("reset")
     state.detach_to_host()
     basics.shutdown(abort=True)
     consumed_version = refresh_assignment_env()
     if consumed_version is None:
         hvd_logging.info("slot removed from the membership; exiting")
+        # Last words: no atexit dump runs after this exit.
+        _flight.dump("membership_removed")
         raise SystemExit(0)
     basics.init(device=basics.asked_device())
     if state._host_messages is not None:
@@ -170,6 +191,9 @@ def run(func):
             wait_for_version_change)
         reset_required = False
         skip_sync = False
+        # (cause, monotonic start) of the recovery in progress: booked once
+        # the function is re-entered at the new membership.
+        recovering = None
         while True:
             known_version = configured_version()
             try:
@@ -183,17 +207,31 @@ def run(func):
                 mark_new_rank_ready()
                 read_new_rank_ready()
                 if _sync_vote(want_sync=not skip_sync):
+                    _metrics.record_elastic_event("sync")
                     state.sync()
                 skip_sync = False
                 known_version = configured_version()
-                # The JAX loop's goodput and metrics recovery hooks sat here
-                # (ROADMAP A16).
+                if recovering is not None:
+                    dt = time.monotonic() - recovering[1]
+                    _goodput.note_recovery(recovering[0], dt)
+                    _metrics.record_elastic_recovery(recovering[0], dt)
+                    recovering = None
                 arm_collective_abort(known_version)
                 try:
                     return func(state, *args, **kwargs)
                 finally:
                     disarm_collective_abort()
             except HorovodInternalError:
+                if recovering is None:
+                    recovering = ("failure", time.monotonic())
+                # Everything from here to the first step boundary after the
+                # restore (the destroyed open window included) is
+                # rendezvous_recovery badput.
+                _goodput.note_reset()
+                _metrics.record_elastic_event("restore")
+                # The ring's tail is the failed collective and what led to
+                # it: dumped before recovery traffic overwrites any of it.
+                _flight.dump("horovod_internal_error")
                 hvd_logging.warning(
                     "collective failure; restoring the last commit")
                 # The group comes down now, not after the wait: peers may
@@ -207,6 +245,10 @@ def run(func):
                 wait_for_version_change(known_version)
                 reset_required = True
             except HostsUpdatedInterrupt as e:
+                if recovering is None:
+                    recovering = ("host_update", time.monotonic())
+                _goodput.note_reset()
+                _metrics.record_elastic_event("host_update")
                 hvd_logging.info("membership changed; re-initializing")
                 reset_required = True
                 skip_sync = e.skip_sync

@@ -7,8 +7,9 @@ driver's version counter in the launcher's KV store (HOROVOD_KV_ADDR/PORT);
 ``runner/elastic/driver.py`` writes it. Where the JAX workers are one per
 host, the port's are one per slot: the ready barrier counts the version's
 slots, and a worker reads the assignment row of its own slot (host and
-local rank). The JAX module's chaos, flight and metrics hooks are not
-ported (ROADMAP A16, A17).
+local rank). The membership watchdog records the ``abort`` elastic event
+and dumps the flight ring (``membership_abort``) before it aborts the
+group, as JAX's does; the chaos hooks are ROADMAP A17.
 """
 
 import json
@@ -271,6 +272,12 @@ def _watch_loop():
             hvd_logging.warning(
                 "membership v%d removed a slot while training at v%d: "
                 "aborting the process group", current, armed)
+            # Dump BEFORE severing: the ring's tail is the in-flight
+            # collective the abort is about to end.
+            from horovod_tpu_torch.flight import recorder as _flight
+            from horovod_tpu_torch.metrics import instruments as _metrics
+            _metrics.record_elastic_event("abort")
+            _flight.dump("membership_abort")
             basics.abort(f"membership v{current} removed a slot while this "
                          f"worker trained at v{armed}")
 

@@ -111,7 +111,9 @@ class _HistogramValue:
 
 class _Family:
     """A named metric with a fixed label schema; children are the labelled
-    series. ``labels(...)`` is the hot path: a tuple build + dict lookup."""
+    series. ``labels(...)`` is the hot path: one dict lookup by the values
+    as passed where they are strings and have been seen (else a tuple
+    build of their strings and a lookup by it)."""
 
     kind = None
 
@@ -120,12 +122,23 @@ class _Family:
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
         self._children = {}
+        # The values as passed -> child, for all-string values only: a
+        # tuple holding a number never equals one of strings, so 1 and
+        # True (equal as keys) still reach "1" and "True" apart.
+        self._by_values = {}
         self._lock = threading.Lock()
 
     def _new_child(self):
         raise NotImplementedError
 
     def labels(self, *values, **kv):
+        if not kv:
+            try:
+                child = self._by_values.get(values)
+            except TypeError:                 # an unhashable value
+                child = None
+            if child is not None:
+                return child
         if kv:
             if values:
                 raise ValueError("pass label values positionally OR by name")
@@ -139,6 +152,8 @@ class _Family:
         if child is None:
             with self._lock:
                 child = self._children.setdefault(key, self._new_child())
+        if not kv and all(type(v) is str for v in values):
+            self._by_values[values] = child
         return child
 
     def _default(self):
@@ -157,6 +172,7 @@ class _Family:
 
     def clear(self):
         with self._lock:
+            self._by_values.clear()
             self._children.clear()
 
 

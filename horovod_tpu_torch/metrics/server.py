@@ -8,22 +8,24 @@ by ``hvd.init()`` when ``HOROVOD_METRICS`` and ``HOROVOD_METRICS_PORT`` are
 set (each process binds ``port + local_rank``), or by
 :func:`start_http_server`.
 
-JAX's other routes (``/debug/profile``, ``/debug/steps``,
-``/debug/flight``, ``/cluster/health``, ``/cluster/steps``,
-``/cluster/metrics``) read the step profiler, the flight recorder and the
-cluster telemetry plane, which come with ROADMAP A16; until then they
-answer 404 with a body that says so.
+The debug routes, as JAX's: ``GET /debug/profile?ms=<window>`` captures a
+``torch.profiler`` trace for that window (409 while another capture or
+profiler session runs), ``GET /debug/steps?last=<n>`` serves the step
+profiler's summary and recent records, ``GET /debug/flight`` the flight
+ring as JSONL. The cluster routes (``/cluster/health``,
+``/cluster/steps``, ``/cluster/metrics``) read the cluster telemetry plane,
+which comes with A16's second half; until then they answer 404 with a body
+that says so.
 """
 
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-_LATER_ROUTES = ("/debug/profile", "/debug/steps", "/debug/flight",
-                 "/cluster/health", "/cluster/steps", "/cluster/metrics")
+_CLUSTER_ROUTES = ("/cluster/health", "/cluster/steps", "/cluster/metrics")
 
 
 class _MetricsHandler(BaseHTTPRequestHandler):
@@ -41,13 +43,51 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
     def do_GET(self):
-        path = urlsplit(self.path).path
-        if path in _LATER_ROUTES:
+        split = urlsplit(self.path)
+        path = split.path
+        if path in _CLUSTER_ROUTES:
             self._send(json.dumps(
                 {"error": f"{path} is not served by the PyTorch port yet "
-                          "(ROADMAP A16: the step profiler, the flight "
-                          "recorder and the cluster telemetry plane)"}),
+                          "(ROADMAP A16's second half: the cluster "
+                          "telemetry plane)"}),
                 code=404)
+            return
+        if path == "/debug/profile":
+            # A capture of ?ms=<window> (default 1000, clamped) on this
+            # handler thread, exported under HOROVOD_PROFILE_DIR; 409 when
+            # a capture or another profiler session is running.
+            from horovod_tpu_torch.profile import capture
+            try:
+                ms = int(parse_qs(split.query).get("ms", ["1000"])[0])
+            except ValueError:
+                ms = 1000
+            ms = capture.clamp_ms(ms)
+            d = capture.capture_ms(ms, tag="debug_endpoint")
+            if d is None:
+                self._send(json.dumps(
+                    {"error": capture.last_refusal
+                     or "capture already running"}), code=409)
+                return
+            self._send(json.dumps({"path": d, "ms": ms}))
+            return
+        if path == "/debug/steps":
+            # The step profiler's recent records and aggregate: the live
+            # counterpart of the HVD_STEP_REPORT_FILE stream.
+            from horovod_tpu_torch.profile import ledger
+            try:
+                last = int(parse_qs(split.query).get("last", ["32"])[0])
+            except ValueError:
+                last = 32
+            self._send(json.dumps({
+                "summary": ledger.step_report_summary(),
+                "records": ledger.get().records(last=last)}))
+            return
+        if path == "/debug/flight":
+            # The flight ring served directly (meta line + events as
+            # JSONL), no file written.
+            from horovod_tpu_torch.flight import recorder as _flight
+            self._send(_flight.render_jsonl("debug_endpoint"),
+                       content_type="application/jsonl")
             return
         if path == "/serving/health":
             # The serving engine's readiness frame; 503 when no engine runs

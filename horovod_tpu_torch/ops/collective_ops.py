@@ -48,22 +48,40 @@ Every ``torch.distributed`` call goes through :func:`launch`: a failure of
 the backend (a peer that died, a process group that was aborted) reaches
 the caller as ``HorovodInternalError``, the error the elastic loop
 (``elastic/state.py::run``) recovers from, with the backend's own error as
-its ``__cause__``.
+its ``__cause__``. A failure also counts in ``collective_errors_total``,
+leaves an ``error`` event in the flight ring and dumps it
+(``dispatch_error``).
+
+Every eager collective and every fused bucket runs inside
+:func:`_dispatch_op` (JAX's ``_timeline_op``), the observability planes'
+choke point: the per-op count, bytes and wire bytes, the host latency, the
+flight ``dispatch``/``complete`` pair with its per-set sequence number,
+the timeline span, the step profiler's dispatch record, the ``dispatch``
+span under the active step trace and, while a ``torch.profiler`` session
+runs, an ``hvd::<OP>::<name>`` annotation. Each is one gate read when its
+plane is off.
 """
 
+import contextlib
 import enum
 import hashlib
 import math
 import pickle
+import threading
+import time
 
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import trace as _trace
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                   ProcessSetError,
                                                   TensorShapeMismatchError)
 from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.flight import recorder as _flight
+from horovod_tpu_torch.metrics import instruments as _metrics
+from horovod_tpu_torch.profile import ledger as _profile
 from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.ops.kernels.scale_buffers import DTYPES as _KERNEL_DTYPES
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
@@ -110,25 +128,146 @@ def launch(fn, *args, **kwargs):
     """Run one ``torch.distributed`` call ``fn(*args, **kwargs)``, waiting
     on it when ``async_op=True``. A failure of the backend, or any call
     once the process group has been aborted (``basics.abort``), raises
-    :class:`HorovodInternalError` from the original error."""
+    :class:`HorovodInternalError` from the original error, after the
+    failure epilogue (:func:`_dispatch_failed`)."""
     st = basics._get_state()
     name = getattr(fn, "__name__", "collective")
     if st.aborted is not None:
-        raise HorovodInternalError(f"{name}: {st.aborted}")
+        err = HorovodInternalError(f"{name}: {st.aborted}")
+        _dispatch_failed(name, err)
+        raise err
     try:
         work = fn(*args, **kwargs)
         if kwargs.get("async_op"):
             work.wait()
-    except HorovodInternalError:
+    except HorovodInternalError as e:
+        _dispatch_failed(name, e)
         raise
     except Exception as e:
         # torch.distributed's errors (DistError and gloo's) are
         # RuntimeErrors; after an abort the group is gone and the call may
         # raise anything.
+        _dispatch_failed(name, e)
         if isinstance(e, RuntimeError) or st.aborted is not None:
             raise HorovodInternalError(
                 f"{name} failed on rank {st.rank} of {st.size}: {e}") from e
         raise
+
+
+# The dispatch span open on this thread: (op label, name), for the failure
+# epilogue of a launch inside it.
+_span = threading.local()
+
+
+def _dispatch_failed(what, e):
+    """The failure epilogue of one dispatch (JAX's
+    ``_translate_dispatch_error``): count the error under the open span's
+    op label, record an ``error`` event in the flight ring and dump it.
+    Once per exception: a launch inside a span records it, the span then
+    sees it recorded. Never raises."""
+    if getattr(e, "_hvd_recorded", False):
+        return
+    try:
+        e._hvd_recorded = True
+    except Exception:  # noqa: BLE001 — an exception without a __dict__
+        pass
+    try:
+        op_label, name = getattr(_span, "cur", None) or (what, what)
+        _metrics.record_collective_error(op_label)
+        if _flight.armed:
+            _flight.record_event(
+                "error", op=op_label, name=name,
+                what=(str(e).splitlines() or [""])[0][:200])
+            _flight.dump("dispatch_error")
+    except Exception:  # noqa: BLE001 — forensics must never fail the job
+        pass
+
+
+def _ps_label(process_set):
+    """Bounded-cardinality process-set label for metrics series: 'global'
+    or the registered set id."""
+    if process_set is None or process_set.ranks is None:
+        return "global"
+    pid = getattr(process_set, "process_set_id", None)
+    return f"set{pid}" if pid is not None else "unregistered"
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def _dispatch_op(name, op_kind, tensors=(), process_set=None, wire=None,
+                 sig=None):
+    """Metrics, flight, timeline, step profiler, step trace and profiler
+    annotation around one eager collective or fused bucket (JAX's
+    ``_timeline_op``). Count and bytes go in at entry (a failure still
+    counts as an attempt), the latency and the flight ``complete`` on
+    return. ``wire``: a list of ``(path, dtype label, wire bytes,
+    compressed, tiers)`` records (a fused bucket's exact on-wire
+    estimate); without it the payload's bytes are booked, an allreduce's
+    twice (its reduce-scatter and all-gather legs). ``sig``: the tensors'
+    flight signature when the caller keeps it (a fused bucket's, computed
+    once per bucket layout). On the GPU the body
+    returns at launch — the device runs after the host — so the latency is
+    the host's; a bucket's device time comes from its CUDA events
+    (``profile/ledger.py``)."""
+    op_label = op_kind.lower()
+    profile_on = _profile.armed
+    metrics_on = _metrics.enabled()
+    flight_on = _flight.armed
+    tl = basics.timeline()
+    if profile_on:
+        t_api = time.perf_counter()
+    if metrics_on or flight_on or profile_on:
+        nbytes = sum(_nbytes(t) for t in tensors)
+        ps_label = _ps_label(process_set)
+    if metrics_on:
+        _metrics.record_collective(op_label, nbytes, ps_label)
+        if wire is not None:
+            for w in wire:
+                _metrics.record_wire(w[0], w[1], w[2], w[3], tiers=w[4])
+        elif tensors:
+            wb = nbytes * (2 if op_kind == "ALLREDUCE" else 1)
+            _metrics.record_wire(
+                "eager", _flight.dtype_name(tensors[0].dtype), wb,
+                sched="a2a" if op_kind == "ALLTOALL" else "ring")
+    if flight_on:
+        # SPMD: every process dispatches the same collectives in the same
+        # order, so the per-set seq lines up across ranks (the analyzer's
+        # desync key).
+        fl_seq = _flight.record_dispatch(
+            op_label, ps_label, nbytes,
+            _flight.signature(tensors) if sig is None else sig, name)
+    prev = getattr(_span, "cur", None)
+    _span.cur = (op_label, name)
+    if metrics_on or flight_on or profile_on:
+        t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            if torch.autograd.profiler._is_profiler_enabled:
+                stack.enter_context(torch.profiler.record_function(
+                    f"hvd::{op_kind}::{name}"))
+            if tl is not None:
+                stack.enter_context(tl.op_span(name, op_kind))
+            yield
+    except BaseException as e:
+        _dispatch_failed(op_label, e)
+        raise
+    finally:
+        _span.cur = prev
+    if metrics_on or flight_on or profile_on:
+        dur = time.perf_counter() - t0
+    if metrics_on:
+        _metrics.record_collective_latency(op_label, dur)
+    if flight_on:
+        _flight.record_complete(op_label, ps_label, fl_seq, dur)
+        _trace.add_span(_trace.get_active(), "dispatch", time.time() - dur,
+                        dur, cat="train", args={"op": op_label,
+                                                "seq": fl_seq})
+    if profile_on:
+        _profile.record_dispatch(
+            op_label, dur, time.perf_counter() - t_api - dur, nbytes)
 
 
 def _process_set(process_set):
@@ -295,6 +434,12 @@ def _mirror(desc, joined, ps):
     """On a joined process: launch what the active ranks of ``ps`` launch
     for ``desc``, with a neutral contribution."""
     _, kind, op, code, numel, root, _ = desc
+    with _dispatch_op(f"join_mirror_{_KIND_NAMES.get(kind, kind)}", "JOIN",
+                      (), ps):
+        _mirror_launch(kind, op, code, numel, root, joined, ps)
+
+
+def _mirror_launch(kind, op, code, numel, root, joined, ps):
     dtype, dev, n = _WIRE_DTYPES[code], basics.device(), ps.size()
     if kind == ALLREDUCE:
         op = ReduceOp(op)
@@ -414,7 +559,7 @@ class Handle:
     wait = synchronize
 
 
-def _allreduce_unfused(t, out, op, prescale, postscale, ps):
+def _allreduce_unfused(t, out, op, prescale, postscale, ps, name=None):
     """Integer and float64 tensors: outside the fusion kernel's dtypes,
     reduced by one collective each."""
     if not t.is_floating_point() and (prescale != 1.0 or postscale != 1.0):
@@ -425,7 +570,8 @@ def _allreduce_unfused(t, out, op, prescale, postscale, ps):
     out.copy_(t)
     if prescale != 1.0:
         out.mul_(prescale)
-    launch(dist.all_reduce, out, op=DIST_OPS[op], group=ps.group)
+    with _dispatch_op(name or "allreduce", "ALLREDUCE", (t,), ps):
+        launch(dist.all_reduce, out, op=DIST_OPS[op], group=ps.group)
     if op == ReduceOp.AVERAGE:
         out.div_(ps.size() - len(joined))
     if postscale != 1.0:
@@ -442,7 +588,7 @@ def active_rows(gathered, ps, joined):
                      if r not in joined]]
 
 
-def _adasum_unfused(t, out, prescale, postscale, ps):
+def _adasum_unfused(t, out, prescale, postscale, ps, name=None):
     """float64 under Adasum, outside the scale kernel's dtypes: prescale,
     one gather, the combine tree (whose kernel reads float64 into fp32),
     postscale."""
@@ -452,7 +598,8 @@ def _adasum_unfused(t, out, prescale, postscale, ps):
     x = t.reshape(-1) * prescale if prescale != 1.0 else t.reshape(-1)
     gathered = torch.empty(ps.size() * x.numel(), dtype=t.dtype,
                            device=t.device)
-    launch(all_gather_flat, gathered, x.contiguous(), group=ps.group)
+    with _dispatch_op(name or "allreduce", "ALLREDUCE", (t,), ps):
+        launch(all_gather_flat, gathered, x.contiguous(), group=ps.group)
     rows = active_rows(gathered.view(ps.size(), -1), ps, joined)
     out.copy_(reduce_gathered(rows, (x.numel(),)).view(out.shape))
     if postscale != 1.0:
@@ -512,11 +659,13 @@ def grouped_allreduce_async(tensors, op=Average, prescale_factor=1.0,
         elif op == ReduceOp.ADASUM:
             handles[i] = _adasum_unfused(t, outputs[i],
                                          float(prescale_factor),
-                                         float(postscale_factor), ps)
+                                         float(postscale_factor), ps,
+                                         names[i])
         else:
             handles[i] = _allreduce_unfused(t, outputs[i], op,
                                             float(prescale_factor),
-                                            float(postscale_factor), ps)
+                                            float(postscale_factor), ps,
+                                            names[i])
     if by_dtype:
         from horovod_tpu_torch.ops.fusion import get_runtime
         rt = get_runtime()
@@ -610,7 +759,7 @@ def _gather_rows(t, ps, joined, dtype, row_numel):
     return out.view((sum(kept),) + tuple(t.shape[1:])), kept
 
 
-def allgather_sizes(tensor, ps, what="allgather"):
+def allgather_sizes(tensor, ps, what="allgather", name=None):
     """:func:`allgather` on a registered set ``ps``, with the first dims of
     the ranks that sent rows, in rank order."""
     _check_tensor(tensor, what)
@@ -620,7 +769,8 @@ def allgather_sizes(tensor, ps, what="allgather"):
     fence()
     joined = join_round(ps, ALLGATHER, dtype=t.dtype, numel=row_numel,
                         sig=(tail, str(t.dtype)))
-    return _gather_rows(t, ps, joined, t.dtype, row_numel)
+    with _dispatch_op(name or what, "ALLGATHER", (t,), ps):
+        return _gather_rows(t, ps, joined, t.dtype, row_numel)
 
 
 def allgather(tensor, process_set=None, name=None):
@@ -629,7 +779,8 @@ def allgather(tensor, process_set=None, name=None):
     differ; the rest of the shape and the dtype must agree, else
     ``TensorShapeMismatchError``. A 0-d tensor gathers into a vector. The
     rows of a rank that has joined are dropped."""
-    return allgather_sizes(tensor, _process_set(process_set))[0]
+    return allgather_sizes(tensor, _process_set(process_set),
+                           name=name)[0]
 
 
 def alltoall(tensor, splits=None, process_set=None, name=None):
@@ -685,21 +836,22 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
             f"(this rank: {tuple(tensor.shape)} {tensor.dtype})")
     me = ps.rank()
     received = [row[me] for row in rows]
-    if splits is None:
-        from horovod_tpu_torch.parallel import strategies as _strategies
-        hier = _a2a_hier_for(ps, tensor)
-        if hier is not None:
-            st = basics._get_state()
-            slices, cross = hier
-            tiers = st.topology.tiers((slices, n // slices))
-            with torch.no_grad():
-                return _strategies.alltoall_tiered(tensor.contiguous(), tiers,
-                                                   cross)
-        _strategies._record_a2a_flat(tensor, n, ps.rank_list())
-    out = torch.empty((sum(received),) + tail, dtype=tensor.dtype,
-                      device=tensor.device)
-    launch(dist.all_to_all_single, out, tensor[:sum(send)].contiguous(),
-           received, send, group=ps.group)
+    with _dispatch_op(name or "alltoall", "ALLTOALL", (tensor,), ps):
+        if splits is None:
+            from horovod_tpu_torch.parallel import strategies as _strategies
+            hier = _a2a_hier_for(ps, tensor)
+            if hier is not None:
+                st = basics._get_state()
+                slices, cross = hier
+                tiers = st.topology.tiers((slices, n // slices))
+                with torch.no_grad():
+                    return _strategies.alltoall_tiered(tensor.contiguous(),
+                                                       tiers, cross)
+            _strategies._record_a2a_flat(tensor, n, ps.rank_list())
+        out = torch.empty((sum(received),) + tail, dtype=tensor.dtype,
+                          device=tensor.device)
+        launch(dist.all_to_all_single, out, tensor[:sum(send)].contiguous(),
+               received, send, group=ps.group)
     if splits is None:
         return out
     return out, torch.tensor(received, dtype=torch.int64,
@@ -743,7 +895,7 @@ def rank_major_blocks(tensors, n):
     return [v[r] for r in range(n) for v in views]
 
 
-def _reducescatter(ts, outs, op, prescale, postscale, ps):
+def _reducescatter(ts, outs, op, prescale, postscale, ps, name=None):
     """One reduce-scatter of ``ts`` (one dtype; a list of more than one
     only for the kernel's dtypes) into ``outs``."""
     n, dtype = ps.size(), ts[0].dtype
@@ -761,8 +913,9 @@ def _reducescatter(ts, outs, op, prescale, postscale, ps):
         if prescale != 1.0:
             flat = flat * prescale
     out = torch.empty(total // n, dtype=dtype, device=flat.device)
-    launch(reduce_scatter_flat, out, flat.contiguous(),
-           op=dist.ReduceOp.SUM, group=ps.group)
+    with _dispatch_op(name or "reducescatter", "REDUCESCATTER", ts, ps):
+        launch(reduce_scatter_flat, out, flat.contiguous(),
+               op=dist.ReduceOp.SUM, group=ps.group)
     if op == ReduceOp.AVERAGE:
         postscale = postscale / (n - len(joined))
     if dtype in _KERNEL_DTYPES:
@@ -814,7 +967,7 @@ def grouped_reducescatter_async(tensors, op=Sum, prescale_factor=1.0,
                           []).append(i)
     for idxs in groups.values():
         _reducescatter([tensors[i] for i in idxs], [outs[i] for i in idxs],
-                       op, pre, post, ps)
+                       op, pre, post, ps, name)
     return [Handle(o, name) for o in outs]
 
 
@@ -848,7 +1001,8 @@ def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
     dev = basics.device()
     buf = out if out.device == dev and out.is_contiguous() \
         else out.to(dev, memory_format=torch.contiguous_format)
-    launch(dist.broadcast, buf, src=root_rank, group=ps.group)
+    with _dispatch_op(name or "broadcast", "BROADCAST", (buf,), ps):
+        launch(dist.broadcast, buf, src=root_rank, group=ps.group)
     if buf is not out:
         out.copy_(buf)
     return out
@@ -860,7 +1014,8 @@ def barrier(process_set=None, name=None):
     ps = _process_set(process_set)
     fence()
     join_round(ps, BARRIER)
-    _barrier(ps)
+    with _dispatch_op(name or "barrier", "BARRIER", (), ps):
+        _barrier(ps)
 
 
 def _barrier(ps):

@@ -135,6 +135,25 @@ elastic reset's shutdown: it fails every pending handle, stops the threads
 and touches no store, since peers may be dead; the next ``hvd.init`` builds
 a new runtime over a new store.
 
+Observability. Every bucket runs inside ``collective_ops._dispatch_op``
+(metrics, flight dispatch/complete, timeline span, step profiler,
+profiler annotation); each flush records ``fusion_flush`` (metrics,
+flight, the step profiler's ``fusion`` category: the flush's wall minus
+its buckets' dispatches) and the first enqueue into an empty pending list
+a flight ``fusion_enqueue`` (one event a flush, not one a tensor: the ring
+keeps its room for the dispatches).
+On the GPU, with the step profiler armed, each bucket also records two
+CUDA timing events on the fusion stream, which the ledger reads at a
+later step boundary once done (never a wait): the bucket's device time.
+
+The cross-leg overlap (``HOROVOD_CROSS_OVERLAP``) has no scheduler here.
+JAX leaves a hierarchical bucket's cross leg in flight past its flush and
+steers where it is awaited (``_await_cross``, ``_steer_overlap``). On the
+GPU every bucket already runs on the side stream and only the stream that
+consumes a handle waits, on that bucket's event (``FusedHandle.synchronize``),
+so the overlap is there with the knob on or off; on the CPU a bucket is
+done when its flush returns. The knob is parsed and changes nothing.
+
 Streams and threads. On the GPU every bucket runs on one side stream, after
 the streams that produced its tensors; buckets therefore run in order and
 share one buffer, while the backward pass goes on beside them. A handle's
@@ -154,18 +173,22 @@ import time
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import trace as _trace
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  TensorShapeMismatchError)
+from horovod_tpu_torch.flight import recorder as _flight
+from horovod_tpu_torch.metrics import instruments as _metrics
 from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.ops.adasum import reduce_gathered
 from horovod_tpu_torch.ops.collective_ops import (ADASUM, ALLREDUCE,
                                                   DIST_OPS, ReduceOp,
-                                                  active_rows,
+                                                  _dispatch_op, active_rows,
                                                   all_gather_flat,
                                                   join_armed, join_round,
                                                   launch, rank_digests)
+from horovod_tpu_torch.profile import ledger as _profile
 from horovod_tpu_torch.ops.kernels.scale_buffers import pack_scale, unpack_scale
 from horovod_tpu_torch.parallel import strategies as _strategies
 
@@ -325,6 +348,11 @@ class FusionRuntime:
         self._recent = collections.deque(maxlen=_RECENT)
         # The error every handle fails with once the runtime is aborted.
         self._failed = None
+        # When the pending list last went from empty to non-empty: the
+        # step profiler's fusion_defer_s.
+        self._first_enqueue = 0.0
+        # The flight signature of each bucket layout, computed once.
+        self._flight_sigs = {}
 
     # ---- threads ----------------------------------------------------------
 
@@ -386,6 +414,9 @@ class FusionRuntime:
                     if self._pending and not self._cycle_pause and \
                             time.perf_counter() - self._last_enqueue >= s:
                         self._flush_locked("cycle")
+                        tl = basics.timeline()
+                        if tl is not None:
+                            tl.mark_cycle()
             except Exception as e:  # noqa: BLE001 — the handles carry it
                 hvd_logging.debug("fusion cycle flush failed: %s", e)
 
@@ -432,10 +463,10 @@ class FusionRuntime:
                 return
             seq, last, why, wire, strategy, cross, a2a, a2a_cross = item
             try:
-                self._client.set(self._boundary_key(seq),
-                                 f"{last} {why} {wire or '-'} {strategy} "
-                                 f"{cross or '-'} {a2a or '-'} "
-                                 f"{a2a_cross or '-'}")
+                payload = (f"{last} {why} {wire or '-'} {strategy} "
+                           f"{cross or '-'} {a2a or '-'} {a2a_cross or '-'}")
+                self._client.set(self._boundary_key(seq), payload)
+                _metrics.record_fusion_kv(sets=1, payload_bytes=len(payload))
                 if seq >= self._BOUNDARY_GC_LAG:
                     self._client.delete_key(
                         self._boundary_key(seq - self._BOUNDARY_GC_LAG))
@@ -467,7 +498,9 @@ class FusionRuntime:
                     if left > 0:   # the store failed fast: no hot loop
                         time.sleep(min(left, 0.05))
                     return None
-            last, why, *rest = self._client.get(key).decode().split()
+            raw = self._client.get(key)
+            _metrics.record_fusion_kv(gets=1)
+            last, why, *rest = raw.decode().split()
             wire, strategy, cross, a2a, a2a_cross = (
                 "" if v == "-" else v for v in rest)
             return int(last), why, wire, strategy, cross, a2a, a2a_cross
@@ -501,10 +534,13 @@ class FusionRuntime:
                     wait_s = 0
                     continue
                 if self._next_seq <= last:
+                    if self._deferred is None or self._deferred[0] != seq:
+                        _metrics.record_boundary("deferred")
                     self._deferred = (seq, payload)
                     return True
                 self._deferred = None
                 self._boundary_seq += 1
+                _metrics.record_boundary("applied")
                 # Process 0's wire, strategy and cross wire for this prefix,
                 # and its alltoall strategy and cross wire (JAX's boundary
                 # "w", "s", "cw", "as" and "acw").
@@ -545,6 +581,17 @@ class FusionRuntime:
                 pass
             return
         deadline = time.monotonic() + self.BOUNDARY_TIMEOUT_S
+        t_wait = time.perf_counter()
+        try:
+            self._wait_covered(seq, deadline)
+        finally:
+            if _profile.armed:
+                # A host wait for rank 0's flush, i.e. for the peers: the
+                # step profiler's `collective`.
+                _profile.record_collective_wait(
+                    time.perf_counter() - t_wait)
+
+    def _wait_covered(self, seq, deadline):
         with self._flushed:
             if seq is None:
                 seq = self._next_seq - 1
@@ -616,6 +663,19 @@ class FusionRuntime:
                                       stream, group))
             follower = self._multi and not self._coord
             idle = not self._pending
+            if idle:
+                self._first_enqueue = time.perf_counter()
+                if _flight.armed:
+                    # One event per pending window, at its first unit (its
+                    # first seq and bytes); the fusion_flush that closes
+                    # the window carries its count and bytes. A window
+                    # opened and never flushed shows in a dump as an
+                    # enqueue with no flush covering its seq.
+                    _flight.record_event(
+                        "fusion_enqueue", seq=entries[0].seq, name=names[0],
+                        nbytes=sum(e.nbytes for e in entries),
+                        what=f"group{len(entries)}" if group is not None
+                        else None)
             self._pending.extend(entries)
             self._pending_bytes += sum(e.nbytes for e in entries)
             self._last_enqueue = time.perf_counter()
@@ -687,7 +747,23 @@ class FusionRuntime:
             prefix, self._pending = self._pending[:n], self._pending[n:]
         if not prefix:
             return
-        self._pending_bytes -= sum(e.nbytes for e in prefix)
+        flushed_bytes = sum(e.nbytes for e in prefix)
+        self._pending_bytes -= flushed_bytes
+        t_flush_wall = time.time()
+        profile_on = _profile.armed
+        if profile_on:
+            # The flush's wall minus its buckets' dispatches (booked under
+            # `collective` by _dispatch_op) is the runtime's own cost.
+            t_f0 = time.perf_counter()
+            coll0 = _profile.collective_total()
+            defer_s = max(t_f0 - self._first_enqueue, 0.0) \
+                if self._first_enqueue else 0.0
+        _metrics.record_fusion_flush(len(prefix), flushed_bytes,
+                                     self.threshold)
+        if _flight.armed:
+            _flight.record_event("fusion_flush", seq=prefix[-1].seq,
+                                 nbytes=flushed_bytes,
+                                 what=f"n{len(prefix)}")
         if policy is None:
             policy = (self._wire_snapshot(),) + self._strategy_snapshot()
         wire, strategy, cross = policy
@@ -709,8 +785,34 @@ class FusionRuntime:
         finally:
             self._flushed_seq = prefix[-1].seq
             self._flushed.notify_all()
+            self._flush_observed(len(prefix), flushed_bytes, wire,
+                                 t_flush_wall,
+                                 (t_f0, coll0, defer_s) if profile_on
+                                 else None)
         if error is not None:
             raise error
+
+    def _flush_observed(self, n, nbytes, wire, t_wall, bracket):
+        """A flush's records after its buckets: the step profiler's fusion
+        bracket, the timeline's counter tracks (throttled) and the
+        ``fusion_flush`` span under the active step trace. Never raises."""
+        try:
+            if bracket is not None:
+                t_f0, coll0, defer_s = bracket
+                self._first_enqueue = time.perf_counter() \
+                    if self._pending else 0.0
+                _profile.record_fusion_flush(
+                    time.perf_counter() - t_f0,
+                    _profile.collective_total() - coll0, defer_s,
+                    wire_dtype=wire or None, wire_bytes=nbytes)
+            tl = basics.timeline()
+            if tl is not None:
+                _metrics.maybe_emit_timeline_counters(tl)
+            _trace.add_span(_trace.get_active(), "fusion_flush", t_wall,
+                            time.time() - t_wall, cat="train",
+                            args={"n": n, "bytes": nbytes})
+        except Exception:  # noqa: BLE001 — observability must not fail
+            pass
 
     def _assemble(self, prefix, wire=""):
         """The prefix's buckets, as [(key, entries)] in order of first
@@ -885,26 +987,44 @@ class FusionRuntime:
             if strategy != "flat":
                 tiers = self._topology.tiers(self._topology.strategy_shape())
             plan = (strategy, tiers, cross)
-            self._count_wire(ride, dtype, sum(numels), n, plan)
+            wire_recs = self._count_wire(ride, dtype, sum(numels), n, plan)
+            name = f"fused_allreduce[{len(entries)}]"
+            tensors = [e.tensor for e in entries]
+            fsig = None
+            if _flight.armed:
+                fsig = self._flight_sigs.get(sig)
+                if fsig is None:
+                    if len(self._flight_sigs) >= _MAX_SIGNATURES:
+                        self._flight_sigs.clear()
+                    fsig = self._flight_sigs[sig] = _flight.signature(
+                        tensors)
             event = None
-            if self._stream is None:
-                self._reduce(entries, ps, op, prescale, postscale, dtype,
-                             joined, ride, res_key, plan)
-            else:
-                side = self._stream
-                for s in {e.stream.cuda_stream: e.stream
-                          for e in entries}.values():
-                    side.wait_stream(s)
-                with torch.cuda.stream(side):
-                    self._reduce(entries, ps, op, prescale, postscale, dtype,
-                                 joined, ride, res_key, plan)
-                    event = torch.cuda.Event()
-                    event.record(side)
-                # The caching allocator must not hand these blocks out again
-                # before the side stream is done with them.
-                for e in entries:
-                    e.tensor.record_stream(side)
-                    e.output.record_stream(side)
+            with _dispatch_op(name, "ALLREDUCE", tensors, ps,
+                              wire=wire_recs, sig=fsig):
+                if self._stream is None:
+                    self._reduce(entries, ps, op, prescale, postscale,
+                                 dtype, joined, ride, res_key, plan)
+                else:
+                    side = self._stream
+                    for s in {e.stream.cuda_stream: e.stream
+                              for e in entries}.values():
+                        side.wait_stream(s)
+                    timed = _profile.armed
+                    with torch.cuda.stream(side):
+                        if timed:
+                            start = torch.cuda.Event(enable_timing=True)
+                            start.record(side)
+                        self._reduce(entries, ps, op, prescale, postscale,
+                                     dtype, joined, ride, res_key, plan)
+                        event = torch.cuda.Event(enable_timing=timed)
+                        event.record(side)
+                    if timed:
+                        _profile.record_bucket_events(start, event, name)
+                    # The caching allocator must not hand these blocks out
+                    # again before the side stream is done with them.
+                    for e in entries:
+                        e.tensor.record_stream(side)
+                        e.output.record_stream(side)
         except BaseException as exc:
             for e in entries:
                 e.handle._error = exc
@@ -914,7 +1034,11 @@ class FusionRuntime:
             e.handle._dispatched = True
 
     def _count_wire(self, label, dtype, total, n, plan):
+        """Meter the bucket's wire bytes into ``flush_stats()`` and return
+        them as the metrics' wire records: ``[(path, wire dtype, bytes,
+        compressed, tiers)]``."""
         by = self._stats["wire_bytes"]
+        payload = str(dtype).replace("torch.", "")
         strategy, tiers, cross = plan
         if strategy in ("torus", "torus_qcross") and self._slices() > 1:
             # JAX meters a torus bucket over slices by tier: the local legs
@@ -925,12 +1049,16 @@ class FusionRuntime:
                 total, n, tiers.rows, item,
                 cross_wire=cross if strategy == "torus_qcross" else "")
             cross_label = h["cross_label"] or label
-            for tier, lab, nbytes in (("local", label, h["ici"]),
-                                      ("cross", cross_label, h["dcn"])):
+            recs = []
+            for tier, lab, nbytes, key in (
+                    ("local", label, h["ici"], "ici"),
+                    ("cross", cross_label, h["dcn"], "dcn")):
                 by[lab] = by.get(lab, 0) + nbytes
                 t = self._stats["tiers"][tier]
                 t[lab] = t.get(lab, 0) + nbytes
-            return
+                recs.append(("fused", lab, nbytes, lab != payload,
+                             {key: nbytes}))
+            return recs
         if _wire.is_quantized(label):
             self._stats["quantized"] += 1
             nbytes = _wire.exchange_wire_bytes(total, n)
@@ -940,6 +1068,7 @@ class FusionRuntime:
             nbytes = _wire.allreduce_wire_bytes(n * total * item, item, n,
                                                 label)
         by[label] = by.get(label, 0) + nbytes
+        return [("fused", label, nbytes, label != payload, None)]
 
     def _reduce(self, entries, ps, op, prescale, postscale, dtype, joined,
                 ride, res_key, plan):

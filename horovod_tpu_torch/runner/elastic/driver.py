@@ -19,8 +19,11 @@ else ``removal``: removal-only versions let survivors keep their
 uncommitted state), whether a slot of the last membership is gone
 (``elastic/removed/{v}``: the workers' watchdog aborts their collectives),
 then the version (``elastic/version``). A host whose slot count changed
-keeps its surviving slots' processes. The JAX driver's chaos hooks and its
-autopilot arm are not ported (ROADMAP A16, A17).
+keeps its surviving slots' processes. A version that removed a slot
+appends a disruption marker to ``driver_events.jsonl`` in the flight
+directory (``flight.driver_mark``): ``flight.analyze`` ties the workers'
+dumps to the membership change that caused them. The JAX driver's chaos
+hooks and its autopilot arm are ROADMAP A17.
 """
 
 import json
@@ -274,8 +277,8 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         with state["lock"]:
             # Popped first, so their _watch threads see them as stale and
             # do not report the termination as a host failure.
-            removed = [state["workers"].pop(k) for k in list(state["workers"])
-                       if k not in by_slot]
+            gone = [k for k in state["workers"] if k not in by_slot]
+            removed = [state["workers"].pop(k) for k in gone]
             survivors = set(state["workers"])
         for w in removed:
             w.terminate()    # reaped before the KV moves on
@@ -285,6 +288,10 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         keep = (f"{version}/", f"{version - 1}/")
         for scope in ("results", "assignment", "new_rank_ready"):
             kv.prune_scope(scope, keep)
+        if driver.version_disrupted(version) and gone:
+            from horovod_tpu_torch.flight import recorder as _flight
+            _flight.driver_mark(version, sorted({k[0] for k in gone}),
+                                sorted({s.hostname for s in assignment}))
         first = assignment[0].hostname
         coordinator_addr = kv_addr if is_local(first) else first
         if not publish_assignment(kv, assignment, version, survivors,
@@ -351,6 +358,12 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         discovery, args.min_np or 1, args.max_np, args.reset_limit,
         spawn_fn=spawn, shutdown_fn=shutdown,
         cooldown_range=f"{cooldown[0]},{cooldown[1]}" if cooldown else None)
+    from horovod_tpu_torch.common.config import _env_bool
+    from horovod_tpu_torch.flight import recorder as _flight
+    # This process's dumps and markers are the driver's; the flight switch
+    # is re-read, since the launcher set the env after the import.
+    _flight.set_role("driver")
+    _flight.set_enabled(_env_bool("HOROVOD_FLIGHT_RECORDER", True))
     driver.start()
     try:
         driver.wait_for_available_slots(
@@ -366,3 +379,4 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
     finally:
         driver.stop()    # terminates and reaps whatever still runs
         kv.stop()
+        _flight.set_role("worker")

@@ -11,8 +11,9 @@ response, 404s included. The process group bootstraps through the
 the launcher and the workers exchange around it: ``run()``'s pickled
 function and results, the workers' bootstrap probes, and the elastic
 driver's membership versions, assignment rows and ready marks. The JAX store's
-chaos, flight-recorder and metrics hooks and its per-slice shard router are
-not ported (ROADMAP A16, A17).
+chaos, flight-recorder and metrics hooks (``record_http_kv``,
+``record_kv_retry``, the ``kv_retry``/``kv_error`` events) and its per-slice
+shard router come with the control plane (ROADMAP A17).
 """
 
 import os

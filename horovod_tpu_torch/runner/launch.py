@@ -34,10 +34,17 @@ knobs ride along. The workers read (``common/config.py``):
   horovod_tpu_torch.serving`` is the worker);
 - tracing (``--trace``, ``--no-trace``, ``--trace-dir``:
   ``HOROVOD_TRACE*``), the SLOs (``HOROVOD_SLO_*``) and metrics
-  (``HOROVOD_METRICS*``).
+  (``HOROVOD_METRICS*``);
+- the timeline (``--timeline-filename``, ``--timeline-mark-cycles``:
+  ``HOROVOD_TIMELINE*``), the flight recorder (``--flight-dir``,
+  ``--no-flight-recorder``: ``HOROVOD_FLIGHT_*``), the step profiler
+  (``--no-step-profiler``, ``--step-report-file``, ``--profile-steps``,
+  ``--profile-dir``: ``HOROVOD_STEP_PROFILER``, ``HVD_STEP_REPORT_FILE``,
+  ``HOROVOD_PROFILE_*``) and goodput (``--goodput``, ``--no-goodput``,
+  ``--goodput-dir``, ``--run-history-dir``: ``HOROVOD_GOODPUT*``,
+  ``HOROVOD_RUN_HISTORY_DIR``).
 
-Still set but not read: autotune and the autopilot (ROADMAP A17), goodput
-and the flight recorder (A16).
+Still set but not read: autotune and the autopilot (ROADMAP A17).
 """
 
 import argparse
@@ -251,7 +258,7 @@ def parse_args(argv=None):
                               "requests expose their span tree at "
                               "GET /debug/trace/<rid>; merge per-rank "
                               "shards with `python -m "
-                              "horovod_tpu.trace.analyze`.")
+                              "horovod_tpu_torch.trace.analyze`.")
     tracing.add_argument("--no-trace", action="store_true",
                          dest="no_trace",
                          help="Disarm tracing (HOROVOD_TRACE=0).")
@@ -278,7 +285,7 @@ def parse_args(argv=None):
                               "(HOROVOD_RUN_HISTORY_DIR): rank 0 appends "
                               "a per-run JSONL journal here; render and "
                               "regress with `python -m "
-                              "horovod_tpu.goodput.report`.")
+                              "horovod_tpu_torch.goodput`.")
 
     timeline = p.add_argument_group("timeline")
     timeline.add_argument("--timeline-filename", dest="timeline_filename")
@@ -309,7 +316,7 @@ def parse_args(argv=None):
                              "dumps (HOROVOD_FLIGHT_DIR), exported to every "
                              "worker so an elastic disruption collects all "
                              "ranks' dumps in one place for "
-                             "`python -m horovod_tpu.flight.analyze`. "
+                             "`python -m horovod_tpu_torch.flight.analyze`. "
                              "See docs/observability.md.")
     flight.add_argument("--no-flight-recorder", action="store_true",
                         dest="no_flight_recorder",
@@ -325,9 +332,9 @@ def parse_args(argv=None):
                           help="Per-step attribution JSONL stream "
                                "(HVD_STEP_REPORT_FILE), exported to every "
                                "worker; render with `python -m "
-                               "horovod_tpu.profile.report`.")
+                               "horovod_tpu_torch.profile.report`.")
     profiler.add_argument("--profile-steps", dest="profile_steps",
-                          help="a:b — capture a jax.profiler trace from "
+                          help="a:b — capture a torch.profiler trace from "
                                "the step-a marker to the step-b marker "
                                "(HOROVOD_PROFILE_STEPS).")
     profiler.add_argument("--profile-dir", dest="profile_dir",
@@ -682,7 +689,7 @@ def check_build_text():
             f"    [{mark(dist.is_mpi_available())}] MPI\n\n"
             f"CUDA: {'[X] ' + str(torch.version.cuda) if cuda else '[ ]'}\n\n"
             "Available Features:\n    [X] process sets\n    [X] Adasum\n"
-            "    [X] join\n    [X] elastic\n    [ ] timeline\n")
+            "    [X] join\n    [X] elastic\n    [X] timeline\n")
 
 
 def run_commandline(argv=None):

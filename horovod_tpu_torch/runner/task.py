@@ -6,8 +6,9 @@ package's ``runner/task.py``: the function comes from the launcher's KV
 store, ``hvd.init()`` (``common/basics.py``) takes the place of the
 ``jax.distributed`` bootstrap, and the result goes back to the store keyed
 by rank (under an elastic launch, by the membership version the worker
-last initialized under, and the job is marked finished). The goodput hooks
-are not ported (ROADMAP A16).
+last initialized under, and the job is marked finished). The clean exit
+finalizes the goodput ledger (its journal's last summary and ``run_end``,
+the per-rank summary file) before ``hvd.shutdown()``, as JAX's does.
 """
 
 import json
@@ -76,6 +77,8 @@ def main():
             # The job winds down: the driver must not rebalance now, or the
             # new membership would wait on this exited rank.
             client.put("elastic", "finished", b"1")
+    from horovod_tpu_torch.goodput import ledger as _goodput
+    _goodput.shutdown()
     hvd.shutdown()
 
 

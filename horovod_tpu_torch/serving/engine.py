@@ -38,9 +38,11 @@ Elasticity rides :class:`horovod_tpu_torch.serving.state.ServingState` (a
 ``TorchState``): request-level state commits per step group, in-flight
 caches either migrate as host copies (``HOROVOD_SERVING_MIGRATE_KV``,
 :meth:`kv_snapshot`) or re-queue from the last committed token and
-re-prefill. Every lifecycle event and decode step lands in the trace store
-and the serving and SLO series. The JAX engine's flight-recorder events,
-step markers and goodput ledger come with ROADMAP A16.
+re-prefill. Every lifecycle event and decode step lands in the trace store,
+the serving and SLO series and the flight ring (``serving`` events:
+submit, admit, complete, requeue); each step counts its token-seconds in
+the serving goodput (in-SLO while every declared burn rate is <= 1) and,
+with ``mark_steps``, marks a step for the step profiler.
 """
 
 import threading
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import trace
+from horovod_tpu_torch.flight import recorder as _flight
 from horovod_tpu_torch.metrics import instruments as _metrics
 from horovod_tpu_torch.serving.request import Request
 from horovod_tpu_torch.serving.scheduler import SlotScheduler
@@ -133,9 +136,9 @@ class ServingEngine:
     the device programs to bound the pure host cost of enqueue → schedule
     → dispatch: ``step_fn(model, cache, toks, pos) -> (logits, cache)``,
     ``prefill_fn(model, cache, toks, t) -> cache``,
-    ``install_fn(big, small, slot) -> big``. ``mark_steps`` is kept for
-    JAX's signature: its flight-recorder step markers come with ROADMAP
-    A16.
+    ``install_fn(big, small, slot) -> big``. ``mark_steps``: each engine
+    step is a ``step_marker`` (the step profiler's windows and the flight
+    ring's step spans).
     """
 
     def __init__(self, model, num_slots=4, max_len=None, prefill_chunk=64,
@@ -271,6 +274,8 @@ class ServingEngine:
         # requests never register — the trace store holds queued work.
         trace.register(req.tid, rid=req.rid, t0=req.t_wall)
         trace.add_instant(req.tid, "submit", t=req.t_wall, cat="serving")
+        _flight.record_event("serving", what="submit", name=f"r{req.rid}",
+                             trace=req.tid)
         return req
 
     # --- the serve loop ---------------------------------------------------
@@ -310,6 +315,8 @@ class ServingEngine:
         # readiness gate must not report a recovered engine CACHE-STALE
         # forever).
         self._cache_valid = True
+        _flight.record_event("serving", what="admit", name=f"r{req.rid}",
+                             seq=slot, trace=req.tid)
 
     @torch.no_grad()
     def step(self):
@@ -373,10 +380,26 @@ class ServingEngine:
                                dur=max(time.time() - t_end, 0.0),
                                cat="serving")
                 trace.finish(req.tid)
+                _flight.record_event("serving", what="complete",
+                                     name=f"r{req.rid}",
+                                     dur=req.t_done - req.t_submit,
+                                     trace=req.tid)
         _metrics.record_serving_step(dt, len(active), self.num_slots,
                                      committed)
         _slo.observe_tokens(committed)
+        # Serving goodput: this step's token-seconds count as goodput iff
+        # every declared SLO objective is within budget now (burn <= 1);
+        # with none declared all traffic is in-SLO.
+        try:
+            from horovod_tpu_torch.goodput import ledger as _goodput
+            burns = _slo.burn_rates()
+            _goodput.record_serving_step(
+                dt, committed, in_slo=all(b <= 1.0 for b in burns.values()))
+        except Exception:  # noqa: BLE001
+            pass
         self._step_count += 1
+        if self.mark_steps:
+            _flight.step_marker(self._step_count)
         return True
 
     def run_until_idle(self, max_steps=100000, commit=None):
@@ -527,6 +550,9 @@ class ServingEngine:
                     req.tid, "requeue", cat="elastic", barrier=True,
                     args={"committed": len(req.committed),
                           "requeues": req.requeues}))
+                emissions.append(lambda req=req: _flight.record_event(
+                    "serving", what="requeue", name=f"r{req.rid}",
+                    trace=req.tid))
             else:
                 emissions.append(lambda req=req: trace.add_instant(
                     req.tid, "restore", cat="elastic", barrier=True))
@@ -602,6 +628,8 @@ class ServingEngine:
             req.t_queued = time.time()
             trace.add_instant(req.tid, "requeue", cat="elastic",
                               barrier=True)
+            _flight.record_event("serving", what="requeue",
+                                 name=f"r{req.rid}", trace=req.tid)
         self._pos[:] = 0
         self._tokens[:] = 0
 
@@ -639,4 +667,11 @@ class ServingEngine:
         # {} unless SLO objectives are declared (HOROVOD_SLO_*); the
         # read also refreshes the slo_burn_rate{objective} gauges.
         frame["slo"] = _slo.burn_rates()
+        try:
+            from horovod_tpu_torch.goodput import ledger as _goodput
+            gp = _goodput.serving_snapshot()
+            if gp.get("steps"):
+                frame["goodput"] = gp
+        except Exception:  # noqa: BLE001
+            pass
         return frame

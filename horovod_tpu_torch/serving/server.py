@@ -148,9 +148,10 @@ class ServingFrontend:
                 if not self.engine.step():
                     time.sleep(_IDLE_SLEEP_S)
             except Exception as e:  # noqa: BLE001 — keep serving
-                # Logged and counted (the JAX frontend's flight-ring event
-                # comes with ROADMAP A16).
+                # Logged, counted and left in the flight ring.
                 self.drive_errors += 1
+                from horovod_tpu_torch.flight import recorder as _flight
+                _flight.record_event("serving", what="drive_error")
                 hvd_logging.warning("serving drive step failed: %r", e)
                 time.sleep(0.05)
 

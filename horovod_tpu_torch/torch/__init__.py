@@ -9,16 +9,17 @@ reducescatter and broadcast families with their async handles,
 optimizer-state and object broadcasts, ``allgather_object`` and
 ``DistributedOptimizer``, elastic training (``elastic.run``,
 ``TorchState``, ``ElasticSampler``, ``mark_new_rank_ready``,
-``read_new_rank_ready``), ``SyncBatchNorm`` and the int8 wire's
-``Int8Compressor``. The timeline (``start_timeline``/``stop_timeline``,
-ROADMAP A16) is the only part of the reference surface still to port.
+``read_new_rank_ready``), ``SyncBatchNorm``, the int8 wire's
+``Int8Compressor`` and the timeline (``start_timeline``/``stop_timeline``):
+the whole reference surface.
 """
 
 from horovod_tpu_torch.common.basics import (
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
     gloo_built, gloo_enabled, ici_built, init, is_homogeneous, is_initialized,
     local_rank, local_size, mpi_built, mpi_enabled, mpi_threads_supported,
-    nccl_built, rank, rocm_built, shutdown, size, xla_built)
+    nccl_built, rank, rocm_built, shutdown, size, start_timeline,
+    stop_timeline, xla_built)
 from horovod_tpu_torch.common.exceptions import HorovodInternalError
 from horovod_tpu_torch.common.process_sets import (ProcessSet,
                                                    add_process_set,
@@ -58,7 +59,8 @@ __all__ = [
     "size", "local_size", "cross_size", "device", "is_homogeneous",
     "mpi_threads_supported", "mpi_enabled", "mpi_built", "gloo_enabled",
     "gloo_built", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
-    "rocm_built", "xla_built", "ici_built",
+    "rocm_built", "xla_built", "ici_built", "start_timeline",
+    "stop_timeline",
     "ProcessSet", "add_process_set", "global_process_set",
     "process_set_by_id", "remove_process_set",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",

@@ -46,6 +46,7 @@ import weakref
 import torch
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.flight import recorder as _flight
 from horovod_tpu_torch.optim.powersgd import PowerSGD, PowerSGDCompressor
 from horovod_tpu_torch.parallel.tp import flax_view, from_flax_view
 from horovod_tpu_torch.torch import mpi_ops
@@ -228,6 +229,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if self._should_synchronize:
             self.synchronize()
         self._synchronized = False
+        # The host-side step boundary: the flight ring's step spans, the
+        # step profiler's windows and the goodput ledger's steps need no
+        # user instrumentation on this frontend (step_marker applies each
+        # plane's gate itself).
+        _flight.step_marker()
         if self._powersgd is None:
             return super(self.__class__, self).step(closure)
         # The wrapped optimizer's lazy init (AdamW's) wants a state without

@@ -5,14 +5,15 @@ and capacities. A **trace id** is minted per serving request and carried
 from admission through queue wait, chunked prefill, slot install, every
 decode step, elastic commit/restore/requeue and stream completion; the id
 rides the elastic request snapshot, so one contiguous trace spans an
-engine restart. JAX's per-step training traces (``step_trace``, the
-step marker's active-trace context) come with the flight recorder
-(ROADMAP A16), as do the shard merger ``trace/analyze.py`` and the
-flight ring's trace field.
+engine restart. Training steps get a trace each: ``flight.step_marker``
+rotates it (:func:`step_trace`) and makes it the thread's ACTIVE ref, so
+the dispatch and fusion-flush spans of the ops layer land
+under it, and every flight-ring event carries it (its ``trace`` field).
 
 Spans are plain dicts in a bounded per-process store (requests and steps
 evict independently). Read them live at ``GET /debug/trace/<rid>`` on the
-serving frontend, or dump per-rank shards with :func:`dump`.
+serving frontend, or dump per-rank shards with :func:`dump` and merge them
+with ``python -m horovod_tpu_torch.trace.analyze``.
 
 Span-tree schema (``tree()``): the root is the request/step; its children
 are PHASE spans (``queue``, ``prefill``, ``decode``, ``stream``, plus
@@ -47,6 +48,8 @@ _capacity = {"request": _env_int("HOROVOD_TRACE_CAPACITY", 256),
              "step": 64}
 _MAX_SPANS = 4096             # per-trace span cap (drops counted)
 
+_tls = threading.local()      # .tid — the active trace ref
+
 
 def configure(config):
     """Re-arm from a :class:`~horovod_tpu_torch.common.config.Config`
@@ -61,12 +64,34 @@ def configure(config):
             _capacity["request"] = cap
 
 
-# --- ids ---------------------------------------------------------------
+# --- ids and the active context -----------------------------------------
 
 def mint(kind="request"):
     """A fresh trace id (no registration — cheap enough to mint even
     when tracing is disarmed, so elastic snapshots always carry one)."""
     return f"t{_SALT}-{kind[0]}{next(_counter):x}"
+
+
+def get_active():
+    return getattr(_tls, "tid", None)
+
+
+def set_active(tid):
+    _tls.tid = tid
+
+
+def clear_active():
+    _tls.tid = None
+
+
+@contextlib.contextmanager
+def activate(tid):
+    prev = get_active()
+    _tls.tid = tid
+    try:
+        yield
+    finally:
+        _tls.tid = prev
 
 
 # --- the span store ------------------------------------------------------
@@ -202,20 +227,36 @@ def finish(tid, dur=None):
 
 @contextlib.contextmanager
 def span(name, parent=None, cat=None, tid=None):
-    """Record a span around a block, into ``tid``. No-op when tracing is
-    off or ``tid`` is None (JAX's active-trace fallback comes with the
-    step traces, ROADMAP A16)."""
-    if not armed or tid is None:
+    """Record a span around a block, into ``tid`` or the active trace.
+    No-op (one attribute read) when tracing is off or nothing is
+    active — cheap enough for the ops hot path."""
+    t = tid if tid is not None else get_active()
+    if not armed or t is None:
         yield
         return
     t0 = time.time()
     try:
         yield
     finally:
-        add_span(tid, name, t0, time.time() - t0, parent=parent, cat=cat)
+        add_span(t, name, t0, time.time() - t0, parent=parent, cat=cat)
 
 
-# --- reading -------------------------------------------------------------
+def step_trace(step):
+    """Rotate the per-step training trace (called by
+    ``flight.step_marker``): registers a trace for the NEW step and makes
+    it the active ref, so ops-layer spans and flight events land under it.
+    Returns the tid (None when disarmed)."""
+    if not armed:
+        return None
+    prev = get_active()
+    if prev is not None and prev.startswith(f"t{_SALT}-s"):
+        finish(prev)
+    tid = mint("step")
+    register(tid, kind="step",
+             args=None if step is None else {"step": int(step)})
+    set_active(tid)
+    return tid
+
 
 def for_rid(rid):
     """The trace id serving request ``rid`` (None when unknown or
@@ -299,8 +340,9 @@ def dump(path, rank=None):
 
 
 def reset():
-    """Drop every trace (tests)."""
+    """Drop every trace and the active ref (tests)."""
     with _lock:
         _traces.clear()
         _rid_index.clear()
         _order.clear()
+    clear_active()

@@ -35,6 +35,7 @@ from jax.sharding import PartitionSpec as P
 
 import torch_a12_helpers as a12
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.ops import wire
 from horovod_tpu.parallel.moe import MoEMlp
 
@@ -109,7 +110,13 @@ def _moe_cases():
 
 
 @pytest.fixture(scope="module")
-def results():
+def results(tmp_path_factory):
+    """Once for the whole run (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "a2a_hierarchy_results",
+                  lambda: _results())
+
+
+def _results():
     rng = np.random.default_rng(0)
     xs = {"big": np.asarray(rng.standard_normal((N, N * 512)), np.float32),
           "q": np.asarray(rng.standard_normal((N, N * 512)), np.float32),

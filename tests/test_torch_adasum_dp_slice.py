@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.models import resnet as jr
 from horovod_tpu.ops.collective_ops import Adasum
 from horovod_tpu_torch.models import resnet as tr
@@ -66,23 +67,36 @@ def data():
     return model, jax.tree_util.tree_map_with_path(draw, shapes), x, y
 
 
-@pytest.fixture(scope="module")
-def port_future(data):
+def _port_future(data):
     _, variables, x, y = data
     return helpers.run_world_async(helpers.dp_resnet, 2,
                                    args=(variables, x, y, STEPS, LR,
                                          "Adasum"))
 
 
-@pytest.fixture(scope="module")
-def jax_run(data, port_future):
+def _jax_run(data):
     # The gloo world trains while JAX compiles and runs its reference.
     return jax_trajectory(data, op=Adasum)
 
 
 @pytest.fixture(scope="module")
-def port_run(port_future):
-    return port_future.result()
+def runs(data, tmp_path_factory):
+    """The JAX reference and the port's world, once for the whole run
+    (``torch_shared.shared``); the world runs while JAX computes."""
+    def compute():
+        port = _port_future(data)
+        return _jax_run(data), port.result()
+    return shared(tmp_path_factory, "adasum_dp_slice_runs", compute)
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs[0]
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs[1]
 
 
 def _within(got, ref, scale, name):

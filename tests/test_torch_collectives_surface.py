@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 
 RS_CASES = [(op, dt, pre, post) for op in ("Sum", "Average")
             for dt in ("float32", "bfloat16")
@@ -61,24 +62,32 @@ DATA = {3: _data(3, 21), 2: _data(2, 22)}
 
 
 @pytest.fixture(scope="module")
-def port_futures():
-    return {n: helpers.run_world_async(helpers.collectives_surface, n,
-                                       args=(DATA[n], RS_CASES))
-            for n in (3, 2)}
+def runs(hvd, tmp_path_factory):
+    """The worlds and the JAX references, once for the whole run
+    (``torch_shared.shared``); the references are computed while the
+    worlds run."""
+    def compute():
+        futures = {n: helpers.run_world_async(helpers.collectives_surface,
+                                              n, args=(DATA[n], RS_CASES))
+                   for n in (3, 2)}
+        made = {n: hvd.add_process_set(hvd.ProcessSet(list(range(n))))
+                for n in (3, 2)}
+        try:
+            ref = _refs(hvd, made)
+        finally:
+            for ps in made.values():
+                hvd.remove_process_set(ps)
+        return ref, {n: f.result() for n, f in futures.items()}
+    return shared(tmp_path_factory, "collectives_surface_runs", compute)
 
 
 @pytest.fixture(scope="module")
-def sets(hvd, port_futures):
-    made = {n: hvd.add_process_set(hvd.ProcessSet(list(range(n))))
-            for n in (3, 2)}
-    yield made
-    for ps in made.values():
-        hvd.remove_process_set(ps)
+def refs(runs):
+    return runs[0]
 
 
-@pytest.fixture(scope="module")
-def refs(hvd, sets):
-    """The JAX references, computed while the worlds run."""
+def _refs(hvd, sets):
+    """The JAX references."""
     out = {}
     for n, ps in sets.items():
         data = DATA[n]
@@ -124,8 +133,8 @@ def refs(hvd, sets):
 
 
 @pytest.fixture(scope="module")
-def port(port_futures, refs):
-    return {n: f.result() for n, f in port_futures.items()}
+def port(runs):
+    return runs[1]
 
 
 WORLDS = pytest.mark.parametrize("n", [3, 2])

@@ -54,6 +54,7 @@ from jax.sharding import PartitionSpec as P
 
 import torch_a12_helpers as a12
 import torch_port_helpers as helpers
+from torch_shared import shared
 from test_torch_sp_models import blocked
 
 N = 4
@@ -197,7 +198,13 @@ def _world_params(family, axes_, tree):
 
 
 @pytest.fixture(scope="module")
-def results():
+def results(tmp_path_factory):
+    """Once for the whole run (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "composite_results",
+                  lambda: _results())
+
+
+def _results():
     ids = _ids()
     inits, cases = {}, {}
     for name, (family, cfg_kw, axes_, schedule) in CASES.items():

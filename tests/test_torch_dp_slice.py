@@ -28,6 +28,7 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import resnet as jr
 from horovod_tpu.ops.collective_ops import Average
@@ -43,18 +44,27 @@ def _close(got, ref, name):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def data():
+def _jax_resnet():
+    return jr.ResNet(stage_sizes=[1, 1, 1, 1],
+                     block_cls=jr.BottleneckResNetBlock, num_classes=10,
+                     num_filters=8, dtype=jnp.float32)
+
+
+def _draw():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((BATCH, 64, 64, 3)).astype(np.float32)
     y = rng.integers(0, 10, BATCH).astype(np.int32)
-    model = jr.ResNet(stage_sizes=[1, 1, 1, 1],
-                      block_cls=jr.BottleneckResNetBlock, num_classes=10,
-                      num_filters=8, dtype=jnp.float32)
     # Jitted: Flax's eager init of even this ResNet takes ~30 s on the CPU.
     variables = jax.tree_util.tree_map(
-        np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), x[:1]))
-    return model, variables, x, y
+        np.asarray, jax.jit(_jax_resnet().init)(jax.random.PRNGKey(0),
+                                                x[:1]))
+    return variables, x, y
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    variables, x, y = shared(tmp_path_factory, "dp_slice_data", _draw)
+    return _jax_resnet(), variables, x, y
 
 
 def jax_trajectory(data, op=Average):
@@ -97,22 +107,35 @@ def jax_trajectory(data, op=Average):
     }
 
 
-@pytest.fixture(scope="module")
-def port_future(data):
+def _port_future(data):
     _, variables, x, y = data
     return helpers.run_world_async(helpers.dp_resnet, 2,
                                    args=(variables, x, y, STEPS, LR))
 
 
-@pytest.fixture(scope="module")
-def jax_run(data, port_future):
+def _jax_run(data):
     # The gloo world trains while JAX compiles and runs its reference.
     return jax_trajectory(data)
 
 
 @pytest.fixture(scope="module")
-def port_run(port_future):
-    return port_future.result()
+def runs(data, tmp_path_factory):
+    """The JAX reference and the port's world, once for the whole run
+    (``torch_shared.shared``); the world runs while JAX computes."""
+    def compute():
+        port = _port_future(data)
+        return _jax_run(data), port.result()
+    return shared(tmp_path_factory, "dp_slice_runs", compute)
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs[0]
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs[1]
 
 
 def _params(named):

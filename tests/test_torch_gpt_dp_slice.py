@@ -38,6 +38,7 @@ import pytest
 from jax.sharding import Mesh
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import gpt as jg
 from horovod_tpu.optim import DistributedOptimizer
@@ -60,11 +61,15 @@ def _named(tree):
 
 
 @pytest.fixture(scope="module")
-def data():
-    ids = np.random.default_rng(7).integers(0, 256, (4, 48)).astype(np.int32)
-    model = jg.GPT(jg.GPTConfig.tiny(**KW))
-    params = _np(model.init(jax.random.PRNGKey(0), jnp.asarray(ids[:1])))
-    return model, params["params"], ids
+def data(tmp_path_factory):
+    def draw():
+        ids = np.random.default_rng(7).integers(0, 256, (4, 48)).astype(
+            np.int32)
+        params = _np(jg.GPT(jg.GPTConfig.tiny(**KW)).init(
+            jax.random.PRNGKey(0), jnp.asarray(ids[:1])))
+        return params["params"], ids
+    params, ids = shared(tmp_path_factory, "gpt_dp_slice_data", draw)
+    return jg.GPT(jg.GPTConfig.tiny(**KW)), params, ids
 
 
 def _loss(model, p, ids):
@@ -74,14 +79,23 @@ def _loss(model, p, ids):
 
 
 @pytest.fixture(scope="module")
-def port_future(data):
-    _, params, ids = data
-    return helpers.run_world_async(helpers.dp_gpt, 2,
-                                   args=(params, KW, ids, STEPS, LR, WD))
+def runs(data, tmp_path_factory):
+    """The JAX reference and the port's world, once for the whole run
+    (``torch_shared.shared``)."""
+    def compute():
+        _, params, ids = data
+        port = helpers.run_world_async(helpers.dp_gpt, 2,
+                                       args=(params, KW, ids, STEPS, LR, WD))
+        return _jax_run(data), port.result()
+    return shared(tmp_path_factory, "gpt_dp_slice_runs", compute)
 
 
 @pytest.fixture(scope="module")
-def jax_run(data, port_future):
+def jax_run(runs):
+    return runs[0]
+
+
+def _jax_run(data):
     # The gloo world trains while JAX compiles and runs its reference.
     model, params, ids = data
     mesh = Mesh(np.array(jax.devices()[:2]), (HVD_AXIS,))
@@ -105,8 +119,8 @@ def jax_run(data, port_future):
 
 
 @pytest.fixture(scope="module")
-def port_run(port_future):
-    return port_future.result()
+def port_run(runs):
+    return runs[1]
 
 
 def _scaled(got, want, name, rel=1e-4):

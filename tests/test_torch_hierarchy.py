@@ -27,6 +27,7 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common import topology as jtopo
 from horovod_tpu.common.config import Config as JConfig
 from horovod_tpu.common.topology import CROSS_AXIS, LOCAL_AXIS
@@ -112,7 +113,13 @@ def _jax_refs(data):
 
 
 @pytest.fixture(scope="module")
-def worlds():
+def worlds(tmp_path_factory):
+    """Once for the whole run (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "hierarchy_worlds",
+                  lambda: _worlds())
+
+
+def _worlds():
     data = _data()
     hier = helpers.run_world_async(helpers.hier_world, N, args=(data,),
                                    env=WORLD_ENV, local_size=2)

@@ -94,6 +94,23 @@ import horovod_tpu_torch.serving.__main__
 from horovod_tpu_torch.serving import (ServingEngine, ServingState, Request,
     SlotScheduler, QueueFull, get_engine, sample_token, serving_snapshot)
 from horovod_tpu_torch.elastic import kv_reshard
+import horovod_tpu_torch.timeline
+import horovod_tpu_torch.metrics.merge
+import horovod_tpu_torch.trace.analyze
+import horovod_tpu_torch.flight.recorder
+import horovod_tpu_torch.flight.analyze
+import horovod_tpu_torch.profile.ledger
+import horovod_tpu_torch.profile.roofline
+import horovod_tpu_torch.profile.watchdog
+import horovod_tpu_torch.profile.capture
+import horovod_tpu_torch.profile.report
+import horovod_tpu_torch.goodput.ledger
+import horovod_tpu_torch.goodput.history
+import horovod_tpu_torch.goodput.report
+assert hvd.start_timeline and hvd.stop_timeline and hvd.step_marker
+assert hvd.step_report and hvd.set_flops_per_step and hvd.flight_summary
+assert hvd.flight is horovod_tpu_torch.flight and hvd.goodput.snapshot
+assert horovod_tpu_torch.profile.roofline.PEAKS["h100"]["bf16_tflops"] == 989.0
 assert sample_token(__import__("numpy").arange(4.0), 0.0, 0, 1.0, 0, 0) == 3
 assert horovod_tpu_torch.metrics.REGISTRY.render_text().count(
     "# TYPE horovod_serving_") == 6

@@ -25,6 +25,7 @@ import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import mlp as jm
 from horovod_tpu.optim import DistributedOptimizer
@@ -45,8 +46,7 @@ def data():
     return model, draw_params(model, x[:1], seed=10), x, y
 
 
-@pytest.fixture(scope="module")
-def port_future(data):
+def _port_future(data):
     _, params, x, y = data
     return helpers.run_world_async(helpers.dp_mlp, 2,
                                    args=(params, x, y, STEPS, LR))
@@ -57,8 +57,7 @@ def _named(tree):
         MLP(), jax.tree_util.tree_map(np.asarray, tree)).named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def jax_run(data, port_future):
+def _jax_run(data):
     # The gloo world trains while JAX compiles and runs its reference.
     model, params, x, y = data
     mesh = Mesh(np.array(jax.devices()[:2]), (HVD_AXIS,))
@@ -83,8 +82,23 @@ def jax_run(data, port_future):
 
 
 @pytest.fixture(scope="module")
-def port_run(port_future):
-    return port_future.result()
+def runs(data, tmp_path_factory):
+    """The JAX reference and the port's world, once for the whole run
+    (``torch_shared.shared``); the world runs while JAX computes."""
+    def compute():
+        port = _port_future(data)
+        return _jax_run(data), port.result()
+    return shared(tmp_path_factory, "mlp_dp_slice_runs", compute)
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs[0]
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs[1]
 
 
 @pytest.mark.parametrize("what", ["params", "momentum"])

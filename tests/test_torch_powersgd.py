@@ -37,6 +37,7 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import mlp as jm
 from horovod_tpu.ops.collective_ops import Average, Sum
@@ -120,7 +121,13 @@ def mlp_data():
 
 
 @pytest.fixture(scope="module")
-def worlds(mlp_data):
+def worlds(mlp_data, tmp_path_factory):
+    """Once for the whole run (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "powersgd_worlds",
+                  lambda: _worlds(mlp_data))
+
+
+def _worlds(mlp_data):
     _, params, _, state0, x, y = mlp_data
     tx = jp.powersgd_gradients_transform(rank=RANK, ef_dtype=jnp.float32)
     s0 = _jax_state0(tx)

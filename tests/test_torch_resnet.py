@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from flax import linen as fnn
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.models import resnet as jr
 from horovod_tpu_torch.models import resnet as tr
 
@@ -36,8 +37,15 @@ def _flax_to_numpy(tree):
 
 @pytest.fixture(scope="module", params=CONFIGS,
                 ids=lambda c: "-".join(map(str, c)))
-def run(request):
-    block, stem, side = request.param
+def run(request, tmp_path_factory):
+    """Each configuration once for the whole run (``torch_shared.shared``)."""
+    return shared(tmp_path_factory,
+                  "resnet_run_" + "-".join(map(str, request.param)),
+                  lambda: _run(request.param))
+
+
+def _run(config):
+    block, stem, side = config
     jblock, tblock = BLOCKS[block]
     rng = np.random.default_rng(11)
     x = rng.standard_normal((4, side, side, 3)).astype(np.float32)

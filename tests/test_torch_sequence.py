@@ -24,6 +24,7 @@ from jax.sharding import PartitionSpec as P
 
 import torch_parallel_helpers as ph
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.ops.pallas import flash_attention as jflash
 from horovod_tpu.parallel import sequence as jsq
 
@@ -81,27 +82,31 @@ def data():
 
 
 @pytest.fixture(scope="module")
-def port_future(data):
-    _, ids, cases = data
-    return helpers.run_world_async(ph.sp_world, SP, args=(cases, ids))
+def runs(data, tmp_path_factory):
+    """The JAX reference and the port's world, once for the whole run
+    (``torch_shared.shared``); the world runs while JAX computes."""
+    def compute():
+        inputs, ids, cases = data
+        port = helpers.run_world_async(ph.sp_world, SP, args=(cases, ids))
+        ref = {name: _jax_run(*CASES[name][:3], *inputs[name])
+               for name in CASES}
+        mesh = Mesh(np.array(jax.devices()[:SP]), ("hvd",))
+        ref["labels"] = np.asarray(jax.jit(jax.shard_map(
+            lambda t: jsq.next_token_labels(t, axis_name="hvd"), mesh=mesh,
+            in_specs=P(None, "hvd"), out_specs=P(None, "hvd")))(
+                jnp.asarray(ids, jnp.int32)))
+        return ref, port.result()
+    return shared(tmp_path_factory, "sequence_runs", compute)
 
 
 @pytest.fixture(scope="module")
-def jax_ref(data, port_future):
-    inputs, ids, _ = data
-    ref = {name: _jax_run(*CASES[name][:3], *inputs[name])
-           for name in CASES}
-    mesh = Mesh(np.array(jax.devices()[:SP]), ("hvd",))
-    ref["labels"] = np.asarray(jax.jit(jax.shard_map(
-        lambda t: jsq.next_token_labels(t, axis_name="hvd"), mesh=mesh,
-        in_specs=P(None, "hvd"), out_specs=P(None, "hvd")))(
-            jnp.asarray(ids, jnp.int32)))
-    return ref
+def jax_ref(runs):
+    return runs[0]
 
 
 @pytest.fixture(scope="module")
-def port(port_future):
-    return port_future.result()
+def port(runs):
+    return runs[1]
 
 
 def _joined(port, name, i):

@@ -5,7 +5,8 @@ port's own cached ``generate`` and against the JAX package, on the CPU.
 GPT tiny (capacity 32) and LLaMA tiny (GQA 4/2, capacity 32, the int8
 cache) with Flax's init loaded through ``load_flax``; prompts and sampling
 seeds from numpy seeds. Each JAX engine runs once, in the module fixture
-``jax_ref``.
+``jax_ref``, and once for a whole xdist run (``torch_shared.shared``): a
+worker that needs it while another computes it waits and loads it.
 
 - JAX's ``tests/test_serving.py``, mirrored: the slot scheduler (FIFO,
   retire and refill, evict order, ``QueueFull``, request validation);
@@ -60,6 +61,7 @@ from horovod_tpu_torch.models import gpt as tg
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.models import load_flax
 from horovod_tpu_torch.models.gpt import cache_to_numpy
+from torch_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 tgen = importlib.import_module("horovod_tpu_torch.models.generate")
@@ -77,11 +79,12 @@ FAMILIES = {
 }
 
 
-def _pair(family, seed=1):
+def _pair(family, seed=1, params=None):
     make_j, make_t, kw = FAMILIES[family]
     jm = make_j(**kw)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32))["params"])
+    if params is None:
+        params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
+            jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32))["params"])
     return jm, params, load_flax(make_t(**kw), params).eval()
 
 
@@ -113,8 +116,10 @@ def _drive(eng, prompts):
 
 
 @pytest.fixture(scope="module")
-def models():
-    return {f: _pair(f) for f in FAMILIES}
+def models(tmp_path_factory):
+    params = shared(tmp_path_factory, "serving_params",
+                    lambda: {f: _pair(f)[1] for f in FAMILIES})
+    return {f: _pair(f, params=params[f]) for f in FAMILIES}
 
 
 @pytest.fixture(scope="module")
@@ -123,10 +128,16 @@ def tmodel(models):
 
 
 @pytest.fixture(scope="module")
-def jax_ref(hvd, models):
+def jax_ref(hvd, models, tmp_path_factory):
+    return shared(tmp_path_factory, "serving_jax_ref",
+                  lambda: _jax_ref(models))
+
+
+def _jax_ref(models):
     """Each JAX engine once: the staggered and sampled submissions of
     ``_drive`` through 3 slots with prefill_chunk 4 (GPT, LLaMA int8), and
-    the GPT engine then finishing a snapshot the port took."""
+    the GPT engine then finishing a snapshot the port took. The caches as
+    numpy."""
     from horovod_tpu.serving import ServingEngine
     from horovod_tpu_torch.serving import ServingEngine as TEngine
 
@@ -151,6 +162,9 @@ def jax_ref(hvd, models):
     out["port_snap_in_jax"] = {
         "jax": {r.rid: r.result(0) for r in restored},
         "port": {r.rid: r.result(0) for r in treqs}}
+    for fam in models:
+        del out[fam]["engine"]
+        out[fam]["kv"] = jax.tree_util.tree_map(np.asarray, out[fam]["kv"])
     return out
 
 
@@ -659,9 +673,20 @@ def test_health_endpoint_saturation_and_later_routes(tmodel):
         assert eng.snapshot()["cache_valid"]
         code, body, _ = _get(base + "/metrics")
         assert code == 200 and b"horovod_serving_tokens_total" in body
-        for route in ("/debug/flight", "/cluster/health", "/debug/steps"):
+        # The per-rank debug routes answer; the cluster routes wait for
+        # A16's second half.
+        code, body, _ = _get(base + "/debug/flight")
+        lines = body.decode().splitlines()
+        assert code == 200 and json.loads(lines[0])["kind"] == "meta"
+        assert json.loads(lines[0])["reason"] == "debug_endpoint"
+        code, body, _ = _get(base + "/debug/steps?last=3")
+        steps = json.loads(body)
+        assert code == 200 and isinstance(steps["records"], list)
+        assert "steps" in steps["summary"]
+        for route in ("/cluster/health", "/cluster/steps",
+                      "/cluster/metrics"):
             code, body, _ = _get(base + route)
-            assert code == 404 and b"A16" in body, route
+            assert code == 404 and b"A16's second half" in body, route
         assert _get(base + "/nope")[0] == 404
     finally:
         engine_mod._current = prev
@@ -1098,8 +1123,12 @@ def test_hvdrun_serving_worker_answers_and_stops_on_sigterm(tmp_path):
         lines += proc.stdout.readlines()
         assert rc == 0, "".join(lines)
         shard = json.loads((tmp_path / "trace_r0.json").read_text())
-        assert shard["rank"] == 0 and [t["rid"] for t in shard["traces"]] \
+        # The request's trace; the engine's steps, marked for the step
+        # profiler, leave step traces beside it (kind "step"), as JAX's.
+        assert shard["rank"] == 0 and [t["rid"] for t in shard["traces"]
+                                       if t["kind"] == "request"] \
             == [out["rid"]]
+        assert {t["kind"] for t in shard["traces"]} <= {"request", "step"}
     finally:
         if proc.poll() is None:
             proc.kill()

@@ -26,6 +26,7 @@ import pytest
 
 import torch_parallel_helpers as ph
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.models.gpt import GPT, GPTConfig
 from horovod_tpu.models.llama import Llama, LlamaConfig
 
@@ -94,7 +95,11 @@ def _port_kw(family, kw):
 
 
 @pytest.fixture(scope="module")
-def data():
+def data(tmp_path_factory):
+    return shared(tmp_path_factory, "sp_models_data", _data)
+
+
+def _data():
     ids = np.random.default_rng(21).integers(0, 256, (2, 64)).astype(
         np.int32)
     refs, params = {}, {}
@@ -120,7 +125,14 @@ def data():
 
 
 @pytest.fixture(scope="module")
-def worlds(data):
+def worlds(data, tmp_path_factory):
+    """The 2- and 4-process worlds, once for the whole run
+    (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "sp_models_worlds",
+                  lambda: _worlds(data))
+
+
+def _worlds(data):
     _, sp, tp_sp = data
     a = helpers.run_world_async(ph.sp_models_world, 2,
                                 args=({"hvd": 2}, sp))

@@ -42,6 +42,7 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models import resnet as jr
 from horovod_tpu.ops.sync_batch_norm import SyncBatchNorm as JaxSyncBN
@@ -81,15 +82,18 @@ def _cases_inputs():
 STEPS, LR, BATCH = 2, 0.05, 16
 
 
-@pytest.fixture(scope="module")
-def resnet_data():
+def _jax_sync_resnet():
+    return jr.ResNet(stage_sizes=[1, 1, 1, 1],
+                     block_cls=jr.BottleneckResNetBlock, num_classes=10,
+                     num_filters=8, dtype=jnp.float32,
+                     sync_batch_norm_axis=HVD_AXIS)
+
+
+def _resnet_data():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((BATCH, 64, 64, 3)).astype(np.float32)
     y = rng.integers(0, 10, BATCH).astype(np.int32)
-    model = jr.ResNet(stage_sizes=[1, 1, 1, 1],
-                      block_cls=jr.BottleneckResNetBlock, num_classes=10,
-                      num_filters=8, dtype=jnp.float32,
-                      sync_batch_norm_axis=HVD_AXIS)
+    model = _jax_sync_resnet()
     # Flax's own init (the last BatchNorm of each block at zero scale), as
     # test_torch_dp_slice.py draws it; jitted, since eager takes ~30 s.
     variables = jax.tree_util.tree_map(
@@ -98,7 +102,24 @@ def resnet_data():
 
 
 @pytest.fixture(scope="module")
-def worlds(resnet_data):
+def runs(tmp_path_factory):
+    """The three worlds and JAX's ResNet run, once for the whole run
+    (``torch_shared.shared``); the worlds run while JAX computes."""
+    def compute():
+        data = _resnet_data()
+        futures = _start_worlds(data)
+        ref = _jax_resnet(data)
+        return {name: f.result(timeout=180) for name, f in futures.items()}, \
+            ref
+    return shared(tmp_path_factory, "sync_batch_norm_runs", compute)
+
+
+@pytest.fixture(scope="module")
+def worlds(runs):
+    return runs[0]
+
+
+def _start_worlds(resnet_data):
     _, variables, x, y = resnet_data
     frontend = [(k,) + v for k, v in FRONTEND.items()]
     model = [(k,) + v for k, v in MODEL.items()]
@@ -115,7 +136,7 @@ def worlds(resnet_data):
 
 
 def _world(worlds, name):
-    return worlds[name].result(timeout=180)
+    return worlds[name]
 
 
 @pytest.mark.parametrize("case", list(FRONTEND))
@@ -203,7 +224,11 @@ def test_model_side_matches_jax_under_shard_map(worlds):
 
 
 @pytest.fixture(scope="module")
-def jax_resnet(resnet_data):
+def jax_resnet(runs):
+    return runs[1]
+
+
+def _jax_resnet(resnet_data):
     model, variables, x, y = resnet_data
     mesh = Mesh(np.array(jax.devices()[:2]), (HVD_AXIS,))
     opt = DistributedOptimizer(optax.sgd(LR, momentum=0.9))

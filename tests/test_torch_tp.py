@@ -25,6 +25,7 @@ from jax.sharding import PartitionSpec as P
 
 import torch_parallel_helpers as ph
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu.models import LlamaBlock, LlamaConfig
 from horovod_tpu.parallel.tp import TPMlp, TPSelfAttention, TPSwiGLUMlp
 from horovod_tpu_torch.models.gpt import flax_key
@@ -94,7 +95,13 @@ def _jax_apply(module, params, x, specs):
 
 
 @pytest.fixture(scope="module")
-def data():
+def data(tmp_path_factory):
+    """The JAX references and the port's world, once for the whole run
+    (``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "tp_runs", _runs)
+
+
+def _runs():
     rng = np.random.default_rng(11)
     x = {name: np.asarray(rng.standard_normal((2, 12, D)), np.float32)
          for name in SPECS}
@@ -112,12 +119,12 @@ def data():
         y, gp, gx = _jax_apply(module, params[name], jnp.asarray(x[name]),
                                SPECS[name])
         ref[name] = {"y": y, "grads": gp, "dx": gx}
-    return ref, future
+    return ref, future.result()
 
 
 @pytest.fixture(scope="module")
 def port(data):
-    return data[1].result()
+    return data[1]
 
 
 def _leaves(tree, prefix=()):

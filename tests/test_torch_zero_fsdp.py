@@ -36,6 +36,7 @@ from jax.sharding import Mesh
 
 import torch_parallel_helpers as ph
 import torch_port_helpers as helpers
+from torch_shared import shared
 from horovod_tpu import elastic as jelastic
 from horovod_tpu.common.topology import HVD_AXIS
 from horovod_tpu.models.gpt import GPT, GPTConfig
@@ -85,22 +86,58 @@ def _gpt_loss(model):
     return loss
 
 
-@pytest.fixture(scope="module")
-def data():
+def _models():
+    return (MLP(features=MLP_KW["features"]),
+            GPT(GPTConfig.tiny(tp_axis=None, ep_axis=None, **GPT_KW)))
+
+
+def _draw():
     rng = np.random.default_rng(5)
-    mlp = MLP(features=MLP_KW["features"])
+    mlp, gpt = _models()
     x = rng.standard_normal((8, 20)).astype(np.float32)
     y = rng.standard_normal((8, 4)).astype(np.float32)
     mlp_params = _np(mlp.init(jax.random.PRNGKey(1), x[:1])["params"])
-    gpt = GPT(GPTConfig.tiny(tp_axis=None, ep_axis=None, **GPT_KW))
     ids = rng.integers(0, 256, (4, 32)).astype(np.int32)
     gpt_params = _np(gpt.init(jax.random.PRNGKey(2), ids[:1])["params"])
+    return mlp_params, x, y, gpt_params, ids
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    mlp_params, x, y, gpt_params, ids = shared(tmp_path_factory,
+                                               "zero_fsdp_data", _draw)
+    mlp, gpt = _models()
     return {"mlp": (mlp, mlp_params, {"x": x, "y": y}),
             "gpt": (gpt, gpt_params, {"ids": ids})}
 
 
 @pytest.fixture(scope="module")
-def port_futures(data):
+def runs(data, tmp_path_factory):
+    """JAX's ZeRO and FSDP runs and the port's two worlds, once for the
+    whole run (``torch_shared.shared``); the worlds run while JAX
+    computes. JAX's ZeRO state is resharded here, on the port's gathered
+    moments, for ``test_zero_reshard_round_trip_matches_jax``."""
+    def compute():
+        zero, fsdp = _port_futures(data)
+        jz, jf = _jax_zero(data), _jax_fsdp(data)
+        zero, fsdp = zero.result(), fsdp.result()
+        jz["reshard"] = _jax_reshard(jz.pop("state"), zero[0]["host"])
+        return jz, jf, zero, fsdp
+    return shared(tmp_path_factory, "zero_fsdp_runs", compute)
+
+
+def _jax_reshard(state, host):
+    """n = 2 -> 1 -> 2 on the host with JAX's ``zero_reshard``, the port's
+    gathered moments in JAX's state: the moments at n = 1 and n = 2."""
+    jstate = state.replace(opt_state=(state.opt_state[0]._replace(
+        mu=host["exp_avg"], nu=host["exp_avg_sq"]),) + state.opt_state[1:])
+    one = jelastic.zero_reshard(jstate, _mesh(1))
+    two = jelastic.zero_reshard(one, _mesh(N))
+    return {n: {leaf: np.asarray(getattr(s.opt_state[0], leaf))
+                for leaf in ("mu", "nu")} for n, s in ((1, one), (2, two))}
+
+
+def _port_futures(data):
     mlp_spec = ("mlp", MLP_KW, data["mlp"][1])
     gpt_spec = ("gpt", GPT_KW, data["gpt"][1])
     zero = helpers.run_world_async(
@@ -114,8 +151,7 @@ def port_futures(data):
     return zero, fsdp
 
 
-@pytest.fixture(scope="module")
-def jax_zero(data, port_futures):
+def _jax_zero(data):
     model, params, batch = data["mlp"]
     mesh = _mesh(N)
     tx = optax.adam(LR)
@@ -132,8 +168,7 @@ def jax_zero(data, port_futures):
             "nu": np.asarray(state.opt_state[0].nu), "state": state}
 
 
-@pytest.fixture(scope="module")
-def jax_fsdp(data, port_futures):
+def _jax_fsdp(data):
     out = {}
     mesh = _mesh(N)
     for name, loss in (("mlp", _mlp_loss), ("gpt", _gpt_loss)):
@@ -153,13 +188,23 @@ def jax_fsdp(data, port_futures):
 
 
 @pytest.fixture(scope="module")
-def zero(port_futures):
-    return port_futures[0].result()
+def jax_zero(runs):
+    return runs[0]
 
 
 @pytest.fixture(scope="module")
-def fsdp(port_futures):
-    return port_futures[1].result()
+def jax_fsdp(runs):
+    return runs[1]
+
+
+@pytest.fixture(scope="module")
+def zero(runs):
+    return runs[2]
+
+
+@pytest.fixture(scope="module")
+def fsdp(runs):
+    return runs[3]
 
 
 def _close(got, want, msg="", atol=1e-6):
@@ -232,21 +277,14 @@ def test_zero_reshard_round_trip_matches_jax(jax_zero, zero):
     """n = 2 -> 1 -> 2 on the host: JAX's ``zero_reshard`` on the same
     values, the logical prefix kept and the pad zero; a step from the
     restored state equals a step of the original."""
-    state = jax_zero["state"]
-    host = zero[0]["host"]
-    jstate = state.replace(opt_state=(state.opt_state[0]._replace(
-        mu=host["exp_avg"], nu=host["exp_avg_sq"]),) + state.opt_state[1:])
-    one = jelastic.zero_reshard(jstate, _mesh(1))
-    two = jelastic.zero_reshard(one, _mesh(N))
+    one, two = jax_zero["reshard"][1], jax_zero["reshard"][2]
     numel = zero[0]["numel"]
     for rank in range(N):
         for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-            np.testing.assert_allclose(
-                zero[rank]["n1"][key],
-                np.asarray(getattr(one.opt_state[0], leaf)), rtol=1e-6)
-            np.testing.assert_allclose(
-                zero[rank]["n2"][key],
-                np.asarray(getattr(two.opt_state[0], leaf)), rtol=1e-6)
+            np.testing.assert_allclose(zero[rank]["n1"][key], one[leaf],
+                                       rtol=1e-6)
+            np.testing.assert_allclose(zero[rank]["n2"][key], two[leaf],
+                                       rtol=1e-6)
             assert zero[rank]["n1"][key].shape == (numel,)
             assert not zero[rank]["n2"][key][numel:].any()
         for name, want in zero[rank]["continued_params"].items():

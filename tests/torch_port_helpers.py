@@ -21,6 +21,15 @@ import traceback
 import numpy as np
 import torch
 
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # Under pytest-xdist each worker is a process of its own: one torch
+    # thread each, or the workers' intra-op pools (a thread per core each)
+    # oversubscribe the cores many times over and a torch op waits on the
+    # others' spinning threads (a speculative-decoding test of a tiny GPT:
+    # 28 s at the default, 2.7 s at one thread, with the suite running).
+    # Set when the modules are collected, before any test runs.
+    torch.set_num_threads(1)
+
 
 def _free_port():
     with socket.socket() as s:
