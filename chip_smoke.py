@@ -205,7 +205,10 @@ Phases, one JSON line each (each with its seconds):
    ``--run-history-dir`` and ``--flight-dir``: the worker's timeline opens
    with clock_sync and holds its allreduce spans, its goodput summary is
    conserved within 1%, it left one flight dump, and ``python -m
-   horovod_tpu_torch.goodput`` reads the run as ended cleanly.
+   horovod_tpu_torch.goodput`` reads the run as ended cleanly. It also
+   passes ``--chaos-plan`` (LAUNCH_CHAOS_PLAN, JSON: one delay on step 3's
+   first fusion flush; the worker advances the plan's step clock each
+   step) and ``--chaos-ledger``: the worker's ledger holds that one line.
    Control: a worker that exits 1 (``--launched-worker fail``) makes the
    launcher return 1, and its process is gone.
 21. launch_cpu_world: ``-np 2`` through the launcher with workers on the
@@ -282,7 +285,14 @@ Phases 26-29 run after train_syncbn.
    layout: torus and hierarchical bit-equal to the sums each rank computes,
    torus_qcross (int8 cross leg) within the two-leg bound, the tier bytes
    equal to ``wire.hierarchical_wire_bytes``, the hierarchical allgather in
-   rank-major order. A CPU run, printed as one.
+   rank-major order. The launch also passes HIER_CONTROL_FLAGS (the
+   hierarchical control plane, two KV shards, the order check, telemetry
+   every 0.5 s): fused buckets on the hierarchical boundary stream
+   bit-equal to the same tensors on a flat one (a new runtime), the
+   boundary roles root, leader, leader, member, the member's root gets 0,
+   every order-check round hierarchical with 1 get a round on a member
+   and 2 on a leader, and the job view naming four healthy ranks. A CPU
+   run, printed as one.
 
 Phases 30-32 run after train_powersgd: A12's first half, in-step
 collectives over a DeviceMesh (``ops/in_step.py``).
@@ -379,7 +389,9 @@ and A15's decode cache.
    source. Generated tokens/s of each; flash forward launches and no
    backward ones (flash_vs_plain holds the forward at the decodes' shapes).
 41. generate_cached: the decode cache (A15's first half) at generate's
-   settings. GPT-2 small (bf16, capacity 1024): cached greedy, sampled
+   settings, its models cut in depth (GEN_CACHED_*_LAYERS: 4 of GPT-2
+   small's 12 layers and 4 of LLaMA-400M's 24; the widths stay). GPT-2
+   small (bf16, capacity 1024): cached greedy, sampled
    twice from one generator seed (bit-equal), beam search (k = 4), greedy
    speculative decoding with the target as its own draft, prefill_prefix
    of a 16-token shared prefix then generate(prefix_state=...), a per-row
@@ -402,8 +414,8 @@ Phases 42-43 run after generate_cached: A15's second half, serving.
    max_len 1024) under 32 requests from --seed submitted up front (prompts
    of 16-512 tokens, budgets of 16-128; 8 sampled at temperature 0.8,
    top-k 50, top-p 0.95, a seed each; 2 greedy ones with an EOS taken from
-   a first run), then LLaMA-400M with the int8 cache through 4 slots (8
-   requests). Checks: every request completes with its budget or at its
+   a first run), then LLaMA-400M (SERVE_LLAMA_LAYERS of its 24 layers)
+   with the int8 cache through 4 slots (8 requests). Checks: every request completes with its budget or at its
    EOS; every greedy token within FORCED_C x the bf16 re-forward's
    distance of the largest fp32 re-forward logit (LLaMA int8: 0.15 x the
    row's max|logit|), which an engine feeding each row one position late
@@ -451,6 +463,28 @@ observability planes.
    /debug/flight served; a forced flight.dump("ondemand") read back by
    flight.analyze. Printed: tokens/s armed against disarmed, the
    attribution split, device against host collective ms, MFU.
+
+Phase 45 runs after observe: A16's second half and A17's first half, the
+cluster telemetry plane and the control plane it rides.
+
+45. cluster: GPT-2 small at train_gpt's settings, in this process. A JSON
+   chaos plan armed from the env (cluster_plan: a 200 ms delay on step
+   3's first fusion flush, a 7 s hang on step 6's) over 8 steps on a
+   runtime whose stall inspector warns after 1 s, run twice: exactly the
+   two planned ledger lines, the same schedule both runs, each counted in
+   chaos_injections_total; step 3 200 ms over the median step (less the
+   others' spread) and its step record's fusion time at least 200 ms;
+   step 6 at least 7 s; one stall warning a run with its flight dump; a
+   finite, falling loss. Then rounds of a disarmed block and a block with
+   a plan armed that never fires, tokens/s each. Then four telemetry
+   agents in two slices over one in-process KVStoreServer on a fake
+   clock, each beaconing this process's real digest: all healthy; the
+   slice-1 leader stopped: dead, its slice re-led, the transition logged;
+   /cluster/health, /cluster/steps and /cluster/metrics through the scrape
+   endpoint and hvd.cluster_snapshot() equal to the agent's; top.gate
+   passes the healthy view and refuses it stale. Printed: the host ms of
+   one digest.collect and one tick, step 3's attribution, tokens/s
+   disarmed against armed-idle.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -3274,7 +3308,11 @@ CONTRACT = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
             "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE")
 LAUNCH_TIMEOUT = 420                # seconds, the launched GPT worker's run
 CPU_WORLD_TENSORS = 24
-CYCLE_REPEATS, CYCLE_STEPS = 3, 5
+CYCLE_REPEATS, CYCLE_STEPS = 2, 5
+# The launch phase's --chaos-plan: one delay on one step's first flush.
+LAUNCH_CHAOS_PLAN = {"seed": 7, "faults": [
+    {"site": "fusion.flush", "kind": "delay", "at_step": [3],
+     "delay_ms": 50.0}]}
 CYCLE_ORDER = (0.0, 1.0, 1.0, 0.0)  # ms, in turns: host speed drifts
 
 
@@ -3365,9 +3403,15 @@ def launched_worker(args):
     gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
     ids = torch.randint(0, model.config.vocab_size, (GPT_BATCH, GPT_SEQ),
                         generator=gen, device=dev)
-    _, run = train_steps(torch, hvd, model,
-                         lambda: next_token_loss(F, model(ids), ids), args,
-                         GPT_STEPS, (model.config.num_layers,) * 3, lr=1e-4)
+    clock = iter(range(10 ** 6))
+
+    def loss():
+        # Each step advances the chaos plan's step clock (--chaos-plan).
+        hvd.chaos.set_step(next(clock))
+        return next_token_loss(F, model(ids), ids)
+
+    _, run = train_steps(torch, hvd, model, loss, args, GPT_STEPS,
+                         (model.config.num_layers,) * 3, lr=1e-4)
     elapsed = run.pop("elapsed")
     run.pop("closed")
     if os.environ.get("HOROVOD_FLIGHT_DIR"):
@@ -3423,7 +3467,9 @@ def phase_launch(torch, args, card):
     flags = ["--timeline-filename", str(out / "timeline.json"),
              "--goodput", "--goodput-dir", str(out / "goodput"),
              "--run-history-dir", str(out / "history"),
-             "--flight-dir", str(out / "flight")]
+             "--flight-dir", str(out / "flight"),
+             "--chaos-plan", json.dumps(LAUNCH_CHAOS_PLAN),
+             "--chaos-ledger", str(out / "chaos")]
     rc, lines, log = run_launcher(args, 1, "gpt", LAUNCH_TIMEOUT,
                                   flags=flags)
     check(rc == 0 and len(lines) == 1,
@@ -3442,6 +3488,12 @@ def phase_launch(torch, args, card):
     check(w["losses"][-1] < w["losses"][0] and w[
           "reduced_equals_local_bitwise"], f"the worker's loss falls and its "
           f"reduced gradients equal the local ones: {w['losses']}")
+    from horovod_tpu_torch.chaos import injector
+    sched = injector.ledger_schedule(injector.read_ledger(str(out / "chaos")))
+    spec = LAUNCH_CHAOS_PLAN["faults"][0]
+    check(sched == [("worker", 0, spec["site"], spec["kind"], 0, 0,
+                     spec["at_step"][0], None)],
+          f"the worker's chaos ledger holds the planned line: {sched}")
     frc, flines, flog = run_launcher(args, 1, "fail", 180)
     check(frc == 1 and len(flines) == 1 and gone(flines[0]["pid"]),
           f"control: a worker that exits 1 fails the launch with 1 and is "
@@ -3451,7 +3503,8 @@ def phase_launch(torch, args, card):
           "--launched-worker gpt", "worker": w,
           "timer_closed_buckets": timer,
           "control_fail": {"rc": frc, "worker_reaped": True},
-          "planes": planes, "card": card})
+          "planes": planes, "chaos_plan": LAUNCH_CHAOS_PLAN,
+          "chaos_schedule": sched, "card": card})
     return w["launches"]
 
 
@@ -4078,6 +4131,12 @@ HIER_HOSTS = "localhost:2,127.0.0.1:2"
 HIER_ENV = {"HOROVOD_MESH_SLICES": "2", "HOROVOD_WIRE_DTYPE_DCN": "int8",
             "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}
 HIER_BUCKET = (4500, 1500, 701)
+# The control-plane leg of hier_cpu_world: the launcher's flags, and the
+# fused tensors (elements, dtype) compared between the two boundary streams.
+HIER_CONTROL_FLAGS = ("--control-plane", "hier", "--kv-shard-count", "2",
+                      "--order-check", "--telemetry-interval", "0.5")
+HIER_FUSED = ((700, "float32"), (1500, "float32"), (333, "bfloat16"),
+              (2048, "float32"))
 
 
 def grads_of(torch, model, loss_fn):
@@ -4528,9 +4587,62 @@ def hier_cpu_worker(torch, hvd, args):
     gathered = hvd.allgather(ragged[rank])
     out["allgather_rank_major"] = torch.equal(gathered, torch.cat(ragged))
     out["allgather_node_shape"] = list(topo.node_shape())
+    out.update(hier_control_plane(torch, hvd, args, rank))
     emit({"phase": "launched_worker", "kind": "hier_cpu", **out})
     hvd.shutdown()
     return 0
+
+
+def hier_fused(torch, hvd, seed, rank):
+    """HIER_FUSED's tensors (from --seed and the rank) through one grouped
+    async allreduce and one async allreduce each (Sum) on the runtime the
+    knobs build: the values, the buckets and this rank's boundary role."""
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    rt = get_runtime()
+    gen = torch.Generator().manual_seed(seed + 50 + rank)
+    ts = [torch.randn(n, generator=gen).to(getattr(torch, dt))
+          for n, dt in HIER_FUSED]
+    mark = len(rt.recent_buckets(4096))
+    hs = hvd.grouped_allreduce_async(ts, op=hvd.Sum, name="cp.grouped")
+    hs += [hvd.allreduce_async(t, op=hvd.Sum, name=f"cp.{i}")
+           for i, t in enumerate(ts)]
+    vals = [h.synchronize() for h in hs]
+    buckets = [[why, sig[4], [n for _, n in sig[-1]]]
+               for why, sig in rt.recent_buckets(4096)[mark:]]
+    return vals, buckets, rt._cp_role
+
+
+def hier_control_plane(torch, hvd, args, rank):
+    """The control plane of a 2 x 2 world launched with
+    HIER_CONTROL_FLAGS: fused buckets on the hierarchical boundary stream,
+    then the same tensors on a flat one (a new runtime); the negotiation
+    and boundary traffic of the hierarchical stretch (the order check's
+    rounds among it); the telemetry plane's job view once every rank is in
+    it."""
+    from horovod_tpu_torch.common import basics, negotiation
+    from horovod_tpu_torch.ops import fusion
+    hier_vals, hier_buckets, role = hier_fused(torch, hvd, args.seed, rank)
+    stats = negotiation.stats_snapshot()       # the hierarchical stretch
+    os.environ["HOROVOD_CONTROL_PLANE"] = "flat"
+    fusion.reset_runtime()
+    flat_vals, flat_buckets, flat_role = hier_fused(torch, hvd, args.seed,
+                                                    rank)
+    deadline = time.monotonic() + 30
+    view = hvd.cluster_snapshot()
+    while time.monotonic() < deadline and (
+            view.get("local_only") or view["counts"]["healthy"] != 4):
+        time.sleep(0.2)
+        view = hvd.cluster_snapshot()
+    return {"control_plane": {
+        "role": role, "flat_role": flat_role,
+        "buckets_equal": hier_buckets == flat_buckets,
+        "bit_equal": all(torch.equal(a, b)
+                         for a, b in zip(hier_vals, flat_vals)),
+        "buckets": hier_buckets, "stats": stats,
+        "kv_shard_ports": os.environ.get("HOROVOD_KV_SHARD_PORTS", ""),
+        "order_check": basics._get_state().config.order_check,
+        "job_view": {k: view.get(k) for k in (
+            "world", "num_slices", "leader", "counts", "local_only")}}}
 
 
 def phase_hier_cpu_world(args):
@@ -4544,7 +4656,7 @@ def phase_hier_cpu_world(args):
     os.environ.update(HIER_ENV)
     try:
         rc, lines, log = run_launcher(args, 4, "hier_cpu", 240, launcher=[
-            "-np", "4", "-H", HIER_HOSTS])
+            "-np", "4", "-H", HIER_HOSTS], flags=HIER_CONTROL_FLAGS)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -4573,9 +4685,36 @@ def phase_hier_cpu_world(args):
               f"bound, and lossy: {q}")
         check(w["allgather_rank_major"], f"rank {w['rank']}: the "
               f"hierarchical allgather in rank-major order")
+        cp = w["control_plane"]
+        st = cp["stats"]
+        member = w["rank"] % 2 == 1          # slices [0, 1] and [2, 3]
+        check(cp["bit_equal"] and cp["buckets_equal"] and cp["buckets"],
+              f"rank {w['rank']}: the hierarchical boundary stream's "
+              f"buckets bit-equal to the flat one's: {cp['buckets']}")
+        check(st["rounds"] > 0 and st["hier_rounds"] == st["rounds"]
+              and st["gets"] == st["rounds"] * (1 if member else 2),
+              f"rank {w['rank']}: every order-check round hierarchical, "
+              f"{'1 get' if member else '2 gets'} a round: {st}")
+        check(cp["order_check"] and len(cp["kv_shard_ports"].split(",")) == 2,
+              f"rank {w['rank']}: --order-check and two KV shards reached "
+              f"the worker: {cp['kv_shard_ports']!r}")
+        view = cp["job_view"]
+        check(not view["local_only"] and view["world"] == 4
+              and view["counts"]["healthy"] == 4,
+              f"rank {w['rank']}: the job view names four healthy ranks: "
+              f"{view}")
+    roles = [by_rank[r]["control_plane"]["role"] for r in range(4)]
+    check(roles == ["root", "leader", "leader", "member"],
+          f"the boundary roles of the 2 x 2 layout: {roles}")
+    member = by_rank[3]["control_plane"]["stats"]
+    check(member["fusion_root_gets"] == 0 and member["fusion_slice_gets"] > 0,
+          f"the member reads no root boundary: {member}")
     emit({"phase": "hier_cpu_world", "run_on": "CPU (gloo), not the card",
           "hosts": HIER_HOSTS, "env": HIER_ENV, "ranks": 4,
-          "bucket": HIER_BUCKET,
+          "flags": HIER_CONTROL_FLAGS, "bucket": HIER_BUCKET,
+          "control_plane": {r: by_rank[r]["control_plane"]["stats"]
+                            for r in range(4)},
+          "job_view": by_rank[0]["control_plane"]["job_view"],
           "rank0": by_rank[0]})
 
 
@@ -5983,6 +6122,11 @@ def phase_generate(torch, dev, args, card):
 # 16-token shared prefix, LLaMA-400M at its full 4096-position capacity.
 GEN_PREFIX = 16
 LLAMA_GEN_CAPACITY = 4096
+# generate_cached's depth cut (the widths, the cache capacities and the
+# decode settings stay): GPT-2 small at 4 of its 12 layers, LLaMA-400M at 4
+# of its 24, so the whole script keeps its time as it grows.
+GEN_CACHED_GPT_LAYERS, GEN_CACHED_LLAMA_LAYERS = 4, 4
+GEN_CACHED_GPT_PARAMS, GEN_CACHED_LLAMA_PARAMS = 106_406_400, 112_731_136
 # A cached route's teacher-forced logits must lie within FORCED_C times the
 # bf16 re-forward's own distance from an fp32 re-forward of the same weights
 # and tokens (max |difference| over every row, position and logit): two bf16
@@ -6059,7 +6203,11 @@ def phase_generate_cached(torch, dev, args, card):
     batch at staggered positions (row b b steps late, parked at position 0:
     the serving pattern). LLaMA-400M (GQA 16/8, capacity 4096): cached
     greedy with the bf16 and the int8 cache. T5-small: cached greedy and
-    beam decodes of 32 tokens over a 512-token source.
+    beam decodes of 32 tokens over a 512-token source. GPT-2 small and
+    LLaMA-400M run at GEN_CACHED_GPT_LAYERS and GEN_CACHED_LLAMA_LAYERS
+    layers (a depth cut; the widths stay), so the re-forward tokens/s
+    printed beside the cached ones comes from generate's full depth, and
+    this phase's own re-forward device ms from its cut one.
 
     Checks: each route's feeding pattern, teacher-forced with the
     re-forward greedy tokens, gives logits within FORCED_C times the bf16
@@ -6121,8 +6269,15 @@ def phase_generate_cached(torch, dev, args, card):
         check(err > bound, f"control {name} fails the bound: {err} > {bound}")
 
     with torch.no_grad():
-        # --- GPT-2 small ------------------------------------------------
-        model = build_gpt(torch, dev, args.seed).eval()
+        # --- GPT-2 small, GEN_CACHED_GPT_LAYERS deep ----------------------
+        model = GPT(dataclasses.replace(
+            gpt_config(torch, use_flash=True),
+            num_layers=GEN_CACHED_GPT_LAYERS),
+            generator=torch.Generator().manual_seed(args.seed)).to(dev).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == GEN_CACHED_GPT_PARAMS, f"GPT-2 small at "
+              f"{GEN_CACHED_GPT_LAYERS} layers has {GEN_CACHED_GPT_PARAMS:,} "
+              f"parameters, this model {n_params}")
         prompt = torch.randint(0, GPT_VOCAB, (B, P), generator=gen,
                                device=dev)
         greedy = generate(model, prompt, L)            # the re-forward route
@@ -6264,14 +6419,17 @@ def phase_generate_cached(torch, dev, args, card):
         del model, cache, ref, per_row, shared_cursor, state, pstate
         gc.collect()
 
-        # --- LLaMA-400M ---------------------------------------------------
+        # --- LLaMA-400M, GEN_CACHED_LLAMA_LAYERS deep ---------------------
         llama = build_on(torch, dev, lambda g: Llama(LlamaConfig.bench(
+            num_layers=GEN_CACHED_LLAMA_LAYERS,
             max_position_embeddings=LLAMA_GEN_CAPACITY,
             dtype=torch.bfloat16, use_flash=True), generator=g), args.seed)
         llama.eval()
         n_params = sum(p.numel() for p in llama.parameters())
-        check(n_params == LLAMA_PARAMS, f"LLaMA-400M has {LLAMA_PARAMS:,} "
-              f"parameters, this model {n_params}")
+        check(n_params == GEN_CACHED_LLAMA_PARAMS, f"LLaMA-400M at "
+              f"{GEN_CACHED_LLAMA_LAYERS} layers has "
+              f"{GEN_CACHED_LLAMA_PARAMS:,} parameters, this model "
+              f"{n_params}")
         lprompt = torch.randint(0, 32000, (B, P), generator=gen, device=dev)
         lgreedy = route("llama_reforward_greedy",
                         lambda: generate(llama, lprompt, L))
@@ -6371,7 +6529,9 @@ def phase_generate_cached(torch, dev, args, card):
           f"no flash launch inside a cached route: {launches}")
     reforward = READINGS.get("generate", {})
     emit({"phase": "generate_cached",
-          "model": "GPT-2 small; LLaMA-400M; T5-small", "batch": B,
+          "model": f"GPT-2 small ({GEN_CACHED_GPT_LAYERS} of 12 layers); "
+                   f"LLaMA-400M ({GEN_CACHED_LLAMA_LAYERS} of 24 layers); "
+                   f"T5-small", "batch": B,
           "prompt": P, "max_len": L, "gamma": GEN_GAMMA, "beams": GEN_BEAMS,
           "top_k": GEN_TOP_K, "shared_prefix": GEN_PREFIX,
           "capacity": {"gpt2_small": GPT_SEQ,
@@ -6403,6 +6563,7 @@ SERVE_ROLLBACK_AFTER = 6     # steps past the commit before the restore
 SERVE_AGREEMENT = 8          # greedy requests decoded again at batch 1
 SERVE_STEADY_STEPS = 30      # decode steps of the steady-batch probe
 LLAMA_SERVE_SLOTS, LLAMA_SERVE_REQUESTS = 4, 8
+SERVE_LLAMA_LAYERS = 8       # serve's depth cut of LLaMA-400M (widths stay)
 LLAMA_SERVE_PROMPT, LLAMA_SERVE_NEW = (16, 256), (16, 64)
 LAUNCH_SERVING_TIMEOUT = 300  # seconds for the launched serving worker
 # The launched worker's model and its device (a CPU rehearsal swaps them
@@ -6923,10 +7084,11 @@ def phase_serve(torch, dev, args, card):
     gc.collect()
     part("frontend")
 
-    # LLaMA-400M, the int8 cache, 4 slots.
+    # LLaMA-400M at SERVE_LLAMA_LAYERS of its 24 layers, the int8 cache, 4
+    # slots.
     llama = build_on(torch, dev, lambda g: Llama(LlamaConfig.bench(
-        dtype=torch.bfloat16, use_flash=True, kv_cache_int8=True),
-        generator=g), args.seed).eval()
+        num_layers=SERVE_LLAMA_LAYERS, dtype=torch.bfloat16, use_flash=True,
+        kv_cache_int8=True), generator=g), args.seed).eval()
     ltraffic = serve_traffic(args.seed + 41, 32000, LLAMA_SERVE_REQUESTS, 0,
                              LLAMA_SERVE_PROMPT, LLAMA_SERVE_NEW)
     fa.reset_launch_counts()
@@ -7441,6 +7603,340 @@ def phase_observe(torch, hvd, dev, args, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# A16's second half and A17's first half: the cluster telemetry plane and
+# the control plane it rides (chaos, the stall inspector), in this process
+# ---------------------------------------------------------------------------
+
+CLUSTER_STEPS = 8              # steps of a chaos run, the step clock 0..7
+CLUSTER_DELAY = (3, 200.0)     # (step, ms): a delay on fusion.flush
+CLUSTER_HANG = (6, 7.0)        # (step, s): a hang on fusion.flush
+CLUSTER_STALL_S = 1.0          # HOROVOD_STALL_CHECK_TIME_SECONDS in the runs
+CLUSTER_ROUNDS, CLUSTER_BLOCK_STEPS = 4, 4   # disarmed / armed-idle blocks
+CLUSTER_FLEET = (4, 2)         # telemetry agents, slices
+CLUSTER_TIMED = 20             # calls timed of digest.collect and tick
+# A plan armed whose triggers never fire: every flush and dispatch still
+# evaluates them.
+CLUSTER_IDLE_PLAN = {"seed": 0, "faults": [
+    {"site": "fusion.flush", "kind": "delay", "at_step": [10 ** 9]},
+    {"site": "collective.dispatch", "kind": "delay", "at": [10 ** 12]}]}
+
+
+def cluster_plan(seed):
+    """The cluster phase's JSON chaos plan: two faults on fusion.flush."""
+    return {"seed": seed, "note": "chip_smoke cluster", "faults": [
+        {"site": "fusion.flush", "kind": "delay",
+         "at_step": [CLUSTER_DELAY[0]], "delay_ms": CLUSTER_DELAY[1]},
+        {"site": "fusion.flush", "kind": "hang",
+         "at_step": [CLUSTER_HANG[0]], "hang_s": CLUSTER_HANG[1]}]}
+
+
+def flight_reasons(directory):
+    """{dump file: its meta line's reason} of a flight directory."""
+    out = {}
+    for p in sorted(pathlib.Path(directory).glob("flight_*.jsonl")):
+        with open(p) as f:
+            out[p.name] = json.loads(f.readline()).get("reason")
+    return out
+
+
+def phase_cluster(torch, hvd, dev, args, card):
+    """The cluster telemetry plane and the control plane on GPT-2 small at
+    full width (train_gpt's settings: 8 x 1024, bf16, flash, AdamW in
+    hvd.DistributedOptimizer, fused buckets), in this process.
+
+    Chaos: a JSON plan (cluster_plan) armed as a worker arms one
+    (HOROVOD_CHAOS_PLAN, _SEED, _LEDGER; install_from_env), a delay of
+    CLUSTER_DELAY on the first fusion flush of step 3 and a hang of
+    CLUSTER_HANG at step 6, over CLUSTER_STEPS steps on a runtime whose
+    stall inspector warns after CLUSTER_STALL_S; run twice. Checks: exactly
+    the two planned ledger lines, the same schedule both runs; each
+    injection counted in chaos_injections_total; step 3's wall 200 ms above
+    the median step (less the other steps' spread) and its step record's
+    fusion time at least 200 ms; step 6 at least the hang; one
+    stall_events_total{kind="warning"} a run, each with its flight dump;
+    the loss finite and falling. Then CLUSTER_ROUNDS rounds of a disarmed
+    block and a block with CLUSTER_IDLE_PLAN armed (triggers that never
+    fire), tokens/s each.
+
+    Telemetry: CLUSTER_FLEET agents over one in-process KVStoreServer in two
+    slices on a fake clock, each beaconing this process's real digest.
+    Checks: all healthy; after the slice-1 leader stops ticking it is dead,
+    its slice re-elects a leader and the job view logs the transition;
+    /cluster/health, /cluster/steps and /cluster/metrics through the scrape
+    endpoint and hvd.cluster_snapshot() agree with the agent; top.gate
+    passes the healthy view and refuses it stale. Reported: host ms of one
+    digest.collect and one tick, the step profiler's attribution of step
+    3, tokens/s disarmed against armed-idle. Returns the path's launch
+    counts (the chaos runs and the blocks)."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.chaos import ChaosPlan, injector
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.metrics import instruments
+    from horovod_tpu_torch.metrics import server as msrv
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.profile import ledger
+    from horovod_tpu_torch.runner.http_kv import KVStoreServer
+    from horovod_tpu_torch.telemetry import aggregator, digest, top
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="hvd_cluster_"))
+    keys = ("HOROVOD_FLIGHT_DIR", "HOROVOD_CHAOS_PLAN", "HOROVOD_CHAOS_SEED",
+            "HOROVOD_CHAOS_LEDGER")
+    saved = {k: os.environ.get(k) for k in keys}
+    cfg = basics._get_state().config
+    stall0 = cfg.stall_check_time_seconds
+    arm_planes(True)
+    model = build_gpt(torch, dev, args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, model.config.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    marks = [190000]
+
+    def mark():
+        marks[0] += 1
+        hvd.step_marker(marks[0])
+        return marks[0]
+
+    def step():
+        opt.zero_grad()
+        value = next_token_loss(F, model(ids), ids)
+        value.backward()
+        opt.step()
+        return value.detach()
+
+    plan = cluster_plan(args.seed)
+    sites = [(f["site"], f["kind"]) for f in plan["faults"]]
+
+    def injections():
+        return [instruments.CHAOS_INJECTIONS.labels(*s).get() for s in sites]
+
+    def warnings():
+        return instruments.STALL_EVENTS.labels("warning").get()
+
+    def chaos_run(n):
+        ledger_dir = work / f"ledger_{n}"
+        os.environ.update({"HOROVOD_CHAOS_PLAN": json.dumps(plan),
+                           "HOROVOD_CHAOS_SEED": str(args.seed),
+                           "HOROVOD_CHAOS_LEDGER": str(ledger_dir)})
+        injector.install_from_env()
+        check(injector.armed, "the JSON plan armed from the env")
+        inj0, warn0 = injections(), warnings()
+        dumps0 = set(flight_reasons(work / "flight"))
+        ledger.reset_window()
+        epoch = ledger.get()._epoch
+        mark()
+        walls, losses, steps_of = [], [], []
+        for i in range(CLUSTER_STEPS):
+            injector.set_step(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            steps_of.append(mark())
+        injector.uninstall()
+        entries = injector.read_ledger(str(ledger_dir))
+        recs = {r["step"]: r for r in ledger.get().records()
+                if r["epoch"] == epoch}
+        dumps = {k: v for k, v in flight_reasons(work / "flight").items()
+                 if k not in dumps0}
+        return {"walls": walls, "losses": [v.item() for v in losses],
+                "entries": entries,
+                "schedule": injector.ledger_schedule(entries),
+                "injections": [b - a for a, b in zip(inj0, injections())],
+                "warnings": warnings() - warn0, "dumps": dumps,
+                "records": [recs.get(s) for s in steps_of]}
+
+    os.environ["HOROVOD_FLIGHT_DIR"] = str(work / "flight")
+    try:
+        step()                                 # warm-up, on the old runtime
+        mark()
+        cfg.stall_check_time_seconds = CLUSTER_STALL_S
+        fusion.reset_runtime()                 # a runtime with the 1 s check
+        check(fusion.get_runtime()._stall_inspector.warning_secs
+              == CLUSTER_STALL_S, "the runtime's stall inspector at 1 s")
+        step()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()               # the path starts here
+        sb.reset_launch_counts()
+        runs = [chaos_run(n) for n in range(2)]
+        tokens = GPT_BATCH * GPT_SEQ * CLUSTER_BLOCK_STEPS
+        tps = {"disarmed": [], "armed_idle": []}
+        idle_calls = 0
+        for _ in range(CLUSTER_ROUNDS):
+            for armed in (False, True):
+                if armed:
+                    injector.install(ChaosPlan.from_dict(CLUSTER_IDLE_PLAN))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CLUSTER_BLOCK_STEPS):
+                    step()
+                    mark()
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                if armed:
+                    st = injector.stats()
+                    check(not st["fires"], f"the idle plan fired nothing: "
+                          f"{st}")
+                    idle_calls += sum(st["sites"].values())
+                    injector.uninstall()
+                tps["armed_idle" if armed else "disarmed"].append(
+                    tokens / elapsed)
+        launches = {"flash_fwd": fa.fwd_launches,
+                    "flash_bwd_dq": fa.bwd_dq_launches,
+                    "flash_bwd_dkv": fa.bwd_dkv_launches,
+                    "scale_pack": sb.pack_launches,
+                    "scale_unpack": sb.unpack_launches}   # the path ends
+    finally:
+        injector.uninstall()
+        cfg.stall_check_time_seconds = stall0
+        fusion.reset_runtime()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    n_steps = 2 * (CLUSTER_STEPS) + 2 * CLUSTER_ROUNDS * CLUSTER_BLOCK_STEPS
+    check(all(launches[k] == model.config.num_layers * n_steps
+              for k in FLASH_COUNTS) and launches["scale_pack"] > 0
+          and launches["scale_pack"] == launches["scale_unpack"],
+          f"cluster: {model.config.num_layers} launches of each flash "
+          f"kernel a step and both scale kernels: {launches}")
+    d_step, d_ms = CLUSTER_DELAY
+    h_step, h_s = CLUSTER_HANG
+    want = [("worker", 0, "fusion.flush", "delay", 0, 0, d_step, None),
+            ("worker", 0, "fusion.flush", "hang", 1, 0, h_step, None)]
+    for n, r in enumerate(runs):
+        check(r["schedule"] == want, f"run {n}: exactly the planned ledger "
+              f"lines: {r['entries']}")
+        check(r["injections"] == [1, 1], f"run {n}: chaos_injections_total "
+              f"counted each: {r['injections']}")
+        walls = r["walls"]
+        others = [w for i, w in enumerate(walls) if i not in (d_step, h_step)]
+        med = statistics.median(walls)
+        spread = max(others) - min(others)
+        r["step3_over_median_s"] = walls[d_step] - med
+        check(walls[d_step] - med >= d_ms / 1e3 - spread,
+              f"run {n}: step {d_step} {walls[d_step]:.3f} s, {d_ms} ms "
+              f"over the median {med:.3f} s (the others' spread "
+              f"{spread:.3f} s)")
+        rec = r["records"][d_step]
+        check(rec is not None and rec["attribution"]["fusion"]
+              >= d_ms / 1e3, f"run {n}: step {d_step}'s record books the "
+              f"delay under fusion: {rec and rec['attribution']}")
+        check(walls[h_step] >= h_s, f"run {n}: step {h_step} took the hang "
+              f"({walls[h_step]:.2f} s)")
+        check(r["warnings"] == 1 and list(r["dumps"].values())
+              == ["stall_warning"], f"run {n}: one stall warning with its "
+              f"flight dump: {r['warnings']}, {r['dumps']}")
+        losses = r["losses"]
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"run {n}: finite, falling loss {losses}")
+    check(runs[0]["schedule"] == runs[1]["schedule"],
+          "the same plan and seed give the same ledger schedule")
+
+    # --- the telemetry plane: a fleet over one in-process KV store ---------
+    world, slices = CLUSTER_FLEET
+    kv = KVStoreServer(secret="")
+    clock = [time.time()]
+    agents = [aggregator.TelemetryAgent(
+        kv, rank=r, world=world, num_slices=slices, interval=1.0, gen="0",
+        include_metrics=True, time_fn=lambda: clock[0])
+        for r in range(world)]
+    port = msrv.start_http_server(0, addr="127.0.0.1")
+    try:
+        for _ in range(3):
+            clock[0] += 1.0
+            for a in agents:
+                a.tick()
+        healthy = agents[0].job_view()
+        check(healthy is not None and healthy["counts"]["healthy"] == world
+              and healthy["leader"] == 0, f"all {world} ranks healthy: "
+              f"{healthy and healthy['counts']}")
+        check(top.gate(healthy, now=clock[0])
+              and not top.gate(healthy, now=clock[0] + 60),
+              "top.gate passes the healthy view and refuses it stale")
+        victim = agents[0].members[-1] + 1        # slice 1's leader
+        for _ in range(5):
+            clock[0] += 1.0
+            for a in agents:
+                if a.rank != victim:
+                    a.tick()
+        view = agents[0].job_view()
+        s1 = view["slices"]["1"]
+        events = [e for e in view["events"]
+                  if e["rank"] == victim and e["to"] == "dead"]
+        check(view["health"][str(victim)]["state"] == "dead"
+              and s1["leader"] == victim + 1 and events
+              and not top.gate(view, now=clock[0]),
+              f"rank {victim} dead, slice 1 re-led, the transition logged: "
+              f"{view['health']}, {s1}, {view['events']}")
+        aggregator.set_agent(agents[0])
+        code_h, body_h = http_get(port, "/cluster/health")
+        code_s, body_s = http_get(port, "/cluster/steps")
+        code_m, body_m = http_get(port, "/cluster/metrics")
+        check(code_h == 200 and json.loads(body_h) == agents[0].job_view()
+              == hvd.cluster_snapshot(), "/cluster/health and "
+              "hvd.cluster_snapshot() serve the agent's view")
+        check(code_s == 200 and json.loads(body_s)
+              == aggregator.cluster_steps(), "/cluster/steps")
+        check(code_m == 200 and body_m == aggregator.cluster_metrics_text()
+              and 'slice="0"' in body_m and 'slice="1"' in body_m,
+              "/cluster/metrics: each slice's merged series")
+        collect_ms = []
+        for _ in range(CLUSTER_TIMED):
+            t0 = time.perf_counter()
+            digest.collect(rank=0)
+            collect_ms.append(1e3 * (time.perf_counter() - t0))
+        tick_ms = []
+        for _ in range(CLUSTER_TIMED):
+            t0 = time.perf_counter()
+            agents[0].tick()
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+        beacon = digest.collect(rank=0)
+    finally:
+        aggregator.set_agent(None)
+        msrv.stop_http_server()
+        kv.stop()
+    att = runs[0]["records"][d_step]["attribution"]
+    emit({"phase": "cluster", "model": "GPT-2 small", "batch": GPT_BATCH,
+          "seq": GPT_SEQ, "dtype": "bfloat16",
+          "optimizer": ADAMW.format(lr=1e-4), "plan": plan,
+          "stall_check_time_seconds": CLUSTER_STALL_S,
+          "runs": [{"step_wall_s": r["walls"], "losses": r["losses"],
+                    "step3_over_median_s": r["step3_over_median_s"],
+                    "schedule": r["schedule"], "stall_warnings": r["warnings"],
+                    "stall_dumps": sorted(r["dumps"])} for r in runs],
+          "step3_attribution_ms": {k: 1e3 * v for k, v in att.items()},
+          "tokens_per_sec": tps,
+          "tokens_per_sec_median": {k: statistics.median(v)
+                                    for k, v in tps.items()},
+          "armed_idle_over_disarmed": statistics.median(tps["armed_idle"])
+          / statistics.median(tps["disarmed"]),
+          "idle_plan_site_calls": idle_calls,
+          "telemetry": {"world": world, "slices": slices,
+                        "digest_collect_ms": statistics.median(collect_ms),
+                        "tick_ms": statistics.median(tick_ms),
+                        "tick_ms_max": max(tick_ms),
+                        "digest_bytes": len(json.dumps(beacon)),
+                        "leader_counters": agents[0].counters,
+                        "dead_after_s": agents[0].thresholds["dead_after"],
+                        "healthy_counts": healthy["counts"],
+                        "after_death": view["counts"],
+                        "events": view["events"]},
+          "launches": launches, "card": card})
+    return launches
+
+
 class PhaseRunner:
     """``run(name, fn, *args)`` calls one phase and returns what it returns.
     Each phase's peak is its own: what earlier phases left is collected and
@@ -7635,6 +8131,9 @@ def main(argv=None):
     observe_launches = run("observe", phase_observe, torch, hvd, dev, args,
                            card)
     gc.collect()
+    cluster_launches = run("cluster", phase_cluster, torch, hvd, dev, args,
+                           card)
+    gc.collect()
     hier_launches = run("train_hierarchical", phase_train_hierarchical,
                         torch, hvd, dev, args, card, resnet50)
     run("hier_cpu_world", phase_hier_cpu_world, args)
@@ -7657,7 +8156,7 @@ def main(argv=None):
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
                          "train_zero", "train_fsdp", "train_gpt_moe",
                          "train_composite", "pipeline_virtual", "train_lora",
-                         "generate", "observe")
+                         "generate", "observe", "cluster")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -7674,14 +8173,14 @@ def main(argv=None):
                    train_t5=t5_launches, train_vgg16=vgg_launches,
                    train_inception3=inception_launches,
                    train_lora=lora_launches, generate=generate_launches,
-                   observe=observe_launches)
+                   observe=observe_launches, cluster=cluster_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
                    "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe",
                    "train_t5", "train_vgg16", "train_inception3",
-                   "train_lora", "observe")
+                   "train_lora", "observe", "cluster")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),

@@ -12,7 +12,9 @@ the hierarchical alltoall's pins (``hvd.set_alltoall_strategy``,
 ``hvd.metrics``, ``hvd.trace``, ``hvd.flight`` (``hvd.step_marker``,
 ``hvd.flight_summary``), ``hvd.profile`` (``hvd.step_report``,
 ``hvd.step_report_summary``, ``hvd.set_flops_per_step``),
-``hvd.goodput``, ``hvd.metrics_snapshot`` and ``hvd.metrics_text``.
+``hvd.goodput``, ``hvd.metrics_snapshot`` and ``hvd.metrics_text``, and
+the cluster telemetry plane and the control plane's chaos injection:
+``hvd.telemetry``, ``hvd.cluster_snapshot`` and ``hvd.chaos``.
 """
 
 from horovod_tpu_torch.torch import *  # noqa: F401,F403
@@ -29,6 +31,9 @@ from horovod_tpu_torch import trace  # noqa: F401
 from horovod_tpu_torch import flight  # noqa: F401
 from horovod_tpu_torch import profile  # noqa: F401
 from horovod_tpu_torch import goodput  # noqa: F401
+from horovod_tpu_torch import telemetry  # noqa: F401
+from horovod_tpu_torch.telemetry import cluster_snapshot  # noqa: F401
+from horovod_tpu_torch import chaos  # noqa: F401
 from horovod_tpu_torch.flight.recorder import step_marker  # noqa: F401
 from horovod_tpu_torch.flight.recorder import summary as flight_summary  # noqa: F401
 from horovod_tpu_torch.profile import (  # noqa: F401

@@ -20,12 +20,17 @@ version's coordinator port and builds a new group on the same device.
 thread, so a collective blocked on a dead peer raises, and every later one
 raises ``HorovodInternalError`` until the shutdown.
 
-``init`` also arms the per-rank observability planes from the config (the
-flight recorder, the step profiler and goodput before the bootstrap; the
-trace store, the SLOs, metrics and its endpoint, the timeline and the run
-journal after it), and ``shutdown`` closes them (the timeline written with
-the registry's totals, the step profiler's open window dropped, a capture
-still open written out). ``start_timeline``/``stop_timeline`` are the
+``init`` also arms the chaos plan (``HOROVOD_CHAOS_PLAN``) and the per-rank
+observability planes from the config (the flight recorder, the step
+profiler and goodput before the bootstrap; the trace store, the SLOs,
+metrics and its endpoint, the timeline and the run journal after it) and,
+once the world is known, the cluster telemetry agent (with the launcher's
+KV and more than one process); ``shutdown`` closes them (the run journal
+gets the cluster view and the goodput summary, the agent stops, the
+timeline is written with the registry's totals, the step profiler's open
+window dropped, a capture still open written out). The negotiation keys
+start at epoch 0 with each new store, and their sequences at 0 after each
+shutdown. ``start_timeline``/``stop_timeline`` are the
 reference's (operations.cc:1079-1111).
 """
 
@@ -64,9 +69,14 @@ class _State:
         self.process_set_table = None   # set by process_sets._init_table
         self.topology = None            # common.topology.Topology
         self.fusion = None              # set lazily by ops.fusion
+        # Runtimes built in this world so far (ops.fusion.reset_runtime):
+        # each one's store keys are its own.
+        self.fusion_generation = 0
         # The process group's store (the TCPStore rank 0 serves): the
-        # fusion runtime publishes and reads its flush boundaries there.
+        # fusion runtime publishes and reads its flush boundaries there,
+        # and negotiation exchanges through its own clone of it.
         self.store = None
+        self.negotiation_store = None
         # Ranks that called hvd.join(), as the last join round showed them
         # (ops/collective_ops.py); the global set's share of the protocol.
         self.joined_ranks = set()
@@ -111,6 +121,12 @@ def init(comm=None, process_sets=None, device=None):
         if _state is not None:
             return
         config = Config.from_env()
+        if config.chaos_plan:
+            # Before any control-plane traffic, so the whole bootstrap is
+            # injectable; idempotent across an elastic re-init (the site
+            # counters and the ledger survive it).
+            from horovod_tpu_torch.chaos import injector as _chaos
+            _chaos.install_from_env()
         # The per-rank observability planes arm before the bootstrap, so
         # the flight ring covers it and goodput books it to init_compile;
         # each survives an elastic re-init (the ring, the completed step
@@ -162,6 +178,9 @@ def init(comm=None, process_sets=None, device=None):
         st = _State(config, dev, rank, size, config.local_rank, local_size,
                     config.cross_rank, cross_size)
         st.store = store
+        # A new store every init (rank 0 serves it): its keys start empty.
+        from horovod_tpu_torch.common import negotiation as _negotiation
+        _negotiation.reset_epoch()
         dist.init_process_group(st.backend, store=store, rank=rank,
                                 world_size=size, timeout=_STORE_TIMEOUT)
         _state, _asked_device = st, device
@@ -180,6 +199,15 @@ def init(comm=None, process_sets=None, device=None):
         _ps._init_table(st, process_sets)
         atexit.register(_stop_threads_at_exit, st)
         _configure_observability(config, st.local_rank)
+        # The cluster telemetry plane, once the world and its slices are
+        # known; it starts only with the launcher's KV and more than one
+        # process, else cluster_snapshot() serves the local view.
+        try:
+            from horovod_tpu_torch.telemetry import aggregator as _telemetry
+            _telemetry.start_from_config(config, st.topology, rank, size)
+        except Exception as e:  # noqa: BLE001 — must not block init
+            from horovod_tpu_torch.common import logging as hvd_logging
+            hvd_logging.warning("telemetry plane failed to start: %s", e)
         if config.timeline_filename:
             _start_timeline_locked(st, config.timeline_filename,
                                    config.timeline_mark_cycles)
@@ -209,12 +237,32 @@ def _arm_planes(config):
 
 
 def _close_planes(st):
-    """At shutdown (an elastic reset's too): the timeline ends with the
-    registry's totals as counter events, the run journal gets the goodput
-    summary, the step profiler discards its OPEN window (recovery traffic
-    must not land in the first step after it) and a capture still open is
-    written out. Never raises."""
+    """At shutdown (an elastic reset's too): the run journal gets the
+    cluster view, the telemetry agent stops, the negotiation sequences
+    reset, the timeline ends with the registry's totals as counter events,
+    the run journal gets the goodput summary, the step profiler discards
+    its OPEN window (recovery traffic must not land in the first step after
+    it) and a capture still open is written out. Never raises."""
     from horovod_tpu_torch import metrics as hvd_metrics
+    from horovod_tpu_torch.common import negotiation as _negotiation
+    from horovod_tpu_torch.telemetry import aggregator as _telemetry
+    try:
+        # The job view, while the agent still runs: the journal reader
+        # takes the last record of each kind.
+        from horovod_tpu_torch.goodput import history as _run_history
+        if _run_history.get_journal() is not None \
+                and _telemetry.get_agent() is not None:
+            _run_history.journal_append("cluster",
+                                        view=_telemetry.cluster_snapshot())
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        # The agent's keys are this membership's: the next init starts one
+        # under the next generation.
+        _telemetry.stop()
+        _negotiation.reset()
+    except Exception:  # noqa: BLE001 — must not block the shutdown
+        pass
     if st.timeline is not None:
         try:
             hvd_metrics.emit_timeline_counters(st.timeline)

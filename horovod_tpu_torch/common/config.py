@@ -21,16 +21,19 @@ metrics knobs (``HOROVOD_SERVING*``, ``HOROVOD_TRACE*``,
 ``HOROVOD_SLO_*``, ``HOROVOD_METRICS*``) and the per-rank observability
 planes' knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
 ``HOROVOD_STEP_PROFILER``, ``HVD_STEP_REPORT_FILE``, ``HOROVOD_PROFILE_*``,
-``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``, ``HOROVOD_RUN_ID``) with
-JAX's defaults.
+``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``, ``HOROVOD_RUN_ID``), the
+control plane's (``HOROVOD_STALL_CHECK_*``, ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``,
+``HOROVOD_ORDER_CHECK``, ``HOROVOD_CONTROL_PLANE``, ``HOROVOD_KV_SHARD_*``,
+``HOROVOD_CONTROL_LEASE_MS``, ``HOROVOD_CHAOS_*``) and the cluster telemetry
+plane's (``HOROVOD_TELEMETRY*``) with JAX's defaults.
 """
 
 import dataclasses
 import os
 
 
-def _env_int(name, default):
-    v = os.environ.get(name)
+def _env_int(name, default, env=None):
+    v = (os.environ if env is None else env).get(name)
     if v is None:
         return default
     try:
@@ -227,6 +230,61 @@ class Config:
     # Series-name prefix in the text exposition.
     metrics_prefix: str = "horovod"
 
+    # --- stall inspector (ops/stall_inspector.py; reference
+    # common.h:124-125): a warning when an enqueued tensor waits longer
+    # than stall_check_time_seconds for its flush, and, past
+    # stall_shutdown_time_seconds (0 = never), HorovodInternalError at the
+    # next enqueue.
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    # Debug: every eager collective exchanges its signature with the set's
+    # other processes through negotiation.exchange before it runs, and a
+    # mismatch (a different collective, shape or dtype at the same point)
+    # raises TensorShapeMismatchError naming the processes that differ.
+    order_check: bool = False
+
+    # --- control plane (common/control_plane.py) ---
+    # flat | hier | "" = auto (hier whenever the slice layout has more
+    # than one slice): negotiation rounds decompose into slice-local
+    # gathers with one leaders-only cross-slice round, and the fusion
+    # boundaries reach a slice's members through its leader.
+    control_plane: str = ""
+    # The launcher's per-slice KV shard listeners (0 = one per slice when
+    # the hierarchical control plane is armed) and the first one's port
+    # (0 = ephemeral; the ports reach the workers as
+    # HOROVOD_KV_SHARD_PORTS).
+    kv_shard_count: int = 0
+    kv_shard_port_base: int = 0
+    # A slice member whose leader has not re-published a boundary the root
+    # holds within this lease takes the re-publish over.
+    control_lease_ms: float = 2000.0
+
+    # --- chaos (chaos/): a seeded fault plan, a JSON (or, with PyYAML,
+    # YAML) file or inline text; "" = disarmed. The seed overrides the
+    # plan's; the ledger directory takes the per-rank JSONL ledgers.
+    chaos_plan: str = ""
+    chaos_seed: int = 0
+    chaos_ledger: str = ""
+
+    # --- cluster telemetry plane (telemetry/): rank -> slice leader -> job
+    # view over the launcher's KV, armed by hvd.init when the KV is
+    # reachable and the world has more than one process.
+    telemetry: bool = True
+    # Beacon and aggregation cadence in seconds.
+    telemetry_interval: float = 2.0
+    # The mergeable metrics snapshot in each digest.
+    telemetry_metrics: bool = True
+    # Health thresholds (0 = derived from the interval, see
+    # telemetry/health.thresholds): beacon age marking a rank dead, step
+    # clock stop marking it stalled.
+    telemetry_dead_after: float = 0.0
+    telemetry_stall_after: float = 0.0
+    # Step lag behind the job median marking a rank straggling, and global
+    # collective-seq lag marking it desynced.
+    telemetry_step_lag: int = 5
+    telemetry_seq_lag: int = 64
+
     def __post_init__(self):
         if self.trace_capacity < 1:
             raise ValueError(
@@ -255,6 +313,11 @@ class Config:
             raise ValueError(
                 f"goodput_journal_s={self.goodput_journal_s}: the journal "
                 "heartbeat cadence must be positive")
+        self.control_plane = (self.control_plane or "").strip().lower()
+        if self.control_plane not in ("", "flat", "hier"):
+            raise ValueError(
+                f"control_plane={self.control_plane!r}: flat, hier, or "
+                "empty (auto: hier when the slice layout has >1 slice)")
 
     @classmethod
     def from_env(cls):
@@ -359,6 +422,39 @@ class Config:
                                         c.metrics_addr)
         c.metrics_prefix = os.environ.get("HOROVOD_METRICS_PREFIX",
                                           c.metrics_prefix)
+        c.stall_check_disable = _env_bool("HOROVOD_STALL_CHECK_DISABLE",
+                                          c.stall_check_disable)
+        c.stall_check_time_seconds = _env_float(
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", c.stall_check_time_seconds)
+        c.stall_shutdown_time_seconds = _env_float(
+            "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+            c.stall_shutdown_time_seconds)
+        c.order_check = _env_bool("HOROVOD_ORDER_CHECK", c.order_check)
+        c.control_plane = os.environ.get("HOROVOD_CONTROL_PLANE",
+                                         c.control_plane)
+        c.kv_shard_count = _env_int("HOROVOD_KV_SHARD_COUNT",
+                                    c.kv_shard_count)
+        c.kv_shard_port_base = _env_int("HOROVOD_KV_SHARD_PORT_BASE",
+                                        c.kv_shard_port_base)
+        c.control_lease_ms = _env_float("HOROVOD_CONTROL_LEASE_MS",
+                                        c.control_lease_ms)
+        c.chaos_plan = os.environ.get("HOROVOD_CHAOS_PLAN", c.chaos_plan)
+        c.chaos_seed = _env_int("HOROVOD_CHAOS_SEED", c.chaos_seed)
+        c.chaos_ledger = os.environ.get("HOROVOD_CHAOS_LEDGER",
+                                        c.chaos_ledger)
+        c.telemetry = _env_bool("HOROVOD_TELEMETRY", c.telemetry)
+        c.telemetry_interval = _env_float("HOROVOD_TELEMETRY_INTERVAL",
+                                          c.telemetry_interval)
+        c.telemetry_metrics = _env_bool("HOROVOD_TELEMETRY_METRICS",
+                                        c.telemetry_metrics)
+        c.telemetry_dead_after = _env_float("HOROVOD_TELEMETRY_DEAD_AFTER",
+                                            c.telemetry_dead_after)
+        c.telemetry_stall_after = _env_float(
+            "HOROVOD_TELEMETRY_STALL_AFTER", c.telemetry_stall_after)
+        c.telemetry_step_lag = _env_int("HOROVOD_TELEMETRY_STEP_LAG",
+                                        c.telemetry_step_lag)
+        c.telemetry_seq_lag = _env_int("HOROVOD_TELEMETRY_SEQ_LAG",
+                                       c.telemetry_seq_lag)
         c.__post_init__()     # re-validate what the env set
         return c
 

@@ -19,13 +19,15 @@ attribute); the run loop records the elastic events (``sync``,
 ``restore``, ``host_update``, ``reset``), books the recovery to
 ``elastic_recovery_seconds`` and goodput, flips goodput to
 ``rendezvous_recovery`` at a failure or a membership change, and dumps the
-flight ring at a collective failure and at a removal. Its chaos hooks are
-ROADMAP A17.
+flight ring at a collective failure and at a removal. A commit is the
+``elastic.commit`` chaos site, and its step advances the chaos plan's step
+clock.
 """
 
 import copy
 import time
 
+from horovod_tpu_torch.chaos import injector as _chaos
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
@@ -65,6 +67,11 @@ class State:
             # Only with a real step attribute: a step-less State must not
             # burn the auto counter the optimizer wrapper may be driving.
             _flight.step_marker(step)
+        if _chaos.armed:
+            # The step boundary, after the step mark (a crash here leaves
+            # the mark in the victim's dump); the committed step advances
+            # the plan's step clock.
+            _chaos.fire("elastic.commit", step=step)
         self.check_host_updates()
 
     def save(self):

@@ -9,7 +9,9 @@ host, the port's are one per slot: the ready barrier counts the version's
 slots, and a worker reads the assignment row of its own slot (host and
 local rank). The membership watchdog records the ``abort`` elastic event
 and dumps the flight ring (``membership_abort``) before it aborts the
-group, as JAX's does; the chaos hooks are ROADMAP A17.
+group, as JAX's does. ``mark_new_rank_ready`` is the
+``elastic.rendezvous`` chaos site (a delay there holds the whole membership
+at the ready barrier: a slow-to-rejoin host).
 """
 
 import json
@@ -17,6 +19,7 @@ import os
 import threading
 import time
 
+from horovod_tpu_torch.chaos import injector as _chaos
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.config import Config
@@ -104,6 +107,8 @@ def mark_new_rank_ready():
     client = _kv_client()
     if client is None:
         return
+    if _chaos.armed:
+        _chaos.fire("elastic.rendezvous")
     client.put(f"new_rank_ready/{configured_version()}",
                os.environ.get("HOROVOD_RANK", "0"), b"1")
 

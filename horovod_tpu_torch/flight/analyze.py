@@ -43,9 +43,9 @@ _ANOMALY_ELASTIC = ("abort", "restore")
 
 
 # The autopilot's remediation causes (JAX: horovod_tpu/autopilot/
-# remediate.py CAUSES). The port has no autopilot until ROADMAP A17; the
-# analyzer keeps its own copy of the names so it reads JAX dumps that
-# carry them.
+# remediate.py CAUSES). The port has no autopilot until ROADMAP A17's
+# second half; the analyzer keeps its own copy of the names so it reads
+# JAX dumps that carry them.
 CAUSES = ("dead", "stalled", "straggler")
 
 def _read_jsonl(path):

@@ -445,7 +445,7 @@ def has_anomaly():
 
 def digest():
     """Compact beacon fields for the cluster telemetry plane's digest
-    (ROADMAP: A16's second half): anomaly counts by kind plus the
+    (``telemetry/digest.py``): anomaly counts by kind plus the
     per-process-set max collective seq — the cross-rank desync key the
     job health model compares against the fleet median. Reads the live
     ring off the hot path (the beacon thread), never raises."""

@@ -1,7 +1,7 @@
 """Durable cross-run history: append-only per-run JSONL journals.
 
-Port of the JAX package's ``goodput/history.py``; the ``cluster`` record
-waits for the cluster telemetry plane (A16's second half).
+Port of the JAX package's ``goodput/history.py``; ``hvd.shutdown`` appends
+the ``cluster`` record while the telemetry agent runs.
 
 One file per run (``run_<id>.jsonl`` under ``HOROVOD_RUN_HISTORY_DIR``),
 one JSON object per line, appended with an open/write/close per record —

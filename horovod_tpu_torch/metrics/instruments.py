@@ -12,14 +12,16 @@ helpers are no-ops when metrics are disabled (``HOROVOD_METRICS=0``) and
 never raise into the hot path.
 
 ``record_fusion_kv`` counts the fusion boundaries' store RPCs (the
-``TCPStore`` the process group serves). Series with no event in the port
-yet keep their JAX name and help text, and read zero:
-``record_negotiation``, ``record_http_kv`` and ``record_kv_retry`` (the
-control plane, ROADMAP A17), ``record_chaos`` (A17), the autopilot's two
-(A17) and ``record_telemetry_rpc`` (A16's second half). Two have no
-counterpart, by design: ``record_plan_cache`` (the port's eager dispatch
-compiles no plan to cache) and ``record_compile_cache`` (it counts XLA's
-persistent compilation cache; the port compiles no XLA program, its
+``TCPStore`` the process group serves, through ``negotiation.record_fusion_kv``),
+``record_negotiation`` the negotiation rounds, ``record_http_kv`` and
+``record_kv_retry`` the launcher KV client's RPCs and retries,
+``record_chaos`` the chaos injections and ``record_telemetry_rpc`` the
+telemetry agent's rounds. The autopilot's two series keep their JAX name
+and help text and read zero until the autopilot is ported (ROADMAP A17's
+second half).
+Two have no counterpart, by design: ``record_plan_cache`` (the port's eager
+dispatch compiles no plan to cache) and ``record_compile_cache`` (it counts
+XLA's persistent compilation cache; the port compiles no XLA program, its
 kernels are built by nvcc once per checkout).
 
 Catalogue (names shown without the ``HOROVOD_METRICS_PREFIX``, default

@@ -1,6 +1,7 @@
 """Mergeable metrics snapshots: the serialization half of the telemetry
-plane. Port of the JAX package's ``metrics/merge.py``, line for line (the
-cluster aggregator that merges beacons comes with A16's second half).
+plane. Port of the JAX package's ``metrics/merge.py``, line for line; the
+cluster aggregator (``telemetry/aggregator.py``) merges the beacons' snapshots
+with it.
 
 ``MetricsRegistry.snapshot()`` is a per-process view. The cluster view
 needs those snapshots combined across ranks and slices without shipping

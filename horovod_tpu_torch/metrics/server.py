@@ -12,10 +12,12 @@ The debug routes, as JAX's: ``GET /debug/profile?ms=<window>`` captures a
 ``torch.profiler`` trace for that window (409 while another capture or
 profiler session runs), ``GET /debug/steps?last=<n>`` serves the step
 profiler's summary and recent records, ``GET /debug/flight`` the flight
-ring as JSONL. The cluster routes (``/cluster/health``,
-``/cluster/steps``, ``/cluster/metrics``) read the cluster telemetry plane,
-which comes with A16's second half; until then they answer 404 with a body
-that says so.
+ring as JSONL. The cluster routes read the cluster telemetry plane
+(``telemetry/aggregator.py``) from any rank: ``/cluster/health`` the job
+view (``hvd.cluster_snapshot()``), ``/cluster/steps`` the per-rank step
+progress with the job medians, ``/cluster/metrics`` the job-aggregated text
+exposition, each series stamped with its slice. Without an agent (one
+process, no launcher KV) they serve this process's local view.
 """
 
 import json
@@ -24,9 +26,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-
-_CLUSTER_ROUTES = ("/cluster/health", "/cluster/steps", "/cluster/metrics")
-
 
 class _MetricsHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -45,12 +44,22 @@ class _MetricsHandler(BaseHTTPRequestHandler):
     def do_GET(self):
         split = urlsplit(self.path)
         path = split.path
-        if path in _CLUSTER_ROUTES:
-            self._send(json.dumps(
-                {"error": f"{path} is not served by the PyTorch port yet "
-                          "(ROADMAP A16's second half: the cluster "
-                          "telemetry plane)"}),
-                code=404)
+        if path == "/cluster/health":
+            # The job view: leaders answer from memory, the others with one
+            # KV read.
+            from horovod_tpu_torch.telemetry import aggregator
+            self._send(json.dumps(aggregator.cluster_snapshot()))
+            return
+        if path == "/cluster/steps":
+            from horovod_tpu_torch.telemetry import aggregator
+            self._send(json.dumps(aggregator.cluster_steps()))
+            return
+        if path == "/cluster/metrics":
+            # Counters summed and histograms merged within each slice,
+            # every series stamped with its slice label.
+            from horovod_tpu_torch.telemetry import aggregator
+            self._send(aggregator.cluster_metrics_text(),
+                       content_type=CONTENT_TYPE)
             return
         if path == "/debug/profile":
             # A capture of ?ms=<window> (default 1000, clamped) on this

@@ -52,9 +52,19 @@ its ``__cause__``. A failure also counts in ``collective_errors_total``,
 leaves an ``error`` event in the flight ring and dumps it
 (``dispatch_error``).
 
+Order check (``HOROVOD_ORDER_CHECK=1``, debug): every eager collective
+(``allreduce``/``grouped_allreduce``, ``allgather``, ``alltoall``, the
+reducescatters, ``broadcast``, ``barrier``) first exchanges its signature
+(op, shapes past dim 0, dtypes) with the set's other processes through
+``negotiation.exchange("order_check", ...)``, and raises
+``TensorShapeMismatchError`` naming the processes whose signature differs,
+before any collective that a mismatch would hang. The async allreduces of
+the fusion runtime are held by its bucket-signature check instead; with
+join armed the check is off (a joined rank makes no eager call).
+
 Every eager collective and every fused bucket runs inside
 :func:`_dispatch_op` (JAX's ``_timeline_op``), the observability planes'
-choke point: the per-op count, bytes and wire bytes, the host latency, the
+choke point, and the ``collective.dispatch`` chaos site: the per-op count, bytes and wire bytes, the host latency, the
 flight ``dispatch``/``complete`` pair with its per-set sequence number,
 the timeline span, the step profiler's dispatch record, the ``dispatch``
 span under the active step trace and, while a ``torch.profiler`` session
@@ -74,6 +84,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import trace as _trace
+from horovod_tpu_torch.chaos import injector as _chaos
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                   ProcessSetError,
@@ -219,6 +230,11 @@ def _dispatch_op(name, op_kind, tensors=(), process_set=None, wire=None,
     tl = basics.timeline()
     if profile_on:
         t_api = time.perf_counter()
+    if _chaos.armed:
+        # After the profiler's bracket opens: an injected delay is this
+        # rank's host-side dispatch stall (the straggler of the SPMD
+        # contract), booked as its own host_dispatch.
+        _chaos.fire("collective.dispatch")
     if metrics_on or flight_on or profile_on:
         nbytes = sum(_nbytes(t) for t in tensors)
         ps_label = _ps_label(process_set)
@@ -268,6 +284,33 @@ def _dispatch_op(name, op_kind, tensors=(), process_set=None, wire=None,
     if profile_on:
         _profile.record_dispatch(
             op_label, dur, time.perf_counter() - t_api - dur, nbytes)
+
+
+def order_check(what, tensors, process_set=None):
+    """``HOROVOD_ORDER_CHECK=1``: the set's processes exchange this
+    collective's signature and raise ``TensorShapeMismatchError`` naming
+    those that dispatched another (JAX's ``_order_check``). Dim 0 is left
+    out: ragged gathers and alltoalls differ there by design. Before
+    ``hvd.init`` there is nothing to check: the call raises on its own."""
+    if not basics.is_initialized() \
+            or not basics._get_state().config.order_check or join_armed():
+        return
+    ps = _process_set(process_set)
+    if ps.size() <= 1:
+        return
+    from horovod_tpu_torch.common import negotiation
+    sig = [what] + [f"{tuple(t.shape)[1:]}:"
+                    f"{str(t.dtype).replace('torch.', '')}" for t in tensors]
+    procs = ps.rank_list()
+    sigs = negotiation.exchange("order_check", sig, procs=procs)
+    bad = {procs[i]: s for i, s in enumerate(sigs) if s != sig}
+    if bad:
+        raise TensorShapeMismatchError(
+            f"collective order/signature mismatch: this process dispatched "
+            f"{sig}, but process(es) {sorted(bad)} dispatched "
+            f"{list(bad.values())[:3]} at the same point in the program — "
+            f"every process must issue the same collectives in the same "
+            f"order.")
 
 
 def _process_set(process_set):
@@ -696,6 +739,7 @@ def allreduce(tensor, op=Average, prescale_factor=1.0, postscale_factor=1.0,
               process_set=None, name=None):
     """reference: hvd.allreduce (torch/mpi_ops.py:294-360; op semantics
     message.h:43-50, pre/postscale operations.cc:1480)."""
+    order_check("allreduce", (tensor,), process_set)
     return allreduce_async(tensor, op=op, prescale_factor=prescale_factor,
                            postscale_factor=postscale_factor,
                            process_set=process_set, name=name).synchronize()
@@ -705,6 +749,7 @@ def grouped_allreduce(tensors, op=Average, prescale_factor=1.0,
                       postscale_factor=1.0, process_set=None, name=None):
     """One fused dispatch for a group of tensors, completing together
     (reference: EnqueueTensorAllreduces operations.cc:1480)."""
+    order_check("allreduce", tensors, process_set)
     return [h.synchronize() for h in grouped_allreduce_async(
         tensors, op=op, prescale_factor=prescale_factor,
         postscale_factor=postscale_factor, process_set=process_set,
@@ -766,6 +811,7 @@ def allgather_sizes(tensor, ps, what="allgather", name=None):
     t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
     tail = tuple(t.shape[1:])
     row_numel = math.prod(tail)
+    order_check(what, (t,), ps)
     fence()
     joined = join_round(ps, ALLGATHER, dtype=t.dtype, numel=row_numel,
                         sig=(tail, str(t.dtype)))
@@ -823,6 +869,7 @@ def alltoall(tensor, splits=None, process_set=None, name=None):
             raise TensorShapeMismatchError(
                 f"alltoall splits sum to {sum(send)} rows, but the tensor "
                 f"has {m}")
+    order_check("alltoall", (tensor,), ps)
     fence()
     if join_round(ps, ALLTOALL):
         raise HorovodInternalError(
@@ -961,6 +1008,7 @@ def grouped_reducescatter_async(tensors, op=Sum, prescale_factor=1.0,
                                  "floating-point tensor")
     outs = [torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
                         dtype=t.dtype, device=t.device) for t in tensors]
+    order_check("reducescatter", tensors, ps)
     groups = {}
     for i, t in enumerate(tensors):
         groups.setdefault(t.dtype if t.dtype in _KERNEL_DTYPES else i,
@@ -991,6 +1039,7 @@ def broadcast(tensor, root_rank, process_set=None, name=None, inplace=False):
     if not isinstance(tensor, torch.Tensor):
         raise TypeError(f"broadcast takes torch tensors, got "
                         f"{type(tensor).__name__}")
+    order_check("broadcast", (tensor,), ps)
     fence()
     joined = join_round(ps, BROADCAST, dtype=tensor.dtype,
                         numel=tensor.numel(), root=root_rank)
@@ -1012,6 +1061,7 @@ def barrier(process_set=None, name=None):
     """Block until every rank of the set reaches the barrier (reference:
     hvd.barrier, operations.cc EnqueueBarrier)."""
     ps = _process_set(process_set)
+    order_check("barrier", (), ps)
     fence()
     join_round(ps, BARRIER)
     with _dispatch_op(name or "barrier", "BARRIER", (), ps):

@@ -116,6 +116,19 @@ JAX package dispatches them outside the runtime
 (``horovod_tpu/ops/collective_ops.py:2493-2500``): a rank outside the set,
 or process 0 inside ``join()``, enqueues none of them.
 
+The hierarchical boundary stream (``HOROVOD_CONTROL_PLANE=hier``, or auto
+on a layout of more than one slice; JAX's ``_fetch_boundary``): process 0
+still publishes each boundary once; each slice's leader (its lowest process
+other than 0, ``control_plane.boundary_role``) reads it and re-publishes it
+under the slice's key, and the slice's other members read only that key,
+so the store process 0 serves answers a slice's leader, not its every
+process. A member holds a lease on its leader (``HOROVOD_CONTROL_LEASE_MS``,
+2 s): when the lease expires while process 0's key holds a boundary the
+leader has not mirrored, the member takes the re-publish over
+(``fusion_boundary_outcomes_total{outcome="takeover"}``). Every boundary
+set and get reports through ``negotiation.record_fusion_kv``, by tier (root,
+slice). On one slice every follower reads process 0's keys, as before.
+
 Each bucket checks that every rank formed it: the first time a bucket
 signature (names, sizes, dtype, op, scales) is seen, ranks exchange its hash
 once and cache it, like the reference's response cache, and a mismatch
@@ -134,6 +147,11 @@ handles at once rather than after ``BOUNDARY_TIMEOUT_S``. ``abort`` is the
 elastic reset's shutdown: it fails every pending handle, stops the threads
 and touches no store, since peers may be dead; the next ``hvd.init`` builds
 a new runtime over a new store.
+
+The stall inspector (``ops/stall_inspector.py``, off with
+``HOROVOD_STALL_CHECK_DISABLE``) records each enqueue and each flush, and
+each flush is the ``fusion.flush`` chaos site, under the runtime lock (a
+delay there holds every enqueue behind it).
 
 Observability. Every bucket runs inside ``collective_ops._dispatch_op``
 (metrics, flight dispatch/complete, timeline span, step profiler,
@@ -174,8 +192,10 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import trace as _trace
+from horovod_tpu_torch.chaos import injector as _chaos
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import logging as hvd_logging
+from horovod_tpu_torch.common import negotiation
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  TensorShapeMismatchError)
 from horovod_tpu_torch.flight import recorder as _flight
@@ -289,7 +309,8 @@ class FusionRuntime:
     def __init__(self, threshold, device, cycle_time_ms=0.0, rank=0,
                  size=1, store=None, epoch=0, wire_dtype="",
                  wire_error_feedback=True, strategy="flat", wire_dtype_dcn="",
-                 topology=None):
+                 topology=None, generation=0, stall_check=None,
+                 control_lease_ms=2000.0):
         self.threshold = int(threshold)
         self.device = device
         # The wire knob (process 0's; a follower holds the last one process
@@ -323,8 +344,11 @@ class FusionRuntime:
         self._coord = rank == 0
         self._store = store
         # The membership version this runtime was built under (elastic
-        # launches; 0 otherwise): its keys never meet another version's.
+        # launches; 0 otherwise) and the runtime's generation in this world
+        # (reset_runtime): its keys never meet another's.
         self._epoch = epoch
+        self._ns = f"hvd/fusion/e{epoch}" + (f"/g{generation}"
+                                             if generation else "")
         self._client = None      # this runtime's own connection to the store
         self._cycle_s = max(float(cycle_time_ms), 0.0) / 1000.0
         self._cycle_pause = False
@@ -353,6 +377,24 @@ class FusionRuntime:
         self._first_enqueue = 0.0
         # The flight signature of each bucket layout, computed once.
         self._flight_sigs = {}
+        # The hierarchical boundary stream: this process's slice, its role
+        # (root: process 0, or any follower on one slice; leader; member)
+        # and how many members a leader re-publishes for; a member's lease
+        # on its leader.
+        self._cp_slice, self._cp_role, self._cp_members = 0, "root", 0
+        self._cp_lease_s = max(float(control_lease_ms), 100.0) / 1000.0
+        self._lease_wait0 = None
+        if self._multi:
+            from horovod_tpu_torch.common import control_plane as _cp
+            groups = _cp.exchange_groups(list(range(size)))
+            self._cp_slice, self._cp_role, self._cp_members = \
+                _cp.boundary_role(rank, groups)
+        # (warning seconds, shutdown seconds), or None: no inspector.
+        self._stall_inspector = None
+        if stall_check is not None:
+            from horovod_tpu_torch.ops.stall_inspector import StallInspector
+            self._stall_inspector = StallInspector(
+                warning_secs=stall_check[0], shutdown_secs=stall_check[1])
 
     # ---- threads ----------------------------------------------------------
 
@@ -452,7 +494,10 @@ class FusionRuntime:
     # ---- boundaries -------------------------------------------------------
 
     def _boundary_key(self, seq):
-        return f"hvd/fusion/e{self._epoch}/b{seq}"
+        return f"{self._ns}/b{seq}"
+
+    def _slice_boundary_key(self, seq):
+        return f"{self._ns}/s{self._cp_slice}/b{seq}"
 
     def _publisher_loop(self):
         """Process 0: the store RPCs of each boundary, off the runtime lock
@@ -466,7 +511,8 @@ class FusionRuntime:
                 payload = (f"{last} {why} {wire or '-'} {strategy} "
                            f"{cross or '-'} {a2a or '-'} {a2a_cross or '-'}")
                 self._client.set(self._boundary_key(seq), payload)
-                _metrics.record_fusion_kv(sets=1, payload_bytes=len(payload))
+                negotiation.record_fusion_kv(sets=1,
+                                             payload_bytes=len(payload))
                 if seq >= self._BOUNDARY_GC_LAG:
                     self._client.delete_key(
                         self._boundary_key(seq - self._BOUNDARY_GC_LAG))
@@ -477,29 +523,14 @@ class FusionRuntime:
     def _fetch(self, seq, wait_s):
         """Boundary ``seq`` from the store, waiting at most ``wait_s`` (0:
         only if already published); None if there is none yet."""
-        key = self._boundary_key(seq)
         got = self._fetch_lock.acquire(timeout=wait_s) if wait_s > 0 \
             else self._fetch_lock.acquire(blocking=False)
         if not got:
             return None
-        t0 = time.monotonic()
         try:
-            if wait_s <= 0:
-                if not self._client.check([key]):
-                    return None
-            else:
-                try:
-                    self._client.wait([key],
-                                      datetime.timedelta(seconds=wait_s))
-                except dist.DistNetworkError:
-                    raise
-                except Exception:  # noqa: BLE001 — no boundary in the wait
-                    left = wait_s - (time.monotonic() - t0)
-                    if left > 0:   # the store failed fast: no hot loop
-                        time.sleep(min(left, 0.05))
-                    return None
-            raw = self._client.get(key)
-            _metrics.record_fusion_kv(gets=1)
+            raw = self._fetch_raw(seq, wait_s)
+            if raw is None:
+                return None
             last, why, *rest = raw.decode().split()
             wire, strategy, cross, a2a, a2a_cross = (
                 "" if v == "-" else v for v in rest)
@@ -514,6 +545,103 @@ class FusionRuntime:
             return None
         finally:
             self._fetch_lock.release()
+
+    def _get_key(self, key, wait_s):
+        """``key``'s value, waiting at most ``wait_s`` for it (0: only if
+        already set); None if it is not set by then."""
+        if wait_s <= 0:
+            if not self._client.check([key]):
+                return None
+        else:
+            t0 = time.monotonic()
+            try:
+                self._client.wait([key], datetime.timedelta(seconds=wait_s))
+            except dist.DistNetworkError:
+                raise
+            except Exception:  # noqa: BLE001 — not set within the wait
+                left = wait_s - (time.monotonic() - t0)
+                if left > 0:   # the store failed fast: no hot loop
+                    time.sleep(min(left, 0.05))
+                return None
+        return self._client.get(key)
+
+    def _fetch_raw(self, seq, wait_s):
+        """The raw boundary ``seq`` by this process's role (JAX's
+        ``_fetch_boundary``). A leader, or any follower on one slice, reads
+        process 0's key and, a leader, re-publishes it under its slice's
+        key. A member reads its slice's key under a lease on its leader:
+        past the lease, a short probe of process 0's key; if that holds
+        the boundary and the slice key still does not after a short grace,
+        the member takes the re-publish over. Otherwise the lease renews."""
+        if self._cp_role != "member":
+            raw = self._get_key(self._boundary_key(seq), wait_s)
+            if raw is not None:
+                negotiation.record_fusion_kv(gets=1, payload_bytes=len(raw),
+                                             tier="root")
+                self._republish(seq, raw)
+            return raw
+        raw = self._get_key(self._slice_boundary_key(seq), wait_s)
+        if raw is not None:
+            self._lease_wait0 = None
+            negotiation.record_fusion_kv(gets=1, payload_bytes=len(raw),
+                                         tier="slice")
+            return raw
+        now = time.monotonic()
+        if self._lease_wait0 is None:
+            self._lease_wait0 = now
+            return None
+        if now - self._lease_wait0 < self._cp_lease_s:
+            return None
+        # The lease expired: does process 0's key hold a boundary the
+        # leader failed to mirror? Nothing there: nothing to mirror, and
+        # the lease renews.
+        if not self._client.check([self._boundary_key(seq)]):
+            self._lease_wait0 = now
+            return None
+        raw = self._get_key(self._slice_boundary_key(seq), 0.05)
+        if raw is not None:      # the leader mirrored it during the grace
+            self._lease_wait0 = None
+            negotiation.record_fusion_kv(gets=1, payload_bytes=len(raw),
+                                         tier="slice")
+            return raw
+        raw = self._client.get(self._boundary_key(seq))
+        negotiation.record_fusion_kv(gets=1, payload_bytes=len(raw),
+                                     tier="root")
+        # Takeover: this member re-publishes for its slice from now on
+        # (members promoting at once is harmless: the same payload
+        # overwrites the same key).
+        self._cp_role = "leader"
+        self._cp_members = max(self._cp_members - 1, 1)
+        self._lease_wait0 = None
+        _metrics.record_boundary("takeover")
+        if _flight.armed:
+            _flight.record_event("fusion_flush", seq=seq,
+                                 name="boundary_lease_takeover",
+                                 what=f"slice{self._cp_slice}")
+        hvd_logging.warning(
+            "fusion boundary leader for slice %d stale past %.1fs: taking "
+            "over the slice re-publish at seq %d", self._cp_slice,
+            self._cp_lease_s, seq)
+        self._republish(seq, raw)
+        return raw
+
+    def _republish(self, seq, raw):
+        """A slice leader: mirror process 0's boundary under the slice's key
+        so its members never read process 0's. Fail-soft: a failed
+        re-publish costs the members one lease."""
+        if self._cp_role != "leader" or self._cp_members <= 0:
+            return
+        try:
+            self._client.set(self._slice_boundary_key(seq), raw)
+            negotiation.record_fusion_kv(sets=1, payload_bytes=len(raw))
+            if seq >= self._BOUNDARY_GC_LAG:
+                self._client.delete_key(
+                    self._slice_boundary_key(seq - self._BOUNDARY_GC_LAG))
+        except dist.DistNetworkError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the lease covers it
+            hvd_logging.debug("fusion boundary %d not re-published: %s",
+                              seq, e)
 
     def _apply_ready_boundaries(self, wait_s):
         """Follower: apply published boundaries in order, waiting at most
@@ -650,6 +778,10 @@ class FusionRuntime:
                 self._close(_wire_key(key, wire), entries, "own", wire,
                             eager=eager)
                 return [e.handle for e in entries]
+            # A bucket of its own closes at once, outside the inspector's
+            # view (JAX dispatches it outside the runtime).
+            if self._stall_inspector is not None:
+                self._stall_inspector.record_enqueue(names[0] or "tensor")
             group = None
             if len(tensors) > 1:
                 group = self._next_group
@@ -758,6 +890,10 @@ class FusionRuntime:
             coll0 = _profile.collective_total()
             defer_s = max(t_f0 - self._first_enqueue, 0.0) \
                 if self._first_enqueue else 0.0
+        if _chaos.armed:
+            # A delay here stalls the flush under the runtime lock: every
+            # enqueue waits behind it (the fusion-flush stall).
+            _chaos.fire("fusion.flush")
         _metrics.record_fusion_flush(len(prefix), flushed_bytes,
                                      self.threshold)
         if _flight.armed:
@@ -785,6 +921,8 @@ class FusionRuntime:
         finally:
             self._flushed_seq = prefix[-1].seq
             self._flushed.notify_all()
+            if self._stall_inspector is not None:
+                self._stall_inspector.record_flush()
             self._flush_observed(len(prefix), flushed_bytes, wire,
                                  t_flush_wall,
                                  (t_f0, coll0, defer_s) if profile_on
@@ -875,8 +1013,10 @@ class FusionRuntime:
             for t in self._threads:
                 if t.name == "hvd-fusion-publish":
                     t.join(timeout=30)
+        if self._stall_inspector is not None:
+            self._stall_inspector.stop()
         if self._multi:
-            done = f"hvd/fusion/e{self._epoch}/stopped"
+            done = f"{self._ns}/stopped"
             try:
                 if self._coord:
                     self._client.wait(
@@ -902,6 +1042,8 @@ class FusionRuntime:
         self._failed = error
         self._stop.set()
         self._wake.set()
+        if self._stall_inspector is not None:
+            self._stall_inspector.stop()
         if self._publish_queue is not None:
             self._publish_queue.put(None)
         for e in list(self._pending):
@@ -1288,7 +1430,27 @@ def get_runtime():
                                    st.config.wire_error_feedback),
                                strategy=config_strategy(st.config),
                                wire_dtype_dcn=st.config.wire_dtype_dcn,
-                               topology=st.topology)
+                               topology=st.topology,
+                               generation=st.fusion_generation,
+                               stall_check=None
+                               if st.config.stall_check_disable
+                               else (st.config.stall_check_time_seconds,
+                                     st.config.stall_shutdown_time_seconds),
+                               control_lease_ms=st.config.control_lease_ms)
             rt.start()
             st.fusion = rt
         return st.fusion
+
+
+def reset_runtime():
+    """Shut the running runtime down (what is pending flushes, as at
+    ``hvd.shutdown``) and drop it: the next :func:`get_runtime` builds one
+    under the knobs as they are then (``HOROVOD_CONTROL_PLANE`` among
+    them), in a store namespace of its own. Collective: every rank calls it
+    at the same point of the program."""
+    st = basics._get_state()
+    with _runtime_lock:
+        rt, st.fusion = st.fusion, None
+        st.fusion_generation += 1
+    if rt is not None:
+        rt.shutdown()

@@ -93,6 +93,16 @@ DEFAULT_HISTORY = 512
 armed = _env_bool("HOROVOD_STEP_PROFILER", True)
 
 
+def _kv_snapshot():
+    """The negotiation module's traffic counters, or None (each record
+    carries the deltas of its step)."""
+    try:
+        from horovod_tpu_torch.common import negotiation
+        return negotiation.stats_snapshot()
+    except Exception:  # noqa: BLE001
+        return None
+
+
 def enabled():
     return armed
 
@@ -127,6 +137,7 @@ class StepLedger:
         self._auto_step = 0
         self._peaks = None
         self._rank = None
+        self._kv0 = None              # negotiation counters at window open
         # (start event, end event, name) of fused buckets on the GPU,
         # oldest first, until both events are done.
         self._device_pending = collections.deque(maxlen=4096)
@@ -242,13 +253,13 @@ class StepLedger:
                 window = None
             else:
                 # Copy-and-reset under the lock, build OUTSIDE it: the
-                # roofline math and the device events take other modules'
-                # locks and imports, and holding the hot-path lock across
-                # them would block every cycle-thread record at each step
-                # boundary. Events recorded while we build accrue to the
-                # NEW window. (JAX's records also carry the step's
-                # plan-cache and negotiation deltas; the port has
-                # neither.)
+                # roofline math, the device events and the negotiation
+                # counters take other modules' locks and imports, and
+                # holding the hot-path lock across them would block every
+                # cycle-thread record at each step boundary. Events
+                # recorded while we build accrue to the NEW window. (JAX's
+                # records also carry the step's plan-cache deltas; the
+                # port's eager dispatch has no plan cache.)
                 window = {
                     "wall": now_p - self._t_open,
                     "acc": dict(self._acc),
@@ -258,19 +269,23 @@ class StepLedger:
                     "n_flushes": self._n_flushes,
                     "fusion_defer_s": self._fusion_defer_s,
                     "epoch": self._epoch,
+                    "kv0": self._kv0,
                 }
                 self._t_open = now_p
                 self._reset_acc_locked()
+        kv1 = _kv_snapshot()
+        with self._lock:
+            self._kv0 = kv1
         if window is None:
             return None
-        rec = self._build_record(step_val, now_w, window)
+        rec = self._build_record(step_val, now_w, window, kv1)
         if self._device_pending:
             self._add_device(rec)
         with self._lock:
             self._records.append(rec)
         return rec
 
-    def _build_record(self, step, now_w, window):
+    def _build_record(self, step, now_w, window, kv1=None):
         """Turn one closed window snapshot into a record. Runs OUTSIDE
         the hot-path lock (the snapshot dict is ours alone)."""
         wall = window["wall"]
@@ -291,6 +306,13 @@ class StepLedger:
             "bytes_by_op": dict(window["bytes_by_op"]),
             "wire_bytes_by_dtype": dict(window["wire_bytes"]),
         }
+        kv0 = window.get("kv0")
+        if kv1 is not None and kv0 is not None:
+            # The step's control-plane traffic: negotiation rounds and
+            # gets, fusion boundary sets and gets.
+            rec["kv"] = {k: kv1[k] - kv0[k]
+                         for k in ("rounds", "gets", "fusion_sets",
+                                   "fusion_gets")}
         self._add_roofline(rec, wall)
         return rec
 

@@ -22,8 +22,16 @@ then the version (``elastic/version``). A host whose slot count changed
 keeps its surviving slots' processes. A version that removed a slot
 appends a disruption marker to ``driver_events.jsonl`` in the flight
 directory (``flight.driver_mark``): ``flight.analyze`` ties the workers'
-dumps to the membership change that caused them. The JAX driver's chaos
-hooks and its autopilot arm are ROADMAP A17.
+dumps to the membership change that caused them.
+
+Chaos (``--chaos-plan``): the driver arms the plan in its own process under
+the ``driver`` role; each discovery poll is one call of the
+``driver.discovery`` site, where a ``host_remove`` spec drops its victim
+for its window (a simulated preemption, recovered through the same
+reassignment as a real removal). The KV store is sharded as the static
+launcher's is (``control_plane.kv_shard_count`` of the largest world the
+job may reach), and every worker gets the shard ports. The JAX driver's
+autopilot arm comes with the autopilot (ROADMAP A17's second half).
 """
 
 import json
@@ -31,6 +39,7 @@ import os
 import threading
 import time
 
+from horovod_tpu_torch.chaos import injector as _chaos
 from horovod_tpu_torch.common import logging as hvd_logging
 from horovod_tpu_torch.common.config import Config
 from horovod_tpu_torch.runner.elastic.discovery import HostManager
@@ -96,7 +105,10 @@ class ElasticDriver:
     def _discover_loop(self):
         while not self._shutdown.is_set():
             try:
-                self._maybe_update(self._host_manager.current_hosts())
+                hosts = self._host_manager.current_hosts()
+                if _chaos.armed:
+                    hosts = _chaos.filter_hosts("driver.discovery", hosts)
+                self._maybe_update(hosts)
             except Exception as e:  # noqa: BLE001 — a discovery hiccup
                 if self._shutdown.is_set():
                     break  # stop() already ran (the reset limit)
@@ -240,7 +252,16 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
     local = all(is_local(h) for h in discovery.find_available_hosts_and_slots())
     kv_addr = "127.0.0.1" if local else socket.gethostname()
 
-    kv = KVStoreServer()
+    from horovod_tpu_torch.common import control_plane as _cp
+    from horovod_tpu_torch.common.config import _env_int
+    from horovod_tpu_torch.runner import config_parser
+    flag_env = config_parser.set_env_from_args(dict(os.environ), args)
+    # Sharded by the largest world the job may reach: a membership change
+    # must not restart listeners.
+    kv = KVStoreServer(
+        shards=_cp.kv_shard_count(args.max_np or args.np or args.min_np or 1,
+                                  env=flag_env),
+        shard_port_base=_env_int("HOROVOD_KV_SHARD_PORT_BASE", 0, flag_env))
     kv_port = kv.start()
     for (scope, key), value in (kv_preload or {}).items():
         kv.put(scope, key, value)
@@ -304,7 +325,8 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
                 continue    # re-initializes in place on the bump
             env = build_worker_env(
                 {**(extra_env or {}), "HOROVOD_ELASTIC": "1"}, s,
-                coordinator_addr, coordinator_port, kv_port, args)
+                coordinator_addr, coordinator_port, kv_port, args,
+                kv_shard_ports=kv.shard_ports)
             env.update({"HOROVOD_KV_ADDR": kv_addr,
                         "HOROVOD_HOST_KEY": s.hostname,
                         # Results are keyed by the version a worker last
@@ -364,6 +386,12 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
     # is re-read, since the launcher set the env after the import.
     _flight.set_role("driver")
     _flight.set_enabled(_env_bool("HOROVOD_FLIGHT_RECORDER", True))
+    # The driver's own copy of the plan (host_remove rides its discovery
+    # polls; the workers arm theirs from their env at init), from the
+    # flags as the workers get them.
+    _chaos.set_role("driver")
+    chaos_before = _chaos.plan()
+    _chaos.install_from_env(flag_env)
     driver.start()
     try:
         driver.wait_for_available_slots(
@@ -380,3 +408,8 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         driver.stop()    # terminates and reaps whatever still runs
         kv.stop()
         _flight.set_role("worker")
+        # An in-process driver (run_elastic) leaves the process as it was:
+        # a plan it armed goes, and the role reverts.
+        if _chaos.plan() is not chaos_before:
+            _chaos.uninstall()
+        _chaos.set_role("worker")

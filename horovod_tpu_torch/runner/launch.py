@@ -42,9 +42,23 @@ knobs ride along. The workers read (``common/config.py``):
   ``--profile-dir``: ``HOROVOD_STEP_PROFILER``, ``HVD_STEP_REPORT_FILE``,
   ``HOROVOD_PROFILE_*``) and goodput (``--goodput``, ``--no-goodput``,
   ``--goodput-dir``, ``--run-history-dir``: ``HOROVOD_GOODPUT*``,
-  ``HOROVOD_RUN_HISTORY_DIR``).
+  ``HOROVOD_RUN_HISTORY_DIR``);
+- the control plane (``--control-plane``, ``--control-lease-ms``,
+  ``--no-stall-check``, ``--stall-check-warning-time-seconds``,
+  ``--stall-check-shutdown-time-seconds``, ``--order-check``:
+  ``HOROVOD_CONTROL_PLANE``, ``HOROVOD_CONTROL_LEASE_MS``,
+  ``HOROVOD_STALL_*``, ``HOROVOD_ORDER_CHECK``) and its KV shards
+  (``--kv-shard-count``, ``--kv-shard-port-base``: the launcher starts
+  ``control_plane.kv_shard_count`` shard listeners and gives every worker
+  their ports in ``HOROVOD_KV_SHARD_PORTS``);
+- the cluster telemetry plane (``--no-telemetry``,
+  ``--telemetry-interval``: ``HOROVOD_TELEMETRY*``);
+- chaos (``--chaos-plan``, ``--chaos-seed``, ``--chaos-ledger``:
+  ``HOROVOD_CHAOS_*``; ``hvd.init`` arms the plan, the elastic driver arms
+  its own copy under the ``driver`` role).
 
-Still set but not read: autotune and the autopilot (ROADMAP A17).
+Still set but not read: autotune and the autopilot (ROADMAP A17's second
+half).
 """
 
 import argparse
@@ -491,12 +505,12 @@ _PROPAGATED = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
 
 
 def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,
-                     kv_port, args):
+                     kv_port, args, kv_shard_ports=()):
     """One slot's env (reference: gloo_run.py:66-78, 203-227 — the rank/size
     env contract between launcher and core): that slot's rank contract, the
     coordinator store's address and port (bound by rank 0 in
-    ``hvd.init()``), the launcher's KV store, the job secret, the start
-    timeout, and the tuning flags as env vars."""
+    ``hvd.init()``), the launcher's KV store and its shard ports, the job
+    secret, the start timeout, and the tuning flags as env vars."""
     env = dict(base_env)
     env.update({
         "HOROVOD_RANK": str(slot.rank),
@@ -511,6 +525,9 @@ def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,
         "HOROVOD_KV_PORT": str(kv_port),
         "HOROVOD_START_TIMEOUT": str(args.start_timeout),
     })
+    if kv_shard_ports:
+        env["HOROVOD_KV_SHARD_PORTS"] = ",".join(
+            str(p) for p in kv_shard_ports)
     if os.environ.get(SECRET_ENV):
         env[SECRET_ENV] = os.environ[SECRET_ENV]
     for var in _PROPAGATED:
@@ -535,7 +552,15 @@ def _start_rendezvous(args):
     # A per-job secret: all KV control-plane traffic is HMAC-signed
     # (reference: secret.py per-job key + network.py:306 signed messages).
     os.environ.setdefault(SECRET_ENV, make_secret_key())
-    kv = KVStoreServer()
+    # Per-slice shard listeners when the hierarchical control plane is
+    # armed (or --kv-shard-count asks): the slice-local scopes never touch
+    # the root listener.
+    from horovod_tpu_torch.common import control_plane as _cp
+    from horovod_tpu_torch.common.config import _env_int
+    flag_env = config_parser.set_env_from_args(dict(os.environ), args)
+    kv = KVStoreServer(
+        shards=_cp.kv_shard_count(slot_infos[0].size, env=flag_env),
+        shard_port_base=_env_int("HOROVOD_KV_SHARD_PORT_BASE", 0, flag_env))
     kv_port = kv.start()
     kv.put("global", "size", str(slot_infos[0].size).encode())
     return slot_infos, by_host, coordinator_addr, coordinator_port, kv, kv_port
@@ -562,6 +587,9 @@ def _run_static_mpi(args, launcher, extra_env=None):
         "HOROVOD_KV_PORT": str(kv_port),
         "HOROVOD_START_TIMEOUT": str(args.start_timeout),
     })
+    if kv.shard_ports:
+        env["HOROVOD_KV_SHARD_PORTS"] = ",".join(
+            str(p) for p in kv.shard_ports)
     if os.environ.get(SECRET_ENV):
         env[SECRET_ENV] = os.environ[SECRET_ENV]
     config_parser.set_env_from_args(env, args)
@@ -623,7 +651,8 @@ def _run_static(args, extra_env=None, harvest=None, kv_preload=None):
         for slot in slot_infos:
             env = build_worker_env(dict(extra_env or {}), slot,
                                    coordinator_addr, coordinator_port,
-                                   kv_port, args)
+                                   kv_port, args,
+                                   kv_shard_ports=kv.shard_ports)
             workers.append(WorkerProcess(
                 slot.hostname, args.command, env, tag=str(slot.rank),
                 ssh_port=args.ssh_port,

@@ -7,7 +7,7 @@ whole state rides the elastic machinery (``ServingState``), so a scale
 change or a worker kill drops no in-flight request. The serving and SLO
 series land on the metrics endpoint, whose ``/serving/health`` is the
 readiness frame. ``soak.py``, the chaos soak, comes with the chaos
-harness (ROADMAP A17).
+harness's soak (ROADMAP A17's second half).
 """
 
 from horovod_tpu_torch.serving.engine import (  # noqa: F401

@@ -115,6 +115,7 @@ def allreduce(tensor, average=None, name=None, compression=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
     """reference: hvd.allreduce (torch/mpi_ops.py:294-360; the legacy
     ``average=`` flag maps onto op like the reference's handle_average)."""
+    C.order_check("allreduce", (tensor,), process_set)
     return allreduce_async(tensor, average=average, name=name,
                            compression=compression, op=op,
                            prescale_factor=prescale_factor,
@@ -125,6 +126,7 @@ def allreduce(tensor, average=None, name=None, compression=None, op=None,
 def allreduce_(tensor, average=None, name=None, compression=None, op=None,
                prescale_factor=1.0, postscale_factor=1.0, process_set=None):
     """In-place variant (reference: allreduce_ torch/mpi_ops.py:363-421)."""
+    C.order_check("allreduce", (tensor,), process_set)
     return allreduce_async_(tensor, average=average, name=name,
                             compression=compression, op=op,
                             prescale_factor=prescale_factor,
@@ -153,6 +155,7 @@ def grouped_allreduce_async_(tensors, average=None, name=None,
 def grouped_allreduce(tensors, average=None, name=None, compression=None,
                       op=None, prescale_factor=1.0, postscale_factor=1.0,
                       process_set=None):
+    C.order_check("allreduce", tensors, process_set)
     return [h.synchronize() for h in grouped_allreduce_async(
         tensors, average=average, name=name, compression=compression, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
@@ -163,6 +166,7 @@ def grouped_allreduce_(tensors, average=None, name=None, compression=None,
                        op=None, prescale_factor=1.0, postscale_factor=1.0,
                        process_set=None):
     """In-place grouped allreduce (reference: torch/mpi_ops.py:553-589)."""
+    C.order_check("allreduce", tensors, process_set)
     return [h.synchronize() for h in grouped_allreduce_async_(
         tensors, average=average, name=name, compression=compression, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,

@@ -107,6 +107,18 @@ import horovod_tpu_torch.profile.report
 import horovod_tpu_torch.goodput.ledger
 import horovod_tpu_torch.goodput.history
 import horovod_tpu_torch.goodput.report
+import horovod_tpu_torch.telemetry.aggregator
+import horovod_tpu_torch.telemetry.digest
+import horovod_tpu_torch.telemetry.health
+import horovod_tpu_torch.telemetry.top
+import horovod_tpu_torch.chaos.plan
+import horovod_tpu_torch.chaos.injector
+import horovod_tpu_torch.common.control_plane
+import horovod_tpu_torch.common.negotiation
+import horovod_tpu_torch.ops.stall_inspector
+assert hvd.telemetry.TelemetryAgent and hvd.cluster_snapshot()["local_only"]
+assert hvd.chaos.armed() is False and hvd.chaos.ChaosPlan
+from horovod_tpu_torch.ops.fusion import reset_runtime
 assert hvd.start_timeline and hvd.stop_timeline and hvd.step_marker
 assert hvd.step_report and hvd.set_flops_per_step and hvd.flight_summary
 assert hvd.flight is horovod_tpu_torch.flight and hvd.goodput.snapshot

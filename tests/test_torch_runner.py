@@ -248,12 +248,24 @@ def test_kv_speaks_the_jax_protocol():
 
 
 def test_sharded_kv_names_its_roadmap_item(monkeypatch):
+    """The sharded KV (ROADMAP A17, now ported): ``HOROVOD_KV_SHARD_PORTS``
+    routes a client's slice-local scopes to the shard listeners and the
+    rest to the root, and the server reads through its shards."""
     from horovod_tpu_torch.runner import http_kv
-    monkeypatch.setenv("HOROVOD_KV_SHARD_PORTS", "1234,1235")
-    with pytest.raises(NotImplementedError, match="A17"):
-        http_kv.KVStoreServer()
-    with pytest.raises(NotImplementedError, match="A17"):
-        http_kv.KVStoreClient("127.0.0.1", 1)
+    srv = http_kv.KVStoreServer(shards=2, secret="")
+    port = srv.start()
+    try:
+        monkeypatch.setenv("HOROVOD_KV_SHARD_PORTS",
+                           ",".join(str(p) for p in srv.shard_ports))
+        c = http_kv.KVStoreClient("127.0.0.1", port, secret="")
+        c.put("telemetry@s3", "k", b"v")
+        c.put("elastic", "k", b"w")
+        assert srv._shards[1]._httpd.store == {"telemetry@s3": {"k": b"v"}}
+        assert srv._httpd.store == {"elastic": {"k": b"w"}}
+        assert srv.get("telemetry@s3", "k") == b"v"
+        assert c.get("telemetry@s3", "k") == b"v"
+    finally:
+        srv.stop()
 
 
 def test_min_np_reaches_the_elastic_driver(monkeypatch):
