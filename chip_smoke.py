@@ -486,6 +486,37 @@ cluster telemetry plane and the control plane it rides.
    one digest.collect and one tick, step 3's attribution, tokens/s
    disarmed against armed-idle.
 
+Phases 46-47 run after launch_elastic_cpu_world: A17's second half, the
+tuners that steer the fusion runtime and the soaks.
+
+46. autotune: GPT-2 small at train_gpt's settings in fresh 1-rank worlds
+   on the card, from a runtime detuned to AUTOTUNE_DETUNED bytes. Leg A,
+   HOROVOD_AUTOTUNE alone (AUTOTUNE_ENV's small windows): the flush-window
+   ParameterManager on the runtime, its knobs moved. Leg B, the autopilot
+   (AUTOPILOT_ENV: 0.5 s epochs, the flush-window tuner knob set too):
+   a prior written by `python -m horovod_tpu_torch.sim --pretrain` at the
+   H100 row, then a run with it and a cold run, each until the controller
+   froze and AUTOPILOT_TAIL_STEPS more (AUTOPILOT_MAX_STEPS at most).
+   Checks: the controller a live thread, the flush-window tuner detached;
+   the trail prior_loaded (cold: none), then tuner adopt/hold records;
+   no "autopilot tick failed" warning; the threshold above the detuned
+   start; fewer scale-pack launches a step in the last epoch than in the
+   first, by torch.profiler's kernel names and by the wrapper's count;
+   autopilot_decisions_total on the scrape and flight.analyze's
+   analyze_autopilot over the ring each counting the trail; after
+   hvd.shutdown() no controller; every step on cuda with every flash and
+   scale kernel launched. Printed: tokens/s at the first and the last
+   epoch and at the untuned 64 MB default, the final knobs, each tick's
+   host ms, the epochs to the freeze with and without the prior.
+47. soak_cpu_world: chaos/soak.py on the elastic launcher with CPU (gloo)
+   workers, as launch_elastic_cpu_world runs them: run_soak at 3
+   processes (a kill, a KV drop, a straggler; final weights equal to the
+   clean run's, resets within the kill budget, the same ledger schedule
+   on the same-seed rerun, the flight dumps naming the kill) and
+   run_autopilot_soak at 3 (the controller names the permanent straggler,
+   the driver arm removes its host, the survivors finish at world 2, the
+   flight trail's remediation names its rank, host and cause).
+
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
 closed in that step, by the timer, the threshold or synchronize. Each phase
@@ -7164,17 +7195,12 @@ def phase_launch_serving(torch, args, card):
     Printed: the seconds to the first answer and the answers' tokens/s,
     and the greedy answers' agreement with batch-1 generate on the same
     model in this process."""
-    import socket
     import threading
     from urllib import request as urlrequest
 
     from horovod_tpu_torch.models import generate
     from horovod_tpu_torch.serving.__main__ import build_model
 
-    def free_port():
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
     port, mport = free_port(), free_port()
     trace_dir = ROOT / "build" / "launch_serving"
     trace_dir.mkdir(parents=True, exist_ok=True)
@@ -7937,6 +7963,351 @@ def phase_cluster(torch, hvd, dev, args, card):
     return launches
 
 
+# A17's second half: the tuners on GPT-2 small's path.
+AUTOTUNE_DETUNED = 1 << 20      # bytes: the detuned runtime's threshold
+AUTOTUNE_ENV = {"HOROVOD_FUSION_THRESHOLD": str(AUTOTUNE_DETUNED),
+                "HOROVOD_AUTOTUNE": "1",
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "6"}
+AUTOTUNE_A_STEPS = 6
+AUTOPILOT_ENV = {"HOROVOD_FUSION_THRESHOLD": str(AUTOTUNE_DETUNED),
+                 "HOROVOD_AUTOTUNE": "1",
+                 "HOROVOD_AUTOPILOT": "1",
+                 "HOROVOD_AUTOPILOT_INTERVAL": "0.5",
+                 "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "6",
+                 # The ring holds every decision of a run (~300 events a
+                 # step at 1 MB); each tick's local view copies it.
+                 "HOROVOD_FLIGHT_CAPACITY": "32768"}
+AUTOPILOT_MAX_STEPS = 200
+AUTOPILOT_TAIL_STEPS = 6
+AUTOTUNE_UNTUNED_STEPS = 6
+AUTOTUNE_RATE_STEPS = 4         # steps timed for an epoch's tokens/s
+SOAK_PROCS = 3
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def is_pack(name):
+    """Whether a scale_copy_kernel launch is a pack (its kPack template
+    argument), or None when the name carries no template arguments."""
+    if "<" not in name:
+        return None
+    return name[name.find("<") + 1:name.rfind(">")].split(",")[-1].strip() \
+        in ("true", "1")
+
+
+def profiled_packs(torch, step):
+    """One ``step`` under torch.profiler: the scale_copy_kernel pack
+    launches by kernel name (half of them when the names carry no template
+    arguments), and the wrapper's count over the same step."""
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    p0 = sb.pack_launches
+    device, _ = device_events(torch, step, 1)
+    names = [e.name for e in device if "scale_copy_kernel" in e.name]
+    flags = [is_pack(n) for n in names]
+    packs = sum(1 for f in flags if f) if any(f is not None for f in flags) \
+        else len(names) // 2
+    return packs, sb.pack_launches - p0
+
+
+def phase_autotune(torch, hvd, dev, args, card):
+    """The flush-window autotuner and the autopilot on GPT-2 small (see
+    the module docstring, phase 46). Returns the phase's launch counts."""
+    import logging
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.autopilot import controller as apc
+    from horovod_tpu_torch.common import logging as hvd_logging
+    from horovod_tpu_torch.flight import analyze as flight_analyze
+    from horovod_tpu_torch.flight import recorder
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+    from horovod_tpu_torch.sim.__main__ import main as sim_main
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="hvd_autotune_"))
+    prior = work / "prior.json"
+    t0 = time.perf_counter()
+    check(sim_main(["--pretrain", str(prior), "--world", "1", "--slices",
+                    "1", "--chip", "h100"]) == 0 and prior.exists(),
+          "the twin wrote the H100 prior")
+    pretrain_s = time.perf_counter() - t0
+    failed = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "autopilot tick failed" in record.getMessage():
+                failed.append(record.getMessage())
+
+    catch = Catch()
+    hvd_logging.get_logger().addHandler(catch)
+    knob_keys = sorted(set(AUTOTUNE_ENV) | set(AUTOPILOT_ENV)
+                       | {"HOROVOD_AUTOPILOT_PRIOR", "HOROVOD_METRICS_PORT"})
+    saved = {k: os.environ.get(k) for k in knob_keys}
+
+    def world(env):
+        hvd.shutdown()
+        for k in knob_keys:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        hvd.init()
+        check(hvd.device() == dev, f"the world runs on {dev}: "
+              f"{hvd.device()}")
+
+    model = build_gpt(torch, dev, args.seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    ids = torch.randint(0, model.config.vocab_size, (GPT_BATCH, GPT_SEQ),
+                        generator=gen, device=dev)
+    tokens = GPT_BATCH * GPT_SEQ
+    marks = [290000]
+    fa.reset_launch_counts()              # the path starts here
+    sb.reset_launch_counts()
+
+    def make_opt():
+        model.load_state_dict(init)
+        return hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+
+    def step(opt):
+        opt.zero_grad()
+        value = next_token_loss(F, model(ids), ids)
+        value.backward()
+        opt.step()
+        marks[0] += 1
+        hvd.step_marker(marks[0])
+        return value.detach()
+
+    def timed(opt, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = [step(opt) for _ in range(n)]
+        torch.cuda.synchronize()
+        return tokens * n / (time.perf_counter() - t), losses
+
+    def decisions_on_scrape(port):
+        code, text = http_get(port, "/metrics")
+        check(code == 200, f"/metrics answered {code}")
+        return sum(float(line.rsplit(" ", 1)[1])
+                   for line in text.splitlines()
+                   if line.startswith("horovod_autopilot_decisions_total{"))
+
+    report = {"prior": str(prior), "pretrain_s": pretrain_s,
+              "prior_best": json.loads(prior.read_text())["best"]}
+    try:
+        # Leg A: the flush-window tuner alone.
+        world(AUTOTUNE_ENV)
+        check(apc.get_controller() is None, "no controller under autotune")
+        rt = fusion.get_runtime()
+        pm = rt._parameter_manager
+        check(pm is not None, "process 0's runtime holds the tuner")
+        start = (rt.threshold, rt._cycle_s * 1e3, rt.strategy)
+        opt = make_opt()
+        packs, knobs, losses = [], [], []
+        for _ in range(AUTOTUNE_A_STEPS):
+            p0 = sb.pack_launches
+            losses.append(step(opt).item())
+            packs.append(sb.pack_launches - p0)
+            knobs.append((rt.threshold, round(rt._cycle_s * 1e3, 4),
+                          rt.strategy))
+        opt._remove_hooks()
+        check(knobs[-1] != start, f"the tuner moved the knobs from {start}: "
+              f"{knobs}")
+        check(all(map(math.isfinite, losses)), f"finite losses {losses}")
+        report["leg_a"] = {"start": start, "knobs_per_step": knobs,
+                           "packs_per_step": packs, "frozen": not pm.tuning,
+                           "samples": pm._samples,
+                           "categoricals": pm.categoricals,
+                           "losses": losses}
+
+        # Leg B: the autopilot, with the twin's prior and cold.
+        for label in ("prior", "cold"):
+            mport = free_port()
+            env = dict(AUTOPILOT_ENV, HOROVOD_METRICS_PORT=str(mport))
+            if label == "prior":
+                env["HOROVOD_AUTOPILOT_PRIOR"] = str(prior)
+            world(env)
+            ctrl = apc.get_controller()
+            check(ctrl is not None and ctrl._thread is not None
+                  and ctrl._thread.is_alive(),
+                  "hvd.init armed the controller thread")
+            # The first epoch's step at the detuned start, then the loop.
+            ctrl.stop()
+            rt = fusion.get_runtime()
+            check(rt._parameter_manager is None and rt.threshold ==
+                  AUTOTUNE_DETUNED, "the autopilot owns the knobs: no "
+                  "flush-window tuner, the detuned threshold")
+            opt = make_opt()
+            step(opt)
+            first_tps, _ = timed(opt, AUTOTUNE_RATE_STEPS)
+            first_packs = profiled_packs(torch, lambda: step(opt))
+            ticks = []
+            inner = ctrl.tick
+
+            def timed_tick(inner=inner, ticks=ticks):
+                t = time.perf_counter()
+                out = inner()
+                ticks.append(1e3 * (time.perf_counter() - t))
+                return out
+
+            ctrl.tick = timed_tick
+            scrape0 = decisions_on_scrape(mport)
+            t_run = time.time()
+            ctrl.start()
+            check(ctrl._thread.is_alive(), "the controller thread runs")
+            rows, tail = [], None
+            for i in range(AUTOPILOT_MAX_STEPS):
+                p0 = sb.pack_launches
+                t = time.perf_counter()
+                loss = step(opt)
+                rows.append((ctrl.epoch, rt.threshold,
+                             sb.pack_launches - p0))
+                if tail is None and ctrl.frozen:
+                    tail = i + AUTOPILOT_TAIL_STEPS
+                if tail is not None and i >= tail:
+                    break
+            loss = loss.item()
+            last_tps, _ = timed(opt, AUTOTUNE_RATE_STEPS)
+            last_packs = profiled_packs(torch, lambda: step(opt))
+            ctrl.stop()
+            torch.cuda.synchronize()
+            opt._remove_hooks()
+            decisions = ctrl.decisions()
+            outcomes = [(d["lever"], d["outcome"]) for d in decisions]
+            tuner = [o for lv, o in outcomes if lv == "tuner"]
+            check(not failed, f"no autopilot tick failed: {failed}")
+            check(math.isfinite(loss), f"{label}: a finite loss {loss}")
+            if label == "prior":
+                check("prior_loaded" in tuner and any(
+                    o in ("adopt", "hold")
+                    for o in tuner[tuner.index("prior_loaded"):]),
+                      f"prior: prior_loaded, then adopt/hold: {outcomes}")
+            else:
+                check("prior_loaded" not in tuner and any(
+                    o in ("adopt", "hold") for o in tuner),
+                      f"cold: adopt/hold records, no prior: {outcomes}")
+            check(rt.threshold > AUTOTUNE_DETUNED,
+                  f"{label}: the threshold rose from {AUTOTUNE_DETUNED}: "
+                  f"{rt.threshold}")
+            check(last_packs[0] < first_packs[0] and last_packs[1] <
+                  first_packs[1] and first_packs[0] == first_packs[1],
+                  f"{label}: fewer pack launches a step in the last epoch "
+                  f"(profiler, wrapper) {last_packs} than in the first "
+                  f"{first_packs}")
+            on_scrape = decisions_on_scrape(mport) - scrape0
+            ring = [e for e in recorder.get().events()
+                    if (e.get("t") or 0.0) >= t_run]
+            on_ring = flight_analyze.analyze_autopilot(ring)["decisions"]
+            check(on_scrape == on_ring == len(decisions),
+                  f"{label}: the scrape ({on_scrape}) and the ring "
+                  f"({on_ring}) count the trail ({len(decisions)})")
+            frozen = [d["epoch"] for d in decisions
+                      if d["outcome"] == "frozen"]
+            if label == "prior":
+                check(frozen, f"prior: the controller froze: {outcomes}")
+            report[label] = {
+                "steps": len(rows), "epochs": ctrl.epoch,
+                "epochs_to_freeze": frozen[0] if frozen else None,
+                "tokens_per_sec_first_epoch": first_tps,
+                "tokens_per_sec_last_epoch": last_tps,
+                "scale_pack_per_step_first": {"profiler": first_packs[0],
+                                              "wrapper": first_packs[1]},
+                "scale_pack_per_step_last": {"profiler": last_packs[0],
+                                             "wrapper": last_packs[1]},
+                "final_knobs": {"threshold": rt.threshold,
+                                "cycle_ms": rt._cycle_s * 1e3,
+                                "strategy": rt.strategy,
+                                "wire": rt.wire_dtype},
+                "tick_host_ms": [round(t, 3) for t in ticks],
+                "threshold_by_step": [r[1] for r in rows],
+                "packs_by_step": [r[2] for r in rows],
+                "outcomes": outcomes, "decisions_counted": on_scrape}
+            hvd.shutdown()
+            check(apc.get_controller() is None,
+                  "hvd.shutdown() stopped the controller")
+            hvd.init()
+        # The untuned default (64 MB) for scale.
+        world({})
+        opt = make_opt()
+        step(opt)
+        report["untuned_64mb_tokens_per_sec"], _ = timed(
+            opt, AUTOTUNE_UNTUNED_STEPS)
+        opt._remove_hooks()
+    finally:
+        hvd_logging.get_logger().removeHandler(catch)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {"flash_fwd": fa.fwd_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches,
+                "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "scale_pack": sb.pack_launches,
+                "scale_unpack": sb.unpack_launches}
+    check(all(p.device.type == "cuda" for p in model.parameters())
+          and all(launches[k] > 0 for k in STEP_COUNTS),
+          f"the tuned path ran on the card through every flash and scale "
+          f"kernel: {launches}")
+    emit({"phase": "autotune", **report, "launches": launches,
+          "card": card})
+    return launches
+
+
+def phase_soak_cpu_world(args):
+    """chaos/soak.py's run_soak and run_autopilot_soak at SOAK_PROCS CPU
+    (gloo) processes on the elastic launcher (see the module docstring,
+    phase 47); each run's invariants are asserted inside, and a failed
+    worker fails the run."""
+    import tempfile
+
+    from horovod_tpu_torch.chaos import soak
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="hvd_soak_"))
+    t0 = time.perf_counter()
+    ev = soak.run_soak(procs=SOAK_PROCS, steps=8, seed=123,
+                       workdir=str(work / "soak"), reruns=1)
+    soak_s = time.perf_counter() - t0
+    chaos = ev["chaos_results"]
+    check(ev["ledger_deterministic"] and ev["kill_budget"] == 1
+          and all(r["final_world"] == SOAK_PROCS - 1 for r in chaos)
+          and all(r["resets"] <= 1 for r in chaos),
+          f"run_soak: one shrink, resets within the budget, the same "
+          f"schedule on the rerun: {chaos}")
+    t0 = time.perf_counter()
+    ap = soak.run_autopilot_soak(procs=SOAK_PROCS,
+                                 workdir=str(work / "autopilot"))
+    ap_s = time.perf_counter() - t0
+    rem = ap["remediations"][0]
+    victim = SOAK_PROCS - 1
+    check(rem["rank"] == victim and rem["cause"] == "straggler"
+          and rem["host"] == f"127.0.0.{victim + 1}"
+          and all(r["final_world"] == victim for r in ap["results"]),
+          f"run_autopilot_soak: rank {victim}'s host removed for "
+          f"straggling, the survivors at world {victim}: {ap['remediations']}")
+    emit({"phase": "soak_cpu_world", "run_on": "CPU (gloo), not the card",
+          "run_soak": {"seconds": soak_s, "clean_w": ev["clean_w"],
+                       "kill_budget": ev["kill_budget"],
+                       "ledger": ev["ledger"],
+                       "final_worlds": [r["final_world"] for r in chaos],
+                       "resets": [r["resets"] for r in chaos],
+                       "killed_ranks": ev["flight_report"]["killed_ranks"]},
+          "run_autopilot_soak": {"seconds": ap_s, "remediation": rem,
+                                 "worlds": [r["worlds"]
+                                            for r in ap["results"]]}})
+
+
 class PhaseRunner:
     """``run(name, fn, *args)`` calls one phase and returns what it returns.
     Each phase's peak is its own: what earlier phases left is collected and
@@ -8144,6 +8515,10 @@ def main(argv=None):
     launch_elastic_launches = run("launch_elastic", phase_launch_elastic,
                                   torch, args, card)
     run("launch_elastic_cpu_world", phase_launch_elastic_cpu_world, args)
+    gc.collect()
+    autotune_launches = run("autotune", phase_autotune, torch, hvd, dev,
+                            args, card)
+    run("soak_cpu_world", phase_soak_cpu_world, args)
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     emit({"phase": "allocated_gb_at_phase_start", **start_gb})
@@ -8156,7 +8531,7 @@ def main(argv=None):
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
                          "train_zero", "train_fsdp", "train_gpt_moe",
                          "train_composite", "pipeline_virtual", "train_lora",
-                         "generate", "observe", "cluster")
+                         "generate", "observe", "cluster", "autotune")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -8173,14 +8548,15 @@ def main(argv=None):
                    train_t5=t5_launches, train_vgg16=vgg_launches,
                    train_inception3=inception_launches,
                    train_lora=lora_launches, generate=generate_launches,
-                   observe=observe_launches, cluster=cluster_launches)
+                   observe=observe_launches, cluster=cluster_launches,
+                   autotune=autotune_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
                    "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe",
                    "train_t5", "train_vgg16", "train_inception3",
-                   "train_lora", "observe", "cluster")
+                   "train_lora", "observe", "cluster", "autotune")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),

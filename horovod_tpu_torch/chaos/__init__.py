@@ -1,7 +1,6 @@
 """Chaos: deterministic, seeded fault injection.
 
-Port of the JAX package's ``chaos/`` (the soak harness, ``chaos/soak.py``,
-is still to come, ROADMAP A17):
+Port of the JAX package's ``chaos/``:
 
 - :mod:`horovod_tpu_torch.chaos.plan`: declarative, seeded fault plans
   (kind x site x trigger), parsed from JSON (YAML with PyYAML) or the
@@ -13,6 +12,10 @@ is still to come, ROADMAP A17):
   the telemetry tick. Off by default: each site is one bool check. Every
   firing counts into ``chaos_injections_total{site,kind}`` and appends to a
   per-rank JSONL ledger.
+- :mod:`horovod_tpu_torch.chaos.soak`: the elastic-recovery soaks (a kill,
+  a KV drop and a straggler; a telemetry leader's kill; the autopilot's
+  straggler removal; goodput's badput brackets) over the elastic launcher
+  with CPU (gloo) workers.
 """
 
 from horovod_tpu_torch.chaos.plan import (  # noqa: F401

@@ -208,6 +208,15 @@ def init(comm=None, process_sets=None, device=None):
         except Exception as e:  # noqa: BLE001 — must not block init
             from horovod_tpu_torch.common import logging as hvd_logging
             hvd_logging.warning("telemetry plane failed to start: %s", e)
+        # The autopilot (HOROVOD_AUTOPILOT), process 0 only, after the
+        # telemetry plane so its first frame reads the health view; an
+        # elastic re-init re-arms it under the new membership.
+        try:
+            from horovod_tpu_torch.autopilot import controller as _autopilot
+            _autopilot.start_from_config(config)
+        except Exception as e:  # noqa: BLE001 — must not block init
+            from horovod_tpu_torch.common import logging as hvd_logging
+            hvd_logging.warning("autopilot failed to start: %s", e)
         if config.timeline_filename:
             _start_timeline_locked(st, config.timeline_filename,
                                    config.timeline_mark_cycles)
@@ -358,6 +367,13 @@ def shutdown(abort=False):
     with _lock:
         if _state is None:
             return
+        # The autopilot first, while the runtime it steers is reachable:
+        # its pin goes with it, and get_controller() is None after.
+        try:
+            from horovod_tpu_torch.autopilot import controller as _autopilot
+            _autopilot.stop()
+        except Exception:  # noqa: BLE001 — must not block exit
+            pass
         st, _state = _state, None
         try:
             _shutdown_locked(st, abort)

@@ -24,8 +24,10 @@ planes' knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
 ``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``, ``HOROVOD_RUN_ID``), the
 control plane's (``HOROVOD_STALL_CHECK_*``, ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``,
 ``HOROVOD_ORDER_CHECK``, ``HOROVOD_CONTROL_PLANE``, ``HOROVOD_KV_SHARD_*``,
-``HOROVOD_CONTROL_LEASE_MS``, ``HOROVOD_CHAOS_*``) and the cluster telemetry
-plane's (``HOROVOD_TELEMETRY*``) with JAX's defaults.
+``HOROVOD_CONTROL_LEASE_MS``, ``HOROVOD_CHAOS_*``), the cluster telemetry
+plane's (``HOROVOD_TELEMETRY*``), and the tuners' (``HOROVOD_AUTOTUNE*``,
+``HOROVOD_AUTOPILOT*``, ``HOROVOD_PROFILE_Z_THRESHOLD``) with JAX's
+defaults.
 """
 
 import dataclasses
@@ -143,6 +145,40 @@ class Config:
     host_key: str = ""
     # The membership version this worker last initialized under.
     elastic_init_version: int = 0
+
+    # --- autotune (autotune/; reference common.h:133-138): the fusion
+    # runtime's flush-window ParameterManager on process 0, over the
+    # threshold, the cycle time and the strategy/wire categoricals ---
+    autotune: bool = False
+    autotune_log_file: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+
+    # --- autopilot (autopilot/): the online controller on process 0,
+    # closed-loop tuning over the signal plane plus straggler/dead-rank
+    # remediation through the elastic driver. Opt-in: its decisions change
+    # the buckets and can remove hosts.
+    autopilot: bool = False
+    # Decision-epoch cadence in seconds (the controller thread's tick).
+    autopilot_interval: float = 10.0
+    # Remediation rate limit: at most this many controller-initiated host
+    # removals per rolling window (autopilot/remediate.WINDOW_S).
+    autopilot_max_removals: int = 1
+    # Hysteresis: a rank must be named (watchdog straggler, telemetry
+    # dead/stalled) this many consecutive epochs before the controller acts.
+    autopilot_hysteresis: int = 3
+    # Do-not-shrink floor (0 = the elastic launch's --min-np, else 1).
+    autopilot_min_world: int = 0
+    # A twin-pretrained prior (python -m horovod_tpu_torch.sim --pretrain
+    # writes one): the controller skips the categorical sweep and starts
+    # the numeric search at the twin's best point. "" = cold start; a
+    # mismatched or malformed prior is logged, never fatal.
+    autopilot_prior: str = ""
+    # The robust-z threshold of the controller's revert-on-regression and
+    # drift checks (the step watchdog reads the same variable).
+    profile_z_threshold: float = 4.0
 
     # --- serving (serving/; `hvdrun-torch --serving` sets HOROVOD_SERVING,
     # `python -m horovod_tpu_torch.serving` is the worker it launches) ---
@@ -367,6 +403,32 @@ class Config:
         c.host_key = os.environ.get("HOROVOD_HOST_KEY", c.host_key)
         c.elastic_init_version = _env_int("HOROVOD_ELASTIC_INIT_VERSION",
                                           c.elastic_init_version)
+        c.autotune = _env_bool("HOROVOD_AUTOTUNE", c.autotune)
+        c.autotune_log_file = os.environ.get("HOROVOD_AUTOTUNE_LOG",
+                                             c.autotune_log_file)
+        c.autotune_warmup_samples = _env_int(
+            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = _env_int(
+            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", c.autotune_steps_per_sample)
+        c.autotune_bayes_opt_max_samples = _env_int(
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
+            c.autotune_bayes_opt_max_samples)
+        c.autotune_gaussian_process_noise = _env_float(
+            "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE",
+            c.autotune_gaussian_process_noise)
+        c.autopilot = _env_bool("HOROVOD_AUTOPILOT", c.autopilot)
+        c.autopilot_interval = _env_float("HOROVOD_AUTOPILOT_INTERVAL",
+                                          c.autopilot_interval)
+        c.autopilot_max_removals = _env_int(
+            "HOROVOD_AUTOPILOT_MAX_REMOVALS", c.autopilot_max_removals)
+        c.autopilot_hysteresis = _env_int("HOROVOD_AUTOPILOT_HYSTERESIS",
+                                          c.autopilot_hysteresis)
+        c.autopilot_min_world = _env_int("HOROVOD_AUTOPILOT_MIN_WORLD",
+                                         c.autopilot_min_world)
+        c.autopilot_prior = os.environ.get("HOROVOD_AUTOPILOT_PRIOR",
+                                           c.autopilot_prior)
+        c.profile_z_threshold = _env_float("HOROVOD_PROFILE_Z_THRESHOLD",
+                                           c.profile_z_threshold)
         c.serving = _env_bool("HOROVOD_SERVING", c.serving)
         c.serving_port = _env_int("HOROVOD_SERVING_PORT", c.serving_port)
         c.serving_slots = _env_int("HOROVOD_SERVING_SLOTS",

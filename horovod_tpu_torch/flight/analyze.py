@@ -34,6 +34,8 @@ import os
 import re
 import sys
 
+from horovod_tpu_torch.autopilot.remediate import CAUSES
+
 # Deliberately NARROWER than recorder._ANOMALY_KINDS: "chaos" is excluded
 # here because causation matching scans for the first anomaly AFTER an
 # injection — if injections themselves counted as anomalies, each one would
@@ -41,12 +43,6 @@ import sys
 _ANOMALY_KINDS = ("error", "stall", "kv_error")
 _ANOMALY_ELASTIC = ("abort", "restore")
 
-
-# The autopilot's remediation causes (JAX: horovod_tpu/autopilot/
-# remediate.py CAUSES). The port has no autopilot until ROADMAP A17's
-# second half; the analyzer keeps its own copy of the names so it reads
-# JAX dumps that carry them.
-CAUSES = ("dead", "stalled", "straggler")
 
 def _read_jsonl(path):
     out = []

@@ -16,9 +16,9 @@ never raise into the hot path.
 ``record_negotiation`` the negotiation rounds, ``record_http_kv`` and
 ``record_kv_retry`` the launcher KV client's RPCs and retries,
 ``record_chaos`` the chaos injections and ``record_telemetry_rpc`` the
-telemetry agent's rounds. The autopilot's two series keep their JAX name
-and help text and read zero until the autopilot is ported (ROADMAP A17's
-second half).
+telemetry agent's rounds, and ``record_autopilot_decision`` and
+``record_autopilot_remediation`` the autopilot controller's decisions and
+its remediations' lifecycle (``autopilot/``).
 Two have no counterpart, by design: ``record_plan_cache`` (the port's eager
 dispatch compiles no plan to cache) and ``record_compile_cache`` (it counts
 XLA's persistent compilation cache; the port compiles no XLA program, its

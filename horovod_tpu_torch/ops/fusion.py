@@ -170,7 +170,18 @@ steers where it is awaited (``_await_cross``, ``_steer_overlap``). On the
 GPU every bucket already runs on the side stream and only the stream that
 consumes a handle waits, on that bucket's event (``FusedHandle.synchronize``),
 so the overlap is there with the knob on or off; on the CPU a bucket is
-done when its flush returns. The knob is parsed and changes nothing.
+done when its flush returns. The knob is parsed and changes nothing; the
+runtime keeps JAX's ``_overlap``, ``_overlap_mode`` and ``_overlap_pinned``
+for the autopilot's overlap lever, whose pin changes nothing either.
+
+Autotune (``HOROVOD_AUTOTUNE``, ``autotune/``). Process 0's runtime holds a
+``ParameterManager`` (built by :func:`get_runtime` unless the autopilot is
+armed, which tunes the same knobs itself): each flush reports its bytes,
+after an ``invalidate_window()`` when a bucket of it fell back to flat, and
+a closed sample window returns the threshold, cycle time, strategy and
+wire the runtime takes from its next flush. Process 0's threshold rides
+every boundary: a follower assembles a published prefix with it, so each
+process forms the same buckets whatever the tuner moved.
 
 Streams and threads. On the GPU every bucket runs on one side stream, after
 the streams that produced its tensors; buckets therefore run in order and
@@ -187,6 +198,7 @@ import datetime
 import queue
 import threading
 import time
+import types
 
 import torch
 import torch.distributed as dist
@@ -310,7 +322,7 @@ class FusionRuntime:
                  size=1, store=None, epoch=0, wire_dtype="",
                  wire_error_feedback=True, strategy="flat", wire_dtype_dcn="",
                  topology=None, generation=0, stall_check=None,
-                 control_lease_ms=2000.0):
+                 control_lease_ms=2000.0, cross_overlap=True):
         self.threshold = int(threshold)
         self.device = device
         # The wire knob (process 0's; a follower holds the last one process
@@ -325,6 +337,12 @@ class FusionRuntime:
                              f"{STRATEGIES}")
         self.strategy = strategy
         self.wire_dtype_dcn = _wire.resolve_wire_dtype(wire_dtype_dcn)
+        # The knobs as configured, which the cross wire falls back to
+        # whatever a tuner does to wire_dtype, and the cross wire of the
+        # last flush (JAX's ``cross_wire``; a follower's: process 0's).
+        self._knobs = types.SimpleNamespace(
+            wire_dtype=self.wire_dtype, wire_dtype_dcn=self.wire_dtype_dcn)
+        self.cross_wire = _wire.cross_wire_for("global", self._knobs)
         self._topology = topology
         self._lock = threading.RLock()
         self._flushed = threading.Condition(self._lock)
@@ -352,6 +370,15 @@ class FusionRuntime:
         self._client = None      # this runtime's own connection to the store
         self._cycle_s = max(float(cycle_time_ms), 0.0) / 1000.0
         self._cycle_pause = False
+        # The flush-window autotuner (process 0; get_runtime builds it) and
+        # whether a bucket of the current flush fell back to flat.
+        self._parameter_manager = None
+        self._downgraded = False
+        # JAX's cross-leg overlap point (the autopilot's overlap lever pins
+        # it); nothing here reads it (see the module docstring).
+        self._overlap = bool(cross_overlap)
+        self._overlap_mode = "step"
+        self._overlap_pinned = False
         self._stop = threading.Event()
         # An enqueue, for the thread waiting on one: the cycle thread while
         # nothing is pending, a follower's thread holding a boundary ahead.
@@ -506,10 +533,12 @@ class FusionRuntime:
             item = self._publish_queue.get()
             if item is None:
                 return
-            seq, last, why, wire, strategy, cross, a2a, a2a_cross = item
+            (seq, last, why, wire, strategy, cross, a2a, a2a_cross,
+             threshold) = item
             try:
                 payload = (f"{last} {why} {wire or '-'} {strategy} "
-                           f"{cross or '-'} {a2a or '-'} {a2a_cross or '-'}")
+                           f"{cross or '-'} {a2a or '-'} {a2a_cross or '-'} "
+                           f"{threshold}")
                 self._client.set(self._boundary_key(seq), payload)
                 negotiation.record_fusion_kv(sets=1,
                                              payload_bytes=len(payload))
@@ -532,9 +561,13 @@ class FusionRuntime:
             if raw is None:
                 return None
             last, why, *rest = raw.decode().split()
+            # Process 0's threshold (absent from a payload without it: the
+            # follower keeps its own).
+            threshold = int(rest.pop()) if len(rest) > 5 else None
             wire, strategy, cross, a2a, a2a_cross = (
                 "" if v == "-" else v for v in rest)
-            return int(last), why, wire, strategy, cross, a2a, a2a_cross
+            return (int(last), why, wire, strategy, cross, a2a, a2a_cross,
+                    threshold)
         except dist.DistNetworkError as e:
             # Process 0 serves the store: no boundary will ever come.
             err = HorovodInternalError(
@@ -656,7 +689,8 @@ class FusionRuntime:
                 payload = self._fetch(seq, wait_s)
                 if payload is None:
                     return False
-            last, why, wire, strategy, cross, a2a, a2a_cross = payload
+            (last, why, wire, strategy, cross, a2a, a2a_cross,
+             threshold) = payload
             with self._lock:
                 if self._boundary_seq != seq:   # another thread applied it
                     wait_s = 0
@@ -675,8 +709,12 @@ class FusionRuntime:
                 self.wire_dtype = wire
                 if wire:
                     _wire.runtime_sync_wire_dtype(wire, "global")
-                self.strategy = strategy
+                self.strategy, self.cross_wire = strategy, cross
                 _sync_policy(strategy, cross, a2a, a2a_cross)
+                if threshold is not None:
+                    # Process 0's buckets: the same prefix is cut at the
+                    # same threshold on every process.
+                    self.threshold = threshold
                 self._flush_locked(why, up_to=last,
                                    policy=(wire, strategy, cross))
             wait_s = 0
@@ -850,15 +888,13 @@ class FusionRuntime:
         """The strategy and cross wire of the buckets about to close: a
         user's pinned dispatch strategy, else the knob; the cross wire
         through ``wire.cross_wire_for`` (its ``dcn`` entry, else
-        ``wire_dtype_dcn``, else the wire knob). Synced into the registries
-        as JAX's ``_sync_eager_policy`` does."""
+        ``wire_dtype_dcn``, else the configured wire knob). Synced into the
+        registries as JAX's ``_sync_eager_policy`` does."""
         pin = _wire.pinned_dispatch_strategy("global")
         strategy = self.strategy if pin is None else _PINNED[pin]
         if pin in ("hier", "hier_qcross") and self._slices() <= 1:
             strategy = "flat"     # JAX's eager tier: no slices, no tier
-        # This runtime stands for the config: its wire_dtype_dcn and
-        # wire_dtype are the knobs' (or process 0's).
-        cross = _wire.cross_wire_for("global", self)
+        cross = self.cross_wire = _wire.cross_wire_for("global", self._knobs)
         _sync_policy(strategy, cross)
         return strategy, cross
 
@@ -881,6 +917,10 @@ class FusionRuntime:
             return
         flushed_bytes = sum(e.nbytes for e in prefix)
         self._pending_bytes -= flushed_bytes
+        # This flush's threshold: a tuner update recorded below acts from
+        # the next flush.
+        threshold = self.threshold
+        self._downgraded = False
         t_flush_wall = time.time()
         profile_on = _profile.armed
         if profile_on:
@@ -894,8 +934,7 @@ class FusionRuntime:
             # A delay here stalls the flush under the runtime lock: every
             # enqueue waits behind it (the fusion-flush stall).
             _chaos.fire("fusion.flush")
-        _metrics.record_fusion_flush(len(prefix), flushed_bytes,
-                                     self.threshold)
+        _metrics.record_fusion_flush(len(prefix), flushed_bytes, threshold)
         if _flight.armed:
             _flight.record_event("fusion_flush", seq=prefix[-1].seq,
                                  nbytes=flushed_bytes,
@@ -909,11 +948,12 @@ class FusionRuntime:
             self._publish_queue.put((
                 self._boundary_seq, prefix[-1].seq, why, wire, strategy,
                 cross, _wire.alltoall_strategy_for("global"),
-                _wire.wire_dtype_for("a2a:global", "", tier="dcn")))
+                _wire.wire_dtype_for("a2a:global", "", tier="dcn"),
+                threshold))
             self._boundary_seq += 1
         error = None
         try:
-            for key, entries in self._assemble(prefix, wire):
+            for key, entries in self._assemble(prefix, wire, threshold):
                 try:
                     self._close(key, entries, why, wire, strategy, cross)
                 except Exception as exc:  # noqa: BLE001 — its handles hold it
@@ -927,8 +967,30 @@ class FusionRuntime:
                                  t_flush_wall,
                                  (t_f0, coll0, defer_s) if profile_on
                                  else None)
+        if self._parameter_manager is not None:
+            self._autotune_record(flushed_bytes)
         if error is not None:
             raise error
+
+    def _autotune_record(self, flushed_bytes):
+        """Report the flush to the tuner (JAX's per-flush step): a flush
+        with a bucket downgraded to flat first invalidates the window, so
+        flat timings are not scored as the configured strategy. A closed
+        window's knobs act from the next flush; the cycle thread reads the
+        new cycle at its next wake."""
+        pm = self._parameter_manager
+        if self._downgraded:
+            pm.invalidate_window()
+        update = pm.record(flushed_bytes)
+        if update is None:
+            return
+        threshold, cycle_ms, cats = update
+        self.threshold = int(threshold)
+        self._cycle_s = max(float(cycle_ms), 1e-3) / 1000.0
+        if "strategy" in cats:
+            self.strategy = cats["strategy"]
+        if "wire_dtype" in cats:
+            self.wire_dtype = _wire._normalize(cats["wire_dtype"])
 
     def _flush_observed(self, n, nbytes, wire, t_wall, bracket):
         """A flush's records after its buckets: the step profiler's fusion
@@ -952,12 +1014,14 @@ class FusionRuntime:
         except Exception:  # noqa: BLE001 — observability must not fail
             pass
 
-    def _assemble(self, prefix, wire=""):
+    def _assemble(self, prefix, wire="", threshold=None):
         """The prefix's buckets, as [(key, entries)] in order of first
         appearance: one open bucket per key (per group for a group's
         entries), closed when the next entry would take it past the
-        threshold. On a cast wire the key's dtype is the wire's (JAX's
-        ``_bucket_key``): fp32 and bf16 tensors then share buckets."""
+        threshold (the flush's; default the runtime's). On a cast wire the
+        key's dtype is the wire's (JAX's ``_bucket_key``): fp32 and bf16
+        tensors then share buckets."""
+        threshold = self.threshold if threshold is None else threshold
         buckets, open_ = [], {}
         for e in prefix:
             grouped = e.group is not None
@@ -965,7 +1029,7 @@ class FusionRuntime:
             slot = ("group", e.group) if grouped else key
             b = open_.get(slot)
             if b is None or (not grouped and b[2]
-                             and b[2] + e.nbytes > self.threshold):
+                             and b[2] + e.nbytes > threshold):
                 b = open_[slot] = [key, [], 0]
                 buckets.append(b)
             b[1].append(e)
@@ -1101,9 +1165,11 @@ class FusionRuntime:
             n = ps.size() - len(joined)
             numels = [e.tensor.numel() for e in entries]
             # JAX's refusals: only Sum/Average, and torus_qcross needs slices.
-            if op not in (ReduceOp.SUM, ReduceOp.AVERAGE) or joined or (
-                    strategy == "torus_qcross" and self._slices() <= 1):
+            if strategy != "flat" and (
+                    op not in (ReduceOp.SUM, ReduceOp.AVERAGE) or joined or (
+                        strategy == "torus_qcross" and self._slices() <= 1)):
                 strategy = "flat"
+                self._downgraded = True
             self._stats["strategies"][strategy] += 1
             quant = _bucket_quant(wire, op, joined, numels, n) \
                 if strategy == "flat" else None
@@ -1436,10 +1502,41 @@ def get_runtime():
                                if st.config.stall_check_disable
                                else (st.config.stall_check_time_seconds,
                                      st.config.stall_shutdown_time_seconds),
-                               control_lease_ms=st.config.control_lease_ms)
+                               control_lease_ms=st.config.control_lease_ms,
+                               cross_overlap=st.config.cross_overlap)
+            # The flush-window tuner, process 0's alone (JAX's rule: a
+            # manager per process would freeze different winners); the
+            # autopilot, when armed, tunes the same knobs itself.
+            if st.config.autotune and not st.config.autopilot \
+                    and st.rank == 0:
+                rt._parameter_manager = build_parameter_manager(st.config,
+                                                                rt)
             rt.start()
             st.fusion = rt
         return st.fusion
+
+
+def build_parameter_manager(config, runtime):
+    """The flush-window ``ParameterManager`` of ``runtime`` (JAX's runtime
+    constructor): the autotune knobs' windows over the runtime's threshold,
+    cycle time and the categorical space of ``sweep_categoricals`` (the
+    strategies, ``torus_qcross`` only over slices, and an opted-into
+    wire)."""
+    from horovod_tpu_torch.autotune import (ParameterManager,
+                                            sweep_categoricals)
+    from horovod_tpu_torch.common.topology import forced_slices
+    has_slices = bool(forced_slices()) or runtime._slices() > 1
+    cats = sweep_categoricals(runtime.strategy, config.wire_dtype,
+                              has_slices)
+    return ParameterManager(
+        warmup_samples=config.autotune_warmup_samples,
+        steps_per_sample=config.autotune_steps_per_sample,
+        bayes_opt_max_samples=config.autotune_bayes_opt_max_samples,
+        gaussian_process_noise=config.autotune_gaussian_process_noise,
+        log_file=config.autotune_log_file or None,
+        initial_threshold=config.fusion_threshold,
+        initial_cycle_ms=config.cycle_time_ms,
+        categorical_knobs=cats)
 
 
 def reset_runtime():

@@ -19,10 +19,11 @@ else ``removal``: removal-only versions let survivors keep their
 uncommitted state), whether a slot of the last membership is gone
 (``elastic/removed/{v}``: the workers' watchdog aborts their collectives),
 then the version (``elastic/version``). A host whose slot count changed
-keeps its surviving slots' processes. A version that removed a slot
-appends a disruption marker to ``driver_events.jsonl`` in the flight
-directory (``flight.driver_mark``): ``flight.analyze`` ties the workers'
-dumps to the membership change that caused them.
+keeps its surviving slots' processes. A version that removed a slot (a
+crashed one included) appends a disruption marker to
+``driver_events.jsonl`` in the flight directory (``flight.driver_mark``):
+``flight.analyze`` ties the workers' dumps to the membership change that
+caused them.
 
 Chaos (``--chaos-plan``): the driver arms the plan in its own process under
 the ``driver`` role; each discovery poll is one call of the
@@ -30,8 +31,16 @@ the ``driver`` role; each discovery poll is one call of the
 for its window (a simulated preemption, recovered through the same
 reassignment as a real removal). The KV store is sharded as the static
 launcher's is (``control_plane.kv_shard_count`` of the largest world the
-job may reach), and every worker gets the shard ports. The JAX driver's
-autopilot arm comes with the autopilot (ROADMAP A17's second half).
+job may reach), and every worker gets the shard ports.
+
+The autopilot's driver arm (``autopilot/remediate.py::DriverArm``, over
+the launcher's KV and this driver's ``HostManager``): every discovery
+poll consumes the controller's removal requests, re-checks the floor
+(``max(HOROVOD_AUTOPILOT_MIN_WORLD, --min-np)``) and the rate
+(``HOROVOD_AUTOPILOT_MAX_REMOVALS``) against the driver's own view, and
+blacklists an accepted host through the cooldown path, as a crashed host
+is; the host leaves that round's assignment at once and the survivors
+re-rendezvous.
 """
 
 import json
@@ -50,13 +59,19 @@ DISCOVER_INTERVAL_SECS = 1.0
 
 class ElasticDriver:
     def __init__(self, discovery, min_np, max_np=None, reset_limit=None,
-                 spawn_fn=None, shutdown_fn=None, cooldown_range=None):
+                 spawn_fn=None, shutdown_fn=None, cooldown_range=None,
+                 remediation_fn=None):
         """``spawn_fn(assignment, version)`` starts the workers of a new
         assignment; ``shutdown_fn(reason)`` stops them. Injected for tests,
         as the reference's tests drive ``_update_host_assignments``
         (reference: test_elastic_driver.py:46-509). ``cooldown_range``:
-        "base,cap" seconds of a failed host's cooldown."""
+        "base,cap" seconds of a failed host's cooldown.
+        ``remediation_fn(hosts)``: the autopilot's driver arm
+        (``DriverArm.poll``), called on every discovery poll with the
+        discovered hosts; the hosts it returns leave this round's
+        assignment (the cooldown keeps them out of later ones)."""
         self._host_manager = HostManager(discovery, cooldown_range)
+        self._remediation_fn = remediation_fn
         self._min_np = min_np
         self._max_np = max_np
         self._reset_limit = reset_limit
@@ -108,6 +123,11 @@ class ElasticDriver:
                 hosts = self._host_manager.current_hosts()
                 if _chaos.armed:
                     hosts = _chaos.filter_hosts("driver.discovery", hosts)
+                if self._remediation_fn is not None:
+                    removed = self._remediation_fn(hosts) or ()
+                    if removed:
+                        hosts = {h: s for h, s in hosts.items()
+                                 if h not in removed}
                 self._maybe_update(hosts)
             except Exception as e:  # noqa: BLE001 — a discovery hiccup
                 if self._shutdown.is_set():
@@ -309,7 +329,10 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         keep = (f"{version}/", f"{version - 1}/")
         for scope in ("results", "assignment", "new_rank_ready"):
             kv.prune_scope(scope, keep)
-        if driver.version_disrupted(version) and gone:
+        if driver.version_disrupted(version):
+            # JAX's rule: every disruptive version is marked, a crash's too
+            # (its worker left the table before this respawn, so ``gone``
+            # names only the hosts this version terminates).
             from horovod_tpu_torch.flight import recorder as _flight
             _flight.driver_mark(version, sorted({k[0] for k in gone}),
                                 sorted({s.hostname for s in assignment}))
@@ -376,10 +399,21 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
         state["done"].set()
 
     cooldown = args.blacklist_cooldown_range
+    # The autopilot's driver arm: present whether or not the workers run
+    # the controller (requests appear only when they do).
+    from horovod_tpu_torch.autopilot import remediate as _ap_remediate
+    arm = []
     driver = ElasticDriver(
         discovery, args.min_np or 1, args.max_np, args.reset_limit,
         spawn_fn=spawn, shutdown_fn=shutdown,
-        cooldown_range=f"{cooldown[0]},{cooldown[1]}" if cooldown else None)
+        cooldown_range=f"{cooldown[0]},{cooldown[1]}" if cooldown else None,
+        remediation_fn=lambda hosts: arm[0].poll(hosts) if arm else ())
+    arm.append(_ap_remediate.DriverArm(
+        kv, driver._host_manager,
+        min_world=max(_env_int("HOROVOD_AUTOPILOT_MIN_WORLD", 0, flag_env),
+                      args.min_np or 1),
+        max_removals=_env_int("HOROVOD_AUTOPILOT_MAX_REMOVALS", 1,
+                              flag_env)))
     from horovod_tpu_torch.common.config import _env_bool
     from horovod_tpu_torch.flight import recorder as _flight
     # This process's dumps and markers are the driver's; the flight switch

@@ -55,10 +55,16 @@ knobs ride along. The workers read (``common/config.py``):
   ``--telemetry-interval``: ``HOROVOD_TELEMETRY*``);
 - chaos (``--chaos-plan``, ``--chaos-seed``, ``--chaos-ledger``:
   ``HOROVOD_CHAOS_*``; ``hvd.init`` arms the plan, the elastic driver arms
-  its own copy under the ``driver`` role).
-
-Still set but not read: autotune and the autopilot (ROADMAP A17's second
-half).
+  its own copy under the ``driver`` role);
+- autotune (``--autotune``, ``--autotune-log-file``,
+  ``--autotune-warmup-samples``, ``--autotune-steps-per-sample``,
+  ``--autotune-bayes-opt-max-samples``,
+  ``--autotune-gaussian-process-noise``: ``HOROVOD_AUTOTUNE*``, the fusion
+  runtime's flush-window tuner on rank 0) and the autopilot
+  (``--autopilot``, ``--no-autopilot``, ``--autopilot-interval``,
+  ``--autopilot-prior``: ``HOROVOD_AUTOPILOT*``, the controller thread
+  ``hvd.init`` arms on rank 0; an elastic launch's driver polls its
+  removal requests).
 """
 
 import argparse
@@ -239,8 +245,7 @@ def parse_args(argv=None):
                                 "dispatch strategy and wire dtype from "
                                 "the signal plane, plus automated "
                                 "straggler/dead-rank blacklist + "
-                                "re-rendezvous under elastic launches. "
-                                "See docs/performance.md.")
+                                "re-rendezvous under elastic launches.")
     autopilot.add_argument("--no-autopilot", action="store_true",
                            dest="no_autopilot",
                            help="Explicitly disarm the autopilot "
@@ -255,13 +260,14 @@ def parse_args(argv=None):
                            dest="autopilot_prior",
                            help="Twin-pretrained warm start: path to an "
                                 "export_observations JSON artifact "
-                                "written by horovod_tpu.sim.autopilot "
+                                "written by python -m "
+                                "horovod_tpu_torch.sim --pretrain "
                                 "(HOROVOD_AUTOPILOT_PRIOR). The "
                                 "controller skips the categorical sweep "
                                 "and starts the numeric search at the "
                                 "twin's best point; a mismatched prior "
                                 "is rejected with a warning, never "
-                                "fatal. See docs/scale_validation.md.")
+                                "fatal.")
 
     tracing = p.add_argument_group("tracing")
     tracing.add_argument("--trace", action="store_true", dest="trace",

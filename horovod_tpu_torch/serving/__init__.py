@@ -6,8 +6,8 @@ with a per-slot KV cache, slots retire and refill independently, and the
 whole state rides the elastic machinery (``ServingState``), so a scale
 change or a worker kill drops no in-flight request. The serving and SLO
 series land on the metrics endpoint, whose ``/serving/health`` is the
-readiness frame. ``soak.py``, the chaos soak, comes with the chaos
-harness's soak (ROADMAP A17's second half).
+readiness frame. ``soak.py`` is the rolling-kill serving soak over the
+elastic launcher (``chaos/soak.py``).
 """
 
 from horovod_tpu_torch.serving.engine import (  # noqa: F401

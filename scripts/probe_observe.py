@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's observability phases alone, on one GPU.
 
-    python3 scripts/probe_observe.py [--phases observe,cluster,launch,hier_cpu_world] [--root DIR]
+    python3 scripts/probe_observe.py [--phases observe,cluster,launch,hier_cpu_world,autotune,soak_cpu_world] [--root DIR]
 
 Builds the kernels and runs the chosen ones of ``observe`` (A16's per-rank
 planes on GPT-2 small at full width: interleaved disarmed and armed
@@ -15,8 +15,12 @@ telemetry agents on the run's real digest, the /cluster routes),
 run-history, flight and chaos flags: the files each plane left, the
 chaos ledger, and ``python -m horovod_tpu_torch.goodput`` reading the
 run) and ``hier_cpu_world`` (4 CPU ranks, 2 x 2, with the hierarchical
-control plane, two KV shards, the order check and telemetry), through
-chip_smoke.py's ``PhaseRunner``. A phase that fails ends the probe with its exception and
+control plane, two KV shards, the order check and telemetry),
+``autotune`` (the flush-window tuner and the autopilot steering GPT-2
+small's fusion runtime from a detuned start, with and without the twin's
+prior) and ``soak_cpu_world`` (the chaos and autopilot soaks on 3 CPU
+ranks under the elastic launcher), through chip_smoke.py's
+``PhaseRunner``. A phase that fails ends the probe with its exception and
 a nonzero exit. ``--root`` runs another checkout's package (a parent
 commit unpacked into build/), for an A/B within one run of the card.
 
@@ -29,7 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("observe", "cluster", "launch", "hier_cpu_world")
+PHASES = ("observe", "cluster", "launch", "hier_cpu_world", "autotune",
+          "soak_cpu_world")
 
 
 def main(argv=None):
@@ -62,7 +67,9 @@ def main(argv=None):
     calls = {"observe": (cs.phase_observe, torch, hvd, dev, args, card),
              "cluster": (cs.phase_cluster, torch, hvd, dev, args, card),
              "launch": (cs.phase_launch, torch, args, card),
-             "hier_cpu_world": (cs.phase_hier_cpu_world, args)}
+             "hier_cpu_world": (cs.phase_hier_cpu_world, args),
+             "autotune": (cs.phase_autotune, torch, hvd, dev, args, card),
+             "soak_cpu_world": (cs.phase_soak_cpu_world, args)}
     for name in (p for p in PHASES if p in phases):
         run(name, *calls[name])
     hvd.shutdown()

@@ -126,6 +126,21 @@ assert horovod_tpu_torch.profile.roofline.PEAKS["h100"]["bf16_tflops"] == 989.0
 assert sample_token(__import__("numpy").arange(4.0), 0.0, 0, 1.0, 0, 0) == 3
 assert horovod_tpu_torch.metrics.REGISTRY.render_text().count(
     "# TYPE horovod_serving_") == 6
+import horovod_tpu_torch.autotune
+import horovod_tpu_torch.autotune.gaussian_process
+import horovod_tpu_torch.autotune.bayesian_optimization
+from horovod_tpu_torch.autotune import ParameterManager, sweep_categoricals
+import horovod_tpu_torch.autopilot
+from horovod_tpu_torch.autopilot import (AutopilotController, DriverArm,
+    RemediationPolicy, SignalFrame, get_controller)
+import horovod_tpu_torch.sim
+import horovod_tpu_torch.sim.__main__
+from horovod_tpu_torch.sim import TwinJob, Simulator, autopilot as sap
+import horovod_tpu_torch.chaos.soak
+import horovod_tpu_torch.serving.soak
+from horovod_tpu_torch.ops.fusion import build_parameter_manager
+assert get_controller() is None and sap.collective_step_tiers
+print("A17_SECOND_HALF")
 assert "cloudpickle" not in sys.modules, "the CLI path imports cloudpickle"
 jax_pkg = [m for m in sys.modules
            if m == "horovod_tpu" or m.startswith("horovod_tpu.")]
@@ -161,6 +176,14 @@ def child():
 def test_imports_with_jax_blocked(child):
     assert child.returncode == 0, child.stderr[-3000:]
     assert "IMPORTED" in child.stdout
+
+
+def test_controllers_twin_and_soaks_import_with_jax_blocked(child):
+    """``autotune``, ``autopilot``, ``sim``, ``chaos.soak`` and
+    ``serving.soak`` import with ``jax`` blocked and leave no module of
+    the JAX package loaded."""
+    assert child.returncode == 0, child.stderr[-3000:]
+    assert "A17_SECOND_HALF" in child.stdout
 
 
 def test_init_without_gpu_raises_named_error(child):

@@ -125,3 +125,34 @@ def control_plane_world(rank, size, seed, rounds, kv_port, ledger_root):
     os.environ.pop("HOROVOD_CONTROL_PLANE", None)
     return out
 
+
+
+# The tensors of one round of the autotune world (fp32 elements): ~4.7 MB a
+# round, so a 1 MB threshold splits it and every move of it shows.
+AUTOTUNE_SIZES = (65536, 131072, 32768, 262144, 98304, 16384) * 2
+
+
+def autotune_world(rank, size, rounds, seed):
+    """Rounds of async Average allreduces on the runtime the knobs build
+    (``HOROVOD_AUTOTUNE`` and its windows in the env, or not): each round's
+    values, the buckets this process formed (trigger, strategy, numels),
+    the threshold it holds after each round, and whether it holds a
+    tuner."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    hvd.init(device="cpu")
+    rt = get_runtime()
+    gen = torch.Generator().manual_seed(seed + rank)
+    vals, thresholds = [], []
+    for r in range(rounds):
+        ts = [torch.randn(n, generator=gen) for n in AUTOTUNE_SIZES]
+        hs = [hvd.allreduce_async(t, op=hvd.Average, name=f"r{r}.{i}")
+              for i, t in enumerate(ts)]
+        vals.append([h.synchronize().numpy().copy() for h in hs])
+        thresholds.append(rt.threshold)
+    out = {"vals": vals, "thresholds": thresholds,
+           "tuner": rt._parameter_manager is not None,
+           "buckets": [(why, sig[6], [n for _, n in sig[-1]])
+                       for why, sig in rt.recent_buckets(4096)]}
+    hvd.shutdown()
+    return out
