@@ -6,7 +6,9 @@ Run from the root of a checkout:
     python3 chip_smoke.py [--seed 0] [--steps 10] [--warmup 2] [--batch 64]
 
 (``--launched-worker gpt|fail|cpu_world|elastic|elastic_cpu|hier_cpu`` is
-this script as a worker that the launch phases start through hvdrun-torch.)
+this script as a worker that the launch phases start through hvdrun-torch;
+``--witness-worker`` is the race_witness phase's child. ``--phases
+race_witness`` runs env, build and that phase alone.)
 
 Phases, one JSON line each (each with its seconds):
 
@@ -516,6 +518,26 @@ tuners that steer the fusion runtime and the soaks.
    run_autopilot_soak at 3 (the controller names the permanent straggler,
    the driver arm removes its host, the survivors finish at world 2, the
    flight trail's remediation names its rank, host and cause).
+
+Phase 48 runs after soak_cpu_world: A18's first half, hvdlint and hvdrace.
+
+48. race_witness: this script again as a child (--witness-worker), with
+   HVD_LOCK_WITNESS=1 and HVD_LOCK_WITNESS_FILE, so hvdrace's acquisition
+   witness wraps every lock the port allocates: hvd.init() on the card,
+   GPT-2 small at train_gpt's settings (8 x 1024, bf16, flash, AdamW in
+   hvd.DistributedOptimizer through the fusion runtime and its cycle
+   thread) for WITNESS_STEPS steps, a ServingEngine on the same weights
+   (WITNESS_SLOTS slots, two submitter threads, a commit and a restore), 3
+   ticks of a TelemetryAgent and 2 of an AutopilotController,
+   hvd.shutdown() and a re-init. Then, in this process, the edges it saw
+   against race.analyze_paths over the package. Checks: the child's losses
+   finite, every flash kernel and both scale kernels launched, its
+   requests served; the witness recorded edges and wrapped the fusion
+   runtime's locks; no static finding and cross_check clean (no HVR210, no
+   HVR211); hvdlint over the package and this script and hvdrace over the
+   package clean, each within WITNESS_GATE_S. Printed: the edges observed,
+   the locks wrapped, the static edges, each gate's seconds, the witnessed
+   run's tokens/s beside train_gpt's.
 
 The train phases run with the fusion runtime's cycle thread live (1 ms, the
 default): each step's pack and unpack launches are held to the buckets that
@@ -1613,7 +1635,7 @@ def phase_train_wire(torch, hvd, dev, args, card, make_model):
     sb.reset_launch_counts()                 # the wire paths start here
     for label in WIRE_RUNS:
         hvd.shutdown()
-        os.environ["HOROVOD_WIRE_DTYPE"] = label
+        os.environ["HOROVOD_WIRE_DTYPE"] = label  # hvdlint: disable=HVL003 -- the harness re-inits its one-rank world under each wire, as a launcher would export it
         hvd.init()
         rt = get_runtime()
         check(rt.wire_dtype == label, f"the runtime's wire is {label!r}")
@@ -4654,7 +4676,7 @@ def hier_control_plane(torch, hvd, args, rank):
     from horovod_tpu_torch.ops import fusion
     hier_vals, hier_buckets, role = hier_fused(torch, hvd, args.seed, rank)
     stats = negotiation.stats_snapshot()       # the hierarchical stretch
-    os.environ["HOROVOD_CONTROL_PLANE"] = "flat"
+    os.environ["HOROVOD_CONTROL_PLANE"] = "flat"  # hvdlint: disable=HVL003 -- every rank of the harness's CPU world sets it before the collective reset_runtime
     fusion.reset_runtime()
     flat_vals, flat_buckets, flat_role = hier_fused(torch, hvd, args.seed,
                                                     rank)
@@ -7070,7 +7092,7 @@ def phase_serve(torch, dev, args, card):
                        "seed": 5} if i == 0 else {})}
                   for i in range(SERVE_SLOTS)]
         answers = [None] * len(bodies)
-        threads = [threading.Thread(target=post, args=(i, b))
+        threads = [threading.Thread(target=post, args=(i, b), daemon=True)
                    for i, b in enumerate(bodies)]
         t0 = time.perf_counter()
         for t in threads:
@@ -7258,7 +7280,8 @@ def phase_launch_serving(torch, args, card):
             with urlrequest.urlopen(req, timeout=120) as resp:
                 answers[i] = (resp.status, json.loads(resp.read()))
         t0 = time.perf_counter()
-        posts = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        posts = [threading.Thread(target=post, args=(i,), daemon=True)
+                 for i in range(4)]
         for t in posts:
             t.start()
         for t in posts:
@@ -7782,7 +7805,7 @@ def phase_cluster(torch, hvd, dev, args, card):
                 "warnings": warnings() - warn0, "dumps": dumps,
                 "records": [recs.get(s) for s in steps_of]}
 
-    os.environ["HOROVOD_FLIGHT_DIR"] = str(work / "flight")
+    os.environ["HOROVOD_FLIGHT_DIR"] = str(work / "flight")  # hvdlint: disable=HVL003 -- the phase's dumps go to its scratch directory; the recorder reads the variable at dump time
     try:
         step()                                 # warm-up, on the old runtime
         mark()
@@ -8308,6 +8331,268 @@ def phase_soak_cpu_world(args):
                                             for r in ap["results"]]}})
 
 
+# The race_witness phase: a child process trains, serves and ticks the
+# control loops under hvdrace's lock witness; the parent holds the edges it
+# saw to the static lock graph and runs both lint gates.
+WITNESS_STEPS = 6                    # training steps under the witness
+WITNESS_SLOTS = 3                    # the serving engine's slots
+WITNESS_REQUESTS = 3                 # per submitter thread (two threads)
+WITNESS_TIMEOUT = 420                # seconds, the child's whole run
+WITNESS_GATE_S = 30.0                # each lint gate's budget
+WITNESS_SIZES = {
+    # (batch, seq, prompt, max_new): full is train_gpt's GPT-2 small.
+    "full": (GPT_BATCH, GPT_SEQ, 16, 8),
+    "tiny": (2, 16, 6, 4),
+}
+
+
+def witness_worker(args):
+    """``--witness-worker``: the race_witness phase's child. Run with
+    HVD_LOCK_WITNESS=1 (and HVD_LOCK_WITNESS_FILE), so the witness is in
+    place before any module of the port allocates a lock. hvd.init() on
+    ``--witness-device``; GPT (``--witness-size full``: GPT-2 small at
+    train_gpt's settings, 8 x 1024 tokens, bf16, flash on; ``tiny``: GPT
+    tiny) trained WITNESS_STEPS steps with AdamW in hvd.DistributedOptimizer
+    through the fusion runtime and its cycle thread; a ServingEngine on the
+    same weights fed from two submitter threads, through a commit and a
+    restore; 3 ticks of a TelemetryAgent over an in-process KV store and 2
+    of an AutopilotController; hvd.shutdown() and a re-init. Prints one
+    JSON line: the readings, the launch counts, the edges and wrapped locks
+    so far. The edges reach the file when the process exits."""
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import race
+    from horovod_tpu_torch.ops.fusion import get_runtime
+    from horovod_tpu_torch.ops.kernels import adasum as ak
+    from horovod_tpu_torch.ops.kernels import flash_attention as fa
+    from horovod_tpu_torch.ops.kernels import scale_buffers as sb
+
+    check(race._witness_installed,
+          "HVD_LOCK_WITNESS=1 installed the witness at import")
+    cuda = args.witness_device == "cuda"
+    batch, seq, prompt_len, max_new = WITNESS_SIZES[args.witness_size]
+    hvd.init(device=None if cuda else "cpu")
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if args.witness_size == "full":
+        model = build_gpt(torch, dev, args.seed)
+    else:
+        from horovod_tpu_torch.models import GPT, GPTConfig
+        model = GPT(GPTConfig.tiny(tp_axis=None, ep_axis=None),
+                    generator=torch.Generator().manual_seed(args.seed))
+        model = model.to(dev).train()
+    cfg = model.config
+    fa.reset_launch_counts()              # the path starts here
+    sb.reset_launch_counts()
+    ak.reset_launch_counts()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                        device=dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    losses = []
+    for i in range(WITNESS_STEPS):
+        if i == 1:                          # the first step warms up
+            sync()
+            t0 = time.perf_counter()
+        opt.zero_grad()
+        value = next_token_loss(F, model(ids), ids)
+        value.backward()
+        opt.step()
+        losses.append(value.detach())
+    sync()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(STEP_COUNTS, (
+        fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+        sb.pack_launches, sb.unpack_launches)),
+        adasum_combine=ak.launches)                 # the path ends
+    losses = [x.item() for x in losses]
+    check(all(map(math.isfinite, losses)), f"finite losses {losses}")
+    rt = get_runtime()
+    fusion_locks = {name: type(getattr(rt, name)).__name__
+                    for name in ("_lock", "_fetch_lock")}
+    check(rt.threads(), "the fusion runtime's cycle thread runs")
+
+    from horovod_tpu_torch.serving import ServingEngine
+    model.eval()
+    eng = ServingEngine(model, num_slots=WITNESS_SLOTS,
+                        max_len=prompt_len + max_new + 1,
+                        prefill_chunk=prompt_len)
+    check(type(eng._submit_lock).__name__ == "_WitnessProxy",
+          "the engine's submit lock is witnessed")
+    reqs, mine = [], threading.Lock()       # the harness's, not witnessed
+
+    def submitter(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(WITNESS_REQUESTS):
+            p = [int(t) for t in rng.integers(0, cfg.vocab_size, prompt_len)]
+            r = eng.submit(p, max_new=max_new)
+            with mine:
+                reqs.append(r)
+
+    threads = [threading.Thread(target=submitter, args=(s,), daemon=True)
+               for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    check(len(reqs) == 2 * WITNESS_REQUESTS, f"{len(reqs)} submitted")
+    for _ in range(3):
+        eng.step()
+    snap = eng.request_snapshot()           # the commit
+    eng.load_request_snapshot(snap)         # the restore
+    eng.run_until_idle()
+    check(all(r.done() for r in reqs), "every request completed")
+    served = sum(len(r.committed) for r in reqs)
+
+    from horovod_tpu_torch.autopilot.controller import AutopilotController
+    from horovod_tpu_torch.common.config import Config
+    from horovod_tpu_torch.runner.http_kv import KVStoreServer
+    from horovod_tpu_torch.telemetry.aggregator import TelemetryAgent
+
+    kv = KVStoreServer(secret="")
+    clock = [1000.0]
+    agent = TelemetryAgent(kv, rank=0, world=1, num_slices=1, interval=1.0,
+                           gen="0", include_metrics=False,
+                           time_fn=lambda: clock[0])
+    try:
+        for _ in range(3):
+            clock[0] += 1.0
+            agent.tick()
+        ctrl = AutopilotController(Config(
+            autopilot=True, autotune_warmup_samples=0,
+            autotune_bayes_opt_max_samples=3))
+        ctrl.tick()
+        ctrl.tick()
+    finally:
+        agent.stop()
+        kv.stop()
+    hvd.shutdown()
+    hvd.init(device=None if cuda else "cpu")
+    hvd.shutdown()
+    emit({"witness_worker": {
+        "size": args.witness_size, "device": args.witness_device,
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": batch, "seq": seq, "steps": WITNESS_STEPS,
+        "losses": losses,
+        "tokens_per_sec": batch * seq * (WITNESS_STEPS - 1) / elapsed,
+        "launches": launches, "fusion_locks": fusion_locks,
+        "served_requests": len(reqs), "served_tokens": served,
+        "edges": len(race.witness_edges()),
+        "locks_wrapped": len(race._witness_locks)}})
+    return 0
+
+
+def witness_gates(size, device, seed=0):
+    """The race_witness phase without its printing: the child above in a
+    process of its own (HVD_LOCK_WITNESS=1, its edges to a file), then the
+    edges held to ``race.analyze_paths`` over the package (no static
+    finding, and ``cross_check`` gives none: no HVR210, no HVR211), and
+    both lint gates over the checkout (hvdlint over the package and this
+    script, hvdrace over the package), each clean within WITNESS_GATE_S.
+    Returns the readings."""
+    import tempfile
+
+    from horovod_tpu_torch.analysis import lint, race
+
+    pkg = ROOT / "horovod_tpu_torch"
+    with tempfile.TemporaryDirectory() as tmp:
+        edges_file = os.path.join(tmp, "witness.jsonl")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("HOROVOD_", "HVD_"))}
+        env.update(HVD_LOCK_WITNESS="1", HVD_LOCK_WITNESS_FILE=edges_file,
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (str(ROOT), env.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--witness-worker",
+             "--witness-size", size, "--witness-device", device,
+             "--seed", str(seed)],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=WITNESS_TIMEOUT)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"the witnessed child exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines()
+                 if line.startswith('{"witness_worker"')]
+        check(lines, f"the child printed its readings: {proc.stdout[-2000:]}")
+        child = lines[-1]["witness_worker"]
+        observed = race.load_witness(edges_file)
+    t0 = time.perf_counter()
+    report = race.analyze_paths([str(pkg)], base=str(ROOT))
+    race_s = time.perf_counter() - t0
+    check(not report.findings, "hvdrace over the package is clean: "
+          + "; ".join(f.render() for f in report.findings))
+    bad = race.cross_check(report, observed)
+    check(not bad, "every witnessed edge is in the static graph: "
+          + "; ".join(f.render() for f in bad))
+    check(observed, "the witness recorded acquisition edges")
+    check(all(v == "_WitnessProxy" for v in child["fusion_locks"].values()),
+          f"the witness wrapped the fusion runtime's locks: "
+          f"{child['fusion_locks']}")
+    paths, base = lint.default_paths()
+    t0 = time.perf_counter()
+    findings, n_files = lint.lint_paths(paths, base=base)
+    lint_s = time.perf_counter() - t0
+    check(not findings, "hvdlint over the package and chip_smoke.py is "
+          "clean: " + "; ".join(f.render() for f in findings))
+    check(lint_s < WITNESS_GATE_S and race_s < WITNESS_GATE_S,
+          f"each gate within {WITNESS_GATE_S} s: lint {lint_s:.2f} s, "
+          f"race {race_s:.2f} s")
+    return {"child": child, "child_seconds": child_s,
+            "edges_observed": len(observed),
+            "edge_acquisitions": sum(observed.values()),
+            "locks_wrapped": child["locks_wrapped"],
+            "static_edges": len(report.edges),
+            "static_locks": len(report.lock_idents),
+            "race_files": report.n_files, "race_seconds": race_s,
+            "lint_files": n_files, "lint_seconds": lint_s}
+
+
+def phase_race_witness(torch, args, card):
+    """race_witness: witness_gates at full size on the card. Checks: the
+    child's run (finite losses; every flash kernel and both scale kernels
+    launched; the requests served), the witness's edges against the static
+    graph, both lint gates. Printed: the edges observed, the locks wrapped,
+    the static graph's edges, each gate's seconds, and the witnessed run's
+    tokens/s beside train_gpt's in this call (a figure, not a gate).
+    Returns the child's launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()                # the child shares the card
+    out = witness_gates("full", "cuda", args.seed)
+    launches = out["child"]["launches"]
+    check(all(launches[k] > 0 for k in STEP_COUNTS),
+          f"the witnessed GPT path launched every flash and scale kernel: "
+          f"{launches}")
+    emit({"phase": "race_witness", **out,
+          "train_gpt_tokens_per_sec":
+              READINGS.get("train_gpt", {}).get("tokens_per_sec"),
+          "note": "the child: GPT-2 small at train_gpt's settings under "
+                  "HVD_LOCK_WITNESS=1, then serving, telemetry, autopilot "
+                  "and a re-init; tokens/s over its last "
+                  f"{WITNESS_STEPS - 1} steps",
+          "card": card})
+    return launches
+
+
+# Phases that need nothing of an earlier one: ``--phases`` runs them alone.
+STANDALONE_PHASES = {"race_witness": phase_race_witness}
+
+
 class PhaseRunner:
     """``run(name, fn, *args)`` calls one phase and returns what it returns.
     Each phase's peak is its own: what earlier phases left is collected and
@@ -8353,10 +8638,26 @@ def main(argv=None):
     ap.add_argument("--discovery-script",
                     help="--launched-worker elastic_cpu's discovery script, "
                          "which the scenario rewrites")
+    ap.add_argument("--witness-worker", action="store_true",
+                    help="run as the race_witness phase's child (under "
+                         "HVD_LOCK_WITNESS=1)")
+    ap.add_argument("--witness-size", choices=tuple(WITNESS_SIZES),
+                    default="full", help="--witness-worker's GPT")
+    ap.add_argument("--witness-device", choices=("cuda", "cpu"),
+                    default="cuda", help="--witness-worker's device")
+    ap.add_argument("--phases",
+                    help="comma-separated phases that stand alone ("
+                         + ", ".join(STANDALONE_PHASES) + "), run after env "
+                         "and build instead of the whole script")
     args = ap.parse_args(argv)
     check(args.warmup >= 1 and args.steps >= 1, "--warmup and --steps >= 1")
     if args.launched_worker:
         return launched_worker(args)
+    if args.witness_worker:
+        return witness_worker(args)
+    phases = args.phases.split(",") if args.phases else []
+    check(all(p in STANDALONE_PHASES for p in phases),
+          f"--phases takes {sorted(STANDALONE_PHASES)}: {phases}")
 
     import torch
     if not torch.cuda.is_available():
@@ -8378,6 +8679,16 @@ def main(argv=None):
 
     card = run("env", phase_env, torch)
     run("build", phase_build)
+    if phases:
+        for name in phases:
+            run(name, STANDALONE_PHASES[name], torch, args, card)
+        emit({"phase": "seconds", **seconds})
+        print(card_line(), flush=True)
+        emit({"ok": True, "phases": phases,
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return 0
     model = resnet50()
     gpt = build_gpt(torch, dev, args.seed)
     shapes = {name: [tuple(p.shape) for p in m.parameters()]
@@ -8519,6 +8830,8 @@ def main(argv=None):
     autotune_launches = run("autotune", phase_autotune, torch, hvd, dev,
                             args, card)
     run("soak_cpu_world", phase_soak_cpu_world, args)
+    witness_launches = run("race_witness", phase_race_witness, torch, args,
+                           card)
     hvd.shutdown()
     emit({"phase": "seconds", **seconds})
     emit({"phase": "allocated_gb_at_phase_start", **start_gb})
@@ -8531,7 +8844,8 @@ def main(argv=None):
                          "train_powersgd", "train_gpt_tp_sp", "ring_flash",
                          "train_zero", "train_fsdp", "train_gpt_moe",
                          "train_composite", "pipeline_virtual", "train_lora",
-                         "generate", "observe", "cluster", "autotune")
+                         "generate", "observe", "cluster", "autotune",
+                         "race_witness")
     replaces = "horovod_tpu/ops/pallas/kernels.py:43"
     by_path.update(train=launches, train_adasum=ada_launches,
                    collectives=coll_launches, train_elastic=elastic_launches,
@@ -8549,14 +8863,15 @@ def main(argv=None):
                    train_inception3=inception_launches,
                    train_lora=lora_launches, generate=generate_launches,
                    observe=observe_launches, cluster=cluster_launches,
-                   autotune=autotune_launches)
+                   autotune=autotune_launches, race_witness=witness_launches)
     scale_paths = ("train", "train_gpt", "train_bert", "train_llama",
                    "train_vit", "launch", "train_adasum", "collectives",
                    "train_elastic", "launch_elastic", "train_wire",
                    "train_syncbn", "train_gpt_chunked", "train_powersgd",
                    "train_hierarchical", "train_gpt_tp_sp", "train_gpt_moe",
                    "train_t5", "train_vgg16", "train_inception3",
-                   "train_lora", "observe", "cluster", "autotune")
+                   "train_lora", "observe", "cluster", "autotune",
+                   "race_witness")
     check(all(by_path[p][k] > 0 for p in ("train_wire", "train_syncbn",
                                           "train_hierarchical")
               for k in ("scale_pack", "scale_unpack")),
@@ -8636,7 +8951,9 @@ def main(argv=None):
         {"name": "adasum_combine", "route": "cuda", "source": ADASUM_SOURCE,
          "replaces": ADASUM_REPLACES, "launches": gathered_launches,
          "launches_by_path": {"train_adasum": ada_launches["adasum_combine"],
-                              "adasum_gathered": gathered_launches},
+                              "adasum_gathered": gathered_launches,
+                              "race_witness":
+                                  witness_launches["adasum_combine"]},
          "status": "redesigned: one cooperative launch per tree level, a "
                    "and b read once; a streaming route (two launches) for "
                    "a tensor past a round",

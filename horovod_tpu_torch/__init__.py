@@ -15,9 +15,25 @@ the hierarchical alltoall's pins (``hvd.set_alltoall_strategy``,
 ``hvd.goodput``, ``hvd.metrics_snapshot`` and ``hvd.metrics_text``, and
 the cluster telemetry plane and the control plane's chaos injection:
 ``hvd.telemetry``, ``hvd.cluster_snapshot`` and ``hvd.chaos``.
+
+``HVD_LOCK_WITNESS=1`` at import installs hvdrace's acquisition witness
+(``horovod_tpu_torch.analysis.race``) before any of the package's modules
+allocates a lock; ``HVD_LOCK_WITNESS_FILE=<path>`` dumps the edges it saw
+there when the process exits.
 """
 
-from horovod_tpu_torch.torch import *  # noqa: F401,F403
+# HVD_LOCK_WITNESS=1: swap threading.Lock/RLock for hvdrace's recording
+# proxies BEFORE any package module allocates a lock, so every acquisition
+# edge lands in the witness log.
+import os as _os  # noqa: E402
+
+if _os.environ.get("HVD_LOCK_WITNESS", "").strip() in ("1", "true", "on"):
+    from horovod_tpu_torch.analysis import race as _race
+
+    _race.maybe_install_from_env()
+del _os
+
+from horovod_tpu_torch.torch import *  # noqa: F401,F403,E402
 from horovod_tpu_torch.torch import __all__  # noqa: F401
 from horovod_tpu_torch.ops import wire  # noqa: F401
 from horovod_tpu_torch.ops.wire import (set_dispatch_strategy,  # noqa: F401

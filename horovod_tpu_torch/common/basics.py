@@ -68,7 +68,10 @@ class _State:
         self.cross_size = cross_size
         self.process_set_table = None   # set by process_sets._init_table
         self.topology = None            # common.topology.Topology
-        self.fusion = None              # set lazily by ops.fusion
+        # Set lazily by ops.fusion. The annotations here and on the
+        # functions that take a _State are hvdrace's breadcrumbs: the lock
+        # graph follows st.fusion's calls into the runtime.
+        self.fusion: "FusionRuntime | None" = None
         # Runtimes built in this world so far (ops.fusion.reset_runtime):
         # each one's store keys are its own.
         self.fusion_generation = 0
@@ -117,6 +120,14 @@ def init(comm=None, process_sets=None, device=None):
     compatibility; rank subsets use ``process_sets``.
     """
     global _state, _asked_device
+    if torch.device(device or "cuda").type == "cuda" \
+            and torch.cuda.is_available():
+        # The fusion runtime launches the scale and Adasum kernels under
+        # its flush lock, where a library is only loaded: compile every
+        # source here, before any lock (nvcc in parallel; a no-op once
+        # they are built).
+        from horovod_tpu_torch.ops.kernels import _build
+        _build.build()
     with _lock:
         if _state is not None:
             return
@@ -143,7 +154,7 @@ def init(comm=None, process_sets=None, device=None):
         if os.environ.get("HOROVOD_KV_ADDR"):
             # A launched worker: tell the launcher's watchdog it got here.
             from horovod_tpu_torch.runner.task import register_bootstrap
-            register_bootstrap()
+            register_bootstrap()  # hvdrace: disable=HVR202 -- bounded, once per init: a UDP connect (a route lookup, no packet sent) and one KV put with timeout=5 s and retries=0; a failure is printed, never raised
         if dist.is_initialized():
             raise HorovodInternalError(
                 "torch.distributed is already initialized; hvd.init() owns "
@@ -335,7 +346,7 @@ def asked_device():
     return _asked_device
 
 
-def _abort_locked(st, reason):
+def _abort_locked(st: "_State", reason):
     """Fail the fusion runtime's pending handles and abort the process
     group (every group of the world), with no store traffic and no wait on
     peers."""
@@ -376,12 +387,16 @@ def shutdown(abort=False):
             pass
         st, _state = _state, None
         try:
-            _shutdown_locked(st, abort)
+            _shutdown_locked(st, abort)  # hvdrace: disable=HVR202 -- the teardown's final flush runs under _lock on purpose, so no init or collective interleaves with it; it reaches chaos injection (the injected fault), the flight dump of a failed launch, and a follower's drain of its last boundaries, bounded at 30 s
         finally:
             _close_planes(st)
+    # The membership watchdog ends with the process's group (it joins a
+    # thread, so after the lock is released).
+    from horovod_tpu_torch.elastic import worker as _elastic_worker
+    _elastic_worker.stop_collective_abort()
 
 
-def _shutdown_locked(st, abort):
+def _shutdown_locked(st: "_State", abort):
     """The process group's teardown: aborted, or drained and destroyed."""
     from horovod_tpu_torch.metrics.server import stop_http_server
     stop_http_server()

@@ -21,13 +21,18 @@ metrics knobs (``HOROVOD_SERVING*``, ``HOROVOD_TRACE*``,
 ``HOROVOD_SLO_*``, ``HOROVOD_METRICS*``) and the per-rank observability
 planes' knobs (``HOROVOD_TIMELINE*``, ``HOROVOD_FLIGHT_*``,
 ``HOROVOD_STEP_PROFILER``, ``HVD_STEP_REPORT_FILE``, ``HOROVOD_PROFILE_*``,
-``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``, ``HOROVOD_RUN_ID``), the
+``HOROVOD_PEAK_*``, ``HOROVOD_GOODPUT*``, ``HOROVOD_RUN_HISTORY_DIR``,
+``HOROVOD_RUN_ID``), the
 control plane's (``HOROVOD_STALL_CHECK_*``, ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``,
 ``HOROVOD_ORDER_CHECK``, ``HOROVOD_CONTROL_PLANE``, ``HOROVOD_KV_SHARD_*``,
-``HOROVOD_CONTROL_LEASE_MS``, ``HOROVOD_CHAOS_*``), the cluster telemetry
-plane's (``HOROVOD_TELEMETRY*``), and the tuners' (``HOROVOD_AUTOTUNE*``,
-``HOROVOD_AUTOPILOT*``, ``HOROVOD_PROFILE_Z_THRESHOLD``) with JAX's
-defaults.
+``HOROVOD_CONTROL_LEASE_MS``, ``HOROVOD_KV_RETRY*``, ``HOROVOD_CHAOS_*``),
+the cluster telemetry plane's (``HOROVOD_TELEMETRY*``), the tuners'
+(``HOROVOD_AUTOTUNE*``, ``HOROVOD_AUTOPILOT*``,
+``HOROVOD_PROFILE_Z_THRESHOLD``), the scale twin's (``HOROVOD_SIM_*``) and
+the logging's (``HOROVOD_LOG_LEVEL``, ``HOROVOD_LOG_HIDE_TIME``) with JAX's
+defaults. Every knob declared here rides from the launcher to each worker
+(``runner/launch.py::build_worker_env``), which ``python -m
+horovod_tpu_torch.analysis.lint`` holds (HVL007).
 """
 
 import dataclasses
@@ -180,6 +185,13 @@ class Config:
     # drift checks (the step watchdog reads the same variable).
     profile_z_threshold: float = 4.0
 
+    # --- the scale twin (sim/): its virtual control plane's latency model,
+    # the base cost of one KV RPC and the cross-slice surcharge in
+    # microseconds (sim/core.py::LatencyModel.from_env reads them). The
+    # twin's guards assert on RPC counts; these only shape virtual times.
+    sim_kv_us: float = 5.0
+    sim_dcn_us: float = 50.0
+
     # --- serving (serving/; `hvdrun-torch --serving` sets HOROVOD_SERVING,
     # `python -m horovod_tpu_torch.serving` is the worker it launches) ---
     serving: bool = False
@@ -243,6 +255,19 @@ class Config:
     profile_dir: str = ""
     # Watchdog cross-rank publish cadence in steps (0 = local-only).
     profile_publish_steps: int = 16
+    # Completed per-step records kept in the ledger's ring.
+    profile_history: int = 512
+    # Per-peer KV read budget of the watchdog's cross-rank round (ms).
+    profile_publish_timeout_ms: int = 250
+    # The least excess (ms) over the median that marks a straggler, so
+    # microsecond jitter never trips the robust-z test.
+    profile_straggler_min_ms: float = 5.0
+    # Roofline peak overrides (0 = the detected card's row): bf16 TFLOP/s,
+    # HBM / ICI / DCN GB/s (profile/roofline.py::chip_peaks reads them).
+    peak_tflops: float = 0.0
+    peak_hbm_gbs: float = 0.0
+    peak_ici_gbs: float = 0.0
+    peak_dcn_gbs: float = 0.0
 
     # --- goodput/badput accounting + durable run history (goodput/) ---
     goodput: bool = True
@@ -295,6 +320,12 @@ class Config:
     # A slice member whose leader has not re-published a boundary the root
     # holds within this lease takes the re-publish over.
     control_lease_ms: float = 2000.0
+    # The KV client's retries of a transient transport fault (URLError,
+    # connection reset, HTTP 5xx) with jittered exponential backoff
+    # (runner/http_kv.py); a 404 or another 4xx is an answer, never retried.
+    kv_retries: int = 3
+    kv_retry_backoff_ms: float = 50.0
+    kv_retry_backoff_max_ms: float = 2000.0
 
     # --- chaos (chaos/): a seeded fault plan, a JSON (or, with PyYAML,
     # YAML) file or inline text; "" = disarmed. The seed overrides the
@@ -320,6 +351,11 @@ class Config:
     # collective-seq lag marking it desynced.
     telemetry_step_lag: int = 5
     telemetry_seq_lag: int = 64
+
+    # --- logging (common/logging.py; reference: HOROVOD_LOG_LEVEL /
+    # HOROVOD_LOG_HIDE_TIME, horovod/common/logging.cc) ---
+    log_level: str = "warning"
+    log_hide_time: bool = False
 
     def __post_init__(self):
         if self.trace_capacity < 1:
@@ -429,6 +465,8 @@ class Config:
                                            c.autopilot_prior)
         c.profile_z_threshold = _env_float("HOROVOD_PROFILE_Z_THRESHOLD",
                                            c.profile_z_threshold)
+        c.sim_kv_us = _env_float("HOROVOD_SIM_KV_US", c.sim_kv_us)
+        c.sim_dcn_us = _env_float("HOROVOD_SIM_DCN_US", c.sim_dcn_us)
         c.serving = _env_bool("HOROVOD_SERVING", c.serving)
         c.serving_port = _env_int("HOROVOD_SERVING_PORT", c.serving_port)
         c.serving_slots = _env_int("HOROVOD_SERVING_SLOTS",
@@ -471,6 +509,17 @@ class Config:
         c.profile_dir = os.environ.get("HOROVOD_PROFILE_DIR", c.profile_dir)
         c.profile_publish_steps = _env_int("HOROVOD_PROFILE_PUBLISH_STEPS",
                                            c.profile_publish_steps)
+        c.profile_history = _env_int("HOROVOD_PROFILE_HISTORY",
+                                     c.profile_history)
+        c.profile_publish_timeout_ms = _env_int(
+            "HOROVOD_PROFILE_PUBLISH_TIMEOUT_MS",
+            c.profile_publish_timeout_ms)
+        c.profile_straggler_min_ms = _env_float(
+            "HOROVOD_PROFILE_STRAGGLER_MIN_MS", c.profile_straggler_min_ms)
+        c.peak_tflops = _env_float("HOROVOD_PEAK_TFLOPS", c.peak_tflops)
+        c.peak_hbm_gbs = _env_float("HOROVOD_PEAK_HBM_GBS", c.peak_hbm_gbs)
+        c.peak_ici_gbs = _env_float("HOROVOD_PEAK_ICI_GBS", c.peak_ici_gbs)
+        c.peak_dcn_gbs = _env_float("HOROVOD_PEAK_DCN_GBS", c.peak_dcn_gbs)
         c.goodput = _env_bool("HOROVOD_GOODPUT", c.goodput)
         c.goodput_dir = os.environ.get("HOROVOD_GOODPUT_DIR", c.goodput_dir)
         c.run_history_dir = os.environ.get("HOROVOD_RUN_HISTORY_DIR",
@@ -500,6 +549,11 @@ class Config:
                                         c.kv_shard_port_base)
         c.control_lease_ms = _env_float("HOROVOD_CONTROL_LEASE_MS",
                                         c.control_lease_ms)
+        c.kv_retries = _env_int("HOROVOD_KV_RETRIES", c.kv_retries)
+        c.kv_retry_backoff_ms = _env_float("HOROVOD_KV_RETRY_BACKOFF_MS",
+                                           c.kv_retry_backoff_ms)
+        c.kv_retry_backoff_max_ms = _env_float(
+            "HOROVOD_KV_RETRY_BACKOFF_MAX_MS", c.kv_retry_backoff_max_ms)
         c.chaos_plan = os.environ.get("HOROVOD_CHAOS_PLAN", c.chaos_plan)
         c.chaos_seed = _env_int("HOROVOD_CHAOS_SEED", c.chaos_seed)
         c.chaos_ledger = os.environ.get("HOROVOD_CHAOS_LEDGER",
@@ -517,6 +571,9 @@ class Config:
                                         c.telemetry_step_lag)
         c.telemetry_seq_lag = _env_int("HOROVOD_TELEMETRY_SEQ_LAG",
                                        c.telemetry_seq_lag)
+        c.log_level = os.environ.get("HOROVOD_LOG_LEVEL", c.log_level)
+        c.log_hide_time = _env_bool("HOROVOD_LOG_HIDE_TIME",
+                                    c.log_hide_time)
         c.__post_init__()     # re-validate what the env set
         return c
 

@@ -46,13 +46,13 @@ def get_logger():
     global _logger
     if _logger is None:
         _logger = logging.getLogger("horovod_tpu_torch")
+        from horovod_tpu_torch.common.config import Config, _env_bool
         level = _LEVELS.get(
-            os.environ.get("HOROVOD_LOG_LEVEL", "warning").lower(),
+            os.environ.get("HOROVOD_LOG_LEVEL", Config.log_level).lower(),
             logging.WARNING)
         _logger.setLevel(level)
         handler = logging.StreamHandler(sys.stderr)
-        from horovod_tpu_torch.common.config import _env_bool
-        hide_time = _env_bool("HOROVOD_LOG_HIDE_TIME", False)
+        hide_time = _env_bool("HOROVOD_LOG_HIDE_TIME", Config.log_hide_time)
         fmt = "%(hvd_rank)s %(levelname)s %(message)s" if hide_time else \
             "%(asctime)s %(hvd_rank)s %(levelname)s %(message)s"
         handler.setFormatter(logging.Formatter(fmt))

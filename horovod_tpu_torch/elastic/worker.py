@@ -213,6 +213,7 @@ _WATCH_INTERVAL = 0.5
 
 _watch_lock = threading.Lock()
 _watch_thread = None
+_watch_stop = None         # the running watchdog's stop event
 _armed_version = None      # the version the training function runs at
 _last_abort_version = 0    # never abort for the same bump twice
 
@@ -220,15 +221,18 @@ _last_abort_version = 0    # never abort for the same bump twice
 def arm_collective_abort(version):
     """Watch for a disruptive version while training runs at ``version``;
     no-op outside an elastic launch."""
-    global _watch_thread, _armed_version
+    global _watch_thread, _watch_stop, _armed_version
     if _kv_client() is None:
         return
     with _watch_lock:
         _armed_version = int(version)
         if _watch_thread is None or not _watch_thread.is_alive():
+            # An event per thread: a watchdog that outlives its stop's join
+            # still sees its own event set, whatever a new one does.
+            _watch_stop = threading.Event()
             _watch_thread = threading.Thread(
-                target=_watch_loop, name="hvd-membership-watchdog",
-                daemon=True)
+                target=_watch_loop, args=(_watch_stop,),
+                name="hvd-membership-watchdog", daemon=True)
             _watch_thread.start()
 
 
@@ -241,6 +245,23 @@ def disarm_collective_abort():
         _armed_version = None
 
 
+def stop_collective_abort(timeout=2.0):
+    """End the watchdog thread (``hvd.shutdown``'s path). Unlike
+    :func:`disarm_collective_abort`, which idles the loop so that a re-arm
+    is cheap, this ends it: a process torn down must not keep polling the
+    KV store for a membership. The next :func:`arm_collective_abort`
+    starts a new one."""
+    global _watch_thread, _watch_stop
+    with _watch_lock:
+        t, stop = _watch_thread, _watch_stop
+        _watch_thread = _watch_stop = None
+    if stop is not None:
+        stop.set()
+    if t is not None and t.is_alive() \
+            and t is not threading.current_thread():
+        t.join(timeout=timeout)
+
+
 def _removed_since(client, armed, current):
     """Whether a version in (armed, current] removed a slot. A collected
     row means this worker lags two versions: its collective is doomed."""
@@ -248,13 +269,12 @@ def _removed_since(client, armed, current):
                for v in range(int(armed) + 1, int(current) + 1))
 
 
-def _watch_loop():
+def _watch_loop(stop):
     global _last_abort_version
     client = _kv_client()
     if client is None:
         return
-    while True:
-        time.sleep(_WATCH_INTERVAL)
+    while not stop.wait(_WATCH_INTERVAL):
         with _watch_lock:
             armed = _armed_version
         if armed is None:
@@ -274,15 +294,23 @@ def _watch_loop():
                     or current <= _last_abort_version:
                 continue
             _last_abort_version = current
-            hvd_logging.warning(
-                "membership v%d removed a slot while training at v%d: "
-                "aborting the process group", current, armed)
-            # Dump BEFORE severing: the ring's tail is the in-flight
-            # collective the abort is about to end.
-            from horovod_tpu_torch.flight import recorder as _flight
-            from horovod_tpu_torch.metrics import instruments as _metrics
-            _metrics.record_elastic_event("abort")
-            _flight.dump("membership_abort")
+        hvd_logging.warning(
+            "membership v%d removed a slot while training at v%d: "
+            "aborting the process group", current, armed)
+        # Dump BEFORE severing: the ring's tail is the in-flight collective
+        # the abort is about to end. The dump is file I/O, so it runs
+        # outside the lock that disarm_collective_abort waits on.
+        from horovod_tpu_torch.flight import recorder as _flight
+        from horovod_tpu_torch.metrics import instruments as _metrics
+        _metrics.record_elastic_event("abort")
+        _flight.dump("membership_abort")
+        with _watch_lock:
+            # Once more: the main thread may have unwound into recovery
+            # during the dump, and the abort must end only the group the
+            # disruptive version dooms. Under the lock, so disarm waits
+            # for an abort in progress.
+            if _armed_version is None or current <= _armed_version:
+                continue
             basics.abort(f"membership v{current} removed a slot while this "
                          f"worker trained at v{armed}")
 

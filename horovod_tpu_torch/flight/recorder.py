@@ -238,7 +238,7 @@ class FlightRecorder:
             if locked:
                 self._lock.release()
 
-    def appended(self):
+    def appended(self):  # hvdrace: disable=HVR203 -- deliberate torn-read-tolerant counter peek; dump()'s emptiness check runs from signal handlers and must not acquire
         # A torn-read-tolerant peek: dump()'s emptiness check runs from
         # signal handlers and must not acquire the lock.
         return self._idx
@@ -501,9 +501,10 @@ def dump_dir():
 def default_collection_dir(output_filename=None):
     """The defaulted elastic collection directory. ONE definition: the
     driver's disruption markers and every worker's dumps must resolve the
-    same directory (launch.build_worker_env and the elastic driver both
-    call this) or the analyzer loses the kill-to-membership-change
-    correlation."""
+    same directory (``runner/launch.py::build_worker_env`` defaults the
+    workers' HOROVOD_FLIGHT_DIR to it, ``runner/elastic/driver.py::
+    driver_flight_dir`` the driver's) or the analyzer loses the
+    kill-to-membership-change correlation."""
     return os.path.join(output_filename or ".", DEFAULT_DUMP_DIR)
 
 

@@ -134,7 +134,7 @@ class _Family:
     def labels(self, *values, **kv):
         if not kv:
             try:
-                child = self._by_values.get(values)
+                child = self._by_values.get(values)  # hvdrace: disable=HVR203 -- the lock-free fast path: a dict read is one step under the interpreter lock, and every entry is written under _lock beside the child it names
             except TypeError:                 # an unhashable value
                 child = None
             if child is not None:
@@ -149,11 +149,16 @@ class _Family:
                 f"{values!r}")
         key = tuple(str(v) for v in values)
         child = self._children.get(key)       # GIL-safe dict read
-        if child is None:
+        cache = not kv and all(type(v) is str for v in values)
+        if child is None or cache:
+            # Under the lock, so clear() never leaves a cached child that
+            # _children no longer holds.
             with self._lock:
-                child = self._children.setdefault(key, self._new_child())
-        if not kv and all(type(v) is str for v in values):
-            self._by_values[values] = child
+                if child is None:
+                    child = self._children.setdefault(key,
+                                                      self._new_child())
+                if cache:
+                    self._by_values[values] = child
         return child
 
     def _default(self):

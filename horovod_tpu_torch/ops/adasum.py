@@ -22,6 +22,7 @@ level kernel's round. On a CPU tensor every combine runs the plain version.
 
 import torch
 
+from horovod_tpu_torch.ops.kernels import _build
 from horovod_tpu_torch.ops.kernels import adasum as _kernel
 
 EPS = _kernel.EPS
@@ -34,6 +35,10 @@ def adasum_combine(a, b, eps=EPS):
         raise ValueError(f"adasum_combine: a {tuple(a.shape)} {a.dtype} on "
                          f"{a.device} and b {tuple(b.shape)} {b.dtype} on "
                          f"{b.device} differ")
+    if a.device.type == "cuda":
+        # A direct call may come before hvd.init built the kernels; the
+        # runtime's path (reduce_gathered) holds a lock and only loads.
+        _build.build(("adasum",))
     flat_a, flat_b = a.contiguous().view(-1), b.contiguous().view(-1)
     out = torch.empty_like(flat_a)
     _kernel.combine_segments(flat_a, flat_b, out,

@@ -425,7 +425,7 @@ class FusionRuntime:
 
     # ---- threads ----------------------------------------------------------
 
-    def start(self):
+    def start(self):  # hvdrace: disable=HVR203 -- start() runs once, on the thread that builds the runtime (get_runtime, under _runtime_lock), before any runtime thread exists: the threads it spawns see its writes
         """Start the cycle thread (process 0, or the only process) and, with
         more than one process, the publisher (process 0) or the follower."""
         if self._multi:
@@ -456,10 +456,10 @@ class FusionRuntime:
         with ctx:
             target()
 
-    def threads(self):
+    def threads(self):  # hvdrace: disable=HVR203 -- a diagnostic snapshot: the list is appended to or rebound only under _lock, and list() of the list the attribute names is one step under the interpreter lock
         return list(self._threads)
 
-    def _cycle_loop(self):
+    def _cycle_loop(self):  # hvdrace: disable=HVR203 -- the debounce peeks (_cycle_s, _pending, _last_enqueue, _cycle_pause) tolerate staleness; the flush re-checks them under _lock
         # Debounced: a flush only after a whole cycle with no enqueue (the
         # unlocked peeks are re-checked under the lock). Each wake-up takes
         # the interpreter lock from the threads running the step, so the
@@ -482,7 +482,7 @@ class FusionRuntime:
                 with self._lock:
                     if self._pending and not self._cycle_pause and \
                             time.perf_counter() - self._last_enqueue >= s:
-                        self._flush_locked("cycle")
+                        self._flush_locked("cycle")  # hvdrace: disable=HVR202 -- chaos fault injection (chaos.injector fire) deliberately delays or crashes inside the flush; the perturbation under the lock IS the injected fault
                         tl = basics.timeline()
                         if tl is not None:
                             tl.mark_cycle()
@@ -557,7 +557,7 @@ class FusionRuntime:
         if not got:
             return None
         try:
-            raw = self._fetch_raw(seq, wait_s)
+            raw = self._fetch_raw(seq, wait_s)  # hvdrace: disable=HVR202 -- bounded by wait_s (the store's own wait, then a sleep of at most 50 ms); _fetch_lock serializes the fetchers of the one store client, and each waits for it with the same bound
             if raw is None:
                 return None
             last, why, *rest = raw.decode().split()
@@ -793,7 +793,7 @@ class FusionRuntime:
                tensors[0].dtype)
         stream = None if self._stream is None \
             else torch.cuda.current_stream(self.device)
-        if self._failed is not None:
+        if self._failed is not None:  # hvdrace: disable=HVR203 -- _failed is written once, by abort(), which takes no lock on purpose (a thread may hold it inside a collective until the group's abort ends it); an enqueue that misses the write fails at its collective instead
             raise self._failed
         own = join_armed() or process_set.size() < self._world \
             or wire is not None
@@ -813,7 +813,7 @@ class FusionRuntime:
                 # A bucket of its own is flat (JAX dispatches it outside the
                 # runtime, where the tiers refuse sub-sets, join and a
                 # one-shot wire request).
-                self._close(_wire_key(key, wire), entries, "own", wire,
+                self._close(_wire_key(key, wire), entries, "own", wire,  # hvdrace: disable=HVR202 -- the flight dump of a failed launch (collective_ops._dispatch_failed), once per exception and throttled per reason: forensics of a bucket whose waiters get the same error
                             eager=eager)
                 return [e.handle for e in entries]
             # A bucket of its own closes at once, outside the inspector's
@@ -1092,7 +1092,7 @@ class FusionRuntime:
                 pass
         if self._stream is not None:
             self._stream.synchronize()
-        self._buffers.clear()
+        self._buffers.clear()  # hvdrace: disable=HVR203 -- after stop_threads joined the cycle and follower threads and the final flush returned: no flush touches the buffers any more
 
     def abort(self, error):
         """The elastic reset's shutdown, for when peers may be dead: fail

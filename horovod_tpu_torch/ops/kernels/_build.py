@@ -2,11 +2,20 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>.<digest>.so`` at the
 root of the checkout, where ``digest`` hashes the sources and the flags, so an
-edited source never loads a stale library. A source is compiled the first
-time its kernel is needed; :func:`build` compiles several at once, one nvcc
-process per source, all started together. A failed build raises. nvcc runs
-with ``-Xptxas -v``: each kernel's registers, shared memory and spills go to
-``lib<name>.<digest>.log`` beside the library (:func:`ptxas_report`).
+edited source never loads a stale library. :func:`build` compiles several
+sources at once, one nvcc process per source, all started together; a
+failed build raises. nvcc runs with ``-Xptxas -v``: each kernel's
+registers, shared memory and spills go to ``lib<name>.<digest>.log`` beside
+the library (:func:`ptxas_report`).
+
+Compiling and loading are apart. :func:`load` never compiles: it returns a
+library already loaded or built, and raises for one that is not. The fusion
+runtime launches the scale and Adasum kernels under its flush lock, so
+``hvd.init`` on CUDA builds every source before it takes any lock (a no-op
+once they are built); every collective then only looks its library up.
+The entry points a user may call before ``hvd.init`` and
+outside any lock, a flash forward and ``ops.adasum.adasum_combine``, build
+their own source first.
 
 Nothing here runs at import: the CPU tier imports every module and has no
 nvcc.
@@ -61,14 +70,20 @@ def build(names=SOURCES):
     """Compile every source in ``names`` that has no library yet, in
     parallel. Returns {name: seconds spent compiling it} (0.0 when its
     library was already there)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, seconds = [], {}
     for name in names:
+        if name in _libs:     # loaded: built, and cheap to ask again
+            seconds[name] = 0.0
+            continue
         out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # Per process and thread: two callers may compile one source at
+        # once, and each renames its own file into place.
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -113,10 +128,17 @@ def ptxas_report(name):
 
 
 def load(name):
-    """The ctypes library of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes library of ``csrc/<name>.cu``: the one already loaded, or
+    the built library on disk, loaded now. Never compiles (kernels launch
+    under the fusion runtime's lock): a source with no library raises,
+    naming :func:`build`."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            path = library_path(name)
+            if not path.exists():
+                raise KernelBuildError(
+                    f"csrc/{name}.cu is not built: hvd.init() on CUDA, or "
+                    f"ops.kernels._build.build(({name!r},)), compiles it")
+            lib = _libs[name] = ctypes.CDLL(str(path))
         return lib

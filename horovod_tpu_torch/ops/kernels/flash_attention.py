@@ -300,6 +300,9 @@ def _groups(bh, rows_kv, heads, kv_heads):
 
 
 def _launch(name, stream_device, *args):
+    # A model's forward needs no hvd.init, so its first flash launch may
+    # come before anything built the source; no lock is held here.
+    _build.build(("flash_attention",))
     fn = getattr(_build.load("flash_attention"), name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int

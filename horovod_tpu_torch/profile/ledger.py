@@ -55,7 +55,7 @@ import os
 import threading
 import time
 
-from horovod_tpu_torch.common.config import _env_bool, _env_int
+from horovod_tpu_torch.common.config import Config, _env_bool, _env_int
 
 CATEGORIES = ("host_dispatch", "collective", "fusion", "control_plane",
               "cross_wait")
@@ -87,7 +87,7 @@ def robust_z(x, xs):
     denom = max(1.4826 * mad, 0.05 * abs(med), 1e-4)
     return (x - med) / denom, med
 
-DEFAULT_HISTORY = 512
+DEFAULT_HISTORY = Config.profile_history
 
 # The one-word hot-path gate (the flight-recorder idiom).
 armed = _env_bool("HOROVOD_STEP_PROFILER", True)
@@ -608,7 +608,7 @@ def configure(config):
     if config.step_report_file:
         _report_path = config.step_report_file
     _ledger._rank = _env_int("HOROVOD_RANK", 0)
-    hist = _env_int("HOROVOD_PROFILE_HISTORY", DEFAULT_HISTORY)
+    hist = config.profile_history
     if hist != _ledger._records.maxlen:
         with _ledger._lock:
             _ledger._records = collections.deque(_ledger._records,

@@ -19,8 +19,6 @@ Override any peak with ``HOROVOD_PEAK_TFLOPS`` / ``HOROVOD_PEAK_HBM_GBS`` /
 the intra-node link, ``dcn`` the one across nodes, JAX's key names).
 """
 
-import os
-
 # device -> peaks: dense bf16 TFLOP/s, HBM GB/s, intra-node link GB/s per
 # device (one direction, keyed "ici_gbs" as in JAX), cross-node GB/s per
 # node (keyed "dcn_gbs").
@@ -61,18 +59,17 @@ def chip_peaks(chip=None):
     peaks = dict(PEAKS.get(chip, PEAKS["cpu"]))
     peaks["chip"] = chip
 
-    def _ovr(env, key):
-        v = os.environ.get(env)
-        if v:
-            try:
-                peaks[key] = float(v)
-            except ValueError:
-                pass
+    from horovod_tpu_torch.common.config import Config, _env_float
 
-    _ovr("HOROVOD_PEAK_TFLOPS", "bf16_tflops")
-    _ovr("HOROVOD_PEAK_HBM_GBS", "hbm_gbs")
-    _ovr("HOROVOD_PEAK_ICI_GBS", "ici_gbs")
-    _ovr("HOROVOD_PEAK_DCN_GBS", "dcn_gbs")
+    def _ovr(env, field, key):
+        v = _env_float(env, getattr(Config, field))
+        if v > 0:    # Config's 0: the detected card's row
+            peaks[key] = v
+
+    _ovr("HOROVOD_PEAK_TFLOPS", "peak_tflops", "bf16_tflops")
+    _ovr("HOROVOD_PEAK_HBM_GBS", "peak_hbm_gbs", "hbm_gbs")
+    _ovr("HOROVOD_PEAK_ICI_GBS", "peak_ici_gbs", "ici_gbs")
+    _ovr("HOROVOD_PEAK_DCN_GBS", "peak_dcn_gbs", "dcn_gbs")
     return peaks
 
 

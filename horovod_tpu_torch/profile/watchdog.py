@@ -34,7 +34,7 @@ import json
 import threading
 import time
 
-from horovod_tpu_torch.common.config import _env_float, _env_int
+from horovod_tpu_torch.common.config import Config, _env_float, _env_int
 from horovod_tpu_torch.profile.ledger import median as _median
 from horovod_tpu_torch.profile.ledger import robust_z as _robust_z
 
@@ -49,21 +49,23 @@ _gen = 0                     # bumped by reset(): keys must not collide
 _findings = collections.deque(maxlen=_MAX_FINDINGS)
 
 # knobs (configure() re-reads from Config/env)
-_publish_every = _env_int("HOROVOD_PROFILE_PUBLISH_STEPS", 16)
-_read_timeout_ms = _env_int("HOROVOD_PROFILE_PUBLISH_TIMEOUT_MS", 250)
-_z_threshold = _env_float("HOROVOD_PROFILE_Z_THRESHOLD", 4.0)
-_min_excess_s = _env_float("HOROVOD_PROFILE_STRAGGLER_MIN_MS", 5.0) / 1e3
+_publish_every = _env_int("HOROVOD_PROFILE_PUBLISH_STEPS",
+                          Config.profile_publish_steps)
+_read_timeout_ms = _env_int("HOROVOD_PROFILE_PUBLISH_TIMEOUT_MS",
+                            Config.profile_publish_timeout_ms)
+_z_threshold = _env_float("HOROVOD_PROFILE_Z_THRESHOLD",
+                          Config.profile_z_threshold)
+_min_excess_s = _env_float("HOROVOD_PROFILE_STRAGGLER_MIN_MS",
+                           Config.profile_straggler_min_ms) / 1e3
 _min_window = 8
 
 
 def configure(config):
     global _publish_every, _read_timeout_ms, _z_threshold, _min_excess_s
     _publish_every = int(config.profile_publish_steps)
-    _read_timeout_ms = _env_int("HOROVOD_PROFILE_PUBLISH_TIMEOUT_MS",
-                                _read_timeout_ms)
-    _z_threshold = _env_float("HOROVOD_PROFILE_Z_THRESHOLD", _z_threshold)
-    _min_excess_s = _env_float("HOROVOD_PROFILE_STRAGGLER_MIN_MS",
-                               _min_excess_s * 1e3) / 1e3
+    _read_timeout_ms = int(config.profile_publish_timeout_ms)
+    _z_threshold = float(config.profile_z_threshold)
+    _min_excess_s = float(config.profile_straggler_min_ms) / 1e3
 
 
 def reset():

@@ -240,6 +240,16 @@ def publish_assignment(kv, assignment, version, survivors, disrupted,
     return True
 
 
+def driver_flight_dir(args, flag_env):
+    """The elastic driver's flight directory: the launch's HOROVOD_FLIGHT_DIR
+    (``--flight-dir`` or the launcher's env, as ``flag_env`` holds them),
+    else ``flight.recorder.default_collection_dir(--output-filename)``, the
+    directory ``launch.build_worker_env`` defaults the workers' to."""
+    from horovod_tpu_torch.flight.recorder import default_collection_dir
+    return flag_env.get("HOROVOD_FLIGHT_DIR") or default_collection_dir(
+        getattr(args, "output_filename", None))
+
+
 def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
     """``hvdrun-torch --min-np ... --host-discovery-script ...``: start the
     KV store and the discovery thread, (re)spawn workers per version, and
@@ -276,6 +286,10 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
     from horovod_tpu_torch.common.config import _env_int
     from horovod_tpu_torch.runner import config_parser
     flag_env = config_parser.set_env_from_args(dict(os.environ), args)
+    # One flight directory for the driver's disruption markers and every
+    # worker's dumps, or the analyzer loses the kill-to-membership-change
+    # correlation; passed to both, so no other in-process driver sees it.
+    flight_dir = driver_flight_dir(args, flag_env)
     # Sharded by the largest world the job may reach: a membership change
     # must not restart listeners.
     kv = KVStoreServer(
@@ -335,7 +349,8 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
             # names only the hosts this version terminates).
             from horovod_tpu_torch.flight import recorder as _flight
             _flight.driver_mark(version, sorted({k[0] for k in gone}),
-                                sorted({s.hostname for s in assignment}))
+                                sorted({s.hostname for s in assignment}),
+                                directory=flight_dir)
         first = assignment[0].hostname
         coordinator_addr = kv_addr if is_local(first) else first
         if not publish_assignment(kv, assignment, version, survivors,
@@ -349,7 +364,7 @@ def run_elastic_driver(args, kv_preload=None, harvest=None, extra_env=None):
             env = build_worker_env(
                 {**(extra_env or {}), "HOROVOD_ELASTIC": "1"}, s,
                 coordinator_addr, coordinator_port, kv_port, args,
-                kv_shard_ports=kv.shard_ports)
+                kv_shard_ports=kv.shard_ports, flight_dir=flight_dir)
             env.update({"HOROVOD_KV_ADDR": kv_addr,
                         "HOROVOD_HOST_KEY": s.hostname,
                         # Results are keyed by the version a worker last

@@ -34,18 +34,13 @@ from urllib import error as urlerror
 from urllib import request as urlrequest
 
 from horovod_tpu_torch.chaos import injector as _chaos
-from horovod_tpu_torch.common.config import _env_float, _env_int
+from horovod_tpu_torch.common.config import Config, _env_float, _env_int
 from horovod_tpu_torch.flight import recorder as _flight
 from horovod_tpu_torch.metrics import instruments as _metrics
 from horovod_tpu_torch.runner.secret import (SECRET_ENV, check_digest,
                                              compute_digest)
 
 SIG_HEADER = "X-Hvd-Sig"
-
-# The JAX package's Config defaults for the client's retries.
-KV_RETRIES = 3
-KV_RETRY_BACKOFF_MS = 50.0
-KV_RETRY_BACKOFF_MAX_MS = 2000.0
 
 
 class _KVHandler(BaseHTTPRequestHandler):
@@ -235,14 +230,14 @@ class KVStoreClient:
         self._secret = secret if secret is not None \
             else os.environ.get(SECRET_ENV)
         self._retries = retries if retries is not None \
-            else max(_env_int("HOROVOD_KV_RETRIES", KV_RETRIES), 0)
+            else max(_env_int("HOROVOD_KV_RETRIES", Config.kv_retries), 0)
         self._backoff_s = (backoff_ms if backoff_ms is not None
                            else _env_float("HOROVOD_KV_RETRY_BACKOFF_MS",
-                                           KV_RETRY_BACKOFF_MS)) / 1000.0
+                                           Config.kv_retry_backoff_ms)) / 1000.0
         self._backoff_max_s = (
             backoff_max_ms if backoff_max_ms is not None
             else _env_float("HOROVOD_KV_RETRY_BACKOFF_MAX_MS",
-                            KV_RETRY_BACKOFF_MAX_MS)) / 1000.0
+                            Config.kv_retry_backoff_max_ms)) / 1000.0
 
     def _base_for(self, scope):
         from horovod_tpu_torch.common.control_plane import shard_of_scope

@@ -494,29 +494,16 @@ def _resolve_launcher(args):
     return "ssh"
 
 
-# Knobs of the port (common/config.py) and of its logging that ride from the
-# launcher's env to every worker.
-_PROPAGATED = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
-               "HOROVOD_JOIN_MODE", "HOROVOD_LOG_LEVEL",
-               "HOROVOD_LOG_HIDE_TIME", "HOROVOD_KV_RETRIES",
-               "HOROVOD_KV_RETRY_BACKOFF_MS", "HOROVOD_KV_RETRY_BACKOFF_MAX_MS",
-               "HOROVOD_ELASTIC_TIMEOUT", "HOROVOD_BLACKLIST_COOLDOWN_RANGE",
-               "HOROVOD_SERVING_MAX_LEN", "HOROVOD_SERVING_PREFILL_CHUNK",
-               "HOROVOD_SERVING_MIGRATE_KV", "HOROVOD_SERVING_MODEL",
-               "HOROVOD_SERVING_COMMIT_STEPS", "HOROVOD_TRACE_CAPACITY",
-               "HOROVOD_SLO_TTFT_P99_MS", "HOROVOD_SLO_TPS",
-               "HOROVOD_SLO_WINDOW_S", "HOROVOD_METRICS",
-               "HOROVOD_METRICS_PORT", "HOROVOD_METRICS_ADDR",
-               "HOROVOD_METRICS_PREFIX")
-
-
 def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,
-                     kv_port, args, kv_shard_ports=()):
+                     kv_port, args, kv_shard_ports=(), flight_dir=None):
     """One slot's env (reference: gloo_run.py:66-78, 203-227 — the rank/size
     env contract between launcher and core): that slot's rank contract, the
     coordinator store's address and port (bound by rank 0 in
     ``hvd.init()``), the launcher's KV store and its shard ports, the job
-    secret, the start timeout, and the tuning flags as env vars."""
+    secret, the start timeout, and the tuning flags as env vars.
+    ``flight_dir``: the elastic driver's own flight directory
+    (``runner/elastic/driver.py::driver_flight_dir``), which its workers
+    share."""
     env = dict(base_env)
     env.update({
         "HOROVOD_RANK": str(slot.rank),
@@ -536,7 +523,100 @@ def build_worker_env(base_env, slot, coordinator_addr, coordinator_port,
             str(p) for p in kv_shard_ports)
     if os.environ.get(SECRET_ENV):
         env[SECRET_ENV] = os.environ[SECRET_ENV]
-    for var in _PROPAGATED:
+    # The flight recorder's collection point: every worker dumps into one
+    # directory, so a disruption leaves one analyzable set of per-rank
+    # rings (flight.analyze merges them). An elastic launch defaults it,
+    # the launch mode whose failures need the forensics; --flight-dir wins
+    # (set_env_from_args below).
+    flight_dir = flight_dir or os.environ.get("HOROVOD_FLIGHT_DIR") \
+        or getattr(args, "flight_dir", None)
+    if not flight_dir and env.get("HOROVOD_ELASTIC"):
+        from horovod_tpu_torch.flight.recorder import default_collection_dir
+        flight_dir = default_collection_dir(
+            getattr(args, "output_filename", None))
+    if flight_dir:
+        env.setdefault("HOROVOD_FLIGHT_DIR", flight_dir)
+    if os.environ.get("HOROVOD_FLIGHT_RECORDER"):
+        env.setdefault("HOROVOD_FLIGHT_RECORDER",
+                       os.environ["HOROVOD_FLIGHT_RECORDER"])
+    # The step profiler's knobs (the ledger, watchdog and capture run in
+    # each process; the JSONL stream and the capture directory are shared
+    # collection points like the flight directory).
+    for var in ("HOROVOD_STEP_PROFILER", "HVD_STEP_REPORT_FILE",
+                "HOROVOD_PROFILE_STEPS", "HOROVOD_PROFILE_DIR",
+                "HOROVOD_PROFILE_PUBLISH_STEPS"):
+        if os.environ.get(var):
+            env.setdefault(var, os.environ[var])
+    # Every other knob common/config.py::Config declares rides through, so
+    # a knob set on the launcher is never silently single-process: a worker
+    # on another host gets only this dict (runner/exec.py sends it as
+    # `env K=V ...` over ssh). Slice membership and the telemetry
+    # thresholds must agree across ranks. The names stay literals:
+    # `python -m horovod_tpu_torch.analysis.lint` (HVL007) reads them from
+    # this file's AST and flags a declared knob missing here.
+    for var in ("HOROVOD_TELEMETRY", "HOROVOD_TELEMETRY_INTERVAL",
+                "HOROVOD_TELEMETRY_METRICS", "HOROVOD_TELEMETRY_DEAD_AFTER",
+                "HOROVOD_TELEMETRY_STALL_AFTER",
+                "HOROVOD_TELEMETRY_STEP_LAG", "HOROVOD_TELEMETRY_SEQ_LAG",
+                "HOROVOD_MESH_SLICES",
+                "HOROVOD_LOG_LEVEL", "HOROVOD_LOG_HIDE_TIME",
+                "HOROVOD_BLACKLIST_COOLDOWN_RANGE",
+                "HOROVOD_PROFILE_HISTORY",
+                "HOROVOD_PROFILE_PUBLISH_TIMEOUT_MS",
+                "HOROVOD_PROFILE_Z_THRESHOLD",
+                "HOROVOD_PROFILE_STRAGGLER_MIN_MS",
+                "HOROVOD_PEAK_TFLOPS", "HOROVOD_PEAK_HBM_GBS",
+                "HOROVOD_PEAK_ICI_GBS", "HOROVOD_PEAK_DCN_GBS",
+                "HOROVOD_WIRE_DTYPE", "HOROVOD_WIRE_ERROR_FEEDBACK",
+                "HOROVOD_WIRE_DTYPE_DCN", "HOROVOD_HIERARCHICAL_DISPATCH",
+                "HOROVOD_CROSS_OVERLAP", "HOROVOD_HIERARCHICAL_ALLTOALL",
+                "HOROVOD_ALLTOALL_CROSS_DTYPE",
+                "HOROVOD_CONTROL_PLANE", "HOROVOD_KV_SHARD_COUNT",
+                "HOROVOD_KV_SHARD_PORT_BASE", "HOROVOD_CONTROL_LEASE_MS",
+                "HOROVOD_AUTOPILOT", "HOROVOD_AUTOPILOT_INTERVAL",
+                "HOROVOD_AUTOPILOT_MAX_REMOVALS",
+                "HOROVOD_AUTOPILOT_HYSTERESIS",
+                "HOROVOD_AUTOPILOT_MIN_WORLD",
+                "HOROVOD_AUTOPILOT_PRIOR",
+                "HOROVOD_SIM_KV_US", "HOROVOD_SIM_DCN_US",
+                "HOROVOD_SERVING", "HOROVOD_SERVING_PORT",
+                "HOROVOD_SERVING_SLOTS", "HOROVOD_SERVING_MAX_LEN",
+                "HOROVOD_SERVING_PREFILL_CHUNK",
+                "HOROVOD_SERVING_QUEUE_LIMIT",
+                "HOROVOD_SERVING_MIGRATE_KV", "HOROVOD_SERVING_MODEL",
+                "HOROVOD_SERVING_COMMIT_STEPS",
+                "HOROVOD_TRACE", "HOROVOD_TRACE_CAPACITY",
+                "HOROVOD_TRACE_DIR",
+                "HOROVOD_JOIN_MODE", "HOROVOD_FLIGHT_CAPACITY",
+                "HOROVOD_KV_RETRIES", "HOROVOD_KV_RETRY_BACKOFF_MS",
+                "HOROVOD_KV_RETRY_BACKOFF_MAX_MS",
+                "HOROVOD_SLO_TTFT_P99_MS", "HOROVOD_SLO_TPS",
+                "HOROVOD_SLO_WINDOW_S",
+                "HOROVOD_GOODPUT", "HOROVOD_GOODPUT_DIR",
+                "HOROVOD_GOODPUT_JOURNAL_S", "HOROVOD_RUN_HISTORY_DIR",
+                "HOROVOD_RUN_ID",
+                "HOROVOD_METRICS", "HOROVOD_METRICS_PORT",
+                "HOROVOD_METRICS_ADDR", "HOROVOD_METRICS_PREFIX",
+                # Knobs the JAX launcher carries only from its flags
+                # (config_parser): set in the launcher's env, they ride
+                # too.
+                "HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
+                "HOROVOD_ELASTIC",
+                "HOROVOD_HIERARCHICAL_ALLREDUCE",
+                "HOROVOD_HIERARCHICAL_ALLGATHER", "HOROVOD_TORUS_ALLREDUCE",
+                "HOROVOD_ELASTIC_TIMEOUT",
+                "HOROVOD_AUTOTUNE", "HOROVOD_AUTOTUNE_LOG",
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE",
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES",
+                "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE",
+                "HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
+                "HOROVOD_STALL_CHECK_DISABLE",
+                "HOROVOD_STALL_CHECK_TIME_SECONDS",
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+                "HOROVOD_ORDER_CHECK",
+                "HOROVOD_CHAOS_PLAN", "HOROVOD_CHAOS_SEED",
+                "HOROVOD_CHAOS_LEDGER"):
         if os.environ.get(var):
             env.setdefault(var, os.environ[var])
     config_parser.set_env_from_args(env, args)

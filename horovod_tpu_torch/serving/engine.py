@@ -280,7 +280,7 @@ class ServingEngine:
 
     # --- the serve loop ---------------------------------------------------
 
-    def _prefill_into(self, slot, req):
+    def _prefill_into(self, slot, req):  # hvdrace: disable=HVR203 -- _tokens/_pos/_cache_valid are serve-thread-owned; the restore path only writes them under _submit_lock while serving is quiesced
         """Teacher-force the request's effective prompt (prompt + any
         committed tokens from a previous incarnation) into its slot."""
         toks = req.full_tokens()
@@ -319,7 +319,7 @@ class ServingEngine:
                              seq=slot, trace=req.tid)
 
     @torch.no_grad()
-    def step(self):
+    def step(self):  # hvdrace: disable=HVR203 -- the serve loop is the scheduler's single consumer: _sched/_step_count reads here race nothing; _submit_lock guards only the submit-vs-commit/restore swap
         """One engine iteration: admit + prefill free slots, then one
         decode step for every active slot. Returns True when any work
         happened (False = idle)."""

@@ -26,6 +26,8 @@ import dataclasses
 import heapq
 import os
 
+from horovod_tpu_torch.common.config import Config
+
 
 class SimTimeout(Exception):
     """A virtual KV get expired before the key landed (the twin analogue
@@ -40,8 +42,8 @@ class LatencyModel:
     surcharge for cross-slice hops, and a bandwidth term for the payload
     bytes. Knobs: ``HOROVOD_SIM_KV_US`` / ``HOROVOD_SIM_DCN_US``."""
 
-    kv_us: float = 5.0       # base cost of one KV RPC (same-shard)
-    dcn_us: float = 50.0     # surcharge when the RPC crosses slices
+    kv_us: float = Config.sim_kv_us    # base cost of one KV RPC (same-shard)
+    dcn_us: float = Config.sim_dcn_us  # surcharge when the RPC crosses slices
     gbps: float = 1.0        # payload term: value bytes / (gbps GB/s)
 
     @classmethod

@@ -78,6 +78,12 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # The scale and Adasum wrappers only load a built library (hvd.init
+    # builds them on CUDA, before any lock): the tests that call them
+    # directly compile them here. test_first_kernel_use_builds_a_cold_cache
+    # takes no part of this: it starts from an empty build directory.
+    from horovod_tpu_torch.ops.kernels import _build
+    _build.build()
     return torch.device("cuda", 0)
 
 
@@ -245,6 +251,63 @@ def test_grouped_reducescatter_on_the_card(dev):
                                    * 3.0).bfloat16())
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.parametrize("route", ["reducescatter", "adasum_combine",
+                                   "flash"])
+def test_first_kernel_use_builds_a_cold_cache(tmp_path, monkeypatch, route):
+    """With nothing built or loaded (a fresh checkout, or an edited source
+    whose digest changed), each route's first kernel use compiles what it
+    launches: hvd.init before a reduce-scatter (whose scale kernels only
+    load their library), the public Adasum combine and a flash forward
+    with no hvd.init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from horovod_tpu_torch.ops.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_libs", {})
+    # What the wrappers keep per loaded library (bound functions, the
+    # level kernel's occupancy grid and the schedules built on it) starts
+    # empty too, and the earlier library's comes back after.
+    monkeypatch.setattr(sb, "_fns", {})
+    monkeypatch.setattr(ak, "_grids", {})
+    monkeypatch.setattr(ak, "_schedules", {})
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(70)
+    if route == "reducescatter":
+        hvd.init()
+        try:
+            t = torch.randn(6, 5, generator=g, device=dev)
+            p0, u0 = sb.pack_launches, sb.unpack_launches
+            out = hvd.reducescatter(t, op=hvd.Sum)
+            torch.cuda.synchronize()
+            assert (sb.pack_launches - p0, sb.unpack_launches - u0) == (1, 1)
+            assert torch.equal(out, t)
+        finally:
+            hvd.shutdown()
+        built = _build.SOURCES
+    elif route == "adasum_combine":
+        a, b = (torch.randn(1000, generator=g, device=dev) for _ in "ab")
+        l0 = ak.launches
+        got = adasum.adasum_combine(a, b)
+        torch.cuda.synchronize()
+        assert ak.launches == l0 + 1
+        torch.testing.assert_close(got, ak.adasum_combine_reference(a, b),
+                                   rtol=1e-5, atol=1e-5)
+        built = ("adasum",)
+    else:
+        q, k, v = (torch.randn(1, 64, 2, 32, generator=g, device=dev)
+                   for _ in "qkv")
+        f0 = fa.fwd_launches
+        got = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert fa.fwd_launches == f0 + 1
+        want = fa.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        built = ("flash_attention",)
+    assert sorted(p.name.split(".")[0] for p in
+                  (tmp_path / "kernels").glob("*.so")) == \
+        sorted(f"lib{n}" for n in built)
 
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-4)}

@@ -352,10 +352,8 @@ def elastic_runs(tmp_path_factory):
     out = {}
 
     def one(name):
-        fn, steps, hosts = SCENARIOS[name]
-        script = tmp_path_factory.mktemp(name) / "discover.sh"
-        script.write_text(f"#!/bin/sh\necho {hosts}\n")
-        script.chmod(0o755)
+        fn, steps, _ = SCENARIOS[name]
+        script = scripts[name]
         t0 = time.monotonic()
         try:
             out[name] = run_elastic(fn, args=(str(script), steps), min_np=1,
@@ -366,9 +364,14 @@ def elastic_runs(tmp_path_factory):
             out[name] = e
         out[name + "_s"] = time.monotonic() - t0
 
-    # The base directory first: mktemp on three threads at once may each
-    # try to create it, and all but one then fail.
-    tmp_path_factory.getbasetemp()
+    # The scripts before any thread starts: a script written on one thread
+    # while another forks a worker can be held open for writing by the
+    # child, and exec then fails with ETXTBSY (exit 126).
+    scripts = {}
+    for name, (_, _, hosts) in SCENARIOS.items():
+        script = scripts[name] = tmp_path_factory.mktemp(name) / "discover.sh"
+        script.write_text(f"#!/bin/sh\necho {hosts}\n")
+        script.chmod(0o755)
     threads = [threading.Thread(target=one, args=(n,)) for n in SCENARIOS]
     for t in threads:
         t.start()
